@@ -1,0 +1,145 @@
+// FM-index rank (Occ) functions, and the per-row bwt_cal_width of kernel
+// C2, on the reference's interleaved 12-word (48 B) blocks: 4 checkpoint counters + 8 words of 2-bit bases,
+// MSB first, per 128 bases (bwt.h:61-68, bwt_bwtupdate_core,
+// bwtmisc.c:125-152).
+//
+// Semantics are those of nabwa_tpu/ops/occ.py:47-84 (occ4) and
+// native/dfsgap.cpp:71-140: positions are uint32 (unsigned compares, so
+// they hold past 2^31), k >= primary skips the `$` row (bwt.c:99,167), and
+// k == (uint32)-1 counts nothing (bwt.c:98,163).
+//
+// Everything here is NABWA_HD: nvcc compiles it for the card, and a host
+// C++ compiler can compile the same source for a CPU harness.
+
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+#if defined(__CUDACC__)
+#define NABWA_HD __host__ __device__ __forceinline__
+#else
+#define NABWA_HD inline
+#endif
+
+namespace nabwa {
+
+constexpr uint32_t NEG1 = 0xFFFFFFFFu;
+
+NABWA_HD uint32_t popc(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+    return (uint32_t)__popc(x);
+#else
+    return (uint32_t)__builtin_popcount(x);
+#endif
+}
+
+// One 48 B block, read as three 16 B loads on the card.
+struct Block {
+    uint32_t w[12];
+};
+
+NABWA_HD void load_block(const uint32_t* bank, uint32_t kk, Block* b) {
+    const uint32_t* p = bank + (size_t)(kk >> 7) * 12;
+#if defined(__CUDA_ARCH__)
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    uint4 a = __ldg(q), c = __ldg(q + 1), d = __ldg(q + 2);
+    b->w[0] = a.x; b->w[1] = a.y; b->w[2] = a.z; b->w[3] = a.w;
+    b->w[4] = c.x; b->w[5] = c.y; b->w[6] = c.z; b->w[7] = c.w;
+    b->w[8] = d.x; b->w[9] = d.y; b->w[10] = d.z; b->w[11] = d.w;
+#else
+    for (int j = 0; j < 12; ++j) b->w[j] = p[j];
+#endif
+}
+
+// Counts of each base in BWT[0..k] on one bank (bwt_occ4, bwt.c:159-176).
+NABWA_HD void occ4(const uint32_t* bank, uint32_t primary, uint32_t k,
+                   uint32_t cnt[4]) {
+    if (k == NEG1) {
+        cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;
+        return;
+    }
+    uint32_t kk = k >= primary ? k - 1 : k;
+    Block b;
+    load_block(bank, kk, &b);
+    uint32_t word_off = (kk >> 4) & 7, within = kk & 15;
+    uint32_t c1 = 0, c2 = 0, c3 = 0;
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
+    for (uint32_t j = 0; j < 8; ++j) {
+        uint32_t vmask = j < word_off ? 0xFFFFFFFFu
+                       : j == word_off ? (0xFFFFFFFFu << ((15 - within) * 2))
+                       : 0u;
+        uint32_t w = b.w[4 + j];
+        uint32_t lo = w & vmask & 0x55555555u;
+        uint32_t hi = (w >> 1) & vmask & 0x55555555u;
+        c1 += popc(lo);
+        c2 += popc(hi);
+        c3 += popc(lo & hi);
+    }
+    c1 -= c3;
+    c2 -= c3;
+    uint32_t n_valid = word_off * 16 + within + 1;
+    cnt[0] = b.w[0] + (n_valid - c1 - c2 - c3);
+    cnt[1] = b.w[1] + c1;
+    cnt[2] = b.w[2] + c2;
+    cnt[3] = b.w[3] + c3;
+}
+
+// The FM parameters cal_width takes by value: l2[5], primary, seq_len.
+struct FmParams {
+    uint32_t l2[5];
+    uint32_t primary;
+    uint32_t seq_len;
+};
+
+NABWA_HD FmParams fm_params(const uint32_t* words) {
+    FmParams p;
+    for (int j = 0; j < 5; ++j) p.l2[j] = words[j];
+    p.primary = words[5];
+    p.seq_len = words[6];
+    return p;
+}
+
+// bwt_cal_width (bwtaln.c:52-76) for one row of L codes read left to
+// right: w_out/b_out get L+1 values.  Columns past `len` repeat the final
+// interval, column L is 0, and column `len` holds the sentinel (w=0,
+// bid=final+1), as nabwa_tpu/ops/occ.py:141 lays them out.
+NABWA_HD void cal_width_row(const FmParams& p, const uint32_t* bwt,
+                            const int32_t* q, int len, int L,
+                            int32_t* w_out, int32_t* b_out) {
+    uint32_t k = 0, l = p.seq_len;
+    int32_t cur = 0;
+    for (int i = 0; i < L; ++i) {
+        if (i < len) {
+            const int c = q[i];
+            bool restart = c < 0 || c > 3;
+            if (!restart) {
+                uint32_t ck[4], cl[4];
+                occ4(bwt, p.primary, k - 1u, ck);
+                occ4(bwt, p.primary, l, cl);
+                const uint32_t nk = p.l2[c] + ck[c] + 1u;
+                const uint32_t nl = p.l2[c] + cl[c];
+                restart = nk > nl;
+                k = nk;
+                l = nl;
+            }
+            if (restart) {
+                k = 0;
+                l = p.seq_len;
+                ++cur;
+            }
+        }
+        w_out[i] = (int32_t)(l - k + 1u);
+        b_out[i] = cur;
+    }
+    w_out[L] = 0;
+    b_out[L] = 0;
+    if (len >= 0 && len <= L) {
+        w_out[len] = 0;
+        b_out[len] = cur + 1;
+    }
+}
+
+}  // namespace nabwa
