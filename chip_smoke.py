@@ -2,23 +2,35 @@
 """On-card smoke run of nabwa_tpu_torch, the `aln` path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--glen BP] [--reads N] [--batch B]
+                          [--retry-stack S] [--profile]
 
-Run from the root of a checkout.  Phases, any failure exits non-zero:
+Run from the root of a checkout.  It imports the port (`nabwa_tpu_torch`,
+whose `host` module holds every host piece it shares with the reference
+package), `tests/genomes.py` and the standard library.  Phases, any
+failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi) and the nvcc build of the
    kernels from csrc/ (seconds, ptxas register report);
 2. kernel C2 (csrc/cal_width.cu) against the plain PyTorch cal_width on
-   CUDA tensors: 2048 reads of the main path, both strands, exact;
-3. kernel C1 (csrc/dfs.cu) against the plain PyTorch DFS on CUDA tensors
-   at the main path's shapes (B reads, L=128, stack 256): exact on every
-   column but the kernel's own telemetry (fin, iters);
+   CUDA tensors: the first 2048 reads of the main path, both strands, the
+   reads and their seed suffixes, exact;
+3. kernel C1 (csrc/dfs.cu) against the plain PyTorch DFS on CUDA tensors,
+   with the engine's own batch inputs and statics: the same 2048 reads at
+   the tier-0 settings, then the reads tier 0 flagged at the retry
+   settings; exact on every column but the kernel's own telemetry (fin,
+   iters);
 4. the main path at the bench's size: a 64 Mbp random genome (seed 99)
-   indexed with nabwa_tpu.index.build, 32768 x 100 bp reads at 1 % error
-   (seed 100).  After a warm-up batch the engine's rate is timed; then,
-   with every launch count at 0, `python -m nabwa_tpu_torch aln --device
-   cuda` runs in-process.  Both `.sai` outputs must be byte-identical to
-   the shared host engine's (native/dfsgap.cpp).  Every kernel must have
-   launched, and at most 20 % of the reads may fall through to the host.
+   indexed by the port's host build, 32768 x 100 bp reads at 1 % error
+   (seed 100).  After a warm-up batch the engine's rate is timed, with
+   host seconds per part of `run_chunk`; then, with every launch count at
+   0, `python -m nabwa_tpu_torch aln --device cuda` runs in-process.  Both
+   `.sai` outputs must be byte-identical to the shared host engine's
+   (native/dfsgap.cpp).  Every kernel must have launched, and at most 20 %
+   of the reads may fall through to the host.  The host-drained reads are
+   solved by that same host engine, so for them the comparison holds the
+   host engine against itself;
+5. with --profile, torch.profiler over one more run: the card's busy
+   share and the device time of each kernel.
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
@@ -39,6 +51,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MAX_HOST_SHARE = 0.20
+CHECK_B = 2048
 
 
 def log(msg):
@@ -77,8 +90,8 @@ def cuda_ms(fn, reps):
 
 def make_data(glen, n_reads):
     """Genome, index and reads of the bench (cached by size and seed)."""
+    from nabwa_tpu_torch import host
     from tests import genomes
-    from nabwa_tpu.index.build import build_index
     work = pathlib.Path(tempfile.gettempdir()) / f"nabwa_torch_smoke_{glen}"
     work.mkdir(parents=True, exist_ok=True)
     fa, fq = work / "g.fa", work / f"r{n_reads}.fq"
@@ -89,139 +102,151 @@ def make_data(glen, n_reads):
         # SA-IS at every size: the same index as the blockwise
         # incremental construction, built faster when memory is plentiful
         os.environ.setdefault("NABWA_BWT_INC", "0")
-        build_index(str(fa))
+        host.build_index(str(fa))
         fq.write_bytes(genomes.sample_reads(seqs[0], n_reads, 100, seed=100,
                                             err_rate=0.01))
         log(f"genome + index + reads: {time.perf_counter() - t0:.1f} s")
     return fa, fq
 
 
-def batch_arrays(reads, n):
-    """The main path's padded arrays for the first n reads, on the card."""
-    import numpy as np
-    import torch
-    from nabwa_tpu_torch.models.aln import _pack_seqs
-    part = reads[:n]
-    lens = part.clip_lens().astype(np.int32)
-    seqs = _pack_seqs(part, lens, 128)
-    return (torch.from_numpy(seqs).cuda(), torch.from_numpy(lens).cuda())
-
-
-def check_cal_width(eng, seqs, lens):
+def check_cal_width(eng, inputs):
     import torch
     from nabwa_tpu_torch.ops import occ
     ix = eng.dev
     worst, n_cmp = 0, 0
-    for s, bank, prim in ((0, ix.bwt_fwd, ix.primary_fwd),
-                          (1, ix.bwt_rev, ix.primary_rev)):
-        q = seqs[:, s, :].contiguous()
-        args = (bank, ix.l2, prim, ix.seq_len, q, lens)
-        kw, kb = occ.cal_width_cuda(*args)
-        pw, pb = occ.cal_width_plain(*args)
-        torch.cuda.synchronize()
-        for a, b in ((kw, pw), (kb, pb)):
-            worst = max(worst, int((a.long() - b.long()).abs().max()))
-            n_cmp += a.numel()
-    q = seqs[:, 0, :].contiguous()
-    args = (ix.bwt_fwd, ix.l2, ix.primary_fwd, ix.seq_len, q, lens)
+    for q, ln in ((inputs["seqs"], inputs["lengths"]),
+                  (inputs["seed_seqs"], inputs["seed_lengths"])):
+        for s, bank, prim in ((0, ix.bwt_fwd, ix.primary_fwd),
+                              (1, ix.bwt_rev, ix.primary_rev)):
+            args = (bank, ix.l2, prim, ix.seq_len, q[:, s, :].contiguous(),
+                    ln)
+            kw, kb = occ.cal_width_cuda(*args)
+            pw, pb = occ.cal_width_plain(*args)
+            torch.cuda.synchronize()
+            for a, b in ((kw, pw), (kb, pb)):
+                worst = max(worst, int((a.long() - b.long()).abs().max()))
+                n_cmp += a.numel()
+    q = inputs["seqs"][:, 0, :].contiguous()
+    args = (ix.bwt_fwd, ix.l2, ix.primary_fwd, ix.seq_len, q,
+            inputs["lengths"])
     ms = cuda_ms(lambda: occ.cal_width_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: occ.cal_width_plain(*args), 2)
-    log(f"C2 cal_width: {seqs.shape[0]} reads x 2 strands, max |err| "
-        f"{worst} over {n_cmp} values; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms per call")
+    log(f"C2 cal_width: {q.shape[0]} reads x 2 strands, reads and seed "
+        f"suffixes, max |err| {worst} over {n_cmp} values; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms per call at {tuple(q.shape)}")
     if worst != 0:
         fail("cal_width kernel disagrees with the plain version")
     return worst, ms, plain_ms
 
 
-def check_dfs(eng, seqs, lens, opt):
+def check_dfs(eng, inputs, statics, tier):
+    """C1 against the plain DFS on one batch of the engine's own inputs.
+    The width planes come from the plain cal_width, so C1 is checked on
+    its own.  Returns (max |err|, kernel ms, plain ms, flagged rows)."""
     import numpy as np
     import torch
-    from nabwa_tpu_torch.models.aln import _maxdiff_table
     from nabwa_tpu_torch.ops import dfs, dfs_cuda, occ
     ix = eng.dev
+    seqs, lens = inputs["seqs"], inputs["lengths"]
     B, _, L = seqs.shape
-    md = torch.from_numpy(_maxdiff_table(opt.fnr, 128)[lens.cpu().numpy()]
-                          ).cuda()
-    SL = opt.seed_len
-    # the seed suffix: last seed_len bases of every read
-    gi = (lens[:, None] - SL).clamp(min=0) + torch.arange(SL, device="cuda")
-    gi = gi.clamp(max=L - 1)
-    sseq = torch.stack([seqs[:, 0, :].gather(1, gi),
-                        seqs[:, 1, :].gather(1, gi)], 1).contiguous()
-    has_seed = (lens > SL).to(torch.int32)
-    slen = torch.where(has_seed.bool(), SL, 0).to(torch.int32)
     planes = []
-    for q, ln in ((seqs, lens), (sseq, slen)):
-        ws, bs = [], []
-        for s, bank, prim in ((0, ix.bwt_fwd, ix.primary_fwd),
-                              (1, ix.bwt_rev, ix.primary_rev)):
-            w, b = occ.cal_width_plain(bank, ix.l2, prim, ix.seq_len,
-                                       q[:, s, :].contiguous(), ln)
-            ws.append(w)
-            bs.append(b)
-        planes += [torch.stack(ws, 1).contiguous(),
-                   torch.stack(bs, 1).contiguous()]
-    max_gapo = min(opt.max_gapo, int(md.max()))
-    statics = dict(
-        s_mm=opt.s_mm, s_gapo=opt.s_gapo, s_gape=opt.s_gape,
-        max_gape=opt.max_gape, max_gapo=max_gapo,
-        indel_end_skip=opt.indel_end_skip, max_del_occ=opt.max_del_occ,
-        max_entries=opt.max_entries, max_top2=opt.max_top2,
-        max_seed_diff=opt.max_seed_diff, seed_len=opt.seed_len,
-        mode=opt.mode, stack_cap=eng.stack_cap, hits_cap=eng.hits_cap,
-        max_iters=eng.tier0_max_iters)
+    for q, ln in ((seqs, lens),
+                  (inputs["seed_seqs"], inputs["seed_lengths"])):
+        wb = [occ.cal_width_plain(bank, ix.l2, prim, ix.seq_len,
+                                  q[:, s, :].contiguous(), ln)
+              for s, bank, prim in ((0, ix.bwt_fwd, ix.primary_fwd),
+                                    (1, ix.bwt_rev, ix.primary_rev))]
+        planes += [torch.stack([w for w, _ in wb], 1).contiguous(),
+                   torch.stack([b for _, b in wb], 1).contiguous()]
     args = (ix.bwt_cat, ix.rev_word_offset, ix.primary_fwd, ix.primary_rev,
-            ix.l2, ix.seq_len, seqs, lens, *planes, has_seed, md)
+            ix.l2, ix.seq_len, seqs, lens, *planes, inputs["has_seed"],
+            inputs["max_diff"])
     kern = dfs_cuda.dfs_match_gap_cuda(*args, **statics)
     t0 = time.perf_counter()
     plain = dfs.dfs_match_gap_plain(*args, **statics)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    H = eng.hits_cap
+    H, S = statics["hits_cap"], statics["stack_cap"]
+    cap = statics["max_iters"]
     diff = (kern[:, :4 * H + 3].long() - plain[:, :4 * H + 3].long()).abs()
     worst = int(diff.max())
-    ovf = int(plain[:, 4 * H + 2].sum())
     ms = cuda_ms(lambda: dfs_cuda.dfs_match_gap_cuda(*args, **statics), 3)
-    log(f"C1 dfs: {B} reads (L={L}, S={eng.stack_cap}, H={H}, "
-        f"max_iters={eng.tier0_max_iters}), {ovf} flagged, max |err| "
-        f"{worst} over hits/n_aln/hw/overflow; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms")
+    k = kern.cpu().numpy()
+    flagged = np.nonzero(k[:, 4 * H + 2])[0]
+    iters = k[:, 4 * H + 4]
+    hits_full = int((k[flagged, 4 * H] >= H).sum())
+    at_cap = int((iters[flagged] >= cap).sum())
+    log(f"C1 dfs, {tier}: {B} reads (L={L}, S={S}, H={H}, max_iters={cap}), "
+        f"max |err| {worst} over hits/n_aln/hw/overflow; {len(flagged)} "
+        f"flagged ({hits_full} hit list full, {at_cap} iteration cap, "
+        f"{len(flagged) - hits_full - at_cap} slot pool or seq counter); "
+        f"most iterations of a read {int(iters.max())}; kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms")
     if worst != 0:
         bad = np.nonzero(diff.any(1).cpu().numpy())[0][:5]
-        fail(f"dfs kernel disagrees with the plain version (rows {bad})")
-    return worst, ms, plain_ms
+        fail(f"dfs kernel disagrees with the plain version, {tier} "
+             f"(rows {bad})")
+    return worst, ms, plain_ms, flagged
 
 
 def native_reference(idx, reads, opt):
     """The .sai of the shared host engine (native/dfsgap.cpp)."""
-    import copy
-    from nabwa_tpu.constants import BWA_AVG_ERR
-    from nabwa_tpu.index.native import dfs_match_gap_native
-    from nabwa_tpu.io import sai
-    from nabwa_tpu.refmodel.aln_scalar import cal_maxdiff
-    from nabwa_tpu_torch.models.aln import _maxdiff_table
-    lens = reads.clip_lens().astype("int32")
-    max_len = int(lens.max())
-    md = _maxdiff_table(opt.fnr, max(max_len, 64))[lens]
-    local = copy.copy(opt)
-    local.max_diff = cal_maxdiff(max_len, BWA_AVG_ERR, opt.fnr)
-    local.max_gapo = min(local.max_gapo, local.max_diff)
+    from nabwa_tpu_torch import host
+    from nabwa_tpu_torch.models.aln import batch_options
+    maxdiff, local = batch_options(opt, reads.clip_lens().astype("int32"))
     t0 = time.perf_counter()
-    res = dfs_match_gap_native(idx.fwd.bwt, idx.fwd.primary, idx.rev.bwt,
-                               idx.rev.primary, idx.fwd.l2, idx.fwd.seq_len,
-                               reads, md, local)
+    res = host.native.dfs_match_gap_native(
+        idx.fwd.bwt, idx.fwd.primary, idx.rev.bwt, idx.rev.primary,
+        idx.fwd.l2, idx.fwd.seq_len, reads, maxdiff, local)
     dt = time.perf_counter() - t0
     if res is None:
         fail("the native host engine is unavailable")
-    return opt.pack() + sai.pack_aln_block([a for a, _ in res]), dt
+    return opt.pack() + host.sai_block(res), dt
+
+
+def profile_run(eng, reads, batch):
+    """torch.profiler over one run_chunk: busy share and per-kernel device
+    time, or None where the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_chunk(reads, device_batch=batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    top = sorted(on_dev, key=lambda e: -dev_us(e))[:6]
+    rows = {e.key[:48]: {"count": e.count, "ms": dev_us(e) / 1e3}
+            for e in top}
+    if not on_dev:
+        log("profiler: no device time seen (not measured)")
+        return None
+    log(f"profiler: {wall:.3f} s wall under the profiler, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / 1e3 / wall:.1f} %); {rows}")
+    return {"wall_s": wall, "busy_ms": busy_ms,
+            "busy_share": busy_ms / 1e3 / wall, "top": rows}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--glen", type=int, default=64_000_000)
     ap.add_argument("--reads", type=int, default=32768)
-    ap.add_argument("--batch", type=int, default=2048)
+    ap.add_argument("--batch", type=int, default=2048,
+                    help="device batch of the timed engine run")
+    ap.add_argument("--retry-stack", type=int, default=1024,
+                    help="retry-tier slot pool of the timed engine run; "
+                    "its hit list is an eighth of it, as at the default")
+    ap.add_argument("--profile", action="store_true",
+                    help="run torch.profiler over one more engine run")
     args = ap.parse_args()
     if not (ROOT / "nabwa_tpu_torch" / "csrc").is_dir() or \
             not (ROOT / "nabwa_tpu").is_dir():
@@ -235,12 +260,10 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
-    from nabwa_tpu import cli as ref_cli
-    from nabwa_tpu.index.fmindex import BwaIndex
-    from nabwa_tpu.io import sai
-    from nabwa_tpu.options import GapOpt
+    import numpy as np
     from nabwa_tpu_torch import cli as port_cli
-    from nabwa_tpu_torch.models.aln import AlnEngine
+    from nabwa_tpu_torch import host
+    from nabwa_tpu_torch.models import aln as maln
     from nabwa_tpu_torch.ops import _build, dfs_cuda, occ
 
     # phase 1: build the kernels from the checkout's sources
@@ -254,17 +277,35 @@ def main():
             log("ptxas: " + ln.strip())
 
     fa, fq = make_data(args.glen, args.reads)
-    opt = GapOpt()
-    idx = BwaIndex.load(str(fa))
-    reads = ref_cli._open_reads(str(fq), opt.mode)(args.reads, 0)
+    opt = host.GapOpt()
+    idx = host.BwaIndex.load(str(fa))
+    reads = host.open_reads(str(fq), opt.mode)(args.reads, 0)
     if len(reads) != args.reads:
         fail(f"read {len(reads)} reads, expected {args.reads}")
-    eng = AlnEngine(idx, opt, "cuda")
+    eng = maln.AlnEngine(idx, opt, "cuda", retry_stack_cap=args.retry_stack,
+                         retry_hits_cap=args.retry_stack // 8)
 
-    # phases 2-3: kernels against their plain versions on the card
-    seqs, lens = batch_arrays(reads, args.batch)
-    cw_err, cw_ms, cw_plain = check_cal_width(eng, seqs, lens)
-    dfs_err, dfs_ms, dfs_plain = check_dfs(eng, seqs, lens, opt)
+    # phases 2-3: kernels against their plain versions on the card, on the
+    # engine's own inputs for the first CHECK_B reads of the chunk
+    lens = reads.clip_lens().astype(np.int32)
+    maxdiff, local = maln.batch_options(opt, lens)
+    max_len = int(lens.max())
+    part = reads[:CHECK_B]
+    inputs = maln.batch_inputs(part, lens[:CHECK_B], maxdiff[:CHECK_B],
+                               local, max_len, eng.device)
+    cw_err, cw_ms, cw_plain = check_cal_width(eng, inputs)
+    dfs_err, dfs_ms, dfs_plain, flagged = check_dfs(
+        eng, inputs, maln.dfs_statics(local, eng.stack_cap, eng.hits_cap,
+                                      eng.tier0_max_iters), "tier 0")
+    # the retry tier's settings on the reads tier 0 flagged (all of the
+    # batch where it flagged none)
+    redo = flagged if len(flagged) else np.arange(len(part))
+    again = maln.batch_inputs([part[int(i)] for i in redo], lens[redo],
+                              maxdiff[redo], local, max_len, eng.device)
+    retry_err, retry_ms, retry_plain, _ = check_dfs(
+        eng, again, maln.dfs_statics(local, eng.retry_stack_cap,
+                                     eng.retry_hits_cap, eng.max_iters),
+        "retry tier")
 
     # phase 4: the main path at full size
     want, host_s = native_reference(idx, reads, opt)
@@ -272,21 +313,25 @@ def main():
         f"({os.cpu_count()} cores)")
     eng.run_chunk(reads[:args.batch], device_batch=args.batch)   # warm-up
     eng.tier0_reads = eng.retry_reads = eng.host_drain_reads = 0
+    eng.seconds = dict.fromkeys(eng.seconds, 0.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = eng.run_chunk(reads, device_batch=args.batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    got = opt.pack() + sai.pack_aln_block([a for a, _ in res])
+    got = opt.pack() + host.sai_block(res)
     host_share = eng.host_drain_reads / len(reads)
+    parts = dict(eng.seconds, rest=dt - sum(eng.seconds.values()))
     log(f"aln on the card: {len(reads) / dt:.1f} reads/s ({dt:.3f} s for "
-        f"{len(reads)} reads, batch {args.batch}); finished on tier 0 "
-        f"{eng.tier0_reads}, retry {eng.retry_reads}, host "
-        f"{eng.host_drain_reads} ({100 * host_share:.2f} %)")
+        f"{len(reads)} reads, batch {args.batch}, retry pool "
+        f"{eng.retry_stack_cap}); finished on tier 0 {eng.tier0_reads}, "
+        f"retry {eng.retry_reads}, host {eng.host_drain_reads} "
+        f"({100 * host_share:.2f} %); host seconds per part {parts}")
     if got != want:
         fail("engine .sai differs from the host native engine's")
     if host_share > MAX_HOST_SHARE:
         fail(f"{100 * host_share:.1f} % of reads drained on the host")
+    prof = profile_run(eng, reads, args.batch) if args.profile else None
 
     out = pathlib.Path(tempfile.gettempdir()) / "nabwa_torch_smoke.sai"
     out.unlink(missing_ok=True)
@@ -311,8 +356,9 @@ def main():
         {"name": "dfs", "route": "cuda",
          "source": "nabwa_tpu_torch/csrc/dfs.cu",
          "replaces": "nabwa_tpu/ops/dfs_pallas.py:1253",
-         "launches": counts["dfs"], "max_abs_err": dfs_err, "ms": dfs_ms,
-         "plain_ms": dfs_plain},
+         "launches": counts["dfs"], "max_abs_err": max(dfs_err, retry_err),
+         "ms": dfs_ms, "plain_ms": dfs_plain, "retry_ms": retry_ms,
+         "retry_plain_ms": retry_plain, "retry_reads": len(redo)},
         {"name": "cal_width", "route": "cuda",
          "source": "nabwa_tpu_torch/csrc/cal_width.cu",
          "replaces": "nabwa_tpu/ops/occ.py:141",
@@ -324,8 +370,9 @@ def main():
                       "tier0_reads": eng.tier0_reads,
                       "retry_reads": eng.retry_reads,
                       "host_drain_reads": eng.host_drain_reads,
+                      "run_chunk_seconds": parts,
                       "host_native_reads_per_sec": len(reads) / host_s,
-                      "cli_seconds": cli_s}))
+                      "cli_seconds": cli_s, "profile": prof}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
 
 The options, the read input and the `.sai` output are those of
 `nabwa_tpu aln` (nabwa_tpu/cli.py:222-263), whose argument parser, option
-handling, read opener and `-f` recovery are reused.  The device is
+handling, read opener and `-f` recovery are reused (`host`).  The device is
 explicit: `--device cuda` (the default) needs a CUDA device and exits with
 an error without one; `--device cpu` runs the plain PyTorch versions.
 Every other subcommand is not ported yet and exits non-zero.
@@ -15,9 +15,7 @@ import sys
 
 import torch
 
-from nabwa_tpu import cli as ref_cli
-from nabwa_tpu.constants import READ_CHUNK
-from nabwa_tpu.options import GapOpt
+from . import host
 
 
 def _split_device(argv):
@@ -45,45 +43,42 @@ def cmd_aln(argv):
     if dev.type not in ("cuda", "cpu"):
         print(f"[aln] error: unsupported device {device}", file=sys.stderr)
         return 2
-    args = ref_cli._parse_aln_args(argv)
-    from nabwa_tpu.index.fmindex import BwaIndex
-    from nabwa_tpu.io import sai
-    from nabwa_tpu.utils.files import final_rename
+    args = host.parse_aln_args(argv)
     from .models.aln import AlnEngine
 
-    opt = GapOpt()
+    opt = host.GapOpt()
     skip = 0
     header_needed = True
     if args.out:
-        out, skip, rec_opt, header_needed = ref_cli._attempt_recovery(
+        out, skip, rec_opt, header_needed = host.attempt_recovery(
             args.out)
         if rec_opt is not None:
             opt = rec_opt
     else:
         out = sys.stdout.buffer
     # recovered checkpoint options first, explicit CLI options on top
-    ref_cli._apply_aln_cli_opts(args, opt)
-    eng = AlnEngine(BwaIndex.load(args.prefix), opt, dev)
+    host.apply_aln_cli_opts(args, opt)
+    eng = AlnEngine(host.BwaIndex.load(args.prefix), opt, dev)
     if header_needed:
         out.write(opt.pack())
-    pull = ref_cli._open_reads(args.reads, opt.mode)
+    pull = host.open_reads(args.reads, opt.mode)
     while skip > 0:
-        n = len(pull(min(skip, READ_CHUNK), opt.trim_qual))
+        n = len(pull(min(skip, host.READ_CHUNK), opt.trim_qual))
         if n == 0:
             raise SystemExit("[aln] EOF while skipping done work.")
         skip -= n
     tot = 0
     while True:
-        reads = pull(READ_CHUNK, opt.trim_qual)
+        reads = pull(host.READ_CHUNK, opt.trim_qual)
         if not reads:
             break
         results = eng.run_chunk(reads)
-        out.write(sai.pack_aln_block([alns for alns, hw in results]))
+        out.write(host.sai_block(results))
         tot += len(reads)
         print(f"[aln] {tot} sequences processed", file=sys.stderr)
     if args.out:
         out.close()
-        final_rename("aln", args.out)
+        host.final_rename("aln", args.out)
     return 0
 
 
@@ -91,7 +86,7 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "aln":
         return cmd_aln(argv[1:])
-    if argv and argv[0] in ref_cli.COMMANDS:
+    if argv and argv[0] in host.COMMANDS:
         print(f"[{argv[0]}] not yet ported to nabwa_tpu_torch",
               file=sys.stderr)
         return 1

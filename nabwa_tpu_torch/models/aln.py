@@ -18,14 +18,12 @@ CUDA device the kernels.  Nothing moves between them.
 """
 
 import copy
+import time
 
 import numpy as np
 import torch
 
-from nabwa_tpu.constants import BWA_AVG_ERR
-from nabwa_tpu.index import native as native_mod
-from nabwa_tpu.refmodel.aln_scalar import cal_maxdiff
-
+from .. import host
 from ..index.fmindex import DeviceIndex
 from ..ops.dfs import aln_device_step, unpack_result
 
@@ -35,7 +33,7 @@ NO_SEED = 0x7FFFFFFF
 def _maxdiff_table(fnr, max_len=1024):
     tab = np.zeros(max_len + 1, dtype=np.int32)
     for n in range(1, max_len + 1):
-        tab[n] = cal_maxdiff(n, BWA_AVG_ERR, fnr)
+        tab[n] = host.cal_maxdiff(n, host.BWA_AVG_ERR, fnr)
     return tab
 
 
@@ -52,7 +50,7 @@ def _pack_seqs(reads, lens, L):
         flags = np.tile(np.array([1, 3 if reads.is_comp else 1],
                                  dtype=np.uint8), n)
         out_off = np.arange(2 * n, dtype=np.int64) * L
-        native_mod._load().gather_rows_u8(
+        host.native._load().gather_rows_u8(
             reads.codes_flat, starts, lens2, flags, 2 * n,
             seqs.reshape(-1), out_off, 0)
     else:
@@ -62,13 +60,71 @@ def _pack_seqs(reads, lens, L):
     return seqs.astype(np.int32)
 
 
+def batch_options(opt, lens):
+    """Per-read max_diff (int32 [n]) and the chunk's options with the batch
+    max_gapo clamp (nabwa_tpu/models/aln.py:292-306, bwtaln.c:105)."""
+    max_len = int(lens.max())
+    local = copy.copy(opt)
+    if opt.fnr > 0.0:
+        maxdiff = _maxdiff_table(opt.fnr, max(max_len, 64))[lens]
+        local.max_diff = host.cal_maxdiff(max_len, host.BWA_AVG_ERR, opt.fnr)
+    else:
+        maxdiff = np.full(len(lens), opt.max_diff, dtype=np.int32)
+    if local.max_diff < local.max_gapo:
+        local.max_gapo = local.max_diff
+    return maxdiff, local
+
+
+def batch_inputs(reads, lens, maxdiff, local, max_len, device):
+    """One batch's inputs of `aln_device_step` as int32 tensors on `device`
+    (nabwa_tpu/models/aln.py:616-648): the codes padded with N to [n, 2, L],
+    L the chunk's max_len rounded up to 32, and each read's last seed_len
+    bases (bwtaln.c:127-130)."""
+    B = len(lens)
+    L = max(32, -(-max_len // 32) * 32)
+    seqs = _pack_seqs(reads, lens, L)
+    lengths = np.asarray(lens, dtype=np.int32)
+    seeded = local.seed_len < NO_SEED
+    SL = max(min(local.seed_len, L) if seeded else L, 1)
+    has_seed = (lengths > local.seed_len if seeded
+                else np.zeros(B, dtype=bool))
+    seed_starts = np.maximum(lengths - (local.seed_len if seeded else 0), 0)
+    gi = np.minimum(seed_starts[:, None] + np.arange(SL), L - 1)
+    sseq = np.stack([np.take_along_axis(seqs[:, 0, :], gi, 1),
+                     np.take_along_axis(seqs[:, 1, :], gi, 1)], axis=1)
+    slen = np.where(has_seed, min(local.seed_len, SL), 0)
+
+    def put(a):
+        return torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+    return dict(seqs=put(seqs), lengths=put(lengths), seed_seqs=put(sseq),
+                seed_lengths=put(slen), has_seed=put(has_seed),
+                max_diff=put(maxdiff))
+
+
+def dfs_statics(local, stack_cap, hits_cap, max_iters):
+    """The DFS's static arguments for one tier."""
+    return dict(
+        s_mm=local.s_mm, s_gapo=local.s_gapo, s_gape=local.s_gape,
+        max_gape=local.max_gape, max_gapo=local.max_gapo,
+        indel_end_skip=local.indel_end_skip, max_del_occ=local.max_del_occ,
+        max_entries=local.max_entries, max_top2=local.max_top2,
+        max_seed_diff=local.max_seed_diff, seed_len=local.seed_len,
+        mode=local.mode, stack_cap=stack_cap, hits_cap=hits_cap,
+        max_iters=max_iters)
+
+
 class AlnEngine:
     """The FM-index on one torch device plus the tiered DFS.
 
     Attributes the shared workflow modules (samse, sampe, bam2bam) use:
     `index`, `opt`, `native_threads`, `run_chunk`, `sa_rows`.  Counters
     of where reads finished: `tier0_reads`, `retry_reads`,
-    `host_drain_reads`."""
+    `host_drain_reads`; host seconds per part of `run_chunk` in `seconds`
+    (prepare: padding and copies to the device; device: cal_width + DFS
+    and the copy back; collect: packed result to hit tuples; drain: the
+    host engine)."""
 
     def __init__(self, index, opt, device, stack_cap=256, hits_cap=32,
                  retry_stack_cap=1024, retry_hits_cap=128,
@@ -89,6 +145,8 @@ class AlnEngine:
         self.tier0_reads = 0
         self.retry_reads = 0
         self.host_drain_reads = 0
+        self.seconds = dict.fromkeys(("prepare", "device", "collect",
+                                      "drain"), 0.0)
         self.dev = DeviceIndex.from_host(index, self.device)
         # host uint32 views for the native engine
         self._host_fwd = np.ascontiguousarray(index.fwd.bwt, dtype=np.uint32)
@@ -101,7 +159,6 @@ class AlnEngine:
         if per_read_semantics:
             raise NotImplementedError(
                 "per-read semantics (bam2bam) are not ported yet")
-        opt = self.opt
         if not len(reads):
             return []
         if hasattr(reads, "clip_lens"):
@@ -111,16 +168,7 @@ class AlnEngine:
             lens = np.array([r.len for r in reads], dtype=np.int32)
         n = len(lens)
         max_len = int(lens.max())
-        if opt.fnr > 0.0:
-            maxdiff = _maxdiff_table(opt.fnr, max(max_len, 64))[lens]
-        else:
-            maxdiff = np.full(n, opt.max_diff, dtype=np.int32)
-        # the batch-level max_gapo clamp (bwtaln.c:105)
-        local = copy.copy(opt)
-        if opt.fnr > 0.0:
-            local.max_diff = cal_maxdiff(max_len, BWA_AVG_ERR, opt.fnr)
-        if local.max_diff < local.max_gapo:
-            local.max_gapo = local.max_diff
+        maxdiff, local = batch_options(self.opt, lens)
 
         results = [None] * n
         retry = self.retry_stack_cap > self.stack_cap
@@ -136,14 +184,14 @@ class AlnEngine:
             defer.extend((start + i, int(hw[i])) for i in fb)
         self.tier0_reads += n - len(defer)
 
-        host = [i for i, _ in defer]
+        drain = [i for i, _ in defer]
         if defer and retry:
             # hardest first by tier-0 high-water (nabwa_tpu/models/aln.py
             # :436-467)
             defer.sort(key=lambda t: -t[1])
             idxs = np.array([i for i, _ in defer], dtype=np.int64)
             sub = [reads[int(i)] for i in idxs]
-            host = []
+            drain = []
             for start in range(0, len(idxs), device_batch):
                 part = idxs[start:start + device_batch]
                 packed = self._run_device(
@@ -152,12 +200,14 @@ class AlnEngine:
                     self.retry_hits_cap, self.max_iters)
                 fb, _ = self._collect(packed, self.retry_hits_cap, results,
                                       part.tolist())
-                host.extend(int(part[i]) for i in fb)
-            self.retry_reads += len(idxs) - len(host)
-        if host:
-            self._drain_native([reads[i] for i in host], maxdiff[host],
-                               local, results, host)
-            self.host_drain_reads += len(host)
+                drain.extend(int(part[i]) for i in fb)
+            self.retry_reads += len(idxs) - len(drain)
+        if drain:
+            t0 = time.perf_counter()
+            self._drain_native([reads[i] for i in drain], maxdiff[drain],
+                               local, results, drain)
+            self.seconds["drain"] += time.perf_counter() - t0
+            self.host_drain_reads += len(drain)
         return results
 
     def sa_rows(self, a, rows):
@@ -167,7 +217,7 @@ class AlnEngine:
         if len(rows) == 0:
             return np.zeros(0, dtype=np.uint32)
         fm = self.index.fwd if a else self.index.rev
-        out = native_mod.bwt_sa_batch(
+        out = host.native.bwt_sa_batch(
             self._host_fwd if a else self._host_rev, fm.primary,
             self._host_l2, fm.seq_len, fm.sa, fm.sa_intv, rows)
         if out is None:
@@ -180,7 +230,7 @@ class AlnEngine:
         lo = copy.copy(local)
         lo.seed_len = self.opt.seed_len
         ix = self.dev
-        out = native_mod.dfs_match_gap_native(
+        out = host.native.dfs_match_gap_native(
             self._host_fwd, ix.primary_fwd, self._host_rev, ix.primary_rev,
             self._host_l2, ix.seq_len, reads,
             np.asarray(maxdiff, dtype=np.int32), lo,
@@ -195,46 +245,25 @@ class AlnEngine:
                     hits_cap, max_iters):
         """Pad one batch, run cal_width + DFS on the device, return the
         packed result as a numpy array."""
-        B = len(lens)
-        L = max(32, -(-max_len // 32) * 32)
-        seqs = _pack_seqs(reads, lens, L)
-        lengths = np.asarray(lens, dtype=np.int32)
-        # seed-suffix extraction (last seed_len bases, bwtaln.c:127-130)
-        seeded = local.seed_len < NO_SEED
-        SL = max(min(local.seed_len, L) if seeded else L, 1)
-        has_seed = (lengths > local.seed_len if seeded
-                    else np.zeros(B, dtype=bool))
-        seed_starts = np.maximum(lengths - (local.seed_len if seeded else 0),
-                                 0)
-        gi = np.minimum(seed_starts[:, None] + np.arange(SL), L - 1)
-        sseq = np.stack([np.take_along_axis(seqs[:, 0, :], gi, 1),
-                         np.take_along_axis(seqs[:, 1, :], gi, 1)], axis=1)
-        slen = np.where(has_seed, min(local.seed_len, SL), 0)
-
-        def put(a):
-            return torch.from_numpy(
-                np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
-
+        t0 = time.perf_counter()
+        inputs = batch_inputs(reads, lens, maxdiff, local, max_len,
+                              self.device)
+        t1 = time.perf_counter()
         ix = self.dev
         packed = aln_device_step(
             ix.bwt_cat, ix.bwt_fwd, ix.bwt_rev, ix.rev_word_offset,
-            ix.primary_fwd, ix.primary_rev, ix.l2, ix.seq_len,
-            put(seqs), put(lengths), put(sseq), put(slen), put(has_seed),
-            put(maxdiff),
-            s_mm=local.s_mm, s_gapo=local.s_gapo, s_gape=local.s_gape,
-            max_gape=local.max_gape, max_gapo=local.max_gapo,
-            indel_end_skip=local.indel_end_skip,
-            max_del_occ=local.max_del_occ, max_entries=local.max_entries,
-            max_top2=local.max_top2, max_seed_diff=local.max_seed_diff,
-            seed_len=local.seed_len, mode=local.mode, stack_cap=stack_cap,
-            hits_cap=hits_cap, max_iters=max_iters)
-        return packed.cpu().numpy()
+            ix.primary_fwd, ix.primary_rev, ix.l2, ix.seq_len, **inputs,
+            **dfs_statics(local, stack_cap, hits_cap, max_iters)).cpu()
+        t2 = time.perf_counter()
+        self.seconds["prepare"] += t1 - t0
+        self.seconds["device"] += t2 - t1
+        return packed.numpy()
 
-    @staticmethod
-    def _collect(packed, hits_cap, results, idxs):
+    def _collect(self, packed, hits_cap, results, idxs):
         """Fill results[idxs[i]] from a packed batch result; returns the
         overflow row list and the hw column.  k/l are uint32 bit patterns
         (nabwa_tpu/models/aln.py:585-613)."""
+        t0 = time.perf_counter()
         out = unpack_result(packed, hits_cap)
         meta = out["hit_meta"].view(np.uint32).astype(np.int64)
         nmm_l = (meta & 0xFF).tolist()
@@ -258,4 +287,5 @@ class AlnEngine:
                                      nge_l[i][:na], a_l[i][:na],
                                      k_l[i][:na], l_l[i][:na],
                                      sc_l[i][:na])), hw_l[i])
+        self.seconds["collect"] += time.perf_counter() - t0
         return fallback, hw

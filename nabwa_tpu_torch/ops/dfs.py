@@ -19,9 +19,8 @@ every position compare is unsigned.
 
 import torch
 
-from nabwa_tpu.constants import (STATE_M, STATE_I, STATE_D, BWA_MODE_GAPE,
-                                 BWA_MODE_LOGGAP, BWA_MODE_NONSTOP)
-
+from ..host import (BWA_MODE_GAPE, BWA_MODE_LOGGAP, BWA_MODE_NONSTOP,
+                    STATE_D, STATE_I, STATE_M)
 from .occ import M32, cal_width, occ4, select_base, u32
 
 _I64 = torch.int64
@@ -92,8 +91,7 @@ def dfs_match_gap_plain(bwt_cat, rev_word_offset, primary_fwd, primary_rev,
                         seed_widths, seed_bids, has_seed, max_diff, *, s_mm,
                         s_gapo, s_gape, max_gape, max_gapo, indel_end_skip,
                         max_del_occ, max_entries, max_top2, max_seed_diff,
-                        seed_len, mode, stack_cap=2048, hits_cap=64,
-                        max_iters=200000):
+                        seed_len, mode, stack_cap, hits_cap, max_iters):
     """Run the DFS for a batch, plain PyTorch.
 
     bwt_cat: int32 [Wf+Wr], forward then reverse interleaved BWT.

@@ -71,7 +71,7 @@ def dfs_match_gap_cuda(bwt_cat, rev_word_offset, primary_fwd, primary_rev,
                        seed_bids, has_seed, max_diff, *, s_mm, s_gapo, s_gape,
                        max_gape, max_gapo, indel_end_skip, max_del_occ,
                        max_entries, max_top2, max_seed_diff, seed_len, mode,
-                       stack_cap=2048, hits_cap=64, max_iters=200000):
+                       stack_cap, hits_cap, max_iters):
     """The DFS on CUDA tensors through kernel C1 (all int32)."""
     global launches
     dev = seqs.device

@@ -29,7 +29,7 @@ from nabwa_tpu_torch.index.fmindex import DeviceIndex
 from nabwa_tpu_torch.ops import dfs as tdfs
 from nabwa_tpu_torch.ops import occ as tocc
 
-from . import genomes, torch_host_kernels
+from . import genomes, test_torch_host_kernels
 
 
 def _inputs(tmp_path, glen, n_reads, read_len, err, indel, seed, opt,
@@ -147,7 +147,8 @@ def test_plain_dfs_matches_jax(tmp_path, case):
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    return torch_host_kernels.build(tmp_path_factory.mktemp("host_kernels"))
+    return test_torch_host_kernels.build(
+        tmp_path_factory.mktemp("host_kernels"))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -172,7 +173,7 @@ def test_kernel_source_on_host_matches_plain(tmp_path, host_kernels, case):
     args = (ix.bwt_cat, ix.rev_word_offset, ix.primary_fwd, ix.primary_rev,
             ix.l2, ix.seq_len, seqs, lengths, *planes, has_seed, maxdiff)
     plain = tdfs.dfs_match_gap_plain(*args, **statics).numpy()
-    host = torch_host_kernels.dfs(host_kernels, *args, **statics)
+    host = test_torch_host_kernels.dfs(host_kernels, *args, **statics)
     np.testing.assert_array_equal(host[:, :4 * 16 + 3],
                                   plain[:, :4 * 16 + 3])
 
@@ -218,7 +219,8 @@ def test_kernel_wrapper_checks():
     t = torch.zeros((1, 2, 4), dtype=torch.int32)
     statics = dict(s_mm=3, s_gapo=11, s_gape=4, max_gape=6, max_gapo=1,
                    indel_end_skip=5, max_del_occ=10, max_entries=2000000,
-                   max_top2=30, max_seed_diff=2, seed_len=32, mode=3)
+                   max_top2=30, max_seed_diff=2, seed_len=32, mode=3,
+                   stack_cap=256, hits_cap=32, max_iters=768)
     with pytest.raises(ValueError):
         dfs_cuda.dfs_match_gap_cuda(t, 0, 0, 0, (0,) * 5, 0, t, t, t, t, t,
                                     t, t, t, **statics)

@@ -17,7 +17,7 @@ from nabwa_tpu.ops import occ as jocc
 from nabwa_tpu_torch.index.fmindex import DeviceIndex
 from nabwa_tpu_torch.ops import occ as tocc
 
-from . import genomes, torch_host_kernels
+from . import genomes, test_torch_host_kernels
 
 M32 = 0xFFFFFFFF
 
@@ -60,7 +60,7 @@ def test_occ4_unsigned_past_2_31(tmp_path):
     """primary and checkpoint counters past 2**31: the `$`-row compare and
     the count arithmetic are unsigned, as in the JAX package, in the plain
     version and in the kernels' occ.cuh built for the host."""
-    lib = torch_host_kernels.build(tmp_path)
+    lib = test_torch_host_kernels.build(tmp_path)
     rng = np.random.default_rng(403)
     words = rng.integers(0, 1 << 32, size=12 * 8, dtype=np.uint64)
     words = words.astype(np.uint32)
@@ -79,7 +79,7 @@ def test_occ4_unsigned_past_2_31(tmp_path):
         np.testing.assert_array_equal(got.numpy(),
                                       want.astype(np.int64) & M32)
         assert (got.numpy()[:-1, 0] >= 0x80000000).all()
-        host = torch_host_kernels.occ4(lib, words, primary, ks)
+        host = test_torch_host_kernels.occ4(lib, words, primary, ks)
         np.testing.assert_array_equal(host.astype(np.int64), got.numpy())
 
 
@@ -133,9 +133,9 @@ def test_cal_width_kernel_source_on_host(index, strand, tmp_path):
     idx, ix = index
     fm, jbank, tbank = _bank(idx, ix, strand)
     q, lengths = _queries(strand)
-    lib = torch_host_kernels.build(tmp_path)
-    hw, hb = torch_host_kernels.cal_width(lib, tbank, ix.l2, fm.primary,
-                                          fm.seq_len, q, lengths)
+    lib = test_torch_host_kernels.build(tmp_path)
+    hw, hb = test_torch_host_kernels.cal_width(
+        lib, tbank, ix.l2, fm.primary, fm.seq_len, q, lengths)
     jw, jb = _jax_cal_width(fm, jbank, q, lengths)
     np.testing.assert_array_equal(hw, jw)
     np.testing.assert_array_equal(hb, jb)
