@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of nabwa_tpu_torch, the `aln` path on one NVIDIA GPU.
+"""On-card smoke run of nabwa_tpu_torch, the `aln` and `samse` paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--glen BP] [--reads N] [--batch B]
                           [--retry-stack S] [--profile]
@@ -19,7 +20,7 @@ failure exits non-zero:
    the tier-0 settings, then the reads tier 0 flagged at the retry
    settings; exact on every column but the kernel's own telemetry (fin,
    iters);
-4. the main path at the bench's size: a 64 Mbp random genome (seed 99)
+4. the aln path at the bench's size: a 64 Mbp random genome (seed 99)
    indexed by the port's host build, 32768 x 100 bp reads at 1 % error
    (seed 100).  After a warm-up batch the engine's rate is timed, with
    host seconds per part of `run_chunk`; then, with every launch count at
@@ -29,8 +30,23 @@ failure exits non-zero:
    of the reads may fall through to the host.  The host-drained reads are
    solved by that same host engine, so for them the comparison holds the
    host engine against itself;
-5. with --profile, torch.profiler over one more run: the card's busy
-   share and the device time of each kernel.
+5. kernel C3 (csrc/sa_lookup.cu) against the plain PyTorch sa_lookup and
+   the native host walk on every SA row samse asks for on phase 4's
+   `.sai`, both strands, exact;
+6. a gapped read set on the same genome (32768 x 100 bp, 1 % error, a
+   1-base indel in half the reads, seed 101) aligned by the host engine;
+   kernel C4 (csrc/banded_global.cu) against the plain PyTorch DP on the
+   first device batch of its samse refine jobs: score, end type and the
+   whole traceback lattice, exact;
+7. samse on both read sets, on the card (C3, C4) and on the host reference
+   route (native SA walk and DP): byte-identical SAM, reads/s and host
+   seconds per part of each;
+8. the CLI chain on the gapped reads, every launch count at 0 before each
+   command: `aln --device cuda` (its `.sai` equal to the host engine's,
+   C1 and C2 launched), then `samse --device cuda` (its SAM equal to the
+   host reference route's, C3 and C4 launched);
+With --profile, torch.profiler runs over one more aln run after phase 4's
+timed run: the card's busy share and the device time of each kernel.
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
@@ -89,24 +105,31 @@ def cuda_ms(fn, reps):
 
 
 def make_data(glen, n_reads):
-    """Genome, index and reads of the bench (cached by size and seed)."""
+    """Genome, index, the bench reads and the gapped reads (cached by size
+    and seed): 100 bp reads at 1 % substitutions, seed 100, and the same
+    with a 1-base indel in half the reads, seed 101."""
     from nabwa_tpu_torch import host
     from tests import genomes
     work = pathlib.Path(tempfile.gettempdir()) / f"nabwa_torch_smoke_{glen}"
     work.mkdir(parents=True, exist_ok=True)
-    fa, fq = work / "g.fa", work / f"r{n_reads}.fq"
-    if not (work / "g.fa.rsa").exists() or not fq.exists():
+    fa = work / "g.fa"
+    fqs = {work / f"r{n_reads}.fq": dict(seed=100),
+           work / f"r{n_reads}_gapped.fq": dict(seed=101, indel_rate=0.5)}
+    if not (work / "g.fa.rsa").exists() or not all(p.exists() for p in fqs):
         t0 = time.perf_counter()
         text, seqs = genomes.random_genome(glen, seed=99)
-        fa.write_bytes(text)
-        # SA-IS at every size: the same index as the blockwise
-        # incremental construction, built faster when memory is plentiful
-        os.environ.setdefault("NABWA_BWT_INC", "0")
-        host.build_index(str(fa))
-        fq.write_bytes(genomes.sample_reads(seqs[0], n_reads, 100, seed=100,
-                                            err_rate=0.01))
+        if not (work / "g.fa.rsa").exists():
+            fa.write_bytes(text)
+            # SA-IS at every size: the same index as the blockwise
+            # incremental construction, built faster when memory is
+            # plentiful
+            os.environ.setdefault("NABWA_BWT_INC", "0")
+            host.build_index(str(fa))
+        for fq, kw in fqs.items():
+            fq.write_bytes(genomes.sample_reads(seqs[0], n_reads, 100,
+                                                err_rate=0.01, **kw))
         log(f"genome + index + reads: {time.perf_counter() - t0:.1f} s")
-    return fa, fq
+    return (fa, *fqs)
 
 
 def check_cal_width(eng, inputs):
@@ -204,6 +227,126 @@ def native_reference(idx, reads, opt):
     return opt.pack() + host.sai_block(res), dt
 
 
+def sai_columns(sai_bytes):
+    """The per-read alignments of a `.sai` as the CLI reads them
+    (columnar)."""
+    from nabwa_tpu_torch import host
+    path = pathlib.Path(tempfile.gettempdir()) / "nabwa_torch_smoke_cols.sai"
+    path.write_bytes(sai_bytes)
+    return host.read_sai_columnar(str(path))[1]
+
+
+def check_sa_lookup(eng, idx, reads, sai_bytes):
+    """C3 against the plain version and the native host walk on every SA
+    row samse asks for on this `.sai`, both strands."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch import host
+    from nabwa_tpu_torch.models import samse as msamse
+    from nabwa_tpu_torch.ops import sa_lookup as sl
+    ch = msamse.select(reads, sai_columns(sai_bytes), 3,
+                       host.Rand48(idx.bns.seed))
+    ix = eng.dev
+    worst, n_rows, timed = 0, 0, None
+    for a, _, _, rows in msamse.sa_requests(ch):
+        args = (ix.bwt_fwd if a else ix.bwt_rev, ix.l2,
+                ix.primary_fwd if a else ix.primary_rev, ix.seq_len,
+                ix.sa_fwd if a else ix.sa_rev, ix.sa_intv,
+                torch.from_numpy(rows.view(np.int32)).to(eng.device))
+        kern = sl.sa_lookup_cuda(*args)
+        t0 = time.perf_counter()
+        plain = sl.sa_lookup_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        nat = msamse.sa_rows_native(idx, a, rows).astype(np.int64)
+        got = kern.cpu().numpy().view(np.uint32).astype(np.int64)
+        worst = max(worst, int(np.abs(
+            got - plain.cpu().numpy().view(np.uint32)).max()),
+            int(np.abs(got - nat).max()))
+        n_rows += len(rows)
+        if timed is None or len(rows) > timed[0]:
+            timed = (len(rows), cuda_ms(lambda: sl.sa_lookup_cuda(*args),
+                                        20), plain_ms)
+    log(f"C3 sa_lookup: {n_rows} SA rows of samse on the bench .sai, both "
+        f"strands, max |err| {worst} against the plain version and the "
+        f"native walk; kernel {timed[1]:.4f} ms, plain {timed[2]:.2f} ms "
+        f"per call at {timed[0]} rows")
+    if worst != 0:
+        fail("sa_lookup kernel disagrees with the plain version or the "
+             "native walk")
+    return worst, timed[1], timed[2], n_rows
+
+
+def check_banded_global(eng, idx, reads, sai_bytes, opt):
+    """C4 against the plain version on the first device batch of the
+    refine jobs samse makes on this `.sai`: score, ctype and the whole
+    traceback lattice."""
+    import torch
+    from nabwa_tpu_torch import host
+    from nabwa_tpu_torch.models import samse as msamse
+    from nabwa_tpu_torch.ops import dp
+    ch = msamse.select(reads, sai_columns(sai_bytes), 3,
+                       host.Rand48(idx.bns.seed))
+    msamse.sa_coords(eng, ch, host_reference=True)
+    msamse.approx_mapq(ch, opt)
+    jobs = msamse.gapped_jobs(ch)
+    pairs = msamse.refine_pairs(jobs, idx.pac, idx.bns.l_pac)
+    pairs = [p for p in pairs if len(p[0]) and len(p[1])][:dp.MAX_PAIRS]
+    if not pairs:
+        fail("the gapped read set gave no refine jobs")
+    ap = host.ALN_PARAM_BWA
+    args = dp.pack_pairs(pairs, [ap.band_width] * len(pairs), eng.device)
+    kw = dict(mat=ap.matrix, go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)
+    kern = dp.banded_global_cuda(**args, **kw)
+    t0 = time.perf_counter()
+    plain = dp.banded_global_plain(**args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    worst = max(int((k.long() - p.long()).abs().max())
+                for k, p in zip(kern, plain))
+    ms = cuda_ms(lambda: dp.banded_global_cuda(**args, **kw), 5)
+    tb = kern[2]
+    t0 = time.perf_counter()
+    tb.cpu()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    log(f"C4 banded_global: {len(jobs)} refine jobs, first batch {len(pairs)}"
+        f" pairs at L1={args['s1'].shape[1] - 1}, L2={args['s2'].shape[1] - 1}"
+        f"; max |err| {worst} over score, ctype and {tb.numel()} lattice "
+        f"bytes; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; lattice copy "
+        f"to the host {copy_ms:.2f} ms")
+    if worst != 0:
+        fail("banded_global kernel disagrees with the plain version")
+    return worst, ms, plain_ms, len(jobs), tb.numel(), copy_ms
+
+
+def samse_routes(eng, idx, reads, sai_bytes, opt, label):
+    """samse on the card and on the host reference route: identical SAM
+    bytes; reads/s and part seconds of each."""
+    import torch
+    from nabwa_tpu_torch import host
+    from nabwa_tpu_torch.models import samse as msamse
+    per_read = sai_columns(sai_bytes)
+    out = {}
+    for route in ("reference", "cuda"):
+        msamse.seconds = dict.fromkeys(msamse.seconds, 0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = msamse.samse_bytes(eng, reads, per_read, opt,
+                                  rng=host.Rand48(idx.bns.seed),
+                                  host_reference=route == "reference")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        parts = dict(msamse.seconds)
+        parts["rest"] = dt - sum(parts.values())
+        out[route] = (blob, len(reads) / dt, parts)
+        log(f"samse {label}, {route}: {len(reads) / dt:.1f} reads/s "
+            f"({dt:.3f} s); host seconds per part {parts}")
+    if out["cuda"][0] != out["reference"][0]:
+        fail(f"samse SAM on the card differs from the host reference "
+             f"route's ({label})")
+    return out
+
+
 def profile_run(eng, reads, batch):
     """torch.profiler over one run_chunk: busy share and per-kernel device
     time, or None where the profiler saw no device time."""
@@ -264,7 +407,8 @@ def main():
     from nabwa_tpu_torch import cli as port_cli
     from nabwa_tpu_torch import host
     from nabwa_tpu_torch.models import aln as maln
-    from nabwa_tpu_torch.ops import _build, dfs_cuda, occ
+    from nabwa_tpu_torch.ops import _build, dfs_cuda, dp, occ
+    from nabwa_tpu_torch.ops import sa_lookup as sl
 
     # phase 1: build the kernels from the checkout's sources
     t0 = time.perf_counter()
@@ -276,7 +420,7 @@ def main():
         if "registers" in ln or "spill" in ln:
             log("ptxas: " + ln.strip())
 
-    fa, fq = make_data(args.glen, args.reads)
+    fa, fq, fq_gapped = make_data(args.glen, args.reads)
     opt = host.GapOpt()
     idx = host.BwaIndex.load(str(fa))
     reads = host.open_reads(str(fq), opt.mode)(args.reads, 0)
@@ -352,6 +496,65 @@ def main():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
 
+    # phases 5-6: C3 on the SA rows samse asks for on the bench .sai; the
+    # gapped read set's .sai from the host engine, and C4 on its jobs
+    sa_err, sa_ms, sa_plain, sa_rows = check_sa_lookup(eng, idx, reads, want)
+    reads_g = host.open_reads(str(fq_gapped), opt.mode)(args.reads, 0)
+    want_g, host_g_s = native_reference(idx, reads_g, opt)
+    log(f"host native engine, gapped reads: {len(reads_g) / host_g_s:.1f} "
+        f"reads/s")
+    dp_err, dp_ms, dp_plain, n_jobs, tb_bytes, tb_copy_ms = \
+        check_banded_global(eng, idx, reads_g, want_g, opt)
+
+    # phase 7: samse at full size, on the card and on the host reference
+    # route, for both read sets
+    se_bench = samse_routes(eng, idx, reads, want, opt, "bench reads")
+    se_gap = samse_routes(eng, idx, reads_g, want_g, opt, "gapped reads")
+
+    # phase 8: the CLI chain on the gapped reads, every launch count at 0
+    # before each command: aln (C1, C2), then samse (C3, C4)
+    tmp = pathlib.Path(tempfile.gettempdir())
+    sai_g, sam_g = tmp / "nabwa_torch_smoke_g.sai", tmp / "nabwa_torch_smoke.sam"
+    sai_g.unlink(missing_ok=True)
+    sam_g.unlink(missing_ok=True)
+
+    def zero():
+        occ.launches = dfs_cuda.launches = sl.launches = dp.launches = 0
+
+    def launched():
+        return {"dfs": dfs_cuda.launches, "cal_width": occ.launches,
+                "sa_lookup": sl.launches, "banded_global": dp.launches}
+
+    zero()
+    rc = port_cli.main(["aln", "--device", "cuda", str(fa), str(fq_gapped),
+                        "-f", str(sai_g)])
+    torch.cuda.synchronize()
+    aln_g_counts = launched()
+    if rc != 0 or sai_g.read_bytes() != want_g:
+        fail(f"CLI aln on the gapped reads: rc {rc}, or its .sai differs "
+             f"from the host native engine's")
+    zero()
+    t0 = time.perf_counter()
+    rc = port_cli.main(["samse", "--device", "cuda", str(fa), str(sai_g),
+                        str(fq_gapped), "-f", str(sam_g)])
+    torch.cuda.synchronize()
+    samse_cli_s = time.perf_counter() - t0
+    se_counts = launched()
+    log(f"CLI chain on the gapped reads: aln launches {aln_g_counts}; "
+        f"samse --device cuda rc {rc}, {samse_cli_s:.2f} s end to end "
+        f"(index load included), launches {se_counts}")
+    if rc != 0:
+        fail(f"the port's samse CLI exited with {rc}")
+    if sam_g.read_bytes() != (host.sam_header(idx.bns).encode()
+                              + se_gap["reference"][0]):
+        fail("CLI SAM differs from the host reference route's")
+    for name in ("dfs", "cal_width"):
+        if aln_g_counts[name] <= 0:
+            fail(f"kernel {name} was not launched by the CLI aln")
+    for name in ("sa_lookup", "banded_global"):
+        if se_counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the samse path")
+
     kernels = [
         {"name": "dfs", "route": "cuda",
          "source": "nabwa_tpu_torch/csrc/dfs.cu",
@@ -364,7 +567,21 @@ def main():
          "replaces": "nabwa_tpu/ops/occ.py:141",
          "launches": counts["cal_width"], "max_abs_err": cw_err,
          "ms": cw_ms, "plain_ms": cw_plain},
+        {"name": "sa_lookup", "route": "cuda",
+         "source": "nabwa_tpu_torch/csrc/sa_lookup.cu",
+         "replaces": "nabwa_tpu/ops/sa_lookup.py:34",
+         "launches": se_counts["sa_lookup"], "max_abs_err": sa_err,
+         "ms": sa_ms, "plain_ms": sa_plain, "rows_checked": sa_rows},
+        {"name": "banded_global", "route": "cuda",
+         "source": "nabwa_tpu_torch/csrc/banded_global.cu",
+         "replaces": "nabwa_tpu/ops/dp.py:31",
+         "launches": se_counts["banded_global"], "max_abs_err": dp_err,
+         "ms": dp_ms, "plain_ms": dp_plain, "refine_jobs": n_jobs,
+         "lattice_bytes": tb_bytes, "lattice_copy_ms": tb_copy_ms},
     ]
+    samse = {label: {route: {"reads_per_sec": r[1], "seconds": r[2]}
+                     for route, r in runs.items()}
+             for label, runs in (("bench", se_bench), ("gapped", se_gap))}
     print(json.dumps({"kernels": kernels, "aln_reads_per_sec": len(reads) / dt,
                       "host_drain_share": host_share,
                       "tier0_reads": eng.tier0_reads,
@@ -372,7 +589,9 @@ def main():
                       "host_drain_reads": eng.host_drain_reads,
                       "run_chunk_seconds": parts,
                       "host_native_reads_per_sec": len(reads) / host_s,
-                      "cli_seconds": cli_s, "profile": prof}))
+                      "cli_seconds": cli_s, "profile": prof,
+                      "samse": samse, "samse_cli_seconds": samse_cli_s,
+                      "gapped_aln_launches": aln_g_counts}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

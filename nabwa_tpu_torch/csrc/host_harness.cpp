@@ -1,11 +1,15 @@
 // Host build of the kernels' per-row code, for the CPU tests: the same
-// NABWA_HD source that nvcc compiles into kernels C1 (dfs.cu) and C2
-// (cal_width.cu), compiled by a host C++ compiler and run row by row with
-// the kernels' argument layouts.  It is not part of the kernel library.
+// NABWA_HD source that nvcc compiles into kernels C1 (dfs.cu), C2
+// (cal_width.cu), C3 (sa_lookup.cu) and C4 (banded_global.cu), compiled
+// by a host C++ compiler and run row by row with the kernels' argument
+// layouts.  It is not part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
+#include <vector>
+
 #include "dfs_read.cuh"
+#include "dp_global.cuh"
 
 extern "C" int nabwa_host_occ4(const void* bank, uint32_t primary,
                                const void* ks, int n, void* out) {
@@ -45,5 +49,43 @@ extern "C" int nabwa_host_dfs(const uint32_t* params, const void* bwt_cat,
                            (const int32_t*)has_seed,
                            (const int32_t*)max_diff, (int32_t*)slots,
                            (int32_t*)planes, (int32_t*)out, b, B));
+    return 0;
+}
+
+extern "C" int nabwa_host_sa_lookup(const uint32_t* params, const void* bank,
+                                    const void* sa, uint32_t intv,
+                                    const void* rows, int n, void* out) {
+    const nabwa::FmParams p = nabwa::fm_params(params);
+    for (int i = 0; i < n; ++i)
+        ((uint32_t*)out)[i] = nabwa::sa_lookup_row(
+            p, (const uint32_t*)bank, (const uint32_t*)sa, intv,
+            ((const uint32_t*)rows)[i]);
+    return 0;
+}
+
+extern "C" int nabwa_host_banded_global(const int32_t* params,
+                                        const void* s1, const void* s2,
+                                        const void* len1, const void* len2,
+                                        const void* b1, const void* b2,
+                                        int B, int L1, int L2, void* tb,
+                                        void* score, void* ctype) {
+    const nabwa::DpParams p = nabwa::dp_params(params);
+    std::vector<int32_t> state(3 * ((size_t)L1 + 1));
+    for (int b = 0; b < B; ++b) {
+        nabwa::DpPair q;
+        q.s1 = (const int32_t*)s1 + (size_t)b * (L1 + 1);
+        q.s2 = (const int32_t*)s2 + (size_t)b * (L2 + 1);
+        q.len1 = ((const int32_t*)len1)[b];
+        q.len2 = ((const int32_t*)len2)[b];
+        q.b1 = ((const int32_t*)b1)[b];
+        q.b2 = ((const int32_t*)b2)[b];
+        q.M = state.data();
+        q.I = q.M + L1 + 1;
+        q.D = q.I + L1 + 1;
+        q.stride = 1;
+        q.tb = (uint8_t*)tb + (size_t)b * (L2 + 1) * (L1 + 1);
+        nabwa::banded_global_pair(p, L1, L2, q, (int32_t*)score + b,
+                                  (int32_t*)ctype + b);
+    }
     return 0;
 }

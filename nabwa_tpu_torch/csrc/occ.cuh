@@ -1,5 +1,5 @@
-// FM-index rank (Occ) functions, and the per-row bwt_cal_width of kernel
-// C2, on the reference's interleaved 12-word (48 B) blocks: 4 checkpoint counters + 8 words of 2-bit bases,
+// FM-index rank (Occ) functions, the per-row bwt_cal_width of kernel C2
+// and the per-row bwt_sa walk of kernel C3, on the reference's interleaved 12-word (48 B) blocks: 4 checkpoint counters + 8 words of 2-bit bases,
 // MSB first, per 128 bases (bwt.h:61-68, bwt_bwtupdate_core,
 // bwtmisc.c:125-152).
 //
@@ -140,6 +140,45 @@ NABWA_HD void cal_width_row(const FmParams& p, const uint32_t* bwt,
         w_out[len] = 0;
         b_out[len] = cur + 1;
     }
+}
+
+// Base at string position pos of the $-removed BWT (bwt_B0, bwt.h:66;
+// nabwa_tpu/ops/sa_lookup.py:16).
+NABWA_HD uint32_t b0_string(const uint32_t* bank, uint32_t pos) {
+    const uint32_t w = bank[(size_t)(pos >> 7) * 12 + 4 + ((pos >> 4) & 7)];
+    return (w >> ((~pos & 15u) << 1)) & 3u;
+}
+
+// Single-base occ (bwt_occ, bwt.c:92-115; nabwa_tpu/ops/occ.py:95).
+NABWA_HD uint32_t occ(const uint32_t* bank, uint32_t primary, uint32_t k,
+                      uint32_t c) {
+    uint32_t cnt[4];
+    occ4(bank, primary, k, cnt);
+    return c == 0 ? cnt[0] : c == 1 ? cnt[1] : c == 2 ? cnt[2] : cnt[3];
+}
+
+// invPsi (bwt.h:71-75; nabwa_tpu/ops/sa_lookup.py:23): the `$` row
+// (k == primary) maps to row 0; past it the string position is k-1.
+NABWA_HD uint32_t inv_psi(const FmParams& p, const uint32_t* bank,
+                          uint32_t k) {
+    if (k == p.primary) return 0;
+    const uint32_t c = b0_string(bank, k > p.primary ? k - 1 : k);
+    return p.l2[c] + occ(bank, p.primary, k, c);
+}
+
+// bwt_sa (bwt.c:72-81) for one row k <= seq_len: walk invPsi to a row with
+// k % intv == 0, then sa[k / intv] plus the step count.  Row 0's sample is
+// the reference's -1, so the sum wraps in uint32 like `sa + (-1)`.
+NABWA_HD uint32_t sa_lookup_row(const FmParams& p, const uint32_t* bank,
+                                const uint32_t* sa, uint32_t intv,
+                                uint32_t k) {
+    uint32_t steps = 0;
+    while (k % intv) {
+        k = inv_psi(p, bank, k);
+        ++steps;
+    }
+    const uint32_t kk = k / intv;
+    return steps + (kk == 0 ? NEG1 : sa[kk]);
 }
 
 }  // namespace nabwa

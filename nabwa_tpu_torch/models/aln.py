@@ -26,6 +26,7 @@ import torch
 from .. import host
 from ..index.fmindex import DeviceIndex
 from ..ops.dfs import aln_device_step, unpack_result
+from ..ops.sa_lookup import sa_lookup
 
 NO_SEED = 0x7FFFFFFF
 
@@ -211,18 +212,19 @@ class AlnEngine:
         return results
 
     def sa_rows(self, a, rows):
-        """Batched bwt_sa (bwt.c:72-81) on strand-a's index through the
-        shared native host walk: uint32 rows -> raw uint32 bwt_sa values."""
+        """Batched bwt_sa (bwt.c:72-81) on strand-a's index through
+        `ops.sa_lookup` on the engine's device (kernel C3 on CUDA): uint32
+        rows -> raw uint32 bwt_sa values (callers apply the reverse-index
+        coordinate flip)."""
         rows = np.ascontiguousarray(rows, dtype=np.uint32)
         if len(rows) == 0:
             return np.zeros(0, dtype=np.uint32)
-        fm = self.index.fwd if a else self.index.rev
-        out = host.native.bwt_sa_batch(
-            self._host_fwd if a else self._host_rev, fm.primary,
-            self._host_l2, fm.seq_len, fm.sa, fm.sa_intv, rows)
-        if out is None:
-            raise RuntimeError("native library unavailable for bwt_sa")
-        return out
+        ix = self.dev
+        k = torch.from_numpy(rows.view(np.int32)).to(self.device)
+        out = sa_lookup(ix.bwt_fwd if a else ix.bwt_rev, ix.l2,
+                        ix.primary_fwd if a else ix.primary_rev, ix.seq_len,
+                        ix.sa_fwd if a else ix.sa_rev, ix.sa_intv, k)
+        return out.cpu().numpy().view(np.uint32)
 
     def _drain_native(self, reads, maxdiff, local, results, idxs):
         """Solve reads on the host's threaded C++ DFS (native/dfsgap.cpp),

@@ -1,0 +1,396 @@
+"""The `samse` workflow on the port's engine: the counterpart of
+nabwa_tpu/models/post_native.py:831 `samse_bytes` (bwa_sai2sam_se_core,
+bwase.c:654-721), one chunk of reads to SAM bytes.
+
+Steps, in the reference's order:
+  1. select   hit selection and multi enumeration with the shared drand48
+              stream (native `se_select_batch`, the stream's one consumer)
+  2. sa       SA rows -> pac coordinates (bwa_cal_pac_pos): `engine.sa_rows`,
+              kernel C3 on a CUDA engine
+  3. mapQ     vectorised bwa_approx_mapQ
+  4. refine   gapped refinement (bwa_refine_gapped): the banded global DP of
+              `ops/dp.py`, kernel C4 on CUDA, and the backtrace on the host
+  5. md       MD/NM (native `md_batch`)
+  6. trim     quality-trim cigar correction (bwa_correct_trimmed)
+  7. emit     SAM text (native `sam_emit_batch`)
+
+Steps 1, 3, 5, 6 and 7 are the shared host library's, reached through
+`host`.  `host_reference=True` runs steps 2 and 4 on the host instead,
+with the pieces the JAX package uses off its accelerator (the native
+`bwt_sa_batch` walk and `aln_global_native`): the reference the card's
+output is held against.  Only that argument chooses it; nothing falls
+back to it.
+
+`seconds` sums host seconds per part over calls: select (steps 1 and 3),
+sa, dp (windows, packing, the copy to the device and the DP to its end),
+dp_backtrace (the lattice copy back, backtraces, cigars), md, emit
+(steps 6 and 7).  On the host reference route sa and dp are the native
+walks.
+"""
+
+import time
+
+import numpy as np
+
+from .. import host
+from ..ops import dp
+
+_NEG1 = 0xFFFFFFFF
+
+seconds = dict.fromkeys(("select", "sa", "dp", "dp_backtrace", "md",
+                         "emit"), 0.0)
+
+
+class Chunk:
+    """One chunk's columnar samse state: the native emitter's [n, NF]
+    record table, the multi-hit slots (n_occ + 1 a read), and the cigars
+    of refined rows and multi slots."""
+
+    def __init__(self, reads, lens, state, stride, multi):
+        self.reads = reads
+        self.n = len(reads)
+        self.colsrc = reads if isinstance(reads, host.ReadBatch) else None
+        self.lens = lens
+        self.state = state
+        self.stride = stride
+        (self.multi_pos, self.multi_gap, self.multi_mm, self.multi_strand,
+         self.multi_n) = multi
+        mslot, mlen = [], []
+        for i in np.nonzero(self.multi_n)[0].tolist():
+            for m in range(self.multi_n[i]):
+                mslot.append(i * stride + m)
+                mlen.append(lens[i])
+        self.mslot = np.array(mslot, dtype=np.int64)
+        self.mlen = np.array(mlen, dtype=np.int64)
+        self.m_strand = (self.multi_strand[self.mslot] != 0 if len(mslot)
+                         else np.zeros(0, dtype=bool))
+        self.cigars = {}
+        self.mcigars = {}
+        self._fwd = {}
+
+    @property
+    def matched(self):
+        return self.state[:, host.F_TYPE] != host.BWA_TYPE_NO_MATCH
+
+    @property
+    def strand(self):
+        return self.state[:, host.F_STRAND] != 0
+
+    def fwd_codes(self, i):
+        """Read i's codes in forward orientation (cached)."""
+        c = self._fwd.get(i)
+        if c is None:
+            c = self.reads[i].seq[::-1]
+            self._fwd[i] = c
+        return c
+
+
+def _lib():
+    lib = host.native._load()
+    if lib is None:
+        raise RuntimeError("the native host library is unavailable: samse "
+                           "needs its selection, MD and SAM kernels")
+    return lib
+
+
+def select(reads, per_read_alns, n_occ, rng):
+    """Step 1: hit selection and multi enumeration (exact drand48
+    stream); advances rng."""
+    n = len(reads)
+    state = np.zeros((n, host.NF), dtype=np.int64)
+    if isinstance(reads, host.ReadBatch):
+        # columnar batch: length columns come straight off the offsets
+        lens = reads.clip_lens()
+        state[:, host.F_LEN] = lens
+        state[:, host.F_FULL_LEN] = reads.full_lens()
+        state[:, host.F_CLIP_LEN] = lens
+    else:
+        lens = np.array([r.len for r in reads], dtype=np.int64)
+        state[:, host.F_LEN] = lens
+        state[:, host.F_FULL_LEN] = [r.full_len for r in reads]
+        state[:, host.F_CLIP_LEN] = [r.clip_len for r in reads]
+    if isinstance(per_read_alns, host.AlnColumn):
+        recs, counts = per_read_alns.columns()
+    else:
+        recs, counts = host.pack_recs(per_read_alns)
+    stride = n_occ + 1
+    multi = (np.zeros(n * stride, dtype=np.uint64),
+             np.zeros(n * stride, dtype=np.int32),
+             np.zeros(n * stride, dtype=np.int32),
+             np.zeros(n * stride, dtype=np.int32),
+             np.zeros(n, dtype=np.int32))
+    rngst = np.array([rng.x], dtype=np.uint64)
+    _lib().se_select_batch(n, recs, counts, state.reshape(-1), rngst, 1,
+                           n_occ, *multi)
+    rng.x = int(rngst[0])
+    return Chunk(reads, lens, state, stride, multi)
+
+
+def sa_requests(ch):
+    """The SA rows step 2 asks for: [(a, sel, msel, rows)] per strand a
+    (1 forward, 0 reverse) with rows to look up; sel picks the reads, msel
+    the multi slots, and rows holds the reads' rows then the slots'."""
+    matched, strand = ch.matched, ch.strand
+    out = []
+    for a in (1, 0):
+        sel = matched & (strand if a else ~strand)
+        msel = ((ch.m_strand if a else ~ch.m_strand) if len(ch.mslot)
+                else np.zeros(0, dtype=bool))
+        rows = np.concatenate([
+            ch.state[sel, host.F_SA].astype(np.uint32),
+            ch.multi_pos[ch.mslot[msel]].astype(np.uint32)])
+        if len(rows):
+            out.append((a, sel, msel, rows))
+    return out
+
+
+def sa_rows_native(index, a, rows):
+    """The host reference of `engine.sa_rows`: the shared native bwt_sa
+    walk on strand a's index (uint32 rows -> raw uint32 values)."""
+    fm = index.fwd if a else index.rev
+    out = host.native.bwt_sa_batch(fm.bwt, fm.primary, index.fwd.l2,
+                                   fm.seq_len, fm.sa, fm.sa_intv, rows)
+    if out is None:
+        raise RuntimeError("native library unavailable for bwt_sa")
+    return out
+
+
+def sa_coords(engine, ch, host_reference=False):
+    """Step 2: SA rows -> pac coordinates (bwase.c:156-183); reverse-strand
+    positions are flipped by `rev.seq_len - (v + len)` here."""
+    rev_len = engine.index.rev.seq_len
+    state, lens = ch.state, ch.lens
+    for a, sel, msel, rows in sa_requests(ch):
+        vals = (sa_rows_native(engine.index, a, rows) if host_reference
+                else engine.sa_rows(a, rows)).astype(np.int64)
+        k = int(sel.sum())
+        pv, mv = vals[:k], vals[k:]
+        slots = ch.mslot[msel]
+        if a:
+            state[sel, host.F_POS] = pv
+            ch.multi_pos[slots] = mv.astype(np.uint64)
+        else:
+            state[sel, host.F_POS] = (rev_len - (pv + lens[sel])) & _NEG1
+            ch.multi_pos[slots] = \
+                ((rev_len - (mv + ch.mlen[msel])) & _NEG1).astype(np.uint64)
+
+
+def approx_mapq(ch, opt):
+    """Step 3: vectorised bwa_approx_mapQ (bwase.c:113-122)."""
+    state = ch.state
+    md_arr = host.maxdiff_for(ch.lens, opt.fnr, opt.max_diff)
+    c1 = state[:, host.F_C1]
+    c2 = state[:, host.F_C2]
+    g = host.G_LOG_N[np.minimum(c2, 255)]
+    mq = np.where(c1 == 0, 23,
+                  np.where(c1 > 1, 0,
+                           np.where(state[:, host.F_NMM] == md_arr, 25,
+                                    np.where(c2 == 0, 37,
+                                             np.where(23 < g, 0, 23 - g)))))
+    matched = ch.matched
+    state[matched, host.F_MAPQ] = mq[matched]
+    state[matched, host.F_SEQ_Q] = mq[matched]
+
+
+def gapped_jobs(ch):
+    """Step 4's jobs, gapped multi slots first, then gapped reads:
+    [(apply, seq_codes, pos, ext)], apply(cigar, new_pos) storing the
+    result (nabwa_tpu/models/post_native.py:927-963)."""
+    state, strand = ch.state, ch.strand
+    jobs = []
+    for o in ch.mslot.tolist():
+        if ch.multi_gap[o] == 0:
+            continue
+        i = o // ch.stride
+        seqc = ch.reads[i].rseq if ch.multi_strand[o] else ch.fwd_codes(i)
+
+        def apply_m(cig, newpos, o=o):
+            ch.mcigars[o] = cig
+            ch.multi_pos[o] = newpos
+
+        jobs.append((apply_m, seqc, int(ch.multi_pos[o]),
+                     (1 if ch.multi_strand[o] else -1) * int(ch.multi_gap[o])))
+    gap_rows = np.nonzero(ch.matched & (state[:, host.F_NGO] > 0))[0]
+    for i in gap_rows.tolist():
+        seqc = ch.reads[i].rseq if strand[i] else ch.fwd_codes(i)
+
+        def apply_s(cig, newpos, i=i):
+            ch.cigars[i] = cig if cig else None
+            state[i, host.F_POS] = newpos
+
+        jobs.append((apply_s, seqc, int(state[i, host.F_POS]),
+                     (1 if strand[i] else -1)
+                     * int(state[i, host.F_NGO] + state[i, host.F_NGE])))
+    return jobs
+
+
+def refine_pairs(jobs, pac, l_pac):
+    """The (reference window, read) pair of every job (bwase.c:193-207)."""
+    return [(host.refine_window(l_pac, pac, seqc, pos, ext)[0],
+             np.asarray(seqc)) for _, seqc, pos, ext in jobs]
+
+
+def refine_jobs(jobs, pac, l_pac, device, host_reference=False):
+    """Solve (apply, seq_codes, pos, ext) refinement jobs with the banded
+    global DP on `device` (nabwa_tpu/models/samse.py:480-496), or with the
+    native DP when host_reference is set, and apply each result."""
+    if not jobs:
+        return
+    t0 = time.perf_counter()
+    pairs = refine_pairs(jobs, pac, l_pac)
+    seconds["dp"] += time.perf_counter() - t0
+    if host_reference:
+        res = dp.banded_global_native(pairs, host.ALN_PARAM_BWA,
+                                      seconds=seconds)
+    else:
+        res = dp.banded_global_batch(pairs, host.ALN_PARAM_BWA, device,
+                                     seconds=seconds)
+    t0 = time.perf_counter()
+    for (apply, seqc, pos, ext), (_, path) in zip(jobs, res):
+        apply(*host.refine_gapped_core(l_pac, pac, seqc, pos, ext,
+                                       path=path))
+    seconds["dp_backtrace"] += time.perf_counter() - t0
+
+
+def _cigar_flat(cigars, n, extra=None, n_extra=0):
+    """Flat int32 cigar words and offsets: rows 0..n-1 from `cigars`, then
+    (when given) n_extra multi slots from `extra`, whose offsets follow."""
+    counts = np.zeros(n, dtype=np.int64)
+    for i, cg in cigars.items():
+        if cg:
+            counts[i] = 2 * len(cg)
+    off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    parts = [(cigars, off)]
+    if extra is not None:
+        mcounts = np.zeros(n_extra, dtype=np.int64)
+        for o, cg in extra.items():
+            if cg:
+                mcounts[o] = 2 * len(cg)
+        moff = np.zeros(n_extra + 1, dtype=np.int64)
+        np.cumsum(mcounts, out=moff[1:])
+        moff += off[-1]
+        parts.append((extra, moff))
+    cig = np.zeros(int(parts[-1][1][-1]), dtype=np.int32)
+    for src, o in parts:
+        for i, cg in src.items():
+            if cg:
+                cig[o[i]:o[i + 1]] = np.array(cg, dtype=np.int32).reshape(-1)
+    return cig, np.concatenate([o for _, o in parts])
+
+
+def md(ch, bns, pac):
+    """Step 5: MD/NM with ambiguity holes (native md_batch); returns the
+    MD text buffer and its offsets."""
+    n, strand = ch.n, ch.strand
+    if ch.colsrc is not None:
+        seq_flat, seq_off = ch.colsrc.aligned_codes(strand)
+    else:
+        seq_flat, seq_off = host.flat([
+            (ch.reads[i].rseq if strand[i] else ch.fwd_codes(i))
+            for i in range(n)])
+    cig, cig_off = _cigar_flat(ch.cigars, n)
+    _, _, _, _, amb_off, amb_len, amb_chr = host.bns_emit_arrays(bns)
+    md_cap = int(seq_off[-1]) * 2 + 24 * n + 16
+    md_buf = np.empty(md_cap, dtype=np.uint8)
+    md_off = np.zeros(n + 1, dtype=np.int64)
+    rc = _lib().md_batch(n, ch.state.reshape(-1), seq_flat, seq_off, cig,
+                         cig_off, pac, bns.l_pac, len(bns.ambs), amb_off,
+                         amb_len, amb_chr, md_buf, md_cap, md_off,
+                         host.post_threads())
+    if rc != 0:
+        raise RuntimeError(f"native md_batch failed ({rc})")
+    return md_buf, md_off
+
+
+def correct_trim(ch):
+    """Step 6: bwa_correct_trimmed (bwase.c:320-354) on the rows whose
+    clipped length is below the full length."""
+    state = ch.state
+    for i in np.nonzero(ch.lens < state[:, host.F_FULL_LEN])[0].tolist():
+        s = host.SeqState(ch.reads[i])
+        s.strand = int(state[i, host.F_STRAND])
+        s.cigar = list(ch.cigars[i]) if ch.cigars.get(i) else None
+        s.len = int(state[i, host.F_LEN])
+        host.correct_trimmed(s)
+        ch.cigars[i] = s.cigar
+        state[i, host.F_LEN] = s.len
+
+
+def emit(ch, bns, opt, rg_id, md_buf, md_off):
+    """Step 7: the chunk's SAM text (native sam_emit_batch)."""
+    n, reads = ch.n, ch.reads
+    if ch.colsrc is not None:
+        name_flat, name_off = ch.colsrc.name_bytes()
+        bc_flat, bc_off = np.zeros(0, np.uint8), np.zeros(n + 1, np.int64)
+        sf_flat, sf_off = ch.colsrc.code_bytes()
+        q_flat, q_off = ch.colsrc.qual_bytes()
+    else:
+        name_flat, name_off = host.flat([r.name.encode() for r in reads])
+        bc_flat, bc_off = host.flat([r.bc.encode() if r.bc else b""
+                                     for r in reads])
+        sf_flat, sf_off = host.flat([r.full_codes for r in reads])
+        q_flat, q_off = host.flat([(r.qual.tobytes() if r.qual is not None
+                                    else b"") for r in reads])
+    # read cigars, then the multi slots' (the emitter's layout)
+    cig, cig_off = _cigar_flat(ch.cigars, n, ch.mcigars, n * ch.stride)
+    ann_off, ann_len, ann_names, ann_name_off, amb_off, amb_len, \
+        amb_chr = host.bns_emit_arrays(bns)
+    rg = rg_id.encode() if rg_id else b""
+    rg_arr = (np.frombuffer(rg, dtype=np.uint8) if rg
+              else np.zeros(0, dtype=np.uint8))
+    args = (n, ch.state.reshape(-1), np.full(n, -1, dtype=np.int64),
+            name_flat, name_off, bc_flat, bc_off, cig, cig_off, md_buf,
+            md_off, sf_flat, sf_off, q_flat, q_off, ch.multi_pos,
+            ch.multi_gap, ch.multi_mm, ch.multi_strand, ch.multi_n,
+            ch.stride, bns.n_seqs, ann_off, ann_len, ann_names,
+            ann_name_off, len(bns.ambs), amb_off, amb_len, amb_chr,
+            bns.l_pac, opt.mode, opt.max_top2, rg_arr, len(rg))
+    lib = _lib()
+    cap = int(sf_off[-1]) * 3 + int(md_off[-1]) + 256 * n + 1024
+    out = np.empty(cap, dtype=np.uint8)
+    total = lib.sam_emit_batch(*args, out, cap, host.post_threads())
+    if total > cap:
+        out = np.empty(int(total), dtype=np.uint8)
+        total = lib.sam_emit_batch(*args, out, int(total),
+                                   host.post_threads())
+    return out[:total].tobytes()
+
+
+def samse_bytes(engine, reads, per_read_alns, opt, n_occ=3, rng=None,
+                rg_id=None, ntpac=None, host_reference=False):
+    """samse for one chunk on the port's engine: the SAM text as bytes, one
+    newline-terminated line per read.  rng is the shared drand48 stream
+    (a fresh one seeded from the index when None); host_reference runs
+    steps 2 and 4 on the host's native walks (see the module docstring)."""
+    if ntpac is not None:
+        raise NotImplementedError(
+            "colour-space samse is not yet ported to nabwa_tpu_torch")
+    if not len(reads):
+        return b""
+    index = engine.index
+    bns, pac = index.bns, index.pac
+    if rng is None:
+        rng = host.Rand48(bns.seed)
+    t0 = time.perf_counter()
+    ch = select(reads, per_read_alns, n_occ, rng)
+    t1 = time.perf_counter()
+    sa_coords(engine, ch, host_reference)
+    t2 = time.perf_counter()
+    approx_mapq(ch, opt)
+    t3 = time.perf_counter()
+    jobs = gapped_jobs(ch)
+    t4 = time.perf_counter()
+    refine_jobs(jobs, pac, bns.l_pac, engine.device, host_reference)
+    t5 = time.perf_counter()
+    md_buf, md_off = md(ch, bns, pac)
+    t6 = time.perf_counter()
+    correct_trim(ch)
+    blob = emit(ch, bns, opt, rg_id, md_buf, md_off)
+    t7 = time.perf_counter()
+    seconds["select"] += (t1 - t0) + (t3 - t2)
+    seconds["sa"] += t2 - t1
+    seconds["dp"] += t4 - t3         # refine_jobs books its own parts
+    seconds["md"] += t6 - t5
+    seconds["emit"] += t7 - t6
+    return blob

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-At first use, every `csrc/*.cu` is compiled by nvcc for sm_90a into one
-shared library with a plain C interface,
-`nabwa_tpu_torch/build/libnabwa_torch_kernels.so`, and loaded with ctypes.
+At first use, every `csrc/*.cu` is compiled by nvcc for sm_90a, one nvcc
+process per source, all started together, and the objects are linked into
+one shared library with a plain C interface,
+`nabwa_tpu_torch/build/libnabwa_torch_kernels.so`, loaded with ctypes.
 The library is rebuilt when the hash of the sources stored beside it
 differs from the checkout's.  No PyTorch header is compiled, so a build
 takes seconds.
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libnabwa_torch_kernels.so"
 _HASH_PATH = BUILD_DIR / "libnabwa_torch_kernels.srchash"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 _lock = threading.Lock()
@@ -40,7 +41,9 @@ build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U32 = ctypes.c_uint32
 _U32P = ctypes.POINTER(ctypes.c_uint32)
+_I32P = ctypes.POINTER(ctypes.c_int32)
 _SIGNATURES = {
     # (fm params[7], bwt, queries, lengths, B, L, width, bid, stream)
     "nabwa_cal_width": [_U32P, _P, _P, _P, _I, _I, _P, _P, _P],
@@ -48,6 +51,12 @@ _SIGNATURES = {
     #  seed_bids, has_seed, max_diff, slots, planes, out, B, stream)
     "nabwa_dfs": [_U32P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _P],
+    # (fm params[7], bank, sa, sa_intv, rows, n, out, stream)
+    "nabwa_sa_lookup": [_U32P, _P, _P, _U32, _P, _I, _P, _P],
+    # (dp params[28], s1, s2, len1, len2, b1, b2, B, L1, L2, scratch, tb,
+    #  score, ctype, stream)
+    "nabwa_banded_global": [_I32P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                            _P, _P, _P, _P],
 }
 
 
@@ -77,15 +86,35 @@ def _nvcc():
 def _build(src_hash):
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-I", str(CSRC), "-o", str(tmp)]
-           + [str(p) for p in sorted(CSRC.glob("*.cu"))])
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f".{src.stem}.{tag}.o"
+        cmd = ([nvcc] + NVCC_FLAGS + ["-I", str(CSRC), "-c", "-o", str(obj),
+                                      str(src)])
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"{src.name}:\n{out}")
+        if proc.returncode != 0:
+            failed.append(logs[-1])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(failed))
+    tmp = BUILD_DIR / f".{LIB_PATH.name}.{tag}"
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp)]
+                         + [str(obj) for _, obj, _ in jobs],
+                         capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+        raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
+    build_log = "".join(logs)
     os.replace(tmp, LIB_PATH)
     _HASH_PATH.write_text(src_hash)
 
@@ -114,6 +143,11 @@ def u32_params(values):
     """A ctypes uint32 array of `values` (taken mod 2**32)."""
     return (ctypes.c_uint32 * len(values))(
         *[int(v) & 0xFFFFFFFF for v in values])
+
+
+def i32_params(values):
+    """A ctypes int32 array of `values` (each in int32 range)."""
+    return (ctypes.c_int32 * len(values))(*[int(v) for v in values])
 
 
 def check(rc, what):

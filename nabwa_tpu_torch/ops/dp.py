@@ -1,0 +1,330 @@
+"""Banded global alignment (aln_global_core, stdaln.c:345-525) on a torch
+device: the DP seam of the port's workflow modules (samse's gapped
+refinement now; sampe and bwasw will add their lattices here).
+
+`banded_global_plain` is nabwa_tpu/ops/dp.py:31 `_banded_global_device` on
+tensors: the score lattice and packed traceback bits for a batch of
+(reference window, read) pairs, one row at a time, the D chain as a
+cummax along the row.  `banded_global` dispatches on the device of its
+inputs: a CPU tensor runs the plain version, a CUDA tensor launches the
+kernel in `csrc/banded_global.cu` (one thread per pair), or the call
+raises.
+
+`banded_global_batch` is the counterpart of nabwa_tpu/ops/dp.py:185
+`banded_global_batch`: zero-length pairs are answered on the host, the
+rest go to the device in batches of at most `MAX_PAIRS`, and the host
+walks each lattice back into the scalar oracle's path.  The JAX package's
+size threshold for its native route (`_use_native_dp`) is not carried
+over: on CUDA every batch launches the kernel.  `banded_global_native` is
+the host reference route: the shared native aln_global_core for each
+pair.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from . import _build
+from .. import host
+
+FROM_M, FROM_I, FROM_D = host.FROM_M, host.FROM_I, host.FROM_D
+NEG = host.MINOR_INF
+_I32 = torch.int32
+
+# device pairs per batch: bounds the lattice, (L2+1)(L1+1) bytes a pair
+MAX_PAIRS = 8192
+
+# kernel launches made by `banded_global` on CUDA tensors
+launches = 0
+
+
+def _shift_right(x, fill):
+    """x[:, i-1] at column i, `fill` at column 0."""
+    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], 1)
+
+
+def banded_global_plain(s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
+    """Score + traceback lattice for a batch, plain PyTorch.
+
+    s1: int32 [B, L1+1] 1-based reference windows (index 0 unused), codes
+    0..4; s2: int32 [B, L2+1] 1-based reads; len1/len2/b1/b2: int32 [B];
+    mat: the 5x5 score matrix (host ints).  Returns (score int32 [B],
+    ctype int32 [B], tb uint8 [B, L2+1, L1+1]); tb bits 0-1 Mt, 2 It,
+    3 Dt, row 0 and rows past len2 zero."""
+    dev = s1.device
+    B, L1p = s1.shape
+    L2p = s2.shape[1]
+    i_idx = torch.arange(L1p, dtype=_I32, device=dev)[None, :]
+    gend_i = gend if gend >= 0 else ge             # set_end_* fallback
+    mat_flat = torch.as_tensor(np.asarray(mat, dtype=np.int32).reshape(-1),
+                               device=dev)
+    len1, len2 = len1[:, None], len2[:, None]
+    b1, b2 = b1[:, None], b2[:, None]
+    tmp_end = torch.where(b2 < len2, b2, len2 - 1)
+    var_row = b2 == len2                 # the part-1 "last row" variant
+    negs = torch.full((B, L1p), NEG, dtype=_I32, device=dev)
+
+    # row 0 (stdaln.c:393-399): M[0,0] = 0, D over i in [1, b1-1]
+    in0 = (i_idx >= 1) & (i_idx <= b1 - 1)
+    Mp = torch.where(i_idx == 0, 0, negs)
+    Dp = torch.where(in0, -go - gend_i * i_idx, negs)
+    Ip = negs
+    tb_rows = [torch.zeros((B, L1p), dtype=torch.uint8, device=dev)]
+    for j in range(1, L2p):
+        active = j <= len2
+        part1 = j <= tmp_end
+        last_row = (j == len2) & ~var_row
+        is_var = (j == len2) & var_row
+        start = torch.where(part1 | is_var, 0, j - b2 + 1)
+        end = torch.minimum(j + b1 - 1, len1)
+        in_band = (i_idx >= start) & (i_idx <= end)
+        sub = mat_flat[(s2[:, j:j + 1] * 5 + s1).long()]
+
+        # M (set_M, stdaln.c:260-275): from the diagonal, ties M>=I, I>D
+        pm, pi, pd = (_shift_right(x, NEG) for x in (Mp, Ip, Dp))
+        m_ge_i, m_ge_d, i_gt_d = pm >= pi, pm >= pd, pi > pd
+        best = torch.where(m_ge_i, torch.where(m_ge_d, pm, pd),
+                           torch.where(i_gt_d, pi, pd))
+        Mt = torch.where(m_ge_i, torch.where(m_ge_d, FROM_M, FROM_D),
+                         torch.where(i_gt_d, FROM_I, FROM_D))
+        Mrow = torch.where(in_band & (i_idx >= 1), best + sub, NEG)
+
+        # I (set_i/set_end_i): from above; gap_end at i == 0 and at the
+        # band's right edge when it passes len1 or on the last row
+        i_end_gend = ((j + b1 - 1) > len1) | last_row
+        i_at_end = i_idx == end
+        i_ok = in_band & (~i_at_end | i_end_gend | (i_idx == 0))
+        iext = torch.where((i_idx == 0) | i_at_end, gend_i, ge)
+        from_m = (Mp - go) > Ip
+        Irow = torch.where(i_ok, torch.where(from_m, Mp - go, Ip) - iext,
+                           NEG)
+
+        # D (set_d/set_end_d): the within-row chain as a cummax
+        dext = torch.where(is_var | last_row, gend_i, ge)
+        d_ok = in_band & (i_idx >= torch.clamp(start, min=1))
+        a_from_m = _shift_right(Mrow - go, NEG)
+        U = torch.where(d_ok, a_from_m + dext * (i_idx - 1), NEG)
+        T = torch.cummax(U, dim=1).values
+        Drow = torch.where(d_ok, T - dext * i_idx, NEG)
+        # traceback: FROM_M iff M[i-1]-go > D[i-1] (stored value)
+        Dt = a_from_m > _shift_right(Drow, NEG)
+
+        Mp = torch.where(active, Mrow, Mp).to(_I32)
+        Ip = torch.where(active, Irow, Ip).to(_I32)
+        Dp = torch.where(active, Drow, Dp).to(_I32)
+        tb = Mt | (from_m.to(_I32) << 2) | (Dt.to(_I32) << 3)
+        tb_rows.append(torch.where(active, tb, 0).to(torch.uint8))
+    tb = torch.stack(tb_rows, 1)
+
+    # final cell (len2, len1) per lane: rows were frozen past len2
+    mN, iN, dN = (x.gather(1, len1.long()).squeeze(1) for x in (Mp, Ip, Dp))
+    score = mN
+    ctype = torch.full((B,), FROM_M, dtype=_I32, device=dev)
+    ctype = torch.where(iN > score, FROM_I, ctype)
+    score = torch.maximum(score, iN)
+    ctype = torch.where(dN > score, FROM_D, ctype)
+    score = torch.maximum(score, dN)
+    return score, ctype.to(_I32), tb
+
+
+def banded_global_cuda(s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
+    """`banded_global` on CUDA tensors through the kernel in
+    csrc/banded_global.cu; same contract as `banded_global_plain`."""
+    global launches
+    dev = s1.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    _build.require(s1, "s1", dev, 2)
+    _build.require(s2, "s2", dev, 2)
+    B, L1p = s1.shape
+    L2p = s2.shape[1]
+    if s2.shape[0] != B:
+        raise ValueError(f"s2: {s2.shape[0]} rows, expected {B}")
+    for name, t in (("len1", len1), ("len2", len2), ("b1", b1), ("b2", b2)):
+        _build.require(t, name, dev, 1)
+        if t.shape[0] != B:
+            raise ValueError(f"{name}: {t.shape[0]} rows, expected {B}")
+    mat = np.asarray(mat, dtype=np.int64).reshape(-1)
+    if mat.size != 25:
+        raise ValueError(f"mat: {mat.size} values, expected 25")
+    score = torch.empty(B, dtype=_I32, device=dev)
+    ctype = torch.empty(B, dtype=_I32, device=dev)
+    tb = torch.empty((B, L2p, L1p), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return score, ctype, tb
+    scratch = torch.empty((3, L1p, B), dtype=_I32, device=dev)
+    params = _build.i32_params([go, ge, gend] + mat.tolist())
+    rc = _build.lib().nabwa_banded_global(
+        params, s1.data_ptr(), s2.data_ptr(), len1.data_ptr(),
+        len2.data_ptr(), b1.data_ptr(), b2.data_ptr(), B, L1p - 1, L2p - 1,
+        scratch.data_ptr(), tb.data_ptr(), score.data_ptr(),
+        ctype.data_ptr(), _build.stream_of(s1))
+    _build.check(rc, "banded_global kernel launch")
+    launches += 1
+    return score, ctype, tb
+
+
+def banded_global(s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
+    """Score, end type and traceback lattice of a batch: the plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    kw = dict(go=go, ge=ge, gend=gend)
+    if s1.device.type == "cpu":
+        return banded_global_plain(s1, len1, s2, len2, b1, b2, mat, **kw)
+    if s1.device.type == "cuda":
+        return banded_global_cuda(s1, len1, s2, len2, b1, b2, mat, **kw)
+    raise ValueError(f"banded_global: no kernel for device {s1.device}")
+
+
+def pack_pairs(pairs, band_widths, device):
+    """The kernel inputs of non-empty pairs [(seq1, seq2), ...] as int32
+    tensors on `device`: 1-based padded sequences, lengths, and the band
+    limits b1/b2 clamped to the lengths (nabwa_tpu/ops/dp.py:233-244).
+    band_widths: one band width per pair."""
+    B = len(pairs)
+    L1 = max(len(a) for a, _ in pairs)
+    L2 = max(len(b) for _, b in pairs)
+    s1 = np.zeros((B, L1 + 1), dtype=np.int32)
+    s2 = np.zeros((B, L2 + 1), dtype=np.int32)
+    len1 = np.array([len(a) for a, _ in pairs], dtype=np.int32)
+    len2 = np.array([len(b) for _, b in pairs], dtype=np.int32)
+    for bi, (a, b) in enumerate(pairs):
+        s1[bi, 1:len(a) + 1] = a
+        s2[bi, 1:len(b) + 1] = b
+    bw = np.asarray(band_widths, dtype=np.int64)
+    b1 = np.where(len1 > len2, len1 - len2 + bw, bw)
+    b2 = np.where(len1 > len2, bw, len2 - len1 + bw)
+    b1 = np.minimum(b1, len1).astype(np.int32)
+    b2 = np.minimum(b2, len2).astype(np.int32)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return dict(s1=put(s1), len1=put(len1), s2=put(s2), len2=put(len2),
+                b1=put(b1), b2=put(b2))
+
+
+def _todo(pairs):
+    """Indices of the non-empty pairs; the results list with the empty
+    ones answered like the C (stdaln.c:351-352)."""
+    res = [None] * len(pairs)
+    todo = []
+    for i, (a, b) in enumerate(pairs):
+        if len(a) == 0 or len(b) == 0:
+            res[i] = (0, [])
+        else:
+            todo.append(i)
+    return res, todo
+
+
+def banded_global_batch(pairs, ap, device, band_widths=None, seconds=None):
+    """Batched aln_global_core on `device`: pairs = [(seq1, seq2), ...]
+    (uint8 codes).  Returns [(score, path), ...] exactly like the scalar
+    oracle.  band_widths, when given, overrides ap.band_width per pair.
+    seconds, when given, gets host seconds added under "dp" (packing, the
+    copy to the device and the DP to its end) and "dp_backtrace" (the
+    lattice copy back and the backtrace walks)."""
+    device = torch.device(device)
+    res, todo = _todo(pairs)
+    for start in range(0, len(todo), MAX_PAIRS):
+        part = todo[start:start + MAX_PAIRS]
+        t0 = time.perf_counter()
+        bws = [ap.band_width if band_widths is None else band_widths[i]
+               for i in part]
+        args = pack_pairs([pairs[i] for i in part], bws, device)
+        score, ctype, tb = banded_global(
+            **args, mat=ap.matrix, go=int(ap.gap_open), ge=int(ap.gap_ext),
+            gend=int(ap.gap_end))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        score = score.cpu().numpy()
+        ctype = ctype.cpu().numpy()
+        tb = tb.cpu().numpy()
+        for bi, idx in enumerate(part):
+            a, b = pairs[idx]
+            res[idx] = (int(score[bi]),
+                        _backtrace(tb[bi], int(ctype[bi]), len(a), len(b)))
+        if seconds is not None:
+            seconds["dp"] += t1 - t0
+            seconds["dp_backtrace"] += time.perf_counter() - t1
+    return res
+
+
+def banded_global_native(pairs, ap, band_widths=None, seconds=None):
+    """The host reference route of `banded_global_batch`: the shared
+    native aln_global_core (native/stdaln.cpp) for every non-empty pair,
+    its ctype sequence rebuilt into the oracle's path.  seconds gets the
+    native calls under "dp" and the path rebuilds under "dp_backtrace"."""
+    res, todo = _todo(pairs)
+    t_dp = t_path = 0.0
+    for i in todo:
+        a, b = pairs[i]
+        bw = ap.band_width if band_widths is None else band_widths[i]
+        t0 = time.perf_counter()
+        out = host.native.aln_global_native(
+            a, b, ap.matrix, ap.row, ap.gap_open, ap.gap_ext, ap.gap_end, bw)
+        if out is None:
+            raise RuntimeError("native library unavailable for "
+                               "aln_global_core")
+        t1 = time.perf_counter()
+        res[i] = (out[0], _path_from_ctypes(out[1], len(a), len(b)))
+        t_dp += t1 - t0
+        t_path += time.perf_counter() - t1
+    if seconds is not None:
+        seconds["dp"] += t_dp
+        seconds["dp_backtrace"] += t_path
+    return res
+
+
+# Host backtrace and path rebuild: copies of nabwa_tpu/ops/dp.py:163-182
+# and :596-621, whose module imports jax.
+
+def _path_from_ctypes(cts, len1, len2):
+    """Rebuild the scalar oracle's [(ctype, i, j)] last-to-first path from
+    the native kernels' ctype byte sequence (each entry's coordinates are
+    the previous entry's moved by its ctype, starting at (len1, len2))."""
+    path = []
+    i, j = len1, len2
+    prev = None
+    for ct in cts:
+        ct = int(ct)
+        if prev is not None:
+            if prev == FROM_M:
+                i -= 1
+                j -= 1
+            elif prev == FROM_I:
+                j -= 1
+            else:
+                i -= 1
+        path.append((ct, i, j))
+        prev = ct
+    return path
+
+
+def _backtrace(tb, ctype, len1, len2):
+    """Host backtrace matching stdaln.c:487-514 / the scalar oracle."""
+    i, j = len1, len2
+    typ = _tb_type(tb[j, i], ctype)
+    path = [(ctype, i, j)]
+    while i or j:
+        if ctype == FROM_M:
+            i -= 1
+            j -= 1
+        elif ctype == FROM_I:
+            j -= 1
+        else:
+            i -= 1
+        ctype = typ
+        if i or j:
+            typ = _tb_type(tb[j, i], typ)
+            path.append((ctype, i, j))
+    return path
+
+
+def _tb_type(cell, ctype):
+    if ctype == FROM_M:
+        return cell & 3
+    if ctype == FROM_I:
+        return FROM_M if (cell >> 2) & 1 else FROM_I
+    return FROM_M if (cell >> 3) & 1 else FROM_D

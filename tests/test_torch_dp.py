@@ -1,0 +1,145 @@
+"""The port's banded global DP (`nabwa_tpu_torch.ops.dp`) against the JAX
+package on the CPU: `banded_global_plain` against
+`nabwa_tpu.ops.dp._banded_global_device` (score, end type and the whole
+traceback lattice), `banded_global_batch` and the host reference route
+against the scalar oracle `refmodel.stdaln_scalar.aln_global_core`, and
+kernel C4's per-pair source built for the host against the plain version.
+
+Pairs are drawn with numpy from fixed seeds: random windows and mutated
+reads of unequal lengths both ways, N codes in the read, and degenerate
+lengths (1 x 1, 0 x n, n x 0).  The parameter sets are those of
+tests/test_dp_device.py, gap_end < 0 (the fallback to gap_ext) among them.
+Integer outputs, so the tolerance is exact equality.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nabwa_tpu.ops import dp as jdp
+from nabwa_tpu.refmodel.stdaln_scalar import (ALN_PARAM_BWA, ALN_SM_BLAST,
+                                              ALN_SM_MAQ, AlnParam,
+                                              aln_global_core)
+from nabwa_tpu_torch.ops import dp as tdp
+
+from . import test_torch_host_kernels
+
+PARAMS = [
+    (11, ALN_PARAM_BWA),
+    (12, AlnParam(26, 9, 5, ALN_SM_MAQ, 5, 13)),      # narrow band
+    (13, AlnParam(5, 2, 2, ALN_SM_BLAST, 5, 50)),     # blast params
+    (14, AlnParam(26, 9, -1, ALN_SM_MAQ, 5, 50)),     # gap_end < 0
+]
+
+
+def _mutate(rng, seq, err, ins, dele):
+    out = []
+    for c in seq:
+        r = rng.random()
+        if r < dele:
+            continue
+        if r < dele + ins:
+            out.append(rng.integers(0, 4))
+        out.append((c + rng.integers(1, 4)) % 4 if rng.random() < err
+                   else c)
+    return np.array(out, dtype=np.uint8)
+
+
+def _pairs(seed, n=24):
+    """Random (window, read) pairs, both length orders, N codes, and the
+    degenerate 1 x 1 pair."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(n):
+        ref = rng.integers(0, 4, size=int(rng.integers(5, 90)))
+        ref = ref.astype(np.uint8)
+        read = _mutate(rng, ref, 0.05, 0.04, 0.04)
+        if len(read) == 0:
+            read = ref[:1].copy()
+        if rng.random() < 0.5 and len(read) > 2:
+            read[rng.integers(0, len(read))] = 4
+        pairs.append((ref, read))
+    pairs.append((pairs[0][1].clip(0, 3), pairs[0][0]))
+    pairs.append((pairs[1][0][:3], pairs[1][1]))     # window much shorter
+    pairs.append((np.array([1], np.uint8), np.array([1], np.uint8)))
+    return pairs
+
+
+def _packed(pairs, ap):
+    return tdp.pack_pairs(pairs, [ap.band_width] * len(pairs), "cpu")
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    return test_torch_host_kernels.build(tmp_path_factory.mktemp("hk"))
+
+
+@pytest.mark.parametrize("seed,ap", PARAMS)
+def test_plain_matches_jax_lattice(seed, ap):
+    args = _packed(_pairs(seed), ap)
+    kw = dict(go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)
+    score, ctype, tb = tdp.banded_global_plain(**args, mat=ap.matrix, **kw)
+    j = {k: jnp.asarray(v.numpy()) for k, v in args.items()}
+    want = jdp._banded_global_device(
+        j["s1"], j["len1"], j["s2"], j["len2"], j["b1"], j["b2"],
+        jnp.asarray(np.asarray(ap.matrix, dtype=np.int32)), **kw)
+    np.testing.assert_array_equal(score.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(ctype.numpy(), np.asarray(want[1]))
+    assert tb.dtype == torch.uint8
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("seed,ap", PARAMS)
+def test_kernel_source_on_host_matches_plain(host_kernels, seed, ap):
+    args = _packed(_pairs(seed + 100), ap)
+    kw = dict(go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)
+    plain = tdp.banded_global_plain(**args, mat=ap.matrix, **kw)
+    got = test_torch_host_kernels.banded_global(
+        host_kernels, **{k: v.numpy() for k, v in args.items()},
+        mat=ap.matrix, **kw)
+    for g, p in zip(got, plain):
+        np.testing.assert_array_equal(g, p.numpy())
+
+
+@pytest.mark.parametrize("seed,ap", PARAMS)
+def test_batch_paths_match_oracle(seed, ap):
+    """banded_global_batch (plain DP, split into several device batches)
+    and the host reference route against the scalar oracle, zero-length
+    pairs included."""
+    pairs = _pairs(seed + 200)
+    pairs.append((np.array([], np.uint8), np.array([2], np.uint8)))
+    pairs.insert(3, (np.array([1, 2], np.uint8), np.array([], np.uint8)))
+    want = []
+    for a, b in pairs:
+        score, path = aln_global_core(a, b, ap)
+        want.append((score, [(int(c), int(x), int(y)) for c, x, y in path]))
+    old = tdp.MAX_PAIRS
+    tdp.MAX_PAIRS = 7
+    try:
+        got = tdp.banded_global_batch(pairs, ap, "cpu")
+    finally:
+        tdp.MAX_PAIRS = old
+    assert got == want
+    assert tdp.banded_global_native(pairs, ap) == want
+
+
+def test_batch_band_widths_and_seconds():
+    pairs = _pairs(15)
+    bws = [5 + (i % 7) for i in range(len(pairs))]
+    secs = {"dp": 0.0, "dp_backtrace": 0.0}
+    got = tdp.banded_global_batch(pairs, ALN_PARAM_BWA, "cpu",
+                                  band_widths=bws, seconds=secs)
+    ref = tdp.banded_global_native(pairs, ALN_PARAM_BWA, band_widths=bws)
+    assert got == ref
+    assert secs["dp"] > 0 and secs["dp_backtrace"] > 0
+
+
+def test_dispatch_and_kernel_checks():
+    args = _packed(_pairs(16, n=4), ALN_PARAM_BWA)
+    kw = dict(mat=ALN_PARAM_BWA.matrix, go=26, ge=9, gend=5)
+    with pytest.raises(ValueError):           # the kernel takes CUDA only
+        tdp.banded_global_cuda(**args, **kw)
+    meta = {k: v.to("meta") for k, v in args.items()}
+    with pytest.raises(ValueError):
+        tdp.banded_global(**meta, **kw)

@@ -1,8 +1,8 @@
 """The port's CUDA kernel source built for the host, for the CPU tests.
 
 `nabwa_tpu_torch/csrc/host_harness.cpp` runs the kernels' NABWA_HD
-per-row code (cal_width_row of C2, dfs_read of C1) with the kernels'
-argument layouts.  g++ builds it here, so the tests can hold the kernel
+per-row code (dfs_read of C1, cal_width_row of C2, sa_lookup_row of C3,
+banded_global_pair of C4) with the kernels' argument layouts.  g++ builds it here, so the tests can hold the kernel
 source itself, not only its plain PyTorch version, against the JAX
 package on a machine without a GPU.
 """
@@ -30,8 +30,13 @@ def build(out_dir):
     lib.nabwa_host_cal_width.argtypes = [_U32P, _P, _P, _P, _I, _I, _P, _P]
     lib.nabwa_host_dfs.argtypes = [_U32P] + [_P] * 12 + [_I]
     lib.nabwa_host_occ4.argtypes = [_P, ctypes.c_uint32, _P, _I, _P]
+    lib.nabwa_host_sa_lookup.argtypes = [_U32P, _P, _P, ctypes.c_uint32, _P,
+                                         _I, _P]
+    lib.nabwa_host_banded_global.argtypes = (
+        [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 3 + [_P] * 3)
     for fn in (lib.nabwa_host_occ4, lib.nabwa_host_cal_width,
-               lib.nabwa_host_dfs):
+               lib.nabwa_host_dfs, lib.nabwa_host_sa_lookup,
+               lib.nabwa_host_banded_global):
         fn.restype = _I
     return lib
 
@@ -86,3 +91,34 @@ def dfs(lib, bwt_cat, rev_word_offset, primary_fwd, primary_rev, l2,
     lib.nabwa_host_dfs(params, *[_ptr(a) for a in arrs], _ptr(slots),
                        _ptr(planes), _ptr(out), B)
     return out
+
+
+def sa_lookup(lib, bank, l2, primary, seq_len, sa, sa_intv, rows):
+    """C3's per-row code on numpy arrays: uint32 [n] positions."""
+    bank = np.ascontiguousarray(bank, dtype=np.uint32)
+    sa = np.ascontiguousarray(sa, dtype=np.uint32)
+    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    out = np.empty(len(rows), dtype=np.uint32)
+    lib.nabwa_host_sa_lookup(
+        _build.u32_params(list(l2[:5]) + [primary, seq_len]), _ptr(bank),
+        _ptr(sa), int(sa_intv), _ptr(rows), len(rows), _ptr(out))
+    return out
+
+
+def banded_global(lib, s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
+    """C4's per-pair code on numpy arrays: (score, ctype) int32 [B] and
+    the uint8 [B, L2+1, L1+1] lattice."""
+    s1, s2 = _arr(s1), _arr(s2)
+    cols = [_arr(a) for a in (len1, len2, b1, b2)]
+    B, L1p = s1.shape
+    L2p = s2.shape[1]
+    tb = np.empty((B, L2p, L1p), dtype=np.uint8)
+    score = np.empty(B, dtype=np.int32)
+    ctype = np.empty(B, dtype=np.int32)
+    params = _build.i32_params(
+        [go, ge, gend] + np.asarray(mat).reshape(-1).tolist())
+    lib.nabwa_host_banded_global(
+        params, _ptr(s1), _ptr(s2), *[_ptr(a) for a in cols], B, L1p - 1,
+        L2p - 1, _ptr(tb), _ptr(score), _ptr(ctype))
+    return score, ctype, tb
+
