@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
-"""On-card smoke run of nabwa_tpu_torch, the `aln` and `samse` paths on one
-NVIDIA GPU.
+"""On-card smoke run of nabwa_tpu_torch, the `aln`, `samse` and `sampe`
+paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--glen BP] [--reads N] [--batch B]
+    python3 chip_smoke.py [--glen BP] [--reads N] [--pairs N] [--batch B]
                           [--retry-stack S] [--profile]
 
-Run from the root of a checkout.  It imports the port (`nabwa_tpu_torch`,
-whose `host` module holds every host piece it shares with the reference
-package), `tests/genomes.py` and the standard library.  Phases, any
-failure exits non-zero:
+Run from the root of a checkout.  It imports the port (`nabwa_tpu_torch`),
+`tests/genomes.py` and the standard library, never the JAX package.
+Phases, any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi) and the nvcc build of the
    kernels from csrc/ (seconds, ptxas register report);
@@ -45,15 +44,48 @@ failure exits non-zero:
    command: `aln --device cuda` (its `.sai` equal to the host engine's,
    C1 and C2 launched), then `samse --device cuda` (its SAM equal to the
    host reference route's, C3 and C4 launched);
+9. a paired read set on the same genome: 32768 pairs x 100 bp, insert
+   size 300 +- 30, 1 % substitutions and 10 % broken mates (half with
+   every second base of read 2 replaced, half with read 2 moved far; the
+   pair model of tests/test_sampe.py, seed 102), of which the last 1/64
+   are mates only the rescue places (read 2 with three seed substitutions
+   against its true place and an exact copy on a decoy contig of the
+   genome, as tests/test_torch_sampe.py builds them); both ends aligned
+   by the host engine;
+10. sampe on that set, on the host reference route (native SA walk,
+   local SW and DP) and on the card (C3, C4, C5), recording the arguments
+   of every C5 and C4 launch of the card run: pairs/s and host seconds
+   per part of each;
+11. kernel C5 (csrc/local_fwd.cu) against the plain PyTorch local-SW
+   forward pass, and C4 against its plain DP, on every launch recorded in
+   phase 10: the rescue's forward rounds, its path recovery (per-pair
+   bands doubled on retry, gap_end -1) and any refine batch; every output
+   exact.  Then the two routes' SAM must be byte-identical, and the
+   rescue must have placed (XT:A:M) at least half as many mates as were
+   built for it;
+12. the CLI chain on the pairs, every launch count at 0 before each
+   command: `aln --device cuda` on each end (each `.sai` equal to the host
+   engine's, C1 and C2 launched), then `sampe --device cuda` (its SAM
+   equal to the host reference route's, C3, C4 and C5 launched).  This is
+   the slice's main path: its launch counts are the `launches` of the
+   kernels line.
 With --profile, torch.profiler runs over one more aln run after phase 4's
 timed run: the card's busy share and the device time of each kernel.
+
+Every kernel's `bound_ms` is the least time the card could take for the
+same work on this run's inputs: the larger of the bytes it must move over
+HBM_BYTES_PER_S and its integer operations over INT_OPS_PER_S (see
+`bound`).  No single PyTorch call computes any of the five functions, so
+`library_ms` is null for each.  C4's and C5's `ms` and `plain_ms` are
+those of the largest launch of sampe's card run; C4's on samse's refine
+batch of phase 6 stand beside them as `samse_refine_*`.
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
 {"ok": true, "device": {...}}; the line before them holds the kernels'
-launch counts, errors and times.  Nothing is printed on standard output
-before the run has passed, and nothing at all without a CUDA device or
-outside a checkout.
+launch counts, errors, times and bounds.  Nothing is printed on standard
+output before the run has passed, and nothing at all without a CUDA device
+or outside a checkout.
 """
 
 import argparse
@@ -68,6 +100,31 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 MAX_HOST_SHARE = 0.20
 CHECK_B = 2048
+# one pair in RESCUE_SHARE of phase 9's set is a mate only the rescue places
+RESCUE_SHARE = 64
+# NVIDIA H100 SXM datasheet figures: HBM bandwidth,
+# and the float32 rate outside the tensor cores, the sheet's only 32-bit
+# non-tensor rate, taken for int32 operations too.  Hopper has half as many
+# int32 lanes as float32 lanes, so the operations bound is optimistic.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12
+# integer operations counted per unit of work, from the kernels' sources
+OPS_LOCAL_CELL = 14       # csrc/local_sw.cuh, one cell of the sweep
+OPS_GLOBAL_CELL = 40      # csrc/dp_global.cuh, one cell of the padded row
+OPS_OCC_BLOCK = 40        # one Occ block's count (masks and popcounts)
+OCC_BLOCK_BYTES = 48      # bwt.h:61-68, 4 counters + 8 words
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of the bytes' time at the HBM rate
+    and the operations' time at the integer rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def log(msg):
@@ -104,35 +161,108 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def make_data(glen, n_reads):
-    """Genome, index, the bench reads and the gapped reads (cached by size
-    and seed): 100 bp reads at 1 % substitutions, seed 100, and the same
-    with a 1-base indel in half the reads, seed 101."""
-    from nabwa_tpu_torch import host
+def make_pairs(genome, n_pairs, n_rescue, read_len, isize_mean, isize_std,
+               seed, err_rate, frac_broken):
+    """FASTQ text of both ends and a decoy contig's FASTA text, drawn in
+    bulk with numpy.  The first n_pairs - n_rescue pairs follow the pair
+    model of tests/test_sampe.py:18-49 (FR pairs, substitutions in both
+    reads, a fraction of broken mates: half with every second base of read
+    2 replaced, half with read 2 moved far).  The last n_rescue pairs are
+    mates that only the rescue places, built as tests/test_torch_sampe.py
+    builds them: read 2 carries three substitutions in its 32-base seed
+    against its true place (more than aln's -k 2 allows) and an exact copy
+    on the decoy contig, so aln maps it there and the rescue finds it
+    beside read 1 (XT:A:M)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    g = np.frombuffer(genome, dtype=np.uint8)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.arange(256, dtype=np.uint8)
+    comp[bases] = np.frombuffer(b"TGCA", np.uint8)
+    code = np.zeros(256, dtype=np.int64)
+    code[bases] = np.arange(4)
+    n, col = n_pairs, np.arange(read_len)
+    isize = np.maximum(rng.normal(isize_mean, isize_std, n).astype(np.int64),
+                       read_len + 10)
+    start = (rng.random(n) * (len(g) - isize - 1)).astype(np.int64)
+    r1 = g[start[:, None] + col]
+    r2 = comp[g[(start + isize - read_len)[:, None] + col]][:, ::-1].copy()
+    for r in (r1, r2):
+        err = rng.random(r.shape) < err_rate
+        r[err] = bases[rng.integers(0, 4, int(err.sum()))]
+    broken = (rng.random(n) < frac_broken) & (np.arange(n) < n - n_rescue)
+    scrambled = broken & (rng.random(n) < 0.5)
+    far = broken & ~scrambled
+    odd = np.ix_(np.nonzero(scrambled)[0], col[0::2])
+    r2[odd] = bases[rng.integers(0, 4, r2[odd].shape)]
+    at = rng.integers(0, len(g) - read_len, int(far.sum()))
+    r2[far] = g[at[:, None] + col]
+    resc = np.arange(n - n_rescue, n)[:, None]
+    seed_col = np.argsort(rng.random((n_rescue, 32)), axis=1)[:, :3]
+    r2[resc, seed_col] = bases[(code[r2[resc, seed_col]]
+                                + rng.integers(1, 4, seed_col.shape)) % 4]
+    spacer = bases[rng.integers(0, 4, (n_rescue + 1, 150))]
+    decoy = np.concatenate([np.concatenate([spacer[:-1], r2[resc[:, 0]]],
+                                           1).reshape(-1), spacer[-1]])
+    decoy_fa = b">decoy\n" + b"".join(decoy[i:i + 70].tobytes() + b"\n"
+                                      for i in range(0, len(decoy), 70))
+    quals = (33 + rng.integers(25, 40, (2, n, read_len))).astype(np.uint8)
+    out = []
+    for end, r in ((1, r1), (2, r2)):
+        rows, q = r.tobytes(), quals[end - 1].tobytes()
+        out.append(b"".join(
+            b"@pair%d/%d\n%s\n+\n%s\n" % (i, end,
+                                           rows[i * read_len:(i + 1)
+                                                * read_len],
+                                           q[i * read_len:(i + 1) * read_len])
+            for i in range(n)))
+    return out, decoy_fa
+
+
+def make_data(glen, n_reads, n_pairs):
+    """Genome, index, the bench reads, the gapped reads and the read pairs
+    (cached by size and seed): a random contig of glen bp (seed 99) and the
+    decoy contig of the pairs; 100 bp reads from the random contig at 1 %
+    substitutions, seed 100, the same with a 1-base indel in half the
+    reads, seed 101, and pairs of 100 bp reads, insert size 300 +- 30, 1 %
+    substitutions, 10 % broken mates and 1/64 of the pairs rescued from
+    the decoy, seed 102."""
+    from nabwa_tpu_torch.index.build import build_index
     from tests import genomes
-    work = pathlib.Path(tempfile.gettempdir()) / f"nabwa_torch_smoke_{glen}"
+    work = pathlib.Path(tempfile.gettempdir()) / \
+        f"nabwa_torch_smoke_{glen}_{n_pairs}"
     work.mkdir(parents=True, exist_ok=True)
     fa = work / "g.fa"
     fqs = {work / f"r{n_reads}.fq": dict(seed=100),
            work / f"r{n_reads}_gapped.fq": dict(seed=101, indel_rate=0.5)}
-    if not (work / "g.fa.rsa").exists() or not all(p.exists() for p in fqs):
+    pe = [work / f"p{n_pairs}_{end}.fq" for end in (1, 2)]
+    if not (work / "g.fa.rsa").exists() or \
+            not all(p.exists() for p in [*fqs, *pe]):
         t0 = time.perf_counter()
         text, seqs = genomes.random_genome(glen, seed=99)
+        pairs, decoy = make_pairs(seqs[0], n_pairs, n_pairs // RESCUE_SHARE,
+                                  100, 300, 30, 102, 0.01, 0.10)
+        for path, fq in zip(pe, pairs):
+            path.write_bytes(fq)
         if not (work / "g.fa.rsa").exists():
-            fa.write_bytes(text)
+            fa.write_bytes(text + decoy)
             # SA-IS at every size: the same index as the blockwise
             # incremental construction, built faster when memory is
             # plentiful
             os.environ.setdefault("NABWA_BWT_INC", "0")
-            host.build_index(str(fa))
+            build_index(str(fa))
         for fq, kw in fqs.items():
             fq.write_bytes(genomes.sample_reads(seqs[0], n_reads, 100,
                                                 err_rate=0.01, **kw))
-        log(f"genome + index + reads: {time.perf_counter() - t0:.1f} s")
-    return (fa, *fqs)
+        log(f"genome + index + reads + pairs: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return (fa, *fqs, *pe)
 
 
 def check_cal_width(eng, inputs):
+    """C2 against the plain version; returns (max |err|, kernel ms, plain
+    ms, bound) with the timed call's bound: its inputs and outputs and two
+    Occ blocks a read position (the counts at k-1 and l)."""
     import torch
     from nabwa_tpu_torch.ops import occ
     ix = eng.dev
@@ -150,22 +280,29 @@ def check_cal_width(eng, inputs):
                 worst = max(worst, int((a.long() - b.long()).abs().max()))
                 n_cmp += a.numel()
     q = inputs["seqs"][:, 0, :].contiguous()
-    args = (ix.bwt_fwd, ix.l2, ix.primary_fwd, ix.seq_len, q,
-            inputs["lengths"])
+    ln = inputs["lengths"]
+    args = (ix.bwt_fwd, ix.l2, ix.primary_fwd, ix.seq_len, q, ln)
     ms = cuda_ms(lambda: occ.cal_width_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: occ.cal_width_plain(*args), 2)
+    width, bid = occ.cal_width_cuda(*args)
+    steps = int(ln.long().sum())
+    bnd = bound(nbytes(q, ln, width, bid) + 2 * OCC_BLOCK_BYTES * steps,
+                2 * OPS_OCC_BLOCK * steps)
     log(f"C2 cal_width: {q.shape[0]} reads x 2 strands, reads and seed "
         f"suffixes, max |err| {worst} over {n_cmp} values; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.2f} ms per call at {tuple(q.shape)}")
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms per call at "
+        f"{tuple(q.shape)}; bound {bnd[0]:.5f} ms ({bnd[1]})")
     if worst != 0:
         fail("cal_width kernel disagrees with the plain version")
-    return worst, ms, plain_ms
+    return worst, ms, plain_ms, bnd
 
 
 def check_dfs(eng, inputs, statics, tier):
     """C1 against the plain DFS on one batch of the engine's own inputs.
     The width planes come from the plain cal_width, so C1 is checked on
-    its own.  Returns (max |err|, kernel ms, plain ms, flagged rows)."""
+    its own.  Returns (max |err|, kernel ms, plain ms, flagged rows,
+    bound); the bound counts the inputs and output and, for every pop the
+    reads took, one 2occ4 (two Occ blocks)."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.ops import dfs, dfs_cuda, occ
@@ -197,55 +334,86 @@ def check_dfs(eng, inputs, statics, tier):
     k = kern.cpu().numpy()
     flagged = np.nonzero(k[:, 4 * H + 2])[0]
     iters = k[:, 4 * H + 4]
+    pops = int(iters.astype(np.int64).sum())
+    bnd = bound(nbytes(seqs, lens, *planes, inputs["has_seed"],
+                       inputs["max_diff"], kern)
+                + 2 * OCC_BLOCK_BYTES * pops, 2 * OPS_OCC_BLOCK * pops)
     hits_full = int((k[flagged, 4 * H] >= H).sum())
     at_cap = int((iters[flagged] >= cap).sum())
     log(f"C1 dfs, {tier}: {B} reads (L={L}, S={S}, H={H}, max_iters={cap}), "
         f"max |err| {worst} over hits/n_aln/hw/overflow; {len(flagged)} "
         f"flagged ({hits_full} hit list full, {at_cap} iteration cap, "
         f"{len(flagged) - hits_full - at_cap} slot pool or seq counter); "
-        f"most iterations of a read {int(iters.max())}; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms")
+        f"most iterations of a read {int(iters.max())}, {pops} in all; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
     if worst != 0:
         bad = np.nonzero(diff.any(1).cpu().numpy())[0][:5]
         fail(f"dfs kernel disagrees with the plain version, {tier} "
              f"(rows {bad})")
-    return worst, ms, plain_ms, flagged
+    return worst, ms, plain_ms, flagged, bnd
 
 
 def native_reference(idx, reads, opt):
     """The .sai of the shared host engine (native/dfsgap.cpp)."""
-    from nabwa_tpu_torch import host
+    from nabwa_tpu_torch.index import native
     from nabwa_tpu_torch.models.aln import batch_options
     maxdiff, local = batch_options(opt, reads.clip_lens().astype("int32"))
     t0 = time.perf_counter()
-    res = host.native.dfs_match_gap_native(
+    res = native.dfs_match_gap_native(
         idx.fwd.bwt, idx.fwd.primary, idx.rev.bwt, idx.rev.primary,
         idx.fwd.l2, idx.fwd.seq_len, reads, maxdiff, local)
     dt = time.perf_counter() - t0
-    if res is None:
-        fail("the native host engine is unavailable")
-    return opt.pack() + host.sai_block(res), dt
+    return opt.pack() + native_block(res), dt
+
+
+def native_block(results):
+    """The `.sai` records of a chunk's [(alns, hw), ...] results."""
+    from nabwa_tpu_torch.io.sai import pack_aln_block
+    return pack_aln_block([alns for alns, _ in results])
 
 
 def sai_columns(sai_bytes):
     """The per-read alignments of a `.sai` as the CLI reads them
     (columnar)."""
-    from nabwa_tpu_torch import host
+    from nabwa_tpu_torch.io.sai import read_sai_columnar
     path = pathlib.Path(tempfile.gettempdir()) / "nabwa_torch_smoke_cols.sai"
     path.write_bytes(sai_bytes)
-    return host.read_sai_columnar(str(path))[1]
+    return read_sai_columnar(str(path))[1]
+
+
+def walk_steps(bank, l2, primary, seq_len, sa_intv, rows):
+    """invPsi steps each row takes to a sampled row (the loop of the plain
+    sa_lookup, counting only)."""
+    import torch
+    from nabwa_tpu_torch.ops import occ
+    from nabwa_tpu_torch.ops import sa_lookup as sl
+    l2v = torch.tensor([int(v) & occ.M32 for v in l2], dtype=torch.int64,
+                       device=rows.device)
+    k = occ.u32(rows)
+    steps = torch.zeros_like(k)
+    while True:
+        live = (k % sa_intv) != 0
+        if not bool(live.any()):
+            return steps
+        nk = sl.inv_psi(bank, l2v, int(primary) & occ.M32,
+                        int(seq_len) & occ.M32, k)
+        k = torch.where(live, nk, k)
+        steps += live.long()
 
 
 def check_sa_lookup(eng, idx, reads, sai_bytes):
     """C3 against the plain version and the native host walk on every SA
-    row samse asks for on this `.sai`, both strands."""
+    row samse asks for on this `.sai`, both strands.  The timed call's
+    bound counts its rows and positions, the sample it reads and one Occ
+    block for every invPsi step its rows take."""
     import numpy as np
     import torch
-    from nabwa_tpu_torch import host
     from nabwa_tpu_torch.models import samse as msamse
     from nabwa_tpu_torch.ops import sa_lookup as sl
+    from nabwa_tpu_torch.utils.rand48 import Rand48
     ch = msamse.select(reads, sai_columns(sai_bytes), 3,
-                       host.Rand48(idx.bns.seed))
+                       Rand48(idx.bns.seed))
     ix = eng.dev
     worst, n_rows, timed = 0, 0, None
     for a, _, _, rows in msamse.sa_requests(ch):
@@ -265,28 +433,34 @@ def check_sa_lookup(eng, idx, reads, sai_bytes):
             int(np.abs(got - nat).max()))
         n_rows += len(rows)
         if timed is None or len(rows) > timed[0]:
+            steps = int(walk_steps(*args[:4], ix.sa_intv, args[6]).sum())
+            bnd = bound(12 * len(rows) + OCC_BLOCK_BYTES * steps,
+                        OPS_OCC_BLOCK * steps)
             timed = (len(rows), cuda_ms(lambda: sl.sa_lookup_cuda(*args),
-                                        20), plain_ms)
+                                        20), plain_ms, bnd, steps)
     log(f"C3 sa_lookup: {n_rows} SA rows of samse on the bench .sai, both "
         f"strands, max |err| {worst} against the plain version and the "
         f"native walk; kernel {timed[1]:.4f} ms, plain {timed[2]:.2f} ms "
-        f"per call at {timed[0]} rows")
+        f"per call at {timed[0]} rows ({timed[4]} invPsi steps); bound "
+        f"{timed[3][0]:.5f} ms ({timed[3][1]})")
     if worst != 0:
         fail("sa_lookup kernel disagrees with the plain version or the "
              "native walk")
-    return worst, timed[1], timed[2], n_rows
+    return worst, timed[1], timed[2], n_rows, timed[3]
 
 
 def check_banded_global(eng, idx, reads, sai_bytes, opt):
     """C4 against the plain version on the first device batch of the
     refine jobs samse makes on this `.sai`: score, ctype and the whole
-    traceback lattice."""
+    traceback lattice.  The bound counts the inputs, the lattice and every
+    cell of the padded rows the kernel computes."""
     import torch
-    from nabwa_tpu_torch import host
     from nabwa_tpu_torch.models import samse as msamse
     from nabwa_tpu_torch.ops import dp
+    from nabwa_tpu_torch.refmodel.stdaln_scalar import ALN_PARAM_BWA
+    from nabwa_tpu_torch.utils.rand48 import Rand48
     ch = msamse.select(reads, sai_columns(sai_bytes), 3,
-                       host.Rand48(idx.bns.seed))
+                       Rand48(idx.bns.seed))
     msamse.sa_coords(eng, ch, host_reference=True)
     msamse.approx_mapq(ch, opt)
     jobs = msamse.gapped_jobs(ch)
@@ -294,7 +468,7 @@ def check_banded_global(eng, idx, reads, sai_bytes, opt):
     pairs = [p for p in pairs if len(p[0]) and len(p[1])][:dp.MAX_PAIRS]
     if not pairs:
         fail("the gapped read set gave no refine jobs")
-    ap = host.ALN_PARAM_BWA
+    ap = ALN_PARAM_BWA
     args = dp.pack_pairs(pairs, [ap.band_width] * len(pairs), eng.device)
     kw = dict(mat=ap.matrix, go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)
     kern = dp.banded_global_cuda(**args, **kw)
@@ -306,6 +480,8 @@ def check_banded_global(eng, idx, reads, sai_bytes, opt):
                 for k, p in zip(kern, plain))
     ms = cuda_ms(lambda: dp.banded_global_cuda(**args, **kw), 5)
     tb = kern[2]
+    cells = int(args["len2"].long().sum()) * args["s1"].shape[1]
+    bnd = bound(nbytes(*args.values(), *kern), OPS_GLOBAL_CELL * cells)
     t0 = time.perf_counter()
     tb.cpu()
     copy_ms = (time.perf_counter() - t0) * 1e3
@@ -313,18 +489,18 @@ def check_banded_global(eng, idx, reads, sai_bytes, opt):
         f" pairs at L1={args['s1'].shape[1] - 1}, L2={args['s2'].shape[1] - 1}"
         f"; max |err| {worst} over score, ctype and {tb.numel()} lattice "
         f"bytes; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; lattice copy "
-        f"to the host {copy_ms:.2f} ms")
+        f"to the host {copy_ms:.2f} ms; bound {bnd[0]:.5f} ms ({bnd[1]})")
     if worst != 0:
         fail("banded_global kernel disagrees with the plain version")
-    return worst, ms, plain_ms, len(jobs), tb.numel(), copy_ms
+    return worst, ms, plain_ms, len(jobs), tb.numel(), copy_ms, bnd
 
 
 def samse_routes(eng, idx, reads, sai_bytes, opt, label):
     """samse on the card and on the host reference route: identical SAM
     bytes; reads/s and part seconds of each."""
     import torch
-    from nabwa_tpu_torch import host
     from nabwa_tpu_torch.models import samse as msamse
+    from nabwa_tpu_torch.utils.rand48 import Rand48
     per_read = sai_columns(sai_bytes)
     out = {}
     for route in ("reference", "cuda"):
@@ -332,7 +508,7 @@ def samse_routes(eng, idx, reads, sai_bytes, opt, label):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         blob = msamse.samse_bytes(eng, reads, per_read, opt,
-                                  rng=host.Rand48(idx.bns.seed),
+                                  rng=Rand48(idx.bns.seed),
                                   host_reference=route == "reference")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -345,6 +521,101 @@ def samse_routes(eng, idx, reads, sai_bytes, opt, label):
         fail(f"samse SAM on the card differs from the host reference "
              f"route's ({label})")
     return out
+
+
+def record(module, name):
+    """Replace module.name by a wrapper that appends each call's (args,
+    kwargs) to a list and calls through.  Returns (the list, a function
+    that puts the original back)."""
+    fn, calls = getattr(module, name), []
+
+    def wrapper(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapper)
+    return calls, lambda: setattr(module, name, fn)
+
+
+def check_launches(label, calls, kernel, plain, cells, ops_per_cell):
+    """A kernel against its plain version on launches recorded from the
+    main path, every output exact on each.  The kernel (CUDA events) and
+    the plain version are timed on the largest launch; its bound counts
+    the tensor inputs and the outputs, and ops_per_cell for each of
+    `cells(args)`.  Returns (max |err|, kernel ms, plain ms, bound, the
+    largest launch's args)."""
+    import torch
+    worst, timed = 0, None
+    big = max(calls, key=lambda c: c[0][0].numel() * c[0][2].shape[1])
+    for call in calls:
+        args, kw = call
+        kern = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        worst = max([worst] + [int((k.long() - p.long()).abs().max())
+                               for k, p in zip(kern, out)])
+        if call is big:
+            timed = (plain_ms, out)
+    args, kw = big
+    ms = cuda_ms(lambda: kernel(*args, **kw), 5)
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    bnd = bound(nbytes(*tensors, *timed[1]), ops_per_cell * cells(args))
+    log(f"{label}: max |err| {worst} over every output of {len(calls)} "
+        f"launches ({sum(c[0][0].shape[0] for c in calls)} rows); largest "
+        f"{args[0].shape[0]} rows at L1={args[0].shape[1] - 1}, "
+        f"L2={args[2].shape[1] - 1}, {kw}: kernel {ms:.3f} ms, plain "
+        f"{timed[0]:.1f} ms; bound {bnd[0]:.5f} ms ({bnd[1]})")
+    if worst != 0:
+        fail(f"{label}: the kernel disagrees with the plain version")
+    return worst, ms, timed[0], bnd, args
+
+
+def sampe_routes(eng, idx, pairs, sais, opt, popt):
+    """sampe on the host reference route and on the card: pairs/s, part
+    seconds and the card route's launches of C3, C4 and C5, with the
+    arguments of each C5 and C4 launch recorded ({"local_fwd": [...],
+    "banded_global": [...]})."""
+    import torch
+    from nabwa_tpu_torch.models import sampe as msampe
+    from nabwa_tpu_torch.ops import dp
+    from nabwa_tpu_torch.ops import sa_lookup as sl
+    from nabwa_tpu_torch.utils.rand48 import Rand48
+    out, recorded = {}, {}
+    for route in ("reference", "cuda"):
+        msampe.seconds = dict.fromkeys(msampe.seconds, 0.0)
+        sl.launches = dp.launches = dp.launches_local = 0
+        restore = []
+        if route == "cuda":
+            for name, fn in (("local_fwd", "local_fwd_cuda"),
+                             ("banded_global", "banded_global_cuda")):
+                recorded[name], undo = record(dp, fn)
+                restore.append(undo)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            blob, ii = msampe.sampe_bytes(eng, pairs, sais, opt, popt,
+                                          Rand48(idx.bns.seed),
+                                          host_reference=route == "reference")
+        finally:
+            for undo in restore:
+                undo()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        parts = dict(msampe.seconds)
+        parts["rest"] = dt - sum(parts.values())
+        rescue = sum(v for k, v in parts.items()
+                     if k.startswith("rescue_"))
+        counts = {"sa_lookup": sl.launches, "banded_global": dp.launches,
+                  "local_fwd": dp.launches_local}
+        out[route] = (blob, len(pairs[0]) / dt, parts, rescue / dt, counts)
+        log(f"sampe, {route}: {len(pairs[0]) / dt:.1f} pairs/s ({dt:.3f} "
+            f"s; insert size {ii.avg:.2f} +- {ii.std:.2f}); rescue "
+            f"{100 * rescue / dt:.1f} % of the time; host seconds per part "
+            f"{parts}; launches {counts}")
+    return out, recorded
 
 
 def profile_run(eng, reads, batch):
@@ -383,6 +654,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--glen", type=int, default=64_000_000)
     ap.add_argument("--reads", type=int, default=32768)
+    ap.add_argument("--pairs", type=int, default=32768)
     ap.add_argument("--batch", type=int, default=2048,
                     help="device batch of the timed engine run")
     ap.add_argument("--retry-stack", type=int, default=1024,
@@ -392,7 +664,7 @@ def main():
                     help="run torch.profiler over one more engine run")
     args = ap.parse_args()
     if not (ROOT / "nabwa_tpu_torch" / "csrc").is_dir() or \
-            not (ROOT / "nabwa_tpu").is_dir():
+            not (ROOT / "native").is_dir():
         fail("chip_smoke.py must run from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import torch
@@ -402,11 +674,14 @@ def main():
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    t_start = time.perf_counter()
 
     import numpy as np
     from nabwa_tpu_torch import cli as port_cli
-    from nabwa_tpu_torch import host
+    from nabwa_tpu_torch.index.fmindex import BwaIndex
     from nabwa_tpu_torch.models import aln as maln
+    from nabwa_tpu_torch.models.samse import sam_header
+    from nabwa_tpu_torch.options import GapOpt, PeOpt
     from nabwa_tpu_torch.ops import _build, dfs_cuda, dp, occ
     from nabwa_tpu_torch.ops import sa_lookup as sl
 
@@ -420,10 +695,11 @@ def main():
         if "registers" in ln or "spill" in ln:
             log("ptxas: " + ln.strip())
 
-    fa, fq, fq_gapped = make_data(args.glen, args.reads)
-    opt = host.GapOpt()
-    idx = host.BwaIndex.load(str(fa))
-    reads = host.open_reads(str(fq), opt.mode)(args.reads, 0)
+    fa, fq, fq_gapped, fq1, fq2 = make_data(args.glen, args.reads,
+                                            args.pairs)
+    opt = GapOpt()
+    idx = BwaIndex.load(str(fa))
+    reads = port_cli.open_reads(str(fq), opt.mode)(args.reads, 0)
     if len(reads) != args.reads:
         fail(f"read {len(reads)} reads, expected {args.reads}")
     eng = maln.AlnEngine(idx, opt, "cuda", retry_stack_cap=args.retry_stack,
@@ -437,8 +713,8 @@ def main():
     part = reads[:CHECK_B]
     inputs = maln.batch_inputs(part, lens[:CHECK_B], maxdiff[:CHECK_B],
                                local, max_len, eng.device)
-    cw_err, cw_ms, cw_plain = check_cal_width(eng, inputs)
-    dfs_err, dfs_ms, dfs_plain, flagged = check_dfs(
+    cw_err, cw_ms, cw_plain, cw_bound = check_cal_width(eng, inputs)
+    dfs_err, dfs_ms, dfs_plain, flagged, dfs_bound = check_dfs(
         eng, inputs, maln.dfs_statics(local, eng.stack_cap, eng.hits_cap,
                                       eng.tier0_max_iters), "tier 0")
     # the retry tier's settings on the reads tier 0 flagged (all of the
@@ -446,12 +722,12 @@ def main():
     redo = flagged if len(flagged) else np.arange(len(part))
     again = maln.batch_inputs([part[int(i)] for i in redo], lens[redo],
                               maxdiff[redo], local, max_len, eng.device)
-    retry_err, retry_ms, retry_plain, _ = check_dfs(
+    retry_err, retry_ms, retry_plain, _, _ = check_dfs(
         eng, again, maln.dfs_statics(local, eng.retry_stack_cap,
                                      eng.retry_hits_cap, eng.max_iters),
         "retry tier")
 
-    # phase 4: the main path at full size
+    # phase 4: the aln path at full size
     want, host_s = native_reference(idx, reads, opt)
     log(f"host native engine: {len(reads) / host_s:.1f} reads/s "
         f"({os.cpu_count()} cores)")
@@ -463,7 +739,7 @@ def main():
     res = eng.run_chunk(reads, device_batch=args.batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    got = opt.pack() + host.sai_block(res)
+    got = opt.pack() + native_block(res)
     host_share = eng.host_drain_reads / len(reads)
     parts = dict(eng.seconds, rest=dt - sum(eng.seconds.values()))
     log(f"aln on the card: {len(reads) / dt:.1f} reads/s ({dt:.3f} s for "
@@ -477,33 +753,44 @@ def main():
         fail(f"{100 * host_share:.1f} % of reads drained on the host")
     prof = profile_run(eng, reads, args.batch) if args.profile else None
 
-    out = pathlib.Path(tempfile.gettempdir()) / "nabwa_torch_smoke.sai"
+    def zero():
+        occ.launches = dfs_cuda.launches = sl.launches = 0
+        dp.launches = dp.launches_local = 0
+
+    def launched():
+        return {"dfs": dfs_cuda.launches, "cal_width": occ.launches,
+                "sa_lookup": sl.launches, "banded_global": dp.launches,
+                "local_fwd": dp.launches_local}
+
+    tmp = pathlib.Path(tempfile.gettempdir())
+    out = tmp / "nabwa_torch_smoke.sai"
     out.unlink(missing_ok=True)
-    occ.launches = dfs_cuda.launches = 0
+    zero()
     t0 = time.perf_counter()
     rc = port_cli.main(["aln", "--device", "cuda", str(fa), str(fq),
                         "-f", str(out)])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    counts = {"cal_width": occ.launches, "dfs": dfs_cuda.launches}
+    counts = launched()
     log(f"CLI aln --device cuda: rc {rc}, {cli_s:.2f} s end to end "
         f"(index load included); launches {counts}")
     if rc != 0:
         fail(f"the port's aln CLI exited with {rc}")
     if out.read_bytes() != want:
         fail("CLI .sai differs from the host native engine's")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in ("dfs", "cal_width"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the aln path")
 
     # phases 5-6: C3 on the SA rows samse asks for on the bench .sai; the
     # gapped read set's .sai from the host engine, and C4 on its jobs
-    sa_err, sa_ms, sa_plain, sa_rows = check_sa_lookup(eng, idx, reads, want)
-    reads_g = host.open_reads(str(fq_gapped), opt.mode)(args.reads, 0)
+    sa_err, sa_ms, sa_plain, sa_rows, sa_bound = check_sa_lookup(
+        eng, idx, reads, want)
+    reads_g = port_cli.open_reads(str(fq_gapped), opt.mode)(args.reads, 0)
     want_g, host_g_s = native_reference(idx, reads_g, opt)
     log(f"host native engine, gapped reads: {len(reads_g) / host_g_s:.1f} "
         f"reads/s")
-    dp_err, dp_ms, dp_plain, n_jobs, tb_bytes, tb_copy_ms = \
+    dp_err, dp_ms, dp_plain, n_jobs, tb_bytes, tb_copy_ms, dp_bound = \
         check_banded_global(eng, idx, reads_g, want_g, opt)
 
     # phase 7: samse at full size, on the card and on the host reference
@@ -513,18 +800,10 @@ def main():
 
     # phase 8: the CLI chain on the gapped reads, every launch count at 0
     # before each command: aln (C1, C2), then samse (C3, C4)
-    tmp = pathlib.Path(tempfile.gettempdir())
-    sai_g, sam_g = tmp / "nabwa_torch_smoke_g.sai", tmp / "nabwa_torch_smoke.sam"
+    sai_g = tmp / "nabwa_torch_smoke_g.sai"
+    sam_g = tmp / "nabwa_torch_smoke.sam"
     sai_g.unlink(missing_ok=True)
     sam_g.unlink(missing_ok=True)
-
-    def zero():
-        occ.launches = dfs_cuda.launches = sl.launches = dp.launches = 0
-
-    def launched():
-        return {"dfs": dfs_cuda.launches, "cal_width": occ.launches,
-                "sa_lookup": sl.launches, "banded_global": dp.launches}
-
     zero()
     rc = port_cli.main(["aln", "--device", "cuda", str(fa), str(fq_gapped),
                         "-f", str(sai_g)])
@@ -545,7 +824,7 @@ def main():
         f"(index load included), launches {se_counts}")
     if rc != 0:
         fail(f"the port's samse CLI exited with {rc}")
-    if sam_g.read_bytes() != (host.sam_header(idx.bns).encode()
+    if sam_g.read_bytes() != (sam_header(idx.bns).encode()
                               + se_gap["reference"][0]):
         fail("CLI SAM differs from the host reference route's")
     for name in ("dfs", "cal_width"):
@@ -555,33 +834,128 @@ def main():
         if se_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the samse path")
 
+    # phase 9: the pair set, both ends aligned by the host engine
+    popt = PeOpt()
+    pairs = tuple(port_cli.open_reads(str(f), opt.mode)(args.pairs, 0)
+                  for f in (fq1, fq2))
+    if any(len(r) != args.pairs for r in pairs):
+        fail(f"read {[len(r) for r in pairs]} pairs, expected {args.pairs}")
+    want_pe = [native_reference(idx, r, opt)[0] for r in pairs]
+    sais = tuple(sai_columns(w) for w in want_pe)
+
+    # phase 10: sampe on the host reference route and on the card, the
+    # card route's C5 and C4 launches recorded
+    pe_runs, rec = sampe_routes(eng, idx, pairs, sais, opt, popt)
+
+    # phase 11: C5 and C4 against their plain versions on every launch of
+    # that card run (the rescue's forward rounds; its path recovery with
+    # per-pair bands and gap_end -1, and any refine batch), then the SAMs
+    if not rec["local_fwd"] or not rec["banded_global"]:
+        fail(f"the card run of sampe launched C5 {len(rec['local_fwd'])} "
+             f"and C4 {len(rec['banded_global'])} times")
+    lf_err, lf_ms, lf_plain, lf_bound, lf_args = check_launches(
+        "C5 local_fwd, sampe's rescue rounds", rec["local_fwd"],
+        dp.local_fwd_cuda, dp.local_fwd_plain,
+        lambda a: int((a[1].long() * a[3].long()).sum()), OPS_LOCAL_CELL)
+    pdp_err, pdp_ms, pdp_plain, pdp_bound, pdp_args = check_launches(
+        "C4 banded_global, sampe's rescue paths and refine",
+        rec["banded_global"], dp.banded_global_cuda, dp.banded_global_plain,
+        lambda a: int(a[3].long().sum()) * a[0].shape[1], OPS_GLOBAL_CELL)
+    if pe_runs["cuda"][0] != pe_runs["reference"][0]:
+        fail("sampe SAM on the card differs from the host reference route's")
+    n_rescue = args.pairs // RESCUE_SHARE
+    rescued = pe_runs["cuda"][0].count(b"XT:A:M")
+    log(f"sampe: {rescued} mates placed by the rescue ({n_rescue} pairs "
+        f"built for it)")
+    if rescued < n_rescue // 2:
+        fail(f"the rescue placed {rescued} mates, fewer than half of the "
+             f"{n_rescue} built for it")
+
+    # phase 12: the slice's main path, the CLI chain on the pairs, every
+    # launch count at 0 before each command: aln on each end (C1, C2),
+    # then sampe (C3, C4, C5)
+    pe_sai = [tmp / f"nabwa_torch_smoke_p{end}.sai" for end in (1, 2)]
+    pe_sam = tmp / "nabwa_torch_smoke_pe.sam"
+    main_counts = []
+    for path, fqp, w in zip(pe_sai, (fq1, fq2), want_pe):
+        path.unlink(missing_ok=True)
+        zero()
+        rc = port_cli.main(["aln", "--device", "cuda", str(fa), str(fqp),
+                            "-f", str(path)])
+        torch.cuda.synchronize()
+        main_counts.append(launched())
+        if rc != 0 or path.read_bytes() != w:
+            fail(f"CLI aln on {fqp.name}: rc {rc}, or its .sai differs from "
+                 f"the host native engine's")
+        for name in ("dfs", "cal_width"):
+            if main_counts[-1][name] <= 0:
+                fail(f"kernel {name} was not launched by the CLI aln")
+    pe_sam.unlink(missing_ok=True)
+    zero()
+    t0 = time.perf_counter()
+    rc = port_cli.main(["sampe", "--device", "cuda", str(fa),
+                        *map(str, pe_sai), str(fq1), str(fq2), "-f",
+                        str(pe_sam)])
+    torch.cuda.synchronize()
+    sampe_cli_s = time.perf_counter() - t0
+    main_counts.append(launched())
+    log(f"CLI chain on the pairs: aln launches {main_counts[:2]}; sampe "
+        f"--device cuda rc {rc}, {sampe_cli_s:.2f} s end to end (index "
+        f"load included), launches {main_counts[2]}")
+    if rc != 0:
+        fail(f"the port's sampe CLI exited with {rc}")
+    if pe_sam.read_bytes() != (sam_header(idx.bns).encode()
+                               + pe_runs["reference"][0]):
+        fail("CLI sampe SAM differs from the host reference route's")
+    for name in ("sa_lookup", "banded_global", "local_fwd"):
+        if main_counts[2][name] <= 0:
+            fail(f"kernel {name} was not launched on the sampe path")
+    launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
+
+    def entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"nabwa_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                **extra}
+
     kernels = [
-        {"name": "dfs", "route": "cuda",
-         "source": "nabwa_tpu_torch/csrc/dfs.cu",
-         "replaces": "nabwa_tpu/ops/dfs_pallas.py:1253",
-         "launches": counts["dfs"], "max_abs_err": max(dfs_err, retry_err),
-         "ms": dfs_ms, "plain_ms": dfs_plain, "retry_ms": retry_ms,
-         "retry_plain_ms": retry_plain, "retry_reads": len(redo)},
-        {"name": "cal_width", "route": "cuda",
-         "source": "nabwa_tpu_torch/csrc/cal_width.cu",
-         "replaces": "nabwa_tpu/ops/occ.py:141",
-         "launches": counts["cal_width"], "max_abs_err": cw_err,
-         "ms": cw_ms, "plain_ms": cw_plain},
-        {"name": "sa_lookup", "route": "cuda",
-         "source": "nabwa_tpu_torch/csrc/sa_lookup.cu",
-         "replaces": "nabwa_tpu/ops/sa_lookup.py:34",
-         "launches": se_counts["sa_lookup"], "max_abs_err": sa_err,
-         "ms": sa_ms, "plain_ms": sa_plain, "rows_checked": sa_rows},
-        {"name": "banded_global", "route": "cuda",
-         "source": "nabwa_tpu_torch/csrc/banded_global.cu",
-         "replaces": "nabwa_tpu/ops/dp.py:31",
-         "launches": se_counts["banded_global"], "max_abs_err": dp_err,
-         "ms": dp_ms, "plain_ms": dp_plain, "refine_jobs": n_jobs,
-         "lattice_bytes": tb_bytes, "lattice_copy_ms": tb_copy_ms},
+        entry("dfs", "dfs.cu", "nabwa_tpu/ops/dfs_pallas.py:1253",
+              max(dfs_err, retry_err), dfs_ms, dfs_plain, dfs_bound,
+              retry_ms=retry_ms, retry_plain_ms=retry_plain,
+              retry_reads=len(redo), aln_cli_launches=counts["dfs"]),
+        entry("cal_width", "cal_width.cu", "nabwa_tpu/ops/occ.py:141",
+              cw_err, cw_ms, cw_plain, cw_bound,
+              aln_cli_launches=counts["cal_width"]),
+        entry("sa_lookup", "sa_lookup.cu", "nabwa_tpu/ops/sa_lookup.py:34",
+              sa_err, sa_ms, sa_plain, sa_bound, rows_checked=sa_rows,
+              samse_cli_launches=se_counts["sa_lookup"]),
+        entry("banded_global", "banded_global.cu", "nabwa_tpu/ops/dp.py:31",
+              max(pdp_err, dp_err), pdp_ms, pdp_plain, pdp_bound,
+              launches_checked=len(rec["banded_global"]),
+              timed_pairs=pdp_args[0].shape[0],
+              samse_refine_jobs=n_jobs, samse_refine_ms=dp_ms,
+              samse_refine_plain_ms=dp_plain,
+              samse_refine_bound_ms=dp_bound[0],
+              lattice_bytes=tb_bytes, lattice_copy_ms=tb_copy_ms,
+              samse_cli_launches=se_counts["banded_global"]),
+        entry("local_fwd", "local_fwd.cu", "nabwa_tpu/ops/dp.py:404",
+              lf_err, lf_ms, lf_plain, lf_bound,
+              launches_checked=len(rec["local_fwd"]),
+              rescue_jobs=[int(a[0].shape[0]) for a, _ in rec["local_fwd"]],
+              timed_cells=int((lf_args[1].long()
+                               * lf_args[3].long()).sum())),
     ]
     samse = {label: {route: {"reads_per_sec": r[1], "seconds": r[2]}
                      for route, r in runs.items()}
              for label, runs in (("bench", se_bench), ("gapped", se_gap))}
+    sampe = {route: {"pairs_per_sec": r[1], "seconds": r[2],
+                     "rescue_share": r[3], "launches": r[4]}
+             for route, r in pe_runs.items()}
+    sampe.update(pairs=args.pairs, pairs_built_for_rescue=n_rescue,
+                 cli_seconds=sampe_cli_s, mate_rescued=rescued)
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "aln_reads_per_sec": len(reads) / dt,
                       "host_drain_share": host_share,
                       "tier0_reads": eng.tier0_reads,
@@ -591,7 +965,8 @@ def main():
                       "host_native_reads_per_sec": len(reads) / host_s,
                       "cli_seconds": cli_s, "profile": prof,
                       "samse": samse, "samse_cli_seconds": samse_cli_s,
-                      "gapped_aln_launches": aln_g_counts}))
+                      "gapped_aln_launches": aln_g_counts,
+                      "sampe": sampe}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

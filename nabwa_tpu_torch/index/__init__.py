@@ -1,1 +1,1 @@
-from .fmindex import DeviceIndex
+from .fmindex import BwaIndex, DeviceIndex  # noqa: F401

@@ -1,6 +1,9 @@
-"""The FM-index on a torch device.
+"""FM-index containers: the host-side load of the eight reference-format
+files (`FmIndex`, `BwaIndex`, the port's copies of the classes in
+nabwa_tpu/index/fmindex.py) and the index on a torch device
+(`DeviceIndex`).
 
-Counterpart of `nabwa_tpu.index.fmindex.BwaIndex.device_arrays` and
+`DeviceIndex` is the counterpart of `BwaIndex.device_arrays` and
 `nabwa_tpu.models.aln.AlnEngine._device_init`.  Both BWT banks keep the
 reference's interleaved 12-word (48 B) Occ block layout (bwt.h:61-68):
 4 checkpoint counters + 8 words of 2-bit bases per 128 bases, so one occ4
@@ -22,6 +25,55 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import formats
+from . import pack as packmod
+
+
+@dataclasses.dataclass
+class FmIndex:
+    """One search direction (forward or reverse BWT) as host numpy arrays."""
+
+    primary: int
+    l2: np.ndarray        # [5] uint32 cumulative counts
+    bwt: np.ndarray       # interleaved uint32 words
+    sa: np.ndarray        # sampled SA, sa[0] == 0xFFFFFFFF
+    sa_intv: int
+    seq_len: int
+
+    @classmethod
+    def load(cls, prefix, reverse=False):
+        ext_bwt = ".rbwt" if reverse else ".bwt"
+        ext_sa = ".rsa" if reverse else ".sa"
+        primary, l2, bwt, seq_len = formats.read_bwt(str(prefix) + ext_bwt)
+        sa, sa_intv, sa_primary, sa_seq_len = formats.read_sa(
+            str(prefix) + ext_sa)
+        if sa_primary != primary or sa_seq_len != seq_len:
+            raise ValueError(f"{prefix}: SA and BWT files disagree")
+        return cls(primary=primary, l2=l2, bwt=bwt, sa=sa, sa_intv=sa_intv,
+                   seq_len=seq_len)
+
+
+@dataclasses.dataclass
+class BwaIndex:
+    """The full index: both FM directions, the unpacked reference and its
+    metadata, what `bwa aln` + `samse/sampe` load (bwtaln.c:189-193,
+    bwape.c:695-701)."""
+
+    fwd: FmIndex
+    rev: FmIndex
+    pac: np.ndarray       # base codes (unpacked uint8), length l_pac
+    bns: object           # pack.BntSeq
+
+    @classmethod
+    def load(cls, prefix):
+        fwd = FmIndex.load(prefix, reverse=False)
+        rev = FmIndex.load(prefix, reverse=True)
+        pac = packmod.read_pac(str(prefix) + ".pac")
+        bns = packmod.restore_ann_amb(prefix)
+        if len(pac) != bns.l_pac or fwd.seq_len != bns.l_pac:
+            raise ValueError(f"{prefix}: .pac, .ann and .bwt lengths differ")
+        return cls(fwd=fwd, rev=rev, pac=pac, bns=bns)
+
 
 def _u32(v):
     return int(v) & 0xFFFFFFFF
@@ -42,7 +94,7 @@ class DeviceIndex:
 
     @classmethod
     def from_host(cls, index, device):
-        """Place the numpy arrays of a loaded `nabwa_tpu` BwaIndex on
+        """Place the numpy arrays of a loaded `BwaIndex` on
         `device` (an explicit torch.device or device string)."""
         device = torch.device(device)
         fwd, rev = index.fwd, index.rev

@@ -23,7 +23,9 @@ import time
 import numpy as np
 import torch
 
-from .. import host
+from ..constants import BWA_AVG_ERR
+from ..index import native
+from ..refmodel.aln_scalar import cal_maxdiff
 from ..index.fmindex import DeviceIndex
 from ..ops.dfs import aln_device_step, unpack_result
 from ..ops.sa_lookup import sa_lookup
@@ -34,14 +36,14 @@ NO_SEED = 0x7FFFFFFF
 def _maxdiff_table(fnr, max_len=1024):
     tab = np.zeros(max_len + 1, dtype=np.int32)
     for n in range(1, max_len + 1):
-        tab[n] = host.cal_maxdiff(n, host.BWA_AVG_ERR, fnr)
+        tab[n] = cal_maxdiff(n, BWA_AVG_ERR, fnr)
     return tab
 
 
 def _pack_seqs(reads, lens, L):
     """int32 [n, 2, L] of (seq, rseq) codes, padded with N (4).  A
     columnar ReadBatch is gathered by one native ragged copy, as
-    `nabwa_tpu.index.native.dfs_match_gap_native` does."""
+    `index.native.dfs_match_gap_native` does."""
     n = len(lens)
     seqs = np.full((n, 2, L), 4, dtype=np.uint8)
     if hasattr(reads, "code_bytes"):
@@ -51,7 +53,7 @@ def _pack_seqs(reads, lens, L):
         flags = np.tile(np.array([1, 3 if reads.is_comp else 1],
                                  dtype=np.uint8), n)
         out_off = np.arange(2 * n, dtype=np.int64) * L
-        host.native._load().gather_rows_u8(
+        native.lib().gather_rows_u8(
             reads.codes_flat, starts, lens2, flags, 2 * n,
             seqs.reshape(-1), out_off, 0)
     else:
@@ -68,7 +70,7 @@ def batch_options(opt, lens):
     local = copy.copy(opt)
     if opt.fnr > 0.0:
         maxdiff = _maxdiff_table(opt.fnr, max(max_len, 64))[lens]
-        local.max_diff = host.cal_maxdiff(max_len, host.BWA_AVG_ERR, opt.fnr)
+        local.max_diff = cal_maxdiff(max_len, BWA_AVG_ERR, opt.fnr)
     else:
         maxdiff = np.full(len(lens), opt.max_diff, dtype=np.int32)
     if local.max_diff < local.max_gapo:
@@ -232,14 +234,11 @@ class AlnEngine:
         lo = copy.copy(local)
         lo.seed_len = self.opt.seed_len
         ix = self.dev
-        out = host.native.dfs_match_gap_native(
+        out = native.dfs_match_gap_native(
             self._host_fwd, ix.primary_fwd, self._host_rev, ix.primary_rev,
             self._host_l2, ix.seq_len, reads,
             np.asarray(maxdiff, dtype=np.int32), lo,
             n_threads=self.native_threads)
-        if out is None:
-            raise RuntimeError("native library unavailable: cannot solve "
-                               "reads that overflow the device tiers")
         for i, res in zip(idxs, out):
             results[i] = res
 

@@ -14,12 +14,16 @@ Steps, in the reference's order:
   6. trim     quality-trim cigar correction (bwa_correct_trimmed)
   7. emit     SAM text (native `sam_emit_batch`)
 
-Steps 1, 3, 5, 6 and 7 are the shared host library's, reached through
-`host`.  `host_reference=True` runs steps 2 and 4 on the host instead,
-with the pieces the JAX package uses off its accelerator (the native
-`bwt_sa_batch` walk and `aln_global_native`): the reference the card's
-output is held against.  Only that argument chooses it; nothing falls
-back to it.
+Steps 1, 5 and 7 run in the native host library (native/post.cpp).
+`host_reference=True` runs steps 2 and 4 on the host instead, with the
+pieces the JAX package uses off its accelerator (the native `bwt_sa_batch`
+walk and `aln_global_native`): the reference the card's output is held
+against.  Only that argument chooses it; nothing falls back to it.
+
+The per-read host steps that the JAX package keeps in
+nabwa_tpu/models/samse.py (`SeqState`, `refine_window`,
+`refine_gapped_core`, `correct_trimmed`, `sam_header`, `G_LOG_N`) are
+copied here; the sampe driver uses them too.
 
 `seconds` sums host seconds per part over calls: select (steps 1 and 3),
 sa, dp (windows, packing, the copy to the device and the DP to its end),
@@ -28,18 +32,156 @@ dp_backtrace (the lattice copy back, backtraces, cigars), md, emit
 walks.
 """
 
+import math
 import time
 
 import numpy as np
 
-from .. import host
+from ..constants import BWA_TYPE_NO_MATCH
+from ..index import native
+from ..io.fastq import ReadBatch
+from ..io.sai import AlnColumn
 from ..ops import dp
+from ..refmodel.stdaln_scalar import (ALN_PARAM_BWA, FROM_D, FROM_I, FROM_M,
+                                      FROM_S, path2cigar32)
+from ..utils.rand48 import Rand48
+from .post_native import (F_C1, F_C2, F_CLIP_LEN, F_FULL_LEN, F_LEN, F_MAPQ,
+                          F_NGE, F_NGO, F_NMM, F_POS, F_SA, F_SEQ_Q,
+                          F_STRAND, F_TYPE, NF, bns_emit_arrays, flat,
+                          maxdiff_for, pack_recs, post_threads)
 
 _NEG1 = 0xFFFFFFFF
 
 seconds = dict.fromkeys(("select", "sa", "dp", "dp_backtrace", "md",
                          "emit"), 0.0)
 
+
+# --- per-read host steps, copied from nabwa_tpu/models/samse.py ---
+
+def _make_g_log_n():
+    """g_log_n table (bwase_initialize, bwase.c:613-617)."""
+    t = np.zeros(256, dtype=np.int32)
+    for i in range(1, 256):
+        t[i] = int(4.343 * math.log(i) + 0.5)
+    return t
+
+
+G_LOG_N = _make_g_log_n()
+
+
+class SeqState:
+    """Mutable per-read alignment state (the bwa_seq_t fields samse and
+    sampe use)."""
+
+    __slots__ = ("read", "type", "c1", "c2", "n_mm", "n_gapo", "n_gape",
+                 "strand", "score", "sa", "pos", "mapQ", "seQ", "cigar",
+                 "md", "nm", "multi", "n_multi", "extra_flag", "len",
+                 "max_entries")
+
+    def __init__(self, read):
+        self.read = read
+        self.len = read.len
+        self.type = BWA_TYPE_NO_MATCH
+        self.c1 = self.c2 = 0
+        self.n_mm = self.n_gapo = self.n_gape = 0
+        self.strand = 0
+        self.score = 0
+        self.sa = 0
+        self.pos = 0
+        self.mapQ = self.seQ = 0
+        self.cigar = None          # list of (op, len) or None
+        self.md = None
+        self.nm = 0
+        self.multi = []
+        self.n_multi = 0
+        self.extra_flag = 0
+        self.max_entries = 0
+
+
+def refine_window(l_pac, pac, seq_codes, pos, ext, is_end_correct=True):
+    """The reference-window slice of refine_gapped_core (bwase.c:193-207).
+    Returns (ref_seq, __pos)."""
+    length = len(seq_codes)
+    # uint32 pos past l_pac is a wrapped negative (bwase.c:197)
+    pos_u = pos & _NEG1
+    __pos = pos_u if pos_u <= l_pac else int(np.int32(np.uint32(pos_u)))
+    ref_len = length + abs(ext)
+    if ext > 0:
+        lo = __pos
+        hi = min(__pos + ref_len, l_pac)
+    else:
+        x = __pos + (length if is_end_correct else ref_len)
+        lo = max(x - ref_len, 0)
+        hi = min(x, l_pac)
+    ref_seq = pac[lo:hi] if hi > lo else np.zeros(0, dtype=np.uint8)
+    return ref_seq, __pos
+
+
+def refine_gapped_core(l_pac, pac, seq_codes, pos, ext, path,
+                       is_end_correct=True):
+    """refine_gapped_core (bwase.c:189-237) given the DP's path over the
+    job's window.  seq_codes: forward-oriented read codes against the
+    reference strand.  Returns (cigar list, new_pos)."""
+    _, __pos = refine_window(l_pac, pac, seq_codes, pos, ext,
+                             is_end_correct)
+    cigar = path2cigar32(path)
+    if not cigar:
+        return [], __pos
+
+    if ext < 0 and is_end_correct:  # fix forward-strand coordinate
+        ll = 0
+        for op, ln in cigar:
+            if op == FROM_D:
+                ll -= ln
+            elif op == FROM_I:
+                ll += ln
+        __pos += ll
+
+    if cigar[0][0] == FROM_D:  # 5' deletion
+        __pos += cigar[0][1]
+        cigar = cigar[1:]
+    if cigar and cigar[-1][0] == FROM_D:  # 3' deletion
+        cigar = cigar[:-1]
+    # I at either end becomes S (bwase.c:230-232)
+    if cigar and cigar[-1][0] == FROM_I:
+        cigar[-1] = (FROM_S, cigar[-1][1])
+    if cigar and cigar[0][0] == FROM_I:
+        cigar[0] = (FROM_S, cigar[0][1])
+    return cigar, __pos
+
+
+def correct_trimmed(s):
+    """bwa_correct_trimmed (bwase.c:320-354)."""
+    r = s.read
+    if s.len == r.full_len:
+        return
+    extra = r.full_len - s.len
+    if s.strand == 0:
+        if s.cigar and s.cigar[-1][0] == FROM_S:
+            s.cigar[-1] = (FROM_S, s.cigar[-1][1] + extra)
+        else:
+            if s.cigar is None:
+                s.cigar = [(FROM_M, s.len)]
+            s.cigar = list(s.cigar) + [(FROM_S, extra)]
+    else:
+        if s.cigar and s.cigar[0][0] == FROM_S:
+            s.cigar[0] = (FROM_S, s.cigar[0][1] + extra)
+        else:
+            if s.cigar is None:
+                s.cigar = [(FROM_M, s.len)]
+            s.cigar = [(FROM_S, extra)] + list(s.cigar)
+    s.len = r.full_len
+
+
+def sam_header(bns, rg_line=None, version="0.5.10-evan.6.3-nabwa"):
+    lines = ["@SQ\tSN:%s\tLN:%d" % (a.name, a.length) for a in bns.anns]
+    if rg_line:
+        lines.append(rg_line)
+    lines.append("@PG\tID:bwa\tPN:bwa\tVN:%s" % version)
+    return "\n".join(lines) + "\n"
+
+
+# --- the samse steps ---
 
 class Chunk:
     """One chunk's columnar samse state: the native emitter's [n, NF]
@@ -49,7 +191,7 @@ class Chunk:
     def __init__(self, reads, lens, state, stride, multi):
         self.reads = reads
         self.n = len(reads)
-        self.colsrc = reads if isinstance(reads, host.ReadBatch) else None
+        self.colsrc = reads if isinstance(reads, ReadBatch) else None
         self.lens = lens
         self.state = state
         self.stride = stride
@@ -70,11 +212,11 @@ class Chunk:
 
     @property
     def matched(self):
-        return self.state[:, host.F_TYPE] != host.BWA_TYPE_NO_MATCH
+        return self.state[:, F_TYPE] != BWA_TYPE_NO_MATCH
 
     @property
     def strand(self):
-        return self.state[:, host.F_STRAND] != 0
+        return self.state[:, F_STRAND] != 0
 
     def fwd_codes(self, i):
         """Read i's codes in forward orientation (cached)."""
@@ -85,34 +227,26 @@ class Chunk:
         return c
 
 
-def _lib():
-    lib = host.native._load()
-    if lib is None:
-        raise RuntimeError("the native host library is unavailable: samse "
-                           "needs its selection, MD and SAM kernels")
-    return lib
-
-
 def select(reads, per_read_alns, n_occ, rng):
     """Step 1: hit selection and multi enumeration (exact drand48
     stream); advances rng."""
     n = len(reads)
-    state = np.zeros((n, host.NF), dtype=np.int64)
-    if isinstance(reads, host.ReadBatch):
+    state = np.zeros((n, NF), dtype=np.int64)
+    if isinstance(reads, ReadBatch):
         # columnar batch: length columns come straight off the offsets
         lens = reads.clip_lens()
-        state[:, host.F_LEN] = lens
-        state[:, host.F_FULL_LEN] = reads.full_lens()
-        state[:, host.F_CLIP_LEN] = lens
+        state[:, F_LEN] = lens
+        state[:, F_FULL_LEN] = reads.full_lens()
+        state[:, F_CLIP_LEN] = lens
     else:
         lens = np.array([r.len for r in reads], dtype=np.int64)
-        state[:, host.F_LEN] = lens
-        state[:, host.F_FULL_LEN] = [r.full_len for r in reads]
-        state[:, host.F_CLIP_LEN] = [r.clip_len for r in reads]
-    if isinstance(per_read_alns, host.AlnColumn):
+        state[:, F_LEN] = lens
+        state[:, F_FULL_LEN] = [r.full_len for r in reads]
+        state[:, F_CLIP_LEN] = [r.clip_len for r in reads]
+    if isinstance(per_read_alns, AlnColumn):
         recs, counts = per_read_alns.columns()
     else:
-        recs, counts = host.pack_recs(per_read_alns)
+        recs, counts = pack_recs(per_read_alns)
     stride = n_occ + 1
     multi = (np.zeros(n * stride, dtype=np.uint64),
              np.zeros(n * stride, dtype=np.int32),
@@ -120,8 +254,8 @@ def select(reads, per_read_alns, n_occ, rng):
              np.zeros(n * stride, dtype=np.int32),
              np.zeros(n, dtype=np.int32))
     rngst = np.array([rng.x], dtype=np.uint64)
-    _lib().se_select_batch(n, recs, counts, state.reshape(-1), rngst, 1,
-                           n_occ, *multi)
+    native.lib().se_select_batch(n, recs, counts, state.reshape(-1), rngst,
+                                 1, n_occ, *multi)
     rng.x = int(rngst[0])
     return Chunk(reads, lens, state, stride, multi)
 
@@ -137,7 +271,7 @@ def sa_requests(ch):
         msel = ((ch.m_strand if a else ~ch.m_strand) if len(ch.mslot)
                 else np.zeros(0, dtype=bool))
         rows = np.concatenate([
-            ch.state[sel, host.F_SA].astype(np.uint32),
+            ch.state[sel, F_SA].astype(np.uint32),
             ch.multi_pos[ch.mslot[msel]].astype(np.uint32)])
         if len(rows):
             out.append((a, sel, msel, rows))
@@ -148,11 +282,8 @@ def sa_rows_native(index, a, rows):
     """The host reference of `engine.sa_rows`: the shared native bwt_sa
     walk on strand a's index (uint32 rows -> raw uint32 values)."""
     fm = index.fwd if a else index.rev
-    out = host.native.bwt_sa_batch(fm.bwt, fm.primary, index.fwd.l2,
-                                   fm.seq_len, fm.sa, fm.sa_intv, rows)
-    if out is None:
-        raise RuntimeError("native library unavailable for bwt_sa")
-    return out
+    return native.bwt_sa_batch(fm.bwt, fm.primary, index.fwd.l2,
+                               fm.seq_len, fm.sa, fm.sa_intv, rows)
 
 
 def sa_coords(engine, ch, host_reference=False):
@@ -167,10 +298,10 @@ def sa_coords(engine, ch, host_reference=False):
         pv, mv = vals[:k], vals[k:]
         slots = ch.mslot[msel]
         if a:
-            state[sel, host.F_POS] = pv
+            state[sel, F_POS] = pv
             ch.multi_pos[slots] = mv.astype(np.uint64)
         else:
-            state[sel, host.F_POS] = (rev_len - (pv + lens[sel])) & _NEG1
+            state[sel, F_POS] = (rev_len - (pv + lens[sel])) & _NEG1
             ch.multi_pos[slots] = \
                 ((rev_len - (mv + ch.mlen[msel])) & _NEG1).astype(np.uint64)
 
@@ -178,18 +309,18 @@ def sa_coords(engine, ch, host_reference=False):
 def approx_mapq(ch, opt):
     """Step 3: vectorised bwa_approx_mapQ (bwase.c:113-122)."""
     state = ch.state
-    md_arr = host.maxdiff_for(ch.lens, opt.fnr, opt.max_diff)
-    c1 = state[:, host.F_C1]
-    c2 = state[:, host.F_C2]
-    g = host.G_LOG_N[np.minimum(c2, 255)]
+    md_arr = maxdiff_for(ch.lens, opt.fnr, opt.max_diff)
+    c1 = state[:, F_C1]
+    c2 = state[:, F_C2]
+    g = G_LOG_N[np.minimum(c2, 255)]
     mq = np.where(c1 == 0, 23,
                   np.where(c1 > 1, 0,
-                           np.where(state[:, host.F_NMM] == md_arr, 25,
+                           np.where(state[:, F_NMM] == md_arr, 25,
                                     np.where(c2 == 0, 37,
                                              np.where(23 < g, 0, 23 - g)))))
     matched = ch.matched
-    state[matched, host.F_MAPQ] = mq[matched]
-    state[matched, host.F_SEQ_Q] = mq[matched]
+    state[matched, F_MAPQ] = mq[matched]
+    state[matched, F_SEQ_Q] = mq[matched]
 
 
 def gapped_jobs(ch):
@@ -210,49 +341,51 @@ def gapped_jobs(ch):
 
         jobs.append((apply_m, seqc, int(ch.multi_pos[o]),
                      (1 if ch.multi_strand[o] else -1) * int(ch.multi_gap[o])))
-    gap_rows = np.nonzero(ch.matched & (state[:, host.F_NGO] > 0))[0]
+    gap_rows = np.nonzero(ch.matched & (state[:, F_NGO] > 0))[0]
     for i in gap_rows.tolist():
         seqc = ch.reads[i].rseq if strand[i] else ch.fwd_codes(i)
 
         def apply_s(cig, newpos, i=i):
             ch.cigars[i] = cig if cig else None
-            state[i, host.F_POS] = newpos
+            state[i, F_POS] = newpos
 
-        jobs.append((apply_s, seqc, int(state[i, host.F_POS]),
+        jobs.append((apply_s, seqc, int(state[i, F_POS]),
                      (1 if strand[i] else -1)
-                     * int(state[i, host.F_NGO] + state[i, host.F_NGE])))
+                     * int(state[i, F_NGO] + state[i, F_NGE])))
     return jobs
 
 
 def refine_pairs(jobs, pac, l_pac):
     """The (reference window, read) pair of every job (bwase.c:193-207)."""
-    return [(host.refine_window(l_pac, pac, seqc, pos, ext)[0],
+    return [(refine_window(l_pac, pac, seqc, pos, ext)[0],
              np.asarray(seqc)) for _, seqc, pos, ext in jobs]
 
 
-def refine_jobs(jobs, pac, l_pac, device, host_reference=False):
+def refine_jobs(jobs, pac, l_pac, device, host_reference=False,
+                parts=None):
     """Solve (apply, seq_codes, pos, ext) refinement jobs with the banded
     global DP on `device` (nabwa_tpu/models/samse.py:480-496), or with the
-    native DP when host_reference is set, and apply each result."""
+    native DP when host_reference is set, and apply each result.  Host
+    seconds go to parts["dp"] and parts["dp_backtrace"] (this module's
+    `seconds` when parts is None)."""
     if not jobs:
         return
+    parts = seconds if parts is None else parts
     t0 = time.perf_counter()
     pairs = refine_pairs(jobs, pac, l_pac)
-    seconds["dp"] += time.perf_counter() - t0
+    parts["dp"] += time.perf_counter() - t0
     if host_reference:
-        res = dp.banded_global_native(pairs, host.ALN_PARAM_BWA,
-                                      seconds=seconds)
+        res = dp.banded_global_native(pairs, ALN_PARAM_BWA, seconds=parts)
     else:
-        res = dp.banded_global_batch(pairs, host.ALN_PARAM_BWA, device,
-                                     seconds=seconds)
+        res = dp.banded_global_batch(pairs, ALN_PARAM_BWA, device,
+                                     seconds=parts)
     t0 = time.perf_counter()
     for (apply, seqc, pos, ext), (_, path) in zip(jobs, res):
-        apply(*host.refine_gapped_core(l_pac, pac, seqc, pos, ext,
-                                       path=path))
-    seconds["dp_backtrace"] += time.perf_counter() - t0
+        apply(*refine_gapped_core(l_pac, pac, seqc, pos, ext, path=path))
+    parts["dp_backtrace"] += time.perf_counter() - t0
 
 
-def _cigar_flat(cigars, n, extra=None, n_extra=0):
+def cigar_flat(cigars, n, extra=None, n_extra=0):
     """Flat int32 cigar words and offsets: rows 0..n-1 from `cigars`, then
     (when given) n_extra multi slots from `extra`, whose offsets follow."""
     counts = np.zeros(n, dtype=np.int64)
@@ -286,18 +419,18 @@ def md(ch, bns, pac):
     if ch.colsrc is not None:
         seq_flat, seq_off = ch.colsrc.aligned_codes(strand)
     else:
-        seq_flat, seq_off = host.flat([
+        seq_flat, seq_off = flat([
             (ch.reads[i].rseq if strand[i] else ch.fwd_codes(i))
             for i in range(n)])
-    cig, cig_off = _cigar_flat(ch.cigars, n)
-    _, _, _, _, amb_off, amb_len, amb_chr = host.bns_emit_arrays(bns)
+    cig, cig_off = cigar_flat(ch.cigars, n)
+    _, _, _, _, amb_off, amb_len, amb_chr = bns_emit_arrays(bns)
     md_cap = int(seq_off[-1]) * 2 + 24 * n + 16
     md_buf = np.empty(md_cap, dtype=np.uint8)
     md_off = np.zeros(n + 1, dtype=np.int64)
-    rc = _lib().md_batch(n, ch.state.reshape(-1), seq_flat, seq_off, cig,
-                         cig_off, pac, bns.l_pac, len(bns.ambs), amb_off,
-                         amb_len, amb_chr, md_buf, md_cap, md_off,
-                         host.post_threads())
+    rc = native.lib().md_batch(n, ch.state.reshape(-1), seq_flat, seq_off,
+                               cig, cig_off, pac, bns.l_pac, len(bns.ambs),
+                               amb_off, amb_len, amb_chr, md_buf, md_cap,
+                               md_off, post_threads())
     if rc != 0:
         raise RuntimeError(f"native md_batch failed ({rc})")
     return md_buf, md_off
@@ -307,54 +440,64 @@ def correct_trim(ch):
     """Step 6: bwa_correct_trimmed (bwase.c:320-354) on the rows whose
     clipped length is below the full length."""
     state = ch.state
-    for i in np.nonzero(ch.lens < state[:, host.F_FULL_LEN])[0].tolist():
-        s = host.SeqState(ch.reads[i])
-        s.strand = int(state[i, host.F_STRAND])
+    for i in np.nonzero(ch.lens < state[:, F_FULL_LEN])[0].tolist():
+        s = SeqState(ch.reads[i])
+        s.strand = int(state[i, F_STRAND])
         s.cigar = list(ch.cigars[i]) if ch.cigars.get(i) else None
-        s.len = int(state[i, host.F_LEN])
-        host.correct_trimmed(s)
+        s.len = int(state[i, F_LEN])
+        correct_trimmed(s)
         ch.cigars[i] = s.cigar
-        state[i, host.F_LEN] = s.len
+        state[i, F_LEN] = s.len
 
 
-def emit(ch, bns, opt, rg_id, md_buf, md_off):
-    """Step 7: the chunk's SAM text (native sam_emit_batch)."""
-    n, reads = ch.n, ch.reads
-    if ch.colsrc is not None:
-        name_flat, name_off = ch.colsrc.name_bytes()
-        bc_flat, bc_off = np.zeros(0, np.uint8), np.zeros(n + 1, np.int64)
-        sf_flat, sf_off = ch.colsrc.code_bytes()
-        q_flat, q_off = ch.colsrc.qual_bytes()
-    else:
-        name_flat, name_off = host.flat([r.name.encode() for r in reads])
-        bc_flat, bc_off = host.flat([r.bc.encode() if r.bc else b""
-                                     for r in reads])
-        sf_flat, sf_off = host.flat([r.full_codes for r in reads])
-        q_flat, q_off = host.flat([(r.qual.tobytes() if r.qual is not None
-                                    else b"") for r in reads])
-    # read cigars, then the multi slots' (the emitter's layout)
-    cig, cig_off = _cigar_flat(ch.cigars, n, ch.mcigars, n * ch.stride)
+def emit_rows(state, mate_idx, names, bcs, codes, quals, cigars, mcigars,
+              multi, stride, md_buf, md_off, bns, opt, rg_id):
+    """SAM text of the rows of `state` (native sam_emit_batch,
+    bwa_print_sam1 bwase.c:458-592), shared by samse and sampe.  mate_idx:
+    each row's mate row or -1; names, bcs, codes, quals: (flat, offsets)
+    columns; multi: (pos, gap, mm, strand, n) slots, `stride` a row."""
+    n = len(state)
+    cig, cig_off = cigar_flat(cigars, n, mcigars, n * stride)
     ann_off, ann_len, ann_names, ann_name_off, amb_off, amb_len, \
-        amb_chr = host.bns_emit_arrays(bns)
+        amb_chr = bns_emit_arrays(bns)
     rg = rg_id.encode() if rg_id else b""
     rg_arr = (np.frombuffer(rg, dtype=np.uint8) if rg
               else np.zeros(0, dtype=np.uint8))
-    args = (n, ch.state.reshape(-1), np.full(n, -1, dtype=np.int64),
-            name_flat, name_off, bc_flat, bc_off, cig, cig_off, md_buf,
-            md_off, sf_flat, sf_off, q_flat, q_off, ch.multi_pos,
-            ch.multi_gap, ch.multi_mm, ch.multi_strand, ch.multi_n,
-            ch.stride, bns.n_seqs, ann_off, ann_len, ann_names,
+    args = (n, state.reshape(-1), np.ascontiguousarray(mate_idx,
+                                                       dtype=np.int64),
+            *names, *bcs, cig, cig_off, md_buf, md_off, *codes, *quals,
+            *multi, stride, bns.n_seqs, ann_off, ann_len, ann_names,
             ann_name_off, len(bns.ambs), amb_off, amb_len, amb_chr,
             bns.l_pac, opt.mode, opt.max_top2, rg_arr, len(rg))
-    lib = _lib()
-    cap = int(sf_off[-1]) * 3 + int(md_off[-1]) + 256 * n + 1024
+    lib = native.lib()
+    cap = int(codes[1][-1]) * 3 + int(md_off[-1]) + 256 * n + 1024
     out = np.empty(cap, dtype=np.uint8)
-    total = lib.sam_emit_batch(*args, out, cap, host.post_threads())
+    total = lib.sam_emit_batch(*args, out, cap, post_threads())
     if total > cap:
         out = np.empty(int(total), dtype=np.uint8)
-        total = lib.sam_emit_batch(*args, out, int(total),
-                                   host.post_threads())
+        total = lib.sam_emit_batch(*args, out, int(total), post_threads())
     return out[:total].tobytes()
+
+
+def emit(ch, bns, opt, rg_id, md_buf, md_off):
+    """Step 7: the chunk's SAM text, no mates."""
+    n, reads = ch.n, ch.reads
+    if ch.colsrc is not None:
+        names = ch.colsrc.name_bytes()
+        bcs = (np.zeros(0, np.uint8), np.zeros(n + 1, np.int64))
+        codes = ch.colsrc.code_bytes()
+        quals = ch.colsrc.qual_bytes()
+    else:
+        names = flat([r.name.encode() for r in reads])
+        bcs = flat([r.bc.encode() if r.bc else b"" for r in reads])
+        codes = flat([r.full_codes for r in reads])
+        quals = flat([(r.qual.tobytes() if r.qual is not None else b"")
+                      for r in reads])
+    multi = (ch.multi_pos, ch.multi_gap, ch.multi_mm, ch.multi_strand,
+             ch.multi_n)
+    return emit_rows(ch.state, np.full(n, -1, dtype=np.int64), names, bcs,
+                     codes, quals, ch.cigars, ch.mcigars, multi, ch.stride,
+                     md_buf, md_off, bns, opt, rg_id)
 
 
 def samse_bytes(engine, reads, per_read_alns, opt, n_occ=3, rng=None,
@@ -371,7 +514,7 @@ def samse_bytes(engine, reads, per_read_alns, opt, n_occ=3, rng=None,
     index = engine.index
     bns, pac = index.bns, index.pac
     if rng is None:
-        rng = host.Rand48(bns.seed)
+        rng = Rand48(bns.seed)
     t0 = time.perf_counter()
     ch = select(reads, per_read_alns, n_occ, rng)
     t1 = time.perf_counter()

@@ -57,6 +57,10 @@ _SIGNATURES = {
     #  score, ctype, stream)
     "nabwa_banded_global": [_I32P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                             _P, _P, _P, _P],
+    # (local params[27], s1, s2, len1, len2, B, L1, L2, scratch, score,
+    #  end_i, end_j, stream)
+    "nabwa_local_fwd": [_I32P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                        _P],
 }
 
 

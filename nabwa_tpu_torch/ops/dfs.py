@@ -19,8 +19,8 @@ every position compare is unsigned.
 
 import torch
 
-from ..host import (BWA_MODE_GAPE, BWA_MODE_LOGGAP, BWA_MODE_NONSTOP,
-                    STATE_D, STATE_I, STATE_M)
+from ..constants import (BWA_MODE_GAPE, BWA_MODE_LOGGAP, BWA_MODE_NONSTOP,
+                         STATE_D, STATE_I, STATE_M)
 from .occ import M32, cal_width, occ4, select_base, u32
 
 _I64 = torch.int64

@@ -1,23 +1,31 @@
-"""Banded global alignment (aln_global_core, stdaln.c:345-525) on a torch
-device: the DP seam of the port's workflow modules (samse's gapped
-refinement now; sampe and bwasw will add their lattices here).
+"""The DP lattices of the port's workflow modules on a torch device: the
+banded global alignment (aln_global_core, stdaln.c:345-525) of samse's
+and sampe's gapped refinement and of the local-SW path recovery, and the
+local Smith-Waterman forward lattice (aln_local_core, stdaln.c:556-637) of
+sampe's mate rescue.
 
 `banded_global_plain` is nabwa_tpu/ops/dp.py:31 `_banded_global_device` on
 tensors: the score lattice and packed traceback bits for a batch of
 (reference window, read) pairs, one row at a time, the D chain as a
 cummax along the row.  `banded_global` dispatches on the device of its
 inputs: a CPU tensor runs the plain version, a CUDA tensor launches the
-kernel in `csrc/banded_global.cu` (one thread per pair), or the call
-raises.
+kernel in `csrc/banded_global.cu` (C4, one thread per pair), or the call
+raises.  `local_fwd_plain` is nabwa_tpu/ops/dp.py:404 `_local_fwd_device`
+on tensors, and `local_fwd` dispatches the same way to it or to the kernel
+in `csrc/local_fwd.cu` (C5, one thread per job).
 
 `banded_global_batch` is the counterpart of nabwa_tpu/ops/dp.py:185
 `banded_global_batch`: zero-length pairs are answered on the host, the
 rest go to the device in batches of at most `MAX_PAIRS`, and the host
-walks each lattice back into the scalar oracle's path.  The JAX package's
-size threshold for its native route (`_use_native_dp`) is not carried
-over: on CUDA every batch launches the kernel.  `banded_global_native` is
-the host reference route: the shared native aln_global_core for each
-pair.
+walks each lattice back into the scalar oracle's path.  `local_sw_batch`
+is the counterpart of nabwa_tpu/ops/dp.py:482: the forward lattice on the
+device in batches bounded by scratch bytes, the banded reverse pass on
+the host (the native `local_rev`), and the path through
+`banded_global_batch` with the reference's bandwidth-doubling retry.  The
+JAX package's size threshold for its native route (`_use_native_dp`) is
+not carried over: on CUDA every batch launches the kernels.
+`banded_global_native` and `local_sw_native` are the host reference
+routes: the shared native aln_global_core and local_fwd for each job.
 """
 
 import time
@@ -26,17 +34,23 @@ import numpy as np
 import torch
 
 from . import _build
-from .. import host
+from ..index import native
+from ..refmodel.stdaln_scalar import FROM_D, FROM_I, FROM_M, MINOR_INF
 
-FROM_M, FROM_I, FROM_D = host.FROM_M, host.FROM_I, host.FROM_D
-NEG = host.MINOR_INF
+NEG = MINOR_INF
 _I32 = torch.int32
 
 # device pairs per batch: bounds the lattice, (L2+1)(L1+1) bytes a pair
 MAX_PAIRS = 8192
 
-# kernel launches made by `banded_global` on CUDA tensors
+# local-SW jobs per forward batch: bounds the kernel's h/e scratch,
+# 8 (L1+1) bytes a job
+MAX_LOCAL_SCRATCH = 1 << 28
+
+# kernel launches made on CUDA tensors by `banded_global` (C4) and by
+# `local_fwd` (C5)
 launches = 0
+launches_local = 0
 
 
 def _shift_right(x, fill):
@@ -262,11 +276,8 @@ def banded_global_native(pairs, ap, band_widths=None, seconds=None):
         a, b = pairs[i]
         bw = ap.band_width if band_widths is None else band_widths[i]
         t0 = time.perf_counter()
-        out = host.native.aln_global_native(
+        out = native.aln_global_native(
             a, b, ap.matrix, ap.row, ap.gap_open, ap.gap_ext, ap.gap_end, bw)
-        if out is None:
-            raise RuntimeError("native library unavailable for "
-                               "aln_global_core")
         t1 = time.perf_counter()
         res[i] = (out[0], _path_from_ctypes(out[1], len(a), len(b)))
         t_dp += t1 - t0
@@ -275,6 +286,236 @@ def banded_global_native(pairs, ap, band_widths=None, seconds=None):
         seconds["dp"] += t_dp
         seconds["dp_backtrace"] += t_path
     return res
+
+
+def local_fwd_plain(s1, len1, s2, len2, mat, *, go, ge):
+    """Best score and end cell of the local-SW forward lattice for a
+    batch, plain PyTorch.
+
+    s1: int32 [B, L1+1] 1-based reference windows (index 0 unused), codes
+    0..4, padded with 4; s2: int32 [B, L2+1] 1-based reads, padded with 4;
+    len1/len2: int32 [B]; mat: the 5x5 score matrix (host ints).  Columns
+    past len1 are masked and rows past len2 frozen.  Returns (score,
+    end_i, end_j), int32 [B] each; (0, 0, 0) where no cell is positive."""
+    dev = s1.device
+    B, L1p = s1.shape
+    L2p = s2.shape[1]
+    qr, r = int(go) + int(ge), int(ge)
+    negf = -(1 << 29)
+    i_idx = torch.arange(L1p, dtype=_I32, device=dev)[None, :]
+    mat_flat = torch.as_tensor(np.asarray(mat, dtype=np.int32).reshape(-1),
+                               device=dev)
+    inb = (i_idx >= 1) & (i_idx <= len1[:, None])
+    h = torch.zeros((B, L1p), dtype=_I32, device=dev)
+    e = torch.zeros((B, L1p), dtype=_I32, device=dev)
+    score = torch.zeros(B, dtype=_I32, device=dev)
+    end_i = torch.zeros(B, dtype=_I32, device=dev)
+    end_j = torch.zeros(B, dtype=_I32, device=dev)
+    for j in range(1, L2p):
+        active = j <= len2
+        sub = mat_flat[(s2[:, j:j + 1] * 5 + s1).long()]
+        hp0 = torch.clamp(_shift_right(h, 0) + sub, min=0)
+        # the E chain, gated per column (NT_LOCAL_SCORE packing)
+        e_cur = torch.where(h > qr, torch.maximum(e - r, h - qr), 0)
+        hpre = torch.where(inb, torch.maximum(hp0, e_cur), 0)
+        # F from the pre-F h, as a cummax along the row
+        hcut = torch.clamp(hpre - qr, min=0)
+        U = torch.where(inb, hcut + r * i_idx, negf)
+        T = torch.cummax(U, dim=1).values
+        f = torch.clamp(_shift_right(T, negf) - r * (i_idx - 1), min=0)
+        h_new = torch.where(inb, torch.maximum(hpre, f), 0).to(_I32)
+        # first cell of the row at its max; strict '>' across rows
+        row_best = h_new.max(dim=1).values
+        row_arg = torch.argmax(h_new, dim=1)
+        better = active & (row_best > score)
+        score = torch.where(better, row_best, score)
+        end_i = torch.where(better, row_arg.to(_I32), end_i)
+        end_j = torch.where(better, j, end_j)
+        h = torch.where(active[:, None], h_new, h)
+        e = torch.where(active[:, None], e_cur.to(_I32), e)
+    return score.to(_I32), end_i.to(_I32), end_j.to(_I32)
+
+
+def local_fwd_cuda(s1, len1, s2, len2, mat, *, go, ge):
+    """`local_fwd` on CUDA tensors through kernel C5 (csrc/local_fwd.cu);
+    same contract as `local_fwd_plain`."""
+    global launches_local
+    dev = s1.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    _build.require(s1, "s1", dev, 2)
+    _build.require(s2, "s2", dev, 2)
+    B, L1p = s1.shape
+    L2p = s2.shape[1]
+    if s2.shape[0] != B:
+        raise ValueError(f"s2: {s2.shape[0]} rows, expected {B}")
+    for name, t in (("len1", len1), ("len2", len2)):
+        _build.require(t, name, dev, 1)
+        if t.shape[0] != B:
+            raise ValueError(f"{name}: {t.shape[0]} rows, expected {B}")
+    mat = np.asarray(mat, dtype=np.int64).reshape(-1)
+    if mat.size != 25:
+        raise ValueError(f"mat: {mat.size} values, expected 25")
+    score = torch.empty(B, dtype=_I32, device=dev)
+    end_i = torch.empty(B, dtype=_I32, device=dev)
+    end_j = torch.empty(B, dtype=_I32, device=dev)
+    if B == 0:
+        return score, end_i, end_j
+    scratch = torch.empty((2, L1p, B), dtype=_I32, device=dev)
+    params = _build.i32_params([go, ge] + mat.tolist())
+    rc = _build.lib().nabwa_local_fwd(
+        params, s1.data_ptr(), s2.data_ptr(), len1.data_ptr(),
+        len2.data_ptr(), B, L1p - 1, L2p - 1, scratch.data_ptr(),
+        score.data_ptr(), end_i.data_ptr(), end_j.data_ptr(),
+        _build.stream_of(s1))
+    _build.check(rc, "local_fwd kernel launch")
+    launches_local += 1
+    return score, end_i, end_j
+
+
+def local_fwd(s1, len1, s2, len2, mat, *, go, ge):
+    """Best local-SW score and end cell of a batch: the plain version for
+    CPU tensors, kernel C5 for CUDA tensors."""
+    if s1.device.type == "cpu":
+        return local_fwd_plain(s1, len1, s2, len2, mat, go=go, ge=ge)
+    if s1.device.type == "cuda":
+        return local_fwd_cuda(s1, len1, s2, len2, mat, go=go, ge=ge)
+    raise ValueError(f"local_fwd: no kernel for device {s1.device}")
+
+
+def pack_local(jobs, device):
+    """The kernel inputs of non-empty jobs [(window, read), ...] as int32
+    tensors on `device`: 1-based sequences padded with 4, as
+    nabwa_tpu/ops/dp.py:522-523 pads them, and their lengths."""
+    B = len(jobs)
+    L1 = max(len(a) for a, _ in jobs)
+    L2 = max(len(b) for _, b in jobs)
+    s1 = np.full((B, L1 + 1), 4, dtype=np.int32)
+    s2 = np.full((B, L2 + 1), 4, dtype=np.int32)
+    for bi, (a, b) in enumerate(jobs):
+        s1[bi, 1:len(a) + 1] = a
+        s2[bi, 1:len(b) + 1] = b
+    len1 = np.array([len(a) for a, _ in jobs], dtype=np.int32)
+    len2 = np.array([len(b) for _, b in jobs], dtype=np.int32)
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    return dict(s1=put(s1), len1=put(len1), s2=put(s2), len2=put(len2))
+
+
+def _local_todo(jobs):
+    """Indices of the non-empty jobs; the results list with the empty ones
+    answered like the C (aln_local_core's len check)."""
+    res = [None] * len(jobs)
+    todo = []
+    for i, (a, b) in enumerate(jobs):
+        if len(a) and len(b):
+            todo.append(i)
+        else:
+            res[i] = (-1, None, 0)
+    return res, todo
+
+
+def _local_finish(jobs, ap, res, fwd, thres, global_batch, seconds):
+    """The host side of aln_local_core after the forward pass: the native
+    banded reverse pass for every job at or above `thres`, then the path
+    through `global_batch(pairs, ap_real, band_widths)` with the
+    bandwidth-doubling retry (stdaln.c:723-745).  fwd: {job: (score_f,
+    end_i, end_j)}; fills res with (score, path, 0)."""
+    t0 = time.perf_counter()
+    seg = {}           # job -> (score_f, score_r, si, sj, ei, ej)
+    for i, (sf, ei, ej) in fwd.items():
+        if sf < thres:
+            res[i] = (sf, None, 0)
+            continue
+        rev = native.local_rev_native(jobs[i][0], jobs[i][1], ap.matrix,
+                                      ap.row, ap.gap_open, ap.gap_ext, sf,
+                                      ei, ej)
+        if rev is None:
+            res[i] = (sf, None, 0)
+            continue
+        sr, si, sj = rev
+        seg[i] = (sf, sr, si, sj, ei, ej)
+    t1 = time.perf_counter()
+    ap_real = type(ap)(ap.gap_open, ap.gap_ext, -1, ap.matrix, ap.row, 0)
+    band = {i: ap.band_width for i in seg}
+    pending = list(seg)
+    while pending:
+        pairs = []
+        for i in pending:
+            sf, sr, si, sj, ei, ej = seg[i]
+            pairs.append((np.asarray(jobs[i][0])[si - 1:ei],
+                          np.asarray(jobs[i][1])[sj - 1:ej]))
+        out = global_batch(pairs, ap_real, [band[i] for i in pending])
+        nxt = []
+        for i, (score_g, path) in zip(pending, out):
+            sf, sr, si, sj, ei, ej = seg[i]
+            jmax = max(ei - si, ej - sj) + 1
+            if score_g == sr or sf == score_g or band[i] > jmax:
+                if sr > score_g and sf > score_g:
+                    res[i] = (-1, None, 0)
+                else:
+                    res[i] = (score_g, [(ct, x + si - 1, y + sj - 1)
+                                        for ct, x, y in path], 0)
+            else:
+                band[i] <<= 1
+                nxt.append(i)
+        pending = nxt
+    if seconds is not None:
+        seconds["rescue_rev"] += t1 - t0
+        seconds["rescue_path"] += time.perf_counter() - t1
+    return res
+
+
+def local_sw_batch(jobs, ap, device, thres=1, seconds=None):
+    """Batched aln_local_core for mate rescue on `device`: jobs =
+    [(window, read), ...] (uint8 codes).  Returns [(score, path, 0), ...]
+    exactly like the scalar oracle with want_subo=False.  seconds, when
+    given, gets host seconds added under "rescue_fwd" (packing, the copy to
+    the device and the forward lattice to its end), "rescue_rev" (the
+    native reverse passes) and "rescue_path" (the banded global paths,
+    kernel C4 on CUDA, with their backtraces)."""
+    device = torch.device(device)
+    res, todo = _local_todo(jobs)
+    fwd = {}
+    if todo:
+        L1 = max(len(jobs[i][0]) for i in todo)
+        step = max(1, MAX_LOCAL_SCRATCH // (8 * (L1 + 1)))
+        for start in range(0, len(todo), step):
+            part = todo[start:start + step]
+            t0 = time.perf_counter()
+            score, end_i, end_j = local_fwd(
+                **pack_local([jobs[i] for i in part], device),
+                mat=ap.matrix, go=int(ap.gap_open), ge=int(ap.gap_ext))
+            out = torch.stack([score, end_i, end_j], 1).cpu().numpy()
+            for bi, i in enumerate(part):
+                fwd[i] = tuple(int(v) for v in out[bi])
+            if seconds is not None:
+                seconds["rescue_fwd"] += time.perf_counter() - t0
+
+    def global_batch(pairs, ap_real, bws):
+        return banded_global_batch(pairs, ap_real, device, band_widths=bws)
+
+    return _local_finish(jobs, ap, res, fwd, thres, global_batch, seconds)
+
+
+def local_sw_native(jobs, ap, thres=1, seconds=None):
+    """The host reference route of `local_sw_batch`: the shared native
+    local_fwd for every non-empty job, then the same reverse pass, and the
+    paths through `banded_global_native`."""
+    res, todo = _local_todo(jobs)
+    t0 = time.perf_counter()
+    fwd = {i: native.local_fwd_native(jobs[i][0], jobs[i][1], ap.matrix,
+                                      ap.row, ap.gap_open, ap.gap_ext)
+           for i in todo}
+    if seconds is not None:
+        seconds["rescue_fwd"] += time.perf_counter() - t0
+
+    def global_batch(pairs, ap_real, bws):
+        return banded_global_native(pairs, ap_real, band_widths=bws)
+
+    return _local_finish(jobs, ap, res, fwd, thres, global_batch, seconds)
 
 
 # Host backtrace and path rebuild: copies of nabwa_tpu/ops/dp.py:163-182

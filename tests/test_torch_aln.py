@@ -120,8 +120,9 @@ def test_aln_cuda_device_required(data, monkeypatch):
 
 @pytest.mark.parametrize("cmd", ["samse", "sampe", "index", "bam2bam"])
 def test_other_commands_not_ported(cmd):
-    """Commands outside the port exit non-zero; `samse`, ported since,
-    exits non-zero on this malformed call (no device, or a usage error)."""
+    """Commands outside the port exit non-zero; `samse` and `sampe`,
+    ported since, exit non-zero on this malformed call (no device, or a
+    usage error)."""
     try:
         rc = port_cli.main([cmd, "x"])
     except SystemExit as e:
