@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""On-card smoke run of nabwa_tpu_torch, the `aln`, `samse` and `sampe`
-paths on one NVIDIA GPU.
+"""On-card smoke run of nabwa_tpu_torch, the `aln`, `samse`, `sampe` and
+`bwasw` paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--glen BP] [--reads N] [--pairs N] [--batch B]
-                          [--retry-stack S] [--profile]
+                          [--retry-stack S] [--long-reads N] [--profile]
 
 Run from the root of a checkout.  It imports the port (`nabwa_tpu_torch`),
 `tests/genomes.py` and the standard library, never the JAX package.
@@ -66,19 +66,38 @@ Phases, any failure exits non-zero:
 12. the CLI chain on the pairs, every launch count at 0 before each
    command: `aln --device cuda` on each end (each `.sai` equal to the host
    engine's, C1 and C2 launched), then `sampe --device cuda` (its SAM
-   equal to the host reference route's, C3, C4 and C5 launched).  This is
-   the slice's main path: its launch counts are the `launches` of the
-   kernels line.
+   equal to the host reference route's, C3, C4 and C5 launched);
+13. a long-read set on the same genome: 512 x 1000 bp reads of the model
+   of tests/test_bwasw.py (3 % substitutions, an indel in half the reads,
+   chimeric tails, a run of N in a tenth, either strand; seed 103);
+14. bwasw on that set, on the host reference route (the native
+   whole-batch driver, one thread per core) and on the card (C3, C4, C6),
+   recording the arguments of every C6, C4 and C3 launch of the card run:
+   reads/s and host seconds per part of each.  Then every recorded launch
+   against its plain version: C6's score, end cell and window cells, C4's
+   score, end type and whole lattice at 1 kb lengths, C3's positions, all
+   exact; and the two routes' SAM byte-identical;
+15. the bwasw CLI with every launch count at 0: `bwasw --device cuda` (its
+   SAM equal to the host reference route's, C3, C4 and C6 launched).
+Phase 12's chain and phase 15 are the main paths: their launch counts,
+summed, are the `launches` of the kernels line.
 With --profile, torch.profiler runs over one more aln run after phase 4's
-timed run: the card's busy share and the device time of each kernel.
+timed run and over one more bwasw card run after phase 14: the card's
+busy share and the device time of each kernel.
 
 Every kernel's `bound_ms` is the least time the card could take for the
 same work on this run's inputs: the larger of the bytes it must move over
 HBM_BYTES_PER_S and its integer operations over INT_OPS_PER_S (see
-`bound`).  No single PyTorch call computes any of the five functions, so
+`bound`).  No single PyTorch call computes any of the six functions, so
 `library_ms` is null for each.  C4's and C5's `ms` and `plain_ms` are
 those of the largest launch of sampe's card run; C4's on samse's refine
-batch of phase 6 stand beside them as `samse_refine_*`.
+batch of phase 6 stand beside them as `samse_refine_*`, and C4's and
+C3's on bwasw's largest launch as `bwasw_*`.  C6's are those of the
+largest launch of bwasw's card run, its bound counted from the window
+cells that launch computed; C4's bound counts the cells inside each
+pair's band and the whole lattice's bytes.  `total_ms` (C6) and
+`bwasw_total_ms` (C4, C3) sum the device time of every launch of the
+bwasw card run, each timed once as it is replayed.
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
@@ -108,9 +127,11 @@ RESCUE_SHARE = 64
 # int32 lanes as float32 lanes, so the operations bound is optimistic.
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
-# integer operations counted per unit of work, from the kernels' sources
-OPS_LOCAL_CELL = 14       # csrc/local_sw.cuh, one cell of the sweep
-OPS_GLOBAL_CELL = 40      # csrc/dp_global.cuh, one cell of the padded row
+# integer operations per unit of work: each kernel's inner loop, loads and
+# stores not counted, as the comment at the top of its .cu file counts it
+OPS_LOCAL_CELL = 23       # csrc/local_sw.cuh, one cell of the sweep
+OPS_GLOBAL_CELL = 40      # csrc/dp_global.cuh, one cell of the band
+OPS_EXTEND_CELL = 26      # csrc/extend.cuh, one cell of a row's window
 OPS_OCC_BLOCK = 40        # one Occ block's count (masks and popcounts)
 OCC_BLOCK_BYTES = 48      # bwt.h:61-68, 4 counters + 8 words
 
@@ -125,6 +146,35 @@ def bound(n_bytes, n_ops):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def as_tuple(out):
+    return out if isinstance(out, (tuple, list)) else (out,)
+
+
+def io_bytes(args, out):
+    """Bytes of a launch's tensor inputs and of its outputs."""
+    import torch
+    return nbytes(*(a for a in args if isinstance(a, torch.Tensor)),
+                  *as_tuple(out))
+
+
+def band_cells(args):
+    """Cells inside C4's band, summed over a launch's pairs: the cells the
+    DP needs (the kernel sweeps the whole padded row, but a cell outside
+    the band only carries traceback bits of NEG comparisons, counted in
+    the lattice's bytes).  args: (s1, len1, s2, len2, b1, b2, ...); row j
+    of a pair spans [start, min(j + b1 - 1, len1)] as in
+    banded_global_plain."""
+    import torch
+    len1, len2, b1, b2 = (t.long()[:, None]
+                          for t in (args[1], args[3], args[4], args[5]))
+    j = torch.arange(1, args[2].shape[1], device=args[2].device)[None, :]
+    tmp_end = torch.where(b2 < len2, b2, len2 - 1)
+    whole = (j <= tmp_end) | ((j == len2) & (b2 == len2))
+    start = torch.where(whole, 0, j - b2 + 1)
+    n = (torch.minimum(j + b1 - 1, len1) - start + 1).clamp(min=0)
+    return int(torch.where(j <= len2, n, 0).sum())
 
 
 def log(msg):
@@ -219,14 +269,55 @@ def make_pairs(genome, n_pairs, n_rescue, read_len, isize_mean, isize_std,
     return out, decoy_fa
 
 
-def make_data(glen, n_reads, n_pairs):
-    """Genome, index, the bench reads, the gapped reads and the read pairs
-    (cached by size and seed): a random contig of glen bp (seed 99) and the
-    decoy contig of the pairs; 100 bp reads from the random contig at 1 %
-    substitutions, seed 100, the same with a 1-base indel in half the
-    reads, seed 101, and pairs of 100 bp reads, insert size 300 +- 30, 1 %
-    substitutions, 10 % broken mates and 1/64 of the pairs rescued from
-    the decoy, seed 102."""
+def make_long_reads(genome_seq, n_reads, read_len, seed, err=0.02,
+                    indel=0.3, chimera=0.1, with_n=0.1):
+    """FASTQ text of long reads, the model of tests/test_bwasw.py:13-45
+    (copied): substitutions, one indel of 1-7 bases, a chimeric 150-base
+    tail, a run of three N, either strand."""
+    import numpy as np
+    from tests import genomes
+    comp = dict(zip(b"ACGT", b"TGCA"))
+    rng = np.random.default_rng(seed)
+    g = np.frombuffer(genome_seq, dtype=np.uint8)
+    out = []
+    for i in range(n_reads):
+        start = int(rng.integers(0, len(g) - read_len))
+        r = bytearray(g[start:start + read_len].tobytes())
+        for j in range(len(r)):
+            p = rng.random()
+            if p < err:
+                r[j] = genomes.BASES[int(rng.integers(0, 4))]
+        if rng.random() < indel:
+            pos = int(rng.integers(20, len(r) - 20))
+            ln = int(rng.integers(1, 8))
+            if rng.random() < 0.5:
+                del r[pos:pos + ln]
+            else:
+                ins = bytes(genomes.BASES[int(rng.integers(0, 4))]
+                            for _ in range(ln))
+                r[pos:pos] = ins
+        if rng.random() < chimera:
+            far = int(rng.integers(0, len(g) - 200))
+            r[-150:] = g[far:far + 150].tobytes()
+        if rng.random() < with_n:
+            pos = int(rng.integers(0, len(r) - 5))
+            r[pos:pos + 3] = b"NNN"
+        if rng.random() < 0.5:
+            r = bytearray(comp.get(b, b) for b in reversed(r))
+        qual = bytes([33 + int(q) for q in rng.integers(15, 40, len(r))])
+        out.append(b"@lr%d\n%s\n+\n%s\n" % (i, bytes(r), qual))
+    return b"".join(out)
+
+
+def make_data(glen, n_reads, n_pairs, n_long):
+    """Genome, index, the bench reads, the gapped reads, the read pairs and
+    the long reads (cached by size and seed): a random contig of glen bp
+    (seed 99) and the decoy contig of the pairs; 100 bp reads from the
+    random contig at 1 % substitutions, seed 100, the same with a 1-base
+    indel in half the reads, seed 101, pairs of 100 bp reads, insert size
+    300 +- 30, 1 % substitutions, 10 % broken mates and 1/64 of the pairs
+    rescued from the decoy, seed 102, and n_long reads of 1000 bp of the
+    long-read model at 3 % substitutions and an indel in half, seed 103."""
     from nabwa_tpu_torch.index.build import build_index
     from tests import genomes
     work = pathlib.Path(tempfile.gettempdir()) / \
@@ -236,8 +327,9 @@ def make_data(glen, n_reads, n_pairs):
     fqs = {work / f"r{n_reads}.fq": dict(seed=100),
            work / f"r{n_reads}_gapped.fq": dict(seed=101, indel_rate=0.5)}
     pe = [work / f"p{n_pairs}_{end}.fq" for end in (1, 2)]
+    lr = work / f"lr{n_long}.fq"
     if not (work / "g.fa.rsa").exists() or \
-            not all(p.exists() for p in [*fqs, *pe]):
+            not all(p.exists() for p in [*fqs, *pe, lr]):
         t0 = time.perf_counter()
         text, seqs = genomes.random_genome(glen, seed=99)
         pairs, decoy = make_pairs(seqs[0], n_pairs, n_pairs // RESCUE_SHARE,
@@ -254,9 +346,11 @@ def make_data(glen, n_reads, n_pairs):
         for fq, kw in fqs.items():
             fq.write_bytes(genomes.sample_reads(seqs[0], n_reads, 100,
                                                 err_rate=0.01, **kw))
-        log(f"genome + index + reads + pairs: "
+        lr.write_bytes(make_long_reads(seqs[0], n_long, 1000, 103, err=0.03,
+                                       indel=0.5))
+        log(f"genome + index + reads + pairs + long reads: "
             f"{time.perf_counter() - t0:.1f} s")
-    return (fa, *fqs, *pe)
+    return (fa, *fqs, *pe, lr)
 
 
 def check_cal_width(eng, inputs):
@@ -402,6 +496,15 @@ def walk_steps(bank, l2, primary, seq_len, sa_intv, rows):
         steps += live.long()
 
 
+def sa_walk_bound(args):
+    """C3's bound on a launch's args (bwt, l2, primary, seq_len, sa,
+    sa_intv, rows): its rows and positions, and one Occ block read and
+    counted for every invPsi step its rows take."""
+    steps = int(walk_steps(*args[:4], args[5], args[6]).sum())
+    return bound(12 * args[6].shape[0] + OCC_BLOCK_BYTES * steps,
+                 OPS_OCC_BLOCK * steps)
+
+
 def check_sa_lookup(eng, idx, reads, sai_bytes):
     """C3 against the plain version and the native host walk on every SA
     row samse asks for on this `.sai`, both strands.  The timed call's
@@ -433,16 +536,13 @@ def check_sa_lookup(eng, idx, reads, sai_bytes):
             int(np.abs(got - nat).max()))
         n_rows += len(rows)
         if timed is None or len(rows) > timed[0]:
-            steps = int(walk_steps(*args[:4], ix.sa_intv, args[6]).sum())
-            bnd = bound(12 * len(rows) + OCC_BLOCK_BYTES * steps,
-                        OPS_OCC_BLOCK * steps)
             timed = (len(rows), cuda_ms(lambda: sl.sa_lookup_cuda(*args),
-                                        20), plain_ms, bnd, steps)
+                                        20), plain_ms, sa_walk_bound(args))
     log(f"C3 sa_lookup: {n_rows} SA rows of samse on the bench .sai, both "
         f"strands, max |err| {worst} against the plain version and the "
         f"native walk; kernel {timed[1]:.4f} ms, plain {timed[2]:.2f} ms "
-        f"per call at {timed[0]} rows ({timed[4]} invPsi steps); bound "
-        f"{timed[3][0]:.5f} ms ({timed[3][1]})")
+        f"per call at {timed[0]} rows; bound {timed[3][0]:.5f} ms "
+        f"({timed[3][1]})")
     if worst != 0:
         fail("sa_lookup kernel disagrees with the plain version or the "
              "native walk")
@@ -480,8 +580,8 @@ def check_banded_global(eng, idx, reads, sai_bytes, opt):
                 for k, p in zip(kern, plain))
     ms = cuda_ms(lambda: dp.banded_global_cuda(**args, **kw), 5)
     tb = kern[2]
-    cells = int(args["len2"].long().sum()) * args["s1"].shape[1]
-    bnd = bound(nbytes(*args.values(), *kern), OPS_GLOBAL_CELL * cells)
+    bnd = bound(nbytes(*args.values(), *kern),
+                OPS_GLOBAL_CELL * band_cells(tuple(args.values())))
     t0 = time.perf_counter()
     tb.cpu()
     copy_ms = (time.perf_counter() - t0) * 1e3
@@ -537,40 +637,50 @@ def record(module, name):
     return calls, lambda: setattr(module, name, fn)
 
 
-def check_launches(label, calls, kernel, plain, cells, ops_per_cell):
+def check_launches(label, calls, kernel, plain, size, bound_of):
     """A kernel against its plain version on launches recorded from the
-    main path, every output exact on each.  The kernel (CUDA events) and
-    the plain version are timed on the largest launch; its bound counts
-    the tensor inputs and the outputs, and ops_per_cell for each of
-    `cells(args)`.  Returns (max |err|, kernel ms, plain ms, bound, the
-    largest launch's args)."""
+    main path, every output exact on each.  Each launch is timed once
+    with CUDA events as it is replayed, and `total_ms` sums those: the
+    kernel's device time over the path.  The largest launch by
+    `size(args)` is timed again over 5 launches (`ms`) beside its plain
+    version (`plain_ms`), and its bound is `bound_of(args, outputs)`.
+    Returns a dict of those, max |err| (`err`), and the largest launch's
+    `args` and plain outputs (`out`)."""
     import torch
-    worst, timed = 0, None
-    big = max(calls, key=lambda c: c[0][0].numel() * c[0][2].shape[1])
+    worst, total_ms, n_rows, timed = 0, 0.0, 0, None
+    big = max(calls, key=lambda c: size(c[0]))
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
     for call in calls:
         args, kw = call
-        kern = kernel(*args, **kw)
+        ev0.record()
+        kern = as_tuple(kernel(*args, **kw))
+        ev1.record()
         torch.cuda.synchronize()
+        total_ms += ev0.elapsed_time(ev1)
         t0 = time.perf_counter()
-        out = plain(*args, **kw)
+        out = as_tuple(plain(*args, **kw))
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         worst = max([worst] + [int((k.long() - p.long()).abs().max())
                                for k, p in zip(kern, out)])
+        n_rows += out[0].shape[0]
         if call is big:
             timed = (plain_ms, out)
     args, kw = big
     ms = cuda_ms(lambda: kernel(*args, **kw), 5)
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    bnd = bound(nbytes(*tensors, *timed[1]), ops_per_cell * cells(args))
+    bnd = bound_of(args, timed[1])
+    shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
     log(f"{label}: max |err| {worst} over every output of {len(calls)} "
-        f"launches ({sum(c[0][0].shape[0] for c in calls)} rows); largest "
-        f"{args[0].shape[0]} rows at L1={args[0].shape[1] - 1}, "
-        f"L2={args[2].shape[1] - 1}, {kw}: kernel {ms:.3f} ms, plain "
-        f"{timed[0]:.1f} ms; bound {bnd[0]:.5f} ms ({bnd[1]})")
+        f"launches ({n_rows} rows), {total_ms:.3f} ms of kernel in all; "
+        f"largest {timed[1][0].shape[0]} rows, inputs {shapes}, {kw}: "
+        f"kernel {ms:.4f} ms, plain {timed[0]:.2f} ms; bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
     if worst != 0:
         fail(f"{label}: the kernel disagrees with the plain version")
-    return worst, ms, timed[0], bnd, args
+    return {"err": worst, "ms": ms, "plain_ms": timed[0],
+            "total_ms": total_ms, "bound": bnd, "args": args,
+            "out": timed[1]}
 
 
 def sampe_routes(eng, idx, pairs, sais, opt, popt):
@@ -618,8 +728,51 @@ def sampe_routes(eng, idx, pairs, sais, opt, popt):
     return out, recorded
 
 
-def profile_run(eng, reads, batch):
-    """torch.profiler over one run_chunk: busy share and per-kernel device
+def bwasw_routes(eng, idx, reads, opt):
+    """bwasw on the host reference route and on the card: reads/s, part
+    seconds and the card route's launches of C3, C4 and C6, with the
+    arguments of each C6, C4 and C3 launch recorded ({"extend": [...],
+    "banded_global": [...], "sa_lookup": [...]})."""
+    import torch
+    from nabwa_tpu_torch.models import bwasw as mbw
+    from nabwa_tpu_torch.ops import dp
+    from nabwa_tpu_torch.ops import sa_lookup as sl
+    from nabwa_tpu_torch.utils.rand48 import Rand48
+    out, recorded = {}, {}
+    for route in ("reference", "cuda"):
+        mbw.seconds = dict.fromkeys(mbw.seconds, 0.0)
+        sl.launches = dp.launches = dp.launches_extend = 0
+        restore = []
+        if route == "cuda":
+            for name, mod, fn in (("extend", dp, "extend_cuda"),
+                                  ("banded_global", dp,
+                                   "banded_global_cuda"),
+                                  ("sa_lookup", sl, "sa_lookup_cuda")):
+                recorded[name], undo = record(mod, fn)
+                restore.append(undo)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            body = mbw.bwasw_bytes(idx, reads, opt, eng, Rand48(11),
+                                   host_reference=route == "reference",
+                                   threads=os.cpu_count())
+        finally:
+            for undo in restore:
+                undo()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        parts = {k: v for k, v in mbw.seconds.items() if v}
+        parts["rest"] = dt - sum(parts.values())
+        counts = {"sa_lookup": sl.launches, "banded_global": dp.launches,
+                  "extend": dp.launches_extend}
+        out[route] = (body, len(reads) / dt, parts, counts)
+        log(f"bwasw, {route}: {len(reads) / dt:.2f} reads/s ({dt:.3f} s); "
+            f"host seconds per part {parts}; launches {counts}")
+    return out, recorded
+
+
+def profile_run(label, fn):
+    """torch.profiler over one call of fn: busy share and per-kernel device
     time, or None where the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
@@ -632,7 +785,7 @@ def profile_run(eng, reads, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run_chunk(reads, device_batch=batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     on_dev = [e for e in prof.key_averages()
@@ -642,10 +795,10 @@ def profile_run(eng, reads, batch):
     rows = {e.key[:48]: {"count": e.count, "ms": dev_us(e) / 1e3}
             for e in top}
     if not on_dev:
-        log("profiler: no device time seen (not measured)")
+        log(f"profiler, {label}: no device time seen (not measured)")
         return None
-    log(f"profiler: {wall:.3f} s wall under the profiler, device busy "
-        f"{busy_ms:.1f} ms ({100 * busy_ms / 1e3 / wall:.1f} %); {rows}")
+    log(f"profiler, {label}: {wall:.3f} s wall under the profiler, device "
+        f"busy {busy_ms:.1f} ms ({100 * busy_ms / 1e3 / wall:.1f} %); {rows}")
     return {"wall_s": wall, "busy_ms": busy_ms,
             "busy_share": busy_ms / 1e3 / wall, "top": rows}
 
@@ -660,8 +813,11 @@ def main():
     ap.add_argument("--retry-stack", type=int, default=1024,
                     help="retry-tier slot pool of the timed engine run; "
                     "its hit list is an eighth of it, as at the default")
+    ap.add_argument("--long-reads", type=int, default=512,
+                    help="1 kb reads of the bwasw phases")
     ap.add_argument("--profile", action="store_true",
-                    help="run torch.profiler over one more engine run")
+                    help="run torch.profiler over one more engine run and "
+                    "one more bwasw card run")
     args = ap.parse_args()
     if not (ROOT / "nabwa_tpu_torch" / "csrc").is_dir() or \
             not (ROOT / "native").is_dir():
@@ -679,11 +835,13 @@ def main():
     import numpy as np
     from nabwa_tpu_torch import cli as port_cli
     from nabwa_tpu_torch.index.fmindex import BwaIndex
+    from nabwa_tpu_torch.io import fastq
     from nabwa_tpu_torch.models import aln as maln
     from nabwa_tpu_torch.models.samse import sam_header
     from nabwa_tpu_torch.options import GapOpt, PeOpt
     from nabwa_tpu_torch.ops import _build, dfs_cuda, dp, occ
     from nabwa_tpu_torch.ops import sa_lookup as sl
+    from nabwa_tpu_torch.utils.rand48 import Rand48
 
     # phase 1: build the kernels from the checkout's sources
     t0 = time.perf_counter()
@@ -695,8 +853,8 @@ def main():
         if "registers" in ln or "spill" in ln:
             log("ptxas: " + ln.strip())
 
-    fa, fq, fq_gapped, fq1, fq2 = make_data(args.glen, args.reads,
-                                            args.pairs)
+    fa, fq, fq_gapped, fq1, fq2, fq_long = make_data(
+        args.glen, args.reads, args.pairs, args.long_reads)
     opt = GapOpt()
     idx = BwaIndex.load(str(fa))
     reads = port_cli.open_reads(str(fq), opt.mode)(args.reads, 0)
@@ -751,16 +909,18 @@ def main():
         fail("engine .sai differs from the host native engine's")
     if host_share > MAX_HOST_SHARE:
         fail(f"{100 * host_share:.1f} % of reads drained on the host")
-    prof = profile_run(eng, reads, args.batch) if args.profile else None
+    prof = (profile_run("aln", lambda: eng.run_chunk(
+        reads, device_batch=args.batch)) if args.profile else None)
 
     def zero():
         occ.launches = dfs_cuda.launches = sl.launches = 0
-        dp.launches = dp.launches_local = 0
+        dp.launches = dp.launches_local = dp.launches_extend = 0
 
     def launched():
         return {"dfs": dfs_cuda.launches, "cal_width": occ.launches,
                 "sa_lookup": sl.launches, "banded_global": dp.launches,
-                "local_fwd": dp.launches_local}
+                "local_fwd": dp.launches_local,
+                "extend": dp.launches_extend}
 
     tmp = pathlib.Path(tempfile.gettempdir())
     out = tmp / "nabwa_torch_smoke.sai"
@@ -853,14 +1013,21 @@ def main():
     if not rec["local_fwd"] or not rec["banded_global"]:
         fail(f"the card run of sampe launched C5 {len(rec['local_fwd'])} "
              f"and C4 {len(rec['banded_global'])} times")
-    lf_err, lf_ms, lf_plain, lf_bound, lf_args = check_launches(
+    def dp_size(a):
+        return a[0].numel() * a[2].shape[1]
+
+    def global_bound(a, out):
+        return bound(io_bytes(a, out), OPS_GLOBAL_CELL * band_cells(a))
+
+    lf = check_launches(
         "C5 local_fwd, sampe's rescue rounds", rec["local_fwd"],
-        dp.local_fwd_cuda, dp.local_fwd_plain,
-        lambda a: int((a[1].long() * a[3].long()).sum()), OPS_LOCAL_CELL)
-    pdp_err, pdp_ms, pdp_plain, pdp_bound, pdp_args = check_launches(
+        dp.local_fwd_cuda, dp.local_fwd_plain, dp_size,
+        lambda a, out: bound(io_bytes(a, out), OPS_LOCAL_CELL * int(
+            (a[1].long() * a[3].long()).sum())))
+    pdp = check_launches(
         "C4 banded_global, sampe's rescue paths and refine",
         rec["banded_global"], dp.banded_global_cuda, dp.banded_global_plain,
-        lambda a: int(a[3].long().sum()) * a[0].shape[1], OPS_GLOBAL_CELL)
+        dp_size, global_bound)
     if pe_runs["cuda"][0] != pe_runs["reference"][0]:
         fail("sampe SAM on the card differs from the host reference route's")
     n_rescue = args.pairs // RESCUE_SHARE
@@ -910,6 +1077,66 @@ def main():
     for name in ("sa_lookup", "banded_global", "local_fwd"):
         if main_counts[2][name] <= 0:
             fail(f"kernel {name} was not launched on the sampe path")
+
+    # phase 13: the long reads
+    from nabwa_tpu_torch.models import bwasw as mbw
+    lreads = [(name, seq.decode(), qual.decode() if qual else None)
+              for name, _, seq, qual in fastq.iter_fastq(str(fq_long))]
+    if len(lreads) != args.long_reads:
+        fail(f"read {len(lreads)} long reads, expected {args.long_reads}")
+    bopt = mbw.Bsw2Opt()
+
+    # phase 14: bwasw on the host reference route and on the card, the
+    # card route's C6, C4 and C3 launches recorded and replayed against
+    # their plain versions, then the SAMs
+    sw_runs, sw_rec = bwasw_routes(eng, idx, lreads, bopt)
+    for name in ("extend", "banded_global", "sa_lookup"):
+        if not sw_rec[name]:
+            fail(f"the card run of bwasw launched {name} no time")
+    ext = check_launches(
+        "C6 extend, bwasw's launches", sw_rec["extend"], dp.extend_cuda,
+        dp.extend_plain, dp_size,
+        lambda a, out: bound(io_bytes(a, out), OPS_EXTEND_CELL * int(
+            out[3].long().sum())))
+    sw_dp = check_launches(
+        "C4 banded_global, bwasw's cigars", sw_rec["banded_global"],
+        dp.banded_global_cuda, dp.banded_global_plain, dp_size,
+        global_bound)
+    sw_sa = check_launches(
+        "C3 sa_lookup, bwasw's launches", sw_rec["sa_lookup"],
+        sl.sa_lookup_cuda, sl.sa_lookup_plain, lambda a: a[6].shape[0],
+        lambda a, _: sa_walk_bound(a))
+    if sw_runs["cuda"][0] != sw_runs["reference"][0]:
+        fail("bwasw SAM on the card differs from the host reference route's")
+    sw_prof = (profile_run("bwasw", lambda: mbw.bwasw_bytes(
+        idx, lreads, bopt, eng, Rand48(11))) if args.profile else None)
+    sw_jobs = sum(int(c[0][0].shape[0]) for c in sw_rec["extend"])
+    n_amb = sum("N" in s for _, s, _ in lreads)
+    log(f"bwasw: {len(sw_rec['extend'])} C6 launches ({sw_jobs} jobs), "
+        f"{len(sw_rec['banded_global'])} C4, {len(sw_rec['sa_lookup'])} C3; "
+        f"{n_amb} reads with N bases")
+
+    # phase 15: the bwasw CLI, every launch count at 0
+    sw_sam = tmp / "nabwa_torch_smoke_sw.sam"
+    sw_sam.unlink(missing_ok=True)
+    zero()
+    t0 = time.perf_counter()
+    rc = port_cli.main(["bwasw", "--device", "cuda", str(fa), str(fq_long),
+                        "-f", str(sw_sam)])
+    torch.cuda.synchronize()
+    bwasw_cli_s = time.perf_counter() - t0
+    sw_counts = launched()
+    main_counts.append(sw_counts)
+    log(f"CLI bwasw --device cuda: rc {rc}, {bwasw_cli_s:.2f} s end to end "
+        f"(index load included), launches {sw_counts}")
+    if rc != 0:
+        fail(f"the port's bwasw CLI exited with {rc}")
+    if sw_sam.read_bytes() != (mbw.sam_sq(idx.bns)
+                               + sw_runs["reference"][0]):
+        fail("CLI bwasw SAM differs from the host reference route's")
+    for name in ("sa_lookup", "banded_global", "extend"):
+        if sw_counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the bwasw path")
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
 
     def entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
@@ -929,23 +1156,50 @@ def main():
               cw_err, cw_ms, cw_plain, cw_bound,
               aln_cli_launches=counts["cal_width"]),
         entry("sa_lookup", "sa_lookup.cu", "nabwa_tpu/ops/sa_lookup.py:34",
-              sa_err, sa_ms, sa_plain, sa_bound, rows_checked=sa_rows,
-              samse_cli_launches=se_counts["sa_lookup"]),
+              max(sa_err, sw_sa["err"]), sa_ms, sa_plain, sa_bound,
+              rows_checked=sa_rows,
+              samse_cli_launches=se_counts["sa_lookup"],
+              bwasw_launches=sw_counts["sa_lookup"],
+              bwasw_launches_checked=len(sw_rec["sa_lookup"]),
+              bwasw_rows=int(sw_sa["args"][6].shape[0]),
+              bwasw_ms=sw_sa["ms"], bwasw_plain_ms=sw_sa["plain_ms"],
+              bwasw_total_ms=sw_sa["total_ms"],
+              bwasw_bound_ms=sw_sa["bound"][0],
+              bwasw_bound_by=sw_sa["bound"][1]),
         entry("banded_global", "banded_global.cu", "nabwa_tpu/ops/dp.py:31",
-              max(pdp_err, dp_err), pdp_ms, pdp_plain, pdp_bound,
+              max(pdp["err"], dp_err, sw_dp["err"]), pdp["ms"],
+              pdp["plain_ms"], pdp["bound"],
               launches_checked=len(rec["banded_global"]),
-              timed_pairs=pdp_args[0].shape[0],
+              timed_pairs=pdp["args"][0].shape[0],
               samse_refine_jobs=n_jobs, samse_refine_ms=dp_ms,
               samse_refine_plain_ms=dp_plain,
               samse_refine_bound_ms=dp_bound[0],
               lattice_bytes=tb_bytes, lattice_copy_ms=tb_copy_ms,
-              samse_cli_launches=se_counts["banded_global"]),
+              samse_cli_launches=se_counts["banded_global"],
+              bwasw_launches=sw_counts["banded_global"],
+              bwasw_launches_checked=len(sw_rec["banded_global"]),
+              bwasw_pairs=int(sw_dp["args"][0].shape[0]),
+              bwasw_L1=int(sw_dp["args"][0].shape[1] - 1),
+              bwasw_L2=int(sw_dp["args"][2].shape[1] - 1),
+              bwasw_band_cells=band_cells(sw_dp["args"]),
+              bwasw_ms=sw_dp["ms"], bwasw_plain_ms=sw_dp["plain_ms"],
+              bwasw_total_ms=sw_dp["total_ms"],
+              bwasw_bound_ms=sw_dp["bound"][0],
+              bwasw_bound_by=sw_dp["bound"][1]),
         entry("local_fwd", "local_fwd.cu", "nabwa_tpu/ops/dp.py:404",
-              lf_err, lf_ms, lf_plain, lf_bound,
+              lf["err"], lf["ms"], lf["plain_ms"], lf["bound"],
               launches_checked=len(rec["local_fwd"]),
               rescue_jobs=[int(a[0].shape[0]) for a, _ in rec["local_fwd"]],
-              timed_cells=int((lf_args[1].long()
-                               * lf_args[3].long()).sum())),
+              timed_cells=int((lf["args"][1].long()
+                               * lf["args"][3].long()).sum())),
+        entry("extend", "extend.cu", "nabwa_tpu/ops/dp.py:264",
+              ext["err"], ext["ms"], ext["plain_ms"], ext["bound"],
+              launches_checked=len(sw_rec["extend"]),
+              jobs_checked=sw_jobs, total_ms=ext["total_ms"],
+              timed_jobs=int(ext["args"][0].shape[0]),
+              timed_L1=int(ext["args"][0].shape[1] - 2),
+              timed_L2=int(ext["args"][2].shape[1] - 1),
+              timed_cells=int(ext["out"][3].long().sum())),
     ]
     samse = {label: {route: {"reads_per_sec": r[1], "seconds": r[2]}
                      for route, r in runs.items()}
@@ -955,6 +1209,11 @@ def main():
              for route, r in pe_runs.items()}
     sampe.update(pairs=args.pairs, pairs_built_for_rescue=n_rescue,
                  cli_seconds=sampe_cli_s, mate_rescued=rescued)
+    bwasw = {route: {"reads_per_sec": r[1], "seconds": r[2],
+                     "launches": r[3]} for route, r in sw_runs.items()}
+    bwasw.update(reads=len(lreads), reads_with_n=n_amb,
+                 cli_seconds=bwasw_cli_s, cli_launches=sw_counts,
+                 profile=sw_prof)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "aln_reads_per_sec": len(reads) / dt,
                       "host_drain_share": host_share,
@@ -966,7 +1225,7 @@ def main():
                       "cli_seconds": cli_s, "profile": prof,
                       "samse": samse, "samse_cli_seconds": samse_cli_s,
                       "gapped_aln_launches": aln_g_counts,
-                      "sampe": sampe}))
+                      "sampe": sampe, "bwasw": bwasw}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Command line of the port: `aln`, `samse` and `sampe` on a torch device.
+"""Command line of the port: `aln`, `samse`, `sampe` and `bwasw` on a torch
+device.
 
 Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
             <prefix> <reads.fq> [-f out.sai]
@@ -6,10 +7,13 @@ Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
             [-f out.sam] [-r RG] <prefix> <in.sai> <reads.fq>
         python -m nabwa_tpu_torch sampe [--device cuda|cpu] [-a -o -n -N
             -c -f -r -s -A -P] <prefix> <1.sai> <2.sai> <1.fq> <2.fq>
+        python -m nabwa_tpu_torch bwasw [--device cuda|cpu] [-a -b -q -r
+            -t -w -z -s -N -c -m -H -f] <prefix> <reads.fq>
+            (also as `bwtsw2` and `dbwtsw`)
 
 The options, the read input and the `.sai` and SAM output are those of
-`nabwa_tpu aln`, `samse` and `sampe` (nabwa_tpu/cli.py:222-394); the
-argument parser, option handling, read opener, `-f` recovery and @RG
+`nabwa_tpu aln`, `samse`, `sampe` and `bwasw` (nabwa_tpu/cli.py:222-459);
+the argument parser, option handling, read opener, `-f` recovery and @RG
 parsing are copied from there.  BAM input (`aln -b -0 -1 -2`) and
 colour-space `samse`/`sampe` are not ported and exit with an error.  The
 device is explicit: `--device cuda` (the default) needs a CUDA device and
@@ -22,6 +26,7 @@ import argparse
 import struct
 import sys
 
+import numpy as np
 import torch
 
 from .constants import (BWA_MODE_BAM, BWA_MODE_CFY, BWA_MODE_COMPREAD,
@@ -399,7 +404,59 @@ def cmd_sampe(argv):
     return 0
 
 
-_PORTED = {"aln": cmd_aln, "samse": cmd_samse, "sampe": cmd_sampe}
+def cmd_bwasw(argv):
+    device, argv = _split_device(argv, "bwasw")
+    dev = _device(device, "bwasw")
+    if dev is None:
+        return 2
+    ap = argparse.ArgumentParser(prog="bwasw")
+    ap.add_argument("-a", dest="a", type=int, default=None)
+    ap.add_argument("-b", dest="b", type=int, default=None)
+    ap.add_argument("-q", dest="q", type=int, default=None)
+    ap.add_argument("-r", dest="r", type=int, default=None)
+    ap.add_argument("-t", dest="t", type=int, default=None)
+    ap.add_argument("-w", dest="bw", type=int, default=None)
+    ap.add_argument("-z", dest="z", type=int, default=None)
+    ap.add_argument("-s", dest="is_", type=int, default=None)
+    ap.add_argument("-N", dest="t_seeds", type=int, default=None)
+    ap.add_argument("-c", dest="coef", type=float, default=None)
+    ap.add_argument("-m", dest="mask_level", type=float, default=None)
+    ap.add_argument("-H", dest="hard_clip", action="store_true")
+    ap.add_argument("-f", dest="out", default=None)
+    ap.add_argument("prefix")
+    ap.add_argument("reads")
+    args = ap.parse_args(argv)
+    from .models.aln import AlnEngine
+    from .models.bwasw import Bsw2Opt, bwasw_bytes, sam_sq
+
+    opt = Bsw2Opt()
+    for name in ("a", "b", "q", "r", "t", "bw", "z", "is_", "t_seeds",
+                 "coef"):
+        v = getattr(args, name)
+        if v is not None:
+            setattr(opt, name, v)
+    if args.mask_level is not None:
+        opt.mask_level = np.float32(args.mask_level)
+    if args.hard_clip:
+        opt.hard_clip = 1
+    opt.qr = opt.q + opt.r
+    idx = BwaIndex.load(args.prefix)
+    eng = AlnEngine(idx, GapOpt(), dev)
+    reads = [(name, seq.decode(), qual.decode() if qual else None)
+             for name, _, seq, qual in fastq.iter_fastq(args.reads)]
+    body = bwasw_bytes(idx, reads, opt, eng, Rand48(11))
+    out = open(args.out, "wb") if args.out else sys.stdout.buffer
+    out.write(sam_sq(idx.bns) + body)
+    if args.out:
+        out.close()
+        final_rename("bwasw", args.out)
+    else:
+        out.flush()
+    return 0
+
+
+_PORTED = {"aln": cmd_aln, "samse": cmd_samse, "sampe": cmd_sampe,
+           "bwasw": cmd_bwasw, "bwtsw2": cmd_bwasw, "dbwtsw": cmd_bwasw}
 
 
 def main(argv=None):
@@ -410,13 +467,15 @@ def main(argv=None):
         print(f"[{argv[0]}] not yet ported to nabwa_tpu_torch",
               file=sys.stderr)
         return 1
-    print("Program: nabwa_tpu_torch (the aln, samse and sampe paths on "
-          "PyTorch + CUDA)\n"
+    print("Program: nabwa_tpu_torch (the aln, samse, sampe and bwasw paths "
+          "on PyTorch + CUDA)\n"
           "Usage:   python -m nabwa_tpu_torch aln [--device cuda|cpu] "
           "[options] <prefix> <reads>\n"
           "         python -m nabwa_tpu_torch samse [--device cuda|cpu] "
           "[options] <prefix> <in.sai> <reads>\n"
           "         python -m nabwa_tpu_torch sampe [--device cuda|cpu] "
-          "[options] <prefix> <1.sai> <2.sai> <1.fq> <2.fq>",
+          "[options] <prefix> <1.sai> <2.sai> <1.fq> <2.fq>\n"
+          "         python -m nabwa_tpu_torch bwasw [--device cuda|cpu] "
+          "[options] <prefix> <reads>",
           file=sys.stderr)
     return 1

@@ -1,8 +1,8 @@
 // Host build of the kernels' per-row code, for the CPU tests: the same
 // NABWA_HD source that nvcc compiles into kernels C1 (dfs.cu), C2
-// (cal_width.cu), C3 (sa_lookup.cu), C4 (banded_global.cu) and C5
-// (local_fwd.cu), compiled by a host C++ compiler and run row by row with
-// the kernels' argument layouts.  It is not part of the kernel library.
+// (cal_width.cu), C3 (sa_lookup.cu), C4 (banded_global.cu), C5
+// (local_fwd.cu) and C6 (extend.cu), compiled by a host C++ compiler and
+// run row by row with the kernels' argument layouts.  It is not part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
@@ -10,6 +10,7 @@
 
 #include "dfs_read.cuh"
 #include "dp_global.cuh"
+#include "extend.cuh"
 #include "local_sw.cuh"
 
 extern "C" int nabwa_host_occ4(const void* bank, uint32_t primary,
@@ -105,5 +106,25 @@ extern "C" int nabwa_host_local_fwd(const int32_t* params, const void* s1,
             ((const int32_t*)len2)[b], state.data(), state.data() + L1 + 1,
             1, (int32_t*)score + b, (int32_t*)end_i + b,
             (int32_t*)end_j + b);
+    return 0;
+}
+
+extern "C" int nabwa_host_extend(const int32_t* params, const void* s1,
+                                 const void* s2, const void* len1,
+                                 const void* len2, const void* g0,
+                                 const void* bw, int B, int L1, int L2,
+                                 void* score, void* end_i, void* end_j,
+                                 void* cells) {
+    const nabwa::ExtendParams p = nabwa::extend_params(params);
+    std::vector<int32_t> state(2 * ((size_t)L1 + 2));
+    for (int b = 0; b < B; ++b)
+        nabwa::extend_job(
+            p, (const int32_t*)s1 + (size_t)b * (L1 + 2),
+            ((const int32_t*)len1)[b],
+            (const int32_t*)s2 + (size_t)b * (L2 + 1),
+            ((const int32_t*)len2)[b], ((const int32_t*)g0)[b],
+            ((const int32_t*)bw)[b], state.data(), state.data() + L1 + 2, 1,
+            (int32_t*)score + b, (int32_t*)end_i + b, (int32_t*)end_j + b,
+            (int32_t*)cells + b);
     return 0;
 }

@@ -8,9 +8,9 @@
 // over rows with a cummax for the F chain.
 //
 // What bounds it on the card: each job is a chain of len2 dependent rows
-// of len1 cells, ~20 integer operations a cell; the inputs are a few
-// hundred bytes a job and the outputs 12 bytes, so the work is integer
-// operations, not bytes.  At rescue shapes (windows of ~6 std + 2 read
+// of len1 cells, 23 integer operations a cell (local_sw.cuh's inner loop,
+// loads and stores not counted); the inputs are a few hundred bytes a job
+// and the outputs 12 bytes, so the work is integer operations, not bytes.  At rescue shapes (windows of ~6 std + 2 read
 // lengths, ~380 bp, against 100 bp reads) a job is ~38,000 cells.
 //
 // First design: one thread per job walking its rows left to right in one

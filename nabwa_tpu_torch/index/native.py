@@ -1,9 +1,9 @@
 """ctypes bindings for the shared native (C++) host library.
 
 The port's copy of nabwa_tpu/index/native.py, cut to the entry points the
-port calls.  The repository's `native/*.cpp` sources the port needs (the
-bwasw cores are left out) are compiled with g++ at first use, one process
-per source, all at once, and linked into
+port calls.  The repository's `native/*.cpp` sources the port needs are
+compiled with g++ at first use, one process per source, all at once, and
+linked into
 `nabwa_tpu_torch/build/libnabwa_native.so`.  The library is rebuilt when
 the hash of the sources, the flags and the host CPU stored beside it
 differs, so a build directory copied to another machine is not reused.
@@ -27,7 +27,8 @@ import numpy as np
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _NATIVE = _PKG.parent / "native"
 SOURCES = [_NATIVE / f"{n}.cpp" for n in (
-    "sais", "bwtwalk", "dfsgap", "stdaln", "post", "bwtgen", "fastq")]
+    "sais", "bwtwalk", "dfsgap", "stdaln", "bsw2core", "bsw2aln", "post",
+    "bwtgen", "fastq")]
 BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libnabwa_native.so"
 _HASH_PATH = BUILD_DIR / "libnabwa_native.srchash"
@@ -59,9 +60,18 @@ _SIGNATURES = {
         _i32]),
     "aln_global_u8": (_I32, [_u8, _I, _u8, _I, _i32, _I, _I32, _I32, _I32,
                              _I, _u8, _I64, _i64]),
+    "aln_extend_u8": (_I32, [_u8, _I, _u8, _I, _i32, _I, _I32, _I32, _I,
+                             _I32, _I, _i32, _u8, _I64, _i64]),
     "local_fwd_u8": (_I32, [_u8, _I, _u8, _I, _i32, _I, _I32, _I32, _i32]),
     "local_rev_u8": (_I32, [_u8, _I, _u8, _I, _i32, _I, _I32, _I32, _I32,
                             _I, _I, _i32]),
+    "bsw2_core_u32": (_I, [_i64, _i64, _i32, _I, _I, _u32, _U32, _u32, _U32,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _i64, _i64, _I64,
+                           _i64]),
+    "bsw2_aln_batch": (_I64, [
+        _u32, _U32, _u32, _U32, _u32, _I32, _u32, _U32, _u32, _U32, _u32,
+        _I32, _u8, _I64, _u8, _i64, _I64, _i32, _c.c_float, _c.c_double,
+        _u64, _I32, _i64, _i64, _I64, _i32, _I64, _i64]),
     "se_select_batch": (_I, [_I64, _u32, _i32, _i64, _u64, _I, _I, _u64,
                              _i32, _i32, _i32, _i32]),
     "se_multi_batch": (_I, [_I64, _u32, _i32, _i64, _i32, _I64, _u64, _i32,
@@ -224,6 +234,24 @@ def aln_global_native(seq1, seq2, mat, row, go, ge, gend, band):
                                 int(row), int(go), int(ge), int(gend),
                                 int(band), path, cap, pn)
     return int(score), path[:int(pn[0])]
+
+
+def aln_extend_native(seq1, seq2, mat, row, go, ge, band, g0):
+    """Native aln_extend_core without its path (nabwa_tpu/index/native.py:332
+    with want_path=False); returns (score, end_i, end_j).  Raises on the
+    overflow rebase the C would take."""
+    s1 = np.ascontiguousarray(seq1, dtype=np.uint8)
+    s2 = np.ascontiguousarray(seq2, dtype=np.uint8)
+    path = np.empty(1, dtype=np.uint8)
+    pn = np.zeros(1, dtype=np.int64)
+    out = np.zeros(3, dtype=np.int32)
+    rc = lib().aln_extend_u8(s1, len(s1), s2, len(s2),
+                             np.ascontiguousarray(mat, dtype=np.int32),
+                             int(row), int(go), int(ge), int(band), int(g0),
+                             0, out, path, 1, pn)
+    if rc != 0:
+        raise RuntimeError("extension overflow rebase not modelled")
+    return int(out[0]), int(out[1]), int(out[2])
 
 
 def local_fwd_native(seq1, seq2, mat, row, q, r):

@@ -1,5 +1,6 @@
 """Suffix array / BWT construction (host, offline): the port's copy of the
-parts of nabwa_tpu/index/sa.py that `index.build` uses.
+parts of nabwa_tpu/index/sa.py that `index.build` and bwasw's per-read
+index (`models/bwasw.py::Bwtl`) use.
 
 Output parity with the reference's is_bwt (is.c:187-218) +
 bwt_bwtupdate_core (bwtmisc.c:125-152) + bwt_cal_sa (bwt.c:48-70): the BWT
@@ -13,6 +14,12 @@ import numpy as np
 
 from ..constants import OCC_INTERVAL, SA_INTERVAL
 from . import native
+
+
+def suffix_array(codes):
+    """Suffix array of codes (values 0..3), the shorter suffix smaller on
+    prefix ties (nabwa_tpu/index/sa.py:15): the native SA-IS."""
+    return native.suffix_array_native(codes)
 
 
 def bwt_and_sample_from_codes(codes, sa_intv=SA_INTERVAL):

@@ -22,8 +22,9 @@ against.  Only that argument chooses it; nothing falls back to it.
 
 The per-read host steps that the JAX package keeps in
 nabwa_tpu/models/samse.py (`SeqState`, `refine_window`,
-`refine_gapped_core`, `correct_trimmed`, `sam_header`, `G_LOG_N`) are
-copied here; the sampe driver uses them too.
+`refine_gapped_core`, `correct_trimmed`, `sam_header`, `G_LOG_N`, and
+`coor_pac2real` for bwasw) are copied here; the sampe driver uses them
+too.
 
 `seconds` sums host seconds per part over calls: select (steps 1 and 3),
 sa, dp (windows, packing, the copy to the device and the DP to its end),
@@ -179,6 +180,43 @@ def sam_header(bns, rg_line=None, version="0.5.10-evan.6.3-nabwa"):
         lines.append(rg_line)
     lines.append("@PG\tID:bwa\tPN:bwa\tVN:%s" % version)
     return "\n".join(lines) + "\n"
+
+
+def coor_pac2real(bns, pac_coor, length):
+    """bns_coor_pac2real (bntseq.c:272-306): (seqid, nn)."""
+    anns = bns.anns
+    left, mid, right = 0, 0, bns.n_seqs
+    while left < right:
+        mid = (left + right) >> 1
+        if pac_coor >= anns[mid].offset:
+            if mid == bns.n_seqs - 1:
+                break
+            if pac_coor < anns[mid + 1].offset:
+                break
+            left = mid + 1
+        else:
+            right = mid
+    seqid = mid
+    # hole overlap count (single overlapping hole, as in the reference)
+    left, right = 0, bns.n_holes
+    nn = 0
+    holes = bns.ambs
+    while left < right:
+        hmid = (left + right) >> 1
+        h = holes[hmid]
+        if pac_coor >= h.offset + h.length:
+            left = hmid + 1
+        elif pac_coor + length <= h.offset:
+            right = hmid
+        else:
+            if pac_coor >= h.offset:
+                nn += (h.offset + h.length - pac_coor
+                       if h.offset + h.length < pac_coor + length else length)
+            else:
+                nn += (h.length if h.offset + h.length < pac_coor + length
+                       else length - (h.offset - pac_coor))
+            break
+    return seqid, nn
 
 
 # --- the samse steps ---

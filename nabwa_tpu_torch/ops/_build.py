@@ -61,6 +61,10 @@ _SIGNATURES = {
     #  end_i, end_j, stream)
     "nabwa_local_fwd": [_I32P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                         _P],
+    # (extend params[27], s1, s2, len1, len2, g0, bw, B, L1, L2, scratch,
+    #  score, end_i, end_j, cells, stream)
+    "nabwa_extend": [_I32P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                     _P, _P, _P],
 }
 
 

@@ -1,8 +1,9 @@
 """The DP lattices of the port's workflow modules on a torch device: the
 banded global alignment (aln_global_core, stdaln.c:345-525) of samse's
-and sampe's gapped refinement and of the local-SW path recovery, and the
-local Smith-Waterman forward lattice (aln_local_core, stdaln.c:556-637) of
-sampe's mate rescue.
+and sampe's gapped refinement, of the local-SW path recovery and of
+bwasw's cigars, the local Smith-Waterman forward lattice (aln_local_core,
+stdaln.c:556-637) of sampe's mate rescue, and the seed extension
+(aln_extend_core, stdaln.c:862-970) of bwasw.
 
 `banded_global_plain` is nabwa_tpu/ops/dp.py:31 `_banded_global_device` on
 tensors: the score lattice and packed traceback bits for a batch of
@@ -14,10 +15,17 @@ raises.  `local_fwd_plain` is nabwa_tpu/ops/dp.py:404 `_local_fwd_device`
 on tensors, and `local_fwd` dispatches the same way to it or to the kernel
 in `csrc/local_fwd.cu` (C5, one thread per job).
 
+`extend_plain` is nabwa_tpu/ops/dp.py:264 `_extend_device` on tensors,
+with the band per job, and `extend` dispatches to it or to the kernel in
+`csrc/extend.cu` (C6, one thread per job, only each row's window).
+
 `banded_global_batch` is the counterpart of nabwa_tpu/ops/dp.py:185
 `banded_global_batch`: zero-length pairs are answered on the host, the
-rest go to the device in batches of at most `MAX_PAIRS`, and the host
-walks each lattice back into the scalar oracle's path.  `local_sw_batch`
+rest go to the device in batches of at most `MAX_PAIRS` pairs and
+`MAX_LATTICE_BYTES` of lattice, and the host walks each lattice back into
+the scalar oracle's path.  `extend_batch` is the counterpart of
+nabwa_tpu/ops/dp.py:352 with a band and an initial score per job, in
+batches bounded by scratch bytes.  `local_sw_batch`
 is the counterpart of nabwa_tpu/ops/dp.py:482: the forward lattice on the
 device in batches bounded by scratch bytes, the banded reverse pass on
 the host (the native `local_rev`), and the path through
@@ -26,6 +34,8 @@ JAX package's size threshold for its native route (`_use_native_dp`) is
 not carried over: on CUDA every batch launches the kernels.
 `banded_global_native` and `local_sw_native` are the host reference
 routes: the shared native aln_global_core and local_fwd for each job.
+bwasw's host reference route runs the native whole-batch driver instead
+(`models/bwasw.py`).
 """
 
 import time
@@ -40,17 +50,25 @@ from ..refmodel.stdaln_scalar import FROM_D, FROM_I, FROM_M, MINOR_INF
 NEG = MINOR_INF
 _I32 = torch.int32
 
-# device pairs per batch: bounds the lattice, (L2+1)(L1+1) bytes a pair
+# device pairs per batch, and lattice bytes per batch ((L2+1)(L1+1) a
+# pair at the batch's longest lengths): 100 bp pairs are bounded by the
+# count, 1 kb pairs (~1 MB each) by the bytes
 MAX_PAIRS = 8192
+MAX_LATTICE_BYTES = 1 << 28
 
 # local-SW jobs per forward batch: bounds the kernel's h/e scratch,
 # 8 (L1+1) bytes a job
 MAX_LOCAL_SCRATCH = 1 << 28
 
-# kernel launches made on CUDA tensors by `banded_global` (C4) and by
-# `local_fwd` (C5)
+# extension jobs per batch: bounds the kernel's hd/ev scratch, 8 (L1+2)
+# bytes a job
+MAX_EXTEND_SCRATCH = 1 << 28
+
+# kernel launches made on CUDA tensors by `banded_global` (C4), by
+# `local_fwd` (C5) and by `extend` (C6)
 launches = 0
 launches_local = 0
+launches_extend = 0
 
 
 def _shift_right(x, fill):
@@ -231,6 +249,26 @@ def _todo(pairs):
     return res, todo
 
 
+def lattice_batches(pairs, todo):
+    """`todo` cut, in order, into batches of at most MAX_PAIRS pairs whose
+    lattice, (L2+1)(L1+1) bytes a pair at the batch's longest lengths, stays
+    within MAX_LATTICE_BYTES (a pair larger than that goes alone)."""
+    out, part, l1, l2 = [], [], 0, 0
+    for i in todo:
+        a, b = pairs[i]
+        n1, n2 = max(l1, len(a)), max(l2, len(b))
+        if part and (len(part) == MAX_PAIRS
+                     or (len(part) + 1) * (n1 + 1) * (n2 + 1)
+                     > MAX_LATTICE_BYTES):
+            out.append(part)
+            part, n1, n2 = [], len(a), len(b)
+        part.append(i)
+        l1, l2 = n1, n2
+    if part:
+        out.append(part)
+    return out
+
+
 def banded_global_batch(pairs, ap, device, band_widths=None, seconds=None):
     """Batched aln_global_core on `device`: pairs = [(seq1, seq2), ...]
     (uint8 codes).  Returns [(score, path), ...] exactly like the scalar
@@ -240,8 +278,7 @@ def banded_global_batch(pairs, ap, device, band_widths=None, seconds=None):
     lattice copy back and the backtrace walks)."""
     device = torch.device(device)
     res, todo = _todo(pairs)
-    for start in range(0, len(todo), MAX_PAIRS):
-        part = todo[start:start + MAX_PAIRS]
+    for part in lattice_batches(pairs, todo):
         t0 = time.perf_counter()
         bws = [ap.band_width if band_widths is None else band_widths[i]
                for i in part]
@@ -516,6 +553,196 @@ def local_sw_native(jobs, ap, thres=1, seconds=None):
         return banded_global_native(pairs, ap_real, band_widths=bws)
 
     return _local_finish(jobs, ap, res, fwd, thres, global_batch, seconds)
+
+
+def extend_plain(s1, len1, s2, len2, g0, bw, mat, *, go, ge):
+    """Seed extension of a batch (aln_extend_core's forward pass), plain
+    PyTorch: nabwa_tpu/ops/dp.py:264 `_extend_device` row by row, the F
+    chain as a cummax along the row, with the band per job.
+
+    s1: int32 [B, L1+2] 1-based target windows (index 0 unused), codes
+    0..4; s2: int32 [B, L2+1] 1-based query segments; len1/len2/g0/bw:
+    int32 [B]; mat: the 5x5 score matrix (host ints).  Every column of the
+    padded row is computed and the window's complement masked, as in the
+    jnp function; the loop ends once every job has stopped.  Returns
+    (score - 1, end_i, end_j, cells), int32 [B] each: cells counts the
+    window cells of each job's live rows, the work C6 does."""
+    dev = s1.device
+    B, L1p2 = s1.shape
+    L2p = s2.shape[1]
+    qr, r = int(go) + int(ge), int(ge)
+    negf = -(1 << 29)
+    i_idx = torch.arange(L1p2, dtype=_I32, device=dev)[None, :]
+    mat_t = torch.as_tensor(np.asarray(mat, dtype=np.int32), device=dev)
+    # prof[c][b, i] = mat[c][s1[b, i]]: row j's scores are prof[s2[b, j]]
+    prof = mat_t[:, s1.long()]
+    lanes = torch.arange(B, device=dev)
+    # hd[i] = h[j-1][i-1] (the C's rolling eh_h), ev[i] = e[j-1][i]
+    hd = torch.zeros((B, L1p2), dtype=_I32, device=dev)
+    hd[:, 1] = g0
+    ev = torch.zeros((B, L1p2), dtype=_I32, device=dev)
+    zeros = torch.zeros(B, dtype=_I32, device=dev)
+    start, end = zeros + 1, zeros + 2
+    score, end_i, end_j, cells = zeros, zeros, zeros, zeros
+    stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+    for j in range(1, L2p):
+        start_n = torch.maximum(start, torch.clamp(bw.neg() + j, min=1))
+        end_n = torch.minimum(end, torch.minimum(bw + j, len1 + 1))
+        dead = start_n == end_n
+        active = ~stopped & (j <= len2) & ~dead
+        sub = prof[s2[:, j].long(), lanes]
+        inwin = (i_idx >= start_n[:, None]) & (i_idx < end_n[:, None])
+        hpre = torch.maximum(torch.where(hd > 0, hd + sub, 0), ev)
+        # F from the pre-F h, as a cummax along the row
+        U = torch.where(inwin, torch.clamp(hpre - qr, min=0) + r * i_idx,
+                        negf)
+        T = torch.cummax(U, dim=1).values
+        f = torch.clamp(_shift_right(T, negf) - r * (i_idx - 1), min=0)
+        h = torch.where(inwin, torch.maximum(hpre, f), 0).to(_I32)
+
+        # positive span and best cell (first cell of the row at its max)
+        pos = (h > 0) & inwin
+        any_pos = pos.any(dim=1)
+        pos8 = pos.to(torch.int8)
+        ns = torch.argmax(pos8, dim=1).to(_I32)
+        ne = (L1p2 - 1 - torch.argmax(pos8.flip(1), dim=1)).to(_I32)
+        row_best = h.max(dim=1).values
+        row_arg = torch.argmax(h, dim=1).to(_I32)
+        better = active & any_pos & (row_best > score)
+        score = torch.where(better, row_best, score)
+        end_i = torch.where(better, row_arg, end_i)
+        end_j = torch.where(better, j, end_j).to(_I32)
+
+        # state: e over the window (0 at end_n), hd over [start_n, end_n]
+        e_new = torch.maximum(ev - r, torch.clamp(h - qr, min=0))
+        ev_out = torch.where(inwin, e_new, ev)
+        ev_out = torch.where(i_idx == end_n[:, None], 0, ev_out)
+        wr = (i_idx >= start_n[:, None]) & (i_idx <= end_n[:, None])
+        hd_out = torch.where(wr, _shift_right(h, 0), hd)
+        upd = active[:, None]
+        hd = torch.where(upd, hd_out, hd).to(_I32)
+        ev = torch.where(upd, ev_out, ev).to(_I32)
+        cells = cells + torch.where(active, inwin.sum(dim=1), 0).to(_I32)
+        grow = active & any_pos
+        start = torch.where(grow, ns, start_n)
+        end = torch.where(grow, ne + 3, end_n)
+        stopped = stopped | dead | (active & ~any_pos) | (j >= len2)
+        if j % 32 == 0 and bool(stopped.all()):
+            break
+    return (score - 1).to(_I32), end_i, end_j, cells
+
+
+def extend_cuda(s1, len1, s2, len2, g0, bw, mat, *, go, ge):
+    """`extend` on CUDA tensors through kernel C6 (csrc/extend.cu); same
+    contract as `extend_plain`."""
+    global launches_extend
+    dev = s1.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    _build.require(s1, "s1", dev, 2)
+    _build.require(s2, "s2", dev, 2)
+    B, L1p2 = s1.shape
+    L2p = s2.shape[1]
+    if s2.shape[0] != B:
+        raise ValueError(f"s2: {s2.shape[0]} rows, expected {B}")
+    if L1p2 < 2:
+        raise ValueError(f"s1: {L1p2} columns, expected at least 2")
+    for name, t in (("len1", len1), ("len2", len2), ("g0", g0), ("bw", bw)):
+        _build.require(t, name, dev, 1)
+        if t.shape[0] != B:
+            raise ValueError(f"{name}: {t.shape[0]} rows, expected {B}")
+    mat = np.asarray(mat, dtype=np.int64).reshape(-1)
+    if mat.size != 25:
+        raise ValueError(f"mat: {mat.size} values, expected 25")
+    out = [torch.empty(B, dtype=_I32, device=dev) for _ in range(4)]
+    if B == 0:
+        return tuple(out)
+    scratch = torch.empty((2, L1p2, B), dtype=_I32, device=dev)
+    params = _build.i32_params([go, ge] + mat.tolist())
+    rc = _build.lib().nabwa_extend(
+        params, s1.data_ptr(), s2.data_ptr(), len1.data_ptr(),
+        len2.data_ptr(), g0.data_ptr(), bw.data_ptr(), B, L1p2 - 2, L2p - 1,
+        scratch.data_ptr(), *[t.data_ptr() for t in out],
+        _build.stream_of(s1))
+    _build.check(rc, "extend kernel launch")
+    launches_extend += 1
+    return tuple(out)
+
+
+def extend(s1, len1, s2, len2, g0, bw, mat, *, go, ge):
+    """(score - 1, end_i, end_j, cells) of a batch of extensions: the plain
+    version for CPU tensors, kernel C6 for CUDA tensors."""
+    if s1.device.type == "cpu":
+        return extend_plain(s1, len1, s2, len2, g0, bw, mat, go=go, ge=ge)
+    if s1.device.type == "cuda":
+        return extend_cuda(s1, len1, s2, len2, g0, bw, mat, go=go, ge=ge)
+    raise ValueError(f"extend: no kernel for device {s1.device}")
+
+
+def pack_extend(jobs, g0s, bws, device):
+    """The kernel inputs of non-empty jobs [(target, query), ...] as int32
+    tensors on `device`: 1-based sequences in rows of L1+2 and L2+1 padded
+    with 0, as nabwa_tpu/ops/dp.py:379-390 pads them, their lengths, the
+    initial scores and the bands."""
+    B = len(jobs)
+    L1 = max(len(a) for a, _ in jobs)
+    L2 = max(len(b) for _, b in jobs)
+    s1 = np.zeros((B, L1 + 2), dtype=np.int32)
+    s2 = np.zeros((B, L2 + 1), dtype=np.int32)
+    for bi, (a, b) in enumerate(jobs):
+        s1[bi, 1:len(a) + 1] = a
+        s2[bi, 1:len(b) + 1] = b
+    cols = [np.array([len(a) for a, _ in jobs], dtype=np.int32),
+            np.array([len(b) for _, b in jobs], dtype=np.int32),
+            np.asarray(g0s, dtype=np.int32), np.asarray(bws, dtype=np.int32)]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return dict(s1=put(s1), s2=put(s2), **{
+        k: put(v) for k, v in zip(("len1", "len2", "g0", "bw"), cols)})
+
+
+def _extend_todo(jobs):
+    """Indices of the non-empty jobs; the results list with the empty ones
+    answered like nabwa_tpu/ops/dp.py:358-362."""
+    res = [None] * len(jobs)
+    todo = []
+    for i, (a, b) in enumerate(jobs):
+        if len(a) and len(b):
+            todo.append(i)
+        else:
+            res[i] = (-1, 0, 0)
+    return res, todo
+
+
+def extend_batch(jobs, ap, g0s, device, bws=None, seconds=None):
+    """Batched aln_extend_core, score and end only (want_path=False), on
+    `device`: jobs = [(target, query), ...] (uint8 codes), g0s the initial
+    score of each job, bws its band (ap.band_width when None).  Returns
+    [(score, end_i, end_j), ...] matching the scalar oracle.  seconds, when
+    given, gets host seconds added under "extend" (packing, the copy to the
+    device, the extension and the copy back)."""
+    device = torch.device(device)
+    res, todo = _extend_todo(jobs)
+    if not todo:
+        return res
+    L1 = max(len(jobs[i][0]) for i in todo)
+    step = max(1, MAX_EXTEND_SCRATCH // (8 * (L1 + 2)))
+    for lo in range(0, len(todo), step):
+        part = todo[lo:lo + step]
+        t0 = time.perf_counter()
+        args = pack_extend(
+            [jobs[i] for i in part], [g0s[i] for i in part],
+            [ap.band_width if bws is None else bws[i] for i in part], device)
+        out = extend(**args, mat=ap.matrix, go=int(ap.gap_open),
+                     ge=int(ap.gap_ext))
+        out = torch.stack(out[:3], 1).cpu().numpy()
+        for bi, i in enumerate(part):
+            res[i] = tuple(int(v) for v in out[bi])
+        if seconds is not None:
+            seconds["extend"] += time.perf_counter() - t0
+    return res
 
 
 # Host backtrace and path rebuild: copies of nabwa_tpu/ops/dp.py:163-182

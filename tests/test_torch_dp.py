@@ -124,6 +124,34 @@ def test_batch_paths_match_oracle(seed, ap):
     assert tdp.banded_global_native(pairs, ap) == want
 
 
+def test_batch_split_by_lattice_bytes(monkeypatch):
+    """Long pairs (bwasw's cigars) under a small lattice bound go to the
+    device in several batches, each within the bound, and give the results
+    of one batch."""
+    rng = np.random.default_rng(17)
+    pairs = []
+    for _ in range(9):
+        ref = rng.integers(0, 4, int(rng.integers(150, 400)))
+        pairs.append((ref.astype(np.uint8), _mutate(rng, ref, 0.03, 0.02,
+                                                    0.02)))
+    pairs.insert(4, (np.array([], np.uint8), pairs[0][1]))
+    ap = AlnParam(5, 2, 2, ALN_SM_BLAST, 5, 30)
+    whole = tdp.banded_global_batch(pairs, ap, "cpu")
+    bound = 3 * 401 * 420
+    monkeypatch.setattr(tdp, "MAX_LATTICE_BYTES", bound)
+    sizes = []
+    plain = tdp.banded_global_plain
+
+    def recorded(s1, len1, s2, *args, **kw):
+        sizes.append(s1.shape[0] * s1.shape[1] * s2.shape[1])
+        return plain(s1, len1, s2, *args, **kw)
+
+    monkeypatch.setattr(tdp, "banded_global_plain", recorded)
+    assert tdp.banded_global_batch(pairs, ap, "cpu") == whole
+    assert len(sizes) >= 3 and max(sizes) <= bound
+    assert whole == tdp.banded_global_native(pairs, ap)
+
+
 def test_batch_band_widths_and_seconds():
     pairs = _pairs(15)
     bws = [5 + (i % 7) for i in range(len(pairs))]

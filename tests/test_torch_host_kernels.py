@@ -2,10 +2,10 @@
 
 `nabwa_tpu_torch/csrc/host_harness.cpp` runs the kernels' NABWA_HD
 per-row code (dfs_read of C1, cal_width_row of C2, sa_lookup_row of C3,
-banded_global_pair of C4, local_fwd_pair of C5) with the kernels' argument
-layouts.  g++ builds it here, so the tests can hold the kernel source
-itself, not only its plain PyTorch version, against the JAX package on a
-machine without a GPU.
+banded_global_pair of C4, local_fwd_pair of C5, extend_job of C6) with the
+kernels' argument layouts.  g++ builds it here, so the tests can hold the
+kernel source itself, not only its plain PyTorch version, against the JAX
+package on a machine without a GPU.
 """
 
 import ctypes
@@ -37,9 +37,12 @@ def build(out_dir):
         [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 3 + [_P] * 3)
     lib.nabwa_host_local_fwd.argtypes = (
         [ctypes.POINTER(ctypes.c_int32)] + [_P] * 4 + [_I] * 3 + [_P] * 3)
+    lib.nabwa_host_extend.argtypes = (
+        [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 3 + [_P] * 4)
     for fn in (lib.nabwa_host_occ4, lib.nabwa_host_cal_width,
                lib.nabwa_host_dfs, lib.nabwa_host_sa_lookup,
-               lib.nabwa_host_banded_global, lib.nabwa_host_local_fwd):
+               lib.nabwa_host_banded_global, lib.nabwa_host_local_fwd,
+               lib.nabwa_host_extend):
         fn.restype = _I
     return lib
 
@@ -126,7 +129,6 @@ def banded_global(lib, s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
     return score, ctype, tb
 
 
-
 def local_fwd(lib, s1, len1, s2, len2, mat, *, go, ge):
     """C5's per-pair code on numpy arrays: (score, end_i, end_j) int32
     [B]."""
@@ -137,4 +139,18 @@ def local_fwd(lib, s1, len1, s2, len2, mat, *, go, ge):
     lib.nabwa_host_local_fwd(params, _ptr(s1), _ptr(s2), _ptr(len1),
                              _ptr(len2), B, L1p - 1, s2.shape[1] - 1,
                              *[_ptr(a) for a in out])
+    return tuple(out)
+
+
+def extend(lib, s1, len1, s2, len2, g0, bw, mat, *, go, ge):
+    """C6's per-job code on numpy arrays: (score, end_i, end_j, cells)
+    int32 [B]."""
+    s1, s2, len1, len2, g0, bw = (_arr(a) for a in (s1, s2, len1, len2, g0,
+                                                    bw))
+    B, L1p2 = s1.shape
+    out = [np.empty(B, dtype=np.int32) for _ in range(4)]
+    params = _build.i32_params([go, ge] + np.asarray(mat).reshape(-1).tolist())
+    lib.nabwa_host_extend(params, _ptr(s1), _ptr(s2), _ptr(len1), _ptr(len2),
+                          _ptr(g0), _ptr(bw), B, L1p2 - 2, s2.shape[1] - 1,
+                          *[_ptr(a) for a in out])
     return tuple(out)
