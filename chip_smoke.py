@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of nabwa_tpu_torch, the `aln`, `samse`, `sampe` and
-`bwasw` paths on one NVIDIA GPU.
+"""On-card smoke run of nabwa_tpu_torch, the `aln`, `samse`, `sampe`,
+`bwasw` and `bam2bam` paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--glen BP] [--reads N] [--pairs N] [--batch B]
                           [--retry-stack S] [--long-reads N] [--profile]
@@ -78,9 +78,24 @@ Phases, any failure exits non-zero:
    score, end type and whole lattice at 1 kb lengths, C3's positions, all
    exact; and the two routes' SAM byte-identical;
 15. the bwasw CLI with every launch count at 0: `bwasw --device cuda` (its
-   SAM equal to the host reference route's, C3, C4 and C6 launched).
-Phase 12's chain and phase 15 are the main paths: their launch counts,
-summed, are the `launches` of the kernels line.
+   SAM equal to the host reference route's, C3, C4 and C6 launched);
+16. bam2bam on an unaligned BAM (built with the port's io/bam.py) of
+   phase 9's pairs as read group rg1, a quarter as many pairs more at
+   insert size 500 +- 50 (seed 104) as rg2 and as many reads of the
+   gapped set as rg1 singletons: on the host reference route at one
+   worker, and on the card at one and at four worker threads sharing one
+   engine, recording every C1-C5 launch of both card runs.  The three BAMs
+   must be byte-identical, the four-worker run must launch each kernel as
+   often and with the same shapes as the one-worker run, at most 20 % of
+   the one-worker run's aligned reads may drain to the host, every C3, C4
+   and C5 launch of that run must equal its plain version (and its
+   smallest tier-0 C1 launch and largest C2 launch theirs, as in phases
+   2-3), and the rescue must place at least half of the rescue-only
+   mates;
+17. the bam2bam CLI with every launch count at 0: `bam2bam --device cuda`
+   (its BAM equal to the host reference route's, C1-C5 launched).
+Phase 12's chain and phases 15 and 17 are the main paths: their launch
+counts, summed, are the `launches` of the kernels line.
 With --profile, torch.profiler runs over one more aln run after phase 4's
 timed run and over one more bwasw card run after phase 14: the card's
 busy share and the device time of each kernel.
@@ -97,7 +112,10 @@ largest launch of bwasw's card run, its bound counted from the window
 cells that launch computed; C4's bound counts the cells inside each
 pair's band and the whole lattice's bytes.  `total_ms` (C6) and
 `bwasw_total_ms` (C4, C3) sum the device time of every launch of the
-bwasw card run, each timed once as it is replayed.
+bwasw card run, each timed once as it is replayed; the `bam2bam_*` fields
+of C2-C5 are those of bam2bam's one-worker card run (C1's
+`bam2bam_err` of its replayed launch), and `bam2bam_launches` of every
+kernel its count in phase 17.
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
@@ -114,6 +132,7 @@ import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -121,6 +140,9 @@ MAX_HOST_SHARE = 0.20
 CHECK_B = 2048
 # one pair in RESCUE_SHARE of phase 9's set is a mate only the rescue places
 RESCUE_SHARE = 64
+# bam2bam's second read group and its singletons: one in BAM_SHARE as many
+# as phase 9's pairs each
+BAM_SHARE = 4
 # NVIDIA H100 SXM datasheet figures: HBM bandwidth,
 # and the float32 rate outside the tensor cores, the sheet's only 32-bit
 # non-tensor rate, taken for int32 operations too.  Hopper has half as many
@@ -310,14 +332,16 @@ def make_long_reads(genome_seq, n_reads, read_len, seed, err=0.02,
 
 
 def make_data(glen, n_reads, n_pairs, n_long):
-    """Genome, index, the bench reads, the gapped reads, the read pairs and
-    the long reads (cached by size and seed): a random contig of glen bp
-    (seed 99) and the decoy contig of the pairs; 100 bp reads from the
-    random contig at 1 % substitutions, seed 100, the same with a 1-base
-    indel in half the reads, seed 101, pairs of 100 bp reads, insert size
-    300 +- 30, 1 % substitutions, 10 % broken mates and 1/64 of the pairs
-    rescued from the decoy, seed 102, and n_long reads of 1000 bp of the
-    long-read model at 3 % substitutions and an indel in half, seed 103."""
+    """Genome, index, the bench reads, the gapped reads, the read pairs,
+    the long reads and bam2bam's second read group (cached by size and
+    seed): a random contig of glen bp (seed 99) and the decoy contig of the
+    pairs; 100 bp reads from the random contig at 1 % substitutions, seed
+    100, the same with a 1-base indel in half the reads, seed 101, pairs
+    of 100 bp reads, insert size 300 +- 30, 1 % substitutions, 10 % broken
+    mates and 1/64 of the pairs rescued from the decoy, seed 102, n_long
+    reads of 1000 bp of the long-read model at 3 % substitutions and an
+    indel in half, seed 103, and n_pairs / 4 more pairs at insert size
+    500 +- 50, seed 104."""
     from nabwa_tpu_torch.index.build import build_index
     from tests import genomes
     work = pathlib.Path(tempfile.gettempdir()) / \
@@ -327,14 +351,19 @@ def make_data(glen, n_reads, n_pairs, n_long):
     fqs = {work / f"r{n_reads}.fq": dict(seed=100),
            work / f"r{n_reads}_gapped.fq": dict(seed=101, indel_rate=0.5)}
     pe = [work / f"p{n_pairs}_{end}.fq" for end in (1, 2)]
+    pe2 = [work / f"p{n_pairs}_rg2_{end}.fq" for end in (1, 2)]
     lr = work / f"lr{n_long}.fq"
     if not (work / "g.fa.rsa").exists() or \
-            not all(p.exists() for p in [*fqs, *pe, lr]):
+            not all(p.exists() for p in [*fqs, *pe, *pe2, lr]):
         t0 = time.perf_counter()
         text, seqs = genomes.random_genome(glen, seed=99)
         pairs, decoy = make_pairs(seqs[0], n_pairs, n_pairs // RESCUE_SHARE,
                                   100, 300, 30, 102, 0.01, 0.10)
         for path, fq in zip(pe, pairs):
+            path.write_bytes(fq)
+        pairs2, _ = make_pairs(seqs[0], n_pairs // BAM_SHARE, 0, 100, 500,
+                               50, 104, 0.01, 0.10)
+        for path, fq in zip(pe2, pairs2):
             path.write_bytes(fq)
         if not (work / "g.fa.rsa").exists():
             fa.write_bytes(text + decoy)
@@ -350,7 +379,7 @@ def make_data(glen, n_reads, n_pairs, n_long):
                                        indel=0.5))
         log(f"genome + index + reads + pairs + long reads: "
             f"{time.perf_counter() - t0:.1f} s")
-    return (fa, *fqs, *pe, lr)
+    return (fa, *fqs, *pe, lr, *pe2)
 
 
 def check_cal_width(eng, inputs):
@@ -626,11 +655,14 @@ def samse_routes(eng, idx, reads, sai_bytes, opt, label):
 def record(module, name):
     """Replace module.name by a wrapper that appends each call's (args,
     kwargs) to a list and calls through.  Returns (the list, a function
-    that puts the original back)."""
+    that puts the original back).  Worker threads may launch at once: the
+    list grows under a lock, in the order the launches happen."""
     fn, calls = getattr(module, name), []
+    lock = threading.Lock()
 
     def wrapper(*args, **kw):
-        calls.append((args, kw))
+        with lock:
+            calls.append((args, kw))
         return fn(*args, **kw)
 
     setattr(module, name, wrapper)
@@ -681,6 +713,32 @@ def check_launches(label, calls, kernel, plain, size, bound_of):
     return {"err": worst, "ms": ms, "plain_ms": timed[0],
             "total_ms": total_ms, "bound": bnd, "args": args,
             "out": timed[1]}
+
+
+def replay_dfs(label, calls):
+    """C1 against the plain DFS on one recorded launch: the smallest of
+    the tier-0 launches (the lowest max_iters), so the plain run stays
+    short.  The hits, n_aln, hw and overflow columns must agree exactly,
+    as in `check_dfs`.  Returns max |err|."""
+    import torch
+    from nabwa_tpu_torch.ops import dfs, dfs_cuda
+    tier0 = min(kw["max_iters"] for _, kw in calls)
+    args, kw = min((c for c in calls if c[1]["max_iters"] == tier0),
+                   key=lambda c: c[0][6].shape[0])
+    kern = dfs_cuda.dfs_match_gap_cuda(*args, **kw)
+    t0 = time.perf_counter()
+    plain = dfs.dfs_match_gap_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    H = kw["hits_cap"]
+    worst = int((kern[:, :4 * H + 3].long()
+                 - plain[:, :4 * H + 3].long()).abs().max())
+    log(f"{label}: {kern.shape[0]} reads (L={args[6].shape[2]}, "
+        f"max_iters={tier0}), max |err| {worst} over hits/n_aln/hw/"
+        f"overflow; plain {plain_ms:.2f} ms")
+    if worst != 0:
+        fail(f"{label}: the kernel disagrees with the plain version")
+    return worst
 
 
 def sampe_routes(eng, idx, pairs, sais, opt, popt):
@@ -771,6 +829,117 @@ def bwasw_routes(eng, idx, reads, opt):
     return out, recorded
 
 
+def unaligned_bam(path, groups):
+    """An unaligned BAM written with the port's io/bam.py, as
+    tests/test_bam2bam.py lays it out: groups = [(read group, FASTQ paths,
+    number of records per path)], a pair of paths giving interleaved FR
+    pairs (flags 0x4d/0x8d), one path singletons (0x4); every record
+    carries RG:Z.  The sequence bytes are packed with numpy."""
+    import numpy as np
+    from nabwa_tpu_torch.io import bam as pbam
+    nt16 = np.full(256, 15, dtype=np.uint8)
+    for i, c in enumerate(pbam.NT16_STR):
+        nt16[ord(c)] = i
+    recs = []
+    for rg, paths, n in groups:
+        tag = b"RGZ" + rg.encode() + b"\x00"
+        ends = []
+        for fq in paths:
+            lines = fq.read_bytes().split(b"\n")[:4 * n]
+            names = [ln[1:].split(b"/")[0] + b"\x00" for ln in lines[0::4]]
+            seqs, quals = lines[1::4], lines[3::4]
+            ends.append((names, seqs, quals))
+        paired = len(paths) == 2
+        flags = ((pbam.BAM_FPAIRED | pbam.BAM_FREAD1 | pbam.BAM_FUNMAP | 8,
+                  pbam.BAM_FPAIRED | pbam.BAM_FREAD2 | pbam.BAM_FUNMAP | 8)
+                 if paired else (pbam.BAM_FUNMAP,))
+        for i in range(n):
+            for (names, seqs, quals), flag in zip(ends, flags):
+                codes = nt16[np.frombuffer(seqs[i], dtype=np.uint8)]
+                if len(codes) & 1:
+                    codes = np.append(codes, 0)
+                r = pbam.BamRec()
+                r.flag, r.bin = flag, 0
+                r.l_qname, r.l_qseq = len(names[i]), len(seqs[i])
+                r.data = bytearray(
+                    names[i] + ((codes[0::2] << 4) | codes[1::2]).tobytes()
+                    + (np.frombuffer(quals[i], np.uint8) - 33).tobytes()
+                    + tag)
+                recs.append(r)
+    pbam.make_bam(str(path), [], recs, text="@HD\tVN:1.4\n" + "".join(
+        f"@RG\tID:{rg}\tSM:s{rg}\n" for rg, _, _ in groups))
+    return len(recs)
+
+
+def launch_signatures(calls):
+    """A multiset of launches: each launch's tensor shapes and static
+    arguments, whichever thread made it."""
+    import collections
+    import torch
+    return collections.Counter(
+        (tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else None
+               for a in args), tuple(sorted((k, str(v)) for k, v in
+                                            kw.items())))
+        for args, kw in calls)
+
+
+def bam2bam_routes(eng, idx, in_bam, n_records, argv, opt, popt, out_dir):
+    """bam2bam on the host reference route at one worker, then on the card
+    at one and at four workers, each run's launches of C1-C5 counted and,
+    on the card, recorded.  Returns ({label: (BAM bytes, records/s, stage
+    seconds, pass-2 part seconds, rescue counters, launch counts, engine
+    tiers)}, {label: {kernel: recorded launches}})."""
+    import torch
+    from nabwa_tpu_torch.models import bam2bam as mb2b
+    from nabwa_tpu_torch.ops import dfs_cuda, dp, occ
+    from nabwa_tpu_torch.ops import sa_lookup as sl
+    from nabwa_tpu_torch.utils.rand48 import Rand48
+    wrapped = (("dfs", dfs_cuda, "dfs_match_gap_cuda"),
+               ("cal_width", occ, "cal_width_cuda"),
+               ("sa_lookup", sl, "sa_lookup_cuda"),
+               ("banded_global", dp, "banded_global_cuda"),
+               ("local_fwd", dp, "local_fwd_cuda"))
+    runs, recorded = {}, {}
+    for label, kw in (("reference", dict(host_reference=True)),
+                      ("cuda t1", {}), ("cuda t4", dict(n_workers=4))):
+        occ.launches = dfs_cuda.launches = sl.launches = 0
+        dp.launches = dp.launches_local = dp.launches_extend = 0
+        eng.tier0_reads = eng.retry_reads = eng.host_drain_reads = 0
+        eng.seconds = dict.fromkeys(eng.seconds, 0.0)
+        mb2b.pass2_seconds.update(dict.fromkeys(mb2b.pass2_seconds, 0.0))
+        restore = []
+        if label != "reference":
+            recorded[label] = {}
+            for name, mod, fn in wrapped:
+                recorded[label][name], undo = record(mod, fn)
+                restore.append(undo)
+        out = out_dir / f"nabwa_torch_smoke_b2b_{label.replace(' ', '_')}.bam"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            counters = mb2b.bam2bam(eng, str(in_bam), str(out), opt, popt,
+                                    Rand48(idx.bns.seed), argv=argv, **kw)
+        finally:
+            for undo in restore:
+                undo()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {"dfs": dfs_cuda.launches, "cal_width": occ.launches,
+                  "sa_lookup": sl.launches, "banded_global": dp.launches,
+                  "local_fwd": dp.launches_local}
+        tiers = {"tier0": eng.tier0_reads, "retry": eng.retry_reads,
+                 "host_drain": eng.host_drain_reads,
+                 "seconds": dict(eng.seconds)}
+        runs[label] = (out.read_bytes(), n_records / dt, dict(mb2b.seconds),
+                       {k: v for k, v in mb2b.pass2_seconds.items() if v},
+                       counters, counts, tiers)
+        log(f"bam2bam, {label}: {n_records / dt:.1f} records/s ({dt:.3f} s "
+            f"for {n_records} records); stage seconds {mb2b.seconds}; "
+            f"pass-2 parts summed over workers {runs[label][3]}; rescue "
+            f"{counters}; launches {counts}; engine {tiers}")
+    return runs, recorded
+
+
 def profile_run(label, fn):
     """torch.profiler over one call of fn: busy share and per-kernel device
     time, or None where the profiler saw no device time."""
@@ -853,7 +1022,7 @@ def main():
         if "registers" in ln or "spill" in ln:
             log("ptxas: " + ln.strip())
 
-    fa, fq, fq_gapped, fq1, fq2, fq_long = make_data(
+    fa, fq, fq_gapped, fq1, fq2, fq_long, fq2_1, fq2_2 = make_data(
         args.glen, args.reads, args.pairs, args.long_reads)
     opt = GapOpt()
     idx = BwaIndex.load(str(fa))
@@ -1137,6 +1306,101 @@ def main():
     for name in ("sa_lookup", "banded_global", "extend"):
         if sw_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bwasw path")
+    # phase 16: bam2bam on an unaligned BAM of phase 9's pairs (read group
+    # rg1, with the rescue-only mates), a quarter as many pairs more at
+    # insert size 500 +- 50 (rg2) and as many reads of the gapped set as
+    # rg1 singletons: the host reference route, and the card at one and at
+    # four workers on one engine, all three BAMs byte-identical, the card
+    # run's C3, C4 and C5 launches replayed against their plain versions
+    from nabwa_tpu_torch.io import bam as pbam
+    in_bam = tmp / "nabwa_torch_smoke_in.bam"
+    cli_bam = tmp / "nabwa_torch_smoke_cli.bam"
+    n_more = args.pairs // BAM_SHARE
+    t0 = time.perf_counter()
+    n_records = unaligned_bam(in_bam, [("rg1", (fq1, fq2), args.pairs),
+                                       ("rg2", (fq2_1, fq2_2), n_more),
+                                       ("rg1", (fq_gapped,), n_more)])
+    log(f"unaligned BAM: {n_records} records, "
+        f"{in_bam.stat().st_size} bytes, {time.perf_counter() - t0:.1f} s")
+    b2b_argv = ["bam2bam", "-g", str(fa), "-f", str(cli_bam), str(in_bam)]
+    b2b_runs, b2b_rec = bam2bam_routes(eng, idx, in_bam, n_records,
+                                       b2b_argv, opt, popt, tmp)
+    for label in ("cuda t1", "cuda t4"):
+        if b2b_runs[label][0] != b2b_runs["reference"][0]:
+            fail(f"bam2bam BAM on the card ({label}) differs from the host "
+                 f"reference route's")
+    t1_rec, t4_rec = b2b_rec["cuda t1"], b2b_rec["cuda t4"]
+    for name in t1_rec:
+        if not t1_rec[name]:
+            fail(f"the card run of bam2bam launched {name} no time")
+        if (b2b_runs["cuda t4"][5][name] != b2b_runs["cuda t1"][5][name]
+                or launch_signatures(t4_rec[name])
+                != launch_signatures(t1_rec[name])):
+            fail(f"bam2bam at four workers launched {name} otherwise than "
+                 f"at one")
+    del b2b_rec["cuda t4"], t4_rec
+    tiers = b2b_runs["cuda t1"][6]
+    b2b_host_share = tiers["host_drain"] / max(
+        1, tiers["tier0"] + tiers["retry"] + tiers["host_drain"])
+    log(f"bam2bam on the card: {100 * b2b_host_share:.2f} % of the aligned "
+        f"reads drained on the host")
+    if b2b_host_share > MAX_HOST_SHARE:
+        fail(f"bam2bam drained {100 * b2b_host_share:.1f} % of its reads "
+             f"on the host")
+    b2b_dfs_err = replay_dfs("C1 dfs, one of bam2bam's launches",
+                             t1_rec["dfs"])
+    b2b_cw = check_launches(
+        "C2 cal_width, bam2bam's largest launch",
+        [max(t1_rec["cal_width"], key=lambda c: c[0][4].numel())],
+        occ.cal_width_cuda, occ.cal_width_plain, lambda a: a[4].numel(),
+        lambda a, out: bound(
+            nbytes(a[4], a[5], *out) + 2 * OCC_BLOCK_BYTES * int(
+                a[5].long().sum()),
+            2 * OPS_OCC_BLOCK * int(a[5].long().sum())))
+    b2b_sa = check_launches(
+        "C3 sa_lookup, bam2bam's launches", t1_rec["sa_lookup"],
+        sl.sa_lookup_cuda, sl.sa_lookup_plain, lambda a: a[6].shape[0],
+        lambda a, _: sa_walk_bound(a))
+    b2b_dp = check_launches(
+        "C4 banded_global, bam2bam's rescue paths and refine",
+        t1_rec["banded_global"], dp.banded_global_cuda,
+        dp.banded_global_plain, dp_size, global_bound)
+    b2b_lf = check_launches(
+        "C5 local_fwd, bam2bam's rescue rounds", t1_rec["local_fwd"],
+        dp.local_fwd_cuda, dp.local_fwd_plain, dp_size,
+        lambda a, out: bound(io_bytes(a, out), OPS_LOCAL_CELL * int(
+            (a[1].long() * a[3].long()).sum())))
+    b2b_rescued = pbam.bgzf_decompress(b2b_runs["cuda t1"][0]).count(
+        b"XTAM")
+    log(f"bam2bam: {b2b_rescued} records placed by the rescue (XT:A:M; "
+        f"{n_rescue} pairs built for it); tallies "
+        f"{b2b_runs['cuda t1'][4]}")
+    if b2b_rescued < n_rescue // 2:
+        fail(f"bam2bam's rescue placed {b2b_rescued} mates, fewer than half "
+             f"of the {n_rescue} built for it")
+    del t1_rec, b2b_rec
+
+    # phase 17: the bam2bam CLI with every launch count at 0
+    cli_bam.unlink(missing_ok=True)
+    zero()
+    t0 = time.perf_counter()
+    rc = port_cli.main(["bam2bam", "--device", "cuda", *b2b_argv[1:]])
+    torch.cuda.synchronize()
+    b2b_cli_s = time.perf_counter() - t0
+    b2b_counts = launched()
+    main_counts.append(b2b_counts)
+    log(f"CLI bam2bam --device cuda: rc {rc}, {b2b_cli_s:.2f} s end to end "
+        f"(index load included), {n_records / b2b_cli_s:.1f} records/s; "
+        f"launches {b2b_counts}")
+    if rc != 0:
+        fail(f"the port's bam2bam CLI exited with {rc}")
+    if cli_bam.read_bytes() != b2b_runs["reference"][0]:
+        fail("CLI bam2bam BAM differs from the host reference route's")
+    for name in ("dfs", "cal_width", "sa_lookup", "banded_global",
+                 "local_fwd"):
+        if b2b_counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the bam2bam path")
+
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
 
     def entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
@@ -1147,16 +1411,28 @@ def main():
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
                 **extra}
 
+    def b2b_fields(chk, n_cli):
+        """A kernel's numbers on bam2bam's card run (phase 16) and its
+        launches in the CLI run (phase 17)."""
+        return {"bam2bam_launches": n_cli, "bam2bam_err": chk["err"],
+                "bam2bam_ms": chk["ms"], "bam2bam_plain_ms": chk["plain_ms"],
+                "bam2bam_total_ms": chk["total_ms"],
+                "bam2bam_bound_ms": chk["bound"][0],
+                "bam2bam_bound_by": chk["bound"][1]}
+
     kernels = [
         entry("dfs", "dfs.cu", "nabwa_tpu/ops/dfs_pallas.py:1253",
-              max(dfs_err, retry_err), dfs_ms, dfs_plain, dfs_bound,
-              retry_ms=retry_ms, retry_plain_ms=retry_plain,
-              retry_reads=len(redo), aln_cli_launches=counts["dfs"]),
+              max(dfs_err, retry_err, b2b_dfs_err), dfs_ms, dfs_plain,
+              dfs_bound, retry_ms=retry_ms, retry_plain_ms=retry_plain,
+              retry_reads=len(redo), aln_cli_launches=counts["dfs"],
+              bam2bam_launches=b2b_counts["dfs"], bam2bam_err=b2b_dfs_err),
         entry("cal_width", "cal_width.cu", "nabwa_tpu/ops/occ.py:141",
-              cw_err, cw_ms, cw_plain, cw_bound,
-              aln_cli_launches=counts["cal_width"]),
+              max(cw_err, b2b_cw["err"]), cw_ms, cw_plain, cw_bound,
+              aln_cli_launches=counts["cal_width"],
+              **b2b_fields(b2b_cw, b2b_counts["cal_width"])),
         entry("sa_lookup", "sa_lookup.cu", "nabwa_tpu/ops/sa_lookup.py:34",
-              max(sa_err, sw_sa["err"]), sa_ms, sa_plain, sa_bound,
+              max(sa_err, sw_sa["err"], b2b_sa["err"]), sa_ms, sa_plain,
+              sa_bound,
               rows_checked=sa_rows,
               samse_cli_launches=se_counts["sa_lookup"],
               bwasw_launches=sw_counts["sa_lookup"],
@@ -1165,10 +1441,11 @@ def main():
               bwasw_ms=sw_sa["ms"], bwasw_plain_ms=sw_sa["plain_ms"],
               bwasw_total_ms=sw_sa["total_ms"],
               bwasw_bound_ms=sw_sa["bound"][0],
-              bwasw_bound_by=sw_sa["bound"][1]),
+              bwasw_bound_by=sw_sa["bound"][1],
+              **b2b_fields(b2b_sa, b2b_counts["sa_lookup"])),
         entry("banded_global", "banded_global.cu", "nabwa_tpu/ops/dp.py:31",
-              max(pdp["err"], dp_err, sw_dp["err"]), pdp["ms"],
-              pdp["plain_ms"], pdp["bound"],
+              max(pdp["err"], dp_err, sw_dp["err"], b2b_dp["err"]),
+              pdp["ms"], pdp["plain_ms"], pdp["bound"],
               launches_checked=len(rec["banded_global"]),
               timed_pairs=pdp["args"][0].shape[0],
               samse_refine_jobs=n_jobs, samse_refine_ms=dp_ms,
@@ -1185,13 +1462,16 @@ def main():
               bwasw_ms=sw_dp["ms"], bwasw_plain_ms=sw_dp["plain_ms"],
               bwasw_total_ms=sw_dp["total_ms"],
               bwasw_bound_ms=sw_dp["bound"][0],
-              bwasw_bound_by=sw_dp["bound"][1]),
+              bwasw_bound_by=sw_dp["bound"][1],
+              **b2b_fields(b2b_dp, b2b_counts["banded_global"])),
         entry("local_fwd", "local_fwd.cu", "nabwa_tpu/ops/dp.py:404",
-              lf["err"], lf["ms"], lf["plain_ms"], lf["bound"],
+              max(lf["err"], b2b_lf["err"]), lf["ms"], lf["plain_ms"],
+              lf["bound"],
               launches_checked=len(rec["local_fwd"]),
               rescue_jobs=[int(a[0].shape[0]) for a, _ in rec["local_fwd"]],
               timed_cells=int((lf["args"][1].long()
-                               * lf["args"][3].long()).sum())),
+                               * lf["args"][3].long()).sum()),
+              **b2b_fields(b2b_lf, b2b_counts["local_fwd"])),
         entry("extend", "extend.cu", "nabwa_tpu/ops/dp.py:264",
               ext["err"], ext["ms"], ext["plain_ms"], ext["bound"],
               launches_checked=len(sw_rec["extend"]),
@@ -1214,6 +1494,13 @@ def main():
     bwasw.update(reads=len(lreads), reads_with_n=n_amb,
                  cli_seconds=bwasw_cli_s, cli_launches=sw_counts,
                  profile=sw_prof)
+    bam2bam = {label: {"records_per_sec": r[1], "stage_seconds": r[2],
+                       "pass2_part_seconds": r[3], "rescue": r[4],
+                       "launches": r[5], "engine": r[6]}
+               for label, r in b2b_runs.items()}
+    bam2bam.update(records=n_records, mate_rescued=b2b_rescued,
+                   host_drain_share=b2b_host_share,
+                   cli_seconds=b2b_cli_s, cli_launches=b2b_counts)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "aln_reads_per_sec": len(reads) / dt,
                       "host_drain_share": host_share,
@@ -1225,7 +1512,7 @@ def main():
                       "cli_seconds": cli_s, "profile": prof,
                       "samse": samse, "samse_cli_seconds": samse_cli_s,
                       "gapped_aln_launches": aln_g_counts,
-                      "sampe": sampe, "bwasw": bwasw}))
+                      "sampe": sampe, "bwasw": bwasw, "bam2bam": bam2bam}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

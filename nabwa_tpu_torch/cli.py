@@ -1,8 +1,8 @@
-"""Command line of the port: `aln`, `samse`, `sampe` and `bwasw` on a torch
-device.
+"""Command line of the port: `aln`, `samse`, `sampe`, `bwasw` and
+`bam2bam` on a torch device.
 
 Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
-            <prefix> <reads.fq> [-f out.sai]
+            <prefix> <reads.fq|reads.bam> [-f out.sai]
         python -m nabwa_tpu_torch samse [--device cuda|cpu] [-n N]
             [-f out.sam] [-r RG] <prefix> <in.sai> <reads.fq>
         python -m nabwa_tpu_torch sampe [--device cuda|cpu] [-a -o -n -N
@@ -10,16 +10,19 @@ Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
         python -m nabwa_tpu_torch bwasw [--device cuda|cpu] [-a -b -q -r
             -t -w -z -s -N -c -m -H -f] <prefix> <reads.fq>
             (also as `bwtsw2` and `dbwtsw`)
+        python -m nabwa_tpu_torch bam2bam [--device cuda|cpu] -g <prefix>
+            [options] [-f out.bam] <in.bam>
 
-The options, the read input and the `.sai` and SAM output are those of
-`nabwa_tpu aln`, `samse`, `sampe` and `bwasw` (nabwa_tpu/cli.py:222-459);
-the argument parser, option handling, read opener, `-f` recovery and @RG
-parsing are copied from there.  BAM input (`aln -b -0 -1 -2`) and
-colour-space `samse`/`sampe` are not ported and exit with an error.  The
-device is explicit: `--device cuda` (the default) needs a CUDA device and
-exits with an error without one; `--device cpu` runs the plain PyTorch
-versions.  Every other subcommand of `nabwa_tpu` is not ported yet and
-exits non-zero.
+The options, the read input (FASTQ, or BAM with `aln -b -0 -1 -2`) and
+the `.sai`, SAM and BAM output are those of `nabwa_tpu aln`, `samse`,
+`sampe`, `bwasw` and `bam2bam` (nabwa_tpu/cli.py:222-625); the argument
+parser, option handling, read opener, `-f` recovery, @RG parsing and the
+bam2bam `.sai` sideload are copied from there.  Colour-space
+`samse`/`sampe` and bam2bam's remote workers (`-p`) are not ported and exit
+with an error.  The device is explicit: `--device cuda` (the default)
+needs a CUDA device and exits with an error without one; `--device cpu`
+runs the plain PyTorch versions.  Every other subcommand of `nabwa_tpu` is
+not ported yet and exits non-zero.
 """
 
 import argparse
@@ -29,11 +32,13 @@ import sys
 import numpy as np
 import torch
 
-from .constants import (BWA_MODE_BAM, BWA_MODE_CFY, BWA_MODE_COMPREAD,
-                        BWA_MODE_GAPE, BWA_MODE_IL13, BWA_MODE_LOGGAP,
-                        BWA_MODE_NONSTOP, READ_CHUNK)
+from .constants import (BWA_AVG_ERR, BWA_MODE_BAM, BWA_MODE_BAM_READ1,
+                        BWA_MODE_BAM_READ2, BWA_MODE_BAM_SE, BWA_MODE_CFY,
+                        BWA_MODE_COMPREAD, BWA_MODE_GAPE, BWA_MODE_IL13,
+                        BWA_MODE_LOGGAP, BWA_MODE_NONSTOP, READ_CHUNK)
 from .index.fmindex import BwaIndex
 from .io import fastq
+from .io.bam import BamReader
 from .io.sai import pack_aln_block, read_sai_columnar, read_sai_tuples
 from .options import GAP_OPT_SIZE, GapOpt, PeOpt
 from .utils.files import final_rename
@@ -113,9 +118,6 @@ def apply_aln_cli_opts(args, opt):
     """Apply the explicitly given options onto `opt` (which may hold
     options recovered from a checkpoint header): every explicit option
     wins over the recovered value (bwtaln.c:330)."""
-    if args.bam or args.bam_se or args.bam_r1 or args.bam_r2:
-        raise SystemExit("[aln] BAM input is not yet ported to "
-                         "nabwa_tpu_torch")
     if args.n is not None:
         if "." in args.n:
             opt.fnr = float(args.n)
@@ -143,17 +145,31 @@ def apply_aln_cli_opts(args, opt):
         opt.mode |= BWA_MODE_CFY
     if args.color:   # colour space: no complement (bwtaln.c:327)
         opt.mode &= ~BWA_MODE_COMPREAD
+    if args.bam:     # BAM input selection (bwtaln.c:332-335)
+        opt.mode |= BWA_MODE_BAM
+    if args.bam_se:
+        opt.mode |= BWA_MODE_BAM_SE
+    if args.bam_r1:
+        opt.mode |= BWA_MODE_BAM_READ1
+    if args.bam_r2:
+        opt.mode |= BWA_MODE_BAM_READ2
     if args.barcode_len:
         opt.mode |= args.barcode_len << 24
     return opt
 
 
 def open_reads(path, mode):
-    """bwa_open_reads (bwtaln.c:164-176) for FASTQ/FASTA: a pull(n,
-    trim_qual) closure, the native slab parse where it accepts the file,
-    the generic reader otherwise."""
+    """bwa_open_reads (bwtaln.c:164-176): a pull(n, trim_qual) closure over
+    FASTQ/FASTA (the native slab parse where it accepts the file, the
+    generic reader otherwise) or, with BWA_MODE_BAM, a BAM stream with the
+    -0/-1/-2 mask."""
     if mode & BWA_MODE_BAM:
-        raise SystemExit("BAM input is not yet ported to nabwa_tpu_torch")
+        which = ((4 if mode & BWA_MODE_BAM_SE else 0)
+                 | (1 if mode & BWA_MODE_BAM_READ1 else 0)
+                 | (2 if mode & BWA_MODE_BAM_READ2 else 0)) or 7
+        reader = BamReader(path)
+        return lambda n, tq: fastq.read_bam_batch(reader, n, which,
+                                                  mode=mode, trim_qual=tq)
     col = fastq.ColumnarFastq.open(path, mode)
     if col is not None:
         state = {}
@@ -455,8 +471,178 @@ def cmd_bwasw(argv):
     return 0
 
 
+def cmd_bam2bam(argv):
+    """bwa_bam_to_bam's option surface (bam2bam.c:1942-2077, getopt string
+    g:n:o:e:i:d:l:k:LR:m:t:NM:O:E:q:f:C:D:a:sc:h:H:Ap:0:1:2: plus the
+    long-only options), as nabwa_tpu/cli.py:462-625 parses it.  `-p`
+    (remote workers) is not ported and exits with an error."""
+    device, argv = _split_device(argv, "bam2bam")
+    dev = _device(device, "bam2bam")
+    if dev is None:
+        return 2
+    ap = argparse.ArgumentParser(prog="bam2bam", add_help=False)
+    ap.add_argument("-g", "--genome", dest="prefix", required=True)
+    ap.add_argument("-f", "--output", dest="out", default=None)
+    # gap_opt_t options
+    ap.add_argument("-n", "--num-diff", dest="n", default=None)
+    ap.add_argument("-o", "--max-gap-open", dest="max_gapo", type=int,
+                    default=None)
+    ap.add_argument("-e", "--max-gap-extensions", dest="max_gape",
+                    type=int, default=-1)
+    ap.add_argument("-i", "--indel-near-end", dest="indel_end_skip",
+                    type=int, default=None)
+    ap.add_argument("-d", "--deletion-occurences", dest="max_del_occ",
+                    type=int, default=None)
+    ap.add_argument("-l", "--seed-length", dest="seed_len", type=int,
+                    default=None)
+    ap.add_argument("-k", "--seed-mismatches", dest="max_seed_diff",
+                    type=int, default=None)
+    ap.add_argument("-M", "--mismatch-penalty", dest="s_mm", type=int,
+                    default=None)
+    ap.add_argument("-O", "--gap-open-penalty", dest="s_gapo", type=int,
+                    default=None)
+    ap.add_argument("-E", "--gap-extension-penalty", dest="s_gape",
+                    type=int, default=None)
+    ap.add_argument("-m", "--queue-size", dest="max_entries", type=int,
+                    default=None)
+    ap.add_argument("-R", "--max-best-hits", dest="max_top2", type=int,
+                    default=None)
+    ap.add_argument("-q", "--trim-quality", dest="trim_qual", type=int,
+                    default=None)
+    ap.add_argument("-L", "--log-gap-penalty", dest="loggap",
+                    action="store_true")
+    ap.add_argument("-N", "--non-iterative", dest="nonstop",
+                    action="store_true")
+    # pe_opt_t options
+    ap.add_argument("-a", "--max-insert-size", dest="max_isize", type=int,
+                    default=None)
+    ap.add_argument("-C", "--max-occurences", dest="max_occ", type=int,
+                    default=None)
+    ap.add_argument("-D", "--max-occurences-se", dest="max_occ_se",
+                    type=int, default=None)
+    ap.add_argument("-h", "--max-hits", dest="n_multi", type=int,
+                    default=None)
+    ap.add_argument("-H", "--max-discordant-hits", dest="N_multi",
+                    type=int, default=None)
+    ap.add_argument("-c", "--chimeric-rate", dest="ap_prior", type=float,
+                    default=None)
+    ap.add_argument("-s", "--disable-sw", dest="no_sw",
+                    action="store_true")
+    ap.add_argument("-A", "--disable-isize-estimate", dest="force_isize",
+                    action="store_true")
+    # runtime / distribution
+    ap.add_argument("-p", "--listen-port", dest="port", type=int,
+                    default=None)
+    ap.add_argument("-t", "--num-threads", dest="threads", type=int,
+                    default=1)
+    ap.add_argument("-0", dest="sai0", default=None)
+    ap.add_argument("-1", dest="sai1", default=None)
+    ap.add_argument("-2", dest="sai2", default=None)
+    ap.add_argument("--only-aligned", action="store_true")
+    ap.add_argument("--broken-input", action="store_true")
+    ap.add_argument("--skip-duplicates", action="store_true")
+    ap.add_argument("--drop-aligned", action="store_true")
+    ap.add_argument("--debug-bam", action="store_true")
+    ap.add_argument("--temp-dir", dest="temp_dir", default="/var/tmp")
+    ap.add_argument("in_bam")
+    args = ap.parse_args(argv)
+    if args.port is not None:
+        print("[bam2bam] error: remote workers (-p) are not yet ported to "
+              "nabwa_tpu_torch", file=sys.stderr)
+        return 1
+    from .models.aln import AlnEngine
+    from .models.bam2bam import bam2bam
+    from .refmodel.aln_scalar import cal_maxdiff
+
+    opt = GapOpt()
+    popt = PeOpt()
+    if args.n is not None:
+        if "." in args.n:
+            opt.fnr = float(args.n)
+            opt.max_diff = -1
+        else:
+            opt.max_diff = int(args.n)
+            opt.fnr = -1.0
+    for name in ("max_gapo", "indel_end_skip", "max_del_occ", "seed_len",
+                 "max_seed_diff", "max_entries", "s_mm", "s_gapo",
+                 "s_gape", "max_top2", "trim_qual"):
+        v = getattr(args, name)
+        if v is not None:
+            setattr(opt, name, v)
+    if args.max_gape > 0:
+        opt.max_gape = args.max_gape
+        opt.mode &= ~BWA_MODE_GAPE
+    if args.loggap:
+        opt.mode |= BWA_MODE_LOGGAP
+    if args.nonstop:
+        opt.mode |= BWA_MODE_NONSTOP
+        opt.max_top2 = 0x7FFFFFFF
+    opt.n_threads = args.threads
+    for name in ("max_isize", "max_occ", "max_occ_se", "n_multi",
+                 "N_multi", "ap_prior"):
+        v = getattr(args, name)
+        if v is not None:
+            setattr(popt, name, v)
+    if args.no_sw:
+        popt.is_sw = 0
+    if args.force_isize:
+        popt.force_isize = 1
+
+    # .sai sideload streams: recover checkpointed options from the first
+    # header, require the others to match (bwa_bam_open, bwaseqio.c:35-61)
+    sai_streams = None
+    recovered = False
+    for c, fn in enumerate((args.sai0, args.sai1, args.sai2)):
+        if fn is None:
+            continue
+        f = open(fn, "rb")
+        hdr = f.read(GAP_OPT_SIZE)
+        if len(hdr) < GAP_OPT_SIZE:
+            f.close()
+            continue
+        sopt = GapOpt.unpack(hdr)
+        sopt.n_threads = opt.n_threads
+        if recovered:
+            sopt.mode = opt.mode
+            if sopt.pack() != opt.pack():
+                raise SystemExit(
+                    '[bwa_bam_open] options from sai file "%s" conflict '
+                    "with others." % fn)
+            print('[bwa_bam_open] options from sai file "%s" match.' % fn,
+                  file=sys.stderr)
+        else:
+            print('[bwa_bam_open] recovered options from sai file "%s".'
+                  % fn, file=sys.stderr)
+            opt = sopt
+            recovered = True
+        sai_streams = sai_streams or {}
+        sai_streams[c] = f
+
+    if opt.fnr > 0.0:
+        k = 0
+        for i in range(17, 251):
+            l = cal_maxdiff(i, BWA_AVG_ERR, opt.fnr)
+            if l != k:
+                print(f"[bwa_aln] {i}bp reads: max_diff = {l}",
+                      file=sys.stderr)
+            k = l
+
+    idx = BwaIndex.load(args.prefix)
+    eng = AlnEngine(idx, opt, dev)
+    bam2bam(eng, args.in_bam, args.out or "/dev/stdout", opt, popt,
+            Rand48(idx.bns.seed), argv=["bam2bam"] + argv,
+            only_aligned=args.only_aligned, broken_input=args.broken_input,
+            skip_duplicates=args.skip_duplicates,
+            drop_aligned=args.drop_aligned, debug_bam=args.debug_bam,
+            n_workers=args.threads, sai_streams=sai_streams,
+            tmp_dir=args.temp_dir)
+    final_rename("bam2bam", args.out)
+    return 0
+
+
 _PORTED = {"aln": cmd_aln, "samse": cmd_samse, "sampe": cmd_sampe,
-           "bwasw": cmd_bwasw, "bwtsw2": cmd_bwasw, "dbwtsw": cmd_bwasw}
+           "bwasw": cmd_bwasw, "bwtsw2": cmd_bwasw, "dbwtsw": cmd_bwasw,
+           "bam2bam": cmd_bam2bam}
 
 
 def main(argv=None):
@@ -467,8 +653,8 @@ def main(argv=None):
         print(f"[{argv[0]}] not yet ported to nabwa_tpu_torch",
               file=sys.stderr)
         return 1
-    print("Program: nabwa_tpu_torch (the aln, samse, sampe and bwasw paths "
-          "on PyTorch + CUDA)\n"
+    print("Program: nabwa_tpu_torch (the aln, samse, sampe, bwasw and "
+          "bam2bam paths on PyTorch + CUDA)\n"
           "Usage:   python -m nabwa_tpu_torch aln [--device cuda|cpu] "
           "[options] <prefix> <reads>\n"
           "         python -m nabwa_tpu_torch samse [--device cuda|cpu] "
@@ -476,6 +662,8 @@ def main(argv=None):
           "         python -m nabwa_tpu_torch sampe [--device cuda|cpu] "
           "[options] <prefix> <1.sai> <2.sai> <1.fq> <2.fq>\n"
           "         python -m nabwa_tpu_torch bwasw [--device cuda|cpu] "
-          "[options] <prefix> <reads>",
+          "[options] <prefix> <reads>\n"
+          "         python -m nabwa_tpu_torch bam2bam [--device cuda|cpu] "
+          "-g <prefix> [options] <in.bam>",
           file=sys.stderr)
     return 1

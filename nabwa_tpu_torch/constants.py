@@ -1,10 +1,10 @@
 """Shared constants, mirroring the reference's compile-time parameters.
 
 The port's copy of nabwa_tpu/constants.py, without the names the port
-never reads (the BAM-input mode bits, the word-layout sizes and the
-lazily built NT4 table).  Citations point into the C
-reference (mpieva/network-aware-bwa) so parity can be checked; values are
-part of the on-disk / algorithmic contract, not tunables.
+never reads (the word-layout sizes and the lazily built NT4 table).
+Citations point into the C reference (mpieva/network-aware-bwa) so parity
+can be checked; values are part of the on-disk / algorithmic contract, not
+tunables.
 """
 
 # Occ checkpoint spacing in bases (bwt.h:35, layout macros bwt.h:61-68).
@@ -25,6 +25,9 @@ BWA_MODE_LOGGAP = 0x04
 BWA_MODE_CFY = 0x08
 BWA_MODE_NONSTOP = 0x10
 BWA_MODE_BAM = 0x20
+BWA_MODE_BAM_SE = 0x40
+BWA_MODE_BAM_READ1 = 0x80
+BWA_MODE_BAM_READ2 = 0x100
 BWA_MODE_IL13 = 0x200
 
 # Alignment types (bwtaln.h:10-13).

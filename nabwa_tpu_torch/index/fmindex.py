@@ -21,6 +21,7 @@ tensors hold int32 bit patterns of uint32 words.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -73,6 +74,13 @@ class BwaIndex:
         if len(pac) != bns.l_pac or fwd.seq_len != bns.l_pac:
             raise ValueError(f"{prefix}: .pac, .ann and .bwt lengths differ")
         return cls(fwd=fwd, rev=rev, pac=pac, bns=bns)
+
+    @functools.cached_property
+    def on_host(self):
+        """This index as a `DeviceIndex` on the CPU, made on first use and
+        kept with the index (the plain SA walk of
+        `models.samse.sa_rows_native`)."""
+        return DeviceIndex.from_host(self, "cpu")
 
 
 def _u32(v):

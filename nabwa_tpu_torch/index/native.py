@@ -85,7 +85,12 @@ _SIGNATURES = {
         _i64, _u8, _i64, _u64, _i32, _i32, _i32, _i32, _I64, _I, _i64, _i64,
         _u8, _i64, _I64, _i64, _i32, _u8, _I64, _I, _I, _u8, _I64, _u8,
         _I64, _I]),
-    "fastq_parse": (_I64, [_u8, _I64, _I64, _I, _I, _u8, _i64, _u8, _i64,
+    "bam_update_batch": (_I64, [
+        _I64, _i64, _i64, _i64, _i64, _i64, _i64, _u8, _i64, _i32, _i64,
+        _u8, _i64, _u64, _i32, _i32, _i32, _i32, _I64, _i32, _I, _I, _i64,
+        _i64, _u8, _i64, _I64, _i64, _i32, _I64, _I, _I64, _i64, _u8, _I64,
+        _i64]),
+    "fastq_parse": (_I64,[_u8, _I64, _I64, _I, _I, _u8, _i64, _u8, _i64,
                            _u8, _i32]),
     "sai_scan": (_I64, [_u8, _I64, _I64, _i32, _u8, _I64]),
     "gather_rows_u8": (None, [_u8, _i64, _i64, _u8, _I64, _u8, _i64, _I]),

@@ -1,6 +1,6 @@
 """FASTQ/FASTA read input with the reference's exact preparation semantics
 (bwa_read_seq, bwaseqio.c:181-251): the port's copy of
-nabwa_tpu/io/fastq.py, without BAM input (`read_bam_batch`).
+nabwa_tpu/io/fastq.py, with `read_bam_batch` for `aln -b`.
 
 - base → nt4 code via nst_nt4_table
 - optional Illumina-1.3 qual shift (-I), Casava filter (-Y), barcode split
@@ -381,6 +381,45 @@ def trim_read(trim_qual, codes, quals, full_len):
         if s > mx:
             mx, max_l = s, l
     return max_l + 1
+
+
+def read_bam_batch(reader, n_needed, which, mode=BWA_MODE_COMPREAD,
+                   trim_qual=0):
+    """bwa_read_bam (bwaseqio.c:125-165): pull reads from an open
+    io.bam.BamReader.  which: bit1 = paired read1, bit2 = paired read2,
+    bit4 = unpaired.  Reverse-strand records are restored to original
+    orientation before the usual search-form preparation."""
+    from .bam import BAM_FPAIRED, BAM_FREAD1, BAM_FREAD2
+
+    is_comp = bool(mode & BWA_MODE_COMPREAD)
+    out = []
+    while len(out) < n_needed:
+        rec = reader.read1()
+        if rec is None:
+            break
+        fl = rec.flag
+        go = (((which & 1) and (fl & BAM_FPAIRED) and (fl & BAM_FREAD1))
+              or ((which & 2) and (fl & BAM_FPAIRED) and (fl & BAM_FREAD2))
+              or ((which & 4) and not (fl & BAM_FPAIRED)))
+        if not go:
+            continue
+        codes = rec.seq_nt4().copy()
+        q = np.minimum(rec.quals().astype(np.int32) + 33,
+                       126).astype(np.uint8)
+        if fl & 0x10:   # mapped reverse: restore original orientation
+            codes = np.where(codes < 4, 3 - codes, codes)[::-1] \
+                .astype(np.uint8)
+            q = q[::-1].copy()
+        full_len = len(codes)
+        ln = trim_read(trim_qual, codes, q, full_len)
+        fwd = codes[:ln]
+        rseq = fwd[::-1].copy()
+        if is_comp:
+            rseq = np.where(rseq < 4, 3 - rseq, rseq).astype(np.uint8)
+        out.append(Read(name=rec.qname, seq=fwd[::-1].copy(), rseq=rseq,
+                        qual=q, full_len=full_len, clip_len=ln,
+                        full_codes=codes, bc=""))
+    return out
 
 
 def read_fastq_batch(it, n_needed, mode=BWA_MODE_COMPREAD, trim_qual=0):

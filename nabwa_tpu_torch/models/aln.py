@@ -18,6 +18,7 @@ CUDA device the kernels.  Nothing moves between them.
 """
 
 import copy
+import threading
 import time
 
 import numpy as np
@@ -78,6 +79,28 @@ def batch_options(opt, lens):
     return maxdiff, local
 
 
+def per_read_groups(opt, lens):
+    """bam2bam's per-record options (nabwa_tpu/models/aln.py:470-508,
+    bam2bam.c:616,676): each read's max_diff (int32 [n]), and the reads
+    grouped by their own clamped max_gapo (bwtaln.c:105 per read), as
+    [(options, read indices)] in order of first appearance; a group's
+    options carry its clamp and its largest max_diff."""
+    if opt.fnr > 0.0:
+        maxdiff = _maxdiff_table(opt.fnr, max(int(lens.max()), 64))[lens]
+        mg = np.minimum(opt.max_gapo, maxdiff)
+    else:
+        maxdiff = np.full(len(lens), opt.max_diff, dtype=np.int32)
+        mg = np.full(len(lens), min(opt.max_gapo, opt.max_diff))
+    groups = []
+    for g in dict.fromkeys(mg.tolist()):
+        idxs = np.nonzero(mg == g)[0]
+        local = copy.copy(opt)
+        local.max_gapo = int(g)
+        local.max_diff = int(maxdiff[idxs].max())
+        groups.append((local, idxs))
+    return maxdiff, groups
+
+
 def batch_inputs(reads, lens, maxdiff, local, max_len, device):
     """One batch's inputs of `aln_device_step` as int32 tensors on `device`
     (nabwa_tpu/models/aln.py:616-648): the codes padded with N to [n, 2, L],
@@ -127,7 +150,8 @@ class AlnEngine:
     `host_drain_reads`; host seconds per part of `run_chunk` in `seconds`
     (prepare: padding and copies to the device; device: cal_width + DFS
     and the copy back; collect: packed result to hit tuples; drain: the
-    host engine)."""
+    host engine).  The counters and `seconds` change only under the
+    engine's lock, so worker threads may share one engine."""
 
     def __init__(self, index, opt, device, stack_cap=256, hits_cap=32,
                  retry_stack_cap=1024, retry_hits_cap=128,
@@ -150,18 +174,21 @@ class AlnEngine:
         self.host_drain_reads = 0
         self.seconds = dict.fromkeys(("prepare", "device", "collect",
                                       "drain"), 0.0)
+        self._lock = threading.Lock()
         self.dev = DeviceIndex.from_host(index, self.device)
         # host uint32 views for the native engine
         self._host_fwd = np.ascontiguousarray(index.fwd.bwt, dtype=np.uint32)
         self._host_rev = np.ascontiguousarray(index.rev.bwt, dtype=np.uint32)
         self._host_l2 = np.ascontiguousarray(index.fwd.l2, dtype=np.uint32)
 
-    def run_chunk(self, reads, device_batch=2048, per_read_semantics=False):
+    def run_chunk(self, reads, device_batch=2048, per_read_semantics=False,
+                  host_reference=False):
         """Align one reference chunk of reads (list[Read] or ReadBatch);
-        returns a list of (alns, max_entries) in read order."""
-        if per_read_semantics:
-            raise NotImplementedError(
-                "per-read semantics (bam2bam) are not ported yet")
+        returns a list of (alns, max_entries) in read order.
+        per_read_semantics: bam2bam's per-record options (see
+        `per_read_groups`), each group through the same tiers.
+        host_reference: every read on the shared host engine instead of the
+        device tiers (the reference the card's output is held against)."""
         if not len(reads):
             return []
         if hasattr(reads, "clip_lens"):
@@ -170,10 +197,36 @@ class AlnEngine:
             reads = list(reads)
             lens = np.array([r.len for r in reads], dtype=np.int32)
         n = len(lens)
-        max_len = int(lens.max())
-        maxdiff, local = batch_options(self.opt, lens)
-
+        if per_read_semantics:
+            maxdiff, groups = per_read_groups(self.opt, lens)
+        else:
+            maxdiff, local = batch_options(self.opt, lens)
+            groups = [(local, np.arange(n))]
         results = [None] * n
+        for local, idxs in groups:
+            whole = len(idxs) == n
+            sub = reads if whole else [reads[int(i)] for i in idxs]
+            sub_lens = lens if whole else lens[idxs]
+            sub_res = results if whole else [None] * len(idxs)
+            if host_reference:
+                t0 = time.perf_counter()
+                self._drain_native(sub, maxdiff[idxs], local, sub_res,
+                                   range(len(idxs)))
+                self._book("drain", time.perf_counter() - t0)
+            else:
+                self._run_tiers(sub, sub_lens, maxdiff[idxs], local,
+                                sub_res, device_batch)
+            if not whole:
+                for i, res in zip(idxs.tolist(), sub_res):
+                    results[i] = res
+        return results
+
+    def _run_tiers(self, reads, lens, maxdiff, local, results, device_batch):
+        """Tier 0, the retry tier for the reads tier 0 flagged (hardest
+        first), then the host drain, for reads sharing one set of
+        options."""
+        n = len(lens)
+        max_len = int(lens.max())
         retry = self.retry_stack_cap > self.stack_cap
         defer = []
         for start in range(0, n, device_batch):
@@ -185,7 +238,7 @@ class AlnEngine:
             fb, hw = self._collect(packed, self.hits_cap, results,
                                    range(start, stop))
             defer.extend((start + i, int(hw[i])) for i in fb)
-        self.tier0_reads += n - len(defer)
+        self._book(tier0_reads=n - len(defer))
 
         drain = [i for i, _ in defer]
         if defer and retry:
@@ -204,14 +257,22 @@ class AlnEngine:
                 fb, _ = self._collect(packed, self.retry_hits_cap, results,
                                       part.tolist())
                 drain.extend(int(part[i]) for i in fb)
-            self.retry_reads += len(idxs) - len(drain)
+            self._book(retry_reads=len(idxs) - len(drain))
         if drain:
             t0 = time.perf_counter()
             self._drain_native([reads[i] for i in drain], maxdiff[drain],
                                local, results, drain)
-            self.seconds["drain"] += time.perf_counter() - t0
-            self.host_drain_reads += len(drain)
-        return results
+            self._book("drain", time.perf_counter() - t0,
+                       host_drain_reads=len(drain))
+
+    def _book(self, part=None, dt=0.0, **counts):
+        """Add host seconds to a part and reads to the tier counters, under
+        the engine's lock: bam2bam's worker threads share one engine."""
+        with self._lock:
+            if part is not None:
+                self.seconds[part] += dt
+            for name, v in counts.items():
+                setattr(self, name, getattr(self, name) + v)
 
     def sa_rows(self, a, rows):
         """Batched bwt_sa (bwt.c:72-81) on strand-a's index through
@@ -256,8 +317,8 @@ class AlnEngine:
             ix.primary_fwd, ix.primary_rev, ix.l2, ix.seq_len, **inputs,
             **dfs_statics(local, stack_cap, hits_cap, max_iters)).cpu()
         t2 = time.perf_counter()
-        self.seconds["prepare"] += t1 - t0
-        self.seconds["device"] += t2 - t1
+        self._book("prepare", t1 - t0)
+        self._book("device", t2 - t1)
         return packed.numpy()
 
     def _collect(self, packed, hits_cap, results, idxs):
@@ -288,5 +349,5 @@ class AlnEngine:
                                      nge_l[i][:na], a_l[i][:na],
                                      k_l[i][:na], l_l[i][:na],
                                      sc_l[i][:na])), hw_l[i])
-        self.seconds["collect"] += time.perf_counter() - t0
+        self._book("collect", time.perf_counter() - t0)
         return fallback, hw

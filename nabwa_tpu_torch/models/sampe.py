@@ -30,12 +30,13 @@ code instead (the `bwt_sa_batch` walk, `local_fwd_native`,
 Only that argument chooses it; nothing falls back to it.  Colour space
 (`ntpac`, BWA_PET_SOLID) is not ported and raises.
 
-The rescue generators, `infer_isize_core` and `IsizeInfo` are copied from
-nabwa_tpu/models/sampe.py.  `seconds` sums host seconds per part over
-calls: select (with mapQ), sa, isize, pairing, multi, rescue_drive (the
-rescue's generators, proxies and write-back), rescue_fwd, rescue_rev and
-rescue_path (`ops.dp.local_sw_batch`'s parts), dp and dp_backtrace (the
-refine step, as in `models.samse`), md and emit (with the trim fix-ups).
+The rescue generators, `infer_isize_core`, `IsizeInfo` and `hash_64` (for
+bam2bam's counter RNG) are copied from nabwa_tpu/models/sampe.py.
+`seconds` sums host seconds per part over calls: select (with mapQ), sa,
+isize, pairing, multi, rescue_drive (the rescue's generators, proxies and
+write-back), rescue_fwd, rescue_rev and rescue_path
+(`ops.dp.local_sw_batch`'s parts), dp and dp_backtrace (the refine step,
+as in `models.samse`), md and emit (with the trim fix-ups).
 """
 
 import math
@@ -53,26 +54,41 @@ from ..refmodel.stdaln_scalar import (ALN_PARAM_BWA, FROM_D, FROM_I, FROM_M,
                                       FROM_S, path2cigar32)
 from . import samse as se
 from .post_native import (F_C1, F_C2, F_CLIP_LEN, F_FULL_LEN, F_LEN, F_MAPQ,
-                          F_NGE, F_NGO, F_NMM, F_POS, F_SA, F_SEQ_Q,
-                          F_STRAND, F_TYPE, F_XFLAG, NF, bns_emit_arrays,
-                          build_pair_keys, flat, interleave_flats, pack_recs,
-                          post_threads)
+                          F_NGE, F_NGO, F_NMM, F_POS, F_SA, F_SCORE,
+                          F_SEQ_Q, F_STRAND, F_TYPE, F_XFLAG, NF,
+                          bns_emit_arrays, build_pair_keys, flat,
+                          interleave_flats, pack_recs, post_threads)
 
 OUTLIER_BOUND = 2.0     # bwape.h:34
 SW_MIN_MATCH_LEN = 20   # bwape.h:36
 SW_MIN_MAPQ = 17        # bwape.h:37
 
 _NEG1 = 0xFFFFFFFF
+_U64MAX = (1 << 64) - 1
 
 seconds = dict.fromkeys(("select", "sa", "isize", "pairing", "multi",
                          "rescue_drive", "rescue_fwd", "rescue_rev",
                          "rescue_path", "dp", "dp_backtrace", "md", "emit"),
                         0.0)
 # the parts `ops.dp.local_sw_batch` books while it solves rescue jobs
-_RESCUE_SOLVE = ("rescue_fwd", "rescue_rev", "rescue_path")
+RESCUE_SOLVE = ("rescue_fwd", "rescue_rev", "rescue_path")
 
 
 # --- copied from nabwa_tpu/models/sampe.py ---
+
+def hash_64(key):
+    """hash_64 (bwape.c:43-54), 64-bit wrapping."""
+    M = _U64MAX
+    key = (key + (~(key << 32) & M)) & M
+    key ^= key >> 22
+    key = (key + (~(key << 13) & M)) & M
+    key ^= key >> 8
+    key = (key + (key << 3)) & M
+    key ^= key >> 15
+    key = (key + (~(key << 27) & M)) & M
+    key ^= key >> 31
+    return key
+
 
 def _clog(x):
     """C log(): log(0) = -inf instead of raising."""
@@ -322,11 +338,14 @@ def paired_sw1_gen(bns, pac, p, popt, ii, counters):
         p[1 - k].extra_flag |= SAM_FPP
 
 
-def rescue_rounds(bns, pac, pairs, popt, ii, counters):
+def rescue_rounds(bns, pac, pairs, popt, iis, counters):
     """The generators of bwa_paired_sw (bwape.c:635-658), one per pair,
-    started: a list of (generator, first job)."""
+    started: a list of (generator, first job).  iis: one IsizeInfo per
+    pair, or one for all of them."""
+    if not isinstance(iis, (list, tuple)):
+        iis = [iis] * len(pairs)
     live = []
-    for p in pairs:
+    for p, ii in zip(pairs, iis):
         g = paired_sw1_gen(bns, pac, p, popt, ii, counters)
         try:
             live.append((g, next(g)))
@@ -335,13 +354,14 @@ def rescue_rounds(bns, pac, pairs, popt, ii, counters):
     return live
 
 
-def paired_sw_batch(bns, pac, pairs, popt, ii, counters, solve):
+def paired_sw_batch(bns, pac, pairs, popt, iis, counters, solve):
     """The bwa_paired_sw rescue loop with the local-SW DPs batched: drives
     the generators in lockstep rounds and solves each round's jobs with
     `solve(jobs) -> [(score, path, subo), ...]`.  Results equal the
     sequential loop: each job is a pure function of the pre-rescue
-    state."""
-    live = rescue_rounds(bns, pac, pairs, popt, ii, counters)
+    state.  iis: one IsizeInfo per pair (bam2bam's per-read-group
+    estimates), or one for all of them (sampe's chunk estimate)."""
+    live = rescue_rounds(bns, pac, pairs, popt, iis, counters)
     while live:
         solved = solve([j for _, j in live])
         nxt = []
@@ -355,10 +375,26 @@ def paired_sw_batch(bns, pac, pairs, popt, ii, counters, solve):
 
 # --- the sampe steps ---
 
+# the SeqState attribute behind each state column `PairChunk.of_rows` fills
+_STATE_FIELDS = ((F_TYPE, "type"), (F_STRAND, "strand"), (F_POS, "pos"),
+                 (F_MAPQ, "mapQ"), (F_SEQ_Q, "seQ"), (F_C1, "c1"),
+                 (F_C2, "c2"), (F_NMM, "n_mm"), (F_NGO, "n_gapo"),
+                 (F_NGE, "n_gape"), (F_XFLAG, "extra_flag"), (F_SA, "sa"),
+                 (F_SCORE, "score"), (F_LEN, "len"))
+
+
+def _per_pair(iis, n, attr, dtype):
+    """One IsizeInfo field per pair, from a list of them or from one."""
+    if isinstance(iis, (list, tuple)):
+        return np.array([getattr(ii, attr) for ii in iis], dtype=dtype)
+    return np.full(n, getattr(iis, attr), dtype=dtype)
+
 class PairChunk:
     """One chunk's columnar sampe state: the interleaved [2n, NF] table,
     the record words and offsets of both ends' hits, multi-hit slots, and
-    the cigars of refined or rescued rows and of multi slots."""
+    the cigars of refined or rescued rows and of multi slots.  bam2bam's
+    pass 2 builds one with `of_rows`, its singletons as rows after the
+    pairs'; the steps below take either."""
 
     def __init__(self, reads, per_read_alns):
         n = len(reads[0])
@@ -410,15 +446,38 @@ class PairChunk:
         else:
             recs, counts = pack_recs([per_read_alns[j][i] for i in range(n)
                                       for j in (0, 1)])
+        self._hits(recs, counts)
+
+    @classmethod
+    def of_rows(cls, states, alns, n_pairs):
+        """A chunk over rows whose hits are already chosen and positioned
+        (bam2bam's pass 2): `states` the rows' SeqStates, the two ends of
+        n_pairs pairs interleaved first and singletons after; `alns` each
+        row's hits."""
+        pc = cls.__new__(cls)
+        pc.n, pc.colsrc, pc.reads = n_pairs, None, None
+        pc._flat = [s.read for s in states]
+        state = np.zeros((len(states), NF), dtype=np.int64)
+        for fi, attr in _STATE_FIELDS:
+            state[:, fi] = [getattr(s, attr) for s in states]
+        state[:, F_FULL_LEN] = [r.full_len for r in pc._flat]
+        state[:, F_CLIP_LEN] = [r.clip_len for r in pc._flat]
+        pc.state, pc.lens = state, state[:, F_LEN].copy()
+        pc._hits(*pack_recs(alns))
+        return pc
+
+    def _hits(self, recs, counts):
+        """The hit records and offsets, empty multi slots and cigars."""
+        rows = len(self.state)
         self.recs, self.counts = recs, counts
-        self.hit_off = np.zeros(n2 + 1, dtype=np.int64)
+        self.hit_off = np.zeros(rows + 1, dtype=np.int64)
         np.cumsum(counts, out=self.hit_off[1:])
         self.stride = 1
-        self.multi_pos = np.zeros(n2, dtype=np.uint64)
-        self.multi_gap = np.zeros(n2, dtype=np.int32)
-        self.multi_mm = np.zeros(n2, dtype=np.int32)
-        self.multi_strand = np.zeros(n2, dtype=np.int32)
-        self.multi_n = np.zeros(n2, dtype=np.int32)
+        self.multi_pos = np.zeros(rows, dtype=np.uint64)
+        self.multi_gap = np.zeros(rows, dtype=np.int32)
+        self.multi_mm = np.zeros(rows, dtype=np.int32)
+        self.multi_strand = np.zeros(rows, dtype=np.int32)
+        self.multi_n = np.zeros(rows, dtype=np.int32)
         self.mslot = np.zeros(0, dtype=np.int64)
         self.cigars = {}
         self.mcigars = {}
@@ -447,7 +506,9 @@ class PairChunk:
         return c
 
 
-def _sa_rows_fn(engine, host_reference):
+def sa_rows_fn(engine, host_reference):
+    """The SA walk of a route: `engine.sa_rows` (C3 on a CUDA engine), or
+    the host reference's `samse.sa_rows_native`."""
     if host_reference:
         return lambda a, rows: se.sa_rows_native(engine.index, a, rows)
     return engine.sa_rows
@@ -472,7 +533,7 @@ def select(reads, per_read_alns, rng):
 def sa_coords(engine, pc, host_reference=False):
     """Step 2 (bwape.c:330-338): the chosen hits' SA rows -> positions,
     reverse-strand positions flipped by `rev.seq_len - (v + len)`."""
-    sa_rows = _sa_rows_fn(engine, host_reference)
+    sa_rows = sa_rows_fn(engine, host_reference)
     state, lens = pc.state, pc.lens
     rev_len = engine.index.rev.seq_len
     matched, strand = pc.matched, pc.strand
@@ -507,46 +568,51 @@ def infer_isize(pc, popt, seq_len, last_ii=None):
     return ii
 
 
-def pairing(engine, pc, gopt, popt, ii, pos_memo, host_reference=False):
+def pairing(engine, pc, gopt, popt, iis, pos_memo, host_reference=False):
     """Step 4 (bwape.c:349-398): every hit interval of the gated pairs
     expanded to positions (wide intervals through `pos_memo`), then the
-    native per-pair pairing sweep over the sorted keys."""
+    native per-pair pairing sweep over the sorted keys.  iis: one
+    IsizeInfo for all pairs, or one per pair."""
     n = pc.n
+    if n == 0:
+        return
     flat_keys, key_off = build_pair_keys(
-        _sa_rows_fn(engine, host_reference), engine.index.rev.seq_len,
+        sa_rows_fn(engine, host_reference), engine.index.rev.seq_len,
         pc.state, pc.recs, pc.counts, pc.hit_off, n, popt.max_occ,
         pos_memo)
     native.lib().pe_pairing_batch(
         n, flat_keys, key_off, pc.recs, 4 * pc.hit_off,
         pc.state.reshape(-1), 0, popt.max_isize, gopt.s_mm,
-        np.full(n, ii.high, dtype=np.int64),
-        np.full(n, ii.high_bayesian, dtype=np.int64),
-        np.full(n, float(ii.avg), dtype=np.float64),
-        np.full(n, float(ii.std), dtype=np.float64))
+        _per_pair(iis, n, "high", np.int64),
+        _per_pair(iis, n, "high_bayesian", np.int64),
+        _per_pair(iis, n, "avg", np.float64),
+        _per_pair(iis, n, "std", np.float64))
 
 
 def multi_hits(engine, pc, popt, host_reference=False):
     """Step 5 (bwape.c:400-413): multi-hit enumeration (native
-    se_multi_batch), then the slots' SA rows -> positions."""
-    if not (popt.N_multi or popt.n_multi):
+    se_multi_batch) for the paired rows, then the slots' SA rows ->
+    positions.  Rows after the pairs' (bam2bam's singletons) get none."""
+    if not (popt.N_multi or popt.n_multi) or pc.n == 0:
         return
-    state, n2 = pc.state, 2 * pc.n
-    typ = state[:, F_TYPE]
+    state, n2, rows = pc.state, 2 * pc.n, len(pc.state)
+    typ = state[:n2, F_TYPE]
     mate_typ = typ.reshape(pc.n, 2)[:, ::-1].reshape(-1)
-    fpp = (state[:, F_XFLAG] & SAM_FPP) != 0
+    fpp = (state[:n2, F_XFLAG] & SAM_FPP) != 0
     cond = (~fpp) & (mate_typ != BWA_TYPE_NO_MATCH)
-    nm = np.where(cond,
-                  np.where(state[:, F_C1] + state[:, F_C2] - 1
-                           > popt.N_multi, popt.n_multi, popt.N_multi),
-                  popt.n_multi)
-    nm = np.where(typ != BWA_TYPE_NO_MATCH, nm, 0).astype(np.int32)
+    nm2 = np.where(cond,
+                   np.where(state[:n2, F_C1] + state[:n2, F_C2] - 1
+                            > popt.N_multi, popt.n_multi, popt.N_multi),
+                   popt.n_multi)
+    nm = np.zeros(rows, dtype=np.int32)
+    nm[:n2] = np.where(typ != BWA_TYPE_NO_MATCH, nm2, 0)
     stride = int(max(popt.n_multi, popt.N_multi)) + 1
     pc.stride = stride
-    pc.multi_pos = np.zeros(n2 * stride, dtype=np.uint64)
-    pc.multi_gap = np.zeros(n2 * stride, dtype=np.int32)
-    pc.multi_mm = np.zeros(n2 * stride, dtype=np.int32)
-    pc.multi_strand = np.zeros(n2 * stride, dtype=np.int32)
-    native.lib().se_multi_batch(n2, pc.recs, pc.counts, state.reshape(-1),
+    pc.multi_pos = np.zeros(rows * stride, dtype=np.uint64)
+    pc.multi_gap = np.zeros(rows * stride, dtype=np.int32)
+    pc.multi_mm = np.zeros(rows * stride, dtype=np.int32)
+    pc.multi_strand = np.zeros(rows * stride, dtype=np.int32)
+    native.lib().se_multi_batch(rows, pc.recs, pc.counts, state.reshape(-1),
                                 nm, stride, pc.multi_pos, pc.multi_gap,
                                 pc.multi_mm, pc.multi_strand, pc.multi_n)
     mslot, mlen = [], []
@@ -558,7 +624,7 @@ def multi_hits(engine, pc, popt, host_reference=False):
     if not len(mslot):
         return
     mlen = np.array(mlen, dtype=np.int64)
-    sa_rows = _sa_rows_fn(engine, host_reference)
+    sa_rows = sa_rows_fn(engine, host_reference)
     rev_len = engine.index.rev.seq_len
     m_strand = pc.multi_strand[pc.mslot] != 0
     for a in (1, 0):
@@ -575,12 +641,11 @@ def multi_hits(engine, pc, popt, host_reference=False):
                 ((rev_len - (vals + mlen[msel])) & _NEG1).astype(np.uint64)
 
 
-def rescue_pairs(pc, popt, ii):
+def rescue_pairs(pc):
     """The candidate pairs of step 6 as per-row SeqState proxies
     (post_native.py:629-653): [(pair, (proxy0, proxy1))]."""
-    if not (popt.is_sw and ii.avg >= 0.0):
-        return []
-    p0, p1 = pc.state[0::2], pc.state[1::2]
+    n2 = 2 * pc.n
+    p0, p1 = pc.state[0:n2:2], pc.state[1:n2:2]
     mq_pair = np.maximum(p0[:, F_MAPQ], p1[:, F_MAPQ])
     cand = np.nonzero((mq_pair >= SW_MIN_MAPQ)
                       & ((p0[:, F_XFLAG] & SAM_FPP) == 0))[0]
@@ -605,23 +670,29 @@ def rescue_pairs(pc, popt, ii):
     return out
 
 
-def rescue(pc, bns, pac, popt, ii, device, host_reference=False):
+def rescue(pc, bns, pac, popt, iis, device, host_reference=False,
+           parts=None):
     """Step 6 (bwa_paired_sw, bwape.c:635-658) on the candidate pairs'
-    proxies, written back into the table (post_native.py:654-670).
-    Returns the counters {"n_tot", "n_mapped"}."""
+    proxies, written back into the table (post_native.py:654-670).  iis:
+    one IsizeInfo for all pairs, or one per pair; the DP's seconds go to
+    `parts` (default: `seconds`).  Returns the counters {"n_tot",
+    "n_mapped"}."""
     counters = {"n_tot": [0, 0], "n_mapped": [0, 0]}
-    prox = rescue_pairs(pc, popt, ii)
+    prox = rescue_pairs(pc)
     if not prox:
         return counters
+    parts = seconds if parts is None else parts
     if host_reference:
         def solve(jobs):
             return dp.local_sw_native(jobs, ALN_PARAM_BWA, thres=1,
-                                      seconds=seconds)
+                                      seconds=parts)
     else:
         def solve(jobs):
             return dp.local_sw_batch(jobs, ALN_PARAM_BWA, device, thres=1,
-                                     seconds=seconds)
-    paired_sw_batch(bns, pac, [pp for _, pp in prox], popt, ii, counters,
+                                     seconds=parts)
+    if isinstance(iis, (list, tuple)):
+        iis = [iis[i] for i, _ in prox]
+    paired_sw_batch(bns, pac, [pp for _, pp in prox], popt, iis, counters,
                     solve)
     for i, pp in prox:
         for j, s in enumerate(pp):
@@ -681,7 +752,7 @@ def gapped_jobs(pc):
 def md(pc, bns, pac):
     """Step 8a: MD/NM with ambiguity holes (native md_batch); the MD text
     buffer and its offsets."""
-    n2, strand = 2 * pc.n, pc.strand
+    n2, strand = len(pc.state), pc.strand
     if pc.colsrc is not None:
         f0, o0 = pc.colsrc[0].aligned_codes(strand[0::2])
         f1, o1 = pc.colsrc[1].aligned_codes(strand[1::2])
@@ -781,11 +852,12 @@ def sampe_bytes(engine, reads, per_read_alns, gopt, popt, rng, rg_id=None,
     t5 = time.perf_counter()
     multi_hits(engine, pc, popt, host_reference)
     t6 = time.perf_counter()
-    solved = sum(seconds[k] for k in _RESCUE_SOLVE)
-    rescue(pc, bns, pac, popt, ii, engine.device, host_reference)
+    solved = sum(seconds[k] for k in RESCUE_SOLVE)
+    if popt.is_sw and ii.avg >= 0.0:
+        rescue(pc, bns, pac, popt, ii, engine.device, host_reference)
     t7 = time.perf_counter()
     seconds["rescue_drive"] += (t7 - t6) - (
-        sum(seconds[k] for k in _RESCUE_SOLVE) - solved)
+        sum(seconds[k] for k in RESCUE_SOLVE) - solved)
     jobs = gapped_jobs(pc)
     seconds["dp"] += time.perf_counter() - t7
     se.refine_jobs(jobs, pac, bns.l_pac, engine.device, host_reference,

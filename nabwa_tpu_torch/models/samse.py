@@ -22,9 +22,10 @@ against.  Only that argument chooses it; nothing falls back to it.
 
 The per-read host steps that the JAX package keeps in
 nabwa_tpu/models/samse.py (`SeqState`, `refine_window`,
-`refine_gapped_core`, `correct_trimmed`, `sam_header`, `G_LOG_N`, and
-`coor_pac2real` for bwasw) are copied here; the sampe driver uses them
-too.
+`refine_gapped_core`, `correct_trimmed`, `sam_header`, `G_LOG_N`,
+`coor_pac2real` for bwasw, and `aln2seq_core`, `approx_mapQ` and
+`cal_pac_pos` for bam2bam's pass-1 writer) are copied here; the sampe
+driver uses them too.
 
 `seconds` sums host seconds per part over calls: select (steps 1 and 3),
 sa, dp (windows, packing, the copy to the device and the DP to its end),
@@ -37,12 +38,16 @@ import math
 import time
 
 import numpy as np
+import torch
 
-from ..constants import BWA_TYPE_NO_MATCH
+from ..constants import (BWA_AVG_ERR, BWA_TYPE_NO_MATCH, BWA_TYPE_REPEAT,
+                         BWA_TYPE_UNIQUE)
 from ..index import native
 from ..io.fastq import ReadBatch
 from ..io.sai import AlnColumn
 from ..ops import dp
+from ..ops.sa_lookup import sa_lookup_plain
+from ..refmodel.aln_scalar import cal_maxdiff
 from ..refmodel.stdaln_scalar import (ALN_PARAM_BWA, FROM_D, FROM_I, FROM_M,
                                       FROM_S, path2cigar32)
 from ..utils.rand48 import Rand48
@@ -97,6 +102,116 @@ class SeqState:
         self.n_multi = 0
         self.extra_flag = 0
         self.max_entries = 0
+
+
+def aln2seq_core(alns, s, rng, n_multi=0):
+    """bwa_aln2seq_core (bwase.c:19-95) with set_main: reservoir-sample the
+    primary hit among score ties (weighted by interval size), count c1/c2,
+    optionally enumerate multi-hits.  rng is the shared Rand48 stream —
+    call order is part of the output contract."""
+    if not alns:
+        s.type = BWA_TYPE_NO_MATCH
+        s.c1 = s.c2 = 0
+        return
+    # alns are (n_mm, n_gapo, n_gape, a, k, l, score) tuples
+    best = alns[0][6]
+    cnt = 0
+    i = 0
+    drand48 = rng.drand48
+    while i < len(alns):
+        n_mm, n_gapo, n_gape, a, k, l, score = alns[i]
+        if score > best:
+            break
+        w = l - k + 1
+        if drand48() * (w + cnt) > float(cnt):
+            s.n_mm = n_mm
+            s.n_gapo = n_gapo
+            s.n_gape = n_gape
+            s.strand = a
+            s.score = score
+            s.sa = k + int(w * drand48())
+        cnt += w
+        i += 1
+    s.c1 = cnt
+    while i < len(alns):
+        cnt += alns[i][5] - alns[i][4] + 1
+        i += 1
+    s.c2 = cnt - s.c1
+    s.type = BWA_TYPE_REPEAT if s.c1 > 1 else BWA_TYPE_UNIQUE
+
+    if n_multi:
+        n_occ = sum(q[5] - q[4] + 1 for q in alns)
+        s.multi = []
+        s.n_multi = 0
+        if n_occ > n_multi + 1:  # too many -> none (bwase.c:54-57)
+            return
+        rest = n_occ
+        multi = []
+        for q in alns:
+            sz = q[5] - q[4] + 1
+            if sz <= rest:
+                for l in range(q[4], q[5] + 1):
+                    multi.append(dict(pos=l, gap=q[1] + q[2],
+                                      mm=q[0], strand=q[3],
+                                      cigar=None, n_cigar=0))
+                rest -= sz
+            else:
+                # unreachable given the cap above (bwase.c:75 comment)
+                break
+        multi = [m for m in multi if m["pos"] != s.sa]
+        s.multi = multi[:n_multi] if len(multi) >= n_multi else multi
+        s.n_multi = len(s.multi)
+
+
+def approx_mapQ(s, mm):
+    """bwa_approx_mapQ (bwase.c:113-122)."""
+    if s.c1 == 0:
+        return 23
+    if s.c1 > 1:
+        return 0
+    if s.n_mm == mm:
+        return 25
+    if s.c2 == 0:
+        return 37
+    n = 255 if s.c2 >= 255 else s.c2
+    return 0 if 23 < G_LOG_N[n] else 23 - G_LOG_N[n]
+
+
+def cal_pac_pos(sa_rows, rev_len, states, max_mm, fnr):
+    """bwa_cal_pac_pos (bwase.c:156-183) over SeqStates, the SA rows
+    batched through `sa_rows(a, uint32 rows)` (`engine.sa_rows`, or
+    `sa_rows_native` on the host reference route).  Reverse-strand primary
+    hits and multis resolve on the forward BWT; forward-strand ones on the
+    reverse BWT with the rev_len - (sa + len) flip."""
+    jobs = ([], [])                 # per strand a: (state, multi slot, row)
+    for s in states:
+        if s.type in (BWA_TYPE_UNIQUE, BWA_TYPE_REPEAT):
+            jobs[s.strand].append((s, -1, s.sa))
+        for j, m in enumerate(s.multi):
+            jobs[m["strand"]].append((s, j, m["pos"]))
+    for a in (1, 0):
+        if not jobs[a]:
+            continue
+        vals = sa_rows(a, np.array([t[2] for t in jobs[a]],
+                                   dtype=np.uint32)).tolist()
+        for (s, j, _), v in zip(jobs[a], vals):
+            if not a:
+                v = (rev_len - (v + s.len)) & _NEG1
+            if j < 0:
+                s.pos = v
+            else:
+                s.multi[j]["pos"] = v
+    md_cache = {}
+    for s in states:
+        if s.type in (BWA_TYPE_UNIQUE, BWA_TYPE_REPEAT):
+            if fnr > 0.0:
+                max_diff = md_cache.get(s.len)
+                if max_diff is None:
+                    max_diff = md_cache[s.len] = cal_maxdiff(
+                        s.len, BWA_AVG_ERR, fnr)
+            else:
+                max_diff = max_mm
+            s.seQ = s.mapQ = approx_mapQ(s, max_diff)
 
 
 def refine_window(l_pac, pac, seq_codes, pos, ext, is_end_correct=True):
@@ -317,11 +432,24 @@ def sa_requests(ch):
 
 
 def sa_rows_native(index, a, rows):
-    """The host reference of `engine.sa_rows`: the shared native bwt_sa
-    walk on strand a's index (uint32 rows -> raw uint32 values)."""
+    """The host reference of `engine.sa_rows` on strand a's index (uint32
+    rows -> raw uint32 values): the shared native bwt_sa walk.  That walk
+    tests for a sampled row by masking with sa_intv - 1, which is the C's
+    modulo only for a power of two; at any other interval the rows walk
+    with the modulo of the plain PyTorch `sa_lookup` on the host."""
     fm = index.fwd if a else index.rev
-    return native.bwt_sa_batch(fm.bwt, fm.primary, index.fwd.l2,
-                               fm.seq_len, fm.sa, fm.sa_intv, rows)
+    intv = int(fm.sa_intv)
+    if intv & (intv - 1) == 0:
+        return native.bwt_sa_batch(fm.bwt, fm.primary, index.fwd.l2,
+                                   fm.seq_len, fm.sa, intv, rows)
+    ix = index.on_host
+    k = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.uint32)
+                         .view(np.int32))
+    out = sa_lookup_plain(ix.bwt_fwd if a else ix.bwt_rev, ix.l2,
+                          ix.primary_fwd if a else ix.primary_rev,
+                          ix.seq_len, ix.sa_fwd if a else ix.sa_rev,
+                          ix.sa_intv, k)
+    return out.numpy().view(np.uint32)
 
 
 def sa_coords(engine, ch, host_reference=False):

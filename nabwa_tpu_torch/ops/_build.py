@@ -34,6 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _lock = threading.Lock()
+# guards the wrappers' launch counters: worker threads launch on one card
+count_lock = threading.Lock()
 # wall seconds of the nvcc run made by this process (None: library was
 # already built for these sources) and the compiler's ptxas report
 build_seconds = None

@@ -121,5 +121,6 @@ def dfs_match_gap_cuda(bwt_cat, rev_word_offset, primary_fwd, primary_rev,
         max_diff.data_ptr(), slots.data_ptr(), planes.data_ptr(),
         out.data_ptr(), B, _build.stream_of(seqs))
     _build.check(rc, "dfs kernel launch")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return out

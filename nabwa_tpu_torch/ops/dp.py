@@ -193,7 +193,8 @@ def banded_global_cuda(s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
         scratch.data_ptr(), tb.data_ptr(), score.data_ptr(),
         ctype.data_ptr(), _build.stream_of(s1))
     _build.check(rc, "banded_global kernel launch")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return score, ctype, tb
 
 
@@ -406,7 +407,8 @@ def local_fwd_cuda(s1, len1, s2, len2, mat, *, go, ge):
         score.data_ptr(), end_i.data_ptr(), end_j.data_ptr(),
         _build.stream_of(s1))
     _build.check(rc, "local_fwd kernel launch")
-    launches_local += 1
+    with _build.count_lock:
+        launches_local += 1
     return score, end_i, end_j
 
 
@@ -665,7 +667,8 @@ def extend_cuda(s1, len1, s2, len2, g0, bw, mat, *, go, ge):
         scratch.data_ptr(), *[t.data_ptr() for t in out],
         _build.stream_of(s1))
     _build.check(rc, "extend kernel launch")
-    launches_extend += 1
+    with _build.count_lock:
+        launches_extend += 1
     return tuple(out)
 
 

@@ -162,7 +162,8 @@ def cal_width_cuda(bwt, l2, primary, seq_len, queries, lengths):
         params, bwt.data_ptr(), queries.data_ptr(), lengths.data_ptr(),
         B, L, width.data_ptr(), bid.data_ptr(), _build.stream_of(queries))
     _build.check(rc, "cal_width kernel launch")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return width, bid
 
 

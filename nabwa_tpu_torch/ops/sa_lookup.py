@@ -96,7 +96,8 @@ def sa_lookup_cuda(bank, l2, primary, seq_len, sa, sa_intv, rows):
         params, bank.data_ptr(), sa.data_ptr(), intv, rows.data_ptr(), n,
         out.data_ptr(), _build.stream_of(rows))
     _build.check(rc, "sa_lookup kernel launch")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return out
 
 

@@ -131,11 +131,15 @@ def test_other_commands_not_ported(cmd):
 
 
 def test_per_read_semantics_not_ported(data):
+    """bam2bam's per-read semantics are ported now: at the default options
+    every read falls in one group, whose hits are the batch path's
+    (tests/test_torch_bam2bam.py holds split groups to the JAX engine)."""
     d, _ = data
     eng = AlnEngine(BwaIndex.load(str(d / "g.fa")), GapOpt(), "cpu")
-    with pytest.raises(NotImplementedError):
-        eng.run_chunk(fastq.read_fastq_batch(
-            fastq.iter_fastq(str(d / "r.fq")), 4), per_read_semantics=True)
+    reads = fastq.read_fastq_batch(fastq.iter_fastq(str(d / "r.fq")), 4)
+    per_read = eng.run_chunk(reads, per_read_semantics=True)
+    assert [a for a, _ in per_read] == [a for a, _ in eng.run_chunk(reads)]
+    assert len(per_read) == 4
 
 
 def test_sa_rows_matches_host_walk(data):

@@ -23,9 +23,9 @@ import pytest
 from . import genomes
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-SMOKE_ALLOWED = {"argparse", "json", "os", "pathlib", "subprocess", "sys",
-                 "tempfile", "time", "numpy", "torch", "nabwa_tpu_torch",
-                 "tests"}
+SMOKE_ALLOWED = {"argparse", "collections", "json", "os", "pathlib",
+                 "subprocess", "sys", "tempfile", "threading", "time",
+                 "numpy", "torch", "nabwa_tpu_torch", "tests"}
 
 
 def _imported_roots(path):
