@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of nabwa_tpu_torch, the `aln`, `samse`, `sampe`,
-`bwasw` and `bam2bam` paths on one NVIDIA GPU.
+`bwasw` and `bam2bam` paths and the probes on one NVIDIA GPU.
 
     python3 chip_smoke.py [--glen BP] [--reads N] [--pairs N] [--batch B]
                           [--retry-stack S] [--long-reads N] [--profile]
@@ -93,9 +93,23 @@ Phases, any failure exits non-zero:
    2-3), and the rescue must place at least half of the rescue-only
    mates;
 17. the bam2bam CLI with every launch count at 0: `bam2bam --device cuda`
-   (its BAM equal to the host reference route's, C1-C5 launched).
-Phase 12's chain and phases 15 and 17 are the main paths: their launch
-counts, summed, are the `launches` of the kernels line.
+   (its BAM equal to the host reference route's, C1-C5 launched);
+18. the probes (nabwa_tpu_torch/probes/), inputs made with numpy from a
+   fixed seed: kernel C7 (csrc/probe_rowload.cu) at probe 1's 256 rows of
+   a [4096, 128] table, beside torch.index_select; C8 (csrc/probe_dma.cu)
+   at T=64 for N 64 and 128, unroll on and off, every `src`, on tables of
+   100,000 and 4,000,000 rows, out, the whole stage and each round's
+   witness, timed warm and with L2 flushed before each launch; C9
+   (csrc/probe_dfs_shape.cu) at 256 x 128 x 200 and 2048 x 128 x 200,
+   timed, and at S 32, 64 and 96 (256 reads, 200 iterations); C10 at
+   probe 5's 256 x 128 x 100; each exact against its plain version.
+   Then each probe's entry point (`python -m
+   nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`, `.probe_dfs_shape`,
+   `--device cuda`, the scripts' default arguments) once in a process of its own, every launch counter starting at 0; its
+   result lines are logged and each of C7-C10 must have launched.
+Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
+points the probes' path: their launch counts, summed, are the `launches`
+of the kernels line.
 With --profile, torch.profiler runs over one more aln run after phase 4's
 timed run and over one more bwasw card run after phase 14: the card's
 busy share and the device time of each kernel.
@@ -103,9 +117,12 @@ busy share and the device time of each kernel.
 Every kernel's `bound_ms` is the least time the card could take for the
 same work on this run's inputs: the larger of the bytes it must move over
 HBM_BYTES_PER_S and its integer operations over INT_OPS_PER_S (see
-`bound`).  No single PyTorch call computes any of the six functions, so
-`library_ms` is null for each.  C4's and C5's `ms` and `plain_ms` are
-those of the largest launch of sampe's card run; C4's on samse's refine
+`bound`).  No single PyTorch call computes any of C1-C6 or C8-C10, so
+`library_ms` is null for each; C7's is torch.index_select's.  The
+probes' bounds count their table rows once (the distinct rows the run
+reads) and their operations as the header of each .cu file counts them.
+C4's and C5's `ms` and `plain_ms` are those of the largest launch of
+sampe's card run; C4's on samse's refine
 batch of phase 6 stand beside them as `samse_refine_*`, and C4's and
 C3's on bwasw's largest launch as `bwasw_*`.  C6's are those of the
 largest launch of bwasw's card run, its bound counted from the window
@@ -156,6 +173,32 @@ OPS_GLOBAL_CELL = 40      # csrc/dp_global.cuh, one cell of the band
 OPS_EXTEND_CELL = 26      # csrc/extend.cuh, one cell of a row's window
 OPS_OCC_BLOCK = 40        # one Occ block's count (masks and popcounts)
 OCC_BLOCK_BYTES = 48      # bwt.h:61-68, 4 counters + 8 words
+# the probe mocks' operations per read and iteration, as the header of
+# csrc/probe_dfs_shape.cu counts them.  C9: per staged row (its block
+# offset), per word of the row's 8-word block, per slot, per read; two
+# rows a read.  C10: per word of bank 0's row, per slot, per read.
+OPS_SHAPE = (6, 17, 16, 178)
+OPS_PALLAS = (8, 11, 10)
+ROW_BYTES = 512               # one 128-word int32 table row
+PROBE_SEED = 18
+DMA_T = 64                    # scripts/probe_dma.py:28
+DMA_ROWS = (100_000, 4_000_000)
+L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
+# the probes' entry points, each run once in a process of its own with the
+# scripts' default arguments, and the launch counter of each probe kernel
+PROBE_ENTRIES = ("probe_pallas", "probe_dma", "probe_dfs_shape")
+PROBE_COUNT = """\
+import json, sys
+from nabwa_tpu_torch.probes import probe_dfs_shape, probe_dma, probe_pallas
+mod = {"probe_pallas": probe_pallas, "probe_dma": probe_dma,
+       "probe_dfs_shape": probe_dfs_shape}[sys.argv[1]]
+rc = mod.main(sys.argv[2:])
+print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
+                  "probe_dma": probe_dma.launches,
+                  "probe_dfs_shape": probe_dfs_shape.launches,
+                  "probe_pallas_dfs_shape": probe_pallas.launches_dfs_shape}))
+sys.exit(rc)
+"""
 
 
 def bound(n_bytes, n_ops):
@@ -231,6 +274,24 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps, flush):
+    """Mean device milliseconds of fn() over reps launches, each timed
+    alone (CUDA events) after `flush`, a buffer larger than the L2 cache,
+    is rewritten: the launch finds none of its data in L2."""
+    import torch
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        ev0.record()
+        fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        total += ev0.elapsed_time(ev1)
+    return total / reps
 
 
 def make_pairs(genome, n_pairs, n_rescue, read_len, isize_mean, isize_std,
@@ -424,8 +485,8 @@ def check_dfs(eng, inputs, statics, tier):
     """C1 against the plain DFS on one batch of the engine's own inputs.
     The width planes come from the plain cal_width, so C1 is checked on
     its own.  Returns (max |err|, kernel ms, plain ms, flagged rows,
-    bound); the bound counts the inputs and output and, for every pop the
-    reads took, one 2occ4 (two Occ blocks)."""
+    bound, pops); the bound counts the inputs and output and, for every pop
+    the reads took, one 2occ4 (two Occ blocks)."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.ops import dfs, dfs_cuda, occ
@@ -474,7 +535,7 @@ def check_dfs(eng, inputs, statics, tier):
         bad = np.nonzero(diff.any(1).cpu().numpy())[0][:5]
         fail(f"dfs kernel disagrees with the plain version, {tier} "
              f"(rows {bad})")
-    return worst, ms, plain_ms, flagged, bnd
+    return worst, ms, plain_ms, flagged, bnd, pops
 
 
 def native_reference(idx, reads, opt):
@@ -940,6 +1001,202 @@ def bam2bam_routes(eng, idx, in_bam, n_records, argv, opt, popt, out_dir):
     return runs, recorded
 
 
+def exact(label, got, want):
+    """max |got - want| of two int tensors; fails unless they are equal."""
+    if got.shape != want.shape:
+        fail(f"{label}: shape {tuple(got.shape)} against the plain "
+             f"version's {tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err:
+        fail(f"{label}: kernel differs from its plain version (max |err| "
+             f"{err})")
+    return err
+
+
+def distinct_rows(*rows):
+    """Distinct table rows among index tensors (None skipped)."""
+    import torch
+    return int(torch.unique(torch.cat(
+        [r.reshape(-1).long().cpu() for r in rows if r is not None])).numel())
+
+
+def check_probes(dev):
+    """Phase 18: kernels C7-C10 against their plain versions on the card, at
+    the probes' shapes, inputs made with numpy from PROBE_SEED.  Returns
+    {kernel name: fields of its kernels-line entry but `launches`}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_dfs_shape as pds
+    from nabwa_tpu_torch.probes import probe_dma as pdma
+    from nabwa_tpu_torch.probes import probe_pallas as pp
+    rng = np.random.RandomState(PROBE_SEED)
+    out = {}
+
+    # C7: probe 1's row gather, 256 rows of a [4096, 128] table
+    idx = rng.randint(0, pp.ROWLOAD_NROW, (pp.ROWLOAD_BB, 1))
+    table = (np.arange(pp.ROWLOAD_NROW * 128).reshape(pp.ROWLOAD_NROW, 128)
+             % 9973)
+    idx_t, tab_t = common.tensors(dev, idx, table)
+    err = exact("C7 probe_rowload", pp.rowload_cuda(idx_t, tab_t),
+                pp.rowload_plain(idx_t, tab_t))
+    lib_idx = idx_t[:, 0]
+    n_rows = distinct_rows(idx_t)
+    bnd = bound(4 * len(idx) + ROW_BYTES * (n_rows + len(idx)), 0)
+    out["probe_rowload"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: pp.rowload_cuda(idx_t, tab_t), 200),
+        "plain_ms": cuda_ms(lambda: pp.rowload_plain(idx_t, tab_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, lib_idx),
+                              200),
+        "library_call": "torch.index_select(table, 0, idx[:, 0])",
+        "rows": len(idx), "distinct_rows": n_rows}
+    log(f"C7 probe_rowload: exact; {out['probe_rowload']}")
+
+    # C8: T=64 iterations of N row copies, every mode, two table sizes;
+    # timed warm (the rows the last launch read are in L2, as the script's
+    # second call finds them) and cold (L2 flushed before each launch)
+    configs, worst = [], 0
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    for rows in DMA_ROWS:
+        tab = torch.arange(rows * 128, dtype=torch.int32,
+                           device=dev).view(rows, 128)
+        for n in (64, 128):
+            for unroll in (False, True):
+                for src in pdma.SRCS:
+                    label = (f"C8 probe_dma rows={rows} N={n} "
+                             f"unroll={unroll} src={src}")
+                    k_out, k_stage, k_rounds = pdma.dma_cuda(
+                        tab, n, DMA_T, rows, src, unroll)
+                    p_out, p_stage, p_rounds = pdma.dma_plain(
+                        tab, n, DMA_T, rows, src)
+                    worst = max(worst, exact(label, k_out, p_out),
+                                exact(label + " stage", k_stage, p_stage),
+                                exact(label + " rounds", k_rounds, p_rounds))
+                    r1, r2, _ = pdma.copy_rows(n, DMA_T, rows, src)
+                    bnd = bound(ROW_BYTES * (distinct_rows(r1, r2) + 2 * n)
+                                + 4 + 4 * DMA_T, 0)
+                    def launch():
+                        pdma.dma_cuda(tab, n, DMA_T, rows, src, unroll)
+                    ms = cuda_ms(launch, 10)
+                    cold = cold_ms(launch, 5, flush)
+                    configs.append({
+                        "rows": rows, "n": n, "unroll": unroll, "src": src,
+                        "ms": ms, "plain_ms": cuda_ms(lambda: pdma.dma_plain(
+                            tab, n, DMA_T, rows, src), 2),
+                        "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "us_per_iter": ms * 1e3 / DMA_T,
+                        "us_per_copy": ms * 1e3 / DMA_T / n,
+                        "cold_ms": cold,
+                        "cold_us_per_copy": cold * 1e3 / DMA_T / n})
+                    log(f"{label}: exact; {configs[-1]}")
+        del tab
+    # the script's own default: ROWS=100000, N=128, unroll off, reg
+    main_cfg = next(c for c in configs if c["rows"] == DMA_ROWS[0]
+                    and c["n"] == 128 and not c["unroll"]
+                    and c["src"] == "reg")
+    out["probe_dma"] = {
+        "max_abs_err": worst, "ms": main_cfg["ms"],
+        "plain_ms": main_cfg["plain_ms"], "bound_ms": main_cfg["bound_ms"],
+        "bound_by": main_cfg["bound_by"], "library_ms": None,
+        "library_why": "none: serial rounds of async row copies into shared "
+                       "memory",
+        "us_per_iter": main_cfg["us_per_iter"],
+        "us_per_copy": main_cfg["us_per_copy"],
+        "cold_ms": main_cfg["cold_ms"], "t": DMA_T,
+        "configs": configs}
+
+    # C9: scripts/probe_dfs_shape.py at its default and at C1's batch
+    table = rng.randint(0, 1 << 30, (pds.NROW, 128))
+    shapes = []
+    for bb in (256, 2048):
+        s, iters = 128, 200
+        seed = rng.randint(0, 1 << 20, (bb, 128))
+        seed_t, tab_t = common.tensors(dev, seed, table)
+        touched = []
+        err = exact(f"C9 probe_dfs_shape BB={bb}",
+                    pds.run_cuda(seed_t, tab_t, s, iters),
+                    pds.run_plain(seed_t, tab_t, s, iters, touched))
+        row, word, slot, read = OPS_SHAPE
+        bnd = bound(4 * seed.size + ROW_BYTES * distinct_rows(*touched) + 4,
+                    bb * iters * (2 * (row + 8 * word) + s * slot + read))
+        ms = cuda_ms(lambda: pds.run_cuda(seed_t, tab_t, s, iters), 20)
+        shapes.append({
+            "bb": bb, "s": s, "iters": iters, "max_abs_err": err, "ms": ms,
+            "plain_ms": cuda_ms(lambda: pds.run_plain(seed_t, tab_t, s,
+                                                      iters), 1),
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "us_per_iter": ms * 1e3 / iters,
+            "m_lane_iters_per_s": bb / (ms / 1e3 / iters) / 1e6})
+        log(f"C9 probe_dfs_shape BB={bb}: exact; {shapes[-1]}")
+    # C9's other slot counts, each a kernel of its own (S / 32 registers
+    # a field a lane)
+    worst = max(sh["max_abs_err"] for sh in shapes)
+    for s in (32, 64, 96):
+        seed = rng.randint(0, 1 << 20, (256, 128))
+        seed_t, tab_t = common.tensors(dev, seed, table)
+        worst = max(worst, exact(f"C9 probe_dfs_shape BB=256 S={s}",
+                                 pds.run_cuda(seed_t, tab_t, s, 200),
+                                 pds.run_plain(seed_t, tab_t, s, 200)))
+        log(f"C9 probe_dfs_shape BB=256 S={s} ITERS=200: exact")
+    out["probe_dfs_shape"] = dict(
+        shapes[0], max_abs_err=worst, library_ms=None,
+        library_why="none: a pop, row loads and pushes per read, iterated",
+        shapes=shapes, exact_s=[32, 64, 96, 128])
+
+    # C10: probe 5, 100 iterations, 256 reads of 128 slots, a 16 MB table
+    k = rng.randint(0, pp.DFS_NROW, (pp.DFS_BB, 128))
+    table = rng.randint(0, 1 << 30, (pp.DFS_NROW, 128))
+    k_t, tab_t = common.tensors(dev, k, table)
+    touched = []
+    err = exact("C10 probe_pallas_dfs_shape", pp.dfs_shape_cuda(k_t, tab_t),
+                pp.dfs_shape_plain(k_t, tab_t, touched=touched))
+    word, slot, read = OPS_PALLAS
+    bnd = bound(4 * k.size + ROW_BYTES * distinct_rows(*touched) + 4,
+                pp.DFS_BB * pp.DFS_ITERS
+                * (128 * word + pp.DFS_S * slot + read))
+    ms = cuda_ms(lambda: pp.dfs_shape_cuda(k_t, tab_t), 20)
+    out["probe_pallas_dfs_shape"] = {
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(lambda: pp.dfs_shape_plain(k_t, tab_t), 1),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "library_why": "none: a pop, row loads and pushes per read, iterated",
+        "us_per_iter": ms * 1e3 / pp.DFS_ITERS,
+        "bb": pp.DFS_BB, "s": pp.DFS_S, "iters": pp.DFS_ITERS}
+    log(f"C10 probe_pallas_dfs_shape: exact; "
+        f"{out['probe_pallas_dfs_shape']}")
+    return out
+
+
+def run_probe_entries():
+    """Each probe entry point once with `--device cuda`, in a process of
+    its own (every launch counter starts at 0).  Returns ({kernel:
+    launches summed over the runs}, {entry: its printed lines})."""
+    env = {k: v for k, v in os.environ.items() if k not in ("ROWS", "T")}
+    counts, printed = {}, {}
+    for name in PROBE_ENTRIES:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", PROBE_COUNT, name,
+                              "--device", "cuda"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+        lines = res.stdout.splitlines()
+        if res.returncode != 0 or not lines:
+            fail(f"python -m nabwa_tpu_torch.probes.{name} --device cuda "
+                 f"exited with {res.returncode}: {res.stderr[-2000:]}")
+        printed[name] = lines[:-1]
+        for key, v in json.loads(lines[-1]).items():
+            counts[key] = counts.get(key, 0) + v
+        log(f"probes.{name} --device cuda ({time.perf_counter() - t0:.1f} s,"
+            f" launches {lines[-1]}):")
+        for ln in lines[:-1]:
+            log("    " + ln)
+    for key, v in counts.items():
+        if v <= 0:
+            fail(f"kernel {key} was not launched by its probe's entry point")
+    return counts, printed
+
+
 def profile_run(label, fn):
     """torch.profiler over one call of fn: busy share and per-kernel device
     time, or None where the profiler saw no device time."""
@@ -1041,7 +1298,7 @@ def main():
     inputs = maln.batch_inputs(part, lens[:CHECK_B], maxdiff[:CHECK_B],
                                local, max_len, eng.device)
     cw_err, cw_ms, cw_plain, cw_bound = check_cal_width(eng, inputs)
-    dfs_err, dfs_ms, dfs_plain, flagged, dfs_bound = check_dfs(
+    dfs_err, dfs_ms, dfs_plain, flagged, dfs_bound, dfs_pops = check_dfs(
         eng, inputs, maln.dfs_statics(local, eng.stack_cap, eng.hits_cap,
                                       eng.tier0_max_iters), "tier 0")
     # the retry tier's settings on the reads tier 0 flagged (all of the
@@ -1049,7 +1306,7 @@ def main():
     redo = flagged if len(flagged) else np.arange(len(part))
     again = maln.batch_inputs([part[int(i)] for i in redo], lens[redo],
                               maxdiff[redo], local, max_len, eng.device)
-    retry_err, retry_ms, retry_plain, _, _ = check_dfs(
+    retry_err, retry_ms, retry_plain, _, _, _ = check_dfs(
         eng, again, maln.dfs_statics(local, eng.retry_stack_cap,
                                      eng.retry_hits_cap, eng.max_iters),
         "retry tier")
@@ -1401,7 +1658,13 @@ def main():
         if b2b_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bam2bam path")
 
+    # phase 18: the probes, C7-C10 against their plain versions on the
+    # card, then each probe's entry point in a process of its own
+    probes = check_probes(torch.device("cuda", 0))
+    probe_counts, probe_lines = run_probe_entries()
+
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
+    launches.update(probe_counts)
 
     def entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda",
@@ -1423,7 +1686,8 @@ def main():
     kernels = [
         entry("dfs", "dfs.cu", "nabwa_tpu/ops/dfs_pallas.py:1253",
               max(dfs_err, retry_err, b2b_dfs_err), dfs_ms, dfs_plain,
-              dfs_bound, retry_ms=retry_ms, retry_plain_ms=retry_plain,
+              dfs_bound, pops=dfs_pops, retry_ms=retry_ms,
+              retry_plain_ms=retry_plain,
               retry_reads=len(redo), aln_cli_launches=counts["dfs"],
               bam2bam_launches=b2b_counts["dfs"], bam2bam_err=b2b_dfs_err),
         entry("cal_width", "cal_width.cu", "nabwa_tpu/ops/occ.py:141",
@@ -1481,6 +1745,18 @@ def main():
               timed_L2=int(ext["args"][2].shape[1] - 1),
               timed_cells=int(ext["out"][3].long().sum())),
     ]
+    for name, source, replaces in (
+            ("probe_rowload", "probe_rowload.cu",
+             "scripts/probe_pallas.py:43"),
+            ("probe_dma", "probe_dma.cu", "scripts/probe_dma.py:101"),
+            ("probe_dfs_shape", "probe_dfs_shape.cu",
+             "scripts/probe_dfs_shape.py:118"),
+            ("probe_pallas_dfs_shape", "probe_dfs_shape.cu",
+             "scripts/probe_pallas.py:282")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"nabwa_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": launches[name],
+                        **probes[name]})
     samse = {label: {route: {"reads_per_sec": r[1], "seconds": r[2]}
                      for route, r in runs.items()}
              for label, runs in (("bench", se_bench), ("gapped", se_gap))}
@@ -1512,7 +1788,8 @@ def main():
                       "cli_seconds": cli_s, "profile": prof,
                       "samse": samse, "samse_cli_seconds": samse_cli_s,
                       "gapped_aln_launches": aln_g_counts,
-                      "sampe": sampe, "bwasw": bwasw, "bam2bam": bam2bam}))
+                      "sampe": sampe, "bwasw": bwasw, "bam2bam": bam2bam,
+                      "probe_lines": probe_lines}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,10 @@ Layout:
             sampe, bwasw and bam2bam workflows and their native host
             steps (post_native)
   parallel/ the chunk scheduler of bam2bam's local worker threads
+  probes/   ports of the Pallas micro-benchmarks under scripts/ (the row
+            gather, the async row fetch, the two DFS-iteration mocks),
+            each a plain version beside its CUDA kernel, with the
+            scripts' entry points
   cli.py    the `aln`, `samse`, `sampe`, `bwasw` and `bam2bam` subcommands
 
 This package imports torch and never jax.

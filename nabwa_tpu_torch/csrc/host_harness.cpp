@@ -2,7 +2,10 @@
 // NABWA_HD source that nvcc compiles into kernels C1 (dfs.cu), C2
 // (cal_width.cu), C3 (sa_lookup.cu), C4 (banded_global.cu), C5
 // (local_fwd.cu) and C6 (extend.cu), compiled by a host C++ compiler and
-// run row by row with the kernels' argument layouts.  It is not part of the kernel library.
+// run row by row with the kernels' argument layouts; and the probe
+// kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
+// C9's and C10's counts and expansion), one value at a time.  It is not
+// part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
@@ -12,6 +15,7 @@
 #include "dp_global.cuh"
 #include "extend.cuh"
 #include "local_sw.cuh"
+#include "probes.cuh"
 
 extern "C" int nabwa_host_occ4(const void* bank, uint32_t primary,
                                const void* ks, int n, void* out) {
@@ -126,5 +130,69 @@ extern "C" int nabwa_host_extend(const int32_t* params, const void* s1,
             ((const int32_t*)bw)[b], state.data(), state.data() + L1 + 2, 1,
             (int32_t*)score + b, (int32_t*)end_i + b, (int32_t*)end_j + b,
             (int32_t*)cells + b);
+    return 0;
+}
+
+namespace pr = nabwa::probe;
+
+// The probe kernels' helpers (probes.cuh), one value at a time over n
+// values.  op: 0 wadd, 1 wsub, 2 wmul, 3 floor_mod (b > 0).
+extern "C" int nabwa_host_probe_binop(int op, const int32_t* a,
+                                      const int32_t* b, int n,
+                                      int32_t* out) {
+    if (op < 0 || op > 3) return 1;
+    for (int i = 0; i < n; ++i)
+        out[i] = op == 0   ? pr::wadd(a[i], b[i])
+                 : op == 1 ? pr::wsub(a[i], b[i])
+                 : op == 2 ? pr::wmul(a[i], b[i])
+                           : pr::floor_mod(a[i], b[i]);
+    return 0;
+}
+
+extern "C" int nabwa_host_probe_lcg_next(const int32_t* s, int n,
+                                         int32_t* out) {
+    for (int i = 0; i < n; ++i) out[i] = pr::lcg_next(s[i]);
+    return 0;
+}
+
+extern "C" int nabwa_host_probe_dma_vec_row(const int32_t* c,
+                                            const int32_t* t,
+                                            const int32_t* n_rows, int n,
+                                            int32_t* out) {
+    for (int i = 0; i < n; ++i)
+        out[i] = pr::dma_vec_row(c[i], t[i], n_rows[i]);
+    return 0;
+}
+
+extern "C" int nabwa_host_probe_shape_word_count(const int32_t* x,
+                                                 const int32_t* w,
+                                                 const int32_t* w0,
+                                                 const int32_t* w1, int n,
+                                                 int32_t* out) {
+    for (int i = 0; i < n; ++i)
+        out[i] = pr::shape_word_count(x[i], w[i], w0[i], w1[i]);
+    return 0;
+}
+
+extern "C" int nabwa_host_probe_shape_expand(const int32_t* e0,
+                                             const int32_t* e1,
+                                             const int32_t* cnt_k,
+                                             const int32_t* cnt_l, int n,
+                                             int32_t* a, int32_t* b) {
+    for (int i = 0; i < n; ++i)
+        pr::shape_expand(e0[i], e1[i], cnt_k[i], cnt_l[i], a + i, b + i);
+    return 0;
+}
+
+// each word's counts alone (from 0)
+extern "C" int nabwa_host_probe_pallas_word_counts(const int32_t* x, int n,
+                                                   int32_t* c1,
+                                                   int32_t* c3) {
+    for (int i = 0; i < n; ++i) {
+        uint32_t u1 = 0, u3 = 0;
+        pr::pallas_word_counts(x[i], &u1, &u3);
+        c1[i] = (int32_t)u1;
+        c3[i] = (int32_t)u3;
+    }
     return 0;
 }

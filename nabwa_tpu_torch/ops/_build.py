@@ -67,6 +67,14 @@ _SIGNATURES = {
     #  score, end_i, end_j, cells, stream)
     "nabwa_extend": [_I32P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                      _P, _P, _P],
+    # (idx, table, bb, out, stream)
+    "nabwa_probe_rowload": [_P, _P, _I, _P, _P],
+    # (table, n_rows, n, t, src, unroll, vec, out, stage, stream)
+    "nabwa_probe_dma": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # (seed, seed_w, table, nrow, bb, s, iters, acc, stream)
+    "nabwa_probe_dfs_shape": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # (k, table, nrow, bb, iters, acc, stream)
+    "nabwa_probe_dfs_pallas": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 
