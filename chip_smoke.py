@@ -102,11 +102,19 @@ Phases, any failure exits non-zero:
    witness, timed warm and with L2 flushed before each launch; C9
    (csrc/probe_dfs_shape.cu) at 256 x 128 x 200 and 2048 x 128 x 200,
    timed, and at S 32, 64 and 96 (256 reads, 200 iterations); C10 at
-   probe 5's 256 x 128 x 100; each exact against its plain version.
-   Then each probe's entry point (`python -m
-   nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`, `.probe_dfs_shape`,
-   `--device cuda`, the scripts' default arguments) once in a process of its own, every launch counter starting at 0; its
-   result lines are logged and each of C7-C10 must have launched.
+   probe 5's 256 x 128 x 100; C11-C14 (csrc/probe_pallas2.cu) at
+   scripts/probe_pallas2.py's shapes: C11 x + 1 on [8, 128], timed by
+   CUDA events and by the host's clock (200 calls, one synchronize), as
+   is `x + 1`; C12's two loads a body over 256 bodies from a [32768, 128]
+   table, rolled and unrolled; C13's 50 pop rounds on [256, 256] (out,
+   the whole final key and each round's minimum, on the script's input,
+   on forced ties and on sums that wrap); C14's lane sum of [512, 128];
+   each exact against its plain version.  Then each probe's entry point
+   (`python -m nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`,
+   `.probe_dfs_shape`, `.probe_pallas2`, `--device cuda`, the scripts'
+   default arguments) once in a process of its own, every launch counter
+   starting at 0; its result lines are logged and each of C7-C14 must
+   have launched.
 Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
 points the probes' path: their launch counts, summed, are the `launches`
 of the kernels line.
@@ -117,10 +125,16 @@ busy share and the device time of each kernel.
 Every kernel's `bound_ms` is the least time the card could take for the
 same work on this run's inputs: the larger of the bytes it must move over
 HBM_BYTES_PER_S and its integer operations over INT_OPS_PER_S (see
-`bound`).  No single PyTorch call computes any of C1-C6 or C8-C10, so
-`library_ms` is null for each; C7's is torch.index_select's.  The
-probes' bounds count their table rows once (the distinct rows the run
-reads) and their operations as the header of each .cu file counts them.
+`bound`).  No single PyTorch call computes any of C1-C6, C8-C10 or C13,
+so `library_ms` is null for each; C7's and C12's is torch.index_select,
+C11's `x + 1`, C14's torch.sum into int32.  Beside `ms` (CUDA events
+over back-to-back launches, which wait on the host's enqueue when it is
+the slower), C7 and C11-C14 carry `queued_ms`, the same launches queued
+behind a sleeping kernel (the card's own time a launch), and C11
+`wall_ms`, the host's clock a call; C11 has all three for `x + 1` too.
+The probes' bounds count their table rows once (the distinct rows the
+run reads) and their operations as the header of each .cu file counts
+them.
 C4's and C5's `ms` and `plain_ms` are those of the largest launch of
 sampe's card run; C4's on samse's refine
 batch of phase 6 stand beside them as `samse_refine_*`, and C4's and
@@ -179,24 +193,38 @@ OCC_BLOCK_BYTES = 48      # bwt.h:61-68, 4 counters + 8 words
 # rows a read.  C10: per word of bank 0's row, per slot, per read.
 OPS_SHAPE = (6, 17, 16, 178)
 OPS_PALLAS = (8, 11, 10)
+# C13 (csrc/probe_pallas2.cu): per slot once, per slot and round, per row
+# and round
+OPS_POP = (1, 5, 1)
 ROW_BYTES = 512               # one 128-word int32 table row
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+# a sleep on the card long enough for the host to enqueue 200 launches
+# behind it (queued_ms): ~50 ms at the H100's clocks
+QUEUE_SLEEP_CYCLES = 100_000_000
 PROBE_SEED = 18
 DMA_T = 64                    # scripts/probe_dma.py:28
 DMA_ROWS = (100_000, 4_000_000)
 L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
 # the probes' entry points, each run once in a process of its own with the
 # scripts' default arguments, and the launch counter of each probe kernel
-PROBE_ENTRIES = ("probe_pallas", "probe_dma", "probe_dfs_shape")
+PROBE_ENTRIES = ("probe_pallas", "probe_dma", "probe_dfs_shape",
+                 "probe_pallas2")
 PROBE_COUNT = """\
 import json, sys
-from nabwa_tpu_torch.probes import probe_dfs_shape, probe_dma, probe_pallas
+from nabwa_tpu_torch.probes import (probe_dfs_shape, probe_dma, probe_pallas,
+                                    probe_pallas2)
 mod = {"probe_pallas": probe_pallas, "probe_dma": probe_dma,
-       "probe_dfs_shape": probe_dfs_shape}[sys.argv[1]]
+       "probe_dfs_shape": probe_dfs_shape,
+       "probe_pallas2": probe_pallas2}[sys.argv[1]]
 rc = mod.main(sys.argv[2:])
 print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_dma": probe_dma.launches,
                   "probe_dfs_shape": probe_dfs_shape.launches,
-                  "probe_pallas_dfs_shape": probe_pallas.launches_dfs_shape}))
+                  "probe_pallas_dfs_shape": probe_pallas.launches_dfs_shape,
+                  "probe_empty": probe_pallas2.launches_empty,
+                  "probe_loads": probe_pallas2.launches_loads,
+                  "probe_pop": probe_pallas2.launches_pop,
+                  "probe_lanereduce": probe_pallas2.launches_lanereduce}))
 sys.exit(rc)
 """
 
@@ -274,6 +302,45 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps):
+    """Mean device milliseconds a launch of fn() over reps launches queued
+    behind a sleeping kernel (CUDA events): the card's time back to back,
+    without the host's enqueue between launches.  Fails if the host took
+    longer to enqueue them than the sleep lasted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    slept = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    slept.record()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if slept.query():
+        fail(f"queued_ms: the sleep ended within the {host_ms:.3f} ms the "
+             f"host took to enqueue {reps} launches")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps):
+    """Mean host milliseconds a call of fn() over reps calls and one
+    synchronize: the enqueue rate, or the device's where it is slower."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def cold_ms(fn, reps, flush):
@@ -1021,7 +1088,7 @@ def distinct_rows(*rows):
 
 
 def check_probes(dev):
-    """Phase 18: kernels C7-C10 against their plain versions on the card, at
+    """Phase 18: kernels C7-C14 against their plain versions on the card, at
     the probes' shapes, inputs made with numpy from PROBE_SEED.  Returns
     {kernel name: fields of its kernels-line entry but `launches`}."""
     import numpy as np
@@ -1030,6 +1097,7 @@ def check_probes(dev):
     from nabwa_tpu_torch.probes import probe_dfs_shape as pds
     from nabwa_tpu_torch.probes import probe_dma as pdma
     from nabwa_tpu_torch.probes import probe_pallas as pp
+    from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     rng = np.random.RandomState(PROBE_SEED)
     out = {}
 
@@ -1051,6 +1119,7 @@ def check_probes(dev):
         "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, lib_idx),
                               200),
         "library_call": "torch.index_select(table, 0, idx[:, 0])",
+        "queued_ms": queued_ms(lambda: pp.rowload_cuda(idx_t, tab_t), 200),
         "rows": len(idx), "distinct_rows": n_rows}
     log(f"C7 probe_rowload: exact; {out['probe_rowload']}")
 
@@ -1166,6 +1235,120 @@ def check_probes(dev):
         "bb": pp.DFS_BB, "s": pp.DFS_S, "iters": pp.DFS_ITERS}
     log(f"C10 probe_pallas_dfs_shape: exact; "
         f"{out['probe_pallas_dfs_shape']}")
+
+    # C11: probe A, x + 1 over [8, 128]: a launch and little else, timed
+    # on the card (events) and on the host's clock, beside the library's
+    x = rng.randint(I32_MIN, I32_MAX + 1, pp2.EMPTY_SHAPE)
+    x[0, :4] = (I32_MAX, I32_MIN, -1, 0)
+    x_t, = common.tensors(dev, x)
+    err = exact("C11 probe_empty", pp2.empty_cuda(x_t), pp2.empty_plain(x_t))
+    bnd = bound(2 * nbytes(x_t), x_t.numel())
+    out["probe_empty"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: pp2.empty_cuda(x_t), 200),
+        "plain_ms": cuda_ms(lambda: pp2.empty_plain(x_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": cuda_ms(lambda: x_t + 1, 200),
+        "library_call": "x + 1",
+        "wall_ms": wall_ms(lambda: pp2.empty_cuda(x_t), 200),
+        "library_wall_ms": wall_ms(lambda: x_t + 1, 200),
+        "queued_ms": queued_ms(lambda: pp2.empty_cuda(x_t), 200),
+        "library_queued_ms": queued_ms(lambda: x_t + 1, 200)}
+    log(f"C11 probe_empty: exact; {out['probe_empty']}")
+
+    # C12: probe B, 256 bodies of two row loads from a 16 MB table, one
+    # warp, rolled (B1) and unrolled (BU)
+    idx = rng.randint(0, pp2.NROW, (pp2.BB, 128))
+    table = rng.randint(0, 1 << 30, (pp2.NROW, 128))
+    idx_t, tab_t = common.tensors(dev, idx, table)
+    want = pp2.loads_plain(idx_t, tab_t)
+    flat = idx_t[:, :2].t().reshape(-1).contiguous()
+    n_rows = distinct_rows(flat)
+    bnd = bound(4 * flat.numel() + ROW_BYTES * (n_rows + flat.numel()), 0)
+    variants = []
+    for unroll in (1, pp2.LOADS_UNROLL):
+        err = exact(f"C12 probe_loads unroll={unroll}",
+                    pp2.loads_cuda(idx_t, tab_t, unroll), want)
+        def launch():
+            pp2.loads_cuda(idx_t, tab_t, unroll)
+        ms = cuda_ms(launch, 200)
+        variants.append({"unroll": unroll, "max_abs_err": err, "ms": ms,
+                         "ns_per_load": ms * 1e6 / flat.numel(),
+                         "queued_ms": queued_ms(launch, 200)})
+    out["probe_loads"] = {
+        "max_abs_err": max(v["max_abs_err"] for v in variants),
+        "ms": variants[0]["ms"],
+        "plain_ms": cuda_ms(lambda: pp2.loads_plain(idx_t, tab_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, flat),
+                              200),
+        "library_call": "torch.index_select(table, 0, "
+                        "idx[:, :2].t().reshape(-1))",
+        "ns_per_load": variants[0]["ns_per_load"],
+        "queued_ms": variants[0]["queued_ms"],
+        "unrolled_ms": variants[1]["ms"],
+        "unrolled_ns_per_load": variants[1]["ns_per_load"],
+        "unrolled_queued_ms": variants[1]["queued_ms"],
+        "loads": flat.numel(), "distinct_rows": n_rows}
+    log(f"C12 probe_loads: exact; {out['probe_loads']}")
+
+    # C13: probe F, 50 pop rounds over 256 rows of 256 slots; out, the
+    # whole final key and each round's minimum, on the script's input, on
+    # forced ties and on tied sums past int32
+    shape = (pp2.BB, pp2.POP_S)
+    inputs = {"script": rng.randint(0, 1 << 20, shape),
+              "ties": rng.randint(0, 8, shape),
+              "wrap": np.where(rng.rand(*shape) < 0.5,
+                               I32_MAX - rng.randint(0, 8, shape),
+                               I32_MIN + rng.randint(0, 8, shape))}
+    worst = 0
+    for name, x in inputs.items():
+        x_t, = common.tensors(dev, x)
+        got, want = pp2.pop_cuda(x_t), pp2.pop_plain(x_t)
+        for part, g, w in zip(("out", "key", "witness"), got, want):
+            worst = max(worst, exact(f"C13 probe_pop {name} {part}", g, w))
+        log(f"C13 probe_pop {name}: exact")
+    x_t, = common.tensors(dev, inputs["script"])
+    slot, round_slot, round_row = OPS_POP
+    bnd = bound(nbytes(x_t, *got),
+                x_t.numel() * slot + pp2.BB * pp2.POP_ITERS
+                * (pp2.POP_S * round_slot + round_row))
+    ms = cuda_ms(lambda: pp2.pop_cuda(x_t), 200)
+    out["probe_pop"] = {
+        "max_abs_err": worst, "ms": ms,
+        "plain_ms": cuda_ms(lambda: pp2.pop_plain(x_t), 5),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "library_why": "none: 50 dependent rounds of a minimum, tie "
+                       "extraction and feedback",
+        "us_per_iter": ms * 1e3 / pp2.POP_ITERS,
+        "queued_ms": queued_ms(lambda: pp2.pop_cuda(x_t), 200),
+        "exact_inputs": list(inputs)}
+    log(f"C13 probe_pop: exact; {out['probe_pop']}")
+
+    # C14: probe E, the lane sum of [512, 128], on the script's values and
+    # on values near both ends of int32
+    x = rng.randint(0, 99, pp2.REDUCE_SHAPE)
+    edge = np.where(rng.rand(*pp2.REDUCE_SHAPE) < 0.5,
+                    I32_MAX - rng.randint(0, 1000, pp2.REDUCE_SHAPE),
+                    I32_MIN + rng.randint(0, 1000, pp2.REDUCE_SHAPE))
+    x_t, edge_t = common.tensors(dev, x, edge)
+    err = max(exact("C14 probe_lanereduce", pp2.lanereduce_cuda(x_t),
+                    pp2.lanereduce_plain(x_t)),
+              exact("C14 probe_lanereduce wrap", pp2.lanereduce_cuda(edge_t),
+                    pp2.lanereduce_plain(edge_t)))
+    rows, width = pp2.REDUCE_SHAPE
+    bnd = bound(nbytes(x_t) + 4 * rows, rows * (width - 1))
+    out["probe_lanereduce"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: pp2.lanereduce_cuda(x_t), 200),
+        "plain_ms": cuda_ms(lambda: pp2.lanereduce_plain(x_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": cuda_ms(lambda: torch.sum(x_t, dim=1, keepdim=True,
+                                                dtype=torch.int32), 200),
+        "library_call": "torch.sum(x, dim=1, keepdim=True, "
+                        "dtype=torch.int32)",
+        "queued_ms": queued_ms(lambda: pp2.lanereduce_cuda(x_t), 200)}
+    log(f"C14 probe_lanereduce: exact; {out['probe_lanereduce']}")
     return out
 
 
@@ -1658,7 +1841,7 @@ def main():
         if b2b_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bam2bam path")
 
-    # phase 18: the probes, C7-C10 against their plain versions on the
+    # phase 18: the probes, C7-C14 against their plain versions on the
     # card, then each probe's entry point in a process of its own
     probes = check_probes(torch.device("cuda", 0))
     probe_counts, probe_lines = run_probe_entries()
@@ -1752,7 +1935,15 @@ def main():
             ("probe_dfs_shape", "probe_dfs_shape.cu",
              "scripts/probe_dfs_shape.py:118"),
             ("probe_pallas_dfs_shape", "probe_dfs_shape.cu",
-             "scripts/probe_pallas.py:282")):
+             "scripts/probe_pallas.py:282"),
+            ("probe_empty", "probe_pallas2.cu",
+             "scripts/probe_pallas2.py:44"),
+            ("probe_loads", "probe_pallas2.cu",
+             "scripts/probe_pallas2.py:67"),
+            ("probe_pop", "probe_pallas2.cu",
+             "scripts/probe_pallas2.py:202"),
+            ("probe_lanereduce", "probe_pallas2.cu",
+             "scripts/probe_pallas2.py:170")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"nabwa_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[name],

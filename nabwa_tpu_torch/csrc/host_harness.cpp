@@ -4,8 +4,8 @@
 // (local_fwd.cu) and C6 (extend.cu), compiled by a host C++ compiler and
 // run row by row with the kernels' argument layouts; and the probe
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
-// C9's and C10's counts and expansion), one value at a time.  It is not
-// part of the kernel library.
+// C9's and C10's counts and expansion, C13's slot of a pop), one value at
+// a time.  It is not part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
@@ -193,6 +193,18 @@ extern "C" int nabwa_host_probe_pallas_word_counts(const int32_t* x, int n,
         pr::pallas_word_counts(x[i], &u1, &u3);
         c1[i] = (int32_t)u1;
         c3[i] = (int32_t)u3;
+    }
+    return 0;
+}
+
+// each slot alone: its new key and what it adds to e1 (from 0)
+extern "C" int nabwa_host_probe_pop_take(const int32_t* key, const int32_t* f,
+                                         const int32_t* mk, int n,
+                                         int32_t* out_key, int32_t* out_e1) {
+    for (int i = 0; i < n; ++i) {
+        uint32_t e1 = 0;
+        out_key[i] = pr::pop_take(key[i], f[i], mk[i], &e1);
+        out_e1[i] = (int32_t)e1;
     }
     return 0;
 }

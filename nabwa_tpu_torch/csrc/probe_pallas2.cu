@@ -1,0 +1,207 @@
+// Kernels C11-C14: probes A, B, E and F of scripts/probe_pallas2.py, the
+// launch, the serial row-load loop, the lane sum and the pop.  All values
+// are int32 and wrap as jnp's do (probes.cuh).
+//
+// C11 replaces `probe_empty` (:38, pallas_call :44): out = x + 1 over an
+// [8, 128] array, 1,024 words.  Bound by bytes, 8 KB (2.4 ns at 3.35
+// TB/s); one add a word.  The probe exists to time the launch, which is
+// microseconds: one block, one int4 a thread.
+//
+// C12 replaces `probe_loads(unroll)` (:55, pallas_call :67): for i < BB,
+// out[i] = table[idx[i, 0]] and out[i + BB] = table[idx[i, 1]], a serial
+// loop of two dynamic row loads a body on one TPU core, unrolled once or
+// BB times.  Bound by bytes: the 2 BB index words, the distinct rows read
+// once and the 2 BB rows written; no arithmetic.  The probe's question is
+// the cost of each load in a loop on one core, so one warp in one block
+// walks the BB iterations in order: every lane reads the two indices (a
+// broadcast load), then both 512 B rows are copied with one int4 a lane.
+// The rolled variant (`#pragma unroll 1`) waits on each body's index, row
+// and store before the next body issues; the unrolled one (LOADS_UNROLL
+// bodies at a time, bb a multiple of it) lets the compiler issue many
+// bodies' loads together.  The indices are not checked on the card, as in
+// C7 and the TPU kernel: they must lie in [0, rows of the table).
+//
+// C13 replaces `probe_pop` (:182, pallas_call :202): key = x, f = x ^ 21
+// over [BB, 256] slots, then 50 rounds of: mk = the row's minimum; every
+// slot equal to it adds its f to e1 and is cleared to 0x7FFFFFFF; slot 0
+// takes min(slot 0, e1).  Out: key[:, :128]; also the whole final key
+// state and each round's mk (the witness, [iters, BB]).  Bound by
+// operations: per row, one xor a slot once, then per round 5 a slot (the
+// minimum, the compare, the select of f, its add, the clear) and 1 for
+// slot 0's minimum; the bytes (x, out, state, witness) come close below.
+// One warp per row with 8 slots a lane in registers (slot j * 32 + lane,
+// so slot 0 is lane 0's first), the row's minimum and e1's sum are one
+// warp reduction each; the rounds are a dependent chain, so the time is
+// 50 rounds of reduction latency and the launch.
+//
+// C14 replaces `probe_lanereduce` (:164, pallas_call :170): out[r, 0] =
+// the sum of x[r, :] for x [512, 128], wrapped.  Bound by bytes (x read
+// once, out written once, 258 KB); 127 adds a row.  One warp per row, one
+// int4 a lane, four adds and one warp reduction.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "probes.cuh"
+
+namespace {
+
+namespace pr = nabwa::probe;
+
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int EMPTY_THREADS = 256;
+constexpr int LOADS_UNROLL = 256;       // scripts/probe_pallas2.py BB
+constexpr int POP_S = 256;
+constexpr int POP_PER_LANE = POP_S / 32;
+constexpr int POP_OUT = 128;
+constexpr int WARPS = 4;
+
+__global__ void __launch_bounds__(EMPTY_THREADS)
+probe_empty_kernel(const int32_t* __restrict__ x, long long n,
+                   int32_t* __restrict__ out) {
+    const long long i =
+        4 * ((long long)blockIdx.x * EMPTY_THREADS + threadIdx.x);
+    if (i + 4 <= n) {
+        int4 v = *(const int4*)(x + i);
+        v.x = pr::wadd(v.x, 1);
+        v.y = pr::wadd(v.y, 1);
+        v.z = pr::wadd(v.z, 1);
+        v.w = pr::wadd(v.w, 1);
+        *(int4*)(out + i) = v;
+    } else {
+        for (long long k = i; k < n; ++k) out[k] = pr::wadd(x[k], 1);
+    }
+}
+
+// one body of the loop: rows idx[i, 0] and idx[i, 1] to out[i], out[i+bb]
+__device__ __forceinline__ void load_pair(const int32_t* __restrict__ idx,
+                                          int idx_w,
+                                          const int4* __restrict__ table,
+                                          int bb, int4* __restrict__ out,
+                                          int i, int lane) {
+    const int32_t r = idx[(size_t)i * idx_w];
+    const int32_t r2 = idx[(size_t)i * idx_w + 1];
+    out[(size_t)i * 32 + lane] = table[(size_t)r * 32 + lane];
+    out[((size_t)i + bb) * 32 + lane] = table[(size_t)r2 * 32 + lane];
+}
+
+template <bool UNROLL>
+__global__ void __launch_bounds__(32)
+probe_loads_kernel(const int32_t* __restrict__ idx, int idx_w,
+                   const int4* __restrict__ table, int bb,
+                   int4* __restrict__ out) {
+    const int lane = threadIdx.x;
+    if constexpr (UNROLL) {
+#pragma unroll 1
+        for (int base = 0; base < bb; base += LOADS_UNROLL) {
+#pragma unroll
+            for (int j = 0; j < LOADS_UNROLL; ++j)
+                load_pair(idx, idx_w, table, bb, out, base + j, lane);
+        }
+    } else {
+#pragma unroll 1
+        for (int i = 0; i < bb; ++i)
+            load_pair(idx, idx_w, table, bb, out, i, lane);
+    }
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+probe_pop_kernel(const int32_t* __restrict__ x, int rows, int iters,
+                 int32_t* __restrict__ out, int32_t* __restrict__ state,
+                 int32_t* __restrict__ witness) {
+    const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;
+    const int32_t* xr = x + (size_t)row * POP_S;
+    int32_t key[POP_PER_LANE], f[POP_PER_LANE];
+#pragma unroll
+    for (int j = 0; j < POP_PER_LANE; ++j) {
+        key[j] = xr[j * 32 + lane];
+        f[j] = key[j] ^ 21;
+    }
+    for (int it = 0; it < iters; ++it) {
+        int32_t m = key[0];
+#pragma unroll
+        for (int j = 1; j < POP_PER_LANE; ++j) m = min(m, key[j]);
+        const int32_t mk = __reduce_min_sync(FULL, m);
+        uint32_t e = 0;
+#pragma unroll
+        for (int j = 0; j < POP_PER_LANE; ++j)
+            key[j] = pr::pop_take(key[j], f[j], mk, &e);
+        const int32_t e1 = (int32_t)__reduce_add_sync(FULL, e);
+        if (lane == 0) {
+            key[0] = min(key[0], e1);
+            witness[(size_t)it * rows + row] = mk;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < POP_PER_LANE; ++j) {
+        state[(size_t)row * POP_S + j * 32 + lane] = key[j];
+        if (j * 32 < POP_OUT)
+            out[(size_t)row * POP_OUT + j * 32 + lane] = key[j];
+    }
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+probe_lanereduce_kernel(const int4* __restrict__ x, int rows,
+                        int32_t* __restrict__ out) {
+    const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;
+    const int4 v = x[(size_t)row * 32 + lane];
+    const uint32_t s = (uint32_t)v.x + (uint32_t)v.y + (uint32_t)v.z
+                       + (uint32_t)v.w;
+    const uint32_t total = __reduce_add_sync(FULL, s);
+    if (lane == 0) out[row] = (int32_t)total;
+}
+
+}  // namespace
+
+// x, out: int32 [n], 16-byte aligned.  Returns cudaGetLastError().
+extern "C" int nabwa_probe_empty(const void* x, long long n, void* out,
+                                 void* stream) {
+    const long long per_block = 4LL * EMPTY_THREADS;
+    const int blocks = (int)((n + per_block - 1) / per_block);
+    probe_empty_kernel<<<blocks, EMPTY_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)x, n, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
+// idx: int32 [bb, idx_w] (columns 0 and 1 read); table: int32 [rows, 128];
+// out: int32 [2 bb, 128]; unroll: 0 rolled, else LOADS_UNROLL bodies at a
+// time (bb a multiple of it).
+extern "C" int nabwa_probe_loads(const void* idx, int idx_w,
+                                 const void* table, int bb, int unroll,
+                                 void* out, void* stream) {
+    if (unroll)
+        probe_loads_kernel<true><<<1, 32, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)idx, idx_w, (const int4*)table, bb,
+            (int4*)out);
+    else
+        probe_loads_kernel<false><<<1, 32, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)idx, idx_w, (const int4*)table, bb,
+            (int4*)out);
+    return (int)cudaGetLastError();
+}
+
+// x: int32 [rows, 256]; out: int32 [rows, 128]; state: int32 [rows, 256];
+// witness: int32 [iters, rows].
+extern "C" int nabwa_probe_pop(const void* x, int rows, int iters,
+                               void* out, void* state, void* witness,
+                               void* stream) {
+    const int blocks = (rows + WARPS - 1) / WARPS;
+    probe_pop_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)x, rows, iters, (int32_t*)out, (int32_t*)state,
+        (int32_t*)witness);
+    return (int)cudaGetLastError();
+}
+
+// x: int32 [rows, 128]; out: int32 [rows].
+extern "C" int nabwa_probe_lanereduce(const void* x, int rows, void* out,
+                                      void* stream) {
+    const int blocks = (rows + WARPS - 1) / WARPS;
+    probe_lanereduce_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const int4*)x, rows, (int32_t*)out);
+    return (int)cudaGetLastError();
+}

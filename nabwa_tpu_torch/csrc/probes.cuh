@@ -1,8 +1,9 @@
-// The per-read and per-copy arithmetic of the probe kernels C7-C10
-// (probe_rowload.cu, probe_dma.cu, probe_dfs_shape.cu): int32 arithmetic
-// that wraps as jnp's does, the floor modulo of jnp's `%`, the row indices
-// of scripts/probe_dma.py, and the staged-row counts and the candidate
-// expansion of the two DFS-iteration mocks.
+// The per-read and per-copy arithmetic of the probe kernels C7-C14
+// (probe_rowload.cu, probe_dma.cu, probe_dfs_shape.cu, probe_pallas2.cu):
+// int32 arithmetic that wraps as jnp's does, the floor modulo of jnp's
+// `%`, the row indices of scripts/probe_dma.py, the staged-row counts and
+// the candidate expansion of the two DFS-iteration mocks, and one slot of
+// probe_pallas2.py's pop.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -94,6 +95,15 @@ NABWA_HD void pallas_word_counts(int32_t x, uint32_t* c1, uint32_t* c3) {
     const uint32_t hi = (uint32_t)((x >> 1) & 0x55555555);
     *c1 += popc(lo);
     *c3 += popc(lo & hi);
+}
+
+// probe_pallas2.py:191-193 for one slot of the pop: a slot equal to its
+// row's minimum mk adds its f to the row's sum e1 (wrapping) and is
+// cleared; any other slot stays
+NABWA_HD int32_t pop_take(int32_t key, int32_t f, int32_t mk, uint32_t* e1) {
+    if (key != mk) return key;
+    *e1 += (uint32_t)f;
+    return FREE_KEY;
 }
 
 }  // namespace probe

@@ -75,6 +75,14 @@ _SIGNATURES = {
     "nabwa_probe_dfs_shape": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     # (k, table, nrow, bb, iters, acc, stream)
     "nabwa_probe_dfs_pallas": [_P, _P, _I, _I, _I, _P, _P],
+    # (x, n, out, stream)
+    "nabwa_probe_empty": [_P, ctypes.c_longlong, _P, _P],
+    # (idx, idx_w, table, bb, unroll, out, stream)
+    "nabwa_probe_loads": [_P, _I, _P, _I, _I, _P, _P],
+    # (x, rows, iters, out, state, witness, stream)
+    "nabwa_probe_pop": [_P, _I, _I, _P, _P, _P, _P],
+    # (x, rows, out, stream)
+    "nabwa_probe_lanereduce": [_P, _I, _P, _P],
 }
 
 

@@ -9,6 +9,9 @@ kernel, with the script's entry point:
                    scripts/probe_dma.py
   probe_dfs_shape  `run` (C9, csrc/probe_dfs_shape.cu), after
                    scripts/probe_dfs_shape.py
+  probe_pallas2    probe A `probe_empty` (C11), B `probe_loads` (C12), F
+                   `probe_pop` (C13) and E `probe_lanereduce` (C14), all in
+                   csrc/probe_pallas2.cu, after scripts/probe_pallas2.py
 
 The public functions take the JAX scripts' layouts (int32 arrays); a CPU
 tensor runs the plain version, a CUDA tensor the kernel.  The entry points

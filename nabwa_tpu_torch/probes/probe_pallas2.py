@@ -1,0 +1,294 @@
+"""Probes A, B1, BU, E and F of scripts/probe_pallas2.py on the card.
+
+    python -m nabwa_tpu_torch.probes.probe_pallas2 [--device cuda|cpu]
+                                                    [A] [B1] [BU] [E] [F]
+
+Probe A, `probe_empty` (scripts/probe_pallas2.py:38, pallas_call at :44):
+out = x + 1 over [8, 128] int32, the cost of a launch; kernel C11.
+
+Probes B1 and BU, `probe_loads(unroll)` (:55, pallas_call at :67): a
+serial loop of BB = 256 bodies, each copying rows idx[i, 0] and idx[i, 1]
+of a [32768, 128] int32 table to out[i] and out[i + BB]; unrolled once
+(B1) or BB times (BU); kernel C12, one warp walking the loop.
+
+Probe E, `probe_lanereduce` (:164, pallas_call at :170): the int32 sum of
+each row of [512, 128], as [512, 1]; kernel C14, one warp per row.
+
+Probe F, `probe_pop` (:182, pallas_call at :202): key = x, f = x ^ 21
+over [256, 256] int32, then 50 rounds of: the row's minimum, the sum of f
+over the slots equal to it, those slots cleared, slot 0 lowered to that
+sum; the result is key[:, :128].  Kernel C13, one warp per row.  The
+plain version and the kernel also return the whole final key state and
+each round's minimum, which the result alone does not show.
+
+All kernels are in csrc/probe_pallas2.cu.  The inputs are the script's,
+unseeded as there (`np.random`); each probe prints the script's result
+line with the time of the kernel (CUDA events) or of the plain version
+on the CPU.  With no probe named, all five run; the script's probes C and
+D are not ported yet.
+"""
+
+import sys
+
+import numpy as np
+import torch
+
+from ..ops import _build
+from . import common
+from .common import FREE_KEY, wrap32, wsum
+
+NROW, BB = 32768, 256
+EMPTY_SHAPE = (8, 128)
+LOADS_UNROLL = BB               # the unrolled kernel's bodies at a time
+REDUCE_SHAPE = (512, 128)
+POP_S, POP_OUT, POP_ITERS = 256, 128, 50
+
+# kernel launches made on CUDA tensors: C11 by `empty`, C12 by `loads`,
+# C13 by `pop`, C14 by `lanereduce`
+launches_empty = 0
+launches_loads = 0
+launches_pop = 0
+launches_lanereduce = 0
+
+
+def _table():
+    return np.random.randint(0, 1 << 30, (NROW, 128))
+
+
+def _cuda_input(t, name, ndim, dev=None):
+    """The device of `t`, a contiguous int32 CUDA tensor with `ndim`
+    dimensions (on `dev` if given) whose start the kernels may read as
+    int4; raises ValueError otherwise."""
+    dev = t.device if dev is None else dev
+    if t.device.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {t.device}")
+    _build.require(t, name, dev, ndim)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+    return dev
+
+
+def _dispatch(name, t, plain, cuda, *args):
+    if t.device.type == "cpu":
+        return plain(t, *args)
+    if t.device.type == "cuda":
+        return cuda(t, *args)
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def empty_plain(x):
+    """Probe A's kernel in plain PyTorch: x + 1, int32 wrapped."""
+    return wrap32(x.long() + 1).to(torch.int32)
+
+
+def empty_cuda(x):
+    """`empty_plain` by kernel C11."""
+    global launches_empty
+    _cuda_input(x, "x", x.dim())
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = _build.lib().nabwa_probe_empty(x.data_ptr(), x.numel(),
+                                        out.data_ptr(), _build.stream_of(x))
+    _build.check(rc, "probe_empty kernel launch")
+    with _build.count_lock:
+        launches_empty += 1
+    return out
+
+
+def empty(x):
+    """Probe A: the plain version for CPU tensors, kernel C11 for CUDA
+    tensors."""
+    return _dispatch("empty", x, empty_plain, empty_cuda)
+
+
+def loads_plain(idx, table, unroll=1):
+    """Probe B's kernel in plain PyTorch: idx int32 [BB, W >= 2], table
+    int32 [NROW, 128] -> int32 [2 BB, 128], rows idx[:, 0] then idx[:,
+    1].  The unroll factor does not change the result."""
+    return torch.cat([table[idx[:, 0].long()], table[idx[:, 1].long()]])
+
+
+def loads_cuda(idx, table, unroll=1):
+    """`loads_plain` by kernel C12, rolled (unroll 1) or LOADS_UNROLL
+    bodies at a time (unroll LOADS_UNROLL, BB a multiple of it); every
+    index read must lie in [0, NROW)."""
+    global launches_loads
+    dev = _cuda_input(idx, "idx", 2)
+    _cuda_input(table, "table", 2, dev)
+    if table.shape[1] != 128:
+        raise ValueError(f"table rows have {table.shape[1]} words, not 128")
+    bb, width = idx.shape
+    if width < 2:
+        raise ValueError(f"idx must have 2 columns or more, got {width}")
+    if unroll not in (1, LOADS_UNROLL):
+        raise ValueError(f"unroll must be 1 or {LOADS_UNROLL}, got {unroll}")
+    if unroll != 1 and bb % LOADS_UNROLL:
+        raise ValueError(f"unrolled: BB must be a multiple of "
+                         f"{LOADS_UNROLL}, got {bb}")
+    out = torch.empty((2 * bb, 128), dtype=torch.int32, device=dev)
+    if bb == 0:
+        return out
+    rc = _build.lib().nabwa_probe_loads(
+        idx.data_ptr(), width, table.data_ptr(), bb, int(unroll != 1),
+        out.data_ptr(), _build.stream_of(idx))
+    _build.check(rc, "probe_loads kernel launch")
+    with _build.count_lock:
+        launches_loads += 1
+    return out
+
+
+def loads(idx, table, unroll=1):
+    """Probe B: the plain version for CPU tensors, kernel C12 for CUDA
+    tensors."""
+    return _dispatch("loads", idx, loads_plain, loads_cuda, table, unroll)
+
+
+def lanereduce_plain(x):
+    """Probe E's kernel in plain PyTorch: int32 [R, W] -> its int32 sum
+    over axis 1, [R, 1] (jnp wraps; torch would sum into int64)."""
+    return wsum(x.long(), dim=1, keepdim=True).to(torch.int32)
+
+
+def lanereduce_cuda(x):
+    """`lanereduce_plain` by kernel C14 (W = 128)."""
+    global launches_lanereduce
+    dev = _cuda_input(x, "x", 2)
+    if x.shape[1] != 128:
+        raise ValueError(f"x rows have {x.shape[1]} words, not 128")
+    out = torch.empty((x.shape[0], 1), dtype=torch.int32, device=dev)
+    if x.shape[0] == 0:
+        return out
+    rc = _build.lib().nabwa_probe_lanereduce(
+        x.data_ptr(), x.shape[0], out.data_ptr(), _build.stream_of(x))
+    _build.check(rc, "probe_lanereduce kernel launch")
+    with _build.count_lock:
+        launches_lanereduce += 1
+    return out
+
+
+def lanereduce(x):
+    """Probe E: the plain version for CPU tensors, kernel C14 for CUDA
+    tensors."""
+    return _dispatch("lanereduce", x, lanereduce_plain, lanereduce_cuda)
+
+
+def pop_plain(x):
+    """Probe F's kernel in plain PyTorch, line for line
+    (scripts/probe_pallas2.py:186-198): x int32 [R, S] -> (out int32 [R,
+    min(S, 128)], the final key int32 [R, S], each round's minimum int32
+    [POP_ITERS, R])."""
+    key = x.long()
+    f = key ^ 21
+    mks = []
+    for _ in range(POP_ITERS):
+        mk = key.min(dim=1, keepdim=True).values
+        pm = key == mk
+        e1 = wsum(torch.where(pm, f, 0), dim=1)
+        key = torch.where(pm, FREE_KEY, key)
+        key[:, 0] = torch.minimum(key[:, 0], e1)
+        mks.append(mk[:, 0])
+    key = key.to(torch.int32)
+    return (key[:, :POP_OUT].contiguous(), key,
+            torch.stack(mks).to(torch.int32))
+
+
+def pop_cuda(x):
+    """`pop_plain` by kernel C13 (S = 256)."""
+    global launches_pop
+    dev = _cuda_input(x, "x", 2)
+    rows = x.shape[0]
+    if x.shape[1] != POP_S:
+        raise ValueError(f"x rows have {x.shape[1]} slots, not {POP_S}")
+    out = torch.empty((rows, POP_OUT), dtype=torch.int32, device=dev)
+    state = torch.empty((rows, POP_S), dtype=torch.int32, device=dev)
+    witness = torch.empty((POP_ITERS, rows), dtype=torch.int32, device=dev)
+    if rows == 0:
+        return out, state, witness
+    rc = _build.lib().nabwa_probe_pop(
+        x.data_ptr(), rows, POP_ITERS, out.data_ptr(), state.data_ptr(),
+        witness.data_ptr(), _build.stream_of(x))
+    _build.check(rc, "probe_pop kernel launch")
+    with _build.count_lock:
+        launches_pop += 1
+    return out, state, witness
+
+
+def pop(x):
+    """Probe F: the plain version for CPU tensors, kernel C13 for CUDA
+    tensors.  Returns (out, final key, each round's minimum)."""
+    return _dispatch("pop", x, pop_plain, pop_cuda)
+
+
+def probe_empty(device):
+    """Probe A on the script's input; prints its line.  Returns (seconds
+    per call, result)."""
+    x_t, = common.tensors(device, np.zeros(EMPTY_SHAPE))
+    dt, r = common.timeit(lambda: empty(x_t), device, n=50)
+    print(f"probeA empty kernel: {dt*1e6:.1f}us")
+    return dt, r
+
+
+def probe_loads(device, unroll):
+    """Probe B at `unroll` on the script's inputs; prints its line, `ok`
+    over all 2 BB rows (the script's checks the first BB).  Returns
+    (seconds per call, result, ok)."""
+    idx = np.random.randint(0, NROW, (BB, 128))
+    table = _table()
+    idx_t, table_t = common.tensors(device, idx, table)
+    dt, r = common.timeit(lambda: loads(idx_t, table_t, unroll), device)
+    ok = np.array_equal(r.cpu().numpy(),
+                        np.concatenate([table[idx[:, 0]], table[idx[:, 1]]]))
+    print(f"probeB 2x{BB} rowloads unroll={unroll}: {dt*1e6:.1f}us "
+          f"({dt/(2*BB)*1e9:.0f}ns/load)  ok={ok}")
+    return dt, r, ok
+
+
+def probe_lanereduce(device):
+    """Probe E on the script's input; prints its line.  Returns (seconds
+    per call, result, ok)."""
+    x = np.random.randint(0, 99, REDUCE_SHAPE)
+    x_t, = common.tensors(device, x)
+    dt, r = common.timeit(lambda: lanereduce(x_t), device)
+    ok = np.array_equal(r.cpu().numpy()[:, 0], x.sum(1))
+    print(f"probeE [512,128] lane-sum: {dt*1e6:.1f}us ok={ok}")
+    return dt, r, ok
+
+
+def probe_pop(device):
+    """Probe F on the script's input; prints its line.  Returns (seconds
+    per call, (out, key, witness))."""
+    x = np.random.randint(0, 1 << 20, (BB, POP_S))
+    x_t, = common.tensors(device, x)
+    dt, r = common.timeit(lambda: pop(x_t), device, n=5)
+    print(f"probeF pop-shape {POP_ITERS} iters S={POP_S}: {dt*1e3:.2f}ms "
+          f"({dt/POP_ITERS*1e6:.1f}us/iter)")
+    return dt, r
+
+
+PROBES = {"A": probe_empty, "B1": lambda d: probe_loads(d, 1),
+          "BU": lambda d: probe_loads(d, LOADS_UNROLL),
+          "E": probe_lanereduce, "F": probe_pop}
+NOT_PORTED = ("C", "D")
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    device, which = common.parse_device(argv, "probe_pallas2")
+    if device is None:
+        return 1
+    which = which or list(PROBES)
+    for w in which:
+        if w not in PROBES:
+            why = ("not yet ported to nabwa_tpu_torch" if w in NOT_PORTED
+                   else "no such probe")
+            print(f"[probe_pallas2] probe {w}: {why}", file=sys.stderr)
+            return 1
+    print("devices:", [common.device_name(device)])
+    for w in which:
+        PROBES[w](device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
