@@ -109,11 +109,19 @@ Phases, any failure exits non-zero:
    table, rolled and unrolled; C13's 50 pop rounds on [256, 256] (out,
    the whole final key and each round's minimum, on the script's input,
    on forced ties and on sums that wrap); C14's lane sum of [512, 128];
-   each exact against its plain version.  Then each probe's entry point
+   C15-C18 (csrc/probe_pallas.cu) at scripts/probe_pallas.py's shapes:
+   C15 probe 2's 256 rows of a [4096, 128] table with the indices staged
+   in shared memory (also both ends of the table and repeats; a table
+   off a 16-byte boundary is refused), C16 probe
+   3's popcount of [256, 128] (also every int32, INT32_MIN, -1 and
+   INT32_MAX), C17 and C18 probes 4 and 4b, 50 rounds over a [256, 128]
+   pool with a scalar and a vector carry (on the script's values, within
+   8 of both ends of int32 and on heavy ties), with `us_per_iter`; each
+   exact against its plain version.  Then each probe's entry point
    (`python -m nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`,
    `.probe_dfs_shape`, `.probe_pallas2`, `--device cuda`, the scripts'
    default arguments) once in a process of its own, every launch counter
-   starting at 0; its result lines are logged and each of C7-C14 must
+   starting at 0; its result lines are logged and each of C7-C18 must
    have launched.
 Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
 points the probes' path: their launch counts, summed, are the `launches`
@@ -125,13 +133,15 @@ busy share and the device time of each kernel.
 Every kernel's `bound_ms` is the least time the card could take for the
 same work on this run's inputs: the larger of the bytes it must move over
 HBM_BYTES_PER_S and its integer operations over INT_OPS_PER_S (see
-`bound`).  No single PyTorch call computes any of C1-C6, C8-C10 or C13,
-so `library_ms` is null for each; C7's and C12's is torch.index_select,
-C11's `x + 1`, C14's torch.sum into int32.  Beside `ms` (CUDA events
-over back-to-back launches, which wait on the host's enqueue when it is
-the slower), C7 and C11-C14 carry `queued_ms`, the same launches queued
-behind a sleeping kernel (the card's own time a launch), and C11
-`wall_ms`, the host's clock a call; C11 has all three for `x + 1` too.
+`bound`).  No single PyTorch call computes any of C1-C6, C8-C10, C13,
+C17 or C18, so `library_ms` is null for each (`library_why` says why for
+the probes); C7's, C12's and C15's is torch.index_select, C11's `x + 1`,
+C14's torch.sum into int32, C16's torch.bitwise_count where the card's
+torch has it.  Beside `ms` (CUDA events over back-to-back launches, which
+wait on the host's enqueue when it is the slower), C7 and C11-C18 carry
+`queued_ms`, the same launches queued behind a sleeping kernel (the
+card's own time a launch), and C11 `wall_ms`, the host's clock a call;
+C11 has all three for `x + 1` too.
 The probes' bounds count their table rows once (the distinct rows the
 run reads) and their operations as the header of each .cu file counts
 them.
@@ -196,6 +206,8 @@ OPS_PALLAS = (8, 11, 10)
 # C13 (csrc/probe_pallas2.cu): per slot once, per slot and round, per row
 # and round
 OPS_POP = (1, 5, 1)
+# C17 and C18 (csrc/probe_pallas.cu): per slot and round, per row and round
+OPS_WHILE = (4, 1)
 ROW_BYTES = 512               # one 128-word int32 table row
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 # a sleep on the card long enough for the host to enqueue 200 launches
@@ -224,7 +236,11 @@ print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_empty": probe_pallas2.launches_empty,
                   "probe_loads": probe_pallas2.launches_loads,
                   "probe_pop": probe_pallas2.launches_pop,
-                  "probe_lanereduce": probe_pallas2.launches_lanereduce}))
+                  "probe_lanereduce": probe_pallas2.launches_lanereduce,
+                  "probe_smem_idx": probe_pallas.launches_smem_idx,
+                  "probe_popcount": probe_pallas.launches_popcount,
+                  "probe_while_scratch": probe_pallas.launches_while_scratch,
+                  "probe_while_vector": probe_pallas.launches_while_vector}))
 sys.exit(rc)
 """
 
@@ -1088,7 +1104,7 @@ def distinct_rows(*rows):
 
 
 def check_probes(dev):
-    """Phase 18: kernels C7-C14 against their plain versions on the card, at
+    """Phase 18: kernels C7-C18 against their plain versions on the card, at
     the probes' shapes, inputs made with numpy from PROBE_SEED.  Returns
     {kernel name: fields of its kernels-line entry but `launches`}."""
     import numpy as np
@@ -1349,6 +1365,106 @@ def check_probes(dev):
                         "dtype=torch.int32)",
         "queued_ms": queued_ms(lambda: pp2.lanereduce_cuda(x_t), 200)}
     log(f"C14 probe_lanereduce: exact; {out['probe_lanereduce']}")
+
+    # C15: probe 2, C7's gather with each block's indices staged in shared
+    # memory; the script's indices, then both ends of the table and repeats
+    nrow = pp.ROWLOAD_NROW
+    idx = rng.randint(0, nrow, pp.ROWLOAD_BB)
+    edge = idx.copy()
+    edge[:4] = (0, nrow - 1, 0, nrow - 1)
+    edge[100:140] = 7
+    table = np.arange(nrow * 128).reshape(nrow, 128) % 9973
+    idx_t, edge_t, tab_t = common.tensors(dev, idx, edge, table)
+    err = max(exact("C15 probe_smem_idx", pp.smem_idx_cuda(idx_t, tab_t),
+                    pp.smem_idx_plain(idx_t, tab_t)),
+              exact("C15 probe_smem_idx edges",
+                    pp.smem_idx_cuda(edge_t, tab_t),
+                    pp.smem_idx_plain(edge_t, tab_t)))
+    # a table that starts off a 16-byte boundary is refused, not read
+    skew = torch.zeros(tab_t.numel() + 1, dtype=torch.int32, device=dev)
+    try:
+        pp.smem_idx_cuda(idx_t, skew[1:].view(tab_t.shape))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("C15 read a misaligned table")
+    n_rows = distinct_rows(idx_t)
+    bnd = bound(4 * len(idx) + ROW_BYTES * (n_rows + len(idx)), 0)
+    out["probe_smem_idx"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: pp.smem_idx_cuda(idx_t, tab_t), 200),
+        "plain_ms": cuda_ms(lambda: pp.smem_idx_plain(idx_t, tab_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, idx_t),
+                              200),
+        "library_call": "torch.index_select(table, 0, idx)",
+        "queued_ms": queued_ms(lambda: pp.smem_idx_cuda(idx_t, tab_t), 200),
+        "rows": len(idx), "distinct_rows": n_rows}
+    log(f"C15 probe_smem_idx: exact; {out['probe_smem_idx']}")
+
+    # C16: probe 3, the popcount of [256, 128]; the script's values lie in
+    # [0, 2^30), so also every int32 and the ends
+    x = rng.randint(0, 1 << 30, pp.POPCOUNT_SHAPE)
+    edge = rng.randint(I32_MIN, I32_MAX + 1, pp.POPCOUNT_SHAPE)
+    edge[0, :8] = (I32_MIN, -1, I32_MAX, 0, 1, -2, I32_MIN + 1, 1 << 30)
+    x_t, edge_t = common.tensors(dev, x, edge)
+    err = max(exact("C16 probe_popcount", pp.popcount_cuda(x_t),
+                    pp.popcount_plain(x_t)),
+              exact("C16 probe_popcount edges", pp.popcount_cuda(edge_t),
+                    pp.popcount_plain(edge_t)))
+    bnd = bound(2 * nbytes(x_t), x_t.numel())
+    lib_fn = getattr(torch, "bitwise_count", None)
+    lib = ({"library_ms": cuda_ms(lambda: lib_fn(x_t), 200),
+            "library_call": "torch.bitwise_count(x)"} if lib_fn else
+           {"library_ms": None,
+            "library_why": f"none: torch {torch.__version__} has no "
+                           f"popcount (torch.bitwise_count)"})
+    out["probe_popcount"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: pp.popcount_cuda(x_t), 200),
+        "plain_ms": cuda_ms(lambda: pp.popcount_plain(x_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1], **lib,
+        "queued_ms": queued_ms(lambda: pp.popcount_cuda(x_t), 200)}
+    log(f"C16 probe_popcount: exact; {out['probe_popcount']}")
+
+    # C17, C18: probes 4 and 4b, 50 rounds over a [256, 128] pool, on the
+    # script's values, within 8 of both ends of int32 (+ 7 wraps, the sums
+    # wrap) and on heavy ties
+    pool = (pp.WHILE_BB, pp.WHILE_S)
+    inputs = {"script": rng.randint(0, 1000, pool),
+              "near_max": I32_MAX - rng.randint(0, 8, pool),
+              "near_min": I32_MIN + rng.randint(0, 8, pool),
+              "all_max_minus_3": np.full(pool, I32_MAX - 3),
+              "ties": rng.randint(0, 8, pool)}
+    worst = {"while_scratch": 0, "while_vector": 0}
+    for name, x in inputs.items():
+        x_t, = common.tensors(dev, x)
+        for kern in worst:
+            got = getattr(pp, kern + "_cuda")(x_t)
+            want = getattr(pp, kern + "_plain")(x_t)
+            worst[kern] = max(worst[kern],
+                              exact(f"probe_{kern} {name}", got, want))
+        log(f"C17, C18 on {name}: exact")
+    x_t, = common.tensors(dev, inputs["script"])
+    slot, row = OPS_WHILE
+    n_ops = pp.WHILE_ITERS * pp.WHILE_BB * (pp.WHILE_S * slot + row)
+    for kern, label, out_bytes in (("while_scratch", "C17", 4),
+                                   ("while_vector", "C18", nbytes(x_t))):
+        cuda = getattr(pp, kern + "_cuda")
+        plain = getattr(pp, kern + "_plain")
+        bnd = bound(nbytes(x_t) + out_bytes, n_ops)
+        ms = cuda_ms(lambda: cuda(x_t), 200)
+        queued = queued_ms(lambda: cuda(x_t), 200)
+        out["probe_" + kern] = {
+            "max_abs_err": worst[kern], "ms": ms,
+            "plain_ms": cuda_ms(lambda: plain(x_t), 5),
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "library_why": "none: 50 dependent rounds of a row minimum and "
+                           "update",
+            "queued_ms": queued, "us_per_iter": ms * 1e3 / pp.WHILE_ITERS,
+            "queued_us_per_iter": queued * 1e3 / pp.WHILE_ITERS,
+            "exact_inputs": list(inputs)}
+        log(f"{label} probe_{kern}: exact; {out['probe_' + kern]}")
     return out
 
 
@@ -1841,7 +1957,7 @@ def main():
         if b2b_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bam2bam path")
 
-    # phase 18: the probes, C7-C14 against their plain versions on the
+    # phase 18: the probes, C7-C18 against their plain versions on the
     # card, then each probe's entry point in a process of its own
     probes = check_probes(torch.device("cuda", 0))
     probe_counts, probe_lines = run_probe_entries()
@@ -1943,7 +2059,15 @@ def main():
             ("probe_pop", "probe_pallas2.cu",
              "scripts/probe_pallas2.py:202"),
             ("probe_lanereduce", "probe_pallas2.cu",
-             "scripts/probe_pallas2.py:170")):
+             "scripts/probe_pallas2.py:170"),
+            ("probe_smem_idx", "probe_pallas.cu",
+             "scripts/probe_pallas.py:73"),
+            ("probe_popcount", "probe_pallas.cu",
+             "scripts/probe_pallas.py:97"),
+            ("probe_while_scratch", "probe_pallas.cu",
+             "scripts/probe_pallas.py:136"),
+            ("probe_while_vector", "probe_pallas.cu",
+             "scripts/probe_pallas.py:174")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"nabwa_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[name],

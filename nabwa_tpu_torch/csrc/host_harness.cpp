@@ -4,8 +4,9 @@
 // (local_fwd.cu) and C6 (extend.cu), compiled by a host C++ compiler and
 // run row by row with the kernels' argument layouts; and the probe
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
-// C9's and C10's counts and expansion, C13's slot of a pop), one value at
-// a time.  It is not part of the kernel library.
+// C9's and C10's counts and expansion, C13's slot of a pop, C16's
+// popcount, C17's and C18's slot of a round), one value at a time.  It is
+// not part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
@@ -206,5 +207,20 @@ extern "C" int nabwa_host_probe_pop_take(const int32_t* key, const int32_t* f,
         out_key[i] = pr::pop_take(key[i], f[i], mk[i], &e1);
         out_e1[i] = (int32_t)e1;
     }
+    return 0;
+}
+
+// C16's popcount of each value
+extern "C" int nabwa_host_probe_popcount32(const int32_t* x, int n,
+                                           int32_t* out) {
+    for (int i = 0; i < n; ++i) out[i] = (int32_t)pr::popcount32(x[i]);
+    return 0;
+}
+
+// C17's and C18's slot of a round: each key against its row minimum m
+extern "C" int nabwa_host_probe_while_step(const int32_t* key,
+                                           const int32_t* m, int n,
+                                           int32_t* out) {
+    for (int i = 0; i < n; ++i) out[i] = pr::while_step(key[i], m[i]);
     return 0;
 }

@@ -1,9 +1,10 @@
-// The per-read and per-copy arithmetic of the probe kernels C7-C14
-// (probe_rowload.cu, probe_dma.cu, probe_dfs_shape.cu, probe_pallas2.cu):
-// int32 arithmetic that wraps as jnp's does, the floor modulo of jnp's
-// `%`, the row indices of scripts/probe_dma.py, the staged-row counts and
-// the candidate expansion of the two DFS-iteration mocks, and one slot of
-// probe_pallas2.py's pop.
+// The per-read and per-copy arithmetic of the probe kernels C7-C18
+// (probe_rowload.cu, probe_dma.cu, probe_dfs_shape.cu, probe_pallas2.cu,
+// probe_pallas.cu): int32 arithmetic that wraps as jnp's does, the floor
+// modulo of jnp's `%`, the row indices of scripts/probe_dma.py, the
+// staged-row counts and the candidate expansion of the two DFS-iteration
+// mocks, one slot of probe_pallas2.py's pop, and the popcount and one slot
+// of a round of probe_pallas.py's probes 3, 4 and 4b.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -104,6 +105,18 @@ NABWA_HD int32_t pop_take(int32_t key, int32_t f, int32_t mk, uint32_t* e1) {
     if (key != mk) return key;
     *e1 += (uint32_t)f;
     return FREE_KEY;
+}
+
+// probe_pallas.py:100 (`lax.population_count` of an int32): the set bits
+// of all 32, the sign bit included
+NABWA_HD uint32_t popcount32(int32_t x) {
+    return popc((uint32_t)x);
+}
+
+// probe_pallas.py:126-127 and :165-166 for one slot of a round: a slot
+// equal to its row's minimum m gets + 7 (wrapping), any other stays
+NABWA_HD int32_t while_step(int32_t key, int32_t m) {
+    return key == m ? wadd(key, 7) : key;
 }
 
 }  // namespace probe

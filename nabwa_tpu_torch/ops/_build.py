@@ -83,6 +83,13 @@ _SIGNATURES = {
     "nabwa_probe_pop": [_P, _I, _I, _P, _P, _P, _P],
     # (x, rows, out, stream)
     "nabwa_probe_lanereduce": [_P, _I, _P, _P],
+    # (idx, table, bb, out, stream)
+    "nabwa_probe_smem_idx": [_P, _P, _I, _P, _P],
+    # (x, n, out, stream)
+    "nabwa_probe_popcount": [_P, ctypes.c_longlong, _P, _P],
+    # (x, out, stream)
+    "nabwa_probe_while_scratch": [_P, _P, _P],
+    "nabwa_probe_while_vector": [_P, _P, _P],
 }
 
 

@@ -2,9 +2,13 @@
 script, each probe a plain PyTorch version beside its hand-written CUDA
 kernel, with the script's entry point:
 
-  probe_pallas     probe 1 `probe_rowload` (kernel C7, csrc/probe_rowload.cu)
-                   and probe 5 `probe_dfs_shape` (C10,
-                   csrc/probe_dfs_shape.cu), after scripts/probe_pallas.py
+  probe_pallas     probe 1 `probe_rowload` (kernel C7, csrc/probe_rowload.cu),
+                   probes 2 `probe_smem_idx` (C15), 3 `probe_popcount`
+                   (C16), 4 `probe_while_scratch` (C17) and 4b
+                   `probe_while_vector_only` (C18), all four in
+                   csrc/probe_pallas.cu, and probe 5 `probe_dfs_shape`
+                   (C10, csrc/probe_dfs_shape.cu), after
+                   scripts/probe_pallas.py
   probe_dma        `make`/`main` (C8, csrc/probe_dma.cu), after
                    scripts/probe_dma.py
   probe_dfs_shape  `run` (C9, csrc/probe_dfs_shape.cu), after

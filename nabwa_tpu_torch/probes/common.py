@@ -1,6 +1,7 @@
 """What the probe ports share: int32 wrap-around and floor modulo for the
 plain versions, a popcount, the conversion of the scripts' numpy inputs,
-the `--device` option and the timer.
+the dispatch between a plain version and its kernel and the kernels'
+input check, the `--device` option and the timer.
 
 The plain versions compute on int64 tensors that hold int32 values:
 `wrap32` after each `+`, `-` or `*` gives jnp's int32 wrap-around, `>>`
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import cli
+from ..ops import _build
 
 M32 = 0xFFFFFFFF
 FREE_KEY = 0x7FFFFFFF
@@ -52,6 +54,28 @@ def tensors(device, *arrays):
     """numpy arrays -> contiguous int32 tensors on `device`."""
     return tuple(torch.from_numpy(np.array(a, dtype=np.int32, order="C"))
                  .to(device) for a in arrays)
+
+
+def dispatch(name, t, plain, cuda, *args):
+    """plain(t, *args) for a CPU tensor t, cuda(t, *args) for a CUDA one."""
+    if t.device.type == "cpu":
+        return plain(t, *args)
+    if t.device.type == "cuda":
+        return cuda(t, *args)
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def cuda_input(t, name, ndim, dev=None):
+    """The device of `t`, a contiguous int32 CUDA tensor with `ndim`
+    dimensions (on `dev` if given) whose start the kernels may read as
+    int4; raises ValueError otherwise."""
+    dev = t.device if dev is None else dev
+    if t.device.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {t.device}")
+    _build.require(t, name, dev, ndim)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+    return dev
 
 
 def parse_device(argv, cmd):

@@ -1,10 +1,26 @@
-"""Probes 1 and 5 of scripts/probe_pallas.py on the card.
+"""Probes 1, 2, 3, 4, 4b and 5 of scripts/probe_pallas.py on the card.
 
-    python -m nabwa_tpu_torch.probes.probe_pallas [--device cuda|cpu] [1] [5]
+    python -m nabwa_tpu_torch.probes.probe_pallas [--device cuda|cpu]
+                                                  [1] [2] [3] [4] [4b] [5]
 
 Probe 1, `probe_rowload` (scripts/probe_pallas.py:31, pallas_call at
 :43): out[i] = table[idx[i]], 256 rows from a [4096, 128] int32 table; on
 a CUDA tensor kernel C7 (csrc/probe_rowload.cu), one warp per row.
+
+Probe 2, `probe_smem_idx` (:61, pallas_call at :73): the same gather with
+the indices a 1-D [256] array in the TPU kernel's scalar memory; kernel
+C15, each block's indices staged in shared memory.
+
+Probe 3, `probe_popcount` (:91, pallas_call at :97): the popcount of each
+int32 of [256, 128]; kernel C16.
+
+Probe 4, `probe_while_scratch` (:115, pallas_call at :136): 50 rounds over
+a pool int32 [256, 128] of: each row's minimum, every slot equal to it + 7
+(wrapping), and a scalar carry of the minima's sum; the result is the
+carry, [1, 1].  Probe 4b, `probe_while_vector_only` (:155, pallas_call at
+:174): the same rounds with each row's minima summed into a vector
+accumulator instead, [256, 128].  Kernels C17 and C18, one block holding
+the pool.  C15-C18 are in csrc/probe_pallas.cu.
 
 Probe 5, `probe_dfs_shape` (:231, pallas_call at :282): 100 iterations of
 a DFS-iteration-shaped body over 256 reads of 128 slots with a [32768,
@@ -15,8 +31,8 @@ the result is the int32 sum of the minima.  On a CUDA tensor kernel C10
 
 The inputs are the script's, unseeded as there (`np.random`); each probe
 prints the script's result line with the time of the kernel (CUDA events)
-or of the plain version on the CPU.  With no probe named, both run; the
-script's probes 2, 3, 4, 4b and 4c are not ported yet.
+or of the plain version on the CPU.  With no probe named, all six run;
+the script's probe 4c is not ported yet.
 """
 
 import sys
@@ -29,15 +45,25 @@ from . import common
 from .common import FREE_KEY, popcount32, wrap32, wsum
 
 ROWLOAD_BB, ROWLOAD_NROW = 256, 4096
+POPCOUNT_SHAPE = (256, 128)
+WHILE_BB, WHILE_S, WHILE_ITERS = 256, 128, 50
 DFS_BB, DFS_S, DFS_NROW, DFS_ITERS = 256, 128, 32768, 100
 
-# kernel launches made on CUDA tensors: C7 by `rowload`, C10 by `dfs_shape`
+# kernel launches made on CUDA tensors: C7 by `rowload`, C15 by
+# `smem_idx`, C16 by `popcount`, C17 by `while_scratch`, C18 by
+# `while_vector`, C10 by `dfs_shape`
 launches_rowload = 0
+launches_smem_idx = 0
+launches_popcount = 0
+launches_while_scratch = 0
+launches_while_vector = 0
 launches_dfs_shape = 0
 
 
 def _check_table(table, device):
-    _build.require(table, "table", device, 2)
+    """Raise ValueError unless table is an int32 [NROW, 128] CUDA tensor
+    on `device` that kernels C7, C10 and C15 may read as int4."""
+    common.cuda_input(table, "table", 2, device)
     if table.shape[1] != 128:
         raise ValueError(f"table rows have {table.shape[1]} words, not 128")
 
@@ -48,6 +74,20 @@ def rowload_plain(idx, table):
     return table[idx[:, 0].long()]
 
 
+def _gather_cuda(idx, table, name):
+    """Launch row-gather kernel `name` (C7 or C15) for idx's BB rows."""
+    dev = idx.device
+    _check_table(table, dev)
+    bb = idx.shape[0]
+    out = torch.empty((bb, 128), dtype=torch.int32, device=dev)
+    if bb == 0:
+        return out
+    rc = getattr(_build.lib(), name)(idx.data_ptr(), table.data_ptr(), bb,
+                                     out.data_ptr(), _build.stream_of(idx))
+    _build.check(rc, f"{name} kernel launch")
+    return out
+
+
 def rowload_cuda(idx, table):
     """`rowload_plain` by kernel C7; every idx must lie in [0, NROW)."""
     global launches_rowload
@@ -55,17 +95,9 @@ def rowload_cuda(idx, table):
     if dev.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
     _build.require(idx, "idx", dev, 2)
-    _check_table(table, dev)
     if idx.shape[1] != 1:
         raise ValueError(f"idx must be [BB, 1], got {tuple(idx.shape)}")
-    bb = idx.shape[0]
-    out = torch.empty((bb, 128), dtype=torch.int32, device=dev)
-    if bb == 0:
-        return out
-    rc = _build.lib().nabwa_probe_rowload(
-        idx.data_ptr(), table.data_ptr(), bb, out.data_ptr(),
-        _build.stream_of(idx))
-    _build.check(rc, "probe_rowload kernel launch")
+    out = _gather_cuda(idx, table, "nabwa_probe_rowload")
     with _build.count_lock:
         launches_rowload += 1
     return out
@@ -74,11 +106,135 @@ def rowload_cuda(idx, table):
 def rowload(idx, table):
     """Probe 1's row gather: the plain version for CPU tensors, kernel C7
     for CUDA tensors."""
-    if idx.device.type == "cpu":
-        return rowload_plain(idx, table)
-    if idx.device.type == "cuda":
-        return rowload_cuda(idx, table)
-    raise ValueError(f"rowload: no kernel for device {idx.device}")
+    return common.dispatch("rowload", idx, rowload_plain, rowload_cuda,
+                           table)
+
+
+def smem_idx_plain(idx, table):
+    """Probe 2's kernel in plain PyTorch: idx int32 [BB] rows of table
+    int32 [NROW, 128] -> int32 [BB, 128]."""
+    return table[idx.long()]
+
+
+def smem_idx_cuda(idx, table):
+    """`smem_idx_plain` by kernel C15; every idx must lie in [0, NROW)."""
+    global launches_smem_idx
+    dev = idx.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    _build.require(idx, "idx", dev, 1)
+    out = _gather_cuda(idx, table, "nabwa_probe_smem_idx")
+    with _build.count_lock:
+        launches_smem_idx += 1
+    return out
+
+
+def smem_idx(idx, table):
+    """Probe 2's row gather: the plain version for CPU tensors, kernel C15
+    for CUDA tensors."""
+    return common.dispatch("smem_idx", idx, smem_idx_plain, smem_idx_cuda,
+                           table)
+
+
+def popcount_plain(x):
+    """Probe 3's kernel in plain PyTorch: the set bits of each int32 of x,
+    the sign bit included, as int32."""
+    return popcount32(x.long()).to(torch.int32)
+
+
+def popcount_cuda(x):
+    """`popcount_plain` by kernel C16."""
+    global launches_popcount
+    common.cuda_input(x, "x", x.dim())
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = _build.lib().nabwa_probe_popcount(
+        x.data_ptr(), x.numel(), out.data_ptr(), _build.stream_of(x))
+    _build.check(rc, "probe_popcount kernel launch")
+    with _build.count_lock:
+        launches_popcount += 1
+    return out
+
+
+def popcount(x):
+    """Probe 3: the plain version for CPU tensors, kernel C16 for CUDA
+    tensors."""
+    return common.dispatch("popcount", x, popcount_plain, popcount_cuda)
+
+
+def _while_rounds(x):
+    """The rounds of probes 4 and 4b (scripts/probe_pallas.py:125-127,
+    :164-166) on x int32 [BB, S]: each round's row minima, int64 [BB, 1]
+    each."""
+    pool = x.long()
+    for _ in range(WHILE_ITERS):
+        m = pool.min(dim=1, keepdim=True).values
+        pool = torch.where(pool == m, wrap32(pool + 7), pool)
+        yield m
+
+
+def while_scratch_plain(x):
+    """Probe 4's kernel in plain PyTorch: x int32 [BB, S] -> the carry
+    int32 [1, 1], the wrapped sum of every round's row minima."""
+    acc = torch.zeros((1, 1), dtype=torch.int64, device=x.device)
+    for m in _while_rounds(x):
+        acc = wrap32(acc + wsum(m))
+    return acc.to(torch.int32)
+
+
+def while_vector_plain(x):
+    """Probe 4b's kernel in plain PyTorch: x int32 [BB, S] -> int32 [BB,
+    S], each column of a row the wrapped sum of that row's minima."""
+    acc = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    for m in _while_rounds(x):
+        acc = wrap32(acc + m)
+    return acc.to(torch.int32)
+
+
+def _while_cuda(x, name, shape):
+    """Launch kernel `name` (C17 or C18) on x [256, 128]."""
+    common.cuda_input(x, "x", 2)
+    if tuple(x.shape) != (WHILE_BB, WHILE_S):
+        raise ValueError(f"x must be [{WHILE_BB}, {WHILE_S}], got "
+                         f"{tuple(x.shape)}")
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    rc = getattr(_build.lib(), name)(x.data_ptr(), out.data_ptr(),
+                                     _build.stream_of(x))
+    _build.check(rc, f"{name} kernel launch")
+    return out
+
+
+def while_scratch_cuda(x):
+    """`while_scratch_plain` by kernel C17 (x [256, 128])."""
+    global launches_while_scratch
+    out = _while_cuda(x, "nabwa_probe_while_scratch", (1, 1))
+    with _build.count_lock:
+        launches_while_scratch += 1
+    return out
+
+
+def while_vector_cuda(x):
+    """`while_vector_plain` by kernel C18 (x [256, 128])."""
+    global launches_while_vector
+    out = _while_cuda(x, "nabwa_probe_while_vector", x.shape)
+    with _build.count_lock:
+        launches_while_vector += 1
+    return out
+
+
+def while_scratch(x):
+    """Probe 4: the plain version for CPU tensors, kernel C17 for CUDA
+    tensors."""
+    return common.dispatch("while_scratch", x, while_scratch_plain,
+                           while_scratch_cuda)
+
+
+def while_vector(x):
+    """Probe 4b: the plain version for CPU tensors, kernel C18 for CUDA
+    tensors."""
+    return common.dispatch("while_vector", x, while_vector_plain,
+                           while_vector_cuda)
 
 
 def bank_counts(rows):
@@ -151,11 +307,8 @@ def dfs_shape_cuda(k, table, iters=DFS_ITERS):
 def dfs_shape(k, table, iters=DFS_ITERS):
     """Probe 5's DFS-iteration mock: the plain version for CPU tensors,
     kernel C10 for CUDA tensors."""
-    if k.device.type == "cpu":
-        return dfs_shape_plain(k, table, iters)
-    if k.device.type == "cuda":
-        return dfs_shape_cuda(k, table, iters)
-    raise ValueError(f"dfs_shape: no kernel for device {k.device}")
+    return common.dispatch("dfs_shape", k, dfs_shape_plain, dfs_shape_cuda,
+                           table, iters)
 
 
 def probe_rowload(device):
@@ -170,6 +323,54 @@ def probe_rowload(device):
     return dt, r, ok
 
 
+def probe_smem_idx(device):
+    """Probe 2 on the script's inputs; prints its line.  Returns (seconds
+    per call, result, ok)."""
+    idx = np.random.randint(0, ROWLOAD_NROW, (ROWLOAD_BB,))
+    table = np.arange(ROWLOAD_NROW * 128).reshape(ROWLOAD_NROW, 128) % 9973
+    idx_t, table_t = common.tensors(device, idx, table)
+    dt, r = common.timeit(lambda: smem_idx(idx_t, table_t), device)
+    ok = np.array_equal(r.cpu().numpy(), table[idx])
+    print(f"probe2 smem-idx rowload BB={ROWLOAD_BB}: {dt*1e6:.1f}us  "
+          f"ok={ok}")
+    return dt, r, ok
+
+
+def probe_popcount(device):
+    """Probe 3 on the script's input; prints its line.  Returns (seconds
+    per call, result, ok)."""
+    x = np.random.randint(0, 1 << 30, POPCOUNT_SHAPE)
+    x_t, = common.tensors(device, x)
+    dt, r = common.timeit(lambda: popcount(x_t), device)
+    bits = np.unpackbits(x.astype(np.uint32).view(np.uint8))
+    ok = np.array_equal(r.cpu().numpy(),
+                        bits.reshape(*POPCOUNT_SHAPE, 32).sum(axis=2))
+    print(f"probe3 popcount: {dt*1e6:.1f}us  ok={ok}")
+    return dt, r, ok
+
+
+def probe_while_scratch(device):
+    """Probe 4 on the script's input; prints its line.  Returns (seconds
+    per call, result)."""
+    x_t, = common.tensors(device, np.random.randint(0, 1000,
+                                                    (WHILE_BB, WHILE_S)))
+    dt, r = common.timeit(lambda: while_scratch(x_t), device)
+    print(f"probe4 while+scratch {WHILE_ITERS} iters: {dt*1e6:.1f}us  "
+          f"({dt/WHILE_ITERS*1e6:.2f}us/iter) r={int(r[0, 0])}")
+    return dt, r
+
+
+def probe_while_vector_only(device):
+    """Probe 4b on the script's input; prints its line.  Returns (seconds
+    per call, result)."""
+    x_t, = common.tensors(device, np.random.randint(0, 1000,
+                                                    (WHILE_BB, WHILE_S)))
+    dt, r = common.timeit(lambda: while_vector(x_t), device)
+    print(f"probe4b fori vector-only {WHILE_ITERS} iters: {dt*1e6:.1f}us  "
+          f"({dt/WHILE_ITERS*1e6:.2f}us/iter)")
+    return dt, r
+
+
 def probe_dfs_shape(device):
     """Probe 5 on the script's inputs; prints its line.  Returns (seconds
     per call, result)."""
@@ -182,8 +383,10 @@ def probe_dfs_shape(device):
     return dt, r
 
 
-PROBES = {"1": probe_rowload, "5": probe_dfs_shape}
-NOT_PORTED = ("2", "3", "4", "4b", "4c")
+PROBES = {"1": probe_rowload, "2": probe_smem_idx, "3": probe_popcount,
+          "4": probe_while_scratch, "4b": probe_while_vector_only,
+          "5": probe_dfs_shape}
+NOT_PORTED = ("4c",)
 
 
 def main(argv=None):

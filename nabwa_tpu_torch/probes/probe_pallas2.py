@@ -55,27 +55,6 @@ def _table():
     return np.random.randint(0, 1 << 30, (NROW, 128))
 
 
-def _cuda_input(t, name, ndim, dev=None):
-    """The device of `t`, a contiguous int32 CUDA tensor with `ndim`
-    dimensions (on `dev` if given) whose start the kernels may read as
-    int4; raises ValueError otherwise."""
-    dev = t.device if dev is None else dev
-    if t.device.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {t.device}")
-    _build.require(t, name, dev, ndim)
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: not 16-byte aligned")
-    return dev
-
-
-def _dispatch(name, t, plain, cuda, *args):
-    if t.device.type == "cpu":
-        return plain(t, *args)
-    if t.device.type == "cuda":
-        return cuda(t, *args)
-    raise ValueError(f"{name}: no kernel for device {t.device}")
-
-
 def empty_plain(x):
     """Probe A's kernel in plain PyTorch: x + 1, int32 wrapped."""
     return wrap32(x.long() + 1).to(torch.int32)
@@ -84,7 +63,7 @@ def empty_plain(x):
 def empty_cuda(x):
     """`empty_plain` by kernel C11."""
     global launches_empty
-    _cuda_input(x, "x", x.dim())
+    common.cuda_input(x, "x", x.dim())
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -99,7 +78,7 @@ def empty_cuda(x):
 def empty(x):
     """Probe A: the plain version for CPU tensors, kernel C11 for CUDA
     tensors."""
-    return _dispatch("empty", x, empty_plain, empty_cuda)
+    return common.dispatch("empty", x, empty_plain, empty_cuda)
 
 
 def loads_plain(idx, table, unroll=1):
@@ -114,8 +93,8 @@ def loads_cuda(idx, table, unroll=1):
     bodies at a time (unroll LOADS_UNROLL, BB a multiple of it); every
     index read must lie in [0, NROW)."""
     global launches_loads
-    dev = _cuda_input(idx, "idx", 2)
-    _cuda_input(table, "table", 2, dev)
+    dev = common.cuda_input(idx, "idx", 2)
+    common.cuda_input(table, "table", 2, dev)
     if table.shape[1] != 128:
         raise ValueError(f"table rows have {table.shape[1]} words, not 128")
     bb, width = idx.shape
@@ -141,7 +120,7 @@ def loads_cuda(idx, table, unroll=1):
 def loads(idx, table, unroll=1):
     """Probe B: the plain version for CPU tensors, kernel C12 for CUDA
     tensors."""
-    return _dispatch("loads", idx, loads_plain, loads_cuda, table, unroll)
+    return common.dispatch("loads", idx, loads_plain, loads_cuda, table, unroll)
 
 
 def lanereduce_plain(x):
@@ -153,7 +132,7 @@ def lanereduce_plain(x):
 def lanereduce_cuda(x):
     """`lanereduce_plain` by kernel C14 (W = 128)."""
     global launches_lanereduce
-    dev = _cuda_input(x, "x", 2)
+    dev = common.cuda_input(x, "x", 2)
     if x.shape[1] != 128:
         raise ValueError(f"x rows have {x.shape[1]} words, not 128")
     out = torch.empty((x.shape[0], 1), dtype=torch.int32, device=dev)
@@ -170,7 +149,7 @@ def lanereduce_cuda(x):
 def lanereduce(x):
     """Probe E: the plain version for CPU tensors, kernel C14 for CUDA
     tensors."""
-    return _dispatch("lanereduce", x, lanereduce_plain, lanereduce_cuda)
+    return common.dispatch("lanereduce", x, lanereduce_plain, lanereduce_cuda)
 
 
 def pop_plain(x):
@@ -196,7 +175,7 @@ def pop_plain(x):
 def pop_cuda(x):
     """`pop_plain` by kernel C13 (S = 256)."""
     global launches_pop
-    dev = _cuda_input(x, "x", 2)
+    dev = common.cuda_input(x, "x", 2)
     rows = x.shape[0]
     if x.shape[1] != POP_S:
         raise ValueError(f"x rows have {x.shape[1]} slots, not {POP_S}")
@@ -217,7 +196,7 @@ def pop_cuda(x):
 def pop(x):
     """Probe F: the plain version for CPU tensors, kernel C13 for CUDA
     tensors.  Returns (out, final key, each round's minimum)."""
-    return _dispatch("pop", x, pop_plain, pop_cuda)
+    return common.dispatch("pop", x, pop_plain, pop_cuda)
 
 
 def probe_empty(device):

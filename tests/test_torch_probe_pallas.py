@@ -1,0 +1,265 @@
+"""Probes 2, 3, 4 and 4b of scripts/probe_pallas.py (`nabwa_tpu_torch.
+probes.probe_pallas`) against the JAX script on the CPU.
+
+Each plain version must equal the script's kernel, run in Pallas interpret
+mode, exactly: `probe_smem_idx`, `probe_popcount`, `probe_while_scratch`
+and `probe_while_vector_only` at the script's own inputs and, through the
+script's captured jitted `run`, at edge inputs: indices at both ends of
+the table and repeated; popcounts of negatives, INT32_MIN, -1 and
+INT32_MAX (the script's inputs never set bit 30 or 31); pools within 8 of
+INT32_MAX (where `pool + 7` wraps negative) and of INT32_MIN (where the
+sums wrap), and pools of values in 0..7 (every slot equal to the minimum
+takes + 7, not only the first).  The kernels' new `__host__ __device__`
+helpers (csrc/probes.cuh), built for the host with g++, must equal the
+plain formulas value by value.  The entry point runs the four probes with
+`--device cpu` and prints the script's lines.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nabwa_tpu_torch.probes import common
+from nabwa_tpu_torch.probes import probe_pallas as pp
+
+# fixtures and helpers shared with the other probe ports' tests: the script
+# loader (interpret mode), one torch thread, the host harness
+from .test_torch_probes import (_call, _i32, _t, host,  # noqa: F401
+                                one_torch_thread, script)
+
+REPO = pp.__file__.rsplit("/nabwa_tpu_torch/", 1)[0]
+CPU = torch.device("cpu")
+I32_MAX, I32_MIN = 2**31 - 1, -2**31
+POOL = (pp.WHILE_BB, pp.WHILE_S)
+
+
+def _load(script, monkeypatch, seed, probe):
+    """Run probe `probe` of the script once with np.random seeded; returns
+    what its timeit saw: the jitted `run`, its inputs and its result."""
+    np.random.seed(seed)
+    mod = script("probe_pallas")
+    seen = {}
+
+    def timeit(f, *args, n=20):
+        r = f(*args)
+        seen.update(run=f, args=[np.asarray(a) for a in args],
+                    r=np.asarray(r))
+        return 0.0, r
+    monkeypatch.setattr(mod, "timeit", timeit)
+    getattr(mod, probe)()
+    assert "r" in seen, f"the script's {probe} failed"
+    return seen
+
+
+def _run(seen, *args):
+    return np.asarray(seen["run"](*(jnp.asarray(a) for a in args)))
+
+
+@pytest.mark.parametrize("case", ["script", "edges"])
+def test_smem_idx_matches_jax(script, monkeypatch, case):
+    seen = _load(script, monkeypatch, 901, "probe_smem_idx")
+    idx, table = seen["args"]
+    assert idx.shape == (pp.ROWLOAD_BB,) and table.shape == (
+        pp.ROWLOAD_NROW, 128)
+    want = seen["r"]
+    if case == "edges":
+        rng = np.random.default_rng(901)
+        idx = rng.integers(0, pp.ROWLOAD_NROW, pp.ROWLOAD_BB).astype(np.int32)
+        idx[:4] = (0, pp.ROWLOAD_NROW - 1, 0, pp.ROWLOAD_NROW - 1)
+        idx[100:140] = 7
+        want = _run(seen, idx, table)
+    got = pp.smem_idx(*common.tensors(CPU, idx, table))
+    assert got.shape == (pp.ROWLOAD_BB, 128) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), table[idx])
+
+
+@pytest.mark.parametrize("case", ["script", "edges"])
+def test_popcount_matches_jax(script, monkeypatch, case):
+    seen = _load(script, monkeypatch, 902, "probe_popcount")
+    x, = seen["args"]
+    assert x.shape == pp.POPCOUNT_SHAPE and x.dtype == np.int32
+    want = seen["r"]
+    if case == "edges":
+        rng = np.random.default_rng(902)
+        x = rng.integers(I32_MIN, I32_MAX, pp.POPCOUNT_SHAPE,
+                         endpoint=True).astype(np.int32)
+        x[0, :8] = (I32_MIN, -1, I32_MAX, 0, 1, -2, I32_MIN + 1, 1 << 30)
+        want = _run(seen, x)
+        np.testing.assert_array_equal(want[0, :8], [1, 32, 31, 0, 1, 31, 2,
+                                                    1])
+    got = pp.popcount(*common.tensors(CPU, x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _pool(case):
+    """A [256, 128] int32 pool for probes 4 and 4b."""
+    rng = np.random.default_rng(903)
+    if case == "all_max_minus_3":
+        return np.full(POOL, I32_MAX - 3, dtype=np.int32)
+    if case == "near_max":
+        return (I32_MAX - rng.integers(0, 8, POOL)).astype(np.int32)
+    if case == "near_min":
+        return (I32_MIN + rng.integers(0, 8, POOL)).astype(np.int32)
+    return rng.integers(0, 8, POOL).astype(np.int32)          # ties
+
+
+def _sum_of_minima(x):
+    """The rounds in numpy int64 with no wrap at all: each row's sum of
+    its minima, and whether `pool + 7` ever passed INT32_MAX."""
+    pool = x.astype(np.int64)
+    total = np.zeros(len(pool), dtype=np.int64)
+    passed = False
+    for _ in range(pp.WHILE_ITERS):
+        m = pool.min(axis=1, keepdims=True)
+        pool = np.where(pool == m, pool + 7, pool)
+        passed |= bool((pool > I32_MAX).any())
+        total += m[:, 0]
+    return total, passed
+
+
+@pytest.mark.parametrize("probe", ["probe_while_scratch",
+                                   "probe_while_vector_only"])
+@pytest.mark.parametrize("case", ["script", "all_max_minus_3", "near_max",
+                                  "near_min", "ties"])
+def test_while_matches_jax(script, monkeypatch, probe, case):
+    seen = _load(script, monkeypatch, 904, probe)
+    x, = seen["args"]
+    assert x.shape == POOL and x.dtype == np.int32
+    want = seen["r"]
+    if case != "script":
+        x = _pool(case)
+        want = _run(seen, x)
+    total, passed = _sum_of_minima(x)
+    # the wrap-around is exercised where the case says so: + 7 past
+    # INT32_MAX near it, sums past int32 at both ends
+    assert passed == (case in ("all_max_minus_3", "near_max"))
+    if probe == "probe_while_scratch":
+        got = pp.while_scratch(*common.tensors(CPU, x))
+        assert got.shape == (1, 1)
+        assert (int(want[0, 0]) != int(total.sum())) == (
+            case not in ("script", "ties"))
+        if case == "all_max_minus_3":
+            # by hand: round 1 takes INT32_MAX - 3 and wraps every slot to
+            # INT32_MIN + 3, round k > 1 takes INT32_MIN + 3 + 7 (k - 2);
+            # 256 rows of that sum, mod 2^32
+            assert int(want[0, 0]) == 2144000
+    else:
+        got = pp.while_vector(*common.tensors(CPU, x))
+        assert got.shape == POOL
+        assert (want == want[:, :1]).all()
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _check_popcount(host, rng):
+    x = _i32(rng, 4000, [0, 1, -1, -2**31, 2**31 - 1, 0x55555555,
+                         -0x55555556, 1 << 30, -65536])
+    got, = _call(host.nabwa_host_probe_popcount32, 1, x)
+    return got, common.popcount32(_t(x))
+
+
+def _check_while_step(host, rng):
+    n = 4000
+    key = _i32(rng, n, [2**31 - 1, 2**31 - 7, 2**31 - 8, -2**31, -1, 0])
+    m = np.where(rng.random(n) < 0.5, key, _i32(rng, n)).astype(np.int32)
+    m[:6] = key[:6]                       # the edges take the step
+    got, = _call(host.nabwa_host_probe_while_step, 1, key, m)
+    k = _t(key)
+    return got, torch.where(k == _t(m), common.wrap32(k + 7), k)
+
+
+HOST_CHECKS = {"popcount32": _check_popcount,
+               "while_step": _check_while_step}
+
+
+@pytest.mark.parametrize("name", list(HOST_CHECKS))
+def test_host_helpers_match_plain(host, name):
+    """csrc/probes.cuh `popcount32` (kernel C16) and `while_step` (C17,
+    C18), built for the host, equal the plain versions' formulas value by
+    value on random and edge inputs."""
+    rng = np.random.default_rng(list(HOST_CHECKS).index(name) + 905)
+    got, want = HOST_CHECKS[name](host, rng)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+RESULT_LINES = [
+    r"devices: \['cpu'\]",
+    r"probe2 smem-idx rowload BB=256: [\d.]+us  ok=True",
+    r"probe3 popcount: [\d.]+us  ok=True",
+    r"probe4 while\+scratch 50 iters: [\d.]+us  \([\d.]+us/iter\) "
+    r"r=-?\d+",
+    r"probe4b fori vector-only 50 iters: [\d.]+us  \([\d.]+us/iter\)"]
+
+
+def test_entry_point_cpu():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-m", "nabwa_tpu_torch.probes.probe_pallas",
+         "--device", "cpu", "2", "3", "4", "4b"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = res.stdout.splitlines()
+    assert len(lines) == len(RESULT_LINES), lines
+    for line, pattern in zip(lines, RESULT_LINES):
+        assert re.fullmatch(pattern, line), (line, pattern)
+
+
+def _zeros(*shape):
+    return torch.zeros(shape, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: pp.smem_idx_cuda(_zeros(4), _zeros(8, 128)),
+    lambda: pp.popcount_cuda(_zeros(256, 128)),
+    lambda: pp.while_scratch_cuda(_zeros(*POOL)),
+    lambda: pp.while_vector_cuda(_zeros(*POOL))])
+def test_kernels_refuse_cpu_tensors(call):
+    """A kernel wrapper given CPU tensors raises; only the dispatchers run
+    the plain versions, and only for CPU tensors."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call()
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card, so that a wrapper's
+    checks run on it; a launch would fail, so only a refusal passes."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _misaligned(*shape):
+    """A contiguous int32 tensor of `shape` that starts 4 bytes past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    base = torch.zeros(n + 4, dtype=torch.int32)
+    off = (-base.data_ptr() // 4) % 4 + 1
+    t = base[off:off + n].view(shape)
+    assert t.data_ptr() % 16 == 4
+    return t.as_subclass(_OnCard)
+
+
+def _on_card(*shape):
+    return _zeros(*shape).as_subclass(_OnCard)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: pp.rowload_cuda(_on_card(4, 1), _misaligned(8, 128)),
+    lambda: pp.smem_idx_cuda(_on_card(4), _misaligned(8, 128)),
+    lambda: pp.dfs_shape_cuda(_on_card(4, 128), _misaligned(8, 128)),
+    lambda: pp.popcount_cuda(_misaligned(256, 128))])
+def test_kernels_refuse_misaligned_tensors(call):
+    """A wrapper refuses a tensor its kernel would read as int4 unless it
+    starts on a 16-byte boundary (the gather's table too), before any
+    launch."""
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        call()

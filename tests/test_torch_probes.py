@@ -337,6 +337,12 @@ def test_popcount32_edges():
 RESULT_LINES = {
     "probe_pallas": [r"devices: \['cpu'\]",
                      r"probe1 rowload fori BB=256: [\d.]+us  ok=True",
+                     r"probe2 smem-idx rowload BB=256: [\d.]+us  ok=True",
+                     r"probe3 popcount: [\d.]+us  ok=True",
+                     r"probe4 while\+scratch 50 iters: [\d.]+us  "
+                     r"\([\d.]+us/iter\) r=-?\d+",
+                     r"probe4b fori vector-only 50 iters: [\d.]+us  "
+                     r"\([\d.]+us/iter\)",
                      r"probe5 dfs-shaped 100 iters BB=256 S=128: "
                      r"[\d.]+ms \([\d.]+us/iter\)"],
     "probe_dma": [rf"N=\s+{n} unroll={u} src={s:4s}  \s*[\d.]+ us/iter  "
@@ -376,10 +382,10 @@ def test_entry_point_needs_card(mod, capsys, monkeypatch):
 
 
 def test_unported_probe_exits_nonzero(capsys):
-    assert pp.main(["--device", "cpu", "1", "2"]) != 0
+    assert pp.main(["--device", "cpu", "1", "4c"]) != 0
     captured = capsys.readouterr()
     assert captured.out == ""
-    assert "probe 2: not yet ported" in captured.err
+    assert "probe 4c: not yet ported" in captured.err
 
 
 @pytest.mark.parametrize("call", [
