@@ -116,13 +116,26 @@ Phases, any failure exits non-zero:
    3's popcount of [256, 128] (also every int32, INT32_MIN, -1 and
    INT32_MAX), C17 and C18 probes 4 and 4b, 50 rounds over a [256, 128]
    pool with a scalar and a vector carry (on the script's values, within
-   8 of both ends of int32 and on heavy ties), with `us_per_iter`; each
-   exact against its plain version.  Then each probe's entry point
-   (`python -m nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`,
-   `.probe_dfs_shape`, `.probe_pallas2`, `--device cuda`, the scripts'
-   default arguments) once in a process of its own, every launch counter
-   starting at 0; its result lines are logged and each of C7-C18 must
-   have launched.
+   8 of both ends of int32 and on heavy ties), with `us_per_iter`; C19
+   (csrc/probe_pallas.cu) probe 4c's 50 x 20 steps over [256, 128] (also
+   near both int32 ends and on every residue mod 8), with `us_per_iter`;
+   C20 and C21 (csrc/probe_pallas2.cu) probe C's lane gather of [256,
+   128] (also indices all 0, all 127, a permutation of each row, x at
+   +-(2^31 - 1); indices out of range are refused) beside torch.gather,
+   and probe D's 50 rounds of pushes into five [256, 256] buffers (out,
+   the five buffers and top, on the script's input, near both int32 ends,
+   3 pushes a round and none); C22 (csrc/probe_sem.cu) scripts/
+   probe_sem.py at K 1, 4 and 16, every launch held to the plain version
+   as far as the card's timing allows (the stage exactly, out[K] = 0 and
+   out[K + 1] = INT32_MIN; out[w] = 128 (landed - w), the copies landed
+   by read w never fewer than w, more than K or falling with w) and
+   out[0], the copies landed when it read, counted over the timed
+   launches; the others exact against their plain versions.  Then each
+   probe's entry point (`python -m nabwa_tpu_torch.probes.probe_pallas`,
+   `.probe_dma`, `.probe_dfs_shape`, `.probe_pallas2`, `.probe_sem` at
+   K=4, `--device cuda`, the scripts' default arguments) once in a process
+   of its own, every launch counter starting at 0; its result lines are
+   logged and each of C7-C22 must have launched.
 Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
 points the probes' path: their launch counts, summed, are the `launches`
 of the kernels line.
@@ -134,11 +147,12 @@ Every kernel's `bound_ms` is the least time the card could take for the
 same work on this run's inputs: the larger of the bytes it must move over
 HBM_BYTES_PER_S and its integer operations over INT_OPS_PER_S (see
 `bound`).  No single PyTorch call computes any of C1-C6, C8-C10, C13,
-C17 or C18, so `library_ms` is null for each (`library_why` says why for
-the probes); C7's, C12's and C15's is torch.index_select, C11's `x + 1`,
-C14's torch.sum into int32, C16's torch.bitwise_count where the card's
-torch has it.  Beside `ms` (CUDA events over back-to-back launches, which
-wait on the host's enqueue when it is the slower), C7 and C11-C18 carry
+C17-C19, C21 or C22, so `library_ms` is null for each (`library_why` says
+why for the probes); C7's, C12's and C15's is torch.index_select, C11's
+`x + 1`, C14's torch.sum into int32, C16's torch.bitwise_count where the
+card's torch has it, C20's torch.gather.  Beside `ms` (CUDA events over
+back-to-back launches, which wait on the host's enqueue when it is the
+slower), C7 and C11-C22 carry
 `queued_ms`, the same launches queued behind a sleeping kernel (the
 card's own time a launch), and C11 `wall_ms`, the host's clock a call;
 C11 has all three for `x + 1` too.
@@ -208,6 +222,12 @@ OPS_PALLAS = (8, 11, 10)
 OPS_POP = (1, 5, 1)
 # C17 and C18 (csrc/probe_pallas.cu): per slot and round, per row and round
 OPS_WHILE = (4, 1)
+# C19 (csrc/probe_pallas.cu): per element and step
+OPS_BODY = 8
+# C20 (csrc/probe_pallas2.cu): per output element
+OPS_GATHER = 9
+# C21 (csrc/probe_pallas2.cu): per row and round, per push
+OPS_PUSH = (4, 6)
 ROW_BYTES = 512               # one 128-word int32 table row
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 # a sleep on the card long enough for the host to enqueue 200 launches
@@ -220,14 +240,15 @@ L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
 # the probes' entry points, each run once in a process of its own with the
 # scripts' default arguments, and the launch counter of each probe kernel
 PROBE_ENTRIES = ("probe_pallas", "probe_dma", "probe_dfs_shape",
-                 "probe_pallas2")
+                 "probe_pallas2", "probe_sem")
+SEM_K = 4                     # scripts/probe_sem.py's default K
 PROBE_COUNT = """\
 import json, sys
 from nabwa_tpu_torch.probes import (probe_dfs_shape, probe_dma, probe_pallas,
-                                    probe_pallas2)
+                                    probe_pallas2, probe_sem)
 mod = {"probe_pallas": probe_pallas, "probe_dma": probe_dma,
-       "probe_dfs_shape": probe_dfs_shape,
-       "probe_pallas2": probe_pallas2}[sys.argv[1]]
+       "probe_dfs_shape": probe_dfs_shape, "probe_pallas2": probe_pallas2,
+       "probe_sem": probe_sem}[sys.argv[1]]
 rc = mod.main(sys.argv[2:])
 print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_dma": probe_dma.launches,
@@ -240,7 +261,11 @@ print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_smem_idx": probe_pallas.launches_smem_idx,
                   "probe_popcount": probe_pallas.launches_popcount,
                   "probe_while_scratch": probe_pallas.launches_while_scratch,
-                  "probe_while_vector": probe_pallas.launches_while_vector}))
+                  "probe_while_vector": probe_pallas.launches_while_vector,
+                  "probe_body_scale": probe_pallas.launches_body_scale,
+                  "probe_lane_gather": probe_pallas2.launches_lane_gather,
+                  "probe_scalar_push": probe_pallas2.launches_scalar_push,
+                  "probe_sem": probe_sem.launches}))
 sys.exit(rc)
 """
 
@@ -1104,7 +1129,7 @@ def distinct_rows(*rows):
 
 
 def check_probes(dev):
-    """Phase 18: kernels C7-C18 against their plain versions on the card, at
+    """Phase 18: kernels C7-C22 against their plain versions on the card, at
     the probes' shapes, inputs made with numpy from PROBE_SEED.  Returns
     {kernel name: fields of its kernels-line entry but `launches`}."""
     import numpy as np
@@ -1114,6 +1139,7 @@ def check_probes(dev):
     from nabwa_tpu_torch.probes import probe_dma as pdma
     from nabwa_tpu_torch.probes import probe_pallas as pp
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
+    from nabwa_tpu_torch.probes import probe_sem as psem
     rng = np.random.RandomState(PROBE_SEED)
     out = {}
 
@@ -1465,14 +1491,200 @@ def check_probes(dev):
             "queued_us_per_iter": queued * 1e3 / pp.WHILE_ITERS,
             "exact_inputs": list(inputs)}
         log(f"{label} probe_{kern}: exact; {out['probe_' + kern]}")
+
+    # C19: probe 4c, 50 x 20 elementwise steps over [256, 128], on the
+    # script's values, near both ends of int32 and on every residue mod 8
+    shape = pp.BODY_SHAPE
+    inputs = {"script": rng.randint(0, 1000, shape),
+              "near_max": I32_MAX - rng.randint(0, 64, shape),
+              "near_min": I32_MIN + rng.randint(0, 64, shape),
+              "small": rng.randint(-8, 8, shape)}
+    err = 0
+    for name, x in inputs.items():
+        x_t, = common.tensors(dev, x)
+        err = max(err, exact(f"C19 probe_body_scale {name}",
+                             pp.body_scale_cuda(x_t),
+                             pp.body_scale_plain(x_t)))
+    x_t, = common.tensors(dev, inputs["script"])
+    bnd = bound(2 * nbytes(x_t),
+                OPS_BODY * pp.BODY_ROUNDS * pp.BODY_STEPS * x_t.numel())
+    ms = cuda_ms(lambda: pp.body_scale_cuda(x_t), 200)
+    queued = queued_ms(lambda: pp.body_scale_cuda(x_t), 200)
+    out["probe_body_scale"] = {
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(lambda: pp.body_scale_plain(x_t), 3),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "library_why": "none: 1,000 dependent elementwise steps with a "
+                       "data-dependent select",
+        "queued_ms": queued, "us_per_iter": ms * 1e3 / pp.BODY_ROUNDS,
+        "queued_us_per_iter": queued * 1e3 / pp.BODY_ROUNDS,
+        "exact_inputs": list(inputs)}
+    log(f"C19 probe_body_scale: exact; {out['probe_body_scale']}")
+
+    # C20: probe C, the lane gather of [256, 128]: the script's inputs,
+    # then indices all 0, all 127 and a permutation of each row with x at
+    # +-(2^31 - 1); an index out of range is refused
+    shape = (pp2.BB, pp2.GATHER_W)
+    x = rng.randint(0, 99, shape)
+    edge_x = rng.randint(I32_MIN, I32_MAX + 1, shape)
+    edge_x[:, 0], edge_x[:, -1] = I32_MAX, -I32_MAX
+    inputs = {"script": (x, rng.randint(0, pp2.GATHER_W, shape)),
+              "zeros": (edge_x, np.zeros(shape)),
+              "last": (edge_x, np.full(shape, pp2.GATHER_W - 1)),
+              "perm": (edge_x, np.stack([rng.permutation(pp2.GATHER_W)
+                                         for _ in range(pp2.BB)]))}
+    err = 0
+    for name, (xs, idx) in inputs.items():
+        x_t, i_t = common.tensors(dev, xs, idx)
+        err = max(err, exact(f"C20 probe_lane_gather {name}",
+                             pp2.lane_gather(x_t, i_t),
+                             pp2.lane_gather_plain(x_t, i_t)))
+    x_t, i_t = common.tensors(dev, *inputs["script"])
+    bad = i_t.clone()
+    bad[3, 9] = pp2.GATHER_W
+    try:
+        pp2.lane_gather(x_t, bad)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("C20 took an index out of range")
+    i_long = i_t.long()
+    bnd = bound(3 * nbytes(x_t), OPS_GATHER * x_t.numel())
+    out["probe_lane_gather"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: pp2.lane_gather_cuda(x_t, i_t), 200),
+        "plain_ms": cuda_ms(lambda: pp2.lane_gather_plain(x_t, i_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": cuda_ms(lambda: torch.gather(x_t, 1, i_long), 200),
+        "library_call": "torch.gather(x, 1, i.long()), the int64 index "
+                        "made once beforehand",
+        "queued_ms": queued_ms(lambda: pp2.lane_gather_cuda(x_t, i_t), 200),
+        "exact_inputs": list(inputs)}
+    log(f"C20 probe_lane_gather: exact; {out['probe_lane_gather']}")
+
+    # C21: probe D, 50 rounds of up to three 5-field pushes a row into
+    # [256, 256] buffers; out, the five buffers and top, on the script's
+    # input, near both int32 ends (the fields wrap), 3 pushes a round and
+    # none
+    shape = (pp2.BB, pp2.PUSH_OUT)
+    c = rng.randint(0, 1 << 20, shape)
+    near_max = I32_MAX - rng.randint(0, 1 << 10, shape)
+    near_max[::2, 0] = I32_MAX                          # v + 1 wraps
+    near_min = I32_MIN + rng.randint(0, 1 << 10, shape)
+    near_min[::2, 1] = I32_MIN + rng.randint(0, 7, pp2.BB // 2)  # v - 7
+    inputs = {"script": c, "near_max": near_max, "near_min": near_min,
+              "all_three": np.where(np.arange(128) < 8, c | 3, c),
+              "none": np.where(np.arange(128) < 8, c & ~3, c)}
+    err = 0
+    for name, cs in inputs.items():
+        c_t, = common.tensors(dev, cs)
+        got, want = pp2.scalar_push_cuda(c_t), pp2.scalar_push_plain(c_t)
+        for part, g, w in zip(("out", "fields", "top"), got, want):
+            err = max(err, exact(f"C21 probe_scalar_push {name} {part}", g,
+                                 w))
+        log(f"C21 probe_scalar_push {name}: exact, "
+            f"{int(want[2][:, 0].sum())} pushes")
+    c_t, = common.tensors(dev, inputs["script"])
+    res = pp2.scalar_push_cuda(c_t)
+    pushes = int(res[2][:, 0].long().sum())
+    row_round, push = OPS_PUSH
+    bnd = bound(pp2.BB * 8 * 4 + nbytes(*res),
+                pp2.BB * pp2.PUSH_ROUNDS * row_round + pushes * push)
+    ms = cuda_ms(lambda: pp2.scalar_push_cuda(c_t), 200)
+    queued = queued_ms(lambda: pp2.scalar_push_cuda(c_t), 200)
+    out["probe_scalar_push"] = {
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(lambda: pp2.scalar_push_plain(c_t), 3),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "library_why": "none: serial pushes at data-dependent slots, row "
+                       "by row",
+        "queued_ms": queued, "us_per_iter": ms * 1e3 / pp2.PUSH_ROUNDS,
+        "queued_us_per_iter": queued * 1e3 / pp2.PUSH_ROUNDS,
+        "pushes": pushes,
+        "exact_inputs": list(inputs)}
+    log(f"C21 probe_scalar_push: exact; {out['probe_scalar_push']}")
+
+    # C22: scripts/probe_sem.py at K 1, 4 and 16 on its table.  Every
+    # launch below is held to the plain version as far as the card's
+    # timing allows, and out[0] (128 x the copies landed when it read) is
+    # counted over them; a misaligned table is refused
+    table = np.arange(psem.SEM_ROWS * psem.ROW_WORDS).reshape(
+        psem.SEM_ROWS, psem.ROW_WORDS)
+    tab_t, = common.tensors(dev, table)
+    skew = torch.zeros(tab_t.numel() + 1, dtype=torch.int32, device=dev)
+    try:
+        psem.sem_cuda(skew[1:].view(tab_t.shape), SEM_K)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("C22 read a misaligned table")
+
+    def check_sem(k, runs):
+        """Hold each (out, stage) of `runs` at K=k to the plain version.
+        Returns (max |err| of the stage and out[K:], which must be exact;
+        max |out[:K] - plain| over the runs, which timing sets; {copies
+        landed at out[0]: launches})."""
+        want_out, want_stage = psem.sem_plain(tab_t, k)
+        outs = torch.stack([o for o, _ in runs]).cpu()
+        err = 0
+        for _, stage in runs:
+            err = max(err, exact(f"C22 probe_sem K={k} stage", stage,
+                                 want_stage))
+        err = max(err, exact(f"C22 probe_sem K={k} out[K:]", outs[:, k:],
+                             want_out[k:].cpu().expand(len(runs), 2)))
+        head = outs[:, :k].long()
+        # copies landed at each read: out[w] = 128 (landed - w); never
+        # fewer than the waits done, never more than K, never falling
+        landed = head // psem.SEM_UNIT + torch.arange(k)
+        if ((head % psem.SEM_UNIT != 0).any()
+                or (landed < torch.arange(k)).any() or (landed > k).any()
+                or (landed.diff(dim=1) < 0).any()):
+            fail(f"C22 probe_sem K={k}: out outside its bounds: "
+                 f"{outs[:4].tolist()} ...")
+        diff = int((head - want_out[:k].cpu().long()).abs().max())
+        seen = torch.unique(landed[:, 0], return_counts=True)
+        return err, diff, {int(a): int(b) for a, b in zip(*seen)}
+
+    checked = {}
+    for k in (1, 16):
+        checked[k] = check_sem(k, [psem.sem_cuda(tab_t, k)
+                                   for _ in range(200)])
+    runs, queued_runs = [], []
+    ms = cuda_ms(lambda: runs.append(psem.sem_cuda(tab_t, SEM_K)), 200)
+    queued = queued_ms(lambda: queued_runs.append(
+        psem.sem_cuda(tab_t, SEM_K)), 200)
+    checked[SEM_K] = check_sem(SEM_K, runs)
+    checked_queued = check_sem(SEM_K, queued_runs)
+    # K rows read; out and the 16-row stage written
+    bnd = bound(SEM_K * ROW_BYTES + 4 * (SEM_K + 2)
+                + psem.SEM_ROWS * ROW_BYTES, 0)
+    out["probe_sem"] = {
+        "max_abs_err": max(c[0] for c in (*checked.values(),
+                                          checked_queued)),
+        "max_abs_err_of": "the stage and out[K:] at K 1, 4 and 16; "
+                          "out[:K] depends on timing (out_head_max_abs_diff)",
+        "out_head_max_abs_diff": {str(k): c[1] for k, c in checked.items()},
+        "ms": ms,
+        "plain_ms": cuda_ms(lambda: psem.sem_plain(tab_t, SEM_K), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "library_why": "none: no PyTorch call issues async copies and "
+                       "reads how many have landed",
+        "queued_ms": queued, "k": SEM_K,
+        "out0_landed": {str(k): c[2] for k, c in checked.items()},
+        "out0_landed_queued": checked_queued[2],
+        "checked": "stage and out[K:] exact; out[w] = 128 (landed - w) "
+                   "with the copies landed between w and K, never falling"}
+    log(f"C22 probe_sem: within bounds; {out['probe_sem']}")
     return out
 
 
 def run_probe_entries():
     """Each probe entry point once with `--device cuda`, in a process of
-    its own (every launch counter starts at 0).  Returns ({kernel:
-    launches summed over the runs}, {entry: its printed lines})."""
+    its own (every launch counter starts at 0; probe_sem at K=SEM_K).
+    Returns ({kernel: launches summed over the runs}, {entry: its printed
+    lines})."""
     env = {k: v for k, v in os.environ.items() if k not in ("ROWS", "T")}
+    env["K"] = str(SEM_K)
     counts, printed = {}, {}
     for name in PROBE_ENTRIES:
         t0 = time.perf_counter()
@@ -1957,7 +2169,7 @@ def main():
         if b2b_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bam2bam path")
 
-    # phase 18: the probes, C7-C18 against their plain versions on the
+    # phase 18: the probes, C7-C22 against their plain versions on the
     # card, then each probe's entry point in a process of its own
     probes = check_probes(torch.device("cuda", 0))
     probe_counts, probe_lines = run_probe_entries()
@@ -2067,7 +2279,14 @@ def main():
             ("probe_while_scratch", "probe_pallas.cu",
              "scripts/probe_pallas.py:136"),
             ("probe_while_vector", "probe_pallas.cu",
-             "scripts/probe_pallas.py:174")):
+             "scripts/probe_pallas.py:174"),
+            ("probe_body_scale", "probe_pallas.cu",
+             "scripts/probe_pallas.py:213"),
+            ("probe_lane_gather", "probe_pallas2.cu",
+             "scripts/probe_pallas2.py:92"),
+            ("probe_scalar_push", "probe_pallas2.cu",
+             "scripts/probe_pallas2.py:146"),
+            ("probe_sem", "probe_sem.cu", "scripts/probe_sem.py:33")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"nabwa_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[name],

@@ -5,8 +5,9 @@
 // run row by row with the kernels' argument layouts; and the probe
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
 // C9's and C10's counts and expansion, C13's slot of a pop, C16's
-// popcount, C17's and C18's slot of a round), one value at a time.  It is
-// not part of the kernel library.
+// popcount, C17's and C18's slot of a round, C19's step of a body, C21's
+// pushed fields), one value at a time.  It is not part of the kernel
+// library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
@@ -222,5 +223,20 @@ extern "C" int nabwa_host_probe_while_step(const int32_t* key,
                                            const int32_t* m, int n,
                                            int32_t* out) {
     for (int i = 0; i < n; ++i) out[i] = pr::while_step(key[i], m[i]);
+    return 0;
+}
+
+// C19's step j of each value p
+extern "C" int nabwa_host_probe_body_step(const int32_t* p, const int32_t* j,
+                                          int n, int32_t* out) {
+    for (int i = 0; i < n; ++i) out[i] = pr::body_step(p[i], j[i]);
+    return 0;
+}
+
+// C21's field k (0..4) of each pushed value v
+extern "C" int nabwa_host_probe_push_fields(const int32_t* v,
+                                            const int32_t* k, int n,
+                                            int32_t* out) {
+    for (int i = 0; i < n; ++i) out[i] = pr::push_fields(v[i], k[i]);
     return 0;
 }

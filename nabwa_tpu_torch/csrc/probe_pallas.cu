@@ -1,6 +1,6 @@
-// Kernels C15-C18: probes 2, 3, 4 and 4b of scripts/probe_pallas.py, the
-// SMEM-indexed row load, the popcount and the two while-loop carries.  All
-// values are int32 and wrap as jnp's do (probes.cuh).
+// Kernels C15-C19: probes 2, 3, 4, 4b and 4c of scripts/probe_pallas.py,
+// the SMEM-indexed row load, the popcount, the two while-loop carries and
+// the 60-op body.  All values are int32 and wrap as jnp's do (probes.cuh).
 //
 // C15 replaces `probe_smem_idx` (:61, pallas_call :73): out[i] =
 // table[idx[i]] for idx int32 [BB] (the TPU kernel's SMEM block) and a
@@ -44,6 +44,17 @@
 // 64-register cap of 1024 threads: ptxas keeps two of them in local memory
 // (16 bytes, a load and a store of each a round, from L1), which ran
 // faster than keeping each row's sum in one lane or in shared memory.
+//
+// C19 replaces `probe_body_scale` (:193, pallas_call :213): 50 rounds of
+// 20 steps over x int32 [256, 128], step j being `body_step` (probes.cuh):
+// p = where((p & 7) == j % 8, p + j, p); p ^= p >> 3; p += p << 1.  Bound
+// by operations: 8 an element and step (the and, the compare, the add and
+// the select; the shift and the xor; the shift and the add), 262,144,000
+// in all, against 256 KB of bytes.  Every element is its own chain of
+// 1,000 dependent steps, so one thread an element with its value in a
+// register, the 20 steps unrolled (j and j % 8 constants), the 50 rounds
+// a loop; device memory is read and written once.  Blocks of 128 threads,
+// 256 blocks over the 132 SMs.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +76,9 @@ constexpr int WHILE_WARPS = WHILE_THREADS / 32;
 constexpr int ROWS_PER_WARP = WHILE_ROWS / WHILE_WARPS;
 constexpr int SLOTS_PER_LANE = 4;          // S = 128, one int4 a lane
 static_assert(WHILE_WARPS == 32, "warp 0 sums one partial a lane");
+constexpr int BODY_THREADS = 128;
+constexpr int BODY_ROUNDS = 50;            // scripts/probe_pallas.py:208
+constexpr int BODY_STEPS = 20;             // its inner loop (:201)
 
 __global__ void __launch_bounds__(WARPS * 32)
 probe_smem_idx_kernel(const int32_t* __restrict__ idx,
@@ -174,6 +188,20 @@ probe_while_vector_kernel(const int4* __restrict__ x,
     }
 }
 
+__global__ void __launch_bounds__(BODY_THREADS)
+probe_body_scale_kernel(const int32_t* __restrict__ x, int n,
+                        int32_t* __restrict__ out) {
+    const int i = blockIdx.x * BODY_THREADS + threadIdx.x;
+    if (i >= n) return;
+    int32_t p = x[i];
+#pragma unroll 1
+    for (int it = 0; it < BODY_ROUNDS; ++it) {
+#pragma unroll
+        for (int j = 0; j < BODY_STEPS; ++j) p = pr::body_step(p, j);
+    }
+    out[i] = p;
+}
+
 }  // namespace
 
 // idx: int32 [bb] row indices; table: int32 [rows, 128]; out: int32
@@ -211,5 +239,15 @@ extern "C" int nabwa_probe_while_vector(const void* x, void* out,
     probe_while_vector_kernel<<<1, WHILE_THREADS, 0,
                                 (cudaStream_t)stream>>>(
         (const int4*)x, (int4*)out);
+    return (int)cudaGetLastError();
+}
+
+// x, out: int32 [n].
+extern "C" int nabwa_probe_body_scale(const void* x, int n, void* out,
+                                      void* stream) {
+    const int blocks = (n + BODY_THREADS - 1) / BODY_THREADS;
+    probe_body_scale_kernel<<<blocks, BODY_THREADS, 0,
+                              (cudaStream_t)stream>>>(
+        (const int32_t*)x, n, (int32_t*)out);
     return (int)cudaGetLastError();
 }

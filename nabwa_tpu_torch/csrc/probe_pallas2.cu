@@ -1,6 +1,7 @@
-// Kernels C11-C14: probes A, B, E and F of scripts/probe_pallas2.py, the
-// launch, the serial row-load loop, the lane sum and the pop.  All values
-// are int32 and wrap as jnp's do (probes.cuh).
+// Kernels C11-C14, C20 and C21: probes A, B, E, F, C and D of
+// scripts/probe_pallas2.py, the launch, the serial row-load loop, the lane
+// sum, the pop, the lane gather and the scalar push.  All values are int32
+// and wrap as jnp's do (probes.cuh).
 //
 // C11 replaces `probe_empty` (:38, pallas_call :44): out = x + 1 over an
 // [8, 128] array, 1,024 words.  Bound by bytes, 8 KB (2.4 ns at 3.35
@@ -38,6 +39,39 @@
 // the sum of x[r, :] for x [512, 128], wrapped.  Bound by bytes (x read
 // once, out written once, 258 KB); 127 adds a row.  One warp per row, one
 // int4 a lane, four adds and one warp reduction.
+//
+// C20 replaces `probe_lane_gather` (:86, pallas_call :92): out[r, c] =
+// x[r, i[r, c]] over [256, 128], take_along_axis on axis 1.  Bound by
+// bytes (x and i read once, out written once, 384 KB); 9 operations an
+// output (the shift and the and of its index, four shuffles, three
+// selects).  One warp per row: lane l holds columns 4l..4l+3 of x and of i
+// (an int4 each); output column c comes from lane i >> 2, so each of the
+// four components of the source's int4 is shuffled in and the lane keeps
+// the one that i & 3 names: 16 shuffles a lane, no shared memory.  Every
+// index must lie in [0, 128): `lane_gather` refuses others before the
+// launch; here one outside would take a wrong value (the shuffle's lane
+// wraps mod 32), never read outside x.
+//
+// C21 replaces `probe_scalar_push` (:111, pallas_call :146): five field
+// buffers f0..f4 int32 [256, 256] and a top [256, 128], zero; for it <
+// 50 and each row i: n = c[i, it & 7] & 3, then for j < n the fields
+// `push_fields(c[i, j])` (probes.cuh) go to slot t of row i, t = (t + 1)
+// & 255; top[i, 0] = t.  Out: f0[:, :128] + top, so `top` reaches column
+// 0 only.  The TPU kernel never writes f0..f4 before the pushes: a slot
+// never pushed is undefined there, INT32_MIN in Pallas interpret mode, and
+// here INT32_MIN too, so the kernel fills its rows of all five buffers
+// with it first (inside its time).  At most 3 pushes a round, 150 in 50
+// rounds, so t never reaches 256 and never wraps.  Rows are independent
+// (the TPU walks them in turn), so one thread a row, one warp (block) for
+// 32 rows: the warp fills its rows' buffers with int4 stores, then each
+// lane runs its row's 50 rounds with c[i, 0..7] and t in registers (the
+// rounds unrolled, so `it & 7` picks a register), storing each push to
+// device memory, then the warp writes out and top row by row, reading f0
+// back.  f0..f4 and top are returned whole, as witnesses the output does
+// not show.  Bound by bytes: c's 8 columns read, out, f0..f4 and top
+// written, 1,581,056 bytes at 256 rows; per row and round 4 operations
+// (the and, three compares), per push 6 (four fields, the slot's add and
+// mask).
 
 #include <cuda_runtime.h>
 
@@ -56,6 +90,14 @@ constexpr int POP_S = 256;
 constexpr int POP_PER_LANE = POP_S / 32;
 constexpr int POP_OUT = 128;
 constexpr int WARPS = 4;
+constexpr int GATHER_W = 128;            // x's and i's columns
+constexpr int PUSH_S = 256;              // a field buffer's slots (:112)
+constexpr int PUSH_FIELDS = 5;
+constexpr int PUSH_ROUNDS = 50;          // :141
+constexpr int PUSH_OUT = 128;            // out's and top's columns
+constexpr int PUSH_COLS = 8;             // c's columns read: it & 7
+constexpr int32_t UNWRITTEN = INT32_MIN;
+static_assert(PUSH_ROUNDS * 3 < PUSH_S, "t never wraps");
 
 __global__ void __launch_bounds__(EMPTY_THREADS)
 probe_empty_kernel(const int32_t* __restrict__ x, long long n,
@@ -156,6 +198,90 @@ probe_lanereduce_kernel(const int4* __restrict__ x, int rows,
     if (lane == 0) out[row] = (int32_t)total;
 }
 
+// column c's value for index i (in [0, 128)) of a row whose lane l holds
+// columns 4l..4l+3 in v
+__device__ __forceinline__ int32_t lane_take(const int4& v, int32_t i) {
+    const int src = i >> 2;
+    const int32_t a = __shfl_sync(FULL, v.x, src);
+    const int32_t b = __shfl_sync(FULL, v.y, src);
+    const int32_t c = __shfl_sync(FULL, v.z, src);
+    const int32_t d = __shfl_sync(FULL, v.w, src);
+    const int q = i & 3;
+    return q == 0 ? a : q == 1 ? b : q == 2 ? c : d;
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+probe_lane_gather_kernel(const int4* __restrict__ x,
+                         const int4* __restrict__ idx, int rows,
+                         int4* __restrict__ out) {
+    const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;                 // the whole warp
+    const size_t at = (size_t)row * (GATHER_W / 4) + lane;
+    const int4 v = x[at];
+    const int4 i = idx[at];
+    int4 o;
+    o.x = lane_take(v, i.x);
+    o.y = lane_take(v, i.y);
+    o.z = lane_take(v, i.z);
+    o.w = lane_take(v, i.w);
+    out[at] = o;
+}
+
+// one warp, rows r0 .. r0 + 31 (those below `rows`); fields: int32 [5,
+// rows, 256], read back after the pushes, so not const or __restrict__
+__global__ void __launch_bounds__(32)
+probe_scalar_push_kernel(const int32_t* __restrict__ c, int rows,
+                         int32_t* fields, int4* __restrict__ top,
+                         int4* __restrict__ out) {
+    const int lane = threadIdx.x;
+    const int r0 = blockIdx.x * 32;
+    const int nr = min(32, rows - r0);
+    const int4 fill = make_int4(UNWRITTEN, UNWRITTEN, UNWRITTEN, UNWRITTEN);
+    for (int k = 0; k < PUSH_FIELDS; ++k) {
+        int4* f = (int4*)(fields + ((size_t)k * rows + r0) * PUSH_S);
+        for (int w = lane; w < nr * (PUSH_S / 4); w += 32) f[w] = fill;
+    }
+    __syncwarp();
+    int32_t t = 0;
+    if (lane < nr) {
+        const int row = r0 + lane;
+        int32_t cr[PUSH_COLS];
+#pragma unroll
+        for (int j = 0; j < PUSH_COLS; ++j)
+            cr[j] = c[(size_t)row * GATHER_W + j];
+        int32_t* f = fields + (size_t)row * PUSH_S;
+        const size_t plane = (size_t)rows * PUSH_S;
+#pragma unroll
+        for (int it = 0; it < PUSH_ROUNDS; ++it) {
+            const int32_t n = cr[it & 7] & 3;
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+                if (j < n) {
+#pragma unroll
+                    for (int k = 0; k < PUSH_FIELDS; ++k)
+                        f[k * plane + t] = pr::push_fields(cr[j], k);
+                    t = (t + 1) & (PUSH_S - 1);
+                }
+            }
+        }
+    }
+    __syncwarp();
+    for (int r = 0; r < nr; ++r) {
+        const int32_t tr = __shfl_sync(FULL, t, r);
+        const size_t row = (size_t)(r0 + r);
+        const size_t at = row * (PUSH_OUT / 4) + lane;
+        int4 v = ((const int4*)(fields + row * PUSH_S))[lane];
+        int4 tv = make_int4(0, 0, 0, 0);
+        if (lane == 0) {
+            v.x = pr::wadd(v.x, tr);
+            tv.x = tr;
+        }
+        out[at] = v;
+        top[at] = tv;
+    }
+}
+
 }  // namespace
 
 // x, out: int32 [n], 16-byte aligned.  Returns cudaGetLastError().
@@ -203,5 +329,25 @@ extern "C" int nabwa_probe_lanereduce(const void* x, int rows, void* out,
     const int blocks = (rows + WARPS - 1) / WARPS;
     probe_lanereduce_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
         (const int4*)x, rows, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
+// x, idx, out: int32 [rows, 128], 16-byte aligned; every idx in [0, 128).
+extern "C" int nabwa_probe_lane_gather(const void* x, const void* idx,
+                                       int rows, void* out, void* stream) {
+    const int blocks = (rows + WARPS - 1) / WARPS;
+    probe_lane_gather_kernel<<<blocks, WARPS * 32, 0,
+                               (cudaStream_t)stream>>>(
+        (const int4*)x, (const int4*)idx, rows, (int4*)out);
+    return (int)cudaGetLastError();
+}
+
+// c: int32 [rows, 128]; fields: int32 [5, rows, 256]; top, out: int32
+// [rows, 128]; all 16-byte aligned.
+extern "C" int nabwa_probe_scalar_push(const void* c, int rows, void* fields,
+                                       void* top, void* out, void* stream) {
+    const int blocks = (rows + 31) / 32;
+    probe_scalar_push_kernel<<<blocks, 32, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)c, rows, (int32_t*)fields, (int4*)top, (int4*)out);
     return (int)cudaGetLastError();
 }

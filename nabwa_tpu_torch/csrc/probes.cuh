@@ -1,10 +1,11 @@
-// The per-read and per-copy arithmetic of the probe kernels C7-C18
+// The per-read and per-copy arithmetic of the probe kernels C7-C21
 // (probe_rowload.cu, probe_dma.cu, probe_dfs_shape.cu, probe_pallas2.cu,
 // probe_pallas.cu): int32 arithmetic that wraps as jnp's does, the floor
 // modulo of jnp's `%`, the row indices of scripts/probe_dma.py, the
 // staged-row counts and the candidate expansion of the two DFS-iteration
-// mocks, one slot of probe_pallas2.py's pop, and the popcount and one slot
-// of a round of probe_pallas.py's probes 3, 4 and 4b.
+// mocks, one slot of probe_pallas2.py's pop and the fields of its scalar
+// push, and the popcount, one slot of a round of probe_pallas.py's probes
+// 3, 4 and 4b, and one step of probe 4c's body.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -117,6 +118,27 @@ NABWA_HD uint32_t popcount32(int32_t x) {
 // equal to its row's minimum m gets + 7 (wrapping), any other stays
 NABWA_HD int32_t while_step(int32_t key, int32_t m) {
     return key == m ? wadd(key, 7) : key;
+}
+
+// probe_pallas.py:202-204, step j (>= 0) of probe 4c's inner loop: + j
+// where the low 3 bits equal j % 8 (wrapping), then p ^= p >> 3
+// (arithmetic) and p += p << 1 (wrapping)
+NABWA_HD int32_t body_step(int32_t p, int32_t j) {
+    if ((p & 7) == j % 8) p = wadd(p, j);
+    p = p ^ (p >> 3);
+    return wadd(p, (int32_t)((uint32_t)p << 1));
+}
+
+// probe_pallas2.py:124-129, field k (0..4) of a push of candidate v: v,
+// v + 1, v ^ 3, v - 7, v * 3, wrapping
+NABWA_HD int32_t push_fields(int32_t v, int32_t k) {
+    switch (k) {
+        case 0: return v;
+        case 1: return wadd(v, 1);
+        case 2: return v ^ 3;
+        case 3: return wsub(v, 7);
+        default: return wmul(v, 3);
+    }
 }
 
 }  // namespace probe

@@ -90,6 +90,14 @@ _SIGNATURES = {
     # (x, out, stream)
     "nabwa_probe_while_scratch": [_P, _P, _P],
     "nabwa_probe_while_vector": [_P, _P, _P],
+    # (x, n, out, stream)
+    "nabwa_probe_body_scale": [_P, _I, _P, _P],
+    # (x, idx, rows, out, stream)
+    "nabwa_probe_lane_gather": [_P, _P, _I, _P, _P],
+    # (c, rows, fields, top, out, stream)
+    "nabwa_probe_scalar_push": [_P, _I, _P, _P, _P, _P],
+    # (table, k, out, stage, stream)
+    "nabwa_probe_sem": [_P, _I, _P, _P, _P],
 }
 
 

@@ -4,8 +4,9 @@ kernel, with the script's entry point:
 
   probe_pallas     probe 1 `probe_rowload` (kernel C7, csrc/probe_rowload.cu),
                    probes 2 `probe_smem_idx` (C15), 3 `probe_popcount`
-                   (C16), 4 `probe_while_scratch` (C17) and 4b
-                   `probe_while_vector_only` (C18), all four in
+                   (C16), 4 `probe_while_scratch` (C17), 4b
+                   `probe_while_vector_only` (C18) and 4c
+                   `probe_body_scale` (C19), all five in
                    csrc/probe_pallas.cu, and probe 5 `probe_dfs_shape`
                    (C10, csrc/probe_dfs_shape.cu), after
                    scripts/probe_pallas.py
@@ -13,13 +14,18 @@ kernel, with the script's entry point:
                    scripts/probe_dma.py
   probe_dfs_shape  `run` (C9, csrc/probe_dfs_shape.cu), after
                    scripts/probe_dfs_shape.py
-  probe_pallas2    probe A `probe_empty` (C11), B `probe_loads` (C12), F
-                   `probe_pop` (C13) and E `probe_lanereduce` (C14), all in
-                   csrc/probe_pallas2.cu, after scripts/probe_pallas2.py
+  probe_pallas2    probe A `probe_empty` (C11), B `probe_loads` (C12), C
+                   `probe_lane_gather` (C20), D `probe_scalar_push` (C21),
+                   E `probe_lanereduce` (C14) and F `probe_pop` (C13), all
+                   in csrc/probe_pallas2.cu, after scripts/probe_pallas2.py
+  probe_sem        `kernel` (C22, csrc/probe_sem.cu: bulk async copies on
+                   mbarriers for the DMA semaphore), K from the
+                   environment, after scripts/probe_sem.py
 
 The public functions take the JAX scripts' layouts (int32 arrays); a CPU
 tensor runs the plain version, a CUDA tensor the kernel.  The entry points
 take `--device cuda|cpu` (default cuda) and print the scripts' result
-lines, timed with CUDA events on the card.  The scripts' other probes are
-not ported yet.
+lines, timed with CUDA events on the card.  The probes of
+scripts/probe_pallas3.py, probe_spill.py and probe_colops.py are not
+ported yet.
 """

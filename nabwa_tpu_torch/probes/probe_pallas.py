@@ -1,7 +1,8 @@
-"""Probes 1, 2, 3, 4, 4b and 5 of scripts/probe_pallas.py on the card.
+"""Probes 1, 2, 3, 4, 4b, 4c and 5 of scripts/probe_pallas.py on the card.
 
     python -m nabwa_tpu_torch.probes.probe_pallas [--device cuda|cpu]
-                                                  [1] [2] [3] [4] [4b] [5]
+                                                  [1] [2] [3] [4] [4b] [4c]
+                                                  [5]
 
 Probe 1, `probe_rowload` (scripts/probe_pallas.py:31, pallas_call at
 :43): out[i] = table[idx[i]], 256 rows from a [4096, 128] int32 table; on
@@ -20,7 +21,12 @@ a pool int32 [256, 128] of: each row's minimum, every slot equal to it + 7
 carry, [1, 1].  Probe 4b, `probe_while_vector_only` (:155, pallas_call at
 :174): the same rounds with each row's minima summed into a vector
 accumulator instead, [256, 128].  Kernels C17 and C18, one block holding
-the pool.  C15-C18 are in csrc/probe_pallas.cu.
+the pool.
+
+Probe 4c, `probe_body_scale` (:193, pallas_call at :213): 50 rounds of 20
+elementwise steps over x int32 [256, 128], step j: p + j where p & 7 ==
+j % 8, then p ^= p >> 3, p += p << 1 (wrapping); kernel C19, one thread
+an element.  C15-C19 are in csrc/probe_pallas.cu.
 
 Probe 5, `probe_dfs_shape` (:231, pallas_call at :282): 100 iterations of
 a DFS-iteration-shaped body over 256 reads of 128 slots with a [32768,
@@ -31,8 +37,7 @@ the result is the int32 sum of the minima.  On a CUDA tensor kernel C10
 
 The inputs are the script's, unseeded as there (`np.random`); each probe
 prints the script's result line with the time of the kernel (CUDA events)
-or of the plain version on the CPU.  With no probe named, all six run;
-the script's probe 4c is not ported yet.
+or of the plain version on the CPU.  With no probe named, all seven run.
 """
 
 import sys
@@ -47,16 +52,18 @@ from .common import FREE_KEY, popcount32, wrap32, wsum
 ROWLOAD_BB, ROWLOAD_NROW = 256, 4096
 POPCOUNT_SHAPE = (256, 128)
 WHILE_BB, WHILE_S, WHILE_ITERS = 256, 128, 50
+BODY_SHAPE, BODY_ROUNDS, BODY_STEPS = (256, 128), 50, 20
 DFS_BB, DFS_S, DFS_NROW, DFS_ITERS = 256, 128, 32768, 100
 
 # kernel launches made on CUDA tensors: C7 by `rowload`, C15 by
 # `smem_idx`, C16 by `popcount`, C17 by `while_scratch`, C18 by
-# `while_vector`, C10 by `dfs_shape`
+# `while_vector`, C19 by `body_scale`, C10 by `dfs_shape`
 launches_rowload = 0
 launches_smem_idx = 0
 launches_popcount = 0
 launches_while_scratch = 0
 launches_while_vector = 0
+launches_body_scale = 0
 launches_dfs_shape = 0
 
 
@@ -237,6 +244,46 @@ def while_vector(x):
                            while_vector_cuda)
 
 
+def body_step(p, j):
+    """Step j of probe 4c's inner loop (scripts/probe_pallas.py:202-204)
+    on int64 values holding int32s."""
+    p = torch.where((p & 7) == j % 8, wrap32(p + j), p)
+    p = p ^ (p >> 3)
+    return wrap32(p + (p << 1))
+
+
+def body_scale_plain(x):
+    """Probe 4c's kernel in plain PyTorch: BODY_ROUNDS rounds of the
+    BODY_STEPS steps on each int32 of x -> int32, x's shape."""
+    p = x.long()
+    for _ in range(BODY_ROUNDS):
+        for j in range(BODY_STEPS):
+            p = body_step(p, j)
+    return p.to(torch.int32)
+
+
+def body_scale_cuda(x):
+    """`body_scale_plain` by kernel C19."""
+    global launches_body_scale
+    common.cuda_input(x, "x", x.dim())
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = _build.lib().nabwa_probe_body_scale(
+        x.data_ptr(), x.numel(), out.data_ptr(), _build.stream_of(x))
+    _build.check(rc, "probe_body_scale kernel launch")
+    with _build.count_lock:
+        launches_body_scale += 1
+    return out
+
+
+def body_scale(x):
+    """Probe 4c: the plain version for CPU tensors, kernel C19 for CUDA
+    tensors."""
+    return common.dispatch("body_scale", x, body_scale_plain,
+                           body_scale_cuda)
+
+
 def bank_counts(rows):
     """Popcounts of lo and of lo & hi for each word of bank-0 rows int64
     [R, 128] (scripts/probe_pallas.py:258-263): (c1, c3), int64 [R, 128]."""
@@ -371,6 +418,16 @@ def probe_while_vector_only(device):
     return dt, r
 
 
+def probe_body_scale(device):
+    """Probe 4c on the script's input; prints its line.  Returns (seconds
+    per call, result)."""
+    x_t, = common.tensors(device, np.random.randint(0, 1000, BODY_SHAPE))
+    dt, r = common.timeit(lambda: body_scale(x_t), device)
+    print(f"probe4c 60-op body {BODY_ROUNDS} iters: {dt*1e6:.1f}us  "
+          f"({dt/BODY_ROUNDS*1e6:.2f}us/iter)")
+    return dt, r
+
+
 def probe_dfs_shape(device):
     """Probe 5 on the script's inputs; prints its line.  Returns (seconds
     per call, result)."""
@@ -385,8 +442,7 @@ def probe_dfs_shape(device):
 
 PROBES = {"1": probe_rowload, "2": probe_smem_idx, "3": probe_popcount,
           "4": probe_while_scratch, "4b": probe_while_vector_only,
-          "5": probe_dfs_shape}
-NOT_PORTED = ("4c",)
+          "4c": probe_body_scale, "5": probe_dfs_shape}
 
 
 def main(argv=None):
@@ -397,9 +453,7 @@ def main(argv=None):
     which = which or list(PROBES)
     for w in which:
         if w not in PROBES:
-            why = ("not yet ported to nabwa_tpu_torch" if w in NOT_PORTED
-                   else "no such probe")
-            print(f"[probe_pallas] probe {w}: {why}", file=sys.stderr)
+            print(f"[probe_pallas] probe {w}: no such probe", file=sys.stderr)
             return 1
     print("devices:", [common.device_name(device)])
     for w in which:

@@ -1,7 +1,8 @@
-"""Probes A, B1, BU, E and F of scripts/probe_pallas2.py on the card.
+"""Probes A, B1, BU, C, D, E and F of scripts/probe_pallas2.py on the card.
 
     python -m nabwa_tpu_torch.probes.probe_pallas2 [--device cuda|cpu]
-                                                    [A] [B1] [BU] [E] [F]
+                                                    [A] [B1] [BU] [C] [D]
+                                                    [E] [F]
 
 Probe A, `probe_empty` (scripts/probe_pallas2.py:38, pallas_call at :44):
 out = x + 1 over [8, 128] int32, the cost of a launch; kernel C11.
@@ -10,6 +11,21 @@ Probes B1 and BU, `probe_loads(unroll)` (:55, pallas_call at :67): a
 serial loop of BB = 256 bodies, each copying rows idx[i, 0] and idx[i, 1]
 of a [32768, 128] int32 table to out[i] and out[i + BB]; unrolled once
 (B1) or BB times (BU); kernel C12, one warp walking the loop.
+
+Probe C, `probe_lane_gather` (:86, pallas_call at :92): out[r, c] =
+x[r, i[r, c]] over [256, 128] int32, take_along_axis on axis 1; kernel
+C20, one warp per row, lanes exchanging values by shuffles.  Indices
+outside [0, 128) are refused.
+
+Probe D, `probe_scalar_push` (:111, pallas_call at :146): 50 rounds in
+which each of 256 rows pushes c[i, it & 7] & 3 of its candidates c[i, 0],
+c[i, 1], c[i, 2], each as five fields (v, v + 1, v ^ 3, v - 7, v * 3) into
+slot t of five [256, 256] buffers, t advancing by one a push; the result
+is f0[:, :128] plus each row's final t in column 0.  The script never
+writes a slot that no push reaches and reads it all the same: undefined
+on the TPU, INT32_MIN in Pallas interpret mode, INT32_MIN here.  Kernel
+C21, one thread per row.  The plain version and the kernel also return
+the five buffers and top whole.
 
 Probe E, `probe_lanereduce` (:164, pallas_call at :170): the int32 sum of
 each row of [512, 128], as [512, 1]; kernel C14, one warp per row.
@@ -24,8 +40,7 @@ each round's minimum, which the result alone does not show.
 All kernels are in csrc/probe_pallas2.cu.  The inputs are the script's,
 unseeded as there (`np.random`); each probe prints the script's result
 line with the time of the kernel (CUDA events) or of the plain version
-on the CPU.  With no probe named, all five run; the script's probes C and
-D are not ported yet.
+on the CPU.  With no probe named, all seven run, in the script's order.
 """
 
 import sys
@@ -42,13 +57,19 @@ EMPTY_SHAPE = (8, 128)
 LOADS_UNROLL = BB               # the unrolled kernel's bodies at a time
 REDUCE_SHAPE = (512, 128)
 POP_S, POP_OUT, POP_ITERS = 256, 128, 50
+GATHER_W = 128
+PUSH_S, PUSH_OUT, PUSH_ROUNDS, PUSH_FIELDS = 256, 128, 50, 5
+UNWRITTEN = -2**31       # what interpret mode reads from an unwritten slot
 
 # kernel launches made on CUDA tensors: C11 by `empty`, C12 by `loads`,
-# C13 by `pop`, C14 by `lanereduce`
+# C13 by `pop`, C14 by `lanereduce`, C20 by `lane_gather`, C21 by
+# `scalar_push`
 launches_empty = 0
 launches_loads = 0
 launches_pop = 0
 launches_lanereduce = 0
+launches_lane_gather = 0
+launches_scalar_push = 0
 
 
 def _table():
@@ -199,6 +220,115 @@ def pop(x):
     return common.dispatch("pop", x, pop_plain, pop_cuda)
 
 
+def lane_gather_plain(x, i):
+    """Probe C's kernel in plain PyTorch: x int32 [R, W], i int32 [R, W']
+    indices in [0, W) -> out[r, c] = x[r, i[r, c]], int32 [R, W']."""
+    return torch.take_along_dim(x, i.long(), dim=1)
+
+
+def lane_gather_cuda(x, i):
+    """`lane_gather_plain` by kernel C20 (x and i [R, 128]); the indices
+    are not checked (`lane_gather` does)."""
+    global launches_lane_gather
+    dev = common.cuda_input(x, "x", 2)
+    common.cuda_input(i, "i", 2, dev)
+    if x.shape[1] != GATHER_W or i.shape != x.shape:
+        raise ValueError(f"x and i must be [R, {GATHER_W}], got "
+                         f"{tuple(x.shape)} and {tuple(i.shape)}")
+    out = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return out
+    rc = _build.lib().nabwa_probe_lane_gather(
+        x.data_ptr(), i.data_ptr(), x.shape[0], out.data_ptr(),
+        _build.stream_of(x))
+    _build.check(rc, "probe_lane_gather kernel launch")
+    with _build.count_lock:
+        launches_lane_gather += 1
+    return out
+
+
+def check_lanes(x, i):
+    """Raise ValueError unless every index of i lies in [0, x's columns):
+    the script draws them so, and neither version defines others."""
+    if i.numel() and bool(((i < 0) | (i >= x.shape[1])).any()):
+        raise ValueError(f"lane_gather: indices outside [0, {x.shape[1]})")
+
+
+def lane_gather(x, i):
+    """Probe C: the plain version for CPU tensors, kernel C20 for CUDA
+    tensors; refuses indices outside [0, x's columns)."""
+    check_lanes(x, i)
+    return _lane_gather(x, i)
+
+
+def _lane_gather(x, i):
+    """`lane_gather` without its index check."""
+    return common.dispatch("lane_gather", x, lane_gather_plain,
+                           lane_gather_cuda, i)
+
+
+def push_values(v):
+    """The five fields of a push of v (scripts/probe_pallas2.py:124-129)
+    on int64 values holding int32s: [5, *v.shape]."""
+    return torch.stack([v, wrap32(v + 1), v ^ 3, wrap32(v - 7),
+                        wrap32(v * 3)])
+
+
+def scalar_push_plain(c):
+    """Probe D's kernel in plain PyTorch, each row's pushes at once
+    (scripts/probe_pallas2.py:115-142): c int32 [R, W >= 8] -> (out int32
+    [R, 128], the five field buffers int32 [5, R, 256], top int32 [R,
+    128]).  A slot no push reaches holds UNWRITTEN."""
+    dev = c.device
+    rows = c.shape[0]
+    cc = c.long()
+    fields = torch.full((PUSH_FIELDS, rows, PUSH_S), UNWRITTEN,
+                        dtype=torch.int64, device=dev)
+    t = torch.zeros(rows, dtype=torch.int64, device=dev)
+    row = torch.arange(rows, device=dev)
+    vals = [push_values(cc[:, j]) for j in range(3)]
+    for it in range(PUSH_ROUNDS):
+        n = cc[:, it & 7] & 3
+        for j in range(3):
+            m = j < n
+            fields[:, row[m], t[m]] = vals[j][:, m]
+            t = torch.where(m, (t + 1) & (PUSH_S - 1), t)
+    top = torch.zeros((rows, PUSH_OUT), dtype=torch.int64, device=dev)
+    top[:, 0] = t
+    out = wrap32(fields[0, :, :PUSH_OUT] + top)
+    return (out.to(torch.int32), fields.to(torch.int32),
+            top.to(torch.int32))
+
+
+def scalar_push_cuda(c):
+    """`scalar_push_plain` by kernel C21 (c [R, 128])."""
+    global launches_scalar_push
+    dev = common.cuda_input(c, "c", 2)
+    rows = c.shape[0]
+    if c.shape[1] != PUSH_OUT:
+        raise ValueError(f"c rows have {c.shape[1]} words, not {PUSH_OUT}")
+    out = torch.empty((rows, PUSH_OUT), dtype=torch.int32, device=dev)
+    fields = torch.empty((PUSH_FIELDS, rows, PUSH_S), dtype=torch.int32,
+                         device=dev)
+    top = torch.empty_like(out)
+    if rows == 0:
+        return out, fields, top
+    rc = _build.lib().nabwa_probe_scalar_push(
+        c.data_ptr(), rows, fields.data_ptr(), top.data_ptr(),
+        out.data_ptr(), _build.stream_of(c))
+    _build.check(rc, "probe_scalar_push kernel launch")
+    with _build.count_lock:
+        launches_scalar_push += 1
+    return out, fields, top
+
+
+def scalar_push(c):
+    """Probe D: the plain version for CPU tensors, kernel C21 for CUDA
+    tensors.  Returns (out, the five field buffers, top)."""
+    return common.dispatch("scalar_push", c, scalar_push_plain,
+                           scalar_push_cuda)
+
+
 def probe_empty(device):
     """Probe A on the script's input; prints its line.  Returns (seconds
     per call, result)."""
@@ -221,6 +351,31 @@ def probe_loads(device, unroll):
     print(f"probeB 2x{BB} rowloads unroll={unroll}: {dt*1e6:.1f}us "
           f"({dt/(2*BB)*1e9:.0f}ns/load)  ok={ok}")
     return dt, r, ok
+
+
+def probe_lane_gather(device):
+    """Probe C on the script's inputs; prints its line.  The indices are
+    checked once, and the timed calls skip the check.  Returns (seconds
+    per call, result, ok)."""
+    x = np.random.randint(0, 99, (BB, GATHER_W))
+    i = np.random.randint(0, GATHER_W, (BB, GATHER_W))
+    x_t, i_t = common.tensors(device, x, i)
+    check_lanes(x_t, i_t)
+    dt, r = common.timeit(lambda: _lane_gather(x_t, i_t), device)
+    ok = np.array_equal(r.cpu().numpy(), np.take_along_axis(x, i, axis=1))
+    print(f"probeC take_along_axis lanes: {dt*1e6:.1f}us ok={ok}")
+    return dt, r, ok
+
+
+def probe_scalar_push(device):
+    """Probe D on the script's input; prints its line.  Returns (seconds
+    per call, (out, fields, top))."""
+    c_t, = common.tensors(device, np.random.randint(0, 1 << 20,
+                                                    (BB, PUSH_OUT)))
+    dt, r = common.timeit(lambda: scalar_push(c_t), device, n=5)
+    print(f"probeD scalar push {PUSH_ROUNDS} iters x {BB} lanes x <=3 "
+          f"cands: {dt*1e3:.2f}ms ({dt/PUSH_ROUNDS*1e6:.1f}us/iter)")
+    return dt, r
 
 
 def probe_lanereduce(device):
@@ -247,8 +402,8 @@ def probe_pop(device):
 
 PROBES = {"A": probe_empty, "B1": lambda d: probe_loads(d, 1),
           "BU": lambda d: probe_loads(d, LOADS_UNROLL),
+          "C": probe_lane_gather, "D": probe_scalar_push,
           "E": probe_lanereduce, "F": probe_pop}
-NOT_PORTED = ("C", "D")
 
 
 def main(argv=None):
@@ -259,9 +414,8 @@ def main(argv=None):
     which = which or list(PROBES)
     for w in which:
         if w not in PROBES:
-            why = ("not yet ported to nabwa_tpu_torch" if w in NOT_PORTED
-                   else "no such probe")
-            print(f"[probe_pallas2] probe {w}: {why}", file=sys.stderr)
+            print(f"[probe_pallas2] probe {w}: no such probe",
+                  file=sys.stderr)
             return 1
     print("devices:", [common.device_name(device)])
     for w in which:

@@ -1,18 +1,20 @@
-"""Probes 2, 3, 4 and 4b of scripts/probe_pallas.py (`nabwa_tpu_torch.
+"""Probes 2, 3, 4, 4b and 4c of scripts/probe_pallas.py (`nabwa_tpu_torch.
 probes.probe_pallas`) against the JAX script on the CPU.
 
 Each plain version must equal the script's kernel, run in Pallas interpret
-mode, exactly: `probe_smem_idx`, `probe_popcount`, `probe_while_scratch`
-and `probe_while_vector_only` at the script's own inputs and, through the
-script's captured jitted `run`, at edge inputs: indices at both ends of
-the table and repeated; popcounts of negatives, INT32_MIN, -1 and
-INT32_MAX (the script's inputs never set bit 30 or 31); pools within 8 of
-INT32_MAX (where `pool + 7` wraps negative) and of INT32_MIN (where the
-sums wrap), and pools of values in 0..7 (every slot equal to the minimum
-takes + 7, not only the first).  The kernels' new `__host__ __device__`
-helpers (csrc/probes.cuh), built for the host with g++, must equal the
-plain formulas value by value.  The entry point runs the four probes with
-`--device cpu` and prints the script's lines.
+mode, exactly: `probe_smem_idx`, `probe_popcount`, `probe_while_scratch`,
+`probe_while_vector_only` and `probe_body_scale` at the script's own
+inputs and, through the script's captured jitted `run`, at edge inputs:
+indices at both ends of the table and repeated; popcounts of negatives,
+INT32_MIN, -1 and INT32_MAX (the script's inputs never set bit 30 or 31);
+pools within 8 of INT32_MAX (where `pool + 7` wraps negative) and of
+INT32_MIN (where the sums wrap), and pools of values in 0..7 (every slot
+equal to the minimum takes + 7, not only the first); probe 4c's body on
+values near both ends of int32 and on every residue mod 8 with 0 and -1.
+The kernels' new `__host__ __device__` helpers (csrc/probes.cuh), built
+for the host with g++, must equal the plain formulas value by value.  The
+entry point runs the five probes with `--device cpu` and prints the
+script's lines.
 """
 
 import os
@@ -159,6 +161,57 @@ def test_while_matches_jax(script, monkeypatch, probe, case):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _body_input(case):
+    """A [256, 128] int32 input for probe 4c."""
+    rng = np.random.default_rng(906)
+    shape = pp.BODY_SHAPE
+    if case == "near_max":
+        return (I32_MAX - rng.integers(0, 64, shape)).astype(np.int32)
+    if case == "near_min":
+        return (I32_MIN + rng.integers(0, 64, shape)).astype(np.int32)
+    x = rng.integers(-8, 8, shape).astype(np.int32)        # small
+    x[0, :4] = (0, -1, 0, -1)
+    return x
+
+
+def _numpy_body(x):
+    """Probe 4c's rounds in numpy int64, wrapped after each step; and
+    whether any `p + j` or `p + (p << 1)` passed int32 before its wrap."""
+    p = x.astype(np.int64)
+    passed = False
+    for _ in range(pp.BODY_ROUNDS):
+        for j in range(pp.BODY_STEPS):
+            raw = np.where((p & 7) == j % 8, p + j, p)
+            passed |= bool((raw > I32_MAX).any())
+            p = ((raw + 2**31) & 0xFFFFFFFF) - 2**31
+            p = p ^ (p >> 3)
+            raw = p + (((p << 1) + 2**31) & 0xFFFFFFFF) - 2**31
+            passed |= bool(((raw > I32_MAX) | (raw < I32_MIN)).any())
+            p = ((raw + 2**31) & 0xFFFFFFFF) - 2**31
+    return p, passed
+
+
+@pytest.mark.parametrize("case", ["script", "near_max", "near_min",
+                                  "small"])
+def test_body_scale_matches_jax(script, monkeypatch, case):
+    seen = _load(script, monkeypatch, 906, "probe_body_scale")
+    x, = seen["args"]
+    assert x.shape == pp.BODY_SHAPE and x.dtype == np.int32
+    want = seen["r"]
+    if case != "script":
+        x = _body_input(case)
+        want = _run(seen, x)
+    if case == "small":
+        assert set(np.unique(x % 8)) == set(range(8))
+        assert (x == 0).any() and (x == -1).any()
+    got = pp.body_scale(*common.tensors(CPU, x))
+    assert got.shape == pp.BODY_SHAPE and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    model, passed = _numpy_body(x)
+    np.testing.assert_array_equal(got.numpy(), model)
+    assert passed                   # the adds wrap at every input
+
+
 def _check_popcount(host, rng):
     x = _i32(rng, 4000, [0, 1, -1, -2**31, 2**31 - 1, 0x55555555,
                          -0x55555556, 1 << 30, -65536])
@@ -176,15 +229,26 @@ def _check_while_step(host, rng):
     return got, torch.where(k == _t(m), common.wrap32(k + 7), k)
 
 
+def _check_body_step(host, rng):
+    n = 4000
+    p = _i32(rng, n, [2**31 - 1, 2**31 - 8, -2**31, -2**31 + 7, -1, 0, 7,
+                      8, 0x2AAAAAAA, -0x2AAAAAAB])
+    j = rng.integers(0, pp.BODY_STEPS, n).astype(np.int32)
+    j[:10] = np.arange(10) % 8
+    got, = _call(host.nabwa_host_probe_body_step, 1, p, j)
+    return got, pp.body_step(_t(p), _t(j))
+
+
 HOST_CHECKS = {"popcount32": _check_popcount,
-               "while_step": _check_while_step}
+               "while_step": _check_while_step,
+               "body_step": _check_body_step}
 
 
 @pytest.mark.parametrize("name", list(HOST_CHECKS))
 def test_host_helpers_match_plain(host, name):
-    """csrc/probes.cuh `popcount32` (kernel C16) and `while_step` (C17,
-    C18), built for the host, equal the plain versions' formulas value by
-    value on random and edge inputs."""
+    """csrc/probes.cuh `popcount32` (kernel C16), `while_step` (C17, C18)
+    and `body_step` (C19), built for the host, equal the plain versions'
+    formulas value by value on random and edge inputs."""
     rng = np.random.default_rng(list(HOST_CHECKS).index(name) + 905)
     got, want = HOST_CHECKS[name](host, rng)
     np.testing.assert_array_equal(got, want.numpy())
@@ -196,14 +260,15 @@ RESULT_LINES = [
     r"probe3 popcount: [\d.]+us  ok=True",
     r"probe4 while\+scratch 50 iters: [\d.]+us  \([\d.]+us/iter\) "
     r"r=-?\d+",
-    r"probe4b fori vector-only 50 iters: [\d.]+us  \([\d.]+us/iter\)"]
+    r"probe4b fori vector-only 50 iters: [\d.]+us  \([\d.]+us/iter\)",
+    r"probe4c 60-op body 50 iters: [\d.]+us  \([\d.]+us/iter\)"]
 
 
 def test_entry_point_cpu():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-m", "nabwa_tpu_torch.probes.probe_pallas",
-         "--device", "cpu", "2", "3", "4", "4b"], cwd=REPO, env=env,
+         "--device", "cpu", "2", "3", "4", "4b", "4c"], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     lines = res.stdout.splitlines()
@@ -220,7 +285,8 @@ def _zeros(*shape):
     lambda: pp.smem_idx_cuda(_zeros(4), _zeros(8, 128)),
     lambda: pp.popcount_cuda(_zeros(256, 128)),
     lambda: pp.while_scratch_cuda(_zeros(*POOL)),
-    lambda: pp.while_vector_cuda(_zeros(*POOL))])
+    lambda: pp.while_vector_cuda(_zeros(*POOL)),
+    lambda: pp.body_scale_cuda(_zeros(*pp.BODY_SHAPE))])
 def test_kernels_refuse_cpu_tensors(call):
     """A kernel wrapper given CPU tensors raises; only the dispatchers run
     the plain versions, and only for CPU tensors."""
@@ -256,7 +322,8 @@ def _on_card(*shape):
     lambda: pp.rowload_cuda(_on_card(4, 1), _misaligned(8, 128)),
     lambda: pp.smem_idx_cuda(_on_card(4), _misaligned(8, 128)),
     lambda: pp.dfs_shape_cuda(_on_card(4, 128), _misaligned(8, 128)),
-    lambda: pp.popcount_cuda(_misaligned(256, 128))])
+    lambda: pp.popcount_cuda(_misaligned(256, 128)),
+    lambda: pp.body_scale_cuda(_misaligned(*pp.BODY_SHAPE))])
 def test_kernels_refuse_misaligned_tensors(call):
     """A wrapper refuses a tensor its kernel would read as int4 unless it
     starts on a 16-byte boundary (the gather's table too), before any

@@ -11,11 +11,18 @@ kernel captures a constant), so its kernel body runs eagerly under
 `jax.disable_jit()`, through `Ref`s that hold arrays; the plain version
 must equal that route and a numpy model of the pop on the output, the
 whole final key state and each round's minimum, at the script's inputs,
-at forced ties and where the sum of the tied slots wraps.  The kernels'
-new `__host__ __device__` helper (csrc/probes.cuh), built for the host
-with g++, must equal the plain formula value by value.  The entry point
-runs with `--device cpu` and prints the script's lines; the script's
-unported probes and a missing card exit non-zero.
+at forced ties and where the sum of the tied slots wraps.  Probe C holds
+at indices all 0, all 127 and a permutation of each row, with x at
++-(2^31 - 1), and refuses indices outside [0, 128).  Probe D reads slots
+that no push wrote, which interpret mode fills with INT32_MIN; the plain
+version does the same, and its five field buffers and top, which the
+output does not show, equal a numpy model of the pushes, at the script's
+input, at values near both ends of int32 (the fields wrap) and at rows
+that push 3 candidates every round or none.  The kernels' new
+`__host__ __device__` helpers (csrc/probes.cuh), built for the host with
+g++, must equal the plain formulas value by value.  The entry point runs
+with `--device cpu` and prints the script's lines; an unknown probe and a
+missing card exit non-zero.
 """
 
 import os
@@ -225,6 +232,128 @@ def test_pop_matches_jax(script, monkeypatch, case):
     assert (state.numpy()[:, 128:] != x[:, 128:]).any()
 
 
+def _gather_input(case, x):
+    """Probe C's indices for `case`, and x with +-(2^31 - 1) in it."""
+    rng = np.random.default_rng(819)
+    shape = (pp2.BB, pp2.GATHER_W)
+    x = x.copy()
+    x[:, 0] = I32_MAX
+    x[:, pp2.GATHER_W - 1] = -I32_MAX
+    x[::2, 5] = I32_MIN
+    if case == "zeros":
+        return x, np.zeros(shape, dtype=np.int32)
+    if case == "last":
+        return x, np.full(shape, pp2.GATHER_W - 1, dtype=np.int32)
+    return x, np.stack([rng.permutation(pp2.GATHER_W)            # perm
+                        for _ in range(pp2.BB)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["script", "zeros", "last", "perm"])
+def test_lane_gather_matches_jax(script, monkeypatch, case):
+    mod, seen = _load(script, monkeypatch, 819)
+    mod.probe_lane_gather()
+    assert "r" in seen, "the script's probe C failed"
+    x, i = seen["args"]
+    assert x.shape == i.shape == (pp2.BB, pp2.GATHER_W)
+    want = seen["r"]
+    if case != "script":
+        x, i = _gather_input(case, x)
+        want = np.asarray(seen["run"](jnp.asarray(x), jnp.asarray(i)))
+    got = pp2.lane_gather(*common.tensors(CPU, x, i))
+    assert got.shape == x.shape and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.take_along_axis(x, i, axis=1))
+    if case == "perm":
+        np.testing.assert_array_equal(np.sort(got.numpy(), axis=1),
+                                      np.sort(x, axis=1))
+
+
+@pytest.mark.parametrize("bad", [-1, pp2.GATHER_W, I32_MIN])
+def test_lane_gather_refuses_out_of_range(bad):
+    x = torch.zeros((4, pp2.GATHER_W), dtype=torch.int32)
+    i = torch.zeros_like(x)
+    i[2, 7] = bad
+    with pytest.raises(ValueError, match="outside"):
+        pp2.lane_gather(x, i)
+
+
+def _numpy_push(c):
+    """scripts/probe_pallas2.py:115-142 in Python ints, row by row: (out,
+    the five field buffers with INT32_MIN where no push wrote, top)."""
+    c = c.astype(np.int64)
+    rows = len(c)
+    fields = np.full((5, rows, pp2.PUSH_S), I32_MIN, dtype=np.int64)
+    top = np.zeros((rows, pp2.PUSH_OUT), dtype=np.int64)
+    for i in range(rows):
+        t = 0
+        for it in range(pp2.PUSH_ROUNDS):
+            for j in range(c[i, it & 7] & 3):
+                v = int(c[i, j])
+                fields[:, i, t] = [v, _wrap(v + 1), v ^ 3, _wrap(v - 7),
+                                   _wrap(v * 3)]
+                t = (t + 1) & (pp2.PUSH_S - 1)
+        top[i, 0] = t
+    return _wrap(fields[0, :, :pp2.PUSH_OUT] + top), fields, top
+
+
+def _push_input(case, c):
+    rng = np.random.default_rng(820)
+    shape = c.shape
+    if case == "near_max":
+        c = I32_MAX - rng.integers(0, 1 << 10, shape)
+        c[::2, 0] = I32_MAX                             # v + 1 wraps
+        return c.astype(np.int32)
+    if case == "near_min":
+        c = I32_MIN + rng.integers(0, 1 << 10, shape)
+        c[::2, 1] = I32_MIN + rng.integers(0, 7, len(c[::2]))  # v - 7 too
+        return c.astype(np.int32)
+    c = c.copy()
+    c[:, :8] = (c[:, :8] | 3) if case == "all_three" else (c[:, :8] & ~3)
+    return c
+
+
+@pytest.mark.parametrize("case", ["script", "near_max", "near_min",
+                                  "all_three", "none"])
+def test_scalar_push_matches_jax(script, monkeypatch, case):
+    mod, seen = _load(script, monkeypatch, 820)
+    mod.probe_scalar_push()
+    assert "r" in seen, "the script's probe D failed"
+    c, = seen["args"]
+    assert c.shape == (pp2.BB, pp2.PUSH_OUT) and c.dtype == np.int32
+    want = seen["r"]
+    if case != "script":
+        c = _push_input(case, c)
+        want = np.asarray(seen["run"](jnp.asarray(c)))
+    out, fields, top = pp2.scalar_push(*common.tensors(CPU, c))
+    assert out.shape == (pp2.BB, pp2.PUSH_OUT) and out.dtype == torch.int32
+    assert fields.shape == (5, pp2.BB, pp2.PUSH_S)
+    assert fields.dtype == top.dtype == torch.int32
+    assert top.shape == out.shape
+    np.testing.assert_array_equal(out.numpy(), want)
+    m_out, m_fields, m_top = _numpy_push(c)
+    np.testing.assert_array_equal(out.numpy(), m_out)
+    np.testing.assert_array_equal(fields.numpy(), m_fields)
+    np.testing.assert_array_equal(top.numpy(), m_top)
+    t = m_top[:, 0]
+    # slots no push reached read INT32_MIN (plus top in column 0)
+    unwritten = np.arange(pp2.PUSH_OUT)[None, :] >= t[:, None]
+    assert (want[:, 1:][unwritten[:, 1:]] == I32_MIN).all()
+    if case == "all_three":
+        assert (t == 150).all()
+    elif case == "none":
+        assert (t == 0).all() and (want[:, 0] == I32_MIN).all()
+    else:
+        assert unwritten.any() and 0 < t.max() <= 150
+    if case in ("near_max", "near_min"):
+        v = c[:, :3].astype(np.int64)
+        assert ((v * 3 > I32_MAX) | (v * 3 < I32_MIN)).all()
+        step = 1 if case == "near_max" else -7
+        wrapped = (fields.numpy()[1 if step == 1 else 3].astype(np.int64)
+                   != fields.numpy()[0].astype(np.int64) + step)
+        assert (wrapped & (fields.numpy()[0] != I32_MIN)).any()
+
+
 def test_host_pop_take_matches_plain(host):
     """csrc/probes.cuh `pop_take`, which kernel C13 runs on each slot,
     built for the host, equals the plain version's formula value by
@@ -242,11 +371,28 @@ def test_host_pop_take_matches_plain(host):
     np.testing.assert_array_equal(got_e1, torch.where(pm, _t(f), 0).numpy())
 
 
+def test_host_push_fields_match_plain(host):
+    """csrc/probes.cuh `push_fields`, which kernel C21 runs on each push,
+    built for the host, equals the plain version's fields value by value,
+    every field of random and edge values."""
+    rng = np.random.default_rng(821)
+    n = 4000
+    v = _i32(rng, n, [2**31 - 1, 2**31 - 2, -2**31, -2**31 + 6, -2**31 + 7,
+                      0x2AAAAAAB, -0x2AAAAAAB, 3, -4])
+    k = (np.arange(n) % 5).astype(np.int32)
+    got, = _call(host.nabwa_host_probe_push_fields, 1, v, k)
+    want = pp2.push_values(_t(v))[_t(k), torch.arange(n)]
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 RESULT_LINES = [
     r"devices: \['cpu'\]",
     r"probeA empty kernel: [\d.]+us",
     r"probeB 2x256 rowloads unroll=1: [\d.]+us \(\d+ns/load\)  ok=True",
     r"probeB 2x256 rowloads unroll=256: [\d.]+us \(\d+ns/load\)  ok=True",
+    r"probeC take_along_axis lanes: [\d.]+us ok=True",
+    r"probeD scalar push 50 iters x 256 lanes x <=3 cands: [\d.]+ms "
+    r"\([\d.]+us/iter\)",
     r"probeE \[512,128\] lane-sum: [\d.]+us ok=True",
     r"probeF pop-shape 50 iters S=256: [\d.]+ms \([\d.]+us/iter\)"]
 
@@ -255,7 +401,8 @@ def test_entry_point_cpu():
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-m", "nabwa_tpu_torch.probes.probe_pallas2",
-         "--device", "cpu", "A", "B1", "BU", "E", "F"], cwd=REPO, env=env,
+         "--device", "cpu", "A", "B1", "BU", "C", "D", "E", "F"], cwd=REPO,
+        env=env,
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     lines = res.stdout.splitlines()
@@ -264,12 +411,13 @@ def test_entry_point_cpu():
         assert re.fullmatch(pattern, line), (line, pattern)
 
 
-@pytest.mark.parametrize("probe", pp2.NOT_PORTED)
+@pytest.mark.parametrize("probe", ["G", "c"])
 def test_unported_probe_exits_nonzero(capsys, probe):
+    """A probe the script does not have exits non-zero before any runs."""
     assert pp2.main(["--device", "cpu", "A", probe]) != 0
     captured = capsys.readouterr()
     assert captured.out == ""
-    assert f"probe {probe}: not yet ported" in captured.err
+    assert f"probe {probe}: no such probe" in captured.err
 
 
 def test_entry_point_needs_card(capsys, monkeypatch):
@@ -288,7 +436,9 @@ def _zeros(*shape):
     lambda: pp2.empty_cuda(_zeros(8, 128)),
     lambda: pp2.loads_cuda(_zeros(256, 128), _zeros(8, 128), 1),
     lambda: pp2.pop_cuda(_zeros(4, 256)),
-    lambda: pp2.lanereduce_cuda(_zeros(4, 128))])
+    lambda: pp2.lanereduce_cuda(_zeros(4, 128)),
+    lambda: pp2.lane_gather_cuda(_zeros(4, 128), _zeros(4, 128)),
+    lambda: pp2.scalar_push_cuda(_zeros(4, 128))])
 def test_kernels_refuse_cpu_tensors(call):
     """A kernel wrapper given CPU tensors raises; only the dispatchers run
     the plain versions, and only for CPU tensors."""

@@ -343,6 +343,8 @@ RESULT_LINES = {
                      r"\([\d.]+us/iter\) r=-?\d+",
                      r"probe4b fori vector-only 50 iters: [\d.]+us  "
                      r"\([\d.]+us/iter\)",
+                     r"probe4c 60-op body 50 iters: [\d.]+us  "
+                     r"\([\d.]+us/iter\)",
                      r"probe5 dfs-shaped 100 iters BB=256 S=128: "
                      r"[\d.]+ms \([\d.]+us/iter\)"],
     "probe_dma": [rf"N=\s+{n} unroll={u} src={s:4s}  \s*[\d.]+ us/iter  "
@@ -382,10 +384,11 @@ def test_entry_point_needs_card(mod, capsys, monkeypatch):
 
 
 def test_unported_probe_exits_nonzero(capsys):
-    assert pp.main(["--device", "cpu", "1", "4c"]) != 0
+    """A probe the script does not have exits non-zero before any runs."""
+    assert pp.main(["--device", "cpu", "1", "4d"]) != 0
     captured = capsys.readouterr()
     assert captured.out == ""
-    assert "probe 4c: not yet ported" in captured.err
+    assert "probe 4d: no such probe" in captured.err
 
 
 @pytest.mark.parametrize("call", [
