@@ -130,12 +130,25 @@ Phases, any failure exits non-zero:
    out[K + 1] = INT32_MIN; out[w] = 128 (landed - w), the copies landed
    by read w never fewer than w, more than K or falling with w) and
    out[0], the copies landed when it read, counted over the timed
-   launches; the others exact against their plain versions.  Then each
-   probe's entry point (`python -m nabwa_tpu_torch.probes.probe_pallas`,
-   `.probe_dma`, `.probe_dfs_shape`, `.probe_pallas2`, `.probe_sem` at
-   K=4, `--device cuda`, the scripts' default arguments) once in a process
-   of its own, every launch counter starting at 0; its result lines are
-   logged and each of C7-C22 must have launched.
+   launches; the others exact against their plain versions.  C23
+   (csrc/probe_spill.cu) scripts/probe_spill.py at its K=24, T=2000 on its
+   four shapes, then at [64, 128] for every K it is built for, each with
+   its registers and spill bytes from the build's ptxas report (the run
+   fails unless some K spills; `ptxas_from_cache` says whether the report
+   came from this run's nvcc or from the one kept beside the library); C24
+   (csrc/probe_colops.cu) scripts/probe_colops.py at its T=2000, K=64 on
+   its five shapes, and at T=3 for K 1-3 and 5-7 (its K loop's unrolling
+   by 4 leaves every remainder); C25 and
+   C26 (csrc/probe_pallas3.cu) probes 7 and 8 of scripts/probe_pallas3.py
+   at their shapes; each exact at the scripts' inputs and at seeded
+   random int32 with values within 8 of both ends (C26 also with negative
+   and tied scalars).  Then each probe's entry point (`python -m
+   nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`, `.probe_dfs_shape`,
+   `.probe_pallas2`, `.probe_sem` at K=4, `.probe_spill` and
+   `.probe_colops` at their scripts' default K and T, `.probe_pallas3`,
+   `--device cuda`, the scripts' default arguments) once in a process of
+   its own, every launch counter starting at 0; its result lines are
+   logged and each of C7-C26 must have launched.
 Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
 points the probes' path: their launch counts, summed, are the `launches`
 of the kernels line.
@@ -146,13 +159,16 @@ busy share and the device time of each kernel.
 Every kernel's `bound_ms` is the least time the card could take for the
 same work on this run's inputs: the larger of the bytes it must move over
 HBM_BYTES_PER_S and its integer operations over INT_OPS_PER_S (see
-`bound`).  No single PyTorch call computes any of C1-C6, C8-C10, C13,
-C17-C19, C21 or C22, so `library_ms` is null for each (`library_why` says
-why for the probes); C7's, C12's and C15's is torch.index_select, C11's
-`x + 1`, C14's torch.sum into int32, C16's torch.bitwise_count where the
-card's torch has it, C20's torch.gather.  Beside `ms` (CUDA events over
+`bound`); `bound_int32_ms` the larger of the same bytes' time and the
+int32 instructions' time by pipe: those only the integer ALU pipe runs
+over INT32_OPS_PER_S, all of them over ISSUE_PER_S (`Work`).  No single
+PyTorch call computes
+any of C1-C6, C8-C10, C13, C17-C19 or C21-C26, so `library_ms` is null
+for each (`library_why` says why for the probes); C7's, C12's and C15's
+is torch.index_select, C11's `x + 1`, C14's torch.sum into int32, C16's
+torch.bitwise_count where the card's torch has it, C20's torch.gather.  Beside `ms` (CUDA events over
 back-to-back launches, which wait on the host's enqueue when it is the
-slower), C7 and C11-C22 carry
+slower), C7 and C11-C26 carry
 `queued_ms`, the same launches queued behind a sleeping kernel (the
 card's own time a launch), and C11 `wall_ms`, the host's clock a call;
 C11 has all three for `x + 1` too.
@@ -204,30 +220,103 @@ BAM_SHARE = 4
 # int32 lanes as float32 lanes, so the operations bound is optimistic.
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
-# integer operations per unit of work: each kernel's inner loop, loads and
-# stores not counted, as the comment at the top of its .cu file counts it
-OPS_LOCAL_CELL = 23       # csrc/local_sw.cuh, one cell of the sweep
-OPS_GLOBAL_CELL = 40      # csrc/dp_global.cuh, one cell of the band
-OPS_EXTEND_CELL = 26      # csrc/extend.cuh, one cell of a row's window
-OPS_OCC_BLOCK = 40        # one Occ block's count (masks and popcounts)
+# int32 work, counted by pipe (`Work`, `bound_int32_ms`): the integer ALU
+# pipe, 16 lanes a scheduler, 64 an SM a clock, x 132 SMs x the 1.98 GHz
+# boost clock, 16.7e12/s, runs logic, shifts, compares, selects and
+# min/max; every instruction also takes one of the 4 schedulers' issue
+# slots, 32 lanes each, 128 an SM a clock, 33.5e12/s.  Adds, subtracts,
+# multiplies, left shifts and moves count only towards issue, since IMAD
+# can take them on the float pipe.  The rates are an inference from the
+# data sheet and the CUDA guide's throughput table, not a published peak.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_PER_S = 132 * 128 * 1.98e9
+
+
+class Work:
+    """Integer work of a launch, counted three ways: `ops`, the operations
+    as the comment at the top of each kernel's .cu file counts them (for
+    `bound_ms`); `alu`, the fewest instructions only the integer ALU pipe
+    can run; `issue`, the fewest instructions in all.  Both instruction
+    counts take the inner loop as the source writes it (loads, stores and
+    loop control not counted), one instruction for an operation unless
+    one Hopper instruction does several: LOP3 any logic of three inputs,
+    IADD3 two adds, IMAD a multiply and an add, VIADDMNMX an add and a
+    min or max, VIMNMX3 a max of three, ISETP a compare and-ed with a
+    predicate; a select that keeps one side is a predicated move (issue
+    only); popcounts, shuffles and votes count towards issue only."""
+
+    __slots__ = ("ops", "alu", "issue")
+
+    def __init__(self, ops, alu, issue):
+        self.ops, self.alu, self.issue = ops, alu, issue
+
+    def __add__(self, other):
+        return Work(self.ops + other.ops, self.alu + other.alu,
+                    self.issue + other.issue)
+
+    def __mul__(self, n):
+        return Work(self.ops * n, self.alu * n, self.issue * n)
+
+    __rmul__ = __mul__
+
+
+# integer work per unit: each kernel's inner loop, as the comment at the
+# top of its .cu file counts the operations, and (alu, issue) as `Work`
+# counts its instructions
+# csrc/local_sw.cuh, one cell of the sweep: the two gated maxima of E
+# (compare, VIADDMNMX), the diagonal's add and max with 0 and with E
+# (VIMNMX3), F's VIADDMNMX, h's VIMNMX3, hcut's VIADDMNMX, the best
+# cell's compare and two predicated moves
+OPS_LOCAL_CELL = Work(23, 7, 12)
+# csrc/dp_global.cuh, one cell of the band: three compares of the
+# diagonal and its VIMNMX3, the band's two compares, the end's and i_ok's,
+# from_m's compare and I's VIADDMNMX, D's gate and running max, dt's
+# compare, the lattice byte's LOP3 (14); and 17 adds, subtracts and moves
+OPS_GLOBAL_CELL = Work(40, 14, 31)
+# csrc/extend.cuh, one cell of a row's window: h0's compare, five maxima
+# (hpre, F's VIADDMNMX, h's VIMNMX3, hc's and ev's VIADDMNMX), hcut's,
+# the three compares of the row's span and best (10); 6 adds and moves
+OPS_EXTEND_CELL = Work(26, 10, 16)
+# one Occ block's count, 8 words of: the word's mask, a shift, three LOP3
+# (lo, hi, lo & hi) on the ALU pipe; three popcounts and 1.5 adds (IADD3)
+OPS_OCC_BLOCK = Work(40, 40, 76)
 OCC_BLOCK_BYTES = 48      # bwt.h:61-68, 4 counters + 8 words
 # the probe mocks' operations per read and iteration, as the header of
 # csrc/probe_dfs_shape.cu counts them.  C9: per staged row (its block
 # offset), per word of the row's 8-word block, per slot, per read; two
 # rows a read.  C10: per word of bank 0's row, per slot, per read.
-OPS_SHAPE = (6, 17, 16, 178)
-OPS_PALLAS = (8, 11, 10)
-# C13 (csrc/probe_pallas2.cu): per slot once, per slot and round, per row
-# and round
-OPS_POP = (1, 5, 1)
-# C17 and C18 (csrc/probe_pallas.cu): per slot and round, per row and round
-OPS_WHILE = (4, 1)
-# C19 (csrc/probe_pallas.cu): per element and step
-OPS_BODY = 8
-# C20 (csrc/probe_pallas2.cu): per output element
-OPS_GATHER = 9
-# C21 (csrc/probe_pallas2.cu): per row and round, per push
-OPS_PUSH = (4, 6)
+OPS_SHAPE = (Work(6, 3, 5), Work(17, 6, 13), Work(16, 11, 16),
+             Work(178, 70, 149))
+OPS_PALLAS = (Work(8, 3, 7), Work(11, 5, 10), Work(10, 2, 7))
+# C11 and C16: an add, a popcount a word; C14: an add (IADD3, two a
+# instruction)
+OPS_ONE = Work(1, 0, 1)
+OPS_SUM = Work(1, 0, 0.5)
+# C13 (csrc/probe_pallas2.cu): per slot once (the xor), per slot and round
+# (7 minima for 8 slots a lane, the compare; the add and the clear
+# predicated), per row and round (slot 0's minimum)
+OPS_POP = (Work(1, 1, 1), Work(5, 1.875, 3.875), Work(1, 1, 1))
+# C17 and C18 (csrc/probe_pallas.cu): per slot and round (3 minima for 4
+# slots a lane, the compare, the predicated add), per row and round
+OPS_WHILE = (Work(4, 1.75, 2.75), Work(1, 0, 1))
+# C19 (csrc/probe_pallas.cu): per element and step, the LOP3 of the
+# select's test, the shift, the xor; the predicated add and p * 3
+OPS_BODY = Work(8, 3, 5)
+# C20 (csrc/probe_pallas2.cu): per output element, the shift and a
+# predicate of i & 3; four shuffles, two more selects
+OPS_GATHER = Work(9, 2, 8)
+# C21 (csrc/probe_pallas2.cu): per row and round (the and, three
+# compares), per push (the xor and the mask; three fields and the add)
+OPS_PUSH = (Work(4, 4, 4), Work(6, 2, 6))
+# C23 (csrc/probe_spill.cu) per value and round, C24 (csrc/probe_colops.cu)
+# per step: IMAD, the shift, the xor; C25 (csrc/probe_pallas3.cu) per
+# element and step: the add, the shift, the xor; C26: the compare, two
+# predicated adds
+OPS_SPILL = Work(4, 2, 3)
+OPS_COLOPS = Work(4, 2, 3)
+OPS_P7 = Work(3, 2, 3)
+OPS_P8 = Work(4, 1, 3)
+SPILL_SWEEP_SHAPE = (64, 128)     # C23's K sweep, at the script's T
 ROW_BYTES = 512               # one 128-word int32 table row
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 # a sleep on the card long enough for the host to enqueue 200 launches
@@ -237,18 +326,19 @@ PROBE_SEED = 18
 DMA_T = 64                    # scripts/probe_dma.py:28
 DMA_ROWS = (100_000, 4_000_000)
 L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
-# the probes' entry points, each run once in a process of its own with the
-# scripts' default arguments, and the launch counter of each probe kernel
-PROBE_ENTRIES = ("probe_pallas", "probe_dma", "probe_dfs_shape",
-                 "probe_pallas2", "probe_sem")
 SEM_K = 4                     # scripts/probe_sem.py's default K
+# the probes' entry points, each run once in a process of its own with the
+# scripts' default arguments and its own environment (none of ROWS, T and
+# K but these), and the launch counter of each probe kernel
+PROBE_ENTRIES = {"probe_pallas": {}, "probe_dma": {}, "probe_dfs_shape": {},
+                 "probe_pallas2": {}, "probe_sem": {"K": str(SEM_K)},
+                 "probe_spill": {}, "probe_colops": {}, "probe_pallas3": {}}
 PROBE_COUNT = """\
-import json, sys
-from nabwa_tpu_torch.probes import (probe_dfs_shape, probe_dma, probe_pallas,
-                                    probe_pallas2, probe_sem)
-mod = {"probe_pallas": probe_pallas, "probe_dma": probe_dma,
-       "probe_dfs_shape": probe_dfs_shape, "probe_pallas2": probe_pallas2,
-       "probe_sem": probe_sem}[sys.argv[1]]
+import importlib, json, sys
+from nabwa_tpu_torch.probes import (probe_colops, probe_dfs_shape, probe_dma,
+                                    probe_pallas, probe_pallas2,
+                                    probe_pallas3, probe_sem, probe_spill)
+mod = importlib.import_module("nabwa_tpu_torch.probes." + sys.argv[1])
 rc = mod.main(sys.argv[2:])
 print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_dma": probe_dma.launches,
@@ -265,17 +355,30 @@ print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_body_scale": probe_pallas.launches_body_scale,
                   "probe_lane_gather": probe_pallas2.launches_lane_gather,
                   "probe_scalar_push": probe_pallas2.launches_scalar_push,
-                  "probe_sem": probe_sem.launches}))
+                  "probe_sem": probe_sem.launches,
+                  "probe_spill": probe_spill.launches,
+                  "probe_colops": probe_colops.launches,
+                  "probe_p7": probe_pallas3.launches_p7,
+                  "probe_p8": probe_pallas3.launches_p8}))
 sys.exit(rc)
 """
 
 
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the larger of the bytes' time at the HBM rate
-    and the operations' time at the integer rate."""
+def bound(n_bytes, work=0):
+    """(bound_ms, bound_by, bound_int32_ms) of a launch that moves n_bytes
+    and does `work` (a `Work`, 0 for none): the larger of the bytes'
+    time at the HBM rate and the operations' time at the integer rate, and
+    which of the two it is; then the largest of the same bytes' time, the
+    ALU instructions' time at INT32_OPS_PER_S and all instructions' time
+    at ISSUE_PER_S."""
+    work = work or Work(0, 0, 0)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = work.ops / INT_OPS_PER_S * 1e3
+    t_int32 = max(t_bytes, work.alu / INT32_OPS_PER_S * 1e3,
+                  work.issue / ISSUE_PER_S * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", t_int32
+    return t_ops, "operations", t_int32
 
 
 def nbytes(*tensors):
@@ -1157,7 +1260,7 @@ def check_probes(dev):
         "max_abs_err": err,
         "ms": cuda_ms(lambda: pp.rowload_cuda(idx_t, tab_t), 200),
         "plain_ms": cuda_ms(lambda: pp.rowload_plain(idx_t, tab_t), 200),
-        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, lib_idx),
                               200),
         "library_call": "torch.index_select(table, 0, idx[:, 0])",
@@ -1197,6 +1300,7 @@ def check_probes(dev):
                         "ms": ms, "plain_ms": cuda_ms(lambda: pdma.dma_plain(
                             tab, n, DMA_T, rows, src), 2),
                         "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "bound_int32_ms": bnd[2],
                         "us_per_iter": ms * 1e3 / DMA_T,
                         "us_per_copy": ms * 1e3 / DMA_T / n,
                         "cold_ms": cold,
@@ -1210,7 +1314,8 @@ def check_probes(dev):
     out["probe_dma"] = {
         "max_abs_err": worst, "ms": main_cfg["ms"],
         "plain_ms": main_cfg["plain_ms"], "bound_ms": main_cfg["bound_ms"],
-        "bound_by": main_cfg["bound_by"], "library_ms": None,
+        "bound_by": main_cfg["bound_by"],
+        "bound_int32_ms": main_cfg["bound_int32_ms"], "library_ms": None,
         "library_why": "none: serial rounds of async row copies into shared "
                        "memory",
         "us_per_iter": main_cfg["us_per_iter"],
@@ -1237,7 +1342,7 @@ def check_probes(dev):
             "bb": bb, "s": s, "iters": iters, "max_abs_err": err, "ms": ms,
             "plain_ms": cuda_ms(lambda: pds.run_plain(seed_t, tab_t, s,
                                                       iters), 1),
-            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
             "us_per_iter": ms * 1e3 / iters,
             "m_lane_iters_per_s": bb / (ms / 1e3 / iters) / 1e6})
         log(f"C9 probe_dfs_shape BB={bb}: exact; {shapes[-1]}")
@@ -1271,7 +1376,8 @@ def check_probes(dev):
     out["probe_pallas_dfs_shape"] = {
         "max_abs_err": err, "ms": ms,
         "plain_ms": cuda_ms(lambda: pp.dfs_shape_plain(k_t, tab_t), 1),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
         "library_why": "none: a pop, row loads and pushes per read, iterated",
         "us_per_iter": ms * 1e3 / pp.DFS_ITERS,
         "bb": pp.DFS_BB, "s": pp.DFS_S, "iters": pp.DFS_ITERS}
@@ -1284,12 +1390,12 @@ def check_probes(dev):
     x[0, :4] = (I32_MAX, I32_MIN, -1, 0)
     x_t, = common.tensors(dev, x)
     err = exact("C11 probe_empty", pp2.empty_cuda(x_t), pp2.empty_plain(x_t))
-    bnd = bound(2 * nbytes(x_t), x_t.numel())
+    bnd = bound(2 * nbytes(x_t), OPS_ONE * x_t.numel())
     out["probe_empty"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: pp2.empty_cuda(x_t), 200),
         "plain_ms": cuda_ms(lambda: pp2.empty_plain(x_t), 200),
-        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: x_t + 1, 200),
         "library_call": "x + 1",
         "wall_ms": wall_ms(lambda: pp2.empty_cuda(x_t), 200),
@@ -1321,7 +1427,7 @@ def check_probes(dev):
         "max_abs_err": max(v["max_abs_err"] for v in variants),
         "ms": variants[0]["ms"],
         "plain_ms": cuda_ms(lambda: pp2.loads_plain(idx_t, tab_t), 200),
-        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, flat),
                               200),
         "library_call": "torch.index_select(table, 0, "
@@ -1359,7 +1465,8 @@ def check_probes(dev):
     out["probe_pop"] = {
         "max_abs_err": worst, "ms": ms,
         "plain_ms": cuda_ms(lambda: pp2.pop_plain(x_t), 5),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
         "library_why": "none: 50 dependent rounds of a minimum, tie "
                        "extraction and feedback",
         "us_per_iter": ms * 1e3 / pp2.POP_ITERS,
@@ -1379,12 +1486,12 @@ def check_probes(dev):
               exact("C14 probe_lanereduce wrap", pp2.lanereduce_cuda(edge_t),
                     pp2.lanereduce_plain(edge_t)))
     rows, width = pp2.REDUCE_SHAPE
-    bnd = bound(nbytes(x_t) + 4 * rows, rows * (width - 1))
+    bnd = bound(nbytes(x_t) + 4 * rows, OPS_SUM * (rows * (width - 1)))
     out["probe_lanereduce"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: pp2.lanereduce_cuda(x_t), 200),
         "plain_ms": cuda_ms(lambda: pp2.lanereduce_plain(x_t), 200),
-        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.sum(x_t, dim=1, keepdim=True,
                                                 dtype=torch.int32), 200),
         "library_call": "torch.sum(x, dim=1, keepdim=True, "
@@ -1420,7 +1527,7 @@ def check_probes(dev):
         "max_abs_err": err,
         "ms": cuda_ms(lambda: pp.smem_idx_cuda(idx_t, tab_t), 200),
         "plain_ms": cuda_ms(lambda: pp.smem_idx_plain(idx_t, tab_t), 200),
-        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, idx_t),
                               200),
         "library_call": "torch.index_select(table, 0, idx)",
@@ -1438,7 +1545,7 @@ def check_probes(dev):
                     pp.popcount_plain(x_t)),
               exact("C16 probe_popcount edges", pp.popcount_cuda(edge_t),
                     pp.popcount_plain(edge_t)))
-    bnd = bound(2 * nbytes(x_t), x_t.numel())
+    bnd = bound(2 * nbytes(x_t), OPS_ONE * x_t.numel())
     lib_fn = getattr(torch, "bitwise_count", None)
     lib = ({"library_ms": cuda_ms(lambda: lib_fn(x_t), 200),
             "library_call": "torch.bitwise_count(x)"} if lib_fn else
@@ -1449,7 +1556,8 @@ def check_probes(dev):
         "max_abs_err": err,
         "ms": cuda_ms(lambda: pp.popcount_cuda(x_t), 200),
         "plain_ms": cuda_ms(lambda: pp.popcount_plain(x_t), 200),
-        "bound_ms": bnd[0], "bound_by": bnd[1], **lib,
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], **lib,
         "queued_ms": queued_ms(lambda: pp.popcount_cuda(x_t), 200)}
     log(f"C16 probe_popcount: exact; {out['probe_popcount']}")
 
@@ -1484,7 +1592,8 @@ def check_probes(dev):
         out["probe_" + kern] = {
             "max_abs_err": worst[kern], "ms": ms,
             "plain_ms": cuda_ms(lambda: plain(x_t), 5),
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "bound_ms": bnd[0], "bound_by": bnd[1],
+            "bound_int32_ms": bnd[2], "library_ms": None,
             "library_why": "none: 50 dependent rounds of a row minimum and "
                            "update",
             "queued_ms": queued, "us_per_iter": ms * 1e3 / pp.WHILE_ITERS,
@@ -1513,7 +1622,8 @@ def check_probes(dev):
     out["probe_body_scale"] = {
         "max_abs_err": err, "ms": ms,
         "plain_ms": cuda_ms(lambda: pp.body_scale_plain(x_t), 3),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
         "library_why": "none: 1,000 dependent elementwise steps with a "
                        "data-dependent select",
         "queued_ms": queued, "us_per_iter": ms * 1e3 / pp.BODY_ROUNDS,
@@ -1554,7 +1664,7 @@ def check_probes(dev):
         "max_abs_err": err,
         "ms": cuda_ms(lambda: pp2.lane_gather_cuda(x_t, i_t), 200),
         "plain_ms": cuda_ms(lambda: pp2.lane_gather_plain(x_t, i_t), 200),
-        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.gather(x_t, 1, i_long), 200),
         "library_call": "torch.gather(x, 1, i.long()), the int64 index "
                         "made once beforehand",
@@ -1595,7 +1705,8 @@ def check_probes(dev):
     out["probe_scalar_push"] = {
         "max_abs_err": err, "ms": ms,
         "plain_ms": cuda_ms(lambda: pp2.scalar_push_plain(c_t), 3),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
         "library_why": "none: serial pushes at data-dependent slots, row "
                        "by row",
         "queued_ms": queued, "us_per_iter": ms * 1e3 / pp2.PUSH_ROUNDS,
@@ -1666,7 +1777,8 @@ def check_probes(dev):
         "out_head_max_abs_diff": {str(k): c[1] for k, c in checked.items()},
         "ms": ms,
         "plain_ms": cuda_ms(lambda: psem.sem_plain(tab_t, SEM_K), 200),
-        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
         "library_why": "none: no PyTorch call issues async copies and "
                        "reads how many have landed",
         "queued_ms": queued, "k": SEM_K,
@@ -1678,19 +1790,239 @@ def check_probes(dev):
     return out
 
 
+def once_ms(fn):
+    """(device milliseconds of one call of fn() by CUDA events, with no
+    warm-up, its result): for plain versions that take seconds a call."""
+    import torch
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    r = fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1), r
+
+
+def int32_mixed(rng, shape):
+    """Seeded random int32 over the whole range, its first values within 8
+    of INT32_MAX and of INT32_MIN, 0 and -1 (as many as fit)."""
+    import numpy as np
+    x = rng.randint(I32_MIN, I32_MAX + 1, shape, dtype=np.int64)
+    edges = ([I32_MAX - d for d in range(8)] + [I32_MIN + d for d in range(8)]
+             + [0, -1])
+    flat = x.reshape(-1)
+    flat[:min(len(flat), len(edges))] = edges[:len(flat)]
+    return x
+
+
+def spill_ptxas(log_text):
+    """{K: registers, stack frame and spill bytes} of kernel C23's
+    instantiations, read from the ptxas report of the build."""
+    tag = "probe_spill_kernelILi"
+    report, k = {}, None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            k = (int(name.split(tag)[1].split("E")[0]) if tag in name
+                 else None)
+        elif k is not None and "bytes spill stores" in ln:
+            stack, stores, loads = (int(part.split()[0])
+                                    for part in ln.split(","))
+            report.setdefault(k, {}).update(
+                stack_bytes=stack, spill_store_bytes=stores,
+                spill_load_bytes=loads)
+        elif k is not None and "Used" in ln and "registers" in ln:
+            report.setdefault(k, {})["registers"] = int(
+                ln.split("Used")[1].split()[0])
+            k = None
+    return report
+
+
+def check_chains(dev):
+    """Phase 18, kernels C23-C26 against their plain versions on the card,
+    exact, at the scripts' shapes and inputs and at seeded random and int32
+    edge inputs; C23 also over every K it is built for.  Returns {kernel
+    name: fields of its kernels-line entry but `launches`}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.ops import _build
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_colops as pc
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
+    from nabwa_tpu_torch.probes import probe_spill as ps
+    rng = np.random.RandomState(PROBE_SEED + 1)
+    out = {}
+    why = "none: no single PyTorch call computes a chain of dependent steps"
+
+    # C23: scripts/probe_spill.py at its defaults (K=24, T=2000) on its four
+    # shapes, on its zeros and on random and edge inputs; then every K the
+    # kernel is built for at [64, 128], with ptxas's registers and spills
+    k, t = ps.DEFAULT_K, ps.DEFAULT_T
+    err, shapes = 0, {}
+    for shape in ps.SHAPES:
+        for name, x in (("script", np.zeros(shape)),
+                        ("mixed", int32_mixed(rng, shape))):
+            x_t, = common.tensors(dev, x)
+            err = max(err, exact(f"C23 probe_spill {shape} {name}",
+                                 ps.spill_cuda(x_t, k, t),
+                                 ps.spill_plain(x_t, k, t)))
+        x_t, = common.tensors(dev, np.zeros(shape))
+        ms = cuda_ms(lambda: ps.spill_cuda(x_t, k, t), 20)
+        queued = queued_ms(lambda: ps.spill_cuda(x_t, k, t), 20)
+        shapes[str(shape)] = {"ms": ms, "queued_ms": queued,
+                              "us_per_iter": ms * 1e3 / t,
+                              "queued_us_per_iter": queued * 1e3 / t}
+    report = spill_ptxas(_build.build_log)
+    missing = [kk for kk in ps.SPILL_KS if "registers" not in
+               report.get(kk, {})]
+    if missing:
+        fail(f"C23: no ptxas report for K {missing}")
+    sweep = {}
+    x_t, = common.tensors(dev, int32_mixed(rng, SPILL_SWEEP_SHAPE))
+    for kk in ps.SPILL_KS:
+        e = exact(f"C23 probe_spill K={kk}", ps.spill_cuda(x_t, kk, t),
+                  ps.spill_plain(x_t, kk, t))
+        err = max(err, e)
+        ms = cuda_ms(lambda: ps.spill_cuda(x_t, kk, t), 10)
+        queued = queued_ms(lambda: ps.spill_cuda(x_t, kk, t), 10)
+        sweep[str(kk)] = {"ms": ms, "queued_ms": queued,
+                          "queued_us_per_round": queued * 1e3 / t,
+                          "bound_int32_ms": bound(
+                              2 * nbytes(x_t),
+                              OPS_SPILL * t * kk * x_t.numel())[2],
+                          "max_abs_err": e, **report[kk]}
+        log(f"C23 K={kk}: {sweep[str(kk)]}")
+    spilled = [kk for kk in ps.SPILL_KS if report[kk]["spill_store_bytes"]]
+    if not spilled:
+        fail("C23: no K spills; the set does not reach past the register "
+             "cap")
+    x_t, = common.tensors(dev, np.zeros(SPILL_SWEEP_SHAPE))
+    bnd = bound(2 * nbytes(x_t), OPS_SPILL * t * k * x_t.numel())
+    head = shapes[str(SPILL_SWEEP_SHAPE)]
+    out["probe_spill"] = {
+        "max_abs_err": err, "ms": head["ms"],
+        "plain_ms": cuda_ms(lambda: ps.spill_plain(x_t, k, t), 2),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
+        "library_why": why, "queued_ms": head["queued_ms"],
+        "shape": list(SPILL_SWEEP_SHAPE), "k": k, "t": t, "shapes": shapes,
+        "k_sweep": sweep, "first_k_spilling": spilled[0],
+        "ptxas_from_cache": _build.build_seconds is None}
+    log(f"C23 probe_spill: exact; first spill at K={spilled[0]}; "
+        f"{ {n: v for n, v in out['probe_spill'].items() if n != 'k_sweep'} }")
+
+    # C24: scripts/probe_colops.py at its defaults (T=2000, K=64) on its
+    # five shapes; the plain version takes ~0.9M small launches a call, so
+    # it runs twice: once timed on [64, 128]'s zeros, once on every other
+    # checked input flattened into one tensor (the steps are elementwise)
+    t, k = pc.DEFAULT_T, pc.DEFAULT_K
+    shapes, kern, rest = {}, [], []
+    for shape in pc.SHAPES:
+        for name, x in (("script", np.zeros(shape)),
+                        ("mixed", int32_mixed(rng, shape))):
+            if shape == SPILL_SWEEP_SHAPE and name == "script":
+                continue
+            x_t, = common.tensors(dev, x)
+            kern.append(pc.colops_cuda(x_t, t, k).reshape(-1))
+            rest.append(x_t.reshape(-1))
+        x_t, = common.tensors(dev, np.zeros(shape))
+        ms = cuda_ms(lambda: pc.colops_cuda(x_t, t, k), 10)
+        queued = queued_ms(lambda: pc.colops_cuda(x_t, t, k), 10)
+        shapes[str(shape)] = {"ms": ms, "queued_ms": queued,
+                              "queued_ns_per_op": queued * 1e6 / (t * k * 3)}
+    err = exact("C24 probe_colops, all inputs but [64, 128]'s zeros",
+                torch.cat(kern), pc.colops_plain(torch.cat(rest), t, k))
+    x_t, = common.tensors(dev, np.zeros(SPILL_SWEEP_SHAPE))
+    plain_ms, want = once_ms(lambda: pc.colops_plain(x_t, t, k))
+    err = max(err, exact("C24 probe_colops (64, 128) script",
+                         pc.colops_cuda(x_t, t, k), want))
+    # the K loop is unrolled by 4: every remainder of K mod 4, at T=3
+    x_t, = common.tensors(dev, int32_mixed(rng, (8, 128)))
+    for kk in (1, 2, 3, 5, 6, 7):
+        err = max(err, exact(f"C24 probe_colops (8, 128) K={kk} T=3",
+                             pc.colops_cuda(x_t, 3, kk),
+                             pc.colops_plain(x_t, 3, kk)))
+    x_t, = common.tensors(dev, np.zeros(SPILL_SWEEP_SHAPE))
+    bnd = bound(2 * nbytes(x_t), OPS_COLOPS * t * k * x_t.numel())
+    q = {n: v["queued_ms"] for n, v in shapes.items()}
+    out["probe_colops"] = {
+        "max_abs_err": err, "ms": shapes[str(SPILL_SWEEP_SHAPE)]["ms"],
+        "plain_ms": plain_ms, "plain_calls_timed": 1,
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
+        "library_why": why,
+        "queued_ms": shapes[str(SPILL_SWEEP_SHAPE)]["queued_ms"],
+        "shape": list(SPILL_SWEEP_SHAPE), "t": t, "k": k, "shapes": shapes,
+        "widest_over_narrowest": q["(64, 256)"] / q["(64, 1)"]}
+    log(f"C24 probe_colops: exact; {out['probe_colops']}")
+
+    # C25: probe 7's 200 chained steps at its four shapes, on the script's
+    # values and on random and edge inputs
+    err, shapes = 0, {}
+    for shape in p3.P7_SHAPES:
+        for name, x in (("script", rng.randint(0, 99, shape)),
+                        ("mixed", int32_mixed(rng, shape))):
+            x_t, = common.tensors(dev, x)
+            err = max(err, exact(f"C25 probe_p7 {shape} {name}",
+                                 p3.p7_cuda(x_t), p3.p7_plain(x_t)))
+        x_t, = common.tensors(dev, rng.randint(0, 99, shape))
+        shapes[str(shape)] = {
+            "ms": cuda_ms(lambda: p3.p7_cuda(x_t), 200),
+            "queued_ms": queued_ms(lambda: p3.p7_cuda(x_t), 200)}
+    big = str(p3.P7_SHAPES[-1])
+    bnd = bound(2 * nbytes(x_t), OPS_P7 * p3.P7_STEPS * x_t.numel())
+    out["probe_p7"] = {
+        "max_abs_err": err, "ms": shapes[big]["ms"],
+        "plain_ms": cuda_ms(lambda: p3.p7_plain(x_t), 3),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
+        "library_why": why, "queued_ms": shapes[big]["queued_ms"],
+        "shape": list(p3.P7_SHAPES[-1]), "shapes": shapes}
+    log(f"C25 probe_p7: exact; {out['probe_p7']}")
+
+    # C26: probe 8's 30 column-broadcast steps on [256, 128], on the
+    # script's values, then a near both int32 ends, negative (v - a wraps)
+    # and equal to plane values (ties), the plane over all of int32
+    a = rng.randint(1, 99, (p3.P8_ROWS, 1))
+    b = rng.randint(0, 99, (p3.P8_ROWS, p3.P8_COLS))
+    edge_a = int32_mixed(rng, (p3.P8_ROWS, 1))
+    edge_b = int32_mixed(rng, (p3.P8_ROWS, p3.P8_COLS))
+    edge_b[:, 16:20] = edge_a
+    err = 0
+    for name, (aa, bb) in (("script", (a, b)), ("edges", (edge_a, edge_b))):
+        a_t, b_t = common.tensors(dev, aa, bb)
+        err = max(err, exact(f"C26 probe_p8 {name}", p3.p8_cuda(a_t, b_t),
+                             p3.p8_plain(a_t, b_t)))
+    a_t, b_t = common.tensors(dev, a, b)
+    bnd = bound(nbytes(a_t) + 2 * nbytes(b_t),
+                OPS_P8 * p3.P8_STEPS * b_t.numel())
+    out["probe_p8"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: p3.p8_cuda(a_t, b_t), 200),
+        "plain_ms": cuda_ms(lambda: p3.p8_plain(a_t, b_t), 20),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "bound_int32_ms": bnd[2], "library_ms": None,
+        "library_why": why,
+        "queued_ms": queued_ms(lambda: p3.p8_cuda(a_t, b_t), 200)}
+    log(f"C26 probe_p8: exact; {out['probe_p8']}")
+    return out
+
+
 def run_probe_entries():
     """Each probe entry point once with `--device cuda`, in a process of
-    its own (every launch counter starts at 0; probe_sem at K=SEM_K).
-    Returns ({kernel: launches summed over the runs}, {entry: its printed
-    lines})."""
-    env = {k: v for k, v in os.environ.items() if k not in ("ROWS", "T")}
-    env["K"] = str(SEM_K)
+    its own (every launch counter starts at 0) with its environment of
+    PROBE_ENTRIES: probe_sem at K=SEM_K, probe_spill and probe_colops at
+    their scripts' default K and T.  Returns ({kernel: launches summed
+    over the runs}, {entry: its printed lines})."""
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("ROWS", "T", "K")}
     counts, printed = {}, {}
-    for name in PROBE_ENTRIES:
+    for name, extra in PROBE_ENTRIES.items():
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "-c", PROBE_COUNT, name,
-                              "--device", "cuda"], cwd=ROOT, env=env,
-                             capture_output=True, text=True, timeout=600)
+                              "--device", "cuda"], cwd=ROOT,
+                             env={**base, **extra}, capture_output=True,
+                             text=True, timeout=600)
         lines = res.stdout.splitlines()
         if res.returncode != 0 or not lines:
             fail(f"python -m nabwa_tpu_torch.probes.{name} --device cuda "
@@ -2169,9 +2501,12 @@ def main():
         if b2b_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bam2bam path")
 
-    # phase 18: the probes, C7-C22 against their plain versions on the
+    # phase 18: the probes, C7-C26 against their plain versions on the
     # card, then each probe's entry point in a process of its own
     probes = check_probes(torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    probes.update(check_chains(torch.device("cuda", 0)))
+    log(f"C23-C26 checked in {time.perf_counter() - t0:.1f} s")
     probe_counts, probe_lines = run_probe_entries()
 
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
@@ -2182,7 +2517,8 @@ def main():
                 "source": f"nabwa_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bound_int32_ms": bnd[2], "library_ms": None,
                 **extra}
 
     def b2b_fields(chk, n_cli):
@@ -2192,7 +2528,8 @@ def main():
                 "bam2bam_ms": chk["ms"], "bam2bam_plain_ms": chk["plain_ms"],
                 "bam2bam_total_ms": chk["total_ms"],
                 "bam2bam_bound_ms": chk["bound"][0],
-                "bam2bam_bound_by": chk["bound"][1]}
+                "bam2bam_bound_by": chk["bound"][1],
+                "bam2bam_bound_int32_ms": chk["bound"][2]}
 
     kernels = [
         entry("dfs", "dfs.cu", "nabwa_tpu/ops/dfs_pallas.py:1253",
@@ -2217,6 +2554,7 @@ def main():
               bwasw_total_ms=sw_sa["total_ms"],
               bwasw_bound_ms=sw_sa["bound"][0],
               bwasw_bound_by=sw_sa["bound"][1],
+              bwasw_bound_int32_ms=sw_sa["bound"][2],
               **b2b_fields(b2b_sa, b2b_counts["sa_lookup"])),
         entry("banded_global", "banded_global.cu", "nabwa_tpu/ops/dp.py:31",
               max(pdp["err"], dp_err, sw_dp["err"], b2b_dp["err"]),
@@ -2226,6 +2564,7 @@ def main():
               samse_refine_jobs=n_jobs, samse_refine_ms=dp_ms,
               samse_refine_plain_ms=dp_plain,
               samse_refine_bound_ms=dp_bound[0],
+              samse_refine_bound_int32_ms=dp_bound[2],
               lattice_bytes=tb_bytes, lattice_copy_ms=tb_copy_ms,
               samse_cli_launches=se_counts["banded_global"],
               bwasw_launches=sw_counts["banded_global"],
@@ -2238,6 +2577,7 @@ def main():
               bwasw_total_ms=sw_dp["total_ms"],
               bwasw_bound_ms=sw_dp["bound"][0],
               bwasw_bound_by=sw_dp["bound"][1],
+              bwasw_bound_int32_ms=sw_dp["bound"][2],
               **b2b_fields(b2b_dp, b2b_counts["banded_global"])),
         entry("local_fwd", "local_fwd.cu", "nabwa_tpu/ops/dp.py:404",
               max(lf["err"], b2b_lf["err"]), lf["ms"], lf["plain_ms"],
@@ -2286,7 +2626,13 @@ def main():
              "scripts/probe_pallas2.py:92"),
             ("probe_scalar_push", "probe_pallas2.cu",
              "scripts/probe_pallas2.py:146"),
-            ("probe_sem", "probe_sem.cu", "scripts/probe_sem.py:33")):
+            ("probe_sem", "probe_sem.cu", "scripts/probe_sem.py:33"),
+            ("probe_spill", "probe_spill.cu", "scripts/probe_spill.py:45"),
+            ("probe_colops", "probe_colops.cu",
+             "scripts/probe_colops.py:39"),
+            ("probe_p7", "probe_pallas3.cu", "scripts/probe_pallas3.py:202"),
+            ("probe_p8", "probe_pallas3.cu",
+             "scripts/probe_pallas3.py:222")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"nabwa_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[name],

@@ -6,8 +6,8 @@
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
 // C9's and C10's counts and expansion, C13's slot of a pop, C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
-// pushed fields), one value at a time.  It is not part of the kernel
-// library.
+// pushed fields, C23's value update, C24's step, C25's and C26's steps),
+// one value at a time.  It is not part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
@@ -238,5 +238,35 @@ extern "C" int nabwa_host_probe_push_fields(const int32_t* v,
                                             const int32_t* k, int n,
                                             int32_t* out) {
     for (int i = 0; i < n; ++i) out[i] = pr::push_fields(v[i], k[i]);
+    return 0;
+}
+
+// C23's update of each value v from its neighbour `next`
+extern "C" int nabwa_host_probe_spill_update(const int32_t* v,
+                                             const int32_t* next, int n,
+                                             int32_t* out) {
+    for (int i = 0; i < n; ++i) out[i] = pr::spill_update(v[i], next[i]);
+    return 0;
+}
+
+// C24's step of each value v
+extern "C" int nabwa_host_probe_colops_step(const int32_t* v, int n,
+                                            int32_t* out) {
+    for (int i = 0; i < n; ++i) out[i] = pr::colops_step(v[i]);
+    return 0;
+}
+
+// C25's step i of each value v
+extern "C" int nabwa_host_probe_p7_step(const int32_t* v, const int32_t* i,
+                                        int n, int32_t* out) {
+    for (int k = 0; k < n; ++k) out[k] = pr::p7_step(v[k], i[k]);
+    return 0;
+}
+
+// C26's step i of each value v against its row's scalar a
+extern "C" int nabwa_host_probe_p8_step(const int32_t* v, const int32_t* a,
+                                        const int32_t* i, int n,
+                                        int32_t* out) {
+    for (int k = 0; k < n; ++k) out[k] = pr::p8_step(v[k], a[k], i[k]);
     return 0;
 }

@@ -1,11 +1,13 @@
-// The per-read and per-copy arithmetic of the probe kernels C7-C21
+// The per-read and per-copy arithmetic of the probe kernels C7-C26
 // (probe_rowload.cu, probe_dma.cu, probe_dfs_shape.cu, probe_pallas2.cu,
-// probe_pallas.cu): int32 arithmetic that wraps as jnp's does, the floor
-// modulo of jnp's `%`, the row indices of scripts/probe_dma.py, the
-// staged-row counts and the candidate expansion of the two DFS-iteration
-// mocks, one slot of probe_pallas2.py's pop and the fields of its scalar
-// push, and the popcount, one slot of a round of probe_pallas.py's probes
-// 3, 4 and 4b, and one step of probe 4c's body.
+// probe_pallas.cu, probe_spill.cu, probe_colops.cu, probe_pallas3.cu):
+// int32 arithmetic that wraps as jnp's does, the floor modulo of jnp's
+// `%`, the row indices of scripts/probe_dma.py, the staged-row counts and
+// the candidate expansion of the two DFS-iteration mocks, one slot of
+// probe_pallas2.py's pop and the fields of its scalar push, and the
+// popcount, one slot of a round of probe_pallas.py's probes 3, 4 and 4b,
+// one step of probe 4c's body, one value's update of probe_spill.py, one
+// step of probe_colops.py, and one step of probe_pallas3.py's p7 and p8.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -139,6 +141,28 @@ NABWA_HD int32_t push_fields(int32_t v, int32_t k) {
         case 3: return wsub(v, 7);
         default: return wmul(v, 3);
     }
+}
+
+// probe_spill.py:31-32, value v's update from its neighbour `next` (the
+// old v_{(i+1) mod K}): (v * 3 + 1) ^ (next >> 2), wrapping, arithmetic
+NABWA_HD int32_t spill_update(int32_t v, int32_t next) {
+    return wadd(wmul(v, 3), 1) ^ (next >> 2);
+}
+
+// probe_colops.py:30, one of the K dependent steps: (v * 3 + 1) ^ (v >> 2)
+NABWA_HD int32_t colops_step(int32_t v) {
+    return spill_update(v, v);
+}
+
+// probe_pallas3.py:207, step i of p7's 200: (v + i) ^ (v >> 2), wrapping
+NABWA_HD int32_t p7_step(int32_t v, int32_t i) {
+    return wadd(v, i) ^ (v >> 2);
+}
+
+// probe_pallas3.py:228, step i of p8's 30 against the row's scalar a:
+// where(v > a, v - a, v + i), wrapping
+NABWA_HD int32_t p8_step(int32_t v, int32_t a, int32_t i) {
+    return v > a ? wsub(v, a) : wadd(v, i);
 }
 
 }  // namespace probe

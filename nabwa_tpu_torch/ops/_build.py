@@ -29,6 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libnabwa_torch_kernels.so"
 _HASH_PATH = BUILD_DIR / "libnabwa_torch_kernels.srchash"
+_LOG_PATH = BUILD_DIR / "libnabwa_torch_kernels.ptxas.txt"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,7 +38,8 @@ _lock = threading.Lock()
 # guards the wrappers' launch counters: worker threads launch on one card
 count_lock = threading.Lock()
 # wall seconds of the nvcc run made by this process (None: library was
-# already built for these sources) and the compiler's ptxas report
+# already built for these sources) and the compiler's ptxas report (kept
+# beside the library, so a process that reuses it reads the same report)
 build_seconds = None
 build_log = ""
 
@@ -98,6 +100,14 @@ _SIGNATURES = {
     "nabwa_probe_scalar_push": [_P, _I, _P, _P, _P, _P],
     # (table, k, out, stage, stream)
     "nabwa_probe_sem": [_P, _I, _P, _P, _P],
+    # (x, n, k, t, out, stream)
+    "nabwa_probe_spill": [_P, _I, _I, _I, _P, _P],
+    # (x, n, t, k, out, stream)
+    "nabwa_probe_colops": [_P, _I, _I, _I, _P, _P],
+    # (x, n, out, stream)
+    "nabwa_probe_p7": [_P, _I, _P, _P],
+    # (a, b, rows, cols, out, stream)
+    "nabwa_probe_p8": [_P, _P, _I, _I, _P, _P],
 }
 
 
@@ -157,18 +167,21 @@ def _build(src_hash):
     build_seconds = time.perf_counter() - t0
     build_log = "".join(logs)
     os.replace(tmp, LIB_PATH)
+    _LOG_PATH.write_text(build_log)
     _HASH_PATH.write_text(src_hash)
 
 
 def lib():
     """The loaded kernel library, built first if the sources changed."""
-    global _lib
+    global _lib, build_log
     with _lock:
         if _lib is None:
             h = source_hash()
             if (not LIB_PATH.exists() or not _HASH_PATH.exists()
                     or _HASH_PATH.read_text() != h):
                 _build(h)
+            elif _LOG_PATH.exists():
+                build_log = _LOG_PATH.read_text()
             so = ctypes.CDLL(str(LIB_PATH))
             for name, args in _SIGNATURES.items():
                 fn = getattr(so, name)

@@ -21,11 +21,21 @@ kernel, with the script's entry point:
   probe_sem        `kernel` (C22, csrc/probe_sem.cu: bulk async copies on
                    mbarriers for the DMA semaphore), K from the
                    environment, after scripts/probe_sem.py
+  probe_spill      `make` (C23, csrc/probe_spill.cu: K live values a
+                   thread, K a template parameter past the register
+                   cap), K and T from the environment, after
+                   scripts/probe_spill.py
+  probe_colops     `make` (C24, csrc/probe_colops.cu: a chain of T K
+                   dependent steps a thread), T and K from the
+                   environment, after scripts/probe_colops.py
+  probe_pallas3    `p7` (C25, 200 chained steps) and `p8` (C26, 30
+                   steps against a per-row scalar), both in
+                   csrc/probe_pallas3.cu, after scripts/probe_pallas3.py
 
 The public functions take the JAX scripts' layouts (int32 arrays); a CPU
 tensor runs the plain version, a CUDA tensor the kernel.  The entry points
 take `--device cuda|cpu` (default cuda) and print the scripts' result
-lines, timed with CUDA events on the card.  The probes of
-scripts/probe_pallas3.py, probe_spill.py and probe_colops.py are not
-ported yet.
+lines, timed with CUDA events on the card.  Probes 1, 1b, 2, 3, 4, 5
+and 6 of scripts/probe_pallas3.py are not ported yet: its entry point
+refuses them by name (`probe_pallas3.NOT_PORTED`).
 """
