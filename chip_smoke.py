@@ -142,13 +142,18 @@ Phases, any failure exits non-zero:
    C26 (csrc/probe_pallas3.cu) probes 7 and 8 of scripts/probe_pallas3.py
    at their shapes; each exact at the scripts' inputs and at seeded
    random int32 with values within 8 of both ends (C26 also with negative
-   and tied scalars).  Then each probe's entry point (`python -m
+   and tied scalars); C27-C30 (csrc/probe_pallas3.cu) probes 1, 1b, 3 and
+   4 of that script at its shapes, exact at its inputs and, over int32
+   tables, at indices on both ends of the table, four repeated rows and
+   one row everywhere (C29 also a permutation of each column, C30 int32
+   edges); indices out of range and misaligned inputs are refused on the
+   card.  Then each probe's entry point (`python -m
    nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`, `.probe_dfs_shape`,
    `.probe_pallas2`, `.probe_sem` at K=4, `.probe_spill` and
    `.probe_colops` at their scripts' default K and T, `.probe_pallas3`,
    `--device cuda`, the scripts' default arguments) once in a process of
    its own, every launch counter starting at 0; its result lines are
-   logged and each of C7-C26 must have launched.
+   logged and each of C7-C30 must have launched.
 Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
 points the probes' path: their launch counts, summed, are the `launches`
 of the kernels line.
@@ -164,11 +169,13 @@ int32 instructions' time by pipe: those only the integer ALU pipe runs
 over INT32_OPS_PER_S, all of them over ISSUE_PER_S (`Work`).  No single
 PyTorch call computes
 any of C1-C6, C8-C10, C13, C17-C19 or C21-C26, so `library_ms` is null
-for each (`library_why` says why for the probes); C7's, C12's and C15's
-is torch.index_select, C11's `x + 1`, C14's torch.sum into int32, C16's
-torch.bitwise_count where the card's torch has it, C20's torch.gather.  Beside `ms` (CUDA events over
+for each (`library_why` says why for the probes); C7's, C12's, C15's,
+C27's and C28's is torch.index_select, C11's `x + 1`, C14's torch.sum
+into int32, C16's torch.bitwise_count where the card's torch has it,
+C20's and C29's torch.gather, C30's the copy `x[:, :16].reshape(64,
+128)` makes.  Beside `ms` (CUDA events over
 back-to-back launches, which wait on the host's enqueue when it is the
-slower), C7 and C11-C26 carry
+slower), C7 and C11-C30 carry
 `queued_ms`, the same launches queued behind a sleeping kernel (the
 card's own time a launch), and C11 `wall_ms`, the host's clock a call;
 C11 has all three for `x + 1` too.
@@ -359,7 +366,11 @@ print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_spill": probe_spill.launches,
                   "probe_colops": probe_colops.launches,
                   "probe_p7": probe_pallas3.launches_p7,
-                  "probe_p8": probe_pallas3.launches_p8}))
+                  "probe_p8": probe_pallas3.launches_p8,
+                  "probe_p1": probe_pallas3.launches_p1,
+                  "probe_p1b": probe_pallas3.launches_p1b,
+                  "probe_p3": probe_pallas3.launches_p3,
+                  "probe_p4": probe_pallas3.launches_p4}))
 sys.exit(rc)
 """
 
@@ -1231,6 +1242,39 @@ def distinct_rows(*rows):
         [r.reshape(-1).long().cpu() for r in rows if r is not None])).numel())
 
 
+def refused(label, fn):
+    """Fails unless fn() raises ValueError (a wrapper's refusal, before
+    any launch)."""
+    try:
+        fn()
+    except ValueError:
+        return
+    fail(f"{label} was not refused")
+
+
+def index_cases(rng, rows, shape):
+    """{case: int indices in [0, rows) of `shape`}: drawn as the script draws,
+    row 0 and the last row at two of every three places, four rows
+    repeated, one row everywhere."""
+    import numpy as np
+    ends = rng.randint(0, rows, shape)
+    ends.reshape(-1)[0::3] = 0
+    ends.reshape(-1)[1::3] = rows - 1
+    return {"script": rng.randint(0, rows, shape), "ends": ends,
+            "repeats": rng.randint(0, 4, shape) * (rows // 4) + 7,
+            "same": np.full(shape, rows // 2)}
+
+
+def skewed(t):
+    """A copy of t on its device that starts 4 bytes past a 16-byte
+    boundary."""
+    import torch
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_probes(dev):
     """Phase 18: kernels C7-C22 against their plain versions on the card, at
     the probes' shapes, inputs made with numpy from PROBE_SEED.  Returns
@@ -1514,13 +1558,8 @@ def check_probes(dev):
                     pp.smem_idx_cuda(edge_t, tab_t),
                     pp.smem_idx_plain(edge_t, tab_t)))
     # a table that starts off a 16-byte boundary is refused, not read
-    skew = torch.zeros(tab_t.numel() + 1, dtype=torch.int32, device=dev)
-    try:
-        pp.smem_idx_cuda(idx_t, skew[1:].view(tab_t.shape))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("C15 read a misaligned table")
+    refused("C15 misaligned table",
+            lambda: pp.smem_idx_cuda(idx_t, skewed(tab_t)))
     n_rows = distinct_rows(idx_t)
     bnd = bound(4 * len(idx) + ROW_BYTES * (n_rows + len(idx)), 0)
     out["probe_smem_idx"] = {
@@ -1652,12 +1691,7 @@ def check_probes(dev):
     x_t, i_t = common.tensors(dev, *inputs["script"])
     bad = i_t.clone()
     bad[3, 9] = pp2.GATHER_W
-    try:
-        pp2.lane_gather(x_t, bad)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("C20 took an index out of range")
+    refused("C20 index out of range", lambda: pp2.lane_gather(x_t, bad))
     i_long = i_t.long()
     bnd = bound(3 * nbytes(x_t), OPS_GATHER * x_t.numel())
     out["probe_lane_gather"] = {
@@ -1722,13 +1756,8 @@ def check_probes(dev):
     table = np.arange(psem.SEM_ROWS * psem.ROW_WORDS).reshape(
         psem.SEM_ROWS, psem.ROW_WORDS)
     tab_t, = common.tensors(dev, table)
-    skew = torch.zeros(tab_t.numel() + 1, dtype=torch.int32, device=dev)
-    try:
-        psem.sem_cuda(skew[1:].view(tab_t.shape), SEM_K)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("C22 read a misaligned table")
+    refused("C22 misaligned table", lambda: psem.sem_cuda(skewed(tab_t),
+                                                          SEM_K))
 
     def check_sem(k, runs):
         """Hold each (out, stage) of `runs` at K=k to the plain version.
@@ -1840,10 +1869,11 @@ def spill_ptxas(log_text):
 
 
 def check_chains(dev):
-    """Phase 18, kernels C23-C26 against their plain versions on the card,
+    """Phase 18, kernels C23-C30 against their plain versions on the card,
     exact, at the scripts' shapes and inputs and at seeded random and int32
-    edge inputs; C23 also over every K it is built for.  Returns {kernel
-    name: fields of its kernels-line entry but `launches`}."""
+    edge inputs; C23 also over every K it is built for, C27-C29 at edge
+    indices.  Returns {kernel name: fields of its kernels-line entry but
+    `launches`}."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.ops import _build
@@ -2005,6 +2035,156 @@ def check_chains(dev):
         "library_why": why,
         "queued_ms": queued_ms(lambda: p3.p8_cuda(a_t, b_t), 200)}
     log(f"C26 probe_p8: exact; {out['probe_p8']}")
+    out.update(check_copies(dev, rng))
+    return out
+
+
+def check_copies(dev, rng):
+    """Phase 18, kernels C27-C30 (probes 1, 1b, 3 and 4 of
+    scripts/probe_pallas3.py) against their plain versions on the card,
+    exact, at the script's shapes: its inputs, then int32 tables at the
+    indices of `index_cases` (C29 also a permutation of each column, C30
+    int32 edges); out-of-range and misaligned inputs refused.  Returns
+    {kernel name: fields of its kernels-line entry but `launches`}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
+    out = {}
+    nrow, cols = p3.P1_TABLE
+    table = rng.randint(0, 99, p3.P1_TABLE)
+    edge_t = int32_mixed(rng, p3.P1_TABLE)
+
+    # C27: probe 1, out rows k and k + 256 from lanes 0 and 1 of index row
+    # k; the script's table for its indices, an int32 table for the rest
+    err, cases = 0, index_cases(rng, nrow, (p3.P1_ROUNDS, cols))
+    for name, idx in cases.items():
+        i_t, t_t = common.tensors(dev, idx, table if name == "script"
+                                  else edge_t)
+        err = max(err, exact(f"C27 probe_p1 {name}", p3.p1(i_t, t_t),
+                             p3.p1_plain(i_t, t_t)))
+    i_t, t_t = common.tensors(dev, cases["script"], table)
+    for col, bad in ((0, -1), (1, nrow)):
+        wrong = i_t.clone()
+        wrong[3, col] = bad
+        refused(f"C27 index {bad} in lane {col}", lambda: p3.p1(wrong, t_t))
+    refused("C27 misaligned table", lambda: p3.p1(i_t, skewed(t_t)))
+    refused("C27 misaligned indices", lambda: p3.p1(skewed(i_t), t_t))
+    flat = i_t[:, :2].t().reshape(-1).contiguous()
+    n_rows = distinct_rows(flat)
+    # bytes: each distinct row read once, one 32 B sector of index words a
+    # round (lanes 0 and 1 share it), out written; Work 0, no arithmetic
+    # beyond the addresses
+    bnd = bound(ROW_BYTES * (n_rows + flat.numel()) + 32 * p3.P1_ROUNDS,
+                0)
+    out["probe_p1"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: p3.p1_cuda(i_t, t_t), 200),
+        "plain_ms": cuda_ms(lambda: p3.p1_plain(i_t, t_t), 3),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
+        "library_ms": cuda_ms(lambda: torch.index_select(t_t, 0, flat),
+                              200),
+        "library_call": "torch.index_select(t, 0, i[:, :2].t().reshape(-1))"
+                        ", the index made once beforehand",
+        "queued_ms": queued_ms(lambda: p3.p1_cuda(i_t, t_t), 200),
+        "rows": flat.numel(), "distinct_rows": n_rows,
+        "exact_inputs": list(cases)}
+    log(f"C27 probe_p1: exact; {out['probe_p1']}")
+
+    # C28: probe 1b, the same copies with the indices in two columns
+    err = 0
+    cases = index_cases(rng, nrow, (p3.P1_ROUNDS, 1))
+    j_cases = index_cases(rng, nrow, (p3.P1_ROUNDS, 1))
+    for name, idx in cases.items():
+        i_t, j_t, t_t = common.tensors(dev, idx, j_cases[name][::-1],
+                                       table if name == "script" else edge_t)
+        err = max(err, exact(f"C28 probe_p1b {name}", p3.p1b(i_t, j_t, t_t),
+                             p3.p1b_plain(i_t, j_t, t_t)))
+    i_t, j_t, t_t = common.tensors(dev, cases["script"], j_cases["script"],
+                                   table)
+    wrong = j_t.clone()
+    wrong[7, 0] = nrow
+    refused("C28 index out of range", lambda: p3.p1b(i_t, wrong, t_t))
+    refused("C28 misaligned table", lambda: p3.p1b(i_t, j_t, skewed(t_t)))
+    refused("C28 misaligned index", lambda: p3.p1b(i_t, skewed(j_t), t_t))
+    flat = torch.cat((i_t[:, 0], j_t[:, 0]))
+    n_rows = distinct_rows(flat)
+    # bytes: each distinct row read once, the index words, out; Work 0
+    bnd = bound(ROW_BYTES * (n_rows + flat.numel()) + nbytes(flat), 0)
+    out["probe_p1b"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: p3.p1b_cuda(i_t, j_t, t_t), 200),
+        "plain_ms": cuda_ms(lambda: p3.p1b_plain(i_t, j_t, t_t), 3),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
+        "library_ms": cuda_ms(lambda: torch.index_select(t_t, 0, flat),
+                              200),
+        "library_call": "torch.index_select(t, 0, torch.cat((i[:, 0], "
+                        "j[:, 0]))), the index made once beforehand",
+        "queued_ms": queued_ms(lambda: p3.p1b_cuda(i_t, j_t, t_t), 200),
+        "rows": flat.numel(), "distinct_rows": n_rows,
+        "exact_inputs": list(cases)}
+    log(f"C28 probe_p1b: exact; {out['probe_p1b']}")
+
+    # C29: probe 3, out[r, c] = x[i[r, c], c]; x over int32 but for the
+    # script's input, and a permutation of each column of a [128, 128] i
+    rows, width = p3.P3_X
+    cases = index_cases(rng, rows, p3.P3_I)
+    cases["perm"] = np.stack([rng.permutation(rows) for _ in range(width)],
+                             1)
+    x = rng.randint(0, 99, p3.P3_X)
+    edge_x = int32_mixed(rng, p3.P3_X)
+    err = 0
+    for name, idx in cases.items():
+        x_t, i_t = common.tensors(dev, x if name == "script" else edge_x,
+                                  idx)
+        err = max(err, exact(f"C29 probe_p3 {name}", p3.p3(x_t, i_t),
+                             p3.p3_plain(x_t, i_t)))
+    x_t, i_t = common.tensors(dev, x, cases["script"])
+    for bad in (-1, rows):
+        wrong = i_t.clone()
+        wrong[2, 9] = bad
+        refused(f"C29 index {bad}", lambda: p3.p3(x_t, wrong))
+    refused("C29 misaligned x", lambda: p3.p3(skewed(x_t), i_t))
+    i_long = i_t.long()
+    cells = int(torch.unique(i_long * width + torch.arange(
+        width, device=dev)).numel())
+    # bytes: each distinct gathered word read once, i, out; Work 0
+    bnd = bound(4 * cells + 2 * nbytes(i_t), 0)
+    out["probe_p3"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: p3.p3_cuda(x_t, i_t), 200),
+        "plain_ms": cuda_ms(lambda: p3.p3_plain(x_t, i_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
+        "library_ms": cuda_ms(lambda: torch.gather(x_t, 0, i_long), 200),
+        "library_call": "torch.gather(x, 0, i.long()), the int64 index "
+                        "made once beforehand",
+        "queued_ms": queued_ms(lambda: p3.p3_cuda(x_t, i_t), 200),
+        "distinct_words": cells, "exact_inputs": list(cases)}
+    log(f"C29 probe_p3: exact; {out['probe_p3']}")
+
+    # C30: probe 4, x[:, :16].reshape(64, 128), on the script's values and
+    # over int32 with the edges in every row's first 16 words
+    x = rng.randint(0, 99, p3.P4_X)
+    edge_x = int32_mixed(rng, p3.P4_X)
+    edge_x[:, :16] = int32_mixed(rng, (1, 16))
+    err = 0
+    for name, xs in (("script", x), ("edges", edge_x)):
+        x_t, = common.tensors(dev, xs)
+        err = max(err, exact(f"C30 probe_p4 {name}", p3.p4(x_t),
+                             p3.p4_plain(x_t)))
+    x_t, = common.tensors(dev, x)
+    refused("C30 misaligned x", lambda: p3.p4(skewed(x_t)))
+    res = p3.p4_plain(x_t)
+    # bytes: x[:, :16] read once, out written once; Work 0
+    bnd = bound(2 * nbytes(res), 0)
+    out["probe_p4"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: p3.p4_cuda(x_t), 200),
+        "plain_ms": cuda_ms(lambda: p3.p4_plain(x_t), 200),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
+        "library_ms": cuda_ms(lambda: x_t[:, :16].reshape(64, 128), 200),
+        "library_call": "x[:, :16].reshape(64, 128), a copy (the slice is "
+                        "not contiguous)",
+        "queued_ms": queued_ms(lambda: p3.p4_cuda(x_t), 200),
+        "exact_inputs": ["script", "edges"]}
+    log(f"C30 probe_p4: exact; {out['probe_p4']}")
     return out
 
 
@@ -2501,12 +2681,12 @@ def main():
         if b2b_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bam2bam path")
 
-    # phase 18: the probes, C7-C26 against their plain versions on the
+    # phase 18: the probes, C7-C30 against their plain versions on the
     # card, then each probe's entry point in a process of its own
     probes = check_probes(torch.device("cuda", 0))
     t0 = time.perf_counter()
     probes.update(check_chains(torch.device("cuda", 0)))
-    log(f"C23-C26 checked in {time.perf_counter() - t0:.1f} s")
+    log(f"C23-C30 checked in {time.perf_counter() - t0:.1f} s")
     probe_counts, probe_lines = run_probe_entries()
 
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
@@ -2632,7 +2812,13 @@ def main():
              "scripts/probe_colops.py:39"),
             ("probe_p7", "probe_pallas3.cu", "scripts/probe_pallas3.py:202"),
             ("probe_p8", "probe_pallas3.cu",
-             "scripts/probe_pallas3.py:222")):
+             "scripts/probe_pallas3.py:222"),
+            ("probe_p1", "probe_pallas3.cu", "scripts/probe_pallas3.py:35"),
+            ("probe_p1b", "probe_pallas3.cu", "scripts/probe_pallas3.py:60"),
+            ("probe_p3", "probe_pallas3.cu",
+             "scripts/probe_pallas3.py:123"),
+            ("probe_p4", "probe_pallas3.cu",
+             "scripts/probe_pallas3.py:140")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"nabwa_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[name],

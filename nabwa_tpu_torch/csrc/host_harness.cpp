@@ -6,7 +6,8 @@
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
 // C9's and C10's counts and expansion, C13's slot of a pop, C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
-// pushed fields, C23's value update, C24's step, C25's and C26's steps),
+// pushed fields, C23's value update, C24's step, C25's and C26's steps,
+// C30's source int4),
 // one value at a time.  It is not part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
@@ -268,5 +269,13 @@ extern "C" int nabwa_host_probe_p8_step(const int32_t* v, const int32_t* a,
                                         const int32_t* i, int n,
                                         int32_t* out) {
     for (int k = 0; k < n; ++k) out[k] = pr::p8_step(v[k], a[k], i[k]);
+    return 0;
+}
+
+// C30's source int4 of x for out's int4 q, x of `quads` int4 a row
+extern "C" int nabwa_host_probe_relayout_src(const int32_t* q,
+                                            const int32_t* quads, int n,
+                                            int32_t* out) {
+    for (int k = 0; k < n; ++k) out[k] = pr::relayout_src(q[k], quads[k]);
     return 0;
 }

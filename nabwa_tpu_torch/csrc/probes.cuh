@@ -1,4 +1,4 @@
-// The per-read and per-copy arithmetic of the probe kernels C7-C26
+// The per-read and per-copy arithmetic of the probe kernels C7-C30
 // (probe_rowload.cu, probe_dma.cu, probe_dfs_shape.cu, probe_pallas2.cu,
 // probe_pallas.cu, probe_spill.cu, probe_colops.cu, probe_pallas3.cu):
 // int32 arithmetic that wraps as jnp's does, the floor modulo of jnp's
@@ -7,7 +7,8 @@
 // probe_pallas2.py's pop and the fields of its scalar push, and the
 // popcount, one slot of a round of probe_pallas.py's probes 3, 4 and 4b,
 // one step of probe 4c's body, one value's update of probe_spill.py, one
-// step of probe_colops.py, and one step of probe_pallas3.py's p7 and p8.
+// step of probe_colops.py, one step of probe_pallas3.py's p7 and p8, and
+// the source of p4's relayout.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -163,6 +164,15 @@ NABWA_HD int32_t p7_step(int32_t v, int32_t i) {
 // where(v > a, v - a, v + i), wrapping
 NABWA_HD int32_t p8_step(int32_t v, int32_t a, int32_t i) {
     return v > a ? wsub(v, a) : wadd(v, i);
+}
+
+// probe_pallas3.py:142, p4's relayout out = x[:, :16].reshape(R / 8, 128)
+// read four words at a time: out's int4 q is x's int4 q % 4 of row q / 4
+// (each out row holds the first 16 words of 8 rows of x, in order), for x
+// of `quads` int4 a row.  The result is an int4 of x, so it fits when x
+// holds fewer than 2^31 words.
+NABWA_HD int32_t relayout_src(int32_t q, int32_t quads) {
+    return (q >> 2) * quads + (q & 3);
 }
 
 }  // namespace probe

@@ -108,6 +108,14 @@ _SIGNATURES = {
     "nabwa_probe_p7": [_P, _I, _P, _P],
     # (a, b, rows, cols, out, stream)
     "nabwa_probe_p8": [_P, _P, _I, _I, _P, _P],
+    # (i, i_w, n, t, cols, out, stream)
+    "nabwa_probe_p1": [_P, _I, _I, _P, _I, _P, _P],
+    # (i, j, n, t, cols, out, stream)
+    "nabwa_probe_p1b": [_P, _P, _I, _P, _I, _P, _P],
+    # (x, cols, i, n, out, stream)
+    "nabwa_probe_p3": [_P, _I, _P, _I, _P, _P],
+    # (x, rows, cols, out, stream)
+    "nabwa_probe_p4": [_P, _I, _I, _P, _P],
 }
 
 

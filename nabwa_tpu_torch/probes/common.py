@@ -1,7 +1,8 @@
 """What the probe ports share: int32 wrap-around and floor modulo for the
 plain versions, a popcount, the conversion of the scripts' numpy inputs,
-the dispatch between a plain version and its kernel and the kernels'
-input check, the `--device` option and the timer.
+the dispatch between a plain version and its kernel, the kernels' input
+check and the dispatchers' index check, the `--device` option and the
+timer.
 
 The plain versions compute on int64 tensors that hold int32 values:
 `wrap32` after each `+`, `-` or `*` gives jnp's int32 wrap-around, `>>`
@@ -76,6 +77,15 @@ def cuda_input(t, name, ndim, dev=None):
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: not 16-byte aligned")
     return dev
+
+
+def check_indices(name, n, *indices):
+    """Raise ValueError unless every index lies in [0, n): the scripts
+    draw them so, and neither version defines others (Pallas interpret
+    mode wraps or clamps them, a gather would fault)."""
+    for i in indices:
+        if i.numel() and bool(((i < 0) | (i >= n)).any()):
+            raise ValueError(f"{name}: indices outside [0, {n})")
 
 
 def parse_device(argv, cmd):

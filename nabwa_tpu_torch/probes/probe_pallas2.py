@@ -247,17 +247,10 @@ def lane_gather_cuda(x, i):
     return out
 
 
-def check_lanes(x, i):
-    """Raise ValueError unless every index of i lies in [0, x's columns):
-    the script draws them so, and neither version defines others."""
-    if i.numel() and bool(((i < 0) | (i >= x.shape[1])).any()):
-        raise ValueError(f"lane_gather: indices outside [0, {x.shape[1]})")
-
-
 def lane_gather(x, i):
     """Probe C: the plain version for CPU tensors, kernel C20 for CUDA
     tensors; refuses indices outside [0, x's columns)."""
-    check_lanes(x, i)
+    common.check_indices("lane_gather", x.shape[1], i)
     return _lane_gather(x, i)
 
 
@@ -360,7 +353,7 @@ def probe_lane_gather(device):
     x = np.random.randint(0, 99, (BB, GATHER_W))
     i = np.random.randint(0, GATHER_W, (BB, GATHER_W))
     x_t, i_t = common.tensors(device, x, i)
-    check_lanes(x_t, i_t)
+    common.check_indices("lane_gather", x_t.shape[1], i_t)
     dt, r = common.timeit(lambda: _lane_gather(x_t, i_t), device)
     ok = np.array_equal(r.cpu().numpy(), np.take_along_axis(x, i, axis=1))
     print(f"probeC take_along_axis lanes: {dt*1e6:.1f}us ok={ok}")
