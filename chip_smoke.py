@@ -147,13 +147,20 @@ Phases, any failure exits non-zero:
    tables, at indices on both ends of the table, four repeated rows and
    one row everywhere (C29 also a permutation of each column, C30 int32
    edges); indices out of range and misaligned inputs are refused on the
-   card.  Then each probe's entry point (`python -m
+   card; C31-C35 (csrc/probe_pallas3.cu, `check_reductions`) probes 2
+   (C31 `native`, C32 `roll`, C33 `subl`), 5 and 6 of that script at its
+   shapes: C31-C34 exact at its inputs and at int32 edges (C31-C33 values
+   within 8 of both ends with each row's or column's minimum repeated, and
+   values within 8 of INT32_MAX; C34 a negative s[0, 0] and values near
+   INT32_MAX that wrap), C35 bit for bit at its inputs, at a random
+   float32 w and at x over int32; misaligned and wrong-shape inputs are
+   refused on the card.  Then each probe's entry point (`python -m
    nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`, `.probe_dfs_shape`,
    `.probe_pallas2`, `.probe_sem` at K=4, `.probe_spill` and
    `.probe_colops` at their scripts' default K and T, `.probe_pallas3`,
    `--device cuda`, the scripts' default arguments) once in a process of
    its own, every launch counter starting at 0; its result lines are
-   logged and each of C7-C30 must have launched.
+   logged and each of C7-C35 must have launched.
 Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
 points the probes' path: their launch counts, summed, are the `launches`
 of the kernels line.
@@ -173,9 +180,11 @@ for each (`library_why` says why for the probes); C7's, C12's, C15's,
 C27's and C28's is torch.index_select, C11's `x + 1`, C14's torch.sum
 into int32, C16's torch.bitwise_count where the card's torch has it,
 C20's and C29's torch.gather, C30's the copy `x[:, :16].reshape(64,
-128)` makes.  Beside `ms` (CUDA events over
+128)` makes, C35's torch.matmul of the cast x and w (with the cast, and
+on a cast made beforehand as `library_precast_ms`); none computes C31-C34
+(`library_why`).  Beside `ms` (CUDA events over
 back-to-back launches, which wait on the host's enqueue when it is the
-slower), C7 and C11-C30 carry
+slower), C7 and C11-C35 carry
 `queued_ms`, the same launches queued behind a sleeping kernel (the
 card's own time a launch), and C11 `wall_ms`, the host's clock a call;
 C11 has all three for `x + 1` too.
@@ -323,6 +332,19 @@ OPS_SPILL = Work(4, 2, 3)
 OPS_COLOPS = Work(4, 2, 3)
 OPS_P7 = Work(3, 2, 3)
 OPS_P8 = Work(4, 1, 3)
+# csrc/probe_pallas3.cu per word and round: C31 the row minimum's share and
+# the add (2 operations); the in-lane minimum of four words, 0.75 a word,
+# on the ALU pipe, its redux.sync (0.25) and the add on issue.  C32 seven
+# minima and the add (8); of its seven steps five shuffle, a shuffle and at
+# least one select a word each (issue).  C33: the column minimum's share
+# and the add (2); 31 minima for a thread's 32 rows and 8 over the
+# partials, 39 / 32 a word.  C34 per word and inner round: the add.  C35
+# per product of an out element: the float32 multiply and add (2), with
+# the conversion (issue only)
+OPS_P2 = {"native": Work(2, 0.75, 2.0), "roll": Work(8, 7, 18),
+          "subl": Work(2, 39 / 32, 2 + 39 / 32)}
+OPS_P5 = Work(1, 0, 1)
+OPS_P6 = Work(2, 0, 3)
 SPILL_SWEEP_SHAPE = (64, 128)     # C23's K sweep, at the script's T
 ROW_BYTES = 512               # one 128-word int32 table row
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
@@ -370,7 +392,12 @@ print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_p1": probe_pallas3.launches_p1,
                   "probe_p1b": probe_pallas3.launches_p1b,
                   "probe_p3": probe_pallas3.launches_p3,
-                  "probe_p4": probe_pallas3.launches_p4}))
+                  "probe_p4": probe_pallas3.launches_p4,
+                  "probe_p2_native": probe_pallas3.launches_p2_native,
+                  "probe_p2_roll": probe_pallas3.launches_p2_roll,
+                  "probe_p2_subl": probe_pallas3.launches_p2_subl,
+                  "probe_p5": probe_pallas3.launches_p5,
+                  "probe_p6": probe_pallas3.launches_p6}))
 sys.exit(rc)
 """
 
@@ -2188,6 +2215,153 @@ def check_copies(dev, rng):
     return out
 
 
+def with_ties(rng, x, axis):
+    """x with the minimum of each row (axis 1) or column (axis 0) copied to
+    three more of its places."""
+    y = x.T if axis == 0 else x                # a view
+    for r in range(len(y)):
+        others = [c for c in range(y.shape[1]) if y[r, c] != y[r].min()]
+        y[r, rng.choice(others, 3, replace=False)] = y[r].min()
+    return x
+
+
+def check_reductions(dev):
+    """Phase 18, kernels C31-C35 (probes 2, 5 and 6 of
+    scripts/probe_pallas3.py) against their plain versions on the card, at
+    the script's shapes: C31-C34 exact at its inputs and at int32 edges,
+    C35 bit for bit at its inputs, at a random float32 w and at x over all
+    of int32; misaligned and wrong-shape inputs refused.  Returns {kernel
+    name: fields of its kernels-line entry but `launches`}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
+    rng = np.random.RandomState(PROBE_SEED + 2)
+    out = {}
+    why = ("none: 50 dependent rounds of a {} and an add over the whole "
+           "array; no single PyTorch call iterates them")
+
+    # C31-C33: probe 2 on the script's input, then over int32 with the
+    # edges in every row and each row's (C33: column's) minimum repeated,
+    # then every value within 8 of INT32_MAX (the first sums wrap)
+    x = rng.randint(0, 1 << 20, p3.P2_X)
+    high = I32_MAX - rng.randint(0, 8, p3.P2_X)
+    for kind, tie_axis, what in (("native", 1, "row minimum"),
+                                 ("roll", 1, "row minimum by rotations"),
+                                 ("subl", 0, "column minimum")):
+        edge = int32_mixed(rng, p3.P2_X)
+        ends = int32_mixed(rng, (16,))
+        edge[:, :16] = [rng.permutation(ends) for _ in range(len(edge))]
+        cases = {"script": x, "edges": with_ties(rng, edge, tie_axis),
+                 "high": high}
+        err = 0
+        for name, xs in cases.items():
+            x_t, = common.tensors(dev, xs)
+            err = max(err, exact(f"probe_p2 {kind} {name}",
+                                 p3.p2(x_t, kind), p3.p2_plain(x_t, kind)))
+        x_t, = common.tensors(dev, x)
+        refused(f"probe_p2 {kind} misaligned x",
+                lambda: p3.p2(skewed(x_t), kind))
+        wrong = x_t[:128].contiguous() if kind == "subl" else \
+            x_t[:, :64].contiguous()
+        refused(f"probe_p2 {kind} shape {tuple(wrong.shape)}",
+                lambda: p3.p2(wrong, kind))
+        bnd = bound(2 * nbytes(x_t),
+                    OPS_P2[kind] * p3.P2_ROUNDS * x_t.numel())
+        queued = queued_ms(lambda: p3.p2_cuda(x_t, kind), 200)
+        out[f"probe_p2_{kind}"] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: p3.p2_cuda(x_t, kind), 200),
+            "plain_ms": cuda_ms(lambda: p3.p2_plain(x_t, kind), 3),
+            "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
+            "library_ms": None,
+            "library_why": why.format(what),
+            "queued_ms": queued,
+            "queued_us_per_round": queued * 1e3 / p3.P2_ROUNDS,
+            "exact_inputs": list(cases)}
+        log(f"probe_p2 {kind}: exact; {out[f'probe_p2_{kind}']}")
+
+    # C34: probe 5 on the script's input, then s[0, 0] negative with the
+    # rest near both int32 ends, then every value near INT32_MAX and s[0, 0]
+    # wrapping in its first rounds
+    x = rng.randint(0, 1 << 20, p3.P5_X)
+    neg = I32_MAX - rng.randint(0, 8, p3.P5_X)
+    neg[1::2] = I32_MIN + rng.randint(0, 8, neg[1::2].shape)
+    neg[0, 0] = -5
+    wraps = I32_MAX - rng.randint(0, 8, p3.P5_X)
+    wraps[0, 0] = I32_MAX - 2
+    err = 0
+    for name, xs in (("script", x), ("negative", neg), ("wraps", wraps)):
+        x_t, = common.tensors(dev, xs)
+        err = max(err, exact(f"C34 probe_p5 {name}", p3.p5(x_t),
+                             p3.p5_plain(x_t)))
+    x_t, = common.tensors(dev, x)
+    refused("C34 misaligned x", lambda: p3.p5(skewed(x_t)))
+    refused("C34 s past a block's shared memory",
+            lambda: p3.p5(torch.zeros((512, 128), dtype=torch.int32,
+                                      device=dev)))
+    trips = p3.p5_trips(int(x[0, 0]))
+    inner = sum(trips)
+    bnd = bound(2 * nbytes(x_t), OPS_P5 * inner * x_t.numel())
+    queued = queued_ms(lambda: p3.p5_cuda(x_t), 100)
+    out["probe_p5"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: p3.p5_cuda(x_t), 100),
+        "plain_ms": cuda_ms(lambda: p3.p5_plain(x_t), 3),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
+        "library_ms": None,
+        "library_why": "none: 50 outer rounds whose inner trip count "
+                       "hangs on s[0, 0], each inner round an add over the "
+                       "whole array; no single PyTorch call iterates them",
+        "queued_ms": queued, "inner_rounds": inner, "trips": trips,
+        "queued_us_per_inner_round": queued * 1e3 / inner,
+        "exact_inputs": ["script", "negative", "wraps"]}
+    log(f"C34 probe_p5: exact; {out['probe_p5']}")
+
+    # C35: probe 6 on the script's inputs (w of ones), then a random
+    # float32 w, then x over all of int32 with it; bit for bit
+    x = rng.randint(0, 99, p3.P6_X)
+    ones = np.ones(p3.P6_W, dtype=np.float32)
+    w_rand = rng.standard_normal(p3.P6_W).astype(np.float32)
+    err, lib_err = 0.0, 0.0
+    for name, xs, ws in (("script", x, ones), ("random_w", x, w_rand),
+                         ("int32_x", int32_mixed(rng, p3.P6_X), w_rand)):
+        x_t, = common.tensors(dev, xs)
+        w_t = torch.from_numpy(ws).to(dev)
+        got, want = p3.p6(x_t, w_t), p3.p6_plain(x_t, w_t)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"C35 probe_p6 {name}: kernel differs from its plain "
+                 f"version in some bit (max |err| "
+                 f"{float((got - want).abs().max())})")
+        err = max(err, float((got - want).abs().max()))
+        lib_err = max(lib_err, float(
+            (torch.matmul(x_t.float(), w_t) - got).abs().max()))
+    x_t, = common.tensors(dev, x)
+    w_t = torch.from_numpy(ones).to(dev)
+    got = p3.p6_cuda(x_t, w_t).cpu().numpy()
+    if not np.array_equal(got[:, 0], x.sum(1)):
+        fail("C35 probe_p6: column 0 is not x's row sums")
+    refused("C35 misaligned x", lambda: p3.p6(skewed(x_t), w_t))
+    refused("C35 int32 w", lambda: p3.p6(x_t, w_t.int()))
+    refused("C35 w of another depth", lambda: p3.p6(x_t, w_t[:64].clone()))
+    xf = x_t.float()
+    # bytes: x, w and out once each
+    bnd = bound(nbytes(x_t, w_t) + 4 * x_t.shape[0] * w_t.shape[1],
+                OPS_P6 * x_t.numel() * w_t.shape[1])
+    out["probe_p6"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: p3.p6_cuda(x_t, w_t), 200),
+        "plain_ms": cuda_ms(lambda: p3.p6_plain(x_t, w_t), 3),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
+        "library_ms": cuda_ms(lambda: torch.matmul(x_t.float(), w_t), 200),
+        "library_call": "torch.matmul(x.float(), w), the cast included",
+        "library_precast_ms": cuda_ms(lambda: torch.matmul(xf, w_t), 200),
+        "library_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "library_max_abs_diff": lib_err,
+        "queued_ms": queued_ms(lambda: p3.p6_cuda(x_t, w_t), 200),
+        "exact_inputs": ["script", "random_w", "int32_x"]}
+    log(f"C35 probe_p6: bit for bit; {out['probe_p6']}")
+    return out
+
+
 def run_probe_entries():
     """Each probe entry point once with `--device cuda`, in a process of
     its own (every launch counter starts at 0) with its environment of
@@ -2681,12 +2855,15 @@ def main():
         if b2b_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bam2bam path")
 
-    # phase 18: the probes, C7-C30 against their plain versions on the
+    # phase 18: the probes, C7-C35 against their plain versions on the
     # card, then each probe's entry point in a process of its own
     probes = check_probes(torch.device("cuda", 0))
     t0 = time.perf_counter()
     probes.update(check_chains(torch.device("cuda", 0)))
     log(f"C23-C30 checked in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    probes.update(check_reductions(torch.device("cuda", 0)))
+    log(f"C31-C35 checked in {time.perf_counter() - t0:.1f} s")
     probe_counts, probe_lines = run_probe_entries()
 
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
@@ -2818,7 +2995,17 @@ def main():
             ("probe_p3", "probe_pallas3.cu",
              "scripts/probe_pallas3.py:123"),
             ("probe_p4", "probe_pallas3.cu",
-             "scripts/probe_pallas3.py:140")):
+             "scripts/probe_pallas3.py:140"),
+            ("probe_p2_native", "probe_pallas3.cu",
+             "scripts/probe_pallas3.py:86"),
+            ("probe_p2_roll", "probe_pallas3.cu",
+             "scripts/probe_pallas3.py:86"),
+            ("probe_p2_subl", "probe_pallas3.cu",
+             "scripts/probe_pallas3.py:86"),
+            ("probe_p5", "probe_pallas3.cu",
+             "scripts/probe_pallas3.py:156"),
+            ("probe_p6", "probe_pallas3.cu",
+             "scripts/probe_pallas3.py:183")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"nabwa_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[name],

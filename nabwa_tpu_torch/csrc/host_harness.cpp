@@ -7,8 +7,8 @@
 // C9's and C10's counts and expansion, C13's slot of a pop, C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
 // pushed fields, C23's value update, C24's step, C25's and C26's steps,
-// C30's source int4),
-// one value at a time.  It is not part of the kernel library.
+// C30's source int4, C32's rotation source, C34's trip count), one value
+// at a time.  It is not part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
@@ -277,5 +277,20 @@ extern "C" int nabwa_host_probe_relayout_src(const int32_t* q,
                                             const int32_t* quads, int n,
                                             int32_t* out) {
     for (int k = 0; k < n; ++k) out[k] = pr::relayout_src(q[k], quads[k]);
+    return 0;
+}
+
+// C32's source word of word c of a row of n words rotated by sh
+extern "C" int nabwa_host_probe_roll_src(const int32_t* c, const int32_t* sh,
+                                        const int32_t* words, int n,
+                                        int32_t* out) {
+    for (int k = 0; k < n; ++k) out[k] = pr::roll_src(c[k], sh[k], words[k]);
+    return 0;
+}
+
+// C34's inner trip count from each s[0, 0]
+extern "C" int nabwa_host_probe_p5_trips(const int32_t* s, int n,
+                                         int32_t* out) {
+    for (int k = 0; k < n; ++k) out[k] = pr::p5_trips(s[k]);
     return 0;
 }

@@ -1,9 +1,9 @@
-// Kernels C25-C30: probes 1, 1b, 3, 4, 7 and 8 of scripts/probe_pallas3.py:
-// two scalar-indexed row copies, a gather along the rows, a relayout, a
-// chain of dependent steps by shape and a per-row scalar broadcast over a
-// plane (the DFS's expansion shape).  All values are int32 and wrap as
-// jnp's do (probes.cuh).  Probes 2, 5 and 6 of the script are not ported
-// yet.
+// Kernels C25-C35: the nine probes of scripts/probe_pallas3.py: two
+// scalar-indexed row copies, a gather along the rows, a relayout, a chain
+// of dependent steps by shape, a per-row scalar broadcast over a plane (the
+// DFS's expansion shape), row and column minima in three ways, a loop
+// whose trip count hangs on the data, and a lane sum as a matrix product.
+// All int32 values wrap as jnp's do (probes.cuh).
 //
 // C27 replaces `p1` (:35, through `call` :25-31, pallas_call :28): 256
 // rounds, round k reading r = i[k, 0] and r2 = i[k, 1] (lanes 0 and 1 of
@@ -53,6 +53,63 @@
 // against 8 bytes an element and 4 a row: launch-bound at the script's
 // shape.  Rows of any width that is a multiple of 4, starting on 16-byte
 // boundaries.
+//
+// C31, C32 and C33 replace `p2` (:86, pallas_call :28), in its three kinds:
+// 50 rounds of v <- v + m over x int32 [256, 128] (wrapping: at the
+// script's inputs the minima turn negative within the 50 rounds), m the
+// minimum of v's row (`native`, C31; `roll`, C32) or of its column
+// (`subl`, C33), broadcast back over it.
+// - C31 and C32: every row evolves on its own, so a warp holds a row in
+//   registers, lane L words L, L + 32, L + 64 and L + 96, and a block 4
+//   rows.  C31 takes the row minimum the card's own way: the minimum of
+//   the lane's four words, then one `__reduce_min_sync` (redux.sync, sm_80
+//   and later) over the warp.  C32 takes it the script's way (:98-99):
+//   seven steps m <- min(m, roll(m, sh)) for sh = 64, 32, ..., 1, word c of
+//   the rotated row taken from word `roll_src`(c, sh) = (c - sh) mod 128,
+//   as np.roll.  In this layout word L + 32 k's source sits in lane (L -
+//   sh) mod 32, the same for every k, and in register (q + k) mod 4, q the
+//   register of word L's source: each step shuffles the four registers
+//   from that lane (none for sh 64 and 32) and picks among them.  Both end
+//   with every lane's m the row minimum, added to each word.
+// - C33: each column evolves on its own, but its minimum crosses all 256
+//   rows, which lie in different warps.  A block of 8 warps holds 32
+//   columns (lane L column L of the block's group), warp w rows w + 8 j, j
+//   < 32, in registers; each round a thread takes the minimum of its 32
+//   rows, the 8 warps meet in shared memory behind a block barrier, and
+//   each thread takes the minimum of the 8 partial minima of its column.
+//   The partials alternate between two buffers, so one barrier a round
+//   suffices: a warp can write a round's buffer only after every warp has
+//   passed the barrier of the round before, and so has read the buffer
+//   written two rounds back.
+// Operations a word and round: the row or column minimum's share (about
+// one minimum) and the add, 2; C32 8, its seven minima and the add.  Bound
+// by bytes at the script's shape (x read once, out written once, 256 KB),
+// but 50 dependent rounds, each a warp reduction (C31, C32) or a barrier
+// (C33), keep every kernel far above that bound.
+//
+// C34 replaces `p5` (:156): from s = x int32 [256, 128], 50 outer rounds,
+// each reading n = (s[0, 0] & 3) + 1 (`p5_trips`) and then running n inner
+// rounds s <- s + j, j = 0..n-1 (wrapping).  One block of 1024 threads
+// keeps s, 128 KB, in dynamic shared memory (above the default 48 KB, so
+// the launcher raises the block's limit first, and returns the error if
+// the card refuses) as the script keeps it in VMEM scratch: each outer
+// round, after a barrier, every thread reads s[0, 0], and after a second
+// barrier (so that thread 0 adds to s[0, 0] only once every thread has
+// read it) adds j to its 32 words for each inner round.  The loop keeps its
+// data-dependent trip count.  One add a word and inner round (126 inner
+// rounds at one seed of the script's inputs); not the card's bytes or adds
+// bound it but its one SM's shared memory, whose 128 bytes a clock take
+// ~2,048 clocks to read and write s once an inner round.
+//
+// C35 replaces `p6` (:183): x int32 [512, 128] cast to float32 times w
+// float32 [128, 8] (ones in the script) -> float32 [512, 8].  A thread an
+// out element: it converts each word of x's row with `__int2float_rn` and
+// sums the products with w's column in index order, `__fmul_rn` and
+// `__fadd_rn` so that nvcc does not contract them into FMAs; the result
+// equals the plain version's bit for bit for any w, and is exact at the
+// script's inputs (x < 99, w = 1: every sum below 2^24).  2 K float32
+// operations an out element (1 M at the script's shape) against 282,624
+// bytes: launch-bound; tensor cores are not used.
 
 #include <cuda_runtime.h>
 
@@ -73,6 +130,20 @@ constexpr int P3_THREADS = 128;
 constexpr int P4_THREADS = 128;
 constexpr int P4_WIDTH = 16;          // scripts/probe_pallas3.py:142
 constexpr int P4_FOLD = 8;            // x rows an out row: 128 / 16
+constexpr int P2_ROUNDS = 50;         // scripts/probe_pallas3.py:106
+constexpr int P2_COLS = 128;          // C31, C32: a row's words, 4 a lane
+constexpr int P2_WARPS = 4;           // C31, C32: rows a block
+constexpr int P2_ROWS = 256;          // C33: x's rows (:110)
+constexpr int P2_COL_WARPS = 8;       // C33: warps a block
+constexpr int P2_COL_WORDS = P2_ROWS / P2_COL_WARPS;   // C33: rows a thread
+constexpr int P5_ROUNDS = 50;         // scripts/probe_pallas3.py:169
+constexpr int P5_THREADS = 1024;
+constexpr int P5_MAX_BYTES = 232448;  // an H100 block's shared memory
+constexpr int P6_THREADS = 128;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+enum P2Kind { P2_NATIVE = 0, P2_ROLL = 1, P2_SUBL = 2 };
+static_assert(P2_ROWS % P2_COL_WARPS == 0, "C33's rows a warp");
 
 __global__ void __launch_bounds__(P7_THREADS)
 probe_p7_kernel(const int32_t* __restrict__ x, int n,
@@ -133,6 +204,123 @@ probe_p4_kernel(const int4* __restrict__ x, int quads, int n,
     const int q = blockIdx.x * P4_THREADS + threadIdx.x;
     if (q >= n) return;
     out[q] = x[pr::relayout_src(q, quads)];
+}
+
+// t[i mod 4], without indexing a register array by a runtime value
+__device__ __forceinline__ int32_t pick4(const int32_t (&t)[4], int i) {
+    i &= 3;
+    return i == 0 ? t[0] : i == 1 ? t[1] : i == 2 ? t[2] : t[3];
+}
+
+// m <- min(m, roll(m, sh)) over a row held a warp, lane L words L + 32 k
+// in m[k] (C32)
+template <int SH>
+__device__ __forceinline__ void roll_min(int32_t (&m)[4], int lane) {
+    const int src = pr::roll_src(lane, SH, P2_COLS);   // word L's source
+    int32_t t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        t[k] = SH % 32 ? __shfl_sync(FULL, m[k], src & 31) : m[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = min(m[k], pick4(t, (src >> 5) + k));
+}
+
+// C31 (KIND P2_NATIVE) and C32 (P2_ROLL): a warp a 128-word row
+template <int KIND>
+__global__ void __launch_bounds__(P2_WARPS * 32)
+probe_p2_row_kernel(const int32_t* __restrict__ x, int rows,
+                    int32_t* __restrict__ out) {
+    const int row = blockIdx.x * P2_WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;                  // the whole warp
+    const size_t base = (size_t)row * P2_COLS + lane;
+    int32_t v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = x[base + 32 * k];
+    for (int it = 0; it < P2_ROUNDS; ++it) {
+        int32_t m[4];
+        if (KIND == P2_NATIVE) {
+            const int32_t mn = __reduce_min_sync(
+                FULL, min(min(v[0], v[1]), min(v[2], v[3])));
+#pragma unroll
+            for (int k = 0; k < 4; ++k) m[k] = mn;
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) m[k] = v[k];
+            roll_min<64>(m, lane);
+            roll_min<32>(m, lane);
+            roll_min<16>(m, lane);
+            roll_min<8>(m, lane);
+            roll_min<4>(m, lane);
+            roll_min<2>(m, lane);
+            roll_min<1>(m, lane);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = pr::wadd(v[k], m[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[base + 32 * k] = v[k];
+}
+
+// C33: a block 32 columns of a 256-row x, warp w rows w + 8 j
+__global__ void __launch_bounds__(P2_COL_WARPS * 32)
+probe_p2_subl_kernel(const int32_t* __restrict__ x, int cols,
+                     int32_t* __restrict__ out) {
+    __shared__ int32_t part[2][P2_COL_WARPS][32];
+    const int w = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int32_t* src = x + (size_t)w * cols + blockIdx.x * 32 + lane;
+    int32_t* dst = out + (size_t)w * cols + blockIdx.x * 32 + lane;
+    const size_t step = (size_t)P2_COL_WARPS * cols;
+    int32_t v[P2_COL_WORDS];
+#pragma unroll
+    for (int j = 0; j < P2_COL_WORDS; ++j) v[j] = src[j * step];
+    for (int it = 0; it < P2_ROUNDS; ++it) {
+        int32_t m = v[0];
+#pragma unroll
+        for (int j = 1; j < P2_COL_WORDS; ++j) m = min(m, v[j]);
+        part[it & 1][w][lane] = m;
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < P2_COL_WARPS; ++u)
+            m = min(m, part[it & 1][u][lane]);
+#pragma unroll
+        for (int j = 0; j < P2_COL_WORDS; ++j) v[j] = pr::wadd(v[j], m);
+    }
+#pragma unroll
+    for (int j = 0; j < P2_COL_WORDS; ++j) dst[j * step] = v[j];
+}
+
+// C34: one block, s of n words in dynamic shared memory
+__global__ void __launch_bounds__(P5_THREADS)
+probe_p5_kernel(const int32_t* __restrict__ x, int n,
+                int32_t* __restrict__ out) {
+    extern __shared__ int32_t s[];
+    for (int e = threadIdx.x; e < n; e += P5_THREADS) s[e] = x[e];
+    for (int it = 0; it < P5_ROUNDS; ++it) {
+        __syncthreads();                      // s[0] of the round before
+        const int32_t trips = pr::p5_trips(s[0]);
+        __syncthreads();                      // read by all before it moves
+        for (int j = 0; j < trips; ++j)
+            for (int e = threadIdx.x; e < n; e += P5_THREADS)
+                s[e] = pr::wadd(s[e], j);
+    }
+    for (int e = threadIdx.x; e < n; e += P5_THREADS) out[e] = s[e];
+}
+
+// C35: a thread an out element of x [rows, depth] times w [depth, width]
+__global__ void __launch_bounds__(P6_THREADS)
+probe_p6_kernel(const int32_t* __restrict__ x, const float* __restrict__ w,
+                int rows, int depth, int width, float* __restrict__ out) {
+    const int e = blockIdx.x * P6_THREADS + threadIdx.x;
+    if (e >= rows * width) return;
+    const int32_t* xr = x + (size_t)(e / width) * depth;
+    const float* wc = w + e % width;
+    float acc = 0.0f;
+    for (int k = 0; k < depth; ++k)
+        acc = __fadd_rn(acc, __fmul_rn(__int2float_rn(xr[k]),
+                                       wc[(size_t)k * width]));
+    out[e] = acc;
 }
 
 int rowcopy(const void* a, int sa, const void* b, int sb, int n,
@@ -209,5 +397,57 @@ extern "C" int nabwa_probe_p4(const void* x, int rows, int cols, void* out,
     const int blocks = (n + P4_THREADS - 1) / P4_THREADS;
     probe_p4_kernel<<<blocks, P4_THREADS, 0, (cudaStream_t)stream>>>(
         (const int4*)x, cols / 4, n, (int4*)out);
+    return (int)cudaGetLastError();
+}
+
+// x, out: int32 [rows, cols], kind 0 (`native`, C31) or 1 (`roll`, C32)
+// with cols 128, or 2 (`subl`, C33) with rows 256 and cols a multiple of
+// 32.  Returns cudaGetLastError(), or cudaErrorInvalidValue for another
+// kind or shape (nothing launched).
+extern "C" int nabwa_probe_p2(const void* x, int rows, int cols, int kind,
+                              void* out, void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (kind == P2_SUBL) {
+        if (rows != P2_ROWS || cols % 32) return (int)cudaErrorInvalidValue;
+        probe_p2_subl_kernel<<<cols / 32, P2_COL_WARPS * 32, 0, st>>>(
+            (const int32_t*)x, cols, (int32_t*)out);
+        return (int)cudaGetLastError();
+    }
+    if ((kind != P2_NATIVE && kind != P2_ROLL) || cols != P2_COLS)
+        return (int)cudaErrorInvalidValue;
+    const int blocks = (rows + P2_WARPS - 1) / P2_WARPS;
+    if (kind == P2_NATIVE)
+        probe_p2_row_kernel<P2_NATIVE><<<blocks, P2_WARPS * 32, 0, st>>>(
+            (const int32_t*)x, rows, (int32_t*)out);
+    else
+        probe_p2_row_kernel<P2_ROLL><<<blocks, P2_WARPS * 32, 0, st>>>(
+            (const int32_t*)x, rows, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
+// x, out: int32 [n], 0 < n <= P5_MAX_BYTES / 4.  Returns the error of
+// raising the block's shared memory limit to 4 n bytes, else
+// cudaGetLastError(); cudaErrorInvalidValue for another n (nothing
+// launched).
+extern "C" int nabwa_probe_p5(const void* x, int n, void* out,
+                              void* stream) {
+    if (n <= 0 || n > P5_MAX_BYTES / 4) return (int)cudaErrorInvalidValue;
+    const int bytes = n * 4;
+    const cudaError_t rc = cudaFuncSetAttribute(
+        probe_p5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    probe_p5_kernel<<<1, P5_THREADS, bytes, (cudaStream_t)stream>>>(
+        (const int32_t*)x, n, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
+// x: int32 [rows, depth]; w: float32 [depth, width]; out: float32 [rows,
+// width].  Returns cudaGetLastError().
+extern "C" int nabwa_probe_p6(const void* x, const void* w, int rows,
+                              int depth, int width, void* out,
+                              void* stream) {
+    const int blocks = (rows * width + P6_THREADS - 1) / P6_THREADS;
+    probe_p6_kernel<<<blocks, P6_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)x, (const float*)w, rows, depth, width, (float*)out);
     return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// The per-read and per-copy arithmetic of the probe kernels C7-C30
+// The per-read and per-copy arithmetic of the probe kernels C7-C35
 // (probe_rowload.cu, probe_dma.cu, probe_dfs_shape.cu, probe_pallas2.cu,
 // probe_pallas.cu, probe_spill.cu, probe_colops.cu, probe_pallas3.cu):
 // int32 arithmetic that wraps as jnp's does, the floor modulo of jnp's
@@ -7,8 +7,9 @@
 // probe_pallas2.py's pop and the fields of its scalar push, and the
 // popcount, one slot of a round of probe_pallas.py's probes 3, 4 and 4b,
 // one step of probe 4c's body, one value's update of probe_spill.py, one
-// step of probe_colops.py, one step of probe_pallas3.py's p7 and p8, and
-// the source of p4's relayout.
+// step of probe_colops.py, one step of probe_pallas3.py's p7 and p8, the
+// source of p4's relayout, the source word of p2's rotation and p5's trip
+// count.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -173,6 +174,19 @@ NABWA_HD int32_t p8_step(int32_t v, int32_t a, int32_t i) {
 // holds fewer than 2^31 words.
 NABWA_HD int32_t relayout_src(int32_t q, int32_t quads) {
     return (q >> 2) * quads + (q & 3);
+}
+
+// probe_pallas3.py:99, p2's `pltpu.roll(m, sh, 1)` over a row of n words
+// moves word c to (c + sh) mod n, as np.roll does: word c of the rotated
+// row is word (c - sh) mod n of m, for c and sh in [0, n)
+NABWA_HD int32_t roll_src(int32_t c, int32_t sh, int32_t n) {
+    return floor_mod(c - sh, n);
+}
+
+// probe_pallas3.py:161, the inner trip count of p5's outer round from
+// s[0, 0]: (s & 3) + 1 on the int32 bit pattern, 1-4 for a negative s too
+NABWA_HD int32_t p5_trips(int32_t s00) {
+    return (s00 & 3) + 1;
 }
 
 }  // namespace probe

@@ -116,6 +116,12 @@ _SIGNATURES = {
     "nabwa_probe_p3": [_P, _I, _P, _I, _P, _P],
     # (x, rows, cols, out, stream)
     "nabwa_probe_p4": [_P, _I, _I, _P, _P],
+    # (x, rows, cols, kind, out, stream)
+    "nabwa_probe_p2": [_P, _I, _I, _I, _P, _P],
+    # (x, n, out, stream)
+    "nabwa_probe_p5": [_P, _I, _P, _P],
+    # (x, w, rows, depth, width, out, stream)
+    "nabwa_probe_p6": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -222,15 +228,15 @@ def stream_of(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t, name, device, ndim):
-    """Raise ValueError unless `t` is a contiguous int32 tensor with `ndim`
-    dimensions on `device`."""
+def require(t, name, device, ndim, dtype=torch.int32):
+    """Raise ValueError unless `t` is a contiguous tensor of `dtype` (int32
+    unless said) with `ndim` dimensions on `device`."""
     if not isinstance(t, torch.Tensor):
         raise ValueError(f"{name}: expected a tensor, got {type(t)}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected torch.int32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():

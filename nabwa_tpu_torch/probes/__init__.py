@@ -28,14 +28,19 @@ kernel, with the script's entry point:
   probe_colops     `make` (C24, csrc/probe_colops.cu: a chain of T K
                    dependent steps a thread), T and K from the
                    environment, after scripts/probe_colops.py
-  probe_pallas3    `p7` (C25, 200 chained steps) and `p8` (C26, 30
-                   steps against a per-row scalar), both in
-                   csrc/probe_pallas3.cu, after scripts/probe_pallas3.py
+  probe_pallas3    `p1` and `p1b` (C27, C28, scalar-indexed row
+                   copies), `p2` (C31 `native`, C32 `roll`, C33 `subl`:
+                   50 rounds of a row or column minimum), `p3` (C29, a
+                   gather along the rows), `p4` (C30, a relayout), `p5`
+                   (C34, a loop whose trip count hangs on the data), `p6`
+                   (C35, a lane sum as a float32 matrix product), `p7`
+                   (C25, 200 chained steps) and `p8` (C26, 30 steps
+                   against a per-row scalar), all in csrc/probe_pallas3.cu,
+                   after scripts/probe_pallas3.py
 
 The public functions take the JAX scripts' layouts (int32 arrays); a CPU
 tensor runs the plain version, a CUDA tensor the kernel.  The entry points
 take `--device cuda|cpu` (default cuda) and print the scripts' result
-lines, timed with CUDA events on the card.  Probes 1, 1b, 2, 3, 4, 5
-and 6 of scripts/probe_pallas3.py are not ported yet: its entry point
-refuses them by name (`probe_pallas3.NOT_PORTED`).
+lines, timed with CUDA events on the card.  Every probe of the scripts is
+ported.
 """

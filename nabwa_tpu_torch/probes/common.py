@@ -66,14 +66,14 @@ def dispatch(name, t, plain, cuda, *args):
     raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def cuda_input(t, name, ndim, dev=None):
-    """The device of `t`, a contiguous int32 CUDA tensor with `ndim`
-    dimensions (on `dev` if given) whose start the kernels may read as
-    int4; raises ValueError otherwise."""
+def cuda_input(t, name, ndim, dev=None, dtype=torch.int32):
+    """The device of `t`, a contiguous CUDA tensor of `dtype` (int32 unless
+    said) with `ndim` dimensions (on `dev` if given) whose start the
+    kernels may read as int4; raises ValueError otherwise."""
     dev = t.device if dev is None else dev
     if t.device.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {t.device}")
-    _build.require(t, name, dev, ndim)
+    _build.require(t, name, dev, ndim, dtype)
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: not 16-byte aligned")
     return dev

@@ -1,7 +1,7 @@
-"""Probes 1, 1b, 3, 4, 7 and 8 of scripts/probe_pallas3.py on the card.
+"""The nine probes of scripts/probe_pallas3.py on the card.
 
     python -m nabwa_tpu_torch.probes.probe_pallas3 [--device cuda|cpu]
-                                                   [1] [1b] [3] [4] [7] [8]
+                         [1] [1b] [2] [3] [4] [5] [6] [7] [8]
 
 Probe 1, `p1` (scripts/probe_pallas3.py:35, through `call` at :25-31,
 pallas_call at :28): 256 rounds, round k copying row i[k, 0] of a table t
@@ -22,6 +22,20 @@ any launch: the script draws none, and Pallas interpret mode, unlike a
 gather, wraps or clamps them (p1 reads row 15 of a 16-row table for both
 -1 and 99).
 
+Probe 2, `p2` (:86): 50 rounds of v <- v + m over x int32 [256, 128]
+(wrapping), m the minimum of v's row, taken by `min(axis=1)` (`native`,
+kernel C31) or by seven rotate-and-min steps over the row (`roll`, C32),
+or the minimum of v's column (`subl`, C33), broadcast back.
+
+Probe 5, `p5` (:156): 50 outer rounds over s = x int32 [256, 128], each
+running n = (s[0, 0] & 3) + 1 inner rounds s <- s + j, j < n (wrapping);
+kernel C34, one block with s in shared memory.
+
+Probe 6, `p6` (:183): x int32 [512, 128] cast to float32 times w float32
+[128, 8] (ones) -> float32 [512, 8]; kernel C35, a thread an out element
+summing in index order without FMA, so that it equals the plain version
+bit for bit.
+
 Probe 7, `p7` (:202): 200 chained steps v <- (v + i) ^ (v >> 2), i =
 0..199, on x int32 of [1, 256], [256, 1], [8, 256] and [8, 512]
 (wrapping); on a CUDA tensor kernel C25, one thread an element.
@@ -29,17 +43,15 @@ Probe 7, `p7` (:202): 200 chained steps v <- (v + i) ^ (v >> 2), i =
 Probe 8, `p8` (:222): from v = b int32 [256, 128], 30 steps v <- where(v
 > a, v - a, v + i), i = 0..29, with a int32 [256, 1] broadcast over each
 row's columns (the DFS's expansion shape); kernel C26, a row a warp and
-its scalar one broadcast load.  C25-C30 are in csrc/probe_pallas3.cu.
+its scalar one broadcast load.  C25-C35 are in csrc/probe_pallas3.cu.
 
 The inputs are the script's, unseeded as there (`np.random`); each probe
-prints the script's result line with the time of 20 calls after one
-(`timeit`, :15), by CUDA events on the card, and probes 1-4 its `ok`
-against the host copy of the inputs.  The script's other probes, 2, 5
-and 6 (NOT_PORTED), are not ported yet and exit non-zero; a name the
-script does not have exits non-zero too.  With no name, the ported
-probes run in the script's order.  Unlike the script, which prints
-"FAILED" and goes on (:55-56), a failure here, `ok=False` included,
-exits non-zero.
+prints the script's result line with the time of 20 calls after one (5
+for probes 2 and 5; `timeit`, :15), by CUDA events on the card, and
+probes 1-4 and 6 its `ok` against the host copy of the inputs.  A name
+the script does not have exits non-zero.  With no name, the nine probes
+run in the script's order.  Unlike the script, which prints "FAILED" and
+goes on (:55-56), a failure here, `ok=False` included, exits non-zero.
 """
 
 import sys
@@ -59,15 +71,31 @@ P1_TABLE = (4096, 128)                                  # :47, :73
 P3_X, P3_I = (128, 128), (8, 128)                       # :128-129
 P4_X = (512, 128)                                       # :145
 P4_WIDTH, P4_FOLD = 16, 8        # :142: 16 words of 8 rows an out row
+P2_KINDS = ("native", "roll", "subl")                   # :111
+P2_ROUNDS = 50                                          # :106
+P2_SHIFTS = (64, 32, 16, 8, 4, 2, 1)                    # :98
+P2_X = (256, 128)                                       # :110
+P2_ROW_COLS, P2_COL_ROWS = 128, 256   # C31, C32's rows; C33's columns
+P5_ROUNDS = 50                                          # :169
+P5_X = (256, 128)                                       # :174
+P5_MAX_WORDS = 232448 // 4       # C34's s: a block's shared memory
+P6_X, P6_W = (512, 128), (128, 8)                       # :191-192
+TIMED_CALLS_P2_P5 = 5                                   # :115, :176
 
 # kernel launches made on CUDA tensors: C25 by `p7`, C26 by `p8`, C27 by
-# `p1`, C28 by `p1b`, C29 by `p3`, C30 by `p4`
+# `p1`, C28 by `p1b`, C29 by `p3`, C30 by `p4`, C31-C33 by `p2` in its
+# three kinds, C34 by `p5`, C35 by `p6`
 launches_p7 = 0
 launches_p8 = 0
 launches_p1 = 0
 launches_p1b = 0
 launches_p3 = 0
 launches_p4 = 0
+launches_p2_native = 0
+launches_p2_roll = 0
+launches_p2_subl = 0
+launches_p5 = 0
+launches_p6 = 0
 
 
 def row_copies(a, b, t):
@@ -326,6 +354,157 @@ def p8(a, b):
     return common.dispatch("p8", a, p8_plain, p8_cuda, b)
 
 
+def p2_min(v, kind):
+    """The minimum that round of probe 2 adds to each value of v (int64
+    holding int32s, [R, C]): of its row for `native` and `roll` (by seven
+    rotations, :97-99, as the script takes it), of its column for `subl`,
+    broadcast over v."""
+    if kind == "native":
+        return v.min(dim=1, keepdim=True).values
+    if kind == "roll":
+        m = v
+        for sh in P2_SHIFTS:
+            m = torch.minimum(m, torch.roll(m, sh, 1))
+        return m
+    if kind == "subl":
+        return v.min(dim=0, keepdim=True).values
+    raise ValueError(f"p2: no kind {kind!r}, expected one of {P2_KINDS}")
+
+
+def p2_plain(x, kind):
+    """Probe 2's kernel of `kind` in plain PyTorch: 50 rounds of v <- v +
+    p2_min(v, kind), wrapping, from x int32 [R, C] -> int32 [R, C]."""
+    v = x.long()
+    for _ in range(P2_ROUNDS):
+        v = wrap32(v + p2_min(v, kind))
+    return v.to(torch.int32)
+
+
+def p2_cuda(x, kind):
+    """`p2_plain` by kernel C31 (`native`), C32 (`roll`), x of 128
+    columns, or C33 (`subl`), x of 256 rows and columns a multiple of
+    32."""
+    global launches_p2_native, launches_p2_roll, launches_p2_subl
+    if kind not in P2_KINDS:
+        raise ValueError(f"p2: no kind {kind!r}, expected one of {P2_KINDS}")
+    common.cuda_input(x, "x", 2)
+    rows, cols = x.shape
+    if kind == "subl" and (rows != P2_COL_ROWS or cols % 32):
+        raise ValueError(f"x must be [{P2_COL_ROWS}, C] with C a multiple "
+                         f"of 32 for `subl`, got {tuple(x.shape)}")
+    if kind != "subl" and cols != P2_ROW_COLS:
+        raise ValueError(f"x must be [R, {P2_ROW_COLS}] for `{kind}`, got "
+                         f"{tuple(x.shape)}")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = _build.lib().nabwa_probe_p2(x.data_ptr(), rows, cols,
+                                     P2_KINDS.index(kind), out.data_ptr(),
+                                     _build.stream_of(x))
+    _build.check(rc, f"probe_p2 {kind} kernel launch")
+    with _build.count_lock:
+        if kind == "native":
+            launches_p2_native += 1
+        elif kind == "roll":
+            launches_p2_roll += 1
+        else:
+            launches_p2_subl += 1
+    return out
+
+
+def p2(x, kind):
+    """Probe 2 in `kind`: the plain version for CPU tensors, kernel C31,
+    C32 or C33 for CUDA tensors."""
+    return common.dispatch("p2", x, p2_plain, p2_cuda, kind)
+
+
+def p5_trips(s00):
+    """The inner trip counts of probe 5's 50 outer rounds from s[0, 0] =
+    s00 (an int): every value gets the same additions, so s[0, 0] alone
+    decides them; n = (s[0, 0] & 3) + 1 on the int32 bit pattern (:161)."""
+    trips = []
+    for _ in range(P5_ROUNDS):
+        trips.append((s00 & 3) + 1)
+        for j in range(trips[-1]):
+            s00 = wrap32(s00 + j)
+    return trips
+
+
+def p5_plain(x):
+    """Probe 5's kernel in plain PyTorch: from s = x int32 [R, C], 50
+    outer rounds, each reading n from the current s[0, 0] and then adding
+    j to s for j < n, wrapping -> int32 [R, C]."""
+    s = x.long()
+    for _ in range(P5_ROUNDS):
+        n = (int(s[0, 0]) & 3) + 1
+        for j in range(n):
+            s = wrap32(s + j)
+    return s.to(torch.int32)
+
+
+def p5_cuda(x):
+    """`p5_plain` by kernel C34; x of at most P5_MAX_WORDS words."""
+    global launches_p5
+    common.cuda_input(x, "x", 2)
+    if x.numel() > P5_MAX_WORDS:
+        raise ValueError(f"x must fit one block's shared memory, "
+                         f"{P5_MAX_WORDS} words, got {x.numel()}")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = _build.lib().nabwa_probe_p5(x.data_ptr(), x.numel(),
+                                     out.data_ptr(), _build.stream_of(x))
+    _build.check(rc, "probe_p5 kernel launch")
+    with _build.count_lock:
+        launches_p5 += 1
+    return out
+
+
+def p5(x):
+    """Probe 5: the plain version for CPU tensors, kernel C34 for CUDA
+    tensors."""
+    return common.dispatch("p5", x, p5_plain, p5_cuda)
+
+
+def p6_plain(x, w):
+    """Probe 6's kernel in plain PyTorch: x int32 [R, K] cast to float32
+    times w float32 [K, N], the products x[:, k] w[k, :] summed over k in
+    index order in float32 -> float32 [R, N]."""
+    xf = x.float()
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(x.shape[1]):
+        acc = acc + xf[:, k, None] * w[k]
+    return acc
+
+
+def p6_cuda(x, w):
+    """`p6_plain` by kernel C35."""
+    global launches_p6
+    dev = common.cuda_input(x, "x", 2)
+    common.cuda_input(w, "w", 2, dev, torch.float32)
+    if w.shape[0] != x.shape[1]:
+        raise ValueError(f"x and w must be [R, K] and [K, N], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    rc = _build.lib().nabwa_probe_p6(x.data_ptr(), w.data_ptr(), x.shape[0],
+                                     x.shape[1], w.shape[1], out.data_ptr(),
+                                     _build.stream_of(x))
+    _build.check(rc, "probe_p6 kernel launch")
+    with _build.count_lock:
+        launches_p6 += 1
+    return out
+
+
+def p6(x, w):
+    """Probe 6: the plain version for CPU tensors, kernel C35 for CUDA
+    tensors."""
+    return common.dispatch("p6", x, p6_plain, p6_cuda, w)
+
+
 def probe_p7(device):
     """Probe 7 on the script's inputs, one line a shape.  Returns [(shape,
     seconds per call, result)]."""
@@ -414,9 +593,46 @@ def probe_p4(device):
     return dt, r
 
 
-PROBES = {"1": probe_p1, "1b": probe_p1b, "3": probe_p3, "4": probe_p4,
-          "7": probe_p7, "8": probe_p8}
-NOT_PORTED = ("2", "5", "6")
+def probe_p2(device):
+    """Probe 2 on the script's input, one line a kind, each timed over 5
+    calls after one.  Returns [(kind, seconds per call, result)]."""
+    x_t, = common.tensors(device, np.random.randint(0, 1 << 20, P2_X))
+    res = []
+    for kind in P2_KINDS:
+        dt, r = common.timeit(lambda: p2(x_t, kind), device,
+                              n=TIMED_CALLS_P2_P5)
+        print(f"P2 min-reduce[{kind}] {P2_ROUNDS} iters: {dt*1e3:.2f}ms "
+              f"({dt/P2_ROUNDS*1e6:.1f}us/iter)")
+        res.append((kind, dt, r))
+    return res
+
+
+def probe_p5(device):
+    """Probe 5 on the script's input, timed over 5 calls after one.
+    Returns (seconds per call, result)."""
+    x_t, = common.tensors(device, np.random.randint(0, 1 << 20, P5_X))
+    dt, r = common.timeit(lambda: p5(x_t), device, n=TIMED_CALLS_P2_P5)
+    print(f"P5 dyn-trip inner fori {P5_ROUNDS} outers: {dt*1e3:.2f}ms")
+    return dt, r
+
+
+def probe_p6(device):
+    """Probe 6 on the script's inputs; `ok` is the script's: column 0
+    close to x's row sums (:195).  Returns (seconds per call, result)."""
+    x = np.random.randint(0, 99, P6_X)
+    x_t, = common.tensors(device, x)
+    w_t = torch.ones(P6_W, dtype=torch.float32, device=device)
+    dt, r = common.timeit(lambda: p6(x_t, w_t), device)
+    ok = np.allclose(r.cpu().numpy()[:, 0], x.sum(1))
+    _result(f"P6 matmul-ones reduce [{P6_X[0]},{P6_X[1]}]: {dt*1e6:.1f}us",
+            ok)
+    return dt, r
+
+
+# the script's names in its order (:242-243)
+PROBES = {"1": probe_p1, "1b": probe_p1b, "2": probe_p2, "3": probe_p3,
+          "4": probe_p4, "5": probe_p5, "6": probe_p6, "7": probe_p7,
+          "8": probe_p8}
 
 
 def main(argv=None):
@@ -427,9 +643,8 @@ def main(argv=None):
     which = which or list(PROBES)
     for w in which:
         if w not in PROBES:
-            why = ("not yet ported to nabwa_tpu_torch" if w in NOT_PORTED
-                   else "no such probe")
-            print(f"[probe_pallas3] probe {w}: {why}", file=sys.stderr)
+            print(f"[probe_pallas3] probe {w}: no such probe",
+                  file=sys.stderr)
             return 1
     print("devices:", [common.device_name(device)])
     for w in which:

@@ -1,5 +1,7 @@
 """Probes 1, 1b, 3, 4, 7 and 8 of scripts/probe_pallas3.py (`nabwa_tpu_torch.
-probes.probe_pallas3`) against the JAX script on the CPU.
+probes.probe_pallas3`) against the JAX script on the CPU, and the entry
+point of all nine (probes 2, 5 and 6 are held to the script in
+tests/test_torch_probe_pallas3_reduce.py).
 
 The script is loaded in Pallas interpret mode with `np.random` seeded and
 its `timeit` replaced by one call that records the jitted `run`, its
@@ -19,13 +21,15 @@ equal to plane values (the where's tie goes to v + i).  Kernels C25's
 and C26's steps and C30's source int4, `p7_step`, `p8_step` and
 `relayout_src` of csrc/probes.cuh built by g++, equal the plain formulas
 value by value.  The entry point prints the script's lines for each
-ported probe and with no name; probes 2, 5 and 6 exit non-zero as not
-yet ported, an unknown name as no such probe; a missing card, CPU
-tensors, misaligned inputs and shapes the kernels do not take are
-refused.
+probe and, with no name, for all nine in the script's order, whose names
+are exactly the script's; a name the script lacks exits non-zero as no
+such probe; a missing card, CPU tensors, misaligned inputs and shapes
+the kernels do not take are refused.
 """
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -55,8 +59,13 @@ P1_LINES = ["P1 lane-1 scalar read:#us ok=True"]
 P1B_LINES = ["P1b two-col scalar reads 512 loads:#us ok=True"]
 P3_LINES = ["P3 take_along_axis sublanes:#us ok=True"]
 P4_LINES = ["P4 reshape [512,16]->[64,128]:#us ok=True"]
-LINES = {"1": P1_LINES, "1b": P1B_LINES, "3": P3_LINES, "4": P4_LINES,
-         "7": P7_LINES, "8": P8_LINES}
+P2_LINES = [f"P2 min-reduce[{k}] 50 iters:#ms (#us/iter)"
+            for k in ("native", "roll", "subl")]
+P5_LINES = ["P5 dyn-trip inner fori 50 outers:#ms"]
+P6_LINES = ["P6 matmul-ones reduce [512,128]:#us ok=True"]
+LINES = {"1": P1_LINES, "1b": P1B_LINES, "2": P2_LINES, "3": P3_LINES,
+         "4": P4_LINES, "5": P5_LINES, "6": P6_LINES, "7": P7_LINES,
+         "8": P8_LINES}
 
 
 def _load(script, monkeypatch, capsys, seed, probe):
@@ -318,12 +327,13 @@ def test_host_steps_match_plain(host, name, check):
     np.testing.assert_array_equal(got, want.numpy())
 
 
-@pytest.mark.parametrize("which", [["1"], ["1b"], ["3"], ["4"], ["7", "8"],
-                                   []])
+@pytest.mark.parametrize("which", [["1"], ["1b"], ["2"], ["3"], ["4"],
+                                   ["5", "6"], ["7", "8"], []])
 def test_entry_point_cpu(which):
     """The port's lines are the script's, numbers aside (the script's own
-    are held to the *_LINES above); with no name the six ported probes run
-    in the script's order."""
+    are held to the *_LINES above and in
+    tests/test_torch_probe_pallas3_reduce.py); with no name the nine
+    probes run in the script's order."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-m", "nabwa_tpu_torch.probes.probe_pallas3",
@@ -335,23 +345,28 @@ def test_entry_point_cpu(which):
     assert masked(lines[1:]) == sum((LINES[w] for w in which or LINES), [])
 
 
-@pytest.mark.parametrize("name", ["2", "5", "6", "9", "p7"])
+@pytest.mark.parametrize("name", ["0", "2b", "10", "9", "p7"])
 def test_other_probes_exit_nonzero(name, capsys):
-    """The script's other probes are not ported yet, and a name it does
-    not have is none; either exits non-zero before any probe runs."""
+    """A name the script does not have is no probe, and exits non-zero
+    before any probe runs."""
     assert p3.main(["--device", "cpu", "7", name]) != 0
     captured = capsys.readouterr()
     assert captured.out == ""
-    why = ("not yet ported to nabwa_tpu_torch" if name in p3.NOT_PORTED
-           else "no such probe")
-    assert f"probe {name}: {why}" in captured.err
+    assert f"probe {name}: no such probe" in captured.err
 
 
 def test_not_ported_names():
-    """Only probes 2, 5 and 6 of the script remain to port."""
-    assert p3.NOT_PORTED == ("2", "5", "6")
-    assert set(p3.PROBES) | set(p3.NOT_PORTED) == set(LINES) | {"2", "5",
-                                                                "6"}
+    """Every probe of the script is ported: the entry point's names are
+    exactly the script's `names`, in its order (:242-243)."""
+    tree = ast.parse(pathlib.Path(REPO, "scripts",
+                                  "probe_pallas3.py").read_text())
+    names = [node.value for node in ast.walk(tree)
+             if isinstance(node, ast.Assign)
+             and [ast.unparse(t) for t in node.targets] == ["names"]]
+    assert len(names) == 1
+    script_names = [k.value for k in names[0].keys]
+    assert list(p3.PROBES) == script_names == list(LINES)
+    assert not hasattr(p3, "NOT_PORTED")
 
 
 def test_entry_point_needs_card(capsys, monkeypatch):
