@@ -39,7 +39,9 @@ Phases, any failure exits non-zero:
    whole traceback lattice, exact;
 7. samse on both read sets, on the card (C3, C4) and on the host reference
    route (native SA walk and DP): byte-identical SAM, reads/s and host
-   seconds per part of each;
+   seconds per part of each; every C4 launch of the card runs replayed
+   against the plain DP, exact (`samse_launches_checked`,
+   `samse_total_ms`);
 8. the CLI chain on the gapped reads, every launch count at 0 before each
    command: `aln --device cuda` (its `.sai` equal to the host engine's,
    C1 and C2 launched), then `samse --device cuda` (its SAM equal to the
@@ -76,7 +78,21 @@ Phases, any failure exits non-zero:
    reads/s and host seconds per part of each.  Then every recorded launch
    against its plain version: C6's score, end cell and window cells, C4's
    score, end type and whole lattice at 1 kb lengths, C3's positions, all
-   exact; and the two routes' SAM byte-identical;
+   exact; and the two routes' SAM byte-identical.  C6's launches made
+   inside stage B (`_replay`: a read with N bases, a few jobs) are the
+   single-read launches, the rest the batched ones: each set's summed
+   time, and the widest single-read launch timed alone (`single_ms`,
+   `single_queued_ms`).  Then C4's and C6's edge launches (`check_dp_edges`,
+   numpy seed DP_EDGE_SEED), exact against the plain versions: C6 at one
+   job of bwasw's widest window (L1 1250, L2 969) and one whose window is
+   its whole target, bands wider than a pass of 32 x 4 cells, windows
+   narrower than the lanes, len2 0 and 1, rows tied at their maximum, and
+   a job of L1 30,000 whose state the wrapper keeps in device memory; C4
+   at b2 == len2, per-pair bands with gap_end -1, rows wider than a pass
+   with wide and narrow bands, len2 0 and 1, ties, b1 and b2 drawn freely,
+   go < 0, and L1 18,000 (state in device memory); and bwasw's largest C4
+   and C6 launches again with their state forced into device memory.  The
+   run fails if ptxas reports a spill in either kernel;
 15. the bwasw CLI with every launch count at 0: `bwasw --device cuda` (its
    SAM equal to the host reference route's, C3, C4 and C6 launched);
 16. bam2bam on an unaligned BAM (built with the port's io/bam.py) of
@@ -199,7 +215,14 @@ largest launch of bwasw's card run, its bound counted from the window
 cells that launch computed; C4's bound counts the cells inside each
 pair's band and the whole lattice's bytes.  `total_ms` (C6) and
 `bwasw_total_ms` (C4, C3) sum the device time of every launch of the
-bwasw card run, each timed once as it is replayed; the `bam2bam_*` fields
+bwasw card run, each timed once as it is replayed; C6's `total_ms` splits
+into `batched_total_ms` and `single_total_ms` (stage B's single-read
+launches, `single_launches` of them), and `single_ms` / `single_queued_ms`
+time the widest of those alone (`single_shape`: jobs, L1, L2); C4's and
+C6's `device_state_ms` (C4's `bwasw_device_state_ms`) time the largest
+launch with its state forced into device memory, `ptxas` holds both
+kernels' registers, static shared memory and spills, `edge_launches` the
+shapes of the edge launches checked; the `bam2bam_*` fields
 of C2-C5 are those of bam2bam's one-worker card run (C1's
 `bam2bam_err` of its replayed launch), and `bam2bam_launches` of every
 kernel its count in phase 17.
@@ -352,6 +375,7 @@ I32_MIN, I32_MAX = -2**31, 2**31 - 1
 # behind it (queued_ms): ~50 ms at the H100's clocks
 QUEUE_SLEEP_CYCLES = 100_000_000
 PROBE_SEED = 18
+DP_EDGE_SEED = 21
 DMA_T = 64                    # scripts/probe_dma.py:28
 DMA_ROWS = (100_000, 4_000_000)
 L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
@@ -436,11 +460,10 @@ def io_bytes(args, out):
 
 def band_cells(args):
     """Cells inside C4's band, summed over a launch's pairs: the cells the
-    DP needs (the kernel sweeps the whole padded row, but a cell outside
-    the band only carries traceback bits of NEG comparisons, counted in
-    the lattice's bytes).  args: (s1, len1, s2, len2, b1, b2, ...); row j
-    of a pair spans [start, min(j + b1 - 1, len1)] as in
-    banded_global_plain."""
+    DP needs (a cell outside the band only carries traceback bits of NEG
+    comparisons, counted in the lattice's bytes).  args: (s1, len1, s2,
+    len2, b1, b2, ...); row j of a pair spans [start, min(j + b1 - 1,
+    len1)] as in banded_global_plain."""
     import torch
     len1, len2, b1, b2 = (t.long()[:, None]
                           for t in (args[1], args[3], args[4], args[5]))
@@ -891,8 +914,8 @@ def check_sa_lookup(eng, idx, reads, sai_bytes):
 def check_banded_global(eng, idx, reads, sai_bytes, opt):
     """C4 against the plain version on the first device batch of the
     refine jobs samse makes on this `.sai`: score, ctype and the whole
-    traceback lattice.  The bound counts the inputs, the lattice and every
-    cell of the padded rows the kernel computes."""
+    traceback lattice.  The bound counts the inputs, the lattice and the
+    cells of each pair's band."""
     import torch
     from nabwa_tpu_torch.models import samse as msamse
     from nabwa_tpu_torch.ops import dp
@@ -936,19 +959,28 @@ def check_banded_global(eng, idx, reads, sai_bytes, opt):
 
 def samse_routes(eng, idx, reads, sai_bytes, opt, label):
     """samse on the card and on the host reference route: identical SAM
-    bytes; reads/s and part seconds of each."""
+    bytes; reads/s and part seconds of each, and under "banded_global" the
+    arguments of every C4 launch of the card run."""
     import torch
     from nabwa_tpu_torch.models import samse as msamse
+    from nabwa_tpu_torch.ops import dp
     from nabwa_tpu_torch.utils.rand48 import Rand48
     per_read = sai_columns(sai_bytes)
     out = {}
     for route in ("reference", "cuda"):
         msamse.seconds = dict.fromkeys(msamse.seconds, 0.0)
+        undo = None
+        if route == "cuda":
+            out["banded_global"], undo = record(dp, "banded_global_cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        blob = msamse.samse_bytes(eng, reads, per_read, opt,
-                                  rng=Rand48(idx.bns.seed),
-                                  host_reference=route == "reference")
+        try:
+            blob = msamse.samse_bytes(eng, reads, per_read, opt,
+                                      rng=Rand48(idx.bns.seed),
+                                      host_reference=route == "reference")
+        finally:
+            if undo:
+                undo()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         parts = dict(msamse.seconds)
@@ -986,10 +1018,11 @@ def check_launches(label, calls, kernel, plain, size, bound_of):
     kernel's device time over the path.  The largest launch by
     `size(args)` is timed again over 5 launches (`ms`) beside its plain
     version (`plain_ms`), and its bound is `bound_of(args, outputs)`.
-    Returns a dict of those, max |err| (`err`), and the largest launch's
-    `args` and plain outputs (`out`)."""
+    Returns a dict of those, max |err| (`err`), each launch's time in
+    order (`times`), and the largest launch's `args` and plain outputs
+    (`out`)."""
     import torch
-    worst, total_ms, n_rows, timed = 0, 0.0, 0, None
+    worst, total_ms, n_rows, timed, times = 0, 0.0, 0, None, []
     big = max(calls, key=lambda c: size(c[0]))
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -999,7 +1032,8 @@ def check_launches(label, calls, kernel, plain, size, bound_of):
         kern = as_tuple(kernel(*args, **kw))
         ev1.record()
         torch.cuda.synchronize()
-        total_ms += ev0.elapsed_time(ev1)
+        times.append(ev0.elapsed_time(ev1))
+        total_ms += times[-1]
         t0 = time.perf_counter()
         out = as_tuple(plain(*args, **kw))
         torch.cuda.synchronize()
@@ -1021,8 +1055,8 @@ def check_launches(label, calls, kernel, plain, size, bound_of):
     if worst != 0:
         fail(f"{label}: the kernel disagrees with the plain version")
     return {"err": worst, "ms": ms, "plain_ms": timed[0],
-            "total_ms": total_ms, "bound": bnd, "args": args,
-            "out": timed[1]}
+            "total_ms": total_ms, "times": times, "bound": bnd,
+            "args": args, "kw": kw, "out": timed[1]}
 
 
 def replay_dfs(label, calls):
@@ -1100,7 +1134,9 @@ def bwasw_routes(eng, idx, reads, opt):
     """bwasw on the host reference route and on the card: reads/s, part
     seconds and the card route's launches of C3, C4 and C6, with the
     arguments of each C6, C4 and C3 launch recorded ({"extend": [...],
-    "banded_global": [...], "sa_lookup": [...]})."""
+    "banded_global": [...], "sa_lookup": [...]}), and under "replay" the
+    range of C6 launches made inside stage B (`_replay`), the single-read
+    ones."""
     import torch
     from nabwa_tpu_torch.models import bwasw as mbw
     from nabwa_tpu_torch.ops import dp
@@ -1118,6 +1154,17 @@ def bwasw_routes(eng, idx, reads, opt):
                                   ("sa_lookup", sl, "sa_lookup_cuda")):
                 recorded[name], undo = record(mod, fn)
                 restore.append(undo)
+            replay = mbw._replay
+
+            def marked(*a, **kw):
+                n0 = len(recorded["extend"])
+                try:
+                    return replay(*a, **kw)
+                finally:
+                    recorded["replay"] = range(n0, len(recorded["extend"]))
+
+            mbw._replay = marked
+            restore.append(lambda: setattr(mbw, "_replay", replay))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -1872,27 +1919,232 @@ def int32_mixed(rng, shape):
     return x
 
 
-def spill_ptxas(log_text):
-    """{K: registers, stack frame and spill bytes} of kernel C23's
-    instantiations, read from the ptxas report of the build."""
-    tag = "probe_spill_kernelILi"
-    report, k = {}, None
+def ptxas_report(log_text, key_of):
+    """{key: registers, static shared memory, stack frame and spill bytes}
+    of the kernels in the build's ptxas report for which key_of(mangled
+    name) is not None."""
+    report, key = {}, None
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
-            k = (int(name.split(tag)[1].split("E")[0]) if tag in name
-                 else None)
-        elif k is not None and "bytes spill stores" in ln:
+            key = key_of(ln.split("'")[1])
+        elif key is not None and "bytes spill stores" in ln:
             stack, stores, loads = (int(part.split()[0])
                                     for part in ln.split(","))
-            report.setdefault(k, {}).update(
+            report.setdefault(key, {}).update(
                 stack_bytes=stack, spill_store_bytes=stores,
                 spill_load_bytes=loads)
-        elif k is not None and "Used" in ln and "registers" in ln:
-            report.setdefault(k, {})["registers"] = int(
-                ln.split("Used")[1].split()[0])
-            k = None
+        elif key is not None and "Used" in ln and "registers" in ln:
+            entry = report.setdefault(key, {})
+            entry["registers"] = int(ln.split("Used")[1].split()[0])
+            if "bytes smem" in ln:
+                entry["static_smem_bytes"] = int(
+                    ln.split("bytes smem")[0].split(",")[-1].split()[0])
+            key = None
     return report
+
+
+def spill_ptxas(log_text):
+    """The ptxas report of kernel C23's instantiations, keyed by K."""
+    tag = "probe_spill_kernelILi"
+    return ptxas_report(log_text, lambda name: int(
+        name.split(tag)[1].split("E")[0]) if tag in name else None)
+
+
+def kernel_ptxas(log_text, tag):
+    """The ptxas report of the two instantiations of the kernel whose
+    mangled name holds `tag`: "shared" (`<true>`, the state in shared
+    memory) and "device" (`<false>`)."""
+    return ptxas_report(log_text, lambda name: (
+        "shared" if tag + "ILb1E" in name
+        else "device" if tag + "ILb0E" in name else None))
+
+
+def ext_matrix(a, b):
+    """bwasw's 5x5 score matrix at match a, mismatch -b (N scores -b)."""
+    import numpy as np
+    m = np.full((5, 5), -b, dtype=np.int64)
+    for i in range(4):
+        m[i, i] = a
+    return m
+
+
+def mutated(rng, seq, err):
+    """seq with substitutions, insertions and deletions at rate err each."""
+    import numpy as np
+    out = []
+    for c in seq:
+        r = rng.random()
+        if r < err:
+            continue
+        if r < 2 * err:
+            out.append(int(rng.integers(0, 4)))
+        out.append(int((c + rng.integers(1, 4)) % 4) if rng.random() < err
+                   else int(c))
+    return np.array(out or [int(seq[0])], dtype=np.uint8)
+
+
+def extend_edges(rng, dev):
+    """C6's edge launches: {label: (args, kw)} for `dp.extend_cuda`."""
+    import numpy as np
+    from nabwa_tpu_torch.ops import dp
+
+    def rand(n, alph=4):
+        return rng.integers(0, alph, int(n)).astype(np.uint8)
+
+    def launch(jobs, g0s, bws, a=1, b=3, q=5, r=2):
+        return (dp.pack_extend(jobs, g0s, bws, dev),
+                dict(mat=ext_matrix(a, b), go=q, ge=r))
+
+    cases = {}
+    tgt = rand(1250)
+    cases["single_bwasw_widest"] = launch([(tgt, mutated(rng, tgt[:969],
+                                                         0.02))], [40], [50])
+    tgt = rand(700)
+    cases["single_whole_target"] = launch([(tgt, mutated(rng, tgt[:400],
+                                                         0.03))], [30], [800])
+    jobs = []
+    for _ in range(9):
+        tgt = rand(rng.integers(60, 500))
+        jobs.append((tgt, mutated(rng, tgt[:int(rng.integers(20, len(tgt)))],
+                                  0.04)))
+    g0s = [int(g) for g in rng.integers(1, 40, len(jobs))]
+    cases["wide_band"] = launch(jobs, g0s, [130, 200, 333, 129, 128, 127,
+                                            300, 150, 257])
+    cases["narrow_window"] = launch(jobs, g0s, [0, 1, 2, 3, 5, 8, 13, 15, 1])
+    args, kw = launch(jobs, g0s, [50] * len(jobs))
+    args["len2"][[1, 3]] = 0
+    args["len2"][[2, 4, 6]] = 1
+    cases["len2_0_1"] = (args, kw)
+    jobs = []
+    for _ in range(96):
+        alph = int(rng.integers(2, 4))
+        jobs.append((rand(rng.integers(2, 40), alph),
+                     rand(rng.integers(1, 30), alph)))
+    cases["tied_best"] = launch(jobs, [int(g) for g in rng.integers(
+        1, 12, len(jobs))], [int(b) for b in rng.integers(1, 40, len(jobs))],
+        2, 1, 2, 1)
+    big = rand(30000)
+    cases["device_state_L1_30000"] = launch(
+        [(big, mutated(rng, big[:200], 0.02)), (big[:90], rand(60))],
+        [25, 8], [50, 50])
+    return cases
+
+
+def global_edges(rng, dev):
+    """C4's edge launches: {label: (args, kw)} for `dp.banded_global_cuda`."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.ops import dp
+    from nabwa_tpu_torch.refmodel.stdaln_scalar import ALN_SM_MAQ
+    # stdaln.c's aln_sm_blast: +1 / -3, N -2
+    blast = np.full((5, 5), -3, dtype=np.int64)
+    np.fill_diagonal(blast, 1)
+    blast[4, :] = blast[:, 4] = -2
+
+    def rand(n, alph=4):
+        return rng.integers(0, alph, int(n)).astype(np.uint8)
+
+    def pairs_of(n, lo, hi, err):
+        out = []
+        for _ in range(n):
+            ref = rand(rng.integers(lo, hi))
+            out.append((ref, mutated(rng, ref, err)))
+        return out
+
+    def launch(pairs, bws, mat, go, ge, gend):
+        return (dp.pack_pairs(pairs, bws, dev),
+                dict(mat=np.asarray(mat), go=go, ge=ge, gend=gend))
+
+    cases = {}
+    short = pairs_of(10, 3, 40, 0.05)
+    cases["b2_eq_len2"] = launch(short, [40] * 10, ALN_SM_MAQ, 26, 9, 5)
+    mid = pairs_of(20, 5, 90, 0.04)
+    cases["sampe_bands_gap_end_-1"] = launch(
+        mid, [1 + (i * 7) % 23 for i in range(20)], ALN_SM_MAQ, 26, 9, -1)
+    wide = []
+    for _ in range(6):
+        ref = rand(rng.integers(150, 420))
+        wide.append((ref, mutated(rng, ref[:int(rng.integers(100, len(ref)))],
+                                  0.03)))
+    cases["wide_rows"] = launch(wide, [300, 150, 200, 129, 256, 400],
+                                blast, 5, 2, 2)
+    cases["narrow_band"] = launch(wide, [1, 2, 3, 5, 8, 13], blast,
+                                  5, 2, 2)
+    args, kw = launch(mid[:10], [13] * 10, ALN_SM_MAQ, 26, 9, 5)
+    args["len2"][[0, 4]] = 0
+    args["len2"][[2, 5, 7]] = 1
+    args["b2"] = torch.minimum(args["b2"], args["len2"])
+    cases["len2_0_1"] = (args, kw)
+    ties = []
+    for period in (1, 2, 3):
+        ref = np.tile(np.arange(period, dtype=np.uint8) % 4, 60)[:90]
+        ties += [(ref, ref[:60].copy()), (ref[:50], ref[1:81].copy()),
+                 (ref, np.roll(ref, 1)[:70].copy())]
+    cases["ties"] = launch(ties, [10] * len(ties),
+                           np.where(np.eye(5, dtype=bool), 1, -1), 1, 1, 1)
+    args, kw = launch(mid, [13] * 20, blast, 5, 2, 2)
+    for key, n in (("b1", args["len1"]), ("b2", args["len2"])):
+        args[key] = torch.as_tensor(rng.integers(0, n.cpu().numpy() + 3),
+                                    dtype=torch.int32, device=dev)
+    cases["odd_bands"] = (args, kw)
+    cases["go_negative"] = launch(mid[:8], [13] * 8, ALN_SM_MAQ, -3, 2, 1)
+    big = rand(18000)
+    cases["device_state_L1_18000"] = launch(
+        [(big, mutated(rng, big[:100], 0.03)), (big[:80], rand(70))],
+        [50, 50], blast, 5, 2, 2)
+    return cases
+
+
+def check_dp_edges(dev):
+    """C4's and C6's edge launches against their plain versions on the
+    card, every output exact.  Returns {kernel: {label: shape}}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.ops import dp
+    rng = np.random.default_rng(DP_EDGE_SEED)
+    checked = {}
+    for name, cases, kernel, plain, wide in (
+            ("extend", extend_edges(rng, dev), dp.extend_cuda,
+             dp.extend_plain, dp.extend_smem_bytes),
+            ("banded_global", global_edges(rng, dev), dp.banded_global_cuda,
+             dp.banded_global_plain, dp.global_smem_bytes)):
+        checked[name] = {}
+        for label, (args, kw) in cases.items():
+            got = as_tuple(kernel(**args, **kw))
+            want = as_tuple(plain(**args, **kw))
+            torch.cuda.synchronize()
+            for k, (g, w) in enumerate(zip(got, want)):
+                exact(f"{name} edge {label}, output {k}", g, w)
+            L1 = args["s1"].shape[1] - (2 if name == "extend" else 1)
+            in_shared = wide(L1) <= dp.SMEM_STATE_BYTES
+            if label.startswith("device_state") == in_shared:
+                fail(f"{name} edge {label}: state in "
+                     f"{'shared' if in_shared else 'device'} memory")
+            checked[name][label] = [int(args["s1"].shape[0]), L1,
+                                    int(args["s2"].shape[1] - 1)]
+        log(f"{name}: {len(cases)} edge launches exact "
+            f"({checked[name]})")
+    return checked
+
+
+def forced_device_state(label, kernel, args, kw, want):
+    """A recorded launch again with the wrapper told that no state fits in
+    shared memory: the kernel keeps it in device memory; every output must
+    equal `want` (the plain version's on the same launch)."""
+    import torch
+    from nabwa_tpu_torch.ops import dp
+    keep = dp.SMEM_STATE_BYTES
+    dp.SMEM_STATE_BYTES = 0
+    try:
+        got = as_tuple(kernel(*args, **kw))
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: kernel(*args, **kw), 3)
+    finally:
+        dp.SMEM_STATE_BYTES = keep
+    for k, (g, w) in enumerate(zip(got, want)):
+        exact(f"{label} with its state in device memory, output {k}", g, w)
+    log(f"{label}: exact with its state in device memory, {ms:.4f} ms")
+    return ms
 
 
 def check_chains(dev):
@@ -2475,6 +2727,17 @@ def main():
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "spill" in ln:
             log("ptxas: " + ln.strip())
+    dp_ptxas = {name: kernel_ptxas(_build.build_log, tag) for name, tag in (
+        ("extend", "extend_warp_kernel"),
+        ("banded_global", "banded_global_warp_kernel"))}
+    for name, rep in dp_ptxas.items():
+        log(f"ptxas, {name}: {rep}")
+        if sorted(rep) != ["device", "shared"] or any(
+                "registers" not in v for v in rep.values()):
+            fail(f"no ptxas report for both forms of {name}")
+        if any(v["spill_store_bytes"] or v["spill_load_bytes"]
+               for v in rep.values()):
+            fail(f"{name} spills registers: {rep}")
 
     fa, fq, fq_gapped, fq1, fq2, fq_long, fq2_1, fq2_2 = make_data(
         args.glen, args.reads, args.pairs, args.long_reads)
@@ -2576,10 +2839,24 @@ def main():
     dp_err, dp_ms, dp_plain, n_jobs, tb_bytes, tb_copy_ms, dp_bound = \
         check_banded_global(eng, idx, reads_g, want_g, opt)
 
+    def dp_size(a):
+        return a[0].numel() * a[2].shape[1]
+
+    def global_bound(a, out):
+        return bound(io_bytes(a, out), OPS_GLOBAL_CELL * band_cells(a))
+
     # phase 7: samse at full size, on the card and on the host reference
-    # route, for both read sets
+    # route, for both read sets; every C4 launch of the card runs replayed
+    # against the plain DP
     se_bench = samse_routes(eng, idx, reads, want, opt, "bench reads")
     se_gap = samse_routes(eng, idx, reads_g, want_g, opt, "gapped reads")
+    if not se_gap["banded_global"]:
+        fail("the card run of samse on the gapped reads launched C4 no time")
+    se_dp = check_launches(
+        "C4 banded_global, samse's refine launches",
+        se_bench.pop("banded_global") + se_gap.pop("banded_global"),
+        dp.banded_global_cuda, dp.banded_global_plain, dp_size,
+        global_bound)
 
     # phase 8: the CLI chain on the gapped reads, every launch count at 0
     # before each command: aln (C1, C2), then samse (C3, C4)
@@ -2636,12 +2913,6 @@ def main():
     if not rec["local_fwd"] or not rec["banded_global"]:
         fail(f"the card run of sampe launched C5 {len(rec['local_fwd'])} "
              f"and C4 {len(rec['banded_global'])} times")
-    def dp_size(a):
-        return a[0].numel() * a[2].shape[1]
-
-    def global_bound(a, out):
-        return bound(io_bytes(a, out), OPS_GLOBAL_CELL * band_cells(a))
-
     lf = check_launches(
         "C5 local_fwd, sampe's rescue rounds", rec["local_fwd"],
         dp.local_fwd_cuda, dp.local_fwd_plain, dp_size,
@@ -2731,6 +3002,37 @@ def main():
         lambda a, _: sa_walk_bound(a))
     if sw_runs["cuda"][0] != sw_runs["reference"][0]:
         fail("bwasw SAM on the card differs from the host reference route's")
+    # C6's time split into the batched launches (stages A and A2) and the
+    # single-read ones (stage B); the widest single-read launch alone
+    single = sw_rec["replay"]
+    ext["single_total_ms"] = sum(ext["times"][i] for i in single)
+    ext["batched_total_ms"] = ext["total_ms"] - ext["single_total_ms"]
+    ext["single_launches"] = len(single)
+    if single:
+        args1, kw1 = max((sw_rec["extend"][i] for i in single),
+                         key=lambda c: (c[0][0].shape[1], c[0][2].shape[1]))
+        ext["single_ms"] = cuda_ms(lambda: dp.extend_cuda(*args1, **kw1), 20)
+        ext["single_queued_ms"] = queued_ms(
+            lambda: dp.extend_cuda(*args1, **kw1), 20)
+        ext["single_shape"] = [int(args1[0].shape[0]),
+                               int(args1[0].shape[1] - 2),
+                               int(args1[2].shape[1] - 1)]
+        ext["single_cells"] = int(dp.extend_cuda(*args1, **kw1)[3].sum())
+        log(f"C6: {len(single)} single-read launches "
+            f"{ext['single_total_ms']:.3f} ms, the rest "
+            f"{ext['batched_total_ms']:.3f} ms; widest single-read launch "
+            f"{ext['single_shape']} (jobs, L1, L2), {ext['single_cells']} "
+            f"window cells: {ext['single_ms']:.4f} ms, queued "
+            f"{ext['single_queued_ms']:.4f} ms")
+    # the largest C6 and C4 launches with their state in device memory,
+    # then the edge launches
+    ext["device_state_ms"] = forced_device_state(
+        "C6, bwasw's largest launch", dp.extend_cuda, ext["args"],
+        ext["kw"], ext["out"])
+    sw_dp["device_state_ms"] = forced_device_state(
+        "C4, bwasw's largest launch", dp.banded_global_cuda, sw_dp["args"],
+        sw_dp["kw"], sw_dp["out"])
+    edges = check_dp_edges(torch.device("cuda", 0))
     sw_prof = (profile_run("bwasw", lambda: mbw.bwasw_bytes(
         idx, lreads, bopt, eng, Rand48(11))) if args.profile else None)
     sw_jobs = sum(int(c[0][0].shape[0]) for c in sw_rec["extend"])
@@ -2914,9 +3216,12 @@ def main():
               bwasw_bound_int32_ms=sw_sa["bound"][2],
               **b2b_fields(b2b_sa, b2b_counts["sa_lookup"])),
         entry("banded_global", "banded_global.cu", "nabwa_tpu/ops/dp.py:31",
-              max(pdp["err"], dp_err, sw_dp["err"], b2b_dp["err"]),
+              max(pdp["err"], dp_err, se_dp["err"], sw_dp["err"],
+                  b2b_dp["err"]),
               pdp["ms"], pdp["plain_ms"], pdp["bound"],
               launches_checked=len(rec["banded_global"]),
+              samse_launches_checked=len(se_dp["times"]),
+              samse_total_ms=se_dp["total_ms"],
               timed_pairs=pdp["args"][0].shape[0],
               samse_refine_jobs=n_jobs, samse_refine_ms=dp_ms,
               samse_refine_plain_ms=dp_plain,
@@ -2935,6 +3240,11 @@ def main():
               bwasw_bound_ms=sw_dp["bound"][0],
               bwasw_bound_by=sw_dp["bound"][1],
               bwasw_bound_int32_ms=sw_dp["bound"][2],
+              bwasw_device_state_ms=sw_dp["device_state_ms"],
+              smem_bytes_per_warp_bwasw=dp.global_smem_bytes(
+                  int(sw_dp["args"][0].shape[1] - 1)),
+              ptxas=dp_ptxas["banded_global"],
+              edge_launches=edges["banded_global"],
               **b2b_fields(b2b_dp, b2b_counts["banded_global"])),
         entry("local_fwd", "local_fwd.cu", "nabwa_tpu/ops/dp.py:404",
               max(lf["err"], b2b_lf["err"]), lf["ms"], lf["plain_ms"],
@@ -2951,7 +3261,18 @@ def main():
               timed_jobs=int(ext["args"][0].shape[0]),
               timed_L1=int(ext["args"][0].shape[1] - 2),
               timed_L2=int(ext["args"][2].shape[1] - 1),
-              timed_cells=int(ext["out"][3].long().sum())),
+              timed_cells=int(ext["out"][3].long().sum()),
+              batched_total_ms=ext["batched_total_ms"],
+              single_total_ms=ext["single_total_ms"],
+              single_launches=ext["single_launches"],
+              single_ms=ext.get("single_ms"),
+              single_queued_ms=ext.get("single_queued_ms"),
+              single_shape=ext.get("single_shape"),
+              single_cells=ext.get("single_cells"),
+              device_state_ms=ext["device_state_ms"],
+              smem_bytes_per_warp=dp.extend_smem_bytes(
+                  int(ext["args"][0].shape[1] - 2)),
+              ptxas=dp_ptxas["extend"], edge_launches=edges["extend"]),
     ]
     for name, source, replaces in (
             ("probe_rowload", "probe_rowload.cu",

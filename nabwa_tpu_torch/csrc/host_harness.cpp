@@ -2,7 +2,8 @@
 // NABWA_HD source that nvcc compiles into kernels C1 (dfs.cu), C2
 // (cal_width.cu), C3 (sa_lookup.cu), C4 (banded_global.cu), C5
 // (local_fwd.cu) and C6 (extend.cu), compiled by a host C++ compiler and
-// run row by row with the kernels' argument layouts; and the probe
+// run row by row with the kernels' argument layouts, C4's and C6's warp
+// kernels also lane by lane (the `_lanes` entry points); and the probe
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
 // C9's and C10's counts and expansion, C13's slot of a pop, C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
@@ -12,6 +13,7 @@
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
+#include <algorithm>
 #include <vector>
 
 #include "dfs_read.cuh"
@@ -91,7 +93,6 @@ extern "C" int nabwa_host_banded_global(const int32_t* params,
         q.M = state.data();
         q.I = q.M + L1 + 1;
         q.D = q.I + L1 + 1;
-        q.stride = 1;
         q.tb = (uint8_t*)tb + (size_t)b * (L2 + 1) * (L1 + 1);
         nabwa::banded_global_pair(p, L1, L2, q, (int32_t*)score + b,
                                   (int32_t*)ctype + b);
@@ -130,9 +131,208 @@ extern "C" int nabwa_host_extend(const int32_t* params, const void* s1,
             ((const int32_t*)len1)[b],
             (const int32_t*)s2 + (size_t)b * (L2 + 1),
             ((const int32_t*)len2)[b], ((const int32_t*)g0)[b],
-            ((const int32_t*)bw)[b], state.data(), state.data() + L1 + 2, 1,
+            ((const int32_t*)bw)[b], state.data(), state.data() + L1 + 2,
             (int32_t*)score + b, (int32_t*)end_i + b, (int32_t*)end_j + b,
             (int32_t*)cells + b);
+    return 0;
+}
+
+// C6's warp kernel (extend.cu) lane by lane: each row's window in passes
+// of nl lanes of K cells, every lane's step 1 before any lane's step 2, the
+// scan's carry-in, the left lane's h and the row's reductions combined in
+// lane order, as the warp's shuffles and redux.sync combine them.
+template <int K>
+static void extend_job_lanes(const nabwa::ExtendParams& p, const int32_t* s1,
+                             int len1, const int32_t* s2, int len2,
+                             int32_t g0, int32_t bw, int nl, int32_t* hd,
+                             int32_t* ev, int32_t* out) {
+    for (int i = 0; i <= len1 + 1; ++i) {
+        hd[i] = i == 1 ? g0 : 0;
+        ev[i] = 0;
+    }
+    std::vector<nabwa::ExtendChunk<K>> c(nl);
+    std::vector<nabwa::ExtendRowLane> red(nl);
+    std::vector<int> lo(nl), n(nl);
+    std::vector<int32_t> x(nl);
+    int32_t best = 0, bi = 0, bj = 0, n_cells = 0;
+    int start = 1, end = 2;
+    for (int j = 1; j <= len2; ++j) {
+        int sn, en;
+        nabwa::extend_window(j, bw, len1, start, end, &sn, &en);
+        if (sn >= en) break;
+        const int32_t* sub = p.mat + 5 * s2[j];
+        std::fill(red.begin(), red.end(), nabwa::extend_row_lane());
+        int32_t t = nabwa::EXTEND_NEGF, h_carry = 0;
+        for (int base = sn; base < en; base += nl * K) {
+            for (int l = 0; l < nl; ++l) {
+                n[l] = nabwa::extend_lane_cells(base, l, K, en, &lo[l]);
+                x[l] = nabwa::extend_chunk_load<K>(p, sub, s1, hd, ev, lo[l],
+                                                   n[l], c[l]);
+            }
+            for (int l = 0; l < nl; ++l) {
+                nabwa::extend_chunk_cells<K>(p, sn, lo[l], n[l], t, c[l],
+                                             red[l]);
+                t = nabwa::ext_max(t, x[l]);
+            }
+            for (int l = 0; l < nl; ++l)
+                nabwa::extend_chunk_store<K>(
+                    lo[l], n[l], en, l == 0 ? h_carry : c[l - 1].h[K - 1],
+                    c[l], hd, ev);
+            h_carry = c[nl - 1].h[K - 1];
+        }
+        nabwa::ExtendRowLane all = red[0];
+        for (int l = 1; l < nl; ++l) {
+            all.first = std::min(all.first, red[l].first);
+            all.last = std::max(all.last, red[l].last);
+            all.best = std::max(all.best, red[l].best);
+        }
+        all.arg = 0x7FFFFFFF;
+        for (int l = 0; l < nl; ++l)
+            if (red[l].best == all.best)
+                all.arg = std::min(all.arg, red[l].arg);
+        n_cells += en - sn;
+        if (!nabwa::extend_row_end(all, j, &best, &bi, &bj, &start, &end))
+            break;
+    }
+    out[0] = best - 1;
+    out[1] = bi;
+    out[2] = bj;
+    out[3] = n_cells;
+}
+
+// nl lanes (1..1024) of k cells (1 or 4; the card runs 32 of EXTEND_K)
+extern "C" int nabwa_host_extend_lanes(const int32_t* params, const void* s1,
+                                       const void* s2, const void* len1,
+                                       const void* len2, const void* g0,
+                                       const void* bw, int B, int L1, int L2,
+                                       int nl, int k, void* score,
+                                       void* end_i, void* end_j,
+                                       void* cells) {
+    if (nl < 1 || nl > 1024 || (k != 1 && k != 4)) return 1;
+    const nabwa::ExtendParams p = nabwa::extend_params(params);
+    std::vector<int32_t> state(2 * ((size_t)L1 + 2));
+    for (int b = 0; b < B; ++b) {
+        int l1 = ((const int32_t*)len1)[b], l2 = ((const int32_t*)len2)[b];
+        l1 = std::max(0, std::min(l1, L1));
+        l2 = std::max(0, std::min(l2, L2));
+        const int32_t* a = (const int32_t*)s1 + (size_t)b * (L1 + 2);
+        const int32_t* q = (const int32_t*)s2 + (size_t)b * (L2 + 1);
+        const int32_t g = ((const int32_t*)g0)[b], w = ((const int32_t*)bw)[b];
+        int32_t out[4];
+        if (k == 1)
+            extend_job_lanes<1>(p, a, l1, q, l2, g, w, nl, state.data(),
+                                state.data() + L1 + 2, out);
+        else
+            extend_job_lanes<4>(p, a, l1, q, l2, g, w, nl, state.data(),
+                                state.data() + L1 + 2, out);
+        ((int32_t*)score)[b] = out[0];
+        ((int32_t*)end_i)[b] = out[1];
+        ((int32_t*)end_j)[b] = out[2];
+        ((int32_t*)cells)[b] = out[3];
+    }
+    return 0;
+}
+
+// C4's warp kernel (banded_global.cu) lane by lane, as it runs with the
+// state in device memory (lattice bytes written directly): each row's
+// sweep in passes of nl lanes of K columns, the diagonal, M[i-1] and D's
+// carry-in taken from the left lane in lane order, as the warp's shuffles
+// take them.
+template <int K>
+static void banded_global_lanes(const nabwa::DpParams& p, int L1, int L2,
+                                const int32_t* s1, const int32_t* s2,
+                                int len1, int len2, int b1, int b2, int nl,
+                                int32_t* M, int32_t* I, int32_t* D,
+                                uint8_t* tb, int32_t* score,
+                                int32_t* ctype) {
+    const size_t W = (size_t)L1 + 1;
+    for (int i = 0; i <= L1; ++i) {
+        M[i] = i == 0 ? 0 : nabwa::DP_NEG;
+        I[i] = nabwa::DP_NEG;
+        D[i] = (i >= 1 && i <= b1 - 1) ? -p.go - p.gend * i : nabwa::DP_NEG;
+        tb[i] = 0;
+    }
+    std::vector<nabwa::DpChunk<K>> c(nl);
+    std::vector<int> lo(nl), n(nl);
+    std::vector<int32_t> x(nl);
+    int plo = 0, phi = b1 - 1 > 0 ? b1 - 1 : 0;
+    for (int j = 1; j <= L2; ++j) {
+        uint8_t* dst = tb + (size_t)j * W;
+        if (j > len2) {
+            std::fill(dst, dst + W, 0);
+            continue;
+        }
+        const nabwa::DpRow r = nabwa::dp_row(p, len1, len2, b1, b2, j);
+        int c0, c1;
+        nabwa::dp_sweep(p, L1, r.start, r.end, plo, phi, &c0, &c1);
+        plo = r.start;
+        phi = r.end;
+        const int32_t* sub = p.mat + 5 * s2[j];
+        int32_t pm_c = nabwa::DP_NEG, pi_c = nabwa::DP_NEG,
+                pd_c = nabwa::DP_NEG, m_c = nabwa::DP_NEG, t = nabwa::DP_NEG;
+        for (int base = c0; base <= c1; base += nl * K) {
+            for (int l = 0; l < nl; ++l) {
+                n[l] = nabwa::dp_lane_cells(base, l, K, c1, &lo[l]);
+                nabwa::dp_chunk_load<K>(M, I, D, lo[l], n[l], c[l]);
+            }
+            for (int l = 0; l < nl; ++l) {
+                const bool first = l == 0;
+                nabwa::dp_chunk_mi<K>(
+                    p, r, sub, s1, lo[l], n[l],
+                    first ? pm_c : c[l - 1].mp[K - 1],
+                    first ? pi_c : c[l - 1].ip[K - 1],
+                    first ? pd_c : c[l - 1].dp[K - 1], c[l]);
+            }
+            for (int l = 0; l < nl; ++l)
+                x[l] = nabwa::dp_chunk_u<K>(
+                    p, r, lo[l], n[l], l == 0 ? m_c : c[l - 1].m[K - 1],
+                    c[l]);
+            for (int l = 0; l < nl; ++l) {
+                nabwa::dp_chunk_d<K>(r, lo[l], t, c[l]);
+                t = nabwa::dp_max(t, x[l]);
+            }
+            for (int l = 0; l < nl; ++l) {
+                nabwa::dp_chunk_store<K>(lo[l], n[l], c[l], M, I, D);
+                for (int k = 0; k < n[l]; ++k)
+                    dst[lo[l] + k] = (uint8_t)c[l].bits[k];
+            }
+            pm_c = c[nl - 1].mp[K - 1];
+            pi_c = c[nl - 1].ip[K - 1];
+            pd_c = c[nl - 1].dp[K - 1];
+            m_c = c[nl - 1].m[K - 1];
+        }
+        for (int i = 0; i <= L1; ++i)
+            if (i < c0 || i > c1) dst[i] = 0;
+    }
+    const int e = len1 < 0 ? 0 : (len1 > L1 ? L1 : len1);
+    nabwa::dp_end_cell(M[e], I[e], D[e], score, ctype);
+}
+
+// nl lanes (1..1024) of k columns (1 or 4; the card runs 32 of DP_K)
+extern "C" int nabwa_host_banded_global_lanes(
+    const int32_t* params, const void* s1, const void* s2, const void* len1,
+    const void* len2, const void* b1, const void* b2, int B, int L1, int L2,
+    int nl, int k, void* tb, void* score, void* ctype) {
+    if (nl < 1 || nl > 1024 || (k != 1 && k != 4)) return 1;
+    const nabwa::DpParams p = nabwa::dp_params(params);
+    std::vector<int32_t> state(3 * ((size_t)L1 + 1));
+    int32_t* M = state.data();
+    for (int b = 0; b < B; ++b) {
+        const int32_t* a = (const int32_t*)s1 + (size_t)b * (L1 + 1);
+        const int32_t* q = (const int32_t*)s2 + (size_t)b * (L2 + 1);
+        const int n1 = ((const int32_t*)len1)[b];
+        const int n2 = ((const int32_t*)len2)[b];
+        const int w1 = ((const int32_t*)b1)[b], w2 = ((const int32_t*)b2)[b];
+        uint8_t* t = (uint8_t*)tb + (size_t)b * (L2 + 1) * (L1 + 1);
+        int32_t* sc = (int32_t*)score + b;
+        int32_t* ct = (int32_t*)ctype + b;
+        if (k == 1)
+            banded_global_lanes<1>(p, L1, L2, a, q, n1, n2, w1, w2, nl, M,
+                                   M + L1 + 1, M + 2 * (L1 + 1), t, sc, ct);
+        else
+            banded_global_lanes<4>(p, L1, L2, a, q, n1, n2, w1, w2, nl, M,
+                                   M + L1 + 1, M + 2 * (L1 + 1), t, sc, ct);
+    }
     return 0;
 }
 

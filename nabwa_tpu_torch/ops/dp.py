@@ -10,14 +10,16 @@ tensors: the score lattice and packed traceback bits for a batch of
 (reference window, read) pairs, one row at a time, the D chain as a
 cummax along the row.  `banded_global` dispatches on the device of its
 inputs: a CPU tensor runs the plain version, a CUDA tensor launches the
-kernel in `csrc/banded_global.cu` (C4, one thread per pair), or the call
+kernel in `csrc/banded_global.cu` (C4, a warp per pair, the row state in
+shared memory, only the band's columns swept), or the call
 raises.  `local_fwd_plain` is nabwa_tpu/ops/dp.py:404 `_local_fwd_device`
 on tensors, and `local_fwd` dispatches the same way to it or to the kernel
 in `csrc/local_fwd.cu` (C5, one thread per job).
 
 `extend_plain` is nabwa_tpu/ops/dp.py:264 `_extend_device` on tensors,
 with the band per job, and `extend` dispatches to it or to the kernel in
-`csrc/extend.cu` (C6, one thread per job, only each row's window).
+`csrc/extend.cu` (C6, a warp per job over each row's window, the row state
+in shared memory).
 
 `banded_global_batch` is the counterpart of nabwa_tpu/ops/dp.py:185
 `banded_global_batch`: zero-length pairs are answered on the host, the
@@ -60,9 +62,32 @@ MAX_LATTICE_BYTES = 1 << 28
 # 8 (L1+1) bytes a job
 MAX_LOCAL_SCRATCH = 1 << 28
 
-# extension jobs per batch: bounds the kernel's hd/ev scratch, 8 (L1+2)
-# bytes a job
+# extension jobs per batch: 8 (L1+2) bytes a job, the hd/ev state of a
+# batch whose state lies in device memory
 MAX_EXTEND_SCRATCH = 1 << 28
+
+# shared memory one warp's row state may take in C4 and C6: the H100's
+# 227 KB a block less 1 KB for the block's own (the score matrix).  A
+# batch whose widest row needs more keeps its state in device memory.
+SMEM_STATE_BYTES = 227 * 1024 - 1024
+
+
+def _round16(n):
+    return -(-n // 16) * 16
+
+
+def global_smem_bytes(L1):
+    """C4's shared memory a warp at L1 columns: M, I and D, the lattice row
+    staged at its address mod 16, and the reference's codes as bytes,
+    each rounded to 16 bytes (csrc/banded_global.cu `warp_bytes`)."""
+    return (_round16(12 * (L1 + 1)) + _round16(L1 + 17)
+            + _round16(L1 + 1))
+
+
+def extend_smem_bytes(L1):
+    """C6's shared memory a warp at L1 target columns: hd and ev, and the
+    target's codes as bytes (csrc/extend.cu `warp_bytes`)."""
+    return _round16(9 * (L1 + 2))
 
 # kernel launches made on CUDA tensors by `banded_global` (C4), by
 # `local_fwd` (C5) and by `extend` (C6)
@@ -185,12 +210,16 @@ def banded_global_cuda(s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
     tb = torch.empty((B, L2p, L1p), dtype=torch.uint8, device=dev)
     if B == 0:
         return score, ctype, tb
-    scratch = torch.empty((3, L1p, B), dtype=_I32, device=dev)
+    # the state in shared memory, or in device memory ([B, 3, L1+1]) when
+    # one pair's does not fit
+    scratch = (None if global_smem_bytes(L1p - 1) <= SMEM_STATE_BYTES
+               else torch.empty((B, 3, L1p), dtype=_I32, device=dev))
     params = _build.i32_params([go, ge, gend] + mat.tolist())
     rc = _build.lib().nabwa_banded_global(
         params, s1.data_ptr(), s2.data_ptr(), len1.data_ptr(),
         len2.data_ptr(), b1.data_ptr(), b2.data_ptr(), B, L1p - 1, L2p - 1,
-        scratch.data_ptr(), tb.data_ptr(), score.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), tb.data_ptr(),
+        score.data_ptr(),
         ctype.data_ptr(), _build.stream_of(s1))
     _build.check(rc, "banded_global kernel launch")
     with _build.count_lock:
@@ -659,12 +688,16 @@ def extend_cuda(s1, len1, s2, len2, g0, bw, mat, *, go, ge):
     out = [torch.empty(B, dtype=_I32, device=dev) for _ in range(4)]
     if B == 0:
         return tuple(out)
-    scratch = torch.empty((2, L1p2, B), dtype=_I32, device=dev)
+    # the state in shared memory, or in device memory ([B, 2, L1+2]) when
+    # one job's does not fit
+    scratch = (None if extend_smem_bytes(L1p2 - 2) <= SMEM_STATE_BYTES
+               else torch.empty((B, 2, L1p2), dtype=_I32, device=dev))
     params = _build.i32_params([go, ge] + mat.tolist())
     rc = _build.lib().nabwa_extend(
         params, s1.data_ptr(), s2.data_ptr(), len1.data_ptr(),
         len2.data_ptr(), g0.data_ptr(), bw.data_ptr(), B, L1p2 - 2, L2p - 1,
-        scratch.data_ptr(), *[t.data_ptr() for t in out],
+        None if scratch is None else scratch.data_ptr(),
+        *[t.data_ptr() for t in out],
         _build.stream_of(s1))
     _build.check(rc, "extend kernel launch")
     with _build.count_lock:

@@ -9,8 +9,19 @@ Pairs are drawn with numpy from fixed seeds: random windows and mutated
 reads of unequal lengths both ways, N codes in the read, and degenerate
 lengths (1 x 1, 0 x n, n x 0).  The parameter sets are those of
 tests/test_dp_device.py, gap_end < 0 (the fallback to gap_ext) among them.
+C4's warp kernel is also run lane by lane through the host harness (its
+per-lane steps of dp_global.cuh, the carries combined in lane order) at
+1, 4 and 32 lanes of 4 columns and at 32 lanes of 1, against the plain
+version, the serial banded_global_pair and the JAX function, whole
+lattice included, on these pairs and on edge pairs: b2 == len2 (the
+part-1 last-row variant), sampe's per-pair bands with gap_end -1, rows
+wider than a pass of 32 x 4 columns with wide and narrow bands, len2 0 and
+1, ties of M, I and D, b1 and b2 drawn freely (bands that empty), and
+go < 0 (every column swept).
 Integer outputs, so the tolerance is exact equality.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,19 +86,24 @@ def host_kernels(tmp_path_factory):
     return test_torch_host_kernels.build(tmp_path_factory.mktemp("hk"))
 
 
+def _jax_global(args, ap):
+    j = {k: jnp.asarray(v.numpy()) for k, v in args.items()}
+    return [np.asarray(w) for w in jdp._banded_global_device(
+        j["s1"], j["len1"], j["s2"], j["len2"], j["b1"], j["b2"],
+        jnp.asarray(np.asarray(ap.matrix, dtype=np.int32)),
+        go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)]
+
+
 @pytest.mark.parametrize("seed,ap", PARAMS)
 def test_plain_matches_jax_lattice(seed, ap):
     args = _packed(_pairs(seed), ap)
     kw = dict(go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)
     score, ctype, tb = tdp.banded_global_plain(**args, mat=ap.matrix, **kw)
-    j = {k: jnp.asarray(v.numpy()) for k, v in args.items()}
-    want = jdp._banded_global_device(
-        j["s1"], j["len1"], j["s2"], j["len2"], j["b1"], j["b2"],
-        jnp.asarray(np.asarray(ap.matrix, dtype=np.int32)), **kw)
-    np.testing.assert_array_equal(score.numpy(), np.asarray(want[0]))
-    np.testing.assert_array_equal(ctype.numpy(), np.asarray(want[1]))
+    want = _jax_global(args, ap)
+    np.testing.assert_array_equal(score.numpy(), want[0])
+    np.testing.assert_array_equal(ctype.numpy(), want[1])
     assert tb.dtype == torch.uint8
-    np.testing.assert_array_equal(tb.numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(tb.numpy(), want[2])
 
 
 @pytest.mark.parametrize("seed,ap", PARAMS)
@@ -171,3 +187,114 @@ def test_dispatch_and_kernel_checks():
     meta = {k: v.to("meta") for k, v in args.items()}
     with pytest.raises(ValueError):
         tdp.banded_global(**meta, **kw)
+
+
+def _check_lanes(host_kernels, args, ap, lanes, k, plain=None, want=None):
+    """The lane-by-lane warp kernel against the plain version, the serial
+    banded_global_pair and the JAX function: score, end type and the whole
+    lattice."""
+    kw = dict(mat=ap.matrix, go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)
+    if plain is None:
+        plain = [p.numpy() for p in tdp.banded_global_plain(**args, **kw)]
+        want = _jax_global(args, ap)
+    na = {key: v.numpy() for key, v in args.items()}
+    got = test_torch_host_kernels.banded_global(host_kernels, **na, **kw,
+                                                lanes=lanes, k=k)
+    serial = test_torch_host_kernels.banded_global(host_kernels, **na, **kw)
+    for g, p, s, w in zip(got, plain, serial, want):
+        np.testing.assert_array_equal(g, p)
+        np.testing.assert_array_equal(g, s)
+        np.testing.assert_array_equal(g, w)
+
+
+@functools.lru_cache(maxsize=None)
+def _seed_case(seed, ap):
+    args = _packed(_pairs(seed), ap)
+    kw = dict(go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)
+    plain = [p.numpy() for p in tdp.banded_global_plain(**args, mat=ap.matrix,
+                                                         **kw)]
+    return args, plain, _jax_global(args, ap)
+
+
+@pytest.mark.parametrize("lanes,k", [(1, 4), (4, 4), (32, 4), (32, 1)])
+@pytest.mark.parametrize("seed,ap", PARAMS)
+def test_lane_emulation_matches_plain_and_jax(host_kernels, seed, ap, lanes,
+                                              k):
+    args, plain, want = _seed_case(seed, ap)
+    _check_lanes(host_kernels, args, ap, lanes, k, plain, want)
+
+
+def _edge_case(name):
+    """(args, ap) of one kind of edge pair."""
+    rng = np.random.default_rng(71)
+    if name == "b2_eq_len2":
+        # len1 <= len2 with bw >= len1, and len1 > len2 with bw >= len2:
+        # b2 clamps to len2 (the part-1 last-row variant)
+        pairs = []
+        for _ in range(10):
+            ref = rng.integers(0, 4, int(rng.integers(3, 40))).astype(
+                np.uint8)
+            read = _mutate(rng, ref, 0.05, 0.1, 0.02)
+            pairs.append((ref, read if len(read) else ref[:1]))
+        ap = AlnParam(26, 9, 5, ALN_SM_MAQ, 5, 40)
+        args = tdp.pack_pairs(pairs, [40] * len(pairs), "cpu")
+        assert (args["b2"] == args["len2"]).sum() >= 8
+        return args, ap
+    if name == "sampe_bands":         # per-pair bands, gap_end -1
+        pairs = _pairs(72, n=20)
+        ap = AlnParam(26, 9, -1, ALN_SM_MAQ, 5, 50)
+        return tdp.pack_pairs(pairs, [1 + (i * 7) % 23 for i in
+                                      range(len(pairs))], "cpu"), ap
+    if name in ("wide_rows", "narrow_band"):
+        pairs = []
+        for _ in range(6):
+            ref = rng.integers(0, 4, int(rng.integers(150, 420))).astype(
+                np.uint8)
+            pairs.append((ref, _mutate(rng, ref[:int(rng.integers(
+                100, len(ref)))], 0.04, 0.03, 0.03)))
+        bws = [300, 150, 200, 129, 256, 400] if name == "wide_rows" else [
+            1, 2, 3, 5, 8, 13]
+        return tdp.pack_pairs(pairs, bws, "cpu"), AlnParam(
+            5, 2, 2, ALN_SM_BLAST, 5, 50)
+    if name == "len2_0_1":
+        args = _packed(_pairs(73, n=10), ALN_PARAM_BWA)
+        args["len2"][[0, 4]] = 0
+        args["len2"][[2, 5, 7]] = 1
+        args["b2"] = torch.minimum(args["b2"], args["len2"])
+        return args, ALN_PARAM_BWA
+    if name == "ties":                # periodic pairs, M, I and D tie
+        mat = np.where(np.eye(5, dtype=bool), 1, -1)
+        pairs = []
+        for period in (1, 2, 3):
+            unit = np.arange(period, dtype=np.uint8) % 4
+            ref = np.tile(unit, 60)[:90]
+            pairs += [(ref, ref[:60].copy()), (ref[:50], ref[1:81].copy()),
+                      (ref, np.roll(ref, 1)[:70].copy())]
+        return tdp.pack_pairs(pairs, [10] * len(pairs), "cpu"), AlnParam(
+            1, 1, 1, mat, 5, 10)
+    if name == "odd_bands":
+        # b1 and b2 drawn freely in [0, len + 2], not as pack_pairs clamps
+        # them: bands that empty, rows past the band
+        args = _packed(_pairs(75, n=30), ALN_PARAM_BWA)
+        for key, n in (("b1", args["len1"]), ("b2", args["len2"])):
+            args[key] = torch.as_tensor(
+                rng.integers(0, n.numpy() + 3), dtype=torch.int32)
+        return args, AlnParam(5, 2, 2, ALN_SM_BLAST, 5, 50)
+    assert name == "go_negative"      # every column swept
+    return (_packed(_pairs(74, n=8), ALN_PARAM_BWA),
+            AlnParam(-3, 2, 1, ALN_SM_MAQ, 5, 13))
+
+
+@pytest.mark.parametrize("name", ["b2_eq_len2", "sampe_bands", "wide_rows",
+                                  "narrow_band", "len2_0_1", "ties",
+                                  "odd_bands", "go_negative"])
+def test_lane_emulation_edges(host_kernels, name):
+    args, ap = _edge_case(name)
+    kw = dict(go=ap.gap_open, ge=ap.gap_ext, gend=ap.gap_end)
+    plain = [p.numpy() for p in tdp.banded_global_plain(**args, mat=ap.matrix,
+                                                         **kw)]
+    want = _jax_global(args, ap)
+    if name == "len2_0_1":            # rows 1.. of a len2-0 pair are zero
+        assert not plain[2][[0, 4], 1:].any()
+    for lanes, k in ((1, 4), (4, 4), (32, 4), (32, 1), (3, 1)):
+        _check_lanes(host_kernels, args, ap, lanes, k, plain, want)

@@ -13,12 +13,22 @@ with N codes, queries with a junk block in the middle (the window shrinks,
 then grows back over cells written rows before), short jobs, initial
 scores from 1 to 60, and the band of each job 50 or a narrow 7, mixed in
 one batch.  Two scorings: bwasw's defaults, and +1/-1 with gap open and
-extension 1, under which cells of a row often tie at its maximum.  The
+extension 1, under which cells of a row often tie at its maximum.  C6's
+warp kernel is also run lane by lane through the host harness (its
+per-lane steps of extend.cuh, the carries combined in lane order) at 1, 4
+and 32 lanes of 4 cells and at 32 lanes of 1, against the plain version,
+the serial extend_job and the JAX function, on these jobs and on edge
+jobs: one job at the widest window, bands wider than a pass of 32 x 4
+cells, windows narrower than the lanes, len2 0 and 1, periodic sequences
+and short jobs over one or two letters whose rows tie at their maximum.
+The
 JAX function takes the band as a static argument, so it runs once per
 band and each job is compared with the run at its own band.  Both at the jobs' own widths and
 at the JAX package's bucketed shapes (L1 and L2 to multiples of 32, B to
 a power of two).  Integer outputs, so the tolerance is exact equality.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,6 +135,23 @@ def host_kernels(tmp_path_factory):
     return test_torch_host_kernels.build(tmp_path_factory.mktemp("hk"))
 
 
+def _jax_extend(args, ap):
+    """nabwa_tpu.ops.dp._extend_device on the packed args, each job from
+    the run at its own band (the JAX function's band is static)."""
+    j = {k: jnp.asarray(v.numpy()) for k, v in args.items()}
+    bw = args["bw"].numpy()
+    out = [np.zeros(len(bw), np.int32) for _ in range(3)]
+    for band in np.unique(bw):
+        want = jdp._extend_device(
+            j["s1"], j["len1"], j["s2"], j["len2"], j["g0"],
+            jnp.asarray(np.asarray(ap.matrix, dtype=np.int32)),
+            bw=int(band), go=ap.gap_open, ge=ap.gap_ext)
+        for o, w in zip(out, want):
+            o[bw == band] = np.asarray(w)[bw == band]
+    return out
+
+
+
 @pytest.mark.parametrize("bucketed", [False, True])
 @pytest.mark.parametrize("seed,scoring", PARAMS)
 def test_plain_matches_jax(seed, scoring, bucketed):
@@ -136,17 +163,10 @@ def test_plain_matches_jax(seed, scoring, bucketed):
     kw = dict(go=ap.gap_open, ge=ap.gap_ext)
     got = tdp.extend_plain(**args, mat=ap.matrix, **kw)
     assert all(g.dtype == torch.int32 for g in got)
-    j = {k: jnp.asarray(v.numpy()) for k, v in args.items()}
     bw = args["bw"].numpy()
-    for band in BANDS:
-        want = jdp._extend_device(
-            j["s1"], j["len1"], j["s2"], j["len2"], j["g0"],
-            jnp.asarray(np.asarray(ap.matrix, dtype=np.int32)), bw=band,
-            **kw)
-        lanes = bw == band
-        for g, w in zip(got[:3], want):
-            np.testing.assert_array_equal(g.numpy()[lanes],
-                                          np.asarray(w)[lanes])
+    assert set(np.unique(bw)) <= set(BANDS) | {1}
+    for g, w in zip(got[:3], _jax_extend(args, ap)):
+        np.testing.assert_array_equal(g.numpy(), w)
     score, end_j, cells = got[0].numpy(), got[2].numpy(), got[3].numpy()
     n = len(jobs)
     # extensions that ran far and ones that stopped within a few rows
@@ -222,3 +242,101 @@ def test_extend_dispatch_and_kernel_checks():
     meta = {k: v.to("meta") for k, v in args.items()}
     with pytest.raises(ValueError):
         tdp.extend(**meta, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _seed_case(seed, scoring):
+    jobs, g0s, bws = _jobs(seed)
+    ap = _ap(*scoring)
+    args = tdp.pack_extend(jobs, g0s, bws, "cpu")
+    plain = tdp.extend_plain(**args, mat=ap.matrix, go=ap.gap_open,
+                             ge=ap.gap_ext)
+    return args, ap, [p.numpy() for p in plain], _jax_extend(args, ap)
+
+
+def _check_lanes(host_kernels, args, ap, plain, want, lanes, k=4):
+    """The lane-by-lane warp kernel against the plain version (all four
+    outputs), the serial extend_job and the JAX function (score, end)."""
+    kw = dict(mat=ap.matrix, go=ap.gap_open, ge=ap.gap_ext)
+    na = {key: v.numpy() for key, v in args.items()}
+    got = test_torch_host_kernels.extend(host_kernels, **na, **kw,
+                                         lanes=lanes, k=k)
+    serial = test_torch_host_kernels.extend(host_kernels, **na, **kw)
+    for g, p, s in zip(got, plain, serial):
+        np.testing.assert_array_equal(g, p)
+        np.testing.assert_array_equal(g, s)
+    for g, w in zip(got[:3], want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("lanes,k", [(1, 4), (4, 4), (32, 4), (32, 1)])
+@pytest.mark.parametrize("seed,scoring", PARAMS)
+def test_lane_emulation_matches_plain_and_jax(host_kernels, seed, scoring,
+                                              lanes, k):
+    args, ap, plain, want = _seed_case(seed, scoring)
+    _check_lanes(host_kernels, args, ap, plain, want, lanes, k)
+
+
+def _edge_case(name):
+    """(args, ap) of one kind of edge job."""
+    rng = np.random.default_rng(61)
+    if name == "widest_single":       # one job, its window the whole target
+        tgt = rng.integers(0, 4, 700).astype(np.uint8)
+        jobs = [(tgt, _mutate(rng, tgt[:400], 0.03, 0.02, 0.02))]
+        return tdp.pack_extend(jobs, [30], [800], "cpu"), _bwasw_ap()
+    if name in ("wide_band", "narrow_window"):
+        jobs = []
+        for _ in range(9):
+            tgt = rng.integers(0, 4, int(rng.integers(60, 500)))
+            tgt = tgt.astype(np.uint8)
+            jobs.append((tgt, _mutate(rng, tgt[:int(rng.integers(
+                20, len(tgt))) or 1], 0.05, 0.03, 0.03)))
+        bws = ([130, 200, 333, 129, 128, 127, 300, 150, 257]
+               if name == "wide_band" else [0, 1, 2, 3, 5, 8, 13, 15, 1])
+        g0s = [int(g) for g in rng.integers(1, 40, len(jobs))]
+        return tdp.pack_extend(jobs, g0s, bws, "cpu"), _bwasw_ap()
+    if name == "len2_0_1":            # len2 0 and 1 beside longer jobs
+        jobs, g0s, bws = _jobs(62, n=8)
+        args = tdp.pack_extend(jobs, g0s, bws, "cpu")
+        args["len2"][[1, 3]] = 0
+        args["len2"][[2, 4, 6]] = 1
+        return args, _bwasw_ap()
+    if name == "tied_best":
+        # short jobs over one or two letters, no mismatch cost beyond a
+        # match's: rows that set a new best often tie at their maximum,
+        # within one lane's cells and across lanes
+        jobs = []
+        for _ in range(96):
+            alph = int(rng.integers(1, 3))
+            jobs.append((rng.integers(0, alph + 1, int(rng.integers(
+                2, 40))).astype(np.uint8), rng.integers(
+                    0, alph + 1, int(rng.integers(1, 30))).astype(np.uint8)))
+        g0s = [int(g) for g in rng.integers(1, 12, len(jobs))]
+        bws = [int(b) for b in rng.integers(1, 40, len(jobs))]
+        return tdp.pack_extend(jobs, g0s, bws, "cpu"), _ap(2, 1, 2, 1)
+    assert name == "ties"             # periodic rows tie at their maximum
+    jobs = []
+    for period in (1, 2, 3, 4):
+        unit = np.arange(period, dtype=np.uint8) % 4
+        tgt = np.tile(unit, 300 // period + 1)[:300]
+        jobs.append((tgt, tgt[:120].copy()))
+        jobs.append((tgt, np.roll(tgt, 1)[:90].copy()))
+    g0s = [1, 5, 20, 1, 3, 40, 7, 2]
+    return tdp.pack_extend(jobs, g0s, [50, 7] * 4, "cpu"), _ap(1, 1, 1, 1)
+
+
+@pytest.mark.parametrize("name", ["widest_single", "wide_band",
+                                  "narrow_window", "len2_0_1", "ties",
+                                  "tied_best"])
+def test_lane_emulation_edges(host_kernels, name):
+    args, ap = _edge_case(name)
+    plain = [p.numpy() for p in tdp.extend_plain(
+        **args, mat=ap.matrix, go=ap.gap_open, ge=ap.gap_ext)]
+    want = _jax_extend(args, ap)
+    if name == "widest_single":       # the window spans the whole target
+        assert plain[3][0] > 120 * 400
+    if name == "len2_0_1":
+        assert (plain[2][[1, 3]] == 0).all() and (plain[3][[1, 3]] == 0).all()
+        assert (plain[2][[2, 4, 6]] <= 1).all()
+    for lanes, k in ((1, 4), (4, 4), (32, 4), (32, 1), (3, 1)):
+        _check_lanes(host_kernels, args, ap, plain, want, lanes, k)

@@ -3,7 +3,10 @@
 `nabwa_tpu_torch/csrc/host_harness.cpp` runs the kernels' NABWA_HD
 per-row code (dfs_read of C1, cal_width_row of C2, sa_lookup_row of C3,
 banded_global_pair of C4, local_fwd_pair of C5, extend_job of C6) with the
-kernels' argument layouts.  g++ builds it here, so the tests can hold the
+kernels' argument layouts, and C4's and C6's warp kernels lane by lane
+(their per-lane steps of dp_global.cuh and extend.cuh at a chosen number
+of lanes, the carries combined in lane order as the shuffles combine
+them).  g++ builds it here, so the tests can hold the
 kernel source itself, not only its plain PyTorch version, against the JAX
 package on a machine without a GPU.
 """
@@ -39,10 +42,15 @@ def build(out_dir):
         [ctypes.POINTER(ctypes.c_int32)] + [_P] * 4 + [_I] * 3 + [_P] * 3)
     lib.nabwa_host_extend.argtypes = (
         [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 3 + [_P] * 4)
+    lib.nabwa_host_banded_global_lanes.argtypes = (
+        [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 5 + [_P] * 3)
+    lib.nabwa_host_extend_lanes.argtypes = (
+        [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 5 + [_P] * 4)
     for fn in (lib.nabwa_host_occ4, lib.nabwa_host_cal_width,
                lib.nabwa_host_dfs, lib.nabwa_host_sa_lookup,
                lib.nabwa_host_banded_global, lib.nabwa_host_local_fwd,
-               lib.nabwa_host_extend):
+               lib.nabwa_host_extend, lib.nabwa_host_banded_global_lanes,
+               lib.nabwa_host_extend_lanes):
         fn.restype = _I
     return lib
 
@@ -111,9 +119,12 @@ def sa_lookup(lib, bank, l2, primary, seq_len, sa, sa_intv, rows):
     return out
 
 
-def banded_global(lib, s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
+def banded_global(lib, s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend,
+                  lanes=None, k=4):
     """C4's per-pair code on numpy arrays: (score, ctype) int32 [B] and
-    the uint8 [B, L2+1, L1+1] lattice."""
+    the uint8 [B, L2+1, L1+1] lattice.  lanes None: the serial
+    banded_global_pair; else the warp kernel's steps at `lanes` lanes of
+    `k` columns (1 or 4)."""
     s1, s2 = _arr(s1), _arr(s2)
     cols = [_arr(a) for a in (len1, len2, b1, b2)]
     B, L1p = s1.shape
@@ -123,9 +134,14 @@ def banded_global(lib, s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend):
     ctype = np.empty(B, dtype=np.int32)
     params = _build.i32_params(
         [go, ge, gend] + np.asarray(mat).reshape(-1).tolist())
-    lib.nabwa_host_banded_global(
-        params, _ptr(s1), _ptr(s2), *[_ptr(a) for a in cols], B, L1p - 1,
-        L2p - 1, _ptr(tb), _ptr(score), _ptr(ctype))
+    head = [params, _ptr(s1), _ptr(s2), *[_ptr(a) for a in cols], B,
+            L1p - 1, L2p - 1]
+    if lanes is None:
+        lib.nabwa_host_banded_global(*head, _ptr(tb), _ptr(score),
+                                     _ptr(ctype))
+    elif lib.nabwa_host_banded_global_lanes(*head, lanes, k, _ptr(tb),
+                                            _ptr(score), _ptr(ctype)):
+        raise ValueError(f"no lane emulation at {lanes} lanes of {k}")
     return score, ctype, tb
 
 
@@ -142,15 +158,21 @@ def local_fwd(lib, s1, len1, s2, len2, mat, *, go, ge):
     return tuple(out)
 
 
-def extend(lib, s1, len1, s2, len2, g0, bw, mat, *, go, ge):
+def extend(lib, s1, len1, s2, len2, g0, bw, mat, *, go, ge, lanes=None,
+           k=4):
     """C6's per-job code on numpy arrays: (score, end_i, end_j, cells)
-    int32 [B]."""
+    int32 [B].  lanes None: the serial extend_job; else the warp kernel's
+    steps at `lanes` lanes of `k` cells (1 or 4)."""
     s1, s2, len1, len2, g0, bw = (_arr(a) for a in (s1, s2, len1, len2, g0,
                                                     bw))
     B, L1p2 = s1.shape
     out = [np.empty(B, dtype=np.int32) for _ in range(4)]
     params = _build.i32_params([go, ge] + np.asarray(mat).reshape(-1).tolist())
-    lib.nabwa_host_extend(params, _ptr(s1), _ptr(s2), _ptr(len1), _ptr(len2),
-                          _ptr(g0), _ptr(bw), B, L1p2 - 2, s2.shape[1] - 1,
-                          *[_ptr(a) for a in out])
+    head = [params, _ptr(s1), _ptr(s2), _ptr(len1), _ptr(len2), _ptr(g0),
+            _ptr(bw), B, L1p2 - 2, s2.shape[1] - 1]
+    if lanes is None:
+        lib.nabwa_host_extend(*head, *[_ptr(a) for a in out])
+    elif lib.nabwa_host_extend_lanes(*head, lanes, k,
+                                     *[_ptr(a) for a in out]):
+        raise ValueError(f"no lane emulation at {lanes} lanes of {k}")
     return tuple(out)
