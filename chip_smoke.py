@@ -10,7 +10,9 @@ Run from the root of a checkout.  It imports the port (`nabwa_tpu_torch`),
 Phases, any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi) and the nvcc build of the
-   kernels from csrc/ (seconds, ptxas register report);
+   kernels from csrc/ (seconds, ptxas register report); the run fails if
+   ptxas reports a spill in either form of C1, C4 or C6 (the state in
+   shared or in device memory);
 2. kernel C2 (csrc/cal_width.cu) against the plain PyTorch cal_width on
    CUDA tensors: the first 2048 reads of the main path, both strands, the
    reads and their seed suffixes, exact;
@@ -18,7 +20,16 @@ Phases, any failure exits non-zero:
    with the engine's own batch inputs and statics: the same 2048 reads at
    the tier-0 settings, then the reads tier 0 flagged at the retry
    settings; exact on every column but the kernel's own telemetry (fin,
-   iters);
+   iters), each read's state in shared memory and forced into device
+   memory (all columns equal across the two); blocks, warps a block,
+   shared bytes a warp, the slowest
+   read's iterations and us an iteration, each form's time.  Then C1's
+   edge launches (`check_dfs_edges`, `dfs_edge_data`), exact against the
+   plain DFS in both forms: a read of all N and one of length 0, a slot
+   pool of 2, a hit list of 1, one iteration, max_entries 3, gapped reads
+   whose hits repeat an interval, nonstop, loggap and no-gap-extension
+   modes, a 20 bp seed, a read that runs the 16-bit sequence counter out,
+   a 7,150 bp read whose state only device memory holds, and B = 1 and 0;
 4. the aln path at the bench's size: a 64 Mbp random genome (seed 99)
    indexed by the port's host build, 32768 x 100 bp reads at 1 % error
    (seed 100).  After a warm-up batch the engine's rate is timed, with
@@ -376,6 +387,13 @@ I32_MIN, I32_MAX = -2**31, 2**31 - 1
 QUEUE_SLEEP_CYCLES = 100_000_000
 PROBE_SEED = 18
 DP_EDGE_SEED = 21
+DFS_EDGE_SEED = 22
+# C1's edge launches: the retry tier's slot pool and hit list (tier 0's
+# pool of 256 overflows on every gapped edge read), at most 100,000 steps
+DFS_EDGE_STATICS = dict(stack_cap=1024, hits_cap=128, max_iters=100000)
+# check_dfs's figures that go into C1's kernels entry, for each tier
+DFS_FIELDS = ("slowest_iters", "us_per_iter", "warps", "blocks",
+              "smem_bytes_per_warp", "shared_ms", "device_ms")
 DMA_T = 64                    # scripts/probe_dma.py:28
 DMA_ROWS = (100_000, 4_000_000)
 L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
@@ -753,27 +771,71 @@ def check_cal_width(eng, inputs):
     return worst, ms, plain_ms, bnd
 
 
+class dfs_device_state:
+    """A `with` block in which C1's wrapper keeps every read's state in
+    device memory (`dfs_cuda.SMEM_STATE_BYTES` 0), unless `on` is false."""
+
+    def __init__(self, on=True):
+        self.on = on
+
+    def __enter__(self):
+        from nabwa_tpu_torch.ops import dfs_cuda
+        self.keep = dfs_cuda.SMEM_STATE_BYTES
+        if self.on:
+            dfs_cuda.SMEM_STATE_BYTES = 0
+
+    def __exit__(self, *exc):
+        from nabwa_tpu_torch.ops import dfs_cuda
+        dfs_cuda.SMEM_STATE_BYTES = self.keep
+
+
+def dfs_planes(ix, seqs, lens, seed_seqs, seed_lens, cal_width):
+    """widths, bids, seed widths, seed bids of a batch by `cal_width`."""
+    import torch
+    planes = []
+    for q, ln in ((seqs, lens), (seed_seqs, seed_lens)):
+        wb = [cal_width(bank, ix.l2, prim, ix.seq_len,
+                        q[:, s, :].contiguous(), ln)
+              for s, bank, prim in ((0, ix.bwt_fwd, ix.primary_fwd),
+                                    (1, ix.bwt_rev, ix.primary_rev))]
+        planes += [torch.stack([w for w, _ in wb], 1).contiguous(),
+                   torch.stack([b for _, b in wb], 1).contiguous()]
+    return planes
+
+
+def dfs_shape(args, statics, device_state):
+    """(warps a block, blocks, shared bytes a warp) of C1's launch on
+    `args`, as the wrapper would make it."""
+    from nabwa_tpu_torch.ops import dfs_cuda
+    B, _, L = args[6].shape
+    S, H, SL1 = statics["stack_cap"], statics["hits_cap"], args[10].shape[2]
+    per_read = dfs_cuda.dfs_smem_bytes(S, H, L, SL1)
+    shared = (not device_state) and per_read <= dfs_cuda.SMEM_STATE_BYTES
+    params = dfs_cuda.param_words(*args[1:6], L, SL1, **statics)
+    warps, blocks, _ = dfs_cuda.launch_shape(params, B, shared)
+    return warps, blocks, per_read if shared else 0
+
+
 def check_dfs(eng, inputs, statics, tier):
     """C1 against the plain DFS on one batch of the engine's own inputs.
     The width planes come from the plain cal_width, so C1 is checked on
-    its own.  Returns (max |err|, kernel ms, plain ms, flagged rows,
-    bound, pops); the bound counts the inputs and output and, for every pop
-    the reads took, one 2occ4 (two Occ blocks)."""
+    its own.  The kernel runs with each read's state in shared memory and
+    forced into device memory: the first 4H+3 columns equal the plain
+    version's, and all 4H+5 equal across the forms.  Returns a dict: max
+    |err|, kernel ms (the wrapper's choice of form), plain ms, flagged
+    rows, the bound, pops, the slowest read's iterations and us an
+    iteration, the launch shape, and ms in each form (timed shared,
+    device, device, shared, so a drift falls on both).  The bound counts
+    the inputs and output and, for every pop the reads took, one 2occ4
+    (two Occ blocks)."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.ops import dfs, dfs_cuda, occ
     ix = eng.dev
     seqs, lens = inputs["seqs"], inputs["lengths"]
     B, _, L = seqs.shape
-    planes = []
-    for q, ln in ((seqs, lens),
-                  (inputs["seed_seqs"], inputs["seed_lengths"])):
-        wb = [occ.cal_width_plain(bank, ix.l2, prim, ix.seq_len,
-                                  q[:, s, :].contiguous(), ln)
-              for s, bank, prim in ((0, ix.bwt_fwd, ix.primary_fwd),
-                                    (1, ix.bwt_rev, ix.primary_rev))]
-        planes += [torch.stack([w for w, _ in wb], 1).contiguous(),
-                   torch.stack([b for _, b in wb], 1).contiguous()]
+    planes = dfs_planes(ix, seqs, lens, inputs["seed_seqs"],
+                        inputs["seed_lengths"], occ.cal_width_plain)
     args = (ix.bwt_cat, ix.rev_word_offset, ix.primary_fwd, ix.primary_rev,
             ix.l2, ix.seq_len, seqs, lens, *planes, inputs["has_seed"],
             inputs["max_diff"])
@@ -786,7 +848,19 @@ def check_dfs(eng, inputs, statics, tier):
     cap = statics["max_iters"]
     diff = (kern[:, :4 * H + 3].long() - plain[:, :4 * H + 3].long()).abs()
     worst = int(diff.max())
+    if worst != 0:
+        bad = np.nonzero(diff.any(1).cpu().numpy())[0][:5]
+        fail(f"dfs kernel disagrees with the plain version, {tier} "
+             f"(rows {bad})")
     ms = cuda_ms(lambda: dfs_cuda.dfs_match_gap_cuda(*args, **statics), 3)
+    forms = {"shared_ms": 0.0, "device_ms": 0.0}
+    for form in ("shared", "device", "device", "shared"):
+        with dfs_device_state(form == "device"):
+            got = dfs_cuda.dfs_match_gap_cuda(*args, **statics)
+            t = cuda_ms(lambda: dfs_cuda.dfs_match_gap_cuda(*args, **statics),
+                        3)
+        exact(f"C1 {tier}, {form} state", got, kern)
+        forms[f"{form}_ms"] += t / 2
     k = kern.cpu().numpy()
     flagged = np.nonzero(k[:, 4 * H + 2])[0]
     iters = k[:, 4 * H + 4]
@@ -796,18 +870,90 @@ def check_dfs(eng, inputs, statics, tier):
                 + 2 * OCC_BLOCK_BYTES * pops, 2 * OPS_OCC_BLOCK * pops)
     hits_full = int((k[flagged, 4 * H] >= H).sum())
     at_cap = int((iters[flagged] >= cap).sum())
+    slowest = int(iters.max())
+    warps, blocks, per_warp = dfs_shape(args, statics, False)
     log(f"C1 dfs, {tier}: {B} reads (L={L}, S={S}, H={H}, max_iters={cap}), "
-        f"max |err| {worst} over hits/n_aln/hw/overflow; {len(flagged)} "
+        f"max |err| {worst} over hits/n_aln/hw/overflow, all columns equal "
+        f"in both state forms; {len(flagged)} "
         f"flagged ({hits_full} hit list full, {at_cap} iteration cap, "
         f"{len(flagged) - hits_full - at_cap} slot pool or seq counter); "
-        f"most iterations of a read {int(iters.max())}, {pops} in all; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; bound "
-        f"{bnd[0]:.5f} ms ({bnd[1]})")
-    if worst != 0:
-        bad = np.nonzero(diff.any(1).cpu().numpy())[0][:5]
-        fail(f"dfs kernel disagrees with the plain version, {tier} "
-             f"(rows {bad})")
-    return worst, ms, plain_ms, flagged, bnd, pops
+        f"most iterations of a read {slowest}, {pops} in all; "
+        f"{blocks} blocks x {warps} warps, {per_warp} shared bytes a warp; "
+        f"kernel {ms:.4f} ms ({ms * 1e3 / max(slowest, 1):.4f} us an "
+        f"iteration of the slowest read), {forms}; plain {plain_ms:.1f} ms; "
+        f"bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return {"err": worst, "ms": ms, "plain_ms": plain_ms, "flagged": flagged,
+            "bound": bnd, "pops": pops, "slowest_iters": slowest,
+            "us_per_iter": ms * 1e3 / max(slowest, 1), "warps": warps,
+            "blocks": blocks, "smem_bytes_per_warp": per_warp, **forms}
+
+
+def check_dfs_edges(dev):
+    """C1's edge launches (`dfs_edge_data`) against the plain DFS on the
+    card: each case in both state forms (the first 4H+3 columns exact
+    against the plain version, all 4H+5 equal across the forms), then the
+    defaults' first read alone (B = 1) and none (B = 0).  Returns {label:
+    [B, L, S, H, shared bytes a warp (0: device memory)]}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch import cli as port_cli
+    from nabwa_tpu_torch.index.build import build_index
+    from nabwa_tpu_torch.index.fmindex import BwaIndex, DeviceIndex
+    from nabwa_tpu_torch.models import aln as maln
+    from nabwa_tpu_torch.ops import dfs, dfs_cuda, occ
+    from nabwa_tpu_torch.options import GapOpt
+    fasta, cases = dfs_edge_data()
+    checked = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = pathlib.Path(tmp) / "edge.fa"
+        fa.write_bytes(fasta)
+        build_index(str(fa))
+        ix = DeviceIndex.from_host(BwaIndex.load(str(fa)), dev)
+        fq_path = pathlib.Path(tmp) / "edge.fq"
+        for label, (fq, zero, opt_kw, st_kw) in cases.items():
+            opt = GapOpt(**opt_kw)
+            fq_path.write_bytes(fq)
+            reads = port_cli.open_reads(str(fq_path), opt.mode)(1 << 20, 0)
+            lens = reads.clip_lens().astype(np.int32)
+            maxdiff, local = maln.batch_options(opt, lens)
+            lens[list(zero)] = 0
+            inputs = maln.batch_inputs(reads, lens, maxdiff, local,
+                                       int(lens.max()), dev)
+            statics = {**maln.dfs_statics(local, **DFS_EDGE_STATICS),
+                       **st_kw}
+            planes = dfs_planes(ix, inputs["seqs"], inputs["lengths"],
+                                inputs["seed_seqs"], inputs["seed_lengths"],
+                                occ.cal_width)
+            args = (ix.bwt_cat, ix.rev_word_offset, ix.primary_fwd,
+                    ix.primary_rev, ix.l2, ix.seq_len, inputs["seqs"],
+                    inputs["lengths"], *planes, inputs["has_seed"],
+                    inputs["max_diff"])
+            n = 4 * statics["hits_cap"] + 3
+            runs = [args]
+            if label == "defaults":
+                runs += [tuple(a[:m] if isinstance(a, torch.Tensor)
+                               and a.dim() and a.shape[0] == len(lens)
+                               else a for a in args) for m in (1, 0)]
+            for run in runs:
+                plain = dfs.dfs_match_gap_plain(*run, **statics)
+                got = dfs_cuda.dfs_match_gap_cuda(*run, **statics)
+                with dfs_device_state():
+                    got_dev = dfs_cuda.dfs_match_gap_cuda(*run, **statics)
+                torch.cuda.synchronize()
+                B = int(run[6].shape[0])
+                name = label if B == len(lens) else f"{label}_B{B}"
+                exact(f"C1 edge {name}", got[:, :n], plain[:, :n])
+                exact(f"C1 edge {name}, device state", got_dev, got)
+                warps, blocks, per_warp = (dfs_shape(run, statics, False)
+                                           if B else (0, 0, 0))
+                checked[name] = [B, int(run[6].shape[2]),
+                                 statics["stack_cap"], statics["hits_cap"],
+                                 per_warp]
+            if label == "wide_device" and checked[label][4]:
+                fail("C1 edge wide_device: its state fits in shared memory")
+    log(f"C1 dfs: {len(checked)} edge launches exact in both state forms "
+        f"({checked})")
+    return checked
 
 
 def native_reference(idx, reads, opt):
@@ -2095,6 +2241,95 @@ def global_edges(rng, dev):
     return cases
 
 
+def dfs_edge_data():
+    """C1's edge cases, shared with tests/test_torch_dfs.py: (genome FASTA
+    bytes, {label: (reads as FASTQ bytes, rows whose length is set to 0,
+    GapOpt fields, DFS statics that differ from DFS_EDGE_STATICS)}).
+
+    The genome (20 kbp, numpy seed DFS_EDGE_SEED) holds a 400 bp segment
+    twice (the copies differ in one base), homopolymer runs of 6 and
+    dinucleotide repeats of 6 units.  The 60 bp "gapped" reads carry a
+    1-base deletion or insertion inside a run or a 2-base deletion inside a
+    repeat
+    (equal-scoring gap placements, whose hits repeat an interval: the
+    tandem-repeat test), half reverse complemented; three lie in the
+    repeated segment (one on both copies, one on the base that differs:
+    two hits, and one without that base: a deletion of a different base on
+    each copy, two equal hits whose order the candidates' order sets), one
+    has two Ns, one is all N and the last is given length 0.  On them: the
+    defaults, a slot pool of 2, a hit list of 1, one iteration, max_entries
+    3, nonstop, loggap, no gap extension mode (-e), a 20 bp seed.  A 26 bp
+    random read at max_diff 8 runs the 16-bit sequence counter out before
+    its 52,192-slot pool fills.  A 7,150 bp read among eight gapped reads
+    (no seed) makes L 7,168: one read's state is more than a block's shared
+    memory, so the kernel keeps it in device memory."""
+    import numpy as np
+    rng = np.random.default_rng(DFS_EDGE_SEED)
+    g = rng.integers(0, 4, 20000).astype(np.uint8)
+    g[12000:12400] = g[2000:2400]
+    # the copies differ in one base, one of the two an A (the first
+    # deletion candidate)
+    g[12130] = 1 if g[2130] == 0 else 0
+    runs, reps = [], []
+    for k in range(4):
+        runs.append((4000 + 500 * k, k))
+        g[4000 + 500 * k:4006 + 500 * k] = k
+        reps.append(8000 + 500 * k)
+        g[8000 + 500 * k:8012 + 500 * k] = np.tile([k, (k + 1) % 4], 6)
+    letters = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    text = letters[g].tobytes()
+    fasta = b">edge\n" + b"".join(text[i:i + 70] + b"\n"
+                                   for i in range(0, len(text), 70))
+
+    def rc(codes):
+        return (3 - codes[::-1]).astype(np.uint8)
+
+    reads = []
+    for j, (at, k) in enumerate(runs):
+        s = at - 27
+        dele = np.concatenate([g[s:at + 2], g[at + 3:s + 61]])
+        ins = np.concatenate([g[s:at + 3], [k], g[at + 3:s + 59]])
+        reads += [dele, rc(ins)] if j % 2 else [rc(dele), ins]
+    for j, at in enumerate(reps[:3]):
+        s = at - 25
+        dele = np.concatenate([g[s:at + 4], g[at + 6:s + 62]])
+        reads.append(rc(dele) if j % 2 else dele)
+    reads += [g[2100:2160], rc(g[2200:2260]),
+              np.concatenate([g[2100:2130], g[2131:2161]])]
+    two_n = g[6000:6060].copy()
+    two_n[[20, 41]] = 4
+    reads += [two_n, np.full(60, 4, dtype=np.uint8), g[7000:7060]]
+
+    def fastq(rs):
+        return b"".join(b"@e%d\n%s\n+\n%s\n" % (
+            i, letters[r].tobytes(), b"I" * len(r))
+            for i, r in enumerate(rs))
+
+    gapped = fastq(reads)
+    zero = (len(reads) - 1,)
+    counter = fastq([np.random.default_rng(1826).integers(
+        0, 4, (16, 26)).astype(np.uint8)[12]])
+    wide = fastq([g[100:7250]] + reads[:8])
+    gape, nonstop, loggap = 0x01, 0x10, 0x04
+    mode = gape | 0x02
+    return fasta, {
+        "defaults": (gapped, zero, {}, {}),
+        "pool_S2": (gapped, zero, {}, {"stack_cap": 2}),
+        "hits_H1": (gapped, zero, {}, {"hits_cap": 1}),
+        "iters_1": (gapped, zero, {}, {"max_iters": 1}),
+        "max_entries_3": (gapped, zero, {"max_entries": 3}, {}),
+        "nonstop": (gapped, zero, {"mode": mode | nonstop}, {}),
+        "loggap": (gapped, zero, {"mode": mode | loggap}, {}),
+        "no_gape": (gapped, zero, {"mode": mode & ~gape, "max_gape": 2},
+                    {}),
+        "seed_20": (gapped, zero, {"seed_len": 20, "max_seed_diff": 1}, {}),
+        "counter_end": (counter, (), {"fnr": -1.0, "max_diff": 8},
+                        {"stack_cap": 52192, "max_iters": 100000}),
+        "wide_device": (wide, (), {"fnr": -1.0, "max_diff": 2,
+                                   "seed_len": 0x7FFFFFFF}, {}),
+    }
+
+
 def check_dp_edges(dev):
     """C4's and C6's edge launches against their plain versions on the
     card, every output exact.  Returns {kernel: {label: shape}}."""
@@ -2729,7 +2964,8 @@ def main():
             log("ptxas: " + ln.strip())
     dp_ptxas = {name: kernel_ptxas(_build.build_log, tag) for name, tag in (
         ("extend", "extend_warp_kernel"),
-        ("banded_global", "banded_global_warp_kernel"))}
+        ("banded_global", "banded_global_warp_kernel"),
+        ("dfs", "dfs_warp_kernel"))}
     for name, rep in dp_ptxas.items():
         log(f"ptxas, {name}: {rep}")
         if sorted(rep) != ["device", "shared"] or any(
@@ -2758,18 +2994,20 @@ def main():
     inputs = maln.batch_inputs(part, lens[:CHECK_B], maxdiff[:CHECK_B],
                                local, max_len, eng.device)
     cw_err, cw_ms, cw_plain, cw_bound = check_cal_width(eng, inputs)
-    dfs_err, dfs_ms, dfs_plain, flagged, dfs_bound, dfs_pops = check_dfs(
+    tier0 = check_dfs(
         eng, inputs, maln.dfs_statics(local, eng.stack_cap, eng.hits_cap,
                                       eng.tier0_max_iters), "tier 0")
     # the retry tier's settings on the reads tier 0 flagged (all of the
     # batch where it flagged none)
+    flagged = tier0["flagged"]
     redo = flagged if len(flagged) else np.arange(len(part))
     again = maln.batch_inputs([part[int(i)] for i in redo], lens[redo],
                               maxdiff[redo], local, max_len, eng.device)
-    retry_err, retry_ms, retry_plain, _, _, _ = check_dfs(
+    retry = check_dfs(
         eng, again, maln.dfs_statics(local, eng.retry_stack_cap,
                                      eng.retry_hits_cap, eng.max_iters),
         "retry tier")
+    dfs_edges = check_dfs_edges(torch.device("cuda", 0))
 
     # phase 4: the aln path at full size
     want, host_s = native_reference(idx, reads, opt)
@@ -3192,11 +3430,15 @@ def main():
 
     kernels = [
         entry("dfs", "dfs.cu", "nabwa_tpu/ops/dfs_pallas.py:1253",
-              max(dfs_err, retry_err, b2b_dfs_err), dfs_ms, dfs_plain,
-              dfs_bound, pops=dfs_pops, retry_ms=retry_ms,
-              retry_plain_ms=retry_plain,
+              max(tier0["err"], retry["err"], b2b_dfs_err), tier0["ms"],
+              tier0["plain_ms"], tier0["bound"], pops=tier0["pops"],
+              **{f"tier0_{key}": tier0[key] for key in DFS_FIELDS},
+              retry_ms=retry["ms"], retry_plain_ms=retry["plain_ms"],
+              retry_bound_ms=retry["bound"][0], retry_pops=retry["pops"],
+              **{f"retry_{key}": retry[key] for key in DFS_FIELDS},
               retry_reads=len(redo), aln_cli_launches=counts["dfs"],
-              bam2bam_launches=b2b_counts["dfs"], bam2bam_err=b2b_dfs_err),
+              bam2bam_launches=b2b_counts["dfs"], bam2bam_err=b2b_dfs_err,
+              ptxas=dp_ptxas["dfs"], edge_launches=dfs_edges),
         entry("cal_width", "cal_width.cu", "nabwa_tpu/ops/occ.py:141",
               max(cw_err, b2b_cw["err"]), cw_ms, cw_plain, cw_bound,
               aln_cli_launches=counts["cal_width"],

@@ -2,8 +2,9 @@
 // NABWA_HD source that nvcc compiles into kernels C1 (dfs.cu), C2
 // (cal_width.cu), C3 (sa_lookup.cu), C4 (banded_global.cu), C5
 // (local_fwd.cu) and C6 (extend.cu), compiled by a host C++ compiler and
-// run row by row with the kernels' argument layouts, C4's and C6's warp
-// kernels also lane by lane (the `_lanes` entry points); and the probe
+// run row by row with the kernels' argument layouts, C1's, C4's and C6's
+// warp kernels also lane by lane (the `_lanes` entry points; C1's serial
+// `dfs_read` stays as their oracle); and the probe
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
 // C9's and C10's counts and expansion, C13's slot of a pop, C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
@@ -17,6 +18,7 @@
 #include <vector>
 
 #include "dfs_read.cuh"
+#include "dfs_warp.cuh"
 #include "dp_global.cuh"
 #include "extend.cuh"
 #include "local_sw.cuh"
@@ -61,6 +63,113 @@ extern "C" int nabwa_host_dfs(const uint32_t* params, const void* bwt_cat,
                            (const int32_t*)max_diff, (int32_t*)slots,
                            (int32_t*)planes, (int32_t*)out, b, B));
     return 0;
+}
+
+// C1's warp kernel (dfs.cu) lane by lane: `dfs_read_warp` with nl lanes
+// run one after another in lane order, their values combined as the
+// warp's intrinsics combine them (a shuffle reads lane src's value, ballot
+// bit l is lane l's).
+struct HostWarp {
+    int nl;
+
+    template <class T>
+    struct Val {
+        T v[32];
+        T& operator[](int i) { return v[i]; }
+        const T& operator[](int i) const { return v[i]; }
+    };
+
+    int lanes() const { return nl; }
+
+    template <class F>
+    void each(F f) const {
+        for (int l = 0; l < nl; ++l) f(l);
+    }
+
+    int32_t min(const Val<int32_t>& x) const {
+        int32_t m = x[0];
+        for (int l = 1; l < nl; ++l) m = std::min(m, x[l]);
+        return m;
+    }
+
+    int sum(const Val<int>& x) const {
+        int s = 0;
+        for (int l = 0; l < nl; ++l) s += x[l];
+        return s;
+    }
+
+    bool any(const Val<bool>& x) const {
+        bool a = false;
+        for (int l = 0; l < nl; ++l) a |= x[l];
+        return a;
+    }
+
+    uint32_t ballot(const Val<bool>& x) const {
+        uint32_t m = 0;
+        for (int l = 0; l < nl; ++l) m |= (uint32_t)x[l] << l;
+        return m;
+    }
+
+    int first_lane(uint32_t mask) const { return __builtin_ffs(mask) - 1; }
+
+    int shfl(const Val<int>& x, int src) const { return x[src]; }
+
+    void sync() const {}
+
+    struct OccLoad {
+        const uint32_t* bank;
+        uint32_t prim, k, l;
+    };
+
+    OccLoad occ_load(const uint32_t* bank, uint32_t prim, uint32_t k,
+                     uint32_t l) const {
+        return OccLoad{bank, prim, k, l};
+    }
+
+    void occ_count(const OccLoad& o, uint32_t ck4[4], uint32_t cl4[4]) const {
+        nabwa::occ4(o.bank, o.prim, o.k, ck4);
+        nabwa::occ4(o.bank, o.prim, o.l, cl4);
+    }
+};
+
+// nl lanes (1..32).  form 0: one state buffer that every read reuses, as
+// a block's warps reuse their share of shared memory; form 1: a region a
+// read in one scratch, as in device memory.  Both start as junk, so a read
+// of state the search did not write first shows in the result.
+extern "C" int nabwa_host_dfs_lanes(const uint32_t* params,
+                                    const void* bwt_cat, const void* seqs,
+                                    const void* lengths, const void* widths,
+                                    const void* bids, const void* seed_widths,
+                                    const void* seed_bids,
+                                    const void* has_seed,
+                                    const void* max_diff, void* out, int B,
+                                    int nl, int form) {
+    if (nl < 1 || nl > 32 || (form != 0 && form != 1)) return 1;
+    const nabwa::DfsParams p = nabwa::dfs_params(params);
+    const size_t words = nabwa::dfs_state_bytes(p) / 4;
+    std::vector<int32_t> state(words * (form ? std::max(B, 1) : 1));
+    uint32_t junk = 0x9E3779B9u;
+    for (int32_t& v : state) {
+        junk = junk * 1664525u + 1013904223u;
+        v = (int32_t)junk;
+    }
+    for (int b = 0; b < B; ++b)
+        nabwa::dfs_read_warp(
+            HostWarp{nl}, p, (const uint32_t*)bwt_cat,
+            nabwa::warp_io(p, (const int32_t*)seqs, (const int32_t*)lengths,
+                           (const int32_t*)widths, (const int32_t*)bids,
+                           (const int32_t*)seed_widths,
+                           (const int32_t*)seed_bids,
+                           (const int32_t*)has_seed,
+                           (const int32_t*)max_diff,
+                           state.data() + (form ? words * b : 0),
+                           (int32_t*)out, b));
+    return 0;
+}
+
+// bytes of one read's state at these parameters (dfs_state_bytes)
+extern "C" long long nabwa_host_dfs_state_bytes(const uint32_t* params) {
+    return (long long)nabwa::dfs_state_bytes(nabwa::dfs_params(params));
 }
 
 extern "C" int nabwa_host_sa_lookup(const uint32_t* params, const void* bank,

@@ -52,16 +52,8 @@ NABWA_HD void load_block(const uint32_t* bank, uint32_t kk, Block* b) {
 #endif
 }
 
-// Counts of each base in BWT[0..k] on one bank (bwt_occ4, bwt.c:159-176).
-NABWA_HD void occ4(const uint32_t* bank, uint32_t primary, uint32_t k,
-                   uint32_t cnt[4]) {
-    if (k == NEG1) {
-        cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;
-        return;
-    }
-    uint32_t kk = k >= primary ? k - 1 : k;
-    Block b;
-    load_block(bank, kk, &b);
+// occ4's counts at row kk (k with the `$` row skipped) from kk's block b.
+NABWA_HD void occ4_block(const Block& b, uint32_t kk, uint32_t cnt[4]) {
     uint32_t word_off = (kk >> 4) & 7, within = kk & 15;
     uint32_t c1 = 0, c2 = 0, c3 = 0;
 #if defined(__CUDACC__)
@@ -85,6 +77,19 @@ NABWA_HD void occ4(const uint32_t* bank, uint32_t primary, uint32_t k,
     cnt[1] = b.w[1] + c1;
     cnt[2] = b.w[2] + c2;
     cnt[3] = b.w[3] + c3;
+}
+
+// Counts of each base in BWT[0..k] on one bank (bwt_occ4, bwt.c:159-176).
+NABWA_HD void occ4(const uint32_t* bank, uint32_t primary, uint32_t k,
+                   uint32_t cnt[4]) {
+    if (k == NEG1) {
+        cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;
+        return;
+    }
+    uint32_t kk = k >= primary ? k - 1 : k;
+    Block b;
+    load_block(bank, kk, &b);
+    occ4_block(b, kk, cnt);
 }
 
 // The FM parameters cal_width takes by value: l2[5], primary, seq_len.

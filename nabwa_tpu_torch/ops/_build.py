@@ -52,9 +52,10 @@ _SIGNATURES = {
     # (fm params[7], bwt, queries, lengths, B, L, width, bid, stream)
     "nabwa_cal_width": [_U32P, _P, _P, _P, _I, _I, _P, _P, _P],
     # (dfs params[26], bwt_cat, seqs, lengths, widths, bids, seed_widths,
-    #  seed_bids, has_seed, max_diff, slots, planes, out, B, stream)
-    "nabwa_dfs": [_U32P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _P],
+    #  seed_bids, has_seed, max_diff, scratch, out, B, stream)
+    "nabwa_dfs": [_U32P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # (dfs params[26], B, shared, shape[3])
+    "nabwa_dfs_shape": [_U32P, _I, _I, _P],
     # (fm params[7], bank, sa, sa_intv, rows, n, out, stream)
     "nabwa_sa_lookup": [_U32P, _P, _P, _U32, _P, _I, _P, _P],
     # (dp params[28], s1, s2, len1, len2, b1, b2, B, L1, L2, scratch, tb,

@@ -2,10 +2,15 @@
 
 Same arguments and packed int32 [B, 4H+5] result as
 `ops.dfs.dfs_match_gap_plain`; every column but `fin` and `iters` (the
-kernel's own per-read telemetry) matches it.  The wrapper checks device,
-dtype, shape and contiguity, allocates the kernel's scratch and output
-with `torch.empty`, and launches on the current stream.
+kernel's own per-read telemetry) matches it.  The kernel runs a warp per
+read with the read's state in shared memory, or, when one read's state
+(`dfs_smem_bytes`) exceeds `SMEM_STATE_BYTES`, in device memory: then the
+wrapper allocates that scratch.  The wrapper checks device, dtype, shape
+and contiguity, allocates the output with `torch.empty`, and launches on
+the current stream.
 """
+
+import ctypes
 
 import torch
 
@@ -14,6 +19,11 @@ from .occ import M32
 
 # kernel launches made on CUDA tensors
 launches = 0
+
+# shared memory one read's state may take: a block's 227 KB on the H100
+# (the kernel has no static shared memory).  A batch whose reads need more
+# keeps their state in device memory.
+SMEM_STATE_BYTES = 227 * 1024
 
 # uint32 words handed to the kernel, in the field order of DfsParams
 DFS_PARAMS = ("l2_0", "l2_1", "l2_2", "l2_3", "l2_4", "primary_fwd",
@@ -49,6 +59,24 @@ def check_limits(L, max_diff_max, max_gapo, max_gape, s_mm, s_gapo, s_gape,
                          f"too small")
     if not 0 < max_iters < 1 << 31:
         raise ValueError(f"max_iters {max_iters} out of range")
+
+
+def dfs_smem_bytes(S, H, L, SL1):
+    """C1's state of one read in bytes, a multiple of 16: the stack (5 S
+    int32), the width and bid planes of both strands (4 (L+1)), the seed
+    planes (4 SL1), the codes (2 L) and the hit list (4 H)
+    (csrc/dfs_warp.cuh `dfs_state_bytes`)."""
+    words = 5 * S + 4 * (L + 1) + 4 * SL1 + 2 * L + 4 * H
+    return -(-4 * words // 16) * 16
+
+
+def launch_shape(params, B, shared):
+    """(warps a block, blocks, dynamic shared bytes a block) of a launch of
+    B reads with these `param_words`, as `nabwa_dfs` would make it."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_build.lib().nabwa_dfs_shape(params, B, int(shared), shape),
+                 "dfs launch shape")
+    return tuple(shape)
 
 
 def param_words(rev_word_offset, primary_fwd, primary_rev, l2, seq_len, L,
@@ -105,8 +133,12 @@ def dfs_match_gap_cuda(bwt_cat, rev_word_offset, primary_fwd, primary_rev,
     md_max = int(max_diff.max().item())
     check_limits(L, md_max, max_gapo, max_gape, s_mm, s_gapo, s_gape, S, H,
                  max_iters)
-    slots = torch.empty((B, 5, S), dtype=torch.int32, device=dev)
-    planes = torch.empty((2, B, 2, L + 1), dtype=torch.int32, device=dev)
+    # each read's state in shared memory, or in device memory when one
+    # read's does not fit
+    per_read = dfs_smem_bytes(S, H, L, SL1)
+    scratch = (None if per_read <= SMEM_STATE_BYTES
+               else torch.empty(B * per_read // 4, dtype=torch.int32,
+                                device=dev))
     params = param_words(
         rev_word_offset, primary_fwd, primary_rev, l2, seq_len, L, SL1,
         s_mm=s_mm, s_gapo=s_gapo, s_gape=s_gape, max_gape=max_gape,
@@ -118,7 +150,7 @@ def dfs_match_gap_cuda(bwt_cat, rev_word_offset, primary_fwd, primary_rev,
         params, bwt_cat.data_ptr(), seqs.data_ptr(),
         lengths.data_ptr(), widths.data_ptr(), bids.data_ptr(),
         seed_widths.data_ptr(), seed_bids.data_ptr(), has_seed.data_ptr(),
-        max_diff.data_ptr(), slots.data_ptr(), planes.data_ptr(),
+        max_diff.data_ptr(), None if scratch is None else scratch.data_ptr(),
         out.data_ptr(), B, _build.stream_of(seqs))
     _build.check(rc, "dfs kernel launch")
     with _build.count_lock:

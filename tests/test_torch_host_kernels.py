@@ -3,10 +3,10 @@
 `nabwa_tpu_torch/csrc/host_harness.cpp` runs the kernels' NABWA_HD
 per-row code (dfs_read of C1, cal_width_row of C2, sa_lookup_row of C3,
 banded_global_pair of C4, local_fwd_pair of C5, extend_job of C6) with the
-kernels' argument layouts, and C4's and C6's warp kernels lane by lane
-(their per-lane steps of dp_global.cuh and extend.cuh at a chosen number
-of lanes, the carries combined in lane order as the shuffles combine
-them).  g++ builds it here, so the tests can hold the
+kernels' argument layouts, and C1's, C4's and C6's warp kernels lane by
+lane (C1's `dfs_read_warp` of dfs_warp.cuh, C4's and C6's per-lane steps
+of dp_global.cuh and extend.cuh, at a chosen number of lanes, the values
+combined in lane order as the warp's intrinsics combine them).  g++ builds it here, so the tests can hold the
 kernel source itself, not only its plain PyTorch version, against the JAX
 package on a machine without a GPU.
 """
@@ -16,6 +16,7 @@ import pathlib
 import subprocess
 
 import numpy as np
+import pytest
 
 from nabwa_tpu_torch.ops import _build, dfs_cuda
 
@@ -33,6 +34,9 @@ def build(out_dir):
     lib = ctypes.CDLL(str(so))
     lib.nabwa_host_cal_width.argtypes = [_U32P, _P, _P, _P, _I, _I, _P, _P]
     lib.nabwa_host_dfs.argtypes = [_U32P] + [_P] * 12 + [_I]
+    lib.nabwa_host_dfs_lanes.argtypes = [_U32P] + [_P] * 10 + [_I] * 3
+    lib.nabwa_host_dfs_state_bytes.argtypes = [_U32P]
+    lib.nabwa_host_dfs_state_bytes.restype = ctypes.c_longlong
     lib.nabwa_host_occ4.argtypes = [_P, ctypes.c_uint32, _P, _I, _P]
     lib.nabwa_host_sa_lookup.argtypes = [_U32P, _P, _P, ctypes.c_uint32, _P,
                                          _I, _P]
@@ -50,7 +54,7 @@ def build(out_dir):
                lib.nabwa_host_dfs, lib.nabwa_host_sa_lookup,
                lib.nabwa_host_banded_global, lib.nabwa_host_local_fwd,
                lib.nabwa_host_extend, lib.nabwa_host_banded_global_lanes,
-               lib.nabwa_host_extend_lanes):
+               lib.nabwa_host_extend_lanes, lib.nabwa_host_dfs_lanes):
         fn.restype = _I
     return lib
 
@@ -105,6 +109,36 @@ def dfs(lib, bwt_cat, rev_word_offset, primary_fwd, primary_rev, l2,
     lib.nabwa_host_dfs(params, *[_ptr(a) for a in arrs], _ptr(slots),
                        _ptr(planes), _ptr(out), B)
     return out
+
+
+def dfs_lanes(lib, bwt_cat, rev_word_offset, primary_fwd, primary_rev, l2,
+              seq_len, seqs, lengths, widths, bids, seed_widths, seed_bids,
+              has_seed, max_diff, *, lanes, form, **statics):
+    """C1's warp kernel lane by lane on numpy arrays: the packed int32
+    [B, 4H+5] of `dfs_read_warp` at `lanes` lanes (1..32), its state in
+    one reused buffer (form "shared") or a region a read ("device")."""
+    arrs = [_arr(a) for a in (bwt_cat, seqs, lengths, widths, bids,
+                              seed_widths, seed_bids, has_seed, max_diff)]
+    B, _, L = arrs[1].shape
+    H = statics["hits_cap"]
+    dfs_cuda.check_limits(L, int(arrs[8].max(initial=0)), statics["max_gapo"],
+                          statics["max_gape"], statics["s_mm"],
+                          statics["s_gapo"], statics["s_gape"],
+                          statics["stack_cap"], H, statics["max_iters"])
+    out = np.empty((B, 4 * H + 5), dtype=np.int32)
+    params = dfs_cuda.param_words(rev_word_offset, primary_fwd, primary_rev,
+                                  l2, seq_len, L, arrs[5].shape[2],
+                                  **statics)
+    if lib.nabwa_host_dfs_lanes(params, *[_ptr(a) for a in arrs], _ptr(out),
+                                B, lanes,
+                                {"shared": 0, "device": 1}[form]):
+        raise ValueError(f"no lane emulation at {lanes} lanes")
+    return out
+
+
+def dfs_state_bytes(lib, params):
+    """dfs_warp.cuh's `dfs_state_bytes` at these `param_words`."""
+    return int(lib.nabwa_host_dfs_state_bytes(params))
 
 
 def sa_lookup(lib, bank, l2, primary, seq_len, sa, sa_intv, rows):
@@ -176,3 +210,47 @@ def extend(lib, s1, len1, s2, len2, g0, bw, mat, *, go, ge, lanes=None,
                                      *[_ptr(a) for a in out]):
         raise ValueError(f"no lane emulation at {lanes} lanes of {k}")
     return tuple(out)
+
+
+# ---- tests of the harness's own entry points ----
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return build(tmp_path_factory.mktemp("host_kernels"))
+
+
+_STATICS = dict(s_mm=3, s_gapo=11, s_gape=4, max_gape=6, max_gapo=1,
+                indel_end_skip=5, max_del_occ=10, max_entries=2000000,
+                max_top2=30, max_seed_diff=2, seed_len=32, mode=3,
+                max_iters=768)
+
+
+@pytest.mark.parametrize("S, H, L, SL1", [(256, 32, 128, 33),
+                                          (1024, 128, 128, 33),
+                                          (2, 1, 32, 1), (33, 7, 96, 97),
+                                          (52192, 128, 32, 33),
+                                          (1024, 128, 7168, 7169)])
+def test_dfs_state_bytes_match_python(lib, S, H, L, SL1):
+    """C1's state size a read (dfs_warp.cuh `dfs_state_bytes`) equals its
+    Python mirror, which picks the wrapper's state form."""
+    params = dfs_cuda.param_words(0, 0, 0, [0] * 5, 1000, L, SL1,
+                                  stack_cap=S, hits_cap=H, **_STATICS)
+    got = dfs_state_bytes(lib, params)
+    assert got == dfs_cuda.dfs_smem_bytes(S, H, L, SL1)
+    assert got % 16 == 0
+    words = 5 * S + 4 * (L + 1) + 4 * SL1 + 2 * L + 4 * H
+    assert 4 * words <= got < 4 * words + 16
+
+
+@pytest.mark.parametrize("lanes", [0, 33])
+def test_dfs_lanes_refuses_lane_counts(lib, lanes):
+    """The lane harness emulates 1 to 32 lanes, a warp at most."""
+    z = np.zeros((1, 2, 32), dtype=np.int32)
+    one = np.zeros(1, dtype=np.int32)
+    planes = np.zeros((1, 2, 33), dtype=np.int32)
+    with pytest.raises(ValueError):
+        dfs_lanes(lib, np.zeros(48, dtype=np.int32), 0, 0, 0, [0] * 5, 10,
+                  z, one, planes, planes, planes, planes, one, one,
+                  lanes=lanes, form="shared", stack_cap=256, hits_cap=32,
+                  **_STATICS)
