@@ -12,10 +12,15 @@ Phases, any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi) and the nvcc build of the
    kernels from csrc/ (seconds, ptxas register report); the run fails if
    ptxas reports a spill in either form of C1, C4 or C6 (the state in
-   shared or in device memory);
+   shared or in device memory), in C2 or in any form of C5 (the
+   register form at each K, the wide form's two);
 2. kernel C2 (csrc/cal_width.cu) against the plain PyTorch cal_width on
-   CUDA tensors: the first 2048 reads of the main path, both strands, the
-   reads and their seed suffixes, exact;
+   CUDA tensors: the first 2048 reads of the main path, the four planes
+   (both strands, the reads and their seed suffixes) in one launch, 8
+   lanes a row, exact against four plain calls and timed, and one plane
+   alone; then C2's edge launches
+   (`check_cal_width_edges`, numpy seed CW_EDGE_SEED): rows with N codes,
+   all N, length 0, 1 and L, seed lengths 0 and SL, B = 1 and 0, exact;
 3. kernel C1 (csrc/dfs.cu) against the plain PyTorch DFS on CUDA tensors,
    with the engine's own batch inputs and statics: the same 2048 reads at
    the tier-0 settings, then the reads tier 0 flagged at the retry
@@ -71,11 +76,19 @@ Phases, any failure exits non-zero:
    per part of each;
 11. kernel C5 (csrc/local_fwd.cu) against the plain PyTorch local-SW
    forward pass, and C4 against its plain DP, on every launch recorded in
-   phase 10: the rescue's forward rounds, its path recovery (per-pair
-   bands doubled on retry, gap_end -1) and any refine batch; every output
-   exact.  Then the two routes' SAM must be byte-identical, and the
-   rescue must have placed (XT:A:M) at least half as many mates as were
-   built for it;
+   phase 10: the rescue's forward rounds (each launch's jobs, L1, L2,
+   C5's form and time logged), its path recovery (per-pair bands
+   doubled on retry, gap_end -1) and any refine batch; every output
+   exact.  C5's edge launches (`check_local_edges`, numpy seed
+   LOCAL_EDGE_SEED), exact: one in each form (the register form at K 2,
+   4, 8, 16, the wide form at L1 600, 1024, 1025 and 2000 in shared
+   memory, 2000 again forced into device memory, 30,000 in device
+   memory), windows of 1 and 33 columns, no positive cell, ties in one
+   row and in two rows, a job whose answer the E chain's gate decides;
+   and K 2, 4 and 8 timed against K=16 on the same jobs
+   (`local_form_ms`).  Then the two routes'
+   SAM must be byte-identical, and the rescue must have placed (XT:A:M)
+   at least half as many mates as were built for it;
 12. the CLI chain on the pairs, every launch count at 0 before each
    command: `aln --device cuda` on each end (each `.sai` equal to the host
    engine's, C1 and C2 launched), then `sampe --device cuda` (its SAM
@@ -111,14 +124,15 @@ Phases, any failure exits non-zero:
    insert size 500 +- 50 (seed 104) as rg2 and as many reads of the
    gapped set as rg1 singletons: on the host reference route at one
    worker, and on the card at one and at four worker threads sharing one
-   engine, recording every C1-C5 launch of both card runs.  The three BAMs
+   engine, recording every C1-C5 launch of both card runs (each C5
+   launch's L1 and form logged).  The three BAMs
    must be byte-identical, the four-worker run must launch each kernel as
    often and with the same shapes as the one-worker run, at most 20 % of
    the one-worker run's aligned reads may drain to the host, every C3, C4
    and C5 launch of that run must equal its plain version (and its
-   smallest tier-0 C1 launch and largest C2 launch theirs, as in phases
-   2-3), and the rescue must place at least half of the rescue-only
-   mates;
+   smallest tier-0 C1 launch and largest four-plane C2 launch theirs, as
+   in phases 2-3), and the rescue must place at least half of the
+   rescue-only mates;
 17. the bam2bam CLI with every launch count at 0: `bam2bam --device cuda`
    (its BAM equal to the host reference route's, C1-C5 launched);
 18. the probes (nabwa_tpu_torch/probes/), inputs made with numpy from a
@@ -190,7 +204,8 @@ Phases, any failure exits non-zero:
    logged and each of C7-C35 must have launched.
 Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
 points the probes' path: their launch counts, summed, are the `launches`
-of the kernels line.
+of the kernels line.  Every aln CLI run (phases 4, 8, 12) and the bam2bam
+CLI run must launch C2 once for each C1 launch.
 With --profile, torch.profiler runs over one more aln run after phase 4's
 timed run and over one more bwasw card run after phase 14: the card's
 busy share and the device time of each kernel.
@@ -236,7 +251,17 @@ kernels' registers, static shared memory and spills, `edge_launches` the
 shapes of the edge launches checked; the `bam2bam_*` fields
 of C2-C5 are those of bam2bam's one-worker card run (C1's
 `bam2bam_err` of its replayed launch), and `bam2bam_launches` of every
-kernel its count in phase 17.
+kernel its count in phase 17.  C2's `ms` is phase 2's four-plane launch,
+8 lanes a row (`form`), `ms_per_plane` a quarter of it and
+`single_plane_ms` the one-plane launch of the reads' strand 0; its bound
+counts two Occ blocks a position of each plane.  C5's `form` is its timed
+launch's, `launch_forms` and `bam2bam_launch_forms` each recorded
+launch's [jobs, L1, L2, form, K, ms], `bam2bam_smallest` the smallest of
+bam2bam's launches timed alone (`us_per_row`: its ms over its L2 rows)
+and `form_ms` K 2, 4 and 8 against K=16 on the same jobs
+(`local_form_ms`).  C2's and C5's `ptxas` hold each instantiation's
+registers and spills and `edge_launches` the shapes of their edge
+launches.
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
@@ -388,6 +413,8 @@ QUEUE_SLEEP_CYCLES = 100_000_000
 PROBE_SEED = 18
 DP_EDGE_SEED = 21
 DFS_EDGE_SEED = 22
+LOCAL_EDGE_SEED = 23
+CW_EDGE_SEED = 24
 # C1's edge launches: the retry tier's slot pool and hit list (tier 0's
 # pool of 256 overflows on every gapped edge read), at most 100,000 steps
 DFS_EDGE_STATICS = dict(stack_cap=1024, hits_cap=128, max_iters=100000)
@@ -733,42 +760,103 @@ def make_data(glen, n_reads, n_pairs, n_long):
     return (fa, *fqs, *pe, lr, *pe2)
 
 
+def planes_bound(args, out):
+    """(bound_ms, bound_by, bound_int32_ms) of a four-plane C2 launch on
+    (bwt_fwd, bwt_rev, l2, primary_fwd, primary_rev, seq_len, seqs,
+    lengths, seed_seqs, seed_lengths): its inputs and outputs and two Occ
+    blocks a read position of each plane (the counts at k-1 and l)."""
+    steps = 2 * int(args[7].long().sum()) + 2 * int(args[9].long().sum())
+    return bound(nbytes(*args[6:10], *out) + 2 * OCC_BLOCK_BYTES * steps,
+                 2 * OPS_OCC_BLOCK * steps)
+
+
 def check_cal_width(eng, inputs):
-    """C2 against the plain version; returns (max |err|, kernel ms, plain
-    ms, bound) with the timed call's bound: its inputs and outputs and two
-    Occ blocks a read position (the counts at k-1 and l)."""
+    """C2 against the plain version on the first CHECK_B reads of the main
+    path: the four-plane launch (reads and seed suffixes, both strands),
+    exact against four plain calls, and the one-plane launch of the reads'
+    strand 0 against one.  Returns a dict: max |err|, the four-plane
+    launch's ms (`ms`) and a plane's share (`ms_per_plane`), the one-plane
+    launch's ms (`single_plane_ms`, the shape of the earlier one thread a
+    row kernel's timing), the four plain calls' ms and the bound."""
     import torch
     from nabwa_tpu_torch.ops import occ
     ix = eng.dev
-    worst, n_cmp = 0, 0
-    for q, ln in ((inputs["seqs"], inputs["lengths"]),
-                  (inputs["seed_seqs"], inputs["seed_lengths"])):
-        for s, bank, prim in ((0, ix.bwt_fwd, ix.primary_fwd),
-                              (1, ix.bwt_rev, ix.primary_rev)):
-            args = (bank, ix.l2, prim, ix.seq_len, q[:, s, :].contiguous(),
-                    ln)
-            kw, kb = occ.cal_width_cuda(*args)
-            pw, pb = occ.cal_width_plain(*args)
-            torch.cuda.synchronize()
-            for a, b in ((kw, pw), (kb, pb)):
-                worst = max(worst, int((a.long() - b.long()).abs().max()))
-                n_cmp += a.numel()
+    args = (ix.bwt_fwd, ix.bwt_rev, ix.l2, ix.primary_fwd, ix.primary_rev,
+            ix.seq_len, inputs["seqs"], inputs["lengths"],
+            inputs["seed_seqs"], inputs["seed_lengths"])
+    t0 = time.perf_counter()
+    want = occ.cal_width_planes_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    worst = 0
+    got = occ.cal_width_planes_cuda(*args)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        worst = max(worst, exact(f"C2 four planes, output {k}", g, w))
+    ms = cuda_ms(lambda: occ.cal_width_planes_cuda(*args), 20)
     q = inputs["seqs"][:, 0, :].contiguous()
-    ln = inputs["lengths"]
-    args = (ix.bwt_fwd, ix.l2, ix.primary_fwd, ix.seq_len, q, ln)
-    ms = cuda_ms(lambda: occ.cal_width_cuda(*args), 20)
-    plain_ms = cuda_ms(lambda: occ.cal_width_plain(*args), 2)
-    width, bid = occ.cal_width_cuda(*args)
-    steps = int(ln.long().sum())
-    bnd = bound(nbytes(q, ln, width, bid) + 2 * OCC_BLOCK_BYTES * steps,
-                2 * OPS_OCC_BLOCK * steps)
-    log(f"C2 cal_width: {q.shape[0]} reads x 2 strands, reads and seed "
-        f"suffixes, max |err| {worst} over {n_cmp} values; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.2f} ms per call at "
-        f"{tuple(q.shape)}; bound {bnd[0]:.5f} ms ({bnd[1]})")
-    if worst != 0:
-        fail("cal_width kernel disagrees with the plain version")
-    return worst, ms, plain_ms, bnd
+    one = (ix.bwt_fwd, ix.l2, ix.primary_fwd, ix.seq_len, q,
+           inputs["lengths"])
+    for g, w in zip(occ.cal_width_cuda(*one), occ.cal_width_plain(*one)):
+        worst = max(worst, exact("C2 one plane", g, w))
+    single_ms = cuda_ms(lambda: occ.cal_width_cuda(*one), 20)
+    bnd = planes_bound(args, want)
+    log(f"C2 cal_width: {q.shape[0]} reads, four planes (L={q.shape[1]}, "
+        f"SL={inputs['seed_seqs'].shape[2]}) in one launch, exact: "
+        f"{ms:.4f} ms, {ms / 4:.4f} a plane; one plane {tuple(q.shape)} "
+        f"{single_ms:.4f} ms; plain {plain_ms:.2f} ms for the four; bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
+    return {"err": worst, "ms": ms, "ms_per_plane": ms / 4,
+            "single_plane_ms": single_ms, "plain_ms": plain_ms,
+            "bound": bnd}
+
+
+def check_cal_width_edges(eng):
+    """C2's edge launches (numpy seed CW_EDGE_SEED) on the main path's
+    index, exact against the plain version: four planes whose rows hold N
+    codes (restarts), length 0, 1 and L (and seed lengths 0 and SL), and
+    one-plane launches of a single row and of none.  Returns {label:
+    shape}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.ops import occ
+    ix = eng.dev
+    dev = ix.bwt_cat.device
+    rng = np.random.default_rng(CW_EDGE_SEED)
+    B, L, SL = 96, 128, 32
+    seqs = rng.integers(0, 4, size=(B, 2, L))
+    seqs[rng.random((B, 2, L)) < 0.03] = 4              # N codes
+    seqs[:8, :, 40] = 4
+    seqs[8:12] = 4                                       # all N
+    lengths = rng.integers(0, L + 1, size=B)
+    lengths[:6] = (0, 1, L, L, L - 1, 0)
+    seed_seqs = seqs[:, :, :SL].copy()
+    seed_lengths = np.where(rng.random(B) < 0.5, SL, 0)
+    seed_lengths[:3] = (0, SL, 1)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    args = (ix.bwt_fwd, ix.bwt_rev, ix.l2, ix.primary_fwd, ix.primary_rev,
+            ix.seq_len, put(seqs), put(lengths), put(seed_seqs),
+            put(seed_lengths))
+    want = occ.cal_width_planes_plain(*args)
+    checked = {}
+    got = occ.cal_width_planes_cuda(*args)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        exact(f"C2 edge planes, output {k}", g, w)
+    checked["planes"] = [B, L, SL]
+    for n in (1, 0):
+        one = (ix.bwt_rev, ix.l2, ix.primary_rev, ix.seq_len,
+               args[6][:n, 1, :].contiguous(), args[7][:n])
+        got = occ.cal_width_cuda(*one)
+        torch.cuda.synchronize()
+        for k, (g, w) in enumerate(zip(got, occ.cal_width_plain(*one))):
+            exact(f"C2 edge B={n}, output {k}", g, w)
+        checked[f"one_plane_B{n}"] = [n, L]
+    log(f"C2 cal_width: {len(checked)} edge launches exact ({checked})")
+    return checked
 
 
 class dfs_device_state:
@@ -789,18 +877,12 @@ class dfs_device_state:
         dfs_cuda.SMEM_STATE_BYTES = self.keep
 
 
-def dfs_planes(ix, seqs, lens, seed_seqs, seed_lens, cal_width):
-    """widths, bids, seed widths, seed bids of a batch by `cal_width`."""
-    import torch
-    planes = []
-    for q, ln in ((seqs, lens), (seed_seqs, seed_lens)):
-        wb = [cal_width(bank, ix.l2, prim, ix.seq_len,
-                        q[:, s, :].contiguous(), ln)
-              for s, bank, prim in ((0, ix.bwt_fwd, ix.primary_fwd),
-                                    (1, ix.bwt_rev, ix.primary_rev))]
-        planes += [torch.stack([w for w, _ in wb], 1).contiguous(),
-                   torch.stack([b for _, b in wb], 1).contiguous()]
-    return planes
+def dfs_planes(ix, seqs, lens, seed_seqs, seed_lens, cal_width_planes):
+    """widths, bids, seed widths, seed bids of a batch by
+    `cal_width_planes` (occ's four-plane function, kernel or plain)."""
+    return list(cal_width_planes(ix.bwt_fwd, ix.bwt_rev, ix.l2,
+                                 ix.primary_fwd, ix.primary_rev, ix.seq_len,
+                                 seqs, lens, seed_seqs, seed_lens))
 
 
 def dfs_shape(args, statics, device_state):
@@ -835,7 +917,7 @@ def check_dfs(eng, inputs, statics, tier):
     seqs, lens = inputs["seqs"], inputs["lengths"]
     B, _, L = seqs.shape
     planes = dfs_planes(ix, seqs, lens, inputs["seed_seqs"],
-                        inputs["seed_lengths"], occ.cal_width_plain)
+                        inputs["seed_lengths"], occ.cal_width_planes_plain)
     args = (ix.bwt_cat, ix.rev_word_offset, ix.primary_fwd, ix.primary_rev,
             ix.l2, ix.seq_len, seqs, lens, *planes, inputs["has_seed"],
             inputs["max_diff"])
@@ -923,7 +1005,7 @@ def check_dfs_edges(dev):
                        **st_kw}
             planes = dfs_planes(ix, inputs["seqs"], inputs["lengths"],
                                 inputs["seed_seqs"], inputs["seed_lengths"],
-                                occ.cal_width)
+                                occ.cal_width_planes)
             args = (ix.bwt_cat, ix.rev_word_offset, ix.primary_fwd,
                     ix.primary_rev, ix.l2, ix.seq_len, inputs["seqs"],
                     inputs["lengths"], *planes, inputs["has_seed"],
@@ -1398,7 +1480,7 @@ def bam2bam_routes(eng, idx, in_bam, n_records, argv, opt, popt, out_dir):
     from nabwa_tpu_torch.ops import sa_lookup as sl
     from nabwa_tpu_torch.utils.rand48 import Rand48
     wrapped = (("dfs", dfs_cuda, "dfs_match_gap_cuda"),
-               ("cal_width", occ, "cal_width_cuda"),
+               ("cal_width", occ, "cal_width_planes_cuda"),
                ("sa_lookup", sl, "sa_lookup_cuda"),
                ("banded_global", dp, "banded_global_cuda"),
                ("local_fwd", dp, "local_fwd_cuda"))
@@ -1441,6 +1523,14 @@ def bam2bam_routes(eng, idx, in_bam, n_records, argv, opt, popt, out_dir):
             f"pass-2 parts summed over workers {runs[label][3]}; rescue "
             f"{counters}; launches {counts}; engine {tiers}")
     return runs, recorded
+
+
+def one_c2_per_c1(label, counts):
+    """The aln engine launches C2 once for each C1 launch (the batch's four
+    width planes in one launch); fails otherwise."""
+    if counts["cal_width"] != counts["dfs"]:
+        fail(f"{label}: C2 launched {counts['cal_width']} times for "
+             f"{counts['dfs']} C1 launches")
 
 
 def exact(label, got, want):
@@ -2241,6 +2331,190 @@ def global_edges(rng, dev):
     return cases
 
 
+def local_edges(rng, dev):
+    """C5's edge launches: {label: (args, kw)} for `dp.local_fwd_cuda`, one
+    launch in each form (the register form at K 2, 4, 8 and 16, the
+    wide form with the row in shared and in device memory) and jobs with
+    no positive cell, ties in one row and in two rows, and a job the E
+    chain's gate decides."""
+    import numpy as np
+    from nabwa_tpu_torch.ops import dp
+    from nabwa_tpu_torch.refmodel.stdaln_scalar import ALN_SM_MAQ
+
+    def rand(n):
+        return rng.integers(0, 4, int(n)).astype(np.uint8)
+
+    def jobs_upto(width, n=12):
+        out = []
+        for t in range(n):
+            ref = rand(width if t < 2 else rng.integers(1, width + 1))
+            if t % 3 == 2:
+                read = rng.integers(0, 5, int(rng.integers(1, 60)))
+                out.append((ref, read.astype(np.uint8)))
+                continue
+            rl = int(rng.integers(1, min(len(ref), 120) + 1))
+            start = int(rng.integers(0, len(ref) - rl + 1))
+            out.append((ref, mutated(rng, ref[start:start + rl], 0.03)))
+        return out
+
+    def launch(jobs):
+        return (dp.pack_local(jobs, dev),
+                dict(mat=np.asarray(ALN_SM_MAQ), go=26, ge=9))
+
+    cases = {f"L1_{w}": launch(jobs_upto(w))
+             for w in (1, 33, 64, 65, 128, 200, 380, 600, 1024, 1025, 2000)}
+    big = rand(30000)
+    cases["device_state_L1_30000"] = launch(
+        [(big, mutated(rng, big[20000:20100], 0.03)), (big[:900], rand(40))])
+    x, y = rand(10), rand(10)
+    gap, ns = np.full(30, 4, np.uint8), np.full(10, 4, np.uint8)
+    cases["no_positive_and_ties"] = launch(
+        [(np.zeros(90, np.uint8), np.ones(30, np.uint8)),
+         (np.full(40, 4, np.uint8), rand(12)),
+         (np.concatenate([x, gap, x]), x.copy()),
+         (np.concatenate([x, gap, x, gap, x]), x.copy()),
+         (np.concatenate([y, gap, x]), np.concatenate([x, ns, y]))])
+    # a job whose answer the E chain's gate decides (h[j-1][i] == q + r,
+    # e[j-1][i] > r) at stdaln.c's aln_sm_blast, +1 / -3, N -2, q 5, r 2
+    blast = np.full((5, 5), -3, dtype=np.int64)
+    np.fill_diagonal(blast, 1)
+    blast[4, :] = blast[:, 4] = -2
+    a = np.array([3, 1, 0, 2, 2, 0, 0, 3, 1, 0, 2, 1, 0, 3, 0, 2, 0, 1, 3,
+                  0, 1, 0, 2, 3, 2, 1, 1, 1, 0], np.uint8)
+    b = np.array([3, 1, 0, 2, 2, 0, 0, 3, 1, 0, 2, 1, 0, 3, 3, 2, 0, 2, 0,
+                  1, 3, 0, 1, 0, 2, 3, 2, 1, 1], np.uint8)
+    cases["e_gate_blast"] = (dp.pack_local([(a, b)], dev),
+                             dict(mat=blast, go=5, ge=2))
+    return cases
+
+
+def check_local_edges(dev):
+    """C5's edge launches (`local_edges`, numpy seed LOCAL_EDGE_SEED)
+    against the plain version on the card, every output exact, each in
+    the form its L1 picks (and the widest register-form launch and a wide
+    one again with the row forced into device memory).  Returns {label:
+    [B, L1, L2, form, K]}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.ops import dp
+    rng = np.random.default_rng(LOCAL_EDGE_SEED)
+    checked = {}
+    for label, (args, kw) in local_edges(rng, dev).items():
+        want = dp.local_fwd_plain(**args, **kw)
+        got = dp.local_fwd_cuda(**args, **kw)
+        torch.cuda.synchronize()
+        for k, (g, w) in enumerate(zip(got, want)):
+            exact(f"C5 edge {label}, output {k}", g, w)
+        L1 = int(args["s1"].shape[1] - 1)
+        form, K = dp.local_form(L1)
+        if label.startswith("device_state") != (form == "device"):
+            fail(f"C5 edge {label}: its row lies in {form} memory")
+        checked[label] = [int(args["s1"].shape[0]), L1,
+                          int(args["s2"].shape[1] - 1), form, K]
+        if label == "L1_2000":
+            keep = dp.SMEM_STATE_BYTES
+            dp.SMEM_STATE_BYTES = 0
+            try:
+                got = dp.local_fwd_cuda(**args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                dp.SMEM_STATE_BYTES = keep
+            for k, (g, w) in enumerate(zip(got, want)):
+                exact(f"C5 edge {label} in device memory, output {k}", g, w)
+            checked[label + "_device"] = checked[label][:3] + ["device", K]
+    forms = sorted({tuple(v[3:]) for v in checked.values()})
+    log(f"C5 local_fwd: {len(checked)} edge launches exact, forms {forms} "
+        f"({checked})")
+    want = [("device", 16), ("registers", 2), ("registers", 4),
+            ("registers", 8), ("registers", 16),
+            ("shared", 16)]
+    if forms != want:
+        fail(f"C5 edge launches took the forms {forms}, not {want}")
+    return checked, local_form_ms(dev)
+
+
+def local_form_ms(dev):
+    """C5's register forms of K 2, 4 and 8 against K=16, the form their
+    launches would take without them: the edge launches of those K
+    (LOCAL_EDGE_SEED) again with their windows padded to 512 columns.  The
+    jobs and their answers are the same (columns past a job's len1 are
+    never computed); each launch exact and timed over 20.  Returns {label:
+    {"own": [form, K, ms], "padded": [form, K, ms]}}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.ops import dp
+    rng = np.random.default_rng(LOCAL_EDGE_SEED)
+    out = {}
+    for label, (args, kw) in local_edges(rng, dev).items():
+        L1 = int(args["s1"].shape[1] - 1)
+        form, K = dp.local_form(L1)
+        if form != "registers" or K == 16:
+            continue
+        s1 = args["s1"]
+        pad = torch.full((s1.shape[0], 512 - L1), 4, dtype=s1.dtype,
+                         device=s1.device)
+        wide = dict(args, s1=torch.cat([s1, pad], 1).contiguous())
+        want = dp.local_fwd_plain(**args, **kw)
+        row = {}
+        for name, a in (("own", args), ("padded", wide)):
+            got = dp.local_fwd_cuda(**a, **kw)
+            torch.cuda.synchronize()
+            for k, (g, w) in enumerate(zip(got, want)):
+                exact(f"C5 {label} {name}, output {k}", g, w)
+            ms = cuda_ms(lambda: dp.local_fwd_cuda(**a, **kw), 20)
+            row[name] = [*dp.local_form(int(a["s1"].shape[1] - 1)), ms]
+        out[label] = row
+    log(f"C5 local_fwd, K 2, 4 and 8 against K=16 (the same jobs, windows "
+        f"padded to 512 columns): {out}")
+    return out
+
+
+def local_launch_forms(calls, times):
+    """Each recorded C5 launch's jobs, L1, L2, (form, K) and ms (`times`,
+    as `check_launches` replayed it)."""
+    from nabwa_tpu_torch.ops import dp
+    out = []
+    for (args, _), ms in zip(calls, times):
+        L1 = int(args[0].shape[1] - 1)
+        out.append([int(args[0].shape[0]), L1, int(args[2].shape[1] - 1),
+                    *dp.local_form(L1), ms])
+    return out
+
+
+def time_smallest_local(calls):
+    """bam2bam's smallest recorded C5 launch (fewest jobs) timed over 20:
+    a few hundred jobs hold one warp a job on fewer than 132 SMs' worth of
+    blocks, so the launch lasts one warp's chain of L2 rows.  Returns
+    {"shape": [jobs, L1, L2], "ms", "us_per_row"}."""
+    from nabwa_tpu_torch.ops import dp
+    args, kw = min(calls, key=lambda c: c[0][0].shape[0])
+    ms = cuda_ms(lambda: dp.local_fwd_cuda(*args, **kw), 20)
+    shape = [int(args[0].shape[0]), int(args[0].shape[1] - 1),
+             int(args[2].shape[1] - 1)]
+    out = {"shape": shape, "ms": ms, "us_per_row": ms * 1e3 / shape[2]}
+    log(f"C5 local_fwd, bam2bam's smallest launch alone: {out}")
+    return out
+
+
+def form_ptxas(log_text):
+    """The ptxas report of C2's kernel and C5's instantiations:
+    {"cal_width": {"G8"}, "local_fwd": {"K2" ... "K16", "shared",
+    "device"}}; C2 has one kernel, 8 lanes a row."""
+    def c2(name):
+        return "G8" if "cal_width_group_kernel" in name else None
+
+    def c5(name):
+        tag = "local_fwd_warp_kernelILi"
+        if tag in name:
+            return f"K{name.split(tag)[1].split('E')[0]}"
+        return ("shared" if "local_fwd_wide_kernelILb1E" in name
+                else "device" if "local_fwd_wide_kernelILb0E" in name
+                else None)
+
+    return {"cal_width": ptxas_report(log_text, c2),
+            "local_fwd": ptxas_report(log_text, c5)}
+
+
 def dfs_edge_data():
     """C1's edge cases, shared with tests/test_torch_dfs.py: (genome FASTA
     bytes, {label: (reads as FASTQ bytes, rows whose length is set to 0,
@@ -2941,6 +3215,12 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t_start = time.perf_counter()
+    phase_seconds = {}
+
+    def phase_mark(name):
+        """Log the run's seconds so far as phase `name` starts."""
+        phase_seconds[name] = time.perf_counter() - t_start
+        log(f"phase {name} starts at {phase_seconds[name]:.1f} s")
 
     import numpy as np
     from nabwa_tpu_torch import cli as port_cli
@@ -2974,6 +3254,18 @@ def main():
         if any(v["spill_store_bytes"] or v["spill_load_bytes"]
                for v in rep.values()):
             fail(f"{name} spills registers: {rep}")
+    forms_ptxas = form_ptxas(_build.build_log)
+    for name, keys in (("cal_width", ["G8"]),
+                       ("local_fwd", ["K16", "K2", "K4", "K8",
+                                      "device", "shared"])):
+        rep = forms_ptxas[name]
+        log(f"ptxas, {name}: {rep}")
+        if sorted(rep) != keys or any("registers" not in v
+                                      for v in rep.values()):
+            fail(f"no ptxas report for every form of {name}: {sorted(rep)}")
+        if any(v["spill_store_bytes"] or v["spill_load_bytes"]
+               for v in rep.values()):
+            fail(f"{name} spills registers: {rep}")
 
     fa, fq, fq_gapped, fq1, fq2, fq_long, fq2_1, fq2_2 = make_data(
         args.glen, args.reads, args.pairs, args.long_reads)
@@ -2985,6 +3277,7 @@ def main():
     eng = maln.AlnEngine(idx, opt, "cuda", retry_stack_cap=args.retry_stack,
                          retry_hits_cap=args.retry_stack // 8)
 
+    phase_mark("2-3")
     # phases 2-3: kernels against their plain versions on the card, on the
     # engine's own inputs for the first CHECK_B reads of the chunk
     lens = reads.clip_lens().astype(np.int32)
@@ -2993,7 +3286,8 @@ def main():
     part = reads[:CHECK_B]
     inputs = maln.batch_inputs(part, lens[:CHECK_B], maxdiff[:CHECK_B],
                                local, max_len, eng.device)
-    cw_err, cw_ms, cw_plain, cw_bound = check_cal_width(eng, inputs)
+    cw = check_cal_width(eng, inputs)
+    cw_edges = check_cal_width_edges(eng)
     tier0 = check_dfs(
         eng, inputs, maln.dfs_statics(local, eng.stack_cap, eng.hits_cap,
                                       eng.tier0_max_iters), "tier 0")
@@ -3009,6 +3303,7 @@ def main():
         "retry tier")
     dfs_edges = check_dfs_edges(torch.device("cuda", 0))
 
+    phase_mark("4")
     # phase 4: the aln path at full size
     want, host_s = native_reference(idx, reads, opt)
     log(f"host native engine: {len(reads) / host_s:.1f} reads/s "
@@ -3065,7 +3360,9 @@ def main():
     for name in ("dfs", "cal_width"):
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the aln path")
+    one_c2_per_c1("CLI aln", counts)
 
+    phase_mark("5-6")
     # phases 5-6: C3 on the SA rows samse asks for on the bench .sai; the
     # gapped read set's .sai from the host engine, and C4 on its jobs
     sa_err, sa_ms, sa_plain, sa_rows, sa_bound = check_sa_lookup(
@@ -3083,6 +3380,11 @@ def main():
     def global_bound(a, out):
         return bound(io_bytes(a, out), OPS_GLOBAL_CELL * band_cells(a))
 
+    def local_bound(a, out):
+        return bound(io_bytes(a, out), OPS_LOCAL_CELL * int(
+            (a[1].long() * a[3].long()).sum()))
+
+    phase_mark("7")
     # phase 7: samse at full size, on the card and on the host reference
     # route, for both read sets; every C4 launch of the card runs replayed
     # against the plain DP
@@ -3096,6 +3398,7 @@ def main():
         dp.banded_global_cuda, dp.banded_global_plain, dp_size,
         global_bound)
 
+    phase_mark("8")
     # phase 8: the CLI chain on the gapped reads, every launch count at 0
     # before each command: aln (C1, C2), then samse (C3, C4)
     sai_g = tmp / "nabwa_torch_smoke_g.sai"
@@ -3128,10 +3431,12 @@ def main():
     for name in ("dfs", "cal_width"):
         if aln_g_counts[name] <= 0:
             fail(f"kernel {name} was not launched by the CLI aln")
+    one_c2_per_c1("CLI aln on the gapped reads", aln_g_counts)
     for name in ("sa_lookup", "banded_global"):
         if se_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the samse path")
 
+    phase_mark("9")
     # phase 9: the pair set, both ends aligned by the host engine
     popt = PeOpt()
     pairs = tuple(port_cli.open_reads(str(f), opt.mode)(args.pairs, 0)
@@ -3141,10 +3446,12 @@ def main():
     want_pe = [native_reference(idx, r, opt)[0] for r in pairs]
     sais = tuple(sai_columns(w) for w in want_pe)
 
+    phase_mark("10")
     # phase 10: sampe on the host reference route and on the card, the
     # card route's C5 and C4 launches recorded
     pe_runs, rec = sampe_routes(eng, idx, pairs, sais, opt, popt)
 
+    phase_mark("11")
     # phase 11: C5 and C4 against their plain versions on every launch of
     # that card run (the rescue's forward rounds; its path recovery with
     # per-pair bands and gap_end -1, and any refine batch), then the SAMs
@@ -3153,9 +3460,11 @@ def main():
              f"and C4 {len(rec['banded_global'])} times")
     lf = check_launches(
         "C5 local_fwd, sampe's rescue rounds", rec["local_fwd"],
-        dp.local_fwd_cuda, dp.local_fwd_plain, dp_size,
-        lambda a, out: bound(io_bytes(a, out), OPS_LOCAL_CELL * int(
-            (a[1].long() * a[3].long()).sum())))
+        dp.local_fwd_cuda, dp.local_fwd_plain, dp_size, local_bound)
+    lf_forms = local_launch_forms(rec["local_fwd"], lf["times"])
+    log(f"C5 local_fwd, sampe's launches [jobs, L1, L2, form, K, ms]: "
+        f"{lf_forms}")
+    lf_edges, lf_form_ms = check_local_edges(torch.device("cuda", 0))
     pdp = check_launches(
         "C4 banded_global, sampe's rescue paths and refine",
         rec["banded_global"], dp.banded_global_cuda, dp.banded_global_plain,
@@ -3170,6 +3479,7 @@ def main():
         fail(f"the rescue placed {rescued} mates, fewer than half of the "
              f"{n_rescue} built for it")
 
+    phase_mark("12")
     # phase 12: the slice's main path, the CLI chain on the pairs, every
     # launch count at 0 before each command: aln on each end (C1, C2),
     # then sampe (C3, C4, C5)
@@ -3189,6 +3499,7 @@ def main():
         for name in ("dfs", "cal_width"):
             if main_counts[-1][name] <= 0:
                 fail(f"kernel {name} was not launched by the CLI aln")
+        one_c2_per_c1(f"CLI aln on {fqp.name}", main_counts[-1])
     pe_sam.unlink(missing_ok=True)
     zero()
     t0 = time.perf_counter()
@@ -3210,6 +3521,7 @@ def main():
         if main_counts[2][name] <= 0:
             fail(f"kernel {name} was not launched on the sampe path")
 
+    phase_mark("13")
     # phase 13: the long reads
     from nabwa_tpu_torch.models import bwasw as mbw
     lreads = [(name, seq.decode(), qual.decode() if qual else None)
@@ -3218,6 +3530,7 @@ def main():
         fail(f"read {len(lreads)} long reads, expected {args.long_reads}")
     bopt = mbw.Bsw2Opt()
 
+    phase_mark("14")
     # phase 14: bwasw on the host reference route and on the card, the
     # card route's C6, C4 and C3 launches recorded and replayed against
     # their plain versions, then the SAMs
@@ -3279,6 +3592,7 @@ def main():
         f"{len(sw_rec['banded_global'])} C4, {len(sw_rec['sa_lookup'])} C3; "
         f"{n_amb} reads with N bases")
 
+    phase_mark("15")
     # phase 15: the bwasw CLI, every launch count at 0
     sw_sam = tmp / "nabwa_torch_smoke_sw.sam"
     sw_sam.unlink(missing_ok=True)
@@ -3300,6 +3614,7 @@ def main():
     for name in ("sa_lookup", "banded_global", "extend"):
         if sw_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bwasw path")
+    phase_mark("16")
     # phase 16: bam2bam on an unaligned BAM of phase 9's pairs (read group
     # rg1, with the rescue-only mates), a quarter as many pairs more at
     # insert size 500 +- 50 (rg2) and as many reads of the gapped set as
@@ -3344,13 +3659,10 @@ def main():
     b2b_dfs_err = replay_dfs("C1 dfs, one of bam2bam's launches",
                              t1_rec["dfs"])
     b2b_cw = check_launches(
-        "C2 cal_width, bam2bam's largest launch",
-        [max(t1_rec["cal_width"], key=lambda c: c[0][4].numel())],
-        occ.cal_width_cuda, occ.cal_width_plain, lambda a: a[4].numel(),
-        lambda a, out: bound(
-            nbytes(a[4], a[5], *out) + 2 * OCC_BLOCK_BYTES * int(
-                a[5].long().sum()),
-            2 * OPS_OCC_BLOCK * int(a[5].long().sum())))
+        "C2 cal_width, bam2bam's largest four-plane launch",
+        [max(t1_rec["cal_width"], key=lambda c: c[0][6].numel())],
+        occ.cal_width_planes_cuda, occ.cal_width_planes_plain,
+        lambda a: a[6].numel(), planes_bound)
     b2b_sa = check_launches(
         "C3 sa_lookup, bam2bam's launches", t1_rec["sa_lookup"],
         sl.sa_lookup_cuda, sl.sa_lookup_plain, lambda a: a[6].shape[0],
@@ -3361,9 +3673,11 @@ def main():
         dp.banded_global_plain, dp_size, global_bound)
     b2b_lf = check_launches(
         "C5 local_fwd, bam2bam's rescue rounds", t1_rec["local_fwd"],
-        dp.local_fwd_cuda, dp.local_fwd_plain, dp_size,
-        lambda a, out: bound(io_bytes(a, out), OPS_LOCAL_CELL * int(
-            (a[1].long() * a[3].long()).sum())))
+        dp.local_fwd_cuda, dp.local_fwd_plain, dp_size, local_bound)
+    b2b_lf_forms = local_launch_forms(t1_rec["local_fwd"], b2b_lf["times"])
+    log(f"C5 local_fwd, bam2bam's launches [jobs, L1, L2, form, K, ms]: "
+        f"{b2b_lf_forms}")
+    b2b_lf_small = time_smallest_local(t1_rec["local_fwd"])
     b2b_rescued = pbam.bgzf_decompress(b2b_runs["cuda t1"][0]).count(
         b"XTAM")
     log(f"bam2bam: {b2b_rescued} records placed by the rescue (XT:A:M; "
@@ -3374,6 +3688,7 @@ def main():
              f"of the {n_rescue} built for it")
     del t1_rec, b2b_rec
 
+    phase_mark("17")
     # phase 17: the bam2bam CLI with every launch count at 0
     cli_bam.unlink(missing_ok=True)
     zero()
@@ -3394,7 +3709,9 @@ def main():
                  "local_fwd"):
         if b2b_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the bam2bam path")
+    one_c2_per_c1("CLI bam2bam", b2b_counts)
 
+    phase_mark("18")
     # phase 18: the probes, C7-C35 against their plain versions on the
     # card, then each probe's entry point in a process of its own
     probes = check_probes(torch.device("cuda", 0))
@@ -3440,7 +3757,11 @@ def main():
               bam2bam_launches=b2b_counts["dfs"], bam2bam_err=b2b_dfs_err,
               ptxas=dp_ptxas["dfs"], edge_launches=dfs_edges),
         entry("cal_width", "cal_width.cu", "nabwa_tpu/ops/occ.py:141",
-              max(cw_err, b2b_cw["err"]), cw_ms, cw_plain, cw_bound,
+              max(cw["err"], b2b_cw["err"]), cw["ms"], cw["plain_ms"],
+              cw["bound"], form="G=8", planes=4,
+              ms_per_plane=cw["ms_per_plane"],
+              single_plane_ms=cw["single_plane_ms"],
+              ptxas=forms_ptxas["cal_width"], edge_launches=cw_edges,
               aln_cli_launches=counts["cal_width"],
               **b2b_fields(b2b_cw, b2b_counts["cal_width"])),
         entry("sa_lookup", "sa_lookup.cu", "nabwa_tpu/ops/sa_lookup.py:34",
@@ -3495,6 +3816,11 @@ def main():
               rescue_jobs=[int(a[0].shape[0]) for a, _ in rec["local_fwd"]],
               timed_cells=int((lf["args"][1].long()
                                * lf["args"][3].long()).sum()),
+              form="K={1} ({0})".format(
+                  *dp.local_form(int(lf["args"][0].shape[1] - 1))),
+              launch_forms=lf_forms, bam2bam_launch_forms=b2b_lf_forms,
+              bam2bam_smallest=b2b_lf_small, form_ms=lf_form_ms,
+              ptxas=forms_ptxas["local_fwd"], edge_launches=lf_edges,
               **b2b_fields(b2b_lf, b2b_counts["local_fwd"])),
         entry("extend", "extend.cu", "nabwa_tpu/ops/dp.py:264",
               ext["err"], ext["ms"], ext["plain_ms"], ext["bound"],
@@ -3605,7 +3931,8 @@ def main():
                       "samse": samse, "samse_cli_seconds": samse_cli_s,
                       "gapped_aln_launches": aln_g_counts,
                       "sampe": sampe, "bwasw": bwasw, "bam2bam": bam2bam,
-                      "probe_lines": probe_lines}))
+                      "probe_lines": probe_lines,
+                      "phase_start_seconds": phase_seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

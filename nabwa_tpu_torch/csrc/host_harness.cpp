@@ -2,9 +2,10 @@
 // NABWA_HD source that nvcc compiles into kernels C1 (dfs.cu), C2
 // (cal_width.cu), C3 (sa_lookup.cu), C4 (banded_global.cu), C5
 // (local_fwd.cu) and C6 (extend.cu), compiled by a host C++ compiler and
-// run row by row with the kernels' argument layouts, C1's, C4's and C6's
-// warp kernels also lane by lane (the `_lanes` entry points; C1's serial
-// `dfs_read` stays as their oracle); and the probe
+// run row by row with the kernels' argument layouts, C1's, C4's, C5's and
+// C6's warp kernels and C2's lane groups also lane by lane (the `_lanes`
+// and `_group` entry points; the serial forms stay as their oracles); and
+// the probe
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
 // C9's and C10's counts and expansion, C13's slot of a pop, C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
@@ -42,6 +43,71 @@ extern "C" int nabwa_host_cal_width(const uint32_t* params, const void* bwt,
             ((const int32_t*)lengths)[row], L,
             (int32_t*)width + (size_t)row * (L + 1),
             (int32_t*)bid + (size_t)row * (L + 1));
+    return 0;
+}
+
+// occ4(bank, primary, k)[c] as a half of a C2 group counts it: the parts
+// of its CAL_WIDTH_HALF lanes summed
+extern "C" int nabwa_host_occ_group(const void* bank, uint32_t primary,
+                                    const void* ks, const void* cs, int n,
+                                    void* out) {
+    for (int i = 0; i < n; ++i) {
+        uint32_t sum = 0;
+        for (int sub = 0; sub < nabwa::CAL_WIDTH_HALF; ++sub)
+            sum += nabwa::occ_lane_part(
+                (const uint32_t*)bank, primary, ((const uint32_t*)ks)[i],
+                ((const uint32_t*)cs)[i], sub);
+        ((uint32_t*)out)[i] = sum;
+    }
+    return 0;
+}
+
+// C2's lane groups (cal_width.cu) lane by lane: each step, every lane's
+// part of the two counts (`occ_lane_part`, lane g of G on side g / H),
+// each half's parts summed as the group's shuffles sum them, every lane's
+// interval moved by the two counts, lane i mod G writing column i.
+extern "C" int nabwa_host_cal_width_group(const uint32_t* params,
+                                          const void* bwt,
+                                          const void* queries,
+                                          const void* lengths, int B, int L,
+                                          void* width, void* bid) {
+    constexpr int G = nabwa::CAL_WIDTH_GROUP, H = nabwa::CAL_WIDTH_HALF;
+    const nabwa::FmParams p = nabwa::fm_params(params);
+    uint32_t k[G], l[G], part[G];
+    int32_t cur[G];
+    for (int row = 0; row < B; ++row) {
+        const int32_t* q = (const int32_t*)queries + (size_t)row * L;
+        const int len = ((const int32_t*)lengths)[row];
+        int32_t* wo = (int32_t*)width + (size_t)row * (L + 1);
+        int32_t* bo = (int32_t*)bid + (size_t)row * (L + 1);
+        for (int g = 0; g < G; ++g) {
+            k[g] = 0;
+            l[g] = p.seq_len;
+            cur[g] = 0;
+        }
+        for (int i = 0; i <= L; ++i) {
+            if (i < L) {
+                const int c = i < len ? q[i] : 4;
+                for (int g = 0; g < G; ++g)
+                    part[g] = nabwa::cal_width_looks_up(i, len, c)
+                        ? nabwa::occ_lane_part(
+                              (const uint32_t*)bwt, p.primary,
+                              g / H ? l[g] : k[g] - 1u, (uint32_t)c, g % H)
+                        : 0;
+                uint32_t ok = 0, ol = 0;
+                for (int g = 0; g < H; ++g) {
+                    ok += part[g];
+                    ol += part[H + g];
+                }
+                for (int g = 0; g < G; ++g)
+                    nabwa::cal_width_advance(p, i, len, c, ok, ol, &k[g],
+                                             &l[g], &cur[g]);
+            }
+            const int g = i % G;
+            nabwa::cal_width_column(i, len, L, k[g], l[g], cur[g], wo + i,
+                                    bo + i);
+        }
+    }
     return 0;
 }
 
@@ -223,6 +289,114 @@ extern "C" int nabwa_host_local_fwd(const int32_t* params, const void* s1,
             ((const int32_t*)len2)[b], state.data(), state.data() + L1 + 1,
             1, (int32_t*)score + b, (int32_t*)end_i + b,
             (int32_t*)end_j + b);
+    return 0;
+}
+
+// C5's warp kernel (local_fwd.cu) lane by lane at nl lanes of K cells.
+// form 0, the register form: lane l's chunk [1 + l K, 1 + (l+1) K) stays in
+// its LocalChunk from row to row (nl K must cover len1); form 1, the wide
+// form: each row in passes of nl K cells, the row's h and e in a buffer.
+// hd of a chunk's first cell is the left lane's last h before any lane's
+// step 1, F's carry-in the lanes' u maxima to its left, as the shuffles
+// give them; the job's best cell the least (j, i) among the lanes at the
+// largest score.
+template <int K>
+static void local_fwd_lanes(const nabwa::LocalParams& p, const int32_t* s1,
+                            int len1, const int32_t* s2, int len2, int nl,
+                            int form, int32_t* state, int32_t* out) {
+    std::vector<nabwa::LocalChunk<K>> c(nl);
+    std::vector<nabwa::LocalBest> best(nl, nabwa::local_best());
+    std::vector<int32_t> x(nl), hd(nl);
+    std::vector<int> lo(nl), n(nl);
+    int32_t* h = state;
+    int32_t* e = state + len1 + 1;
+    for (int i = 0; i <= len1; ++i) h[i] = e[i] = 0;
+    for (int l = 0; l < nl; ++l)
+        for (int k = 0; k < K; ++k) c[l].h[k] = c[l].e[k] = 0;
+    const int width = form == 0 ? nl * K : len1;
+    for (int j = 1; j <= len2; ++j) {
+        const int32_t* sub = p.mat + 5 * s2[j];
+        int32_t t = nabwa::LOCAL_NEGF, hd_carry = 0;
+        for (int base = 1; base <= std::max(width, 1); base += nl * K) {
+            if (base > len1 && form != 0) break;
+            for (int l = 0; l < nl; ++l) {
+                lo[l] = base + l * K;
+                n[l] = std::max(0, std::min(K, len1 + 1 - lo[l]));
+                if (form != 0)
+                    for (int k = 0; k < K; ++k) {
+                        c[l].h[k] = k < n[l] ? h[lo[l] + k] : 0;
+                        c[l].e[k] = k < n[l] ? e[lo[l] + k] : 0;
+                    }
+            }
+            for (int l = 0; l < nl; ++l)
+                hd[l] = l == 0 ? hd_carry : c[l - 1].h[K - 1];
+            hd_carry = c[nl - 1].h[K - 1];
+            for (int l = 0; l < nl; ++l)
+                x[l] = nabwa::local_chunk_pre<K>(p, sub, s1 + lo[l], lo[l],
+                                                 n[l], hd[l], c[l]);
+            for (int l = 0; l < nl; ++l) {
+                nabwa::local_chunk_cells<K>(p, j, lo[l], n[l], t, c[l],
+                                            best[l]);
+                t = nabwa::lsw_max(t, x[l]);
+            }
+            if (form != 0)
+                for (int l = 0; l < nl; ++l)
+                    for (int k = 0; k < n[l]; ++k) {
+                        h[lo[l] + k] = c[l].h[k];
+                        e[lo[l] + k] = c[l].e[k];
+                    }
+        }
+    }
+    nabwa::LocalBest all = best[0];
+    for (int l = 1; l < nl; ++l)
+        if (nabwa::local_best_before(best[l], all)) all = best[l];
+    out[0] = all.best;
+    out[1] = all.bi;
+    out[2] = all.bj;
+}
+
+// nl lanes (1..32) of k cells (2, 4, 8 or 16) in form 0 (registers;
+// refused unless nl k covers L1) or 1 (passes over a state buffer)
+extern "C" int nabwa_host_local_fwd_lanes(const int32_t* params,
+                                          const void* s1, const void* s2,
+                                          const void* len1, const void* len2,
+                                          int B, int L1, int L2, int nl,
+                                          int k, int form, void* score,
+                                          void* end_i, void* end_j) {
+    if (nl < 1 || nl > 32 || (form != 0 && form != 1)) return 1;
+    if (k != 2 && k != 4 && k != 8 && k != 16) return 1;
+    if (form == 0 && nl * k < L1) return 1;
+    const nabwa::LocalParams p = nabwa::local_params(params);
+    std::vector<int32_t> state(2 * ((size_t)L1 + 1));
+    for (int b = 0; b < B; ++b) {
+        int l1 = ((const int32_t*)len1)[b], l2 = ((const int32_t*)len2)[b];
+        l1 = std::max(0, std::min(l1, L1));
+        l2 = std::max(0, std::min(l2, L2));
+        const int32_t* a = (const int32_t*)s1 + (size_t)b * (L1 + 1);
+        const int32_t* q = (const int32_t*)s2 + (size_t)b * (L2 + 1);
+        int32_t out[3];
+        switch (k) {
+        case 2: local_fwd_lanes<2>(p, a, l1, q, l2, nl, form, state.data(),
+                                   out); break;
+        case 4: local_fwd_lanes<4>(p, a, l1, q, l2, nl, form, state.data(),
+                                   out); break;
+        case 8: local_fwd_lanes<8>(p, a, l1, q, l2, nl, form, state.data(),
+                                   out); break;
+        default: local_fwd_lanes<16>(p, a, l1, q, l2, nl, form,
+                                     state.data(), out); break;
+        }
+        ((int32_t*)score)[b] = out[0];
+        ((int32_t*)end_i)[b] = out[1];
+        ((int32_t*)end_j)[b] = out[2];
+    }
+    return 0;
+}
+
+// C5's form at L1 columns (local_sw.cuh `local_form`), as local_fwd.cu's
+// nabwa_local_form gives it: form[0] the form, form[1] the cells a lane
+extern "C" int nabwa_host_local_form(int L1, int smem_budget, int* form) {
+    form[0] = nabwa::local_form(L1, smem_budget < 0 ? 0 : smem_budget,
+                                form + 1);
     return 0;
 }
 

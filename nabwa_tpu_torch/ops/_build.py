@@ -51,6 +51,11 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 _SIGNATURES = {
     # (fm params[7], bwt, queries, lengths, B, L, width, bid, stream)
     "nabwa_cal_width": [_U32P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # (params[8]: l2, primary_fwd, primary_rev, seq_len; bwt_fwd, bwt_rev,
+    #  seqs, lengths, seed_seqs, seed_lengths, B, L, SL, widths, bids,
+    #  seed_widths, seed_bids, stream)
+    "nabwa_cal_width_planes": [_U32P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _P, _P, _P, _P, _P],
     # (dfs params[26], bwt_cat, seqs, lengths, widths, bids, seed_widths,
     #  seed_bids, has_seed, max_diff, scratch, out, B, stream)
     "nabwa_dfs": [_U32P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -66,6 +71,8 @@ _SIGNATURES = {
     #  end_i, end_j, stream)
     "nabwa_local_fwd": [_I32P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                         _P],
+    # (L1, shared bytes a warp may take, form[2])
+    "nabwa_local_form": [_I, _I, _P],
     # (extend params[27], s1, s2, len1, len2, g0, bw, B, L1, L2, scratch,
     #  score, end_i, end_j, cells, stream)
     "nabwa_extend": [_I32P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,

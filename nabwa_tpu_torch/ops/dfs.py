@@ -21,7 +21,7 @@ import torch
 
 from ..constants import (BWA_MODE_GAPE, BWA_MODE_LOGGAP, BWA_MODE_NONSTOP,
                          STATE_D, STATE_I, STATE_M)
-from .occ import M32, cal_width, occ4, select_base, u32
+from .occ import M32, cal_width_planes, occ4, select_base, u32
 
 _I64 = torch.int64
 FREE = 0x7FFFFFFF
@@ -49,20 +49,12 @@ def _gather(row, pos):
 def aln_device_step(bwt_cat, bwt_fwd, bwt_rev, rev_word_offset, primary_fwd,
                     primary_rev, l2, seq_len, seqs, lengths, seed_seqs,
                     seed_lengths, has_seed, max_diff, **statics):
-    """cal_width on both strands, for the reads and their seed suffixes,
-    then the DFS (`nabwa_tpu/ops/dfs.py:75`)."""
-    def planes(bwts, prims, q, lens):
-        ws, bs = [], []
-        for s in (0, 1):
-            w, b = cal_width(bwts[s], l2, prims[s], seq_len,
-                             q[:, s, :].contiguous(), lens)
-            ws.append(w)
-            bs.append(b)
-        return torch.stack(ws, 1), torch.stack(bs, 1)
-
-    bwts, prims = (bwt_fwd, bwt_rev), (primary_fwd, primary_rev)
-    widths, bids = planes(bwts, prims, seqs, lengths)
-    seed_widths, seed_bids = planes(bwts, prims, seed_seqs, seed_lengths)
+    """cal_width on both strands, for the reads and their seed suffixes
+    (one launch of C2 on the card), then the DFS
+    (`nabwa_tpu/ops/dfs.py:75`)."""
+    widths, bids, seed_widths, seed_bids = cal_width_planes(
+        bwt_fwd, bwt_rev, l2, primary_fwd, primary_rev, seq_len, seqs,
+        lengths, seed_seqs, seed_lengths)
     return dfs_match_gap(bwt_cat, rev_word_offset, primary_fwd, primary_rev,
                          l2, seq_len, seqs, lengths, widths, bids,
                          seed_widths, seed_bids, has_seed, max_diff,

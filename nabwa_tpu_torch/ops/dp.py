@@ -14,7 +14,8 @@ kernel in `csrc/banded_global.cu` (C4, a warp per pair, the row state in
 shared memory, only the band's columns swept), or the call
 raises.  `local_fwd_plain` is nabwa_tpu/ops/dp.py:404 `_local_fwd_device`
 on tensors, and `local_fwd` dispatches the same way to it or to the kernel
-in `csrc/local_fwd.cu` (C5, one thread per job).
+in `csrc/local_fwd.cu` (C5, a warp per job, the row in the lanes'
+registers up to 512 columns, in passes beyond).
 
 `extend_plain` is nabwa_tpu/ops/dp.py:264 `_extend_device` on tensors,
 with the band per job, and `extend` dispatches to it or to the kernel in
@@ -29,7 +30,7 @@ the scalar oracle's path.  `extend_batch` is the counterpart of
 nabwa_tpu/ops/dp.py:352 with a band and an initial score per job, in
 batches bounded by scratch bytes.  `local_sw_batch`
 is the counterpart of nabwa_tpu/ops/dp.py:482: the forward lattice on the
-device in batches bounded by scratch bytes, the banded reverse pass on
+device in batches bounded by row-state bytes, the banded reverse pass on
 the host (the native `local_rev`), and the path through
 `banded_global_batch` with the reference's bandwidth-doubling retry.  The
 JAX package's size threshold for its native route (`_use_native_dp`) is
@@ -40,6 +41,7 @@ bwasw's host reference route runs the native whole-batch driver instead
 (`models/bwasw.py`).
 """
 
+import ctypes
 import time
 
 import numpy as np
@@ -58,18 +60,23 @@ _I32 = torch.int32
 MAX_PAIRS = 8192
 MAX_LATTICE_BYTES = 1 << 28
 
-# local-SW jobs per forward batch: bounds the kernel's h/e scratch,
-# 8 (L1+1) bytes a job
+# local-SW jobs per forward batch: bounds the batch's h/e row state, 8
+# (L1+1) bytes a job, which C5 keeps in registers, in shared memory or, for
+# a window too wide for shared memory, in device scratch
 MAX_LOCAL_SCRATCH = 1 << 28
 
 # extension jobs per batch: 8 (L1+2) bytes a job, the hd/ev state of a
 # batch whose state lies in device memory
 MAX_EXTEND_SCRATCH = 1 << 28
 
-# shared memory one warp's row state may take in C4 and C6: the H100's
+# shared memory one warp's row state may take in C4, C5 and C6: the H100's
 # 227 KB a block less 1 KB for the block's own (the score matrix).  A
 # batch whose widest row needs more keeps its state in device memory.
 SMEM_STATE_BYTES = 227 * 1024 - 1024
+
+# C5's forms, by the code `nabwa_local_form` gives (csrc/local_sw.cuh
+# LOCAL_REGISTERS, LOCAL_SHARED, LOCAL_DEVICE)
+LOCAL_FORMS = ("registers", "shared", "device")
 
 
 def _round16(n):
@@ -82,6 +89,19 @@ def global_smem_bytes(L1):
     each rounded to 16 bytes (csrc/banded_global.cu `warp_bytes`)."""
     return (_round16(12 * (L1 + 1)) + _round16(L1 + 17)
             + _round16(L1 + 1))
+
+
+def local_form(L1, form_fn=None):
+    """(form, K) of C5's launch at L1 columns: ("registers", K), or the
+    wide form in passes of 32 K columns with the row state in "shared" or
+    "device" memory, as csrc/local_sw.cuh `local_form` chooses it with
+    SMEM_STATE_BYTES of shared memory a warp.  form_fn is the C entry that
+    asks it, the kernel library's `nabwa_local_form` by default (the host
+    harness has the same)."""
+    form = (ctypes.c_int * 2)()
+    fn = form_fn or _build.lib().nabwa_local_form
+    _build.check(fn(int(L1), SMEM_STATE_BYTES, form), "local_fwd form")
+    return LOCAL_FORMS[form[0]], form[1]
 
 
 def extend_smem_bytes(L1):
@@ -428,11 +448,15 @@ def local_fwd_cuda(s1, len1, s2, len2, mat, *, go, ge):
     end_j = torch.empty(B, dtype=_I32, device=dev)
     if B == 0:
         return score, end_i, end_j
-    scratch = torch.empty((2, L1p, B), dtype=_I32, device=dev)
+    # the row state in registers or shared memory, or in device memory
+    # ([B, 2, L1+1]) when one wide job's does not fit in shared memory
+    scratch = (torch.empty((B, 2, L1p), dtype=_I32, device=dev)
+               if local_form(L1p - 1)[0] == "device" else None)
     params = _build.i32_params([go, ge] + mat.tolist())
     rc = _build.lib().nabwa_local_fwd(
         params, s1.data_ptr(), s2.data_ptr(), len1.data_ptr(),
-        len2.data_ptr(), B, L1p - 1, L2p - 1, scratch.data_ptr(),
+        len2.data_ptr(), B, L1p - 1, L2p - 1,
+        None if scratch is None else scratch.data_ptr(),
         score.data_ptr(), end_i.data_ptr(), end_j.data_ptr(),
         _build.stream_of(s1))
     _build.check(rc, "local_fwd kernel launch")

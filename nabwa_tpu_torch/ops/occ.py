@@ -11,7 +11,10 @@ boundary are int32 bit patterns, as in the JAX package.
 
 `cal_width` dispatches on the device of its queries: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel in `csrc/cal_width.cu`
-(one thread per row), or the call raises.
+(C2, a group of 8 lanes per row), or the call raises.
+`cal_width_planes` makes the four planes of an aln batch (reads and seed
+suffixes, both strands) the same way: four plain calls on the CPU, one
+launch of C2 on the card.
 """
 
 import torch
@@ -22,7 +25,7 @@ M32 = 0xFFFFFFFF
 _M55 = 0x55555555
 _I64 = torch.int64
 
-# kernel launches made by `cal_width` on CUDA tensors
+# kernel launches made by `cal_width` and `cal_width_planes` on CUDA tensors
 launches = 0
 
 
@@ -139,8 +142,8 @@ def cal_width_plain(bwt, l2, primary, seq_len, queries, lengths):
 
 
 def cal_width_cuda(bwt, l2, primary, seq_len, queries, lengths):
-    """`cal_width` on CUDA tensors through the kernel in
-    csrc/cal_width.cu; same contract as `cal_width_plain`."""
+    """`cal_width` on CUDA tensors through kernel C2 (csrc/cal_width.cu),
+    one plane; same contract as `cal_width_plain`."""
     global launches
     dev = queries.device
     if dev.type != "cuda":
@@ -160,7 +163,8 @@ def cal_width_cuda(bwt, l2, primary, seq_len, queries, lengths):
     params = _build.u32_params(list(l2[:5]) + [primary, seq_len])
     rc = _build.lib().nabwa_cal_width(
         params, bwt.data_ptr(), queries.data_ptr(), lengths.data_ptr(),
-        B, L, width.data_ptr(), bid.data_ptr(), _build.stream_of(queries))
+        B, L, width.data_ptr(), bid.data_ptr(),
+        _build.stream_of(queries))
     _build.check(rc, "cal_width kernel launch")
     with _build.count_lock:
         launches += 1
@@ -175,3 +179,74 @@ def cal_width(bwt, l2, primary, seq_len, queries, lengths):
     if queries.device.type == "cuda":
         return cal_width_cuda(bwt, l2, primary, seq_len, queries, lengths)
     raise ValueError(f"cal_width: no kernel for device {queries.device}")
+
+
+def cal_width_planes_plain(bwt_fwd, bwt_rev, l2, primary_fwd, primary_rev,
+                           seq_len, seqs, lengths, seed_seqs, seed_lengths):
+    """The four width planes of a batch, plain PyTorch: `cal_width_plain`
+    on each strand's bank, for the reads (seqs: int32 [B, 2, L]) and their
+    seed suffixes (seed_seqs: int32 [B, 2, SL]).  Returns (widths, bids,
+    seed_widths, seed_bids), int32 [B, 2, L+1] and [B, 2, SL+1], strand s
+    from bank s, as nabwa_tpu/ops/dfs_pallas.py:1446-1453 stacks them."""
+    banks, prims = (bwt_fwd, bwt_rev), (primary_fwd, primary_rev)
+    out = []
+    for q, lens in ((seqs, lengths), (seed_seqs, seed_lengths)):
+        wb = [cal_width_plain(banks[s], l2, prims[s], seq_len,
+                              q[:, s, :].contiguous(), lens)
+              for s in (0, 1)]
+        out += [torch.stack([w for w, _ in wb], 1),
+                torch.stack([b for _, b in wb], 1)]
+    return tuple(out)
+
+
+def cal_width_planes_cuda(bwt_fwd, bwt_rev, l2, primary_fwd, primary_rev,
+                          seq_len, seqs, lengths, seed_seqs, seed_lengths):
+    """`cal_width_planes` on CUDA tensors: the four planes in one launch of
+    kernel C2; same contract as `cal_width_planes_plain`."""
+    global launches
+    dev = seqs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    _build.require(seqs, "seqs", dev, 3)
+    _build.require(seed_seqs, "seed_seqs", dev, 3)
+    B, two, L = seqs.shape
+    SL = seed_seqs.shape[2]
+    if two != 2 or tuple(seed_seqs.shape[:2]) != (B, 2):
+        raise ValueError(f"seqs {tuple(seqs.shape)}, seed_seqs "
+                         f"{tuple(seed_seqs.shape)}: expected [B, 2, *]")
+    for name, t in (("lengths", lengths), ("seed_lengths", seed_lengths)):
+        _build.require(t, name, dev, 1)
+        if t.shape[0] != B:
+            raise ValueError(f"{name}: {t.shape[0]} rows, expected {B}")
+    for name, t in (("bwt_fwd", bwt_fwd), ("bwt_rev", bwt_rev)):
+        _build.require(t, name, dev, 1)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    out = [torch.empty((B, 2, n + 1), dtype=torch.int32, device=dev)
+           for n in (L, L, SL, SL)]
+    if B == 0:
+        return tuple(out)
+    params = _build.u32_params(list(l2[:5]) + [primary_fwd, primary_rev,
+                                               seq_len])
+    rc = _build.lib().nabwa_cal_width_planes(
+        params, bwt_fwd.data_ptr(), bwt_rev.data_ptr(), seqs.data_ptr(),
+        lengths.data_ptr(), seed_seqs.data_ptr(), seed_lengths.data_ptr(),
+        B, L, SL, *[t.data_ptr() for t in out],
+        _build.stream_of(seqs))
+    _build.check(rc, "cal_width planes kernel launch")
+    with _build.count_lock:
+        launches += 1
+    return tuple(out)
+
+
+def cal_width_planes(bwt_fwd, bwt_rev, l2, primary_fwd, primary_rev, seq_len,
+                     seqs, lengths, seed_seqs, seed_lengths):
+    """The four width planes of a batch: four plain calls for CPU tensors,
+    one launch of C2 for CUDA tensors."""
+    args = (bwt_fwd, bwt_rev, l2, primary_fwd, primary_rev, seq_len, seqs,
+            lengths, seed_seqs, seed_lengths)
+    if seqs.device.type == "cpu":
+        return cal_width_planes_plain(*args)
+    if seqs.device.type == "cuda":
+        return cal_width_planes_cuda(*args)
+    raise ValueError(f"cal_width_planes: no kernel for device {seqs.device}")

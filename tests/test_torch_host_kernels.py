@@ -3,10 +3,11 @@
 `nabwa_tpu_torch/csrc/host_harness.cpp` runs the kernels' NABWA_HD
 per-row code (dfs_read of C1, cal_width_row of C2, sa_lookup_row of C3,
 banded_global_pair of C4, local_fwd_pair of C5, extend_job of C6) with the
-kernels' argument layouts, and C1's, C4's and C6's warp kernels lane by
-lane (C1's `dfs_read_warp` of dfs_warp.cuh, C4's and C6's per-lane steps
-of dp_global.cuh and extend.cuh, at a chosen number of lanes, the values
-combined in lane order as the warp's intrinsics combine them).  g++ builds it here, so the tests can hold the
+kernels' argument layouts, and C1's, C4's, C5's and C6's warp kernels and
+C2's lane groups lane by lane (C1's `dfs_read_warp` of dfs_warp.cuh, the
+per-lane steps of dp_global.cuh, local_sw.cuh, extend.cuh and occ.cuh, at
+a chosen number of lanes, the values combined in lane order as the warp's
+intrinsics combine them).  g++ builds it here, so the tests can hold the
 kernel source itself, not only its plain PyTorch version, against the JAX
 package on a machine without a GPU.
 """
@@ -50,11 +51,20 @@ def build(out_dir):
         [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 5 + [_P] * 3)
     lib.nabwa_host_extend_lanes.argtypes = (
         [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 5 + [_P] * 4)
+    lib.nabwa_host_local_fwd_lanes.argtypes = (
+        [ctypes.POINTER(ctypes.c_int32)] + [_P] * 4 + [_I] * 6 + [_P] * 3)
+    lib.nabwa_host_local_form.argtypes = [_I, _I, _P]
+    lib.nabwa_host_cal_width_group.argtypes = ([_U32P] + [_P] * 3
+                                               + [_I] * 2 + [_P] * 2)
+    lib.nabwa_host_occ_group.argtypes = [_P, ctypes.c_uint32, _P, _P, _I,
+                                         _P]
     for fn in (lib.nabwa_host_occ4, lib.nabwa_host_cal_width,
                lib.nabwa_host_dfs, lib.nabwa_host_sa_lookup,
                lib.nabwa_host_banded_global, lib.nabwa_host_local_fwd,
                lib.nabwa_host_extend, lib.nabwa_host_banded_global_lanes,
-               lib.nabwa_host_extend_lanes, lib.nabwa_host_dfs_lanes):
+               lib.nabwa_host_extend_lanes, lib.nabwa_host_dfs_lanes,
+               lib.nabwa_host_local_fwd_lanes, lib.nabwa_host_local_form,
+               lib.nabwa_host_cal_width_group, lib.nabwa_host_occ_group):
         fn.restype = _I
     return lib
 
@@ -83,6 +93,31 @@ def cal_width(lib, bwt, l2, primary, seq_len, queries, lengths):
     width = np.empty((B, L + 1), dtype=np.int32)
     bid = np.empty((B, L + 1), dtype=np.int32)
     lib.nabwa_host_cal_width(
+        _build.u32_params(list(l2[:5]) + [primary, seq_len]), _ptr(bwt),
+        _ptr(q), _ptr(lens), B, L, _ptr(width), _ptr(bid))
+    return width, bid
+
+
+def occ_group(lib, bank, primary, ks, cs):
+    """occ4(k)[c] as a half of C2's 8-lane group counts it (each lane's
+    `occ_lane_part` summed): uint32 [n]."""
+    bank = np.ascontiguousarray(bank, dtype=np.uint32)
+    ks = np.ascontiguousarray(ks, dtype=np.uint32)
+    cs = np.ascontiguousarray(cs, dtype=np.uint32)
+    out = np.empty(len(ks), dtype=np.uint32)
+    lib.nabwa_host_occ_group(_ptr(bank), primary, _ptr(ks), _ptr(cs),
+                             len(ks), _ptr(out))
+    return out
+
+
+def cal_width_group(lib, bwt, l2, primary, seq_len, queries, lengths):
+    """C2's lane groups on numpy arrays, 8 lanes a row run lane by lane:
+    (width, bid) int32 [B, L+1]."""
+    bwt, q, lens = _arr(bwt), _arr(queries), _arr(lengths)
+    B, L = q.shape
+    width = np.empty((B, L + 1), dtype=np.int32)
+    bid = np.empty((B, L + 1), dtype=np.int32)
+    lib.nabwa_host_cal_width_group(
         _build.u32_params(list(l2[:5]) + [primary, seq_len]), _ptr(bwt),
         _ptr(q), _ptr(lens), B, L, _ptr(width), _ptr(bid))
     return width, bid
@@ -179,17 +214,34 @@ def banded_global(lib, s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend,
     return score, ctype, tb
 
 
-def local_fwd(lib, s1, len1, s2, len2, mat, *, go, ge):
+def local_fwd(lib, s1, len1, s2, len2, mat, *, go, ge, lanes=None, k=2,
+              form="registers"):
     """C5's per-pair code on numpy arrays: (score, end_i, end_j) int32
-    [B]."""
+    [B].  lanes None: the serial local_fwd_pair; else the warp kernel's
+    steps at `lanes` lanes of `k` cells (2, 4, 8, 16), in the register
+    form (one chunk a lane, lanes x k covering L1) or the "wide" form
+    (passes over a row buffer)."""
     s1, s2, len1, len2 = (_arr(a) for a in (s1, s2, len1, len2))
     B, L1p = s1.shape
     out = [np.empty(B, dtype=np.int32) for _ in range(3)]
     params = _build.i32_params([go, ge] + np.asarray(mat).reshape(-1).tolist())
-    lib.nabwa_host_local_fwd(params, _ptr(s1), _ptr(s2), _ptr(len1),
-                             _ptr(len2), B, L1p - 1, s2.shape[1] - 1,
-                             *[_ptr(a) for a in out])
+    head = [params, _ptr(s1), _ptr(s2), _ptr(len1), _ptr(len2), B, L1p - 1,
+            s2.shape[1] - 1]
+    if lanes is None:
+        lib.nabwa_host_local_fwd(*head, *[_ptr(a) for a in out])
+    elif lib.nabwa_host_local_fwd_lanes(
+            *head, lanes, k, {"registers": 0, "wide": 1}[form],
+            *[_ptr(a) for a in out]):
+        raise ValueError(f"no lane emulation at {lanes} lanes of {k} in "
+                         f"the {form} form")
     return tuple(out)
+
+
+def local_form(lib, L1):
+    """C5's (form, K) at L1 columns as `ops/dp.py::local_form` asks it,
+    from local_sw.cuh's `local_form` built for the host."""
+    from nabwa_tpu_torch.ops import dp
+    return dp.local_form(L1, lib.nabwa_host_local_form)
 
 
 def extend(lib, s1, len1, s2, len2, g0, bw, mat, *, go, ge, lanes=None,
@@ -254,3 +306,35 @@ def test_dfs_lanes_refuses_lane_counts(lib, lanes):
                   z, one, planes, planes, planes, planes, one, one,
                   lanes=lanes, form="shared", stack_cap=256, hits_cap=32,
                   **_STATICS)
+
+
+def test_local_lane_k_matches_python(lib):
+    """C5's choice of form (local_sw.cuh `local_form`, asked through the
+    wrapper's `dp.local_form`): the smallest of K 2-16 whose 32 lanes
+    cover L1, at every width up to past the register form's last, then
+    the wide form, its row state in shared memory until a warp's 9 (L1+1)
+    bytes, rounded to 16, pass SMEM_STATE_BYTES."""
+    from nabwa_tpu_torch.ops import dp
+    for L1 in range(0, 1100):
+        want = next((("registers", k) for k in (2, 4, 8, 16)
+                     if 32 * k >= L1), ("shared", 16))
+        assert local_form(lib, L1) == want, L1
+    last = (dp.SMEM_STATE_BYTES // 16 * 16) // 9 - 1
+    assert -(-9 * (last + 1) // 16) * 16 <= dp.SMEM_STATE_BYTES
+    assert [local_form(lib, n) for n in (last, last + 1, 30000)] == [
+        ("shared", 16), ("device", 16), ("device", 16)]
+
+
+@pytest.mark.parametrize("lanes, k, form", [(0, 2, "registers"),
+                                            (33, 2, "registers"),
+                                            (4, 3, "wide"),
+                                            (1, 32, "registers"),
+                                            (4, 2, "registers")])
+def test_local_lanes_refuses(lib, lanes, k, form):
+    """The lane harness emulates 1 to 32 lanes of 2-16 cells, and the
+    register form only where its lanes cover the window."""
+    s1 = np.full((1, 10), 1, dtype=np.int32)
+    one = np.full(1, 9, dtype=np.int32)
+    with pytest.raises(ValueError):
+        local_fwd(lib, s1, one, s1, one, np.eye(5, dtype=np.int32),
+                  go=5, ge=2, lanes=lanes, k=k, form=form)
