@@ -12,8 +12,9 @@ Phases, any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi) and the nvcc build of the
    kernels from csrc/ (seconds, ptxas register report); the run fails if
    ptxas reports a spill in either form of C1, C4 or C6 (the state in
-   shared or in device memory), in C2 or in any form of C5 (the
-   register form at each K, the wide form's two);
+   shared or in device memory), in C2, in C3 (either interval test) or
+   in any form of C5 (the register form at each K, the wide form's two),
+   or a stack frame in C3;
 2. kernel C2 (csrc/cal_width.cu) against the plain PyTorch cal_width on
    CUDA tensors: the first 2048 reads of the main path, the four planes
    (both strands, the reads and their seed suffixes) in one launch, 8
@@ -47,7 +48,13 @@ Phases, any failure exits non-zero:
    host engine against itself;
 5. kernel C3 (csrc/sa_lookup.cu) against the plain PyTorch sa_lookup and
    the native host walk on every SA row samse asks for on phase 4's
-   `.sai`, both strands, exact;
+   `.sai`, both strands in one launch, exact, timed beside each strand
+   alone, the two one-strand launches in turn and strand 1's rows twice
+   on one bank; the rows' step counts and the longest row alone, its
+   time a step.  Then C3's edge launches (`check_sa_edges`, numpy seed
+   SA_EDGE_SEED): rows 0, primary and its neighbours, seq_len and sampled
+   rows on both strands, one row, either strand empty, none, and the
+   banks walked at sa_intv 24 and 1, exact;
 6. a gapped read set on the same genome (32768 x 100 bp, 1 % error, a
    1-base indel in half the reads, seed 101) aligned by the host engine;
    kernel C4 (csrc/banded_global.cu) against the plain PyTorch DP on the
@@ -128,8 +135,9 @@ Phases, any failure exits non-zero:
    launch's L1 and form logged).  The three BAMs
    must be byte-identical, the four-worker run must launch each kernel as
    often and with the same shapes as the one-worker run, at most 20 % of
-   the one-worker run's aligned reads may drain to the host, every C3, C4
-   and C5 launch of that run must equal its plain version (and its
+   the one-worker run's aligned reads may drain to the host, every C3
+   (both strands a launch), C4 and C5 launch of that run must equal its
+   plain version (and its
    smallest tier-0 C1 launch and largest four-plane C2 launch theirs, as
    in phases 2-3), and the rescue must place at least half of the
    rescue-only mates;
@@ -261,7 +269,15 @@ bam2bam's launches timed alone (`us_per_row`: its ms over its L2 rows)
 and `form_ms` K 2, 4 and 8 against K=16 on the same jobs
 (`local_form_ms`).  C2's and C5's `ptxas` hold each instantiation's
 registers and spills and `edge_launches` the shapes of their edge
-launches.
+launches.  C3's `ms` is phase 5's launch of samse's rows of both strands
+(`rows_by_strand`), beside `strand_ms`, `pair_ms` and `same_bank_ms`;
+`max_steps`, `mean_steps` and `total_steps` count its rows' invPsi steps
+(`bwasw_max_steps`, `bam2bam_max_steps` those of the largest launch
+there), `lone_us_per_step` is the longest row's launch alone over its
+steps, `lone_chain_ms` max_steps times that, and `chain_bound_ms`
+max_steps times C12's serial load (phase 18's `ns_per_load`): a chain
+of one dependent load a step.  Its bound counts one Occ block a step;
+`ptxas` holds both interval tests' registers, stack and spills.
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
@@ -415,9 +431,13 @@ DP_EDGE_SEED = 21
 DFS_EDGE_SEED = 22
 LOCAL_EDGE_SEED = 23
 CW_EDGE_SEED = 24
+SA_EDGE_SEED = 25
 # C1's edge launches: the retry tier's slot pool and hit list (tier 0's
 # pool of 256 overflows on every gapped edge read), at most 100,000 steps
 DFS_EDGE_STATICS = dict(stack_cap=1024, hits_cap=128, max_iters=100000)
+# check_sa_lookup's figures that go into C3's kernels entry
+SA_FIELDS = ("max_steps", "mean_steps", "total_steps", "strand_ms",
+             "pair_ms", "same_bank_ms", "lone_ms", "lone_us_per_step")
 # check_dfs's figures that go into C1's kernels entry, for each tier
 DFS_FIELDS = ("slowest_iters", "us_per_iter", "warps", "blocks",
               "smem_bytes_per_warp", "shared_ms", "device_ms")
@@ -1066,40 +1086,42 @@ def sai_columns(sai_bytes):
     return read_sai_columnar(str(path))[1]
 
 
-def walk_steps(bank, l2, primary, seq_len, sa_intv, rows):
-    """invPsi steps each row takes to a sampled row (the loop of the plain
-    sa_lookup, counting only)."""
+def sa_steps(args):
+    """invPsi steps each row of a C3 launch takes (int64 [n]); args are a
+    one-strand launch's (bwt, l2, primary, seq_len, sa, sa_intv, rows) or
+    a both-strand launch's (banks, l2, primaries, seq_len, sas, sa_intv,
+    rows, n0)."""
     import torch
-    from nabwa_tpu_torch.ops import occ
     from nabwa_tpu_torch.ops import sa_lookup as sl
-    l2v = torch.tensor([int(v) & occ.M32 for v in l2], dtype=torch.int64,
-                       device=rows.device)
-    k = occ.u32(rows)
-    steps = torch.zeros_like(k)
-    while True:
-        live = (k % sa_intv) != 0
-        if not bool(live.any()):
-            return steps
-        nk = sl.inv_psi(bank, l2v, int(primary) & occ.M32,
-                        int(seq_len) & occ.M32, k)
-        k = torch.where(live, nk, k)
-        steps += live.long()
+    if len(args) == 7:
+        return sl.sa_walk_steps(*args[:4], args[5], args[6])
+    banks, l2, prims, seq_len, _, intv, rows, n0 = args
+    return torch.cat([sl.sa_walk_steps(banks[a], l2, prims[a], seq_len,
+                                       intv, part)
+                      for a, part in enumerate((rows[:n0], rows[n0:]))])
 
 
 def sa_walk_bound(args):
-    """C3's bound on a launch's args (bwt, l2, primary, seq_len, sa,
-    sa_intv, rows): its rows and positions, and one Occ block read and
-    counted for every invPsi step its rows take."""
-    steps = int(walk_steps(*args[:4], args[5], args[6]).sum())
+    """C3's bound on a launch's args (see `sa_steps`): its rows and
+    positions, and one Occ block read and counted for every invPsi step
+    its rows take."""
+    steps = int(sa_steps(args).sum())
     return bound(12 * args[6].shape[0] + OCC_BLOCK_BYTES * steps,
                  OPS_OCC_BLOCK * steps)
 
 
 def check_sa_lookup(eng, idx, reads, sai_bytes):
-    """C3 against the plain version and the native host walk on every SA
-    row samse asks for on this `.sai`, both strands.  The timed call's
-    bound counts its rows and positions, the sample it reads and one Occ
-    block for every invPsi step its rows take."""
+    """C3 on every SA row samse asks for on this `.sai`: the rows of both
+    strands in one launch, exact against the plain version and the native
+    host walk.  Timed (CUDA events) beside each strand's rows alone
+    (`strand_ms`), the two one-strand launches in turn (`pair_ms`, the
+    path's shape before both went into one launch) and as many rows all on
+    strand 1's bank (`same_bank_ms`: strand 1's rows twice, so the rows
+    walk one 24 MB bank where the both-strand launch walks two).  The
+    launch's rows' step counts (`max_steps`, `mean_steps`), and the
+    longest row alone: its card time a step (`lone_us_per_step`, queued
+    behind a sleeping kernel).  The bound counts the rows and positions
+    and one Occ block for every invPsi step."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.models import samse as msamse
@@ -1108,35 +1130,112 @@ def check_sa_lookup(eng, idx, reads, sai_bytes):
     ch = msamse.select(reads, sai_columns(sai_bytes), 3,
                        Rand48(idx.bns.seed))
     ix = eng.dev
-    worst, n_rows, timed = 0, 0, None
-    for a, _, _, rows in msamse.sa_requests(ch):
-        args = (ix.bwt_fwd if a else ix.bwt_rev, ix.l2,
-                ix.primary_fwd if a else ix.primary_rev, ix.seq_len,
-                ix.sa_fwd if a else ix.sa_rev, ix.sa_intv,
-                torch.from_numpy(rows.view(np.int32)).to(eng.device))
-        kern = sl.sa_lookup_cuda(*args)
-        t0 = time.perf_counter()
-        plain = sl.sa_lookup_plain(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        nat = msamse.sa_rows_native(idx, a, rows).astype(np.int64)
-        got = kern.cpu().numpy().view(np.uint32).astype(np.int64)
-        worst = max(worst, int(np.abs(
-            got - plain.cpu().numpy().view(np.uint32)).max()),
-            int(np.abs(got - nat).max()))
-        n_rows += len(rows)
-        if timed is None or len(rows) > timed[0]:
-            timed = (len(rows), cuda_ms(lambda: sl.sa_lookup_cuda(*args),
-                                        20), plain_ms, sa_walk_bound(args))
-    log(f"C3 sa_lookup: {n_rows} SA rows of samse on the bench .sai, both "
-        f"strands, max |err| {worst} against the plain version and the "
-        f"native walk; kernel {timed[1]:.4f} ms, plain {timed[2]:.2f} ms "
-        f"per call at {timed[0]} rows; bound {timed[3][0]:.5f} ms "
-        f"({timed[3][1]})")
-    if worst != 0:
-        fail("sa_lookup kernel disagrees with the plain version or the "
-             "native walk")
-    return worst, timed[1], timed[2], n_rows, timed[3]
+    rows = [np.zeros(0, dtype=np.uint32)] * 2
+    for a, _, _, r in msamse.sa_requests(ch):
+        rows[a] = r
+    n0 = len(rows[0])
+    banks, sas = (ix.bwt_rev, ix.bwt_fwd), (ix.sa_rev, ix.sa_fwd)
+    prims = (ix.primary_rev, ix.primary_fwd)
+
+    def both_args(r, n_first):
+        return (banks, ix.l2, prims, ix.seq_len, sas, ix.sa_intv,
+                torch.from_numpy(np.ascontiguousarray(r).view(np.int32))
+                .to(eng.device), n_first)
+
+    args = both_args(np.concatenate(rows), n0)
+    alone = [both_args(rows[0], n0), both_args(rows[1], 0)]
+    same = both_args(np.concatenate([rows[1], rows[1]]), 0)
+    t0 = time.perf_counter()
+    plain = sl.sa_lookup_both_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    nat = np.concatenate(msamse.sa_rows_both_native(idx, rows))
+    worst = max(exact("C3 samse's rows against the native walk", plain,
+                      torch.from_numpy(nat.view(np.int32)).to(plain.device)),
+                exact("C3 samse's rows", sl.sa_lookup_both_cuda(*args),
+                      plain))
+    exact("C3 strand 1's rows twice", sl.sa_lookup_both_cuda(*same),
+          torch.cat([plain[n0:], plain[n0:]]))
+    ms = cuda_ms(lambda: sl.sa_lookup_both_cuda(*args), 20)
+    strand_ms = [cuda_ms(lambda: sl.sa_lookup_both_cuda(*alone[a]), 20)
+                 for a in (0, 1)]
+    pair_ms = cuda_ms(lambda: [sl.sa_lookup_both_cuda(*alone[a])
+                               for a in (0, 1)], 20)
+    same_ms = cuda_ms(lambda: sl.sa_lookup_both_cuda(*same), 20)
+    steps = sa_steps(args)
+    i = int(steps.argmax())
+    lone = both_args(np.concatenate(rows)[i:i + 1], 1 if i < n0 else 0)
+    exact("C3 the longest row alone", sl.sa_lookup_both_cuda(*lone),
+          plain[i:i + 1])
+    lone_ms = queued_ms(lambda: sl.sa_lookup_both_cuda(*lone), 20)
+    bnd = sa_walk_bound(args)
+    out = {"err": worst, "ms": ms, "plain_ms": plain_ms,
+           "rows": [len(r) for r in rows], "bound": bnd,
+           "max_steps": int(steps.max()),
+           "mean_steps": float(steps.double().mean()),
+           "total_steps": int(steps.sum()), "strand_ms": strand_ms,
+           "pair_ms": pair_ms, "same_bank_ms": same_ms, "lone_ms": lone_ms,
+           "lone_us_per_step": lone_ms * 1e3 / int(steps[i])}
+    log(f"C3 sa_lookup: {len(rows[0])} + {len(rows[1])} SA rows of samse "
+        f"on the bench .sai (strands 0, 1) in one launch, exact against "
+        f"the plain version and the native walk: {ms:.4f} ms; each strand "
+        f"alone {strand_ms}, the two in turn {pair_ms:.4f}, strand 1's "
+        f"rows twice {same_ms:.4f}; steps max {out['max_steps']}, mean "
+        f"{out['mean_steps']:.2f}; the longest row alone {lone_ms:.4f} ms, "
+        f"{out['lone_us_per_step']:.4f} us a step; plain {plain_ms:.2f} "
+        f"ms; bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return out
+
+
+def check_sa_edges(eng):
+    """C3's edge launches (numpy seed SA_EDGE_SEED) on the main path's
+    banks, exact against the plain version: rows 0, 1,
+    primary and its neighbours, seq_len and sampled rows on both strands
+    with random rows; a single row, and launches whose strand 0 or
+    strand 1 holds no row, or none at all; and the same banks walked at
+    sa_intv 24 (the multiply-high instantiation) and 1 (every row
+    sampled), on samples made up for them.  Returns {label: rows}."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.ops import sa_lookup as sl
+    ix = eng.dev
+    dev = ix.bwt_cat.device
+    rng = np.random.default_rng(SA_EDGE_SEED)
+    n, intv = ix.seq_len, ix.sa_intv
+    banks, sas = (ix.bwt_rev, ix.bwt_fwd), (ix.sa_rev, ix.sa_fwd)
+    prims = (ix.primary_rev, ix.primary_fwd)
+
+    def strand_rows(a, size):
+        p = prims[a]
+        edge = [0, 1, n - 1, n, p, p - 1, p + 1, intv, 2 * intv, intv + 1,
+                n - n % intv]
+        return np.concatenate([edge, rng.integers(0, n + 1, size=size)])
+
+    def put(r):
+        return torch.from_numpy(np.asarray(r, np.uint32).view(np.int32)).to(
+            dev)
+
+    r0, r1 = strand_rows(0, 2000), strand_rows(1, 2000)
+    cases = {"both": (np.concatenate([r0, r1]), len(r0)),
+             "one row": (r1[4:5], 0), "strand 0 only": (r0, len(r0)),
+             "strand 1 only": (r1, 0), "none": (r0[:0], 0)}
+    checked = {}
+    for label, (r, n0) in cases.items():
+        args = (banks, ix.l2, prims, n, sas, intv, put(r), n0)
+        exact(f"C3 edge {label}", sl.sa_lookup_both_cuda(*args),
+              sl.sa_lookup_both_plain(*args))
+        checked[label] = len(r)
+    for d in (24, 1):
+        made = [torch.from_numpy(rng.integers(
+            0, 1 << 32, size=n // d + 1, dtype=np.uint64).astype(
+                np.uint32).view(np.int32)).to(dev) for _ in range(2)]
+        r = np.concatenate([r0[:11], r0[11:400], r1[:11], r1[11:400]])
+        args = (banks, ix.l2, prims, n, tuple(made), d, put(r), 400)
+        exact(f"C3 edge sa_intv {d}", sl.sa_lookup_both_cuda(*args),
+              sl.sa_lookup_both_plain(*args))
+        checked[f"sa_intv {d}"] = len(r)
+    log(f"C3 sa_lookup: {len(checked)} edge launches exact ({checked})")
+    return checked
 
 
 def check_banded_global(eng, idx, reads, sai_bytes, opt):
@@ -1481,7 +1580,7 @@ def bam2bam_routes(eng, idx, in_bam, n_records, argv, opt, popt, out_dir):
     from nabwa_tpu_torch.utils.rand48 import Rand48
     wrapped = (("dfs", dfs_cuda, "dfs_match_gap_cuda"),
                ("cal_width", occ, "cal_width_planes_cuda"),
-               ("sa_lookup", sl, "sa_lookup_cuda"),
+               ("sa_lookup", sl, "sa_lookup_both_cuda"),
                ("banded_global", dp, "banded_global_cuda"),
                ("local_fwd", dp, "local_fwd_cuda"))
     runs, recorded = {}, {}
@@ -2497,11 +2596,17 @@ def time_smallest_local(calls):
 
 
 def form_ptxas(log_text):
-    """The ptxas report of C2's kernel and C5's instantiations:
-    {"cal_width": {"G8"}, "local_fwd": {"K2" ... "K16", "shared",
-    "device"}}; C2 has one kernel, 8 lanes a row."""
+    """The ptxas report of C2's kernel and C3's and C5's instantiations:
+    {"cal_width": {"G8"}, "sa_lookup": {"pow2", "magic"}, "local_fwd":
+    {"K2" ... "K16", "shared", "device"}}; C2 has one kernel, 8 lanes a
+    row, C3 one a thread a row, by interval test."""
     def c2(name):
         return "G8" if "cal_width_group_kernel" in name else None
+
+    def c3(name):
+        if "sa_thread_kernel" not in name:
+            return None
+        return "pow2" if "IntvPow2" in name else "magic"
 
     def c5(name):
         tag = "local_fwd_warp_kernelILi"
@@ -2512,6 +2617,7 @@ def form_ptxas(log_text):
                 else None)
 
     return {"cal_width": ptxas_report(log_text, c2),
+            "sa_lookup": ptxas_report(log_text, c3),
             "local_fwd": ptxas_report(log_text, c5)}
 
 
@@ -3256,6 +3362,7 @@ def main():
             fail(f"{name} spills registers: {rep}")
     forms_ptxas = form_ptxas(_build.build_log)
     for name, keys in (("cal_width", ["G8"]),
+                       ("sa_lookup", ["magic", "pow2"]),
                        ("local_fwd", ["K16", "K2", "K4", "K8",
                                       "device", "shared"])):
         rep = forms_ptxas[name]
@@ -3266,6 +3373,8 @@ def main():
         if any(v["spill_store_bytes"] or v["spill_load_bytes"]
                for v in rep.values()):
             fail(f"{name} spills registers: {rep}")
+    if any(v["stack_bytes"] for v in forms_ptxas["sa_lookup"].values()):
+        fail(f"C3 keeps a stack frame: {forms_ptxas['sa_lookup']}")
 
     fa, fq, fq_gapped, fq1, fq2, fq_long, fq2_1, fq2_2 = make_data(
         args.glen, args.reads, args.pairs, args.long_reads)
@@ -3363,10 +3472,11 @@ def main():
     one_c2_per_c1("CLI aln", counts)
 
     phase_mark("5-6")
-    # phases 5-6: C3 on the SA rows samse asks for on the bench .sai; the
-    # gapped read set's .sai from the host engine, and C4 on its jobs
-    sa_err, sa_ms, sa_plain, sa_rows, sa_bound = check_sa_lookup(
-        eng, idx, reads, want)
+    # phases 5-6: C3 on the SA rows samse asks for on the bench .sai, and
+    # its edge launches; the gapped read set's .sai from the host engine,
+    # and C4 on its jobs
+    sa = check_sa_lookup(eng, idx, reads, want)
+    sa_edges = check_sa_edges(eng)
     reads_g = port_cli.open_reads(str(fq_gapped), opt.mode)(args.reads, 0)
     want_g, host_g_s = native_reference(idx, reads_g, opt)
     log(f"host native engine, gapped reads: {len(reads_g) / host_g_s:.1f} "
@@ -3551,6 +3661,7 @@ def main():
         "C3 sa_lookup, bwasw's launches", sw_rec["sa_lookup"],
         sl.sa_lookup_cuda, sl.sa_lookup_plain, lambda a: a[6].shape[0],
         lambda a, _: sa_walk_bound(a))
+    sw_sa["max_steps"] = int(sa_steps(sw_sa["args"]).max())
     if sw_runs["cuda"][0] != sw_runs["reference"][0]:
         fail("bwasw SAM on the card differs from the host reference route's")
     # C6's time split into the batched launches (stages A and A2) and the
@@ -3664,9 +3775,11 @@ def main():
         occ.cal_width_planes_cuda, occ.cal_width_planes_plain,
         lambda a: a[6].numel(), planes_bound)
     b2b_sa = check_launches(
-        "C3 sa_lookup, bam2bam's launches", t1_rec["sa_lookup"],
-        sl.sa_lookup_cuda, sl.sa_lookup_plain, lambda a: a[6].shape[0],
+        "C3 sa_lookup, bam2bam's launches (both strands each)",
+        t1_rec["sa_lookup"], sl.sa_lookup_both_cuda,
+        sl.sa_lookup_both_plain, lambda a: a[6].shape[0],
         lambda a, _: sa_walk_bound(a))
+    b2b_sa["max_steps"] = int(sa_steps(b2b_sa["args"]).max())
     b2b_dp = check_launches(
         "C4 banded_global, bam2bam's rescue paths and refine",
         t1_rec["banded_global"], dp.banded_global_cuda,
@@ -3765,9 +3878,14 @@ def main():
               aln_cli_launches=counts["cal_width"],
               **b2b_fields(b2b_cw, b2b_counts["cal_width"])),
         entry("sa_lookup", "sa_lookup.cu", "nabwa_tpu/ops/sa_lookup.py:34",
-              max(sa_err, sw_sa["err"], b2b_sa["err"]), sa_ms, sa_plain,
-              sa_bound,
-              rows_checked=sa_rows,
+              max(sa["err"], sw_sa["err"], b2b_sa["err"]), sa["ms"],
+              sa["plain_ms"], sa["bound"], rows_by_strand=sa["rows"],
+              **{key: sa[key] for key in SA_FIELDS},
+              chain_bound_ms=(sa["max_steps"] * 1e-6
+                              * probes["probe_loads"]["ns_per_load"]),
+              lone_chain_ms=sa["max_steps"] * 1e-3 * sa["lone_us_per_step"],
+              ptxas=forms_ptxas["sa_lookup"],
+              edge_launches=sa_edges,
               samse_cli_launches=se_counts["sa_lookup"],
               bwasw_launches=sw_counts["sa_lookup"],
               bwasw_launches_checked=len(sw_rec["sa_lookup"]),
@@ -3777,6 +3895,8 @@ def main():
               bwasw_bound_ms=sw_sa["bound"][0],
               bwasw_bound_by=sw_sa["bound"][1],
               bwasw_bound_int32_ms=sw_sa["bound"][2],
+              bwasw_max_steps=sw_sa["max_steps"],
+              bam2bam_max_steps=b2b_sa["max_steps"],
               **b2b_fields(b2b_sa, b2b_counts["sa_lookup"])),
         entry("banded_global", "banded_global.cu", "nabwa_tpu/ops/dp.py:31",
               max(pdp["err"], dp_err, se_dp["err"], sw_dp["err"],

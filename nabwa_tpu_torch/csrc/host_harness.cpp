@@ -24,6 +24,7 @@
 #include "extend.cuh"
 #include "local_sw.cuh"
 #include "probes.cuh"
+#include "sa_walk.cuh"
 
 extern "C" int nabwa_host_occ4(const void* bank, uint32_t primary,
                                const void* ks, int n, void* out) {
@@ -238,14 +239,43 @@ extern "C" long long nabwa_host_dfs_state_bytes(const uint32_t* params) {
     return (long long)nabwa::dfs_state_bytes(nabwa::dfs_params(params));
 }
 
-extern "C" int nabwa_host_sa_lookup(const uint32_t* params, const void* bank,
-                                    const void* sa, uint32_t intv,
-                                    const void* rows, int n, void* out) {
-    const nabwa::FmParams p = nabwa::fm_params(params);
-    for (int i = 0; i < n; ++i)
-        ((uint32_t*)out)[i] = nabwa::sa_lookup_row(
-            p, (const uint32_t*)bank, (const uint32_t*)sa, intv,
-            ((const uint32_t*)rows)[i]);
+// C3 with the kernel's argument layout (nabwa_sa_lookup).
+extern "C" int nabwa_host_sa_lookup(const uint32_t* params, const void* bank0,
+                                    const void* bank1, const void* sa0,
+                                    const void* sa1, uint32_t intv,
+                                    const void* rows, int n, int n0,
+                                    void* out) {
+    const nabwa::SaStrand st[2] = {
+        {(const uint32_t*)bank0, (const uint32_t*)sa0, params[4]},
+        {(const uint32_t*)bank1, (const uint32_t*)sa1, params[5]}};
+    const uint32_t l2[4] = {params[0], params[1], params[2], params[3]};
+    const uint32_t* r = (const uint32_t*)rows;
+    uint32_t* o = (uint32_t*)out;
+    for (int i = 0; i < n; ++i) {
+        const nabwa::SaStrand& s = st[i < n0 ? 0 : 1];
+        o[i] = nabwa::is_pow2(intv)
+            ? nabwa::sa_walk_row(s, l2, nabwa::intv_pow2(intv), r[i])
+            : nabwa::sa_walk_row(s, l2, nabwa::intv_magic(intv), r[i]);
+    }
+    return 0;
+}
+
+// C3's interval test at sa_intv d: k / d and whether k is sampled, for
+// each k, through the instantiation the kernel takes for d
+extern "C" int nabwa_host_intv_quot(uint32_t d, const void* ks, int n,
+                                    void* quot, void* sampled) {
+    for (int i = 0; i < n; ++i) {
+        const uint32_t k = ((const uint32_t*)ks)[i];
+        if (nabwa::is_pow2(d)) {
+            const nabwa::IntvPow2 iv = nabwa::intv_pow2(d);
+            ((uint32_t*)quot)[i] = iv.quot(k);
+            ((uint8_t*)sampled)[i] = iv.sampled(k);
+        } else {
+            const nabwa::IntvMagic iv = nabwa::intv_magic(d);
+            ((uint32_t*)quot)[i] = iv.quot(k);
+            ((uint8_t*)sampled)[i] = iv.sampled(k);
+        }
+    }
     return 0;
 }
 

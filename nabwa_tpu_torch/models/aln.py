@@ -29,7 +29,7 @@ from ..index import native
 from ..refmodel.aln_scalar import cal_maxdiff
 from ..index.fmindex import DeviceIndex
 from ..ops.dfs import aln_device_step, unpack_result
-from ..ops.sa_lookup import sa_lookup
+from ..ops.sa_lookup import sa_lookup, sa_lookup_both
 
 NO_SEED = 0x7FFFFFFF
 
@@ -145,13 +145,14 @@ class AlnEngine:
     """The FM-index on one torch device plus the tiered DFS.
 
     Attributes the shared workflow modules (samse, sampe, bam2bam) use:
-    `index`, `opt`, `native_threads`, `run_chunk`, `sa_rows`.  Counters
-    of where reads finished: `tier0_reads`, `retry_reads`,
-    `host_drain_reads`; host seconds per part of `run_chunk` in `seconds`
-    (prepare: padding and copies to the device; device: cal_width + DFS
-    and the copy back; collect: packed result to hit tuples; drain: the
-    host engine).  The counters and `seconds` change only under the
-    engine's lock, so worker threads may share one engine."""
+    `index`, `opt`, `native_threads`, `run_chunk`, `sa_rows`,
+    `sa_rows_both`.  Counters of where reads finished: `tier0_reads`,
+    `retry_reads`, `host_drain_reads`; host seconds per part of
+    `run_chunk` in `seconds` (prepare: padding and copies to the device;
+    device: cal_width + DFS and the copy back; collect: packed result to
+    hit tuples; drain: the host engine).  The counters and `seconds`
+    change only under the engine's lock, so worker threads may share one
+    engine."""
 
     def __init__(self, index, opt, device, stack_cap=256, hits_cap=32,
                  retry_stack_cap=1024, retry_hits_cap=128,
@@ -288,6 +289,21 @@ class AlnEngine:
                         ix.primary_fwd if a else ix.primary_rev, ix.seq_len,
                         ix.sa_fwd if a else ix.sa_rev, ix.sa_intv, k)
         return out.cpu().numpy().view(np.uint32)
+
+    def sa_rows_both(self, rows):
+        """`sa_rows` for both strands in one call (one C3 launch on CUDA):
+        rows[a] are strand a's uint32 rows; returns their raw values, a
+        pair indexed the same way."""
+        rows = [np.ascontiguousarray(r, dtype=np.uint32) for r in rows]
+        n0 = len(rows[0])
+        ix = self.dev
+        k = torch.from_numpy(np.concatenate(rows).view(np.int32)).to(
+            self.device)
+        out = sa_lookup_both((ix.bwt_rev, ix.bwt_fwd), ix.l2,
+                             (ix.primary_rev, ix.primary_fwd), ix.seq_len,
+                             (ix.sa_rev, ix.sa_fwd), ix.sa_intv, k, n0)
+        vals = out.cpu().numpy().view(np.uint32)
+        return [vals[:n0], vals[n0:]]
 
     def _drain_native(self, reads, maxdiff, local, results, idxs):
         """Solve reads on the host's threaded C++ DFS (native/dfsgap.cpp),

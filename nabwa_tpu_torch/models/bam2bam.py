@@ -10,7 +10,8 @@ released to an ordered writer:
            max_gapo; kernels C2 and C1 on a CUDA engine)
   writer   `apply_align`, in record order: the drand48 hit sampling
            (`aln2seq_core`), the SA rows -> positions (`cal_pac_pos`,
-           `engine.sa_rows`: C3) and the per-read-group insert-size
+           `engine.sa_rows_both`: one C3 launch a chunk for both
+           strands) and the per-read-group insert-size
            histograms
   barrier  one IsizeInfo per read group (`infer_isize_hist`; a group with
            too few pairs gets none, and its pairs `NullIsize`)
@@ -34,7 +35,7 @@ missing, which the port never allows) and the remote workers (`port`,
 `prefix`).
 
 `host_reference=True` runs the DFS on the shared host engine, the SA walk
-with `samse.sa_rows_native` and the DPs through the native solvers: the
+with `samse.sa_rows_both_native` and the DPs through the native solvers: the
 reference the card's output is held against.  Only that argument chooses
 it; nothing falls back to it.
 
@@ -599,7 +600,7 @@ def bam2bam(engine, in_bam, out_bam, gopt, popt, rng, argv=None,
     reader = bamio.BamReader(in_bam)
     timers = StageTimers("bam2bam")
     telemetry = Counters()
-    sa_rows = pe.sa_rows_fn(engine, host_reference)
+    sa_rows_both = se.sa_rows_both_fn(engine, host_reference)
     rev_len = engine.index.rev.seq_len
 
     pairs = []
@@ -668,7 +669,7 @@ def bam2bam(engine, in_bam, out_bam, gopt, popt, rng, argv=None,
                     st.multi = []
                     se.aln2seq_core(p.alns[j], st, r)
             pos_states.extend(p.states[j] for j in range(p.kind))
-        se.cal_pac_pos(sa_rows, rev_len, pos_states, gopt.max_diff,
+        se.cal_pac_pos(sa_rows_both, rev_len, pos_states, gopt.max_diff,
                        gopt.fnr)
         for p in chunk_pairs:
             if unique(p, skip_duplicates):

@@ -4,9 +4,10 @@ nabwa_tpu/models/post_native.py that its drivers use.
 
 The [n, NF] int64 state table (`F_*` columns) is the native kernels'
 record layout.  `build_pair_keys` is the pairing-candidate assembly of
-`post_native.build_pair_keys` with the SA walk passed in (`sa_rows`), so
-the sampe driver can run it on the card's SA kernel or on the native host
-walk.  The other names lose their leading underscore here.
+`post_native.build_pair_keys` with the SA walk passed in
+(`sa_rows_both`), so the sampe driver can run it on the card's SA kernel
+or on the native host walk.  The other names lose their leading
+underscore here.
 """
 
 import os
@@ -138,13 +139,14 @@ def maxdiff_for(lens, fnr, max_mm):
     return out
 
 
-def build_pair_keys(sa_rows, rev_len, state, recs, counts, hit_off,
+def build_pair_keys(sa_rows_both, rev_len, state, recs, counts, hit_off,
                     n_pairs, max_occ, pos_memo):
     """Vectorised pairing-candidate assembly (bwape.c:368-396, with the
     wide-interval memo): gate each pair (both ends matched, n_occ within
     max_occ), expand every hit's SA interval to genome positions through
-    batched `sa_rows(a, uint32 rows) -> uint32 values` calls, and pack the
-    per-pair keys (pos<<32 | ki<<1 | j) for pe_pairing_batch.
+    one `sa_rows_both([rows0, rows1]) -> [values0, values1]` call (rows[a]
+    on strand a, uint32), and pack the per-pair keys (pos<<32 | ki<<1 | j)
+    for pe_pairing_batch.
 
     state: int64 [R, NF] with rows [0, 2*n_pairs) the interleaved ends;
     recs/counts/hit_off: the pack_recs layout over all R rows.  pos_memo
@@ -212,17 +214,16 @@ def build_pair_keys(sa_rows, rev_len, state, recs, counts, hit_off,
                       - np.repeat(cw[:-1], j_w)))
         jstr = np.repeat(j_strand, j_w) != 0
         jlen = np.repeat(j_len, j_w)
+        jsels = [~jstr, jstr]
+        vals = sa_rows_both([rows_sa[jsel].astype(np.uint32)
+                             for jsel in jsels])
         for a in (1, 0):
-            jsel = jstr if a else ~jstr
-            if not jsel.any():
-                continue
-            vals = sa_rows(a, rows_sa[jsel].astype(np.uint32)) \
-                .astype(np.int64)
+            v = vals[a].astype(np.int64)
             if a:
-                expanded[jsel] = vals.astype(np.uint64)
+                expanded[jsels[a]] = v.astype(np.uint64)
             else:
-                expanded[jsel] = ((rev_len - (vals + jlen[jsel]))
-                                  & _NEG1).astype(np.uint64)
+                expanded[jsels[a]] = ((rev_len - (v + jlen[jsels[a]]))
+                                      & _NEG1).astype(np.uint64)
     n_dir = len(d_k)
     dir_base = int(cw[n_dir])      # direct expansions occupy [0, dir_base)
     for wj, (key, kk, ww, _s, _l) in enumerate(wide_jobs):

@@ -6,8 +6,9 @@ The two ends live interleaved in one [2n, NF] state table (row 2i end 0,
 row 2i+1 end 1: the emit order).  Steps, in the reference's order:
   1. select   hit selection with the shared drand48 stream (native
               `se_select_batch`, no multi slots yet)
-  2. sa       SA rows -> positions of the chosen hits (`engine.sa_rows`,
-              kernel C3 on a CUDA engine), then mapQ
+  2. sa       SA rows -> positions of the chosen hits
+              (`engine.sa_rows_both`, one kernel C3 launch for both
+              strands on a CUDA engine), then mapQ
   3. isize    insert-size inference (`infer_isize_core`)
   4. pairing  every hit interval expanded to positions (C3, the wide-
               interval memo `pos_memo` carried across chunks), then the
@@ -506,14 +507,6 @@ class PairChunk:
         return c
 
 
-def sa_rows_fn(engine, host_reference):
-    """The SA walk of a route: `engine.sa_rows` (C3 on a CUDA engine), or
-    the host reference's `samse.sa_rows_native`."""
-    if host_reference:
-        return lambda a, rows: se.sa_rows_native(engine.index, a, rows)
-    return engine.sa_rows
-
-
 def select(reads, per_read_alns, rng):
     """Step 1 (bwape.c:316-338): the chosen hit of every end, the exact
     drand48 stream (end inner, pair outer); advances rng."""
@@ -532,21 +525,20 @@ def select(reads, per_read_alns, rng):
 
 def sa_coords(engine, pc, host_reference=False):
     """Step 2 (bwape.c:330-338): the chosen hits' SA rows -> positions,
-    reverse-strand positions flipped by `rev.seq_len - (v + len)`."""
-    sa_rows = sa_rows_fn(engine, host_reference)
+    both strands in one walk, reverse-strand positions flipped by
+    `rev.seq_len - (v + len)`."""
     state, lens = pc.state, pc.lens
     rev_len = engine.index.rev.seq_len
     matched, strand = pc.matched, pc.strand
+    sels = [matched & ~strand, matched & strand]
+    vals = se.sa_rows_both_fn(engine, host_reference)(
+        [state[sel, F_SA].astype(np.uint32) for sel in sels])
     for a in (1, 0):
-        sel = matched & (strand if a else ~strand)
-        if not sel.any():
-            continue
-        vals = sa_rows(a, state[sel, F_SA].astype(np.uint32)) \
-            .astype(np.int64)
+        v = vals[a].astype(np.int64)
         if a:
-            state[sel, F_POS] = vals
+            state[sels[a], F_POS] = v
         else:
-            state[sel, F_POS] = (rev_len - (vals + lens[sel])) & _NEG1
+            state[sels[a], F_POS] = (rev_len - (v + lens[sels[a]])) & _NEG1
 
 
 def infer_isize(pc, popt, seq_len, last_ii=None):
@@ -577,7 +569,8 @@ def pairing(engine, pc, gopt, popt, iis, pos_memo, host_reference=False):
     if n == 0:
         return
     flat_keys, key_off = build_pair_keys(
-        sa_rows_fn(engine, host_reference), engine.index.rev.seq_len,
+        se.sa_rows_both_fn(engine, host_reference),
+        engine.index.rev.seq_len,
         pc.state, pc.recs, pc.counts, pc.hit_off, n, popt.max_occ,
         pos_memo)
     native.lib().pe_pairing_batch(
@@ -624,21 +617,19 @@ def multi_hits(engine, pc, popt, host_reference=False):
     if not len(mslot):
         return
     mlen = np.array(mlen, dtype=np.int64)
-    sa_rows = sa_rows_fn(engine, host_reference)
     rev_len = engine.index.rev.seq_len
     m_strand = pc.multi_strand[pc.mslot] != 0
+    msels = [~m_strand, m_strand]
+    vals = se.sa_rows_both_fn(engine, host_reference)(
+        [pc.multi_pos[pc.mslot[msel]].astype(np.uint32) for msel in msels])
     for a in (1, 0):
-        msel = m_strand if a else ~m_strand
-        if not msel.any():
-            continue
-        slots = pc.mslot[msel]
-        vals = sa_rows(a, pc.multi_pos[slots].astype(np.uint32)) \
-            .astype(np.int64)
+        slots = pc.mslot[msels[a]]
+        v = vals[a].astype(np.int64)
         if a:
-            pc.multi_pos[slots] = vals.astype(np.uint64)
+            pc.multi_pos[slots] = v.astype(np.uint64)
         else:
-            pc.multi_pos[slots] = \
-                ((rev_len - (vals + mlen[msel])) & _NEG1).astype(np.uint64)
+            pc.multi_pos[slots] = ((rev_len - (v + mlen[msels[a]]))
+                                   & _NEG1).astype(np.uint64)
 
 
 def rescue_pairs(pc):

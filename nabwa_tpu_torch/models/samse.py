@@ -5,8 +5,9 @@ bwase.c:654-721), one chunk of reads to SAM bytes.
 Steps, in the reference's order:
   1. select   hit selection and multi enumeration with the shared drand48
               stream (native `se_select_batch`, the stream's one consumer)
-  2. sa       SA rows -> pac coordinates (bwa_cal_pac_pos): `engine.sa_rows`,
-              kernel C3 on a CUDA engine
+  2. sa       SA rows -> pac coordinates (bwa_cal_pac_pos):
+              `engine.sa_rows_both`, one kernel C3 launch for both strands
+              on a CUDA engine
   3. mapQ     vectorised bwa_approx_mapQ
   4. refine   gapped refinement (bwa_refine_gapped): the banded global DP of
               `ops/dp.py`, kernel C4 on CUDA, and the backtrace on the host
@@ -177,24 +178,23 @@ def approx_mapQ(s, mm):
     return 0 if 23 < G_LOG_N[n] else 23 - G_LOG_N[n]
 
 
-def cal_pac_pos(sa_rows, rev_len, states, max_mm, fnr):
-    """bwa_cal_pac_pos (bwase.c:156-183) over SeqStates, the SA rows
-    batched through `sa_rows(a, uint32 rows)` (`engine.sa_rows`, or
-    `sa_rows_native` on the host reference route).  Reverse-strand primary
-    hits and multis resolve on the forward BWT; forward-strand ones on the
-    reverse BWT with the rev_len - (sa + len) flip."""
+def cal_pac_pos(sa_rows_both, rev_len, states, max_mm, fnr):
+    """bwa_cal_pac_pos (bwase.c:156-183) over SeqStates, the SA rows of
+    both strands in one `sa_rows_both([rows0, rows1])` call
+    (`engine.sa_rows_both`, or `sa_rows_both_native` on the host reference
+    route).  Reverse-strand primary hits and multis resolve on the forward
+    BWT; forward-strand ones on the reverse BWT with the rev_len - (sa +
+    len) flip."""
     jobs = ([], [])                 # per strand a: (state, multi slot, row)
     for s in states:
         if s.type in (BWA_TYPE_UNIQUE, BWA_TYPE_REPEAT):
             jobs[s.strand].append((s, -1, s.sa))
         for j, m in enumerate(s.multi):
             jobs[m["strand"]].append((s, j, m["pos"]))
+    vals = sa_rows_both([np.array([t[2] for t in jobs[a]], dtype=np.uint32)
+                         for a in (0, 1)])
     for a in (1, 0):
-        if not jobs[a]:
-            continue
-        vals = sa_rows(a, np.array([t[2] for t in jobs[a]],
-                                   dtype=np.uint32)).tolist()
-        for (s, j, _), v in zip(jobs[a], vals):
+        for (s, j, _), v in zip(jobs[a], vals[a].tolist()):
             if not a:
                 v = (rev_len - (v + s.len)) & _NEG1
             if j < 0:
@@ -452,16 +452,37 @@ def sa_rows_native(index, a, rows):
     return out.numpy().view(np.uint32)
 
 
+def sa_rows_both_native(index, rows):
+    """The host reference of `engine.sa_rows_both`: `sa_rows_native` on
+    each strand's rows (rows[a] on strand a)."""
+    return [sa_rows_native(index, a, r) if len(r)
+            else np.zeros(0, dtype=np.uint32) for a, r in enumerate(rows)]
+
+
+def sa_rows_both_fn(engine, host_reference):
+    """The both-strand SA walk of a route: `engine.sa_rows_both` (one C3
+    launch on a CUDA engine), or the host reference's
+    `sa_rows_both_native`."""
+    if host_reference:
+        return lambda rows: sa_rows_both_native(engine.index, rows)
+    return engine.sa_rows_both
+
+
 def sa_coords(engine, ch, host_reference=False):
-    """Step 2: SA rows -> pac coordinates (bwase.c:156-183); reverse-strand
-    positions are flipped by `rev.seq_len - (v + len)` here."""
+    """Step 2: SA rows -> pac coordinates (bwase.c:156-183), both strands
+    in one walk; reverse-strand positions are flipped by `rev.seq_len - (v
+    + len)` here."""
     rev_len = engine.index.rev.seq_len
     state, lens = ch.state, ch.lens
-    for a, sel, msel, rows in sa_requests(ch):
-        vals = (sa_rows_native(engine.index, a, rows) if host_reference
-                else engine.sa_rows(a, rows)).astype(np.int64)
+    reqs = sa_requests(ch)
+    rows = [np.zeros(0, dtype=np.uint32)] * 2
+    for a, _, _, r in reqs:
+        rows[a] = r
+    vals = sa_rows_both_fn(engine, host_reference)(rows)
+    for a, sel, msel, _ in reqs:
+        v = vals[a].astype(np.int64)
         k = int(sel.sum())
-        pv, mv = vals[:k], vals[k:]
+        pv, mv = v[:k], v[k:]
         slots = ch.mslot[msel]
         if a:
             state[sel, F_POS] = pv

@@ -61,8 +61,9 @@ _SIGNATURES = {
     "nabwa_dfs": [_U32P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # (dfs params[26], B, shared, shape[3])
     "nabwa_dfs_shape": [_U32P, _I, _I, _P],
-    # (fm params[7], bank, sa, sa_intv, rows, n, out, stream)
-    "nabwa_sa_lookup": [_U32P, _P, _P, _U32, _P, _I, _P, _P],
+    # (params[6]: l2[0..3], primary0, primary1; bank0, bank1, sa0, sa1,
+    #  sa_intv, rows, n, n0, out, stream)
+    "nabwa_sa_lookup": [_U32P, _P, _P, _P, _P, _U32, _P, _I, _I, _P, _P],
     # (dp params[28], s1, s2, len1, len2, b1, b2, B, L1, L2, scratch, tb,
     #  score, ctype, stream)
     "nabwa_banded_global": [_I32P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,

@@ -1,7 +1,7 @@
 """The port's CUDA kernel source built for the host, for the CPU tests.
 
 `nabwa_tpu_torch/csrc/host_harness.cpp` runs the kernels' NABWA_HD
-per-row code (dfs_read of C1, cal_width_row of C2, sa_lookup_row of C3,
+per-row code (dfs_read of C1, cal_width_row of C2, sa_walk_row of C3,
 banded_global_pair of C4, local_fwd_pair of C5, extend_job of C6) with the
 kernels' argument layouts, and C1's, C4's, C5's and C6's warp kernels and
 C2's lane groups lane by lane (C1's `dfs_read_warp` of dfs_warp.cuh, the
@@ -39,8 +39,10 @@ def build(out_dir):
     lib.nabwa_host_dfs_state_bytes.argtypes = [_U32P]
     lib.nabwa_host_dfs_state_bytes.restype = ctypes.c_longlong
     lib.nabwa_host_occ4.argtypes = [_P, ctypes.c_uint32, _P, _I, _P]
-    lib.nabwa_host_sa_lookup.argtypes = [_U32P, _P, _P, ctypes.c_uint32, _P,
-                                         _I, _P]
+    lib.nabwa_host_sa_lookup.argtypes = ([_U32P] + [_P] * 4
+                                         + [ctypes.c_uint32, _P] + [_I] * 2
+                                         + [_P])
+    lib.nabwa_host_intv_quot.argtypes = [ctypes.c_uint32, _P, _I, _P, _P]
     lib.nabwa_host_banded_global.argtypes = (
         [ctypes.POINTER(ctypes.c_int32)] + [_P] * 6 + [_I] * 3 + [_P] * 3)
     lib.nabwa_host_local_fwd.argtypes = (
@@ -64,7 +66,8 @@ def build(out_dir):
                lib.nabwa_host_extend, lib.nabwa_host_banded_global_lanes,
                lib.nabwa_host_extend_lanes, lib.nabwa_host_dfs_lanes,
                lib.nabwa_host_local_fwd_lanes, lib.nabwa_host_local_form,
-               lib.nabwa_host_cal_width_group, lib.nabwa_host_occ_group):
+               lib.nabwa_host_cal_width_group, lib.nabwa_host_occ_group,
+               lib.nabwa_host_intv_quot):
         fn.restype = _I
     return lib
 
@@ -177,15 +180,36 @@ def dfs_state_bytes(lib, params):
 
 
 def sa_lookup(lib, bank, l2, primary, seq_len, sa, sa_intv, rows):
-    """C3's per-row code on numpy arrays: uint32 [n] positions."""
-    bank = np.ascontiguousarray(bank, dtype=np.uint32)
-    sa = np.ascontiguousarray(sa, dtype=np.uint32)
+    """C3's per-row code on numpy arrays, every row on one strand: uint32
+    [n] positions."""
+    return sa_lookup_both(lib, (bank, bank), l2, (primary, primary),
+                          (sa, sa), sa_intv, rows, len(rows))
+
+
+def sa_lookup_both(lib, banks, l2, primaries, sas, sa_intv, rows, n0):
+    """C3 on numpy arrays with the kernel's layout: rows[:n0] on strand 0
+    (banks[0], primaries[0], sas[0]), rows[n0:] on strand 1.  uint32 [n]
+    positions."""
+    banks = [np.ascontiguousarray(b, dtype=np.uint32) for b in banks]
+    sas = [np.ascontiguousarray(a, dtype=np.uint32) for a in sas]
     rows = np.ascontiguousarray(rows, dtype=np.uint32)
     out = np.empty(len(rows), dtype=np.uint32)
     lib.nabwa_host_sa_lookup(
-        _build.u32_params(list(l2[:5]) + [primary, seq_len]), _ptr(bank),
-        _ptr(sa), int(sa_intv), _ptr(rows), len(rows), _ptr(out))
+        _build.u32_params(list(l2[:4]) + list(primaries)), _ptr(banks[0]),
+        _ptr(banks[1]), _ptr(sas[0]), _ptr(sas[1]), int(sa_intv),
+        _ptr(rows), len(rows), n0, _ptr(out))
     return out
+
+
+def intv_quot(lib, d, ks):
+    """C3's interval test at sa_intv d, through the instantiation the
+    kernel takes for d: (k // d as uint32 [n], k % d == 0 as bool [n])."""
+    ks = np.ascontiguousarray(ks, dtype=np.uint32)
+    quot = np.empty(len(ks), dtype=np.uint32)
+    sampled = np.empty(len(ks), dtype=np.uint8)
+    lib.nabwa_host_intv_quot(d, _ptr(ks), len(ks), _ptr(quot),
+                             _ptr(sampled))
+    return quot, sampled.astype(bool)
 
 
 def banded_global(lib, s1, len1, s2, len2, b1, b2, mat, *, go, ge, gend,

@@ -5,9 +5,9 @@ No file of the port and not `chip_smoke.py` imports the reference package
 `nabwa_tpu` or jax: the port keeps its own copies of the host modules it
 needs, and its index build writes the same files as the reference's.
 `chip_smoke.py` imports the port, `tests/genomes.py`, torch, numpy and the
-standard library.  With `nabwa_tpu` and jax blocked, every port module
-imports and `aln` -> `samse` and `aln` x 2 -> `sampe` run end to end on the
-CPU.  Without a CUDA device, or copied alone into an empty directory, the
+standard library, and `c3_compare.py` the same and `chip_smoke.py`.  With
+`nabwa_tpu` and jax blocked, every port module imports and `aln` ->
+`samse` and `aln` x 2 -> `sampe` run end to end on the CPU.  Without a CUDA device, or copied alone into an empty directory, the
 script exits non-zero and prints nothing on standard output.
 """
 
@@ -54,12 +54,21 @@ def test_smoke_imports_only_the_port():
             assert name in ("tests", "tests.genomes"), name
 
 
+def test_c3_compare_imports_only_the_port():
+    """`c3_compare.py` imports what the smoke script may, and the smoke
+    script itself."""
+    for root, name in _imported_roots(REPO / "c3_compare.py"):
+        assert root in SMOKE_ALLOWED | {"chip_smoke"}, \
+            f"c3_compare.py imports {name}"
+
+
 PORT_FILES = sorted(str(p.relative_to(REPO))
                     for p in (REPO / "nabwa_tpu_torch").rglob("*.py"))
 BLOCKED = "import sys; sys.modules['jax'] = sys.modules['nabwa_tpu'] = None\n"
 
 
-@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py",
+                                  "c3_compare.py"])
 def test_port_reaches_reference_only_through_host(path):
     """No file of the port, and not the smoke script, imports the reference
     package or jax (the port has no facade over `nabwa_tpu` any more)."""
