@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of nabwa_tpu_torch, the `aln`, `samse`, `sampe`,
-`bwasw` and `bam2bam` paths and the probes on one NVIDIA GPU.
+`bwasw` and `bam2bam` paths, the hybrid split, the data-parallel mesh and
+the probes on one NVIDIA GPU.
 
     python3 chip_smoke.py [--glen BP] [--reads N] [--pairs N] [--batch B]
                           [--retry-stack S] [--long-reads N] [--profile]
@@ -38,14 +39,30 @@ Phases, any failure exits non-zero:
    a 7,150 bp read whose state only device memory holds, and B = 1 and 0;
 4. the aln path at the bench's size: a 64 Mbp random genome (seed 99)
    indexed by the port's host build, 32768 x 100 bp reads at 1 % error
-   (seed 100).  After a warm-up batch the engine's rate is timed, with
-   host seconds per part of `run_chunk`; then, with every launch count at
-   0, `python -m nabwa_tpu_torch aln --device cuda` runs in-process.  Both
-   `.sai` outputs must be byte-identical to the shared host engine's
-   (native/dfsgap.cpp).  Every kernel must have launched, and at most 20 %
-   of the reads may fall through to the host.  The host-drained reads are
-   solved by that same host engine, so for them the comparison holds the
-   host engine against itself;
+   (seed 100).  After a warm-up batch the engine's card-only route
+   (`host_frac=0`) is timed, with host seconds per part of `run_chunk`,
+   and at most 20 % of its reads may fall through to the host.  Then the
+   hybrid split on a fresh engine, warmed as bench.py warms it (a
+   device-only chunk of one slice, a second of four for the clean rate,
+   one hybrid chunk of four): the median of 3 timed hybrid `run_chunk`s
+   on the 32768 reads, each with the card's share (`n_dev`, which must
+   be above 0), both rate EMAs, the planned host share, the card share's
+   overflow drained on the host and the seconds per part; C1 and C2 must
+   have launched, once each a slice.  The split's constants re-derived:
+   the device route's seconds on a one-slice chunk of 64 reads (the fixed
+   per-chunk cost, beside `AlnEngine.DEV_LAT`), the card-only route's
+   tier-0 rate and the host engine's rate (beside `DEV_RATE0` and
+   `HOST_RATE0`).  Then, with every launch count at 0, `python -m
+   nabwa_tpu_torch aln --device cuda` runs in-process, through the
+   hybrid by default, and once more in a process of its own whose
+   kernels build cold into an empty directory, as in a new checkout, on
+   the bench reads twice over in two chunks: C1 and C2 must launch in
+   each chunk, so the first chunk's window has not benched the card.
+   Every `.sai` must be byte-identical to the shared host engine's
+   (native/dfsgap.cpp), and every kernel must have launched.  The
+   host-drained reads and the hybrid's host share are solved by that same
+   host engine, so for them the comparison holds the host engine against
+   itself;
 5. kernel C3 (csrc/sa_lookup.cu) against the plain PyTorch sa_lookup and
    the native host walk on every SA row samse asks for on phase 4's
    `.sai`, both strands in one launch, exact, timed beside each strand
@@ -210,10 +227,24 @@ Phases, any failure exits non-zero:
    `--device cuda`, the scripts' default arguments) once in a process of
    its own, every launch counter starting at 0; its result lines are
    logged and each of C7-C35 must have launched.
-Phase 12's chain and phases 15 and 17 are the main paths, phase 18's entry
-points the probes' path: their launch counts, summed, are the `launches`
-of the kernels line.  Every aln CLI run (phases 4, 8, 12) and the bam2bam
-CLI run must launch C2 once for each C1 launch.
+19. the data-parallel mesh (`nabwa_tpu_torch/parallel/mesh.py`, with every
+   launch count at 0): `entry.dryrun_multichip` over every visible card
+   and over a two-shard mesh naming cuda:0 twice, so that the shard-and-
+   join code runs the kernels (the sharded step with C3 on the best hits
+   and the insert-size histogram equal to one device's, and bam2bam on
+   two read groups, 4 workers, chunk 128, with the engine on the mesh,
+   its BAM equal to the single-device BAM record for record); then
+   `AlnEngine(mesh=)` on that two-shard mesh over phase 4's reads, its
+   `.sai` byte-identical to the host engine's.  C1, C2 and C3 must have
+   launched.  With one card no measurement across cards exists, and the
+   run says so.
+Phase 4's CLI run, phase 12's chain, phases 15 and 17 and phase 19 are the
+main paths, phase 18's entry points the probes' path: their launch counts,
+summed, are the `launches` of the kernels line.  NABWA_FORCE_NATIVE,
+NABWA_HOST_FRAC and NABWA_DEV_SHARE choose routes by hand: the run fails
+at its start if any of them is set.  Every aln CLI run (phases 4, 8,
+12), the hybrid's timed runs, the mesh engine's run and the bam2bam CLI
+run must launch C2 once for each C1 launch.
 With --profile, torch.profiler runs over one more aln run after phase 4's
 timed run and over one more bwasw card run after phase 14: the card's
 busy share and the device time of each kernel.
@@ -309,6 +340,8 @@ BAM_SHARE = 4
 # and the float32 rate outside the tensor cores, the sheet's only 32-bit
 # non-tensor rate, taken for int32 operations too.  Hopper has half as many
 # int32 lanes as float32 lanes, so the operations bound is optimistic.
+# the engine's route knobs: the run measures the routes the engine chooses
+ROUTE_ENV = ("NABWA_FORCE_NATIVE", "NABWA_HOST_FRAC", "NABWA_DEV_SHARE")
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 # int32 work, counted by pipe (`Work`, `bound_int32_ms`): the integer ALU
@@ -729,6 +762,39 @@ def make_long_reads(genome_seq, n_reads, read_len, seed, err=0.02,
     return b"".join(out)
 
 
+# `aln --device cuda` through the CLI in a fresh process: the kernels
+# build cold into the directory argv[1], the CLI reads chunks of argv[2]
+# reads, and C1's and C2's launches are counted in each chunk
+ALN_FRESH = """\
+import json, pathlib, sys
+from nabwa_tpu_torch import cli
+from nabwa_tpu_torch.models import aln as maln
+from nabwa_tpu_torch.ops import _build, dfs_cuda, occ
+build = pathlib.Path(sys.argv[1])
+_build.BUILD_DIR = build
+for name in ("LIB_PATH", "_HASH_PATH", "_LOG_PATH"):
+    setattr(_build, name, build / getattr(_build, name).name)
+cli.READ_CHUNK = int(sys.argv[2])
+chunks = []
+run_chunk = maln.AlnEngine.run_chunk
+def counted(self, reads, *args, **kw):
+    before = dfs_cuda.launches, occ.launches
+    out = run_chunk(self, reads, *args, **kw)
+    chunks.append({"reads": len(reads), "dfs": dfs_cuda.launches - before[0],
+                   "cal_width": occ.launches - before[1],
+                   "dev_rate": self.dev_rate, "host_rate": self.host_rate,
+                   "tier0_reads": self.tier0_reads,
+                   "hybrid_host_reads": self.hybrid_host_reads})
+    return out
+maln.AlnEngine.run_chunk = counted
+rc = cli.main(sys.argv[3:])
+print(json.dumps({"rc": rc, "build_seconds": _build.build_seconds,
+                  "chunks": chunks, "dfs": dfs_cuda.launches,
+                  "cal_width": occ.launches}))
+sys.exit(rc)
+"""
+
+
 def make_data(glen, n_reads, n_pairs, n_long):
     """Genome, index, the bench reads, the gapped reads, the read pairs,
     the long reads and bam2bam's second read group (cached by size and
@@ -1069,6 +1135,197 @@ def native_reference(idx, reads, opt):
         idx.fwd.l2, idx.fwd.seq_len, reads, maxdiff, local)
     dt = time.perf_counter() - t0
     return opt.pack() + native_block(res), dt
+
+
+def hybrid_runs(idx, opt, reads, want, args, zero, launched):
+    """Phase 4's hybrid split on a fresh engine, warmed as bench.py:77-84
+    warms it: a device-only chunk of one slice (kept out of the rate EMA),
+    a second of four slices (the clean card rate), one hybrid chunk of
+    four.  Then 3 timed hybrid `run_chunk`s on all the reads, every launch
+    count at 0 before the first: each `.sai` byte-identical to the host
+    engine's, the card's share above 0, C1 and C2 launched once each a
+    slice.  Returns the runs and the median."""
+    import torch
+    from nabwa_tpu_torch.models import aln as maln
+    B = args.batch
+    eng = maln.AlnEngine(idx, opt, "cuda", retry_stack_cap=args.retry_stack,
+                         retry_hits_cap=args.retry_stack // 8, host_frac=0)
+    eng.run_chunk(reads[:B], device_batch=B)
+    eng.run_chunk(reads[:4 * B], device_batch=B)
+    warm_rates = (eng.dev_rate, eng.host_rate)
+    eng.host_frac = 0.5
+    eng.run_chunk(reads[:4 * B], device_batch=B)
+    zero()
+    runs = []
+    for _ in range(3):
+        eng.tier0_reads = eng.retry_reads = eng.host_drain_reads = 0
+        eng.hybrid_host_reads = 0
+        eng.seconds = dict.fromkeys(eng.seconds, 0.0)
+        before = (eng.dev_rate, eng.host_rate)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run_chunk(reads, device_batch=B)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if opt.pack() + native_block(res) != want:
+            fail("hybrid .sai differs from the host native engine's")
+        n_dev = eng.tier0_reads + eng.host_drain_reads
+        if n_dev <= 0 or eng.retry_reads:
+            fail(f"the hybrid gave the card {n_dev} reads (retry tier "
+                 f"{eng.retry_reads})")
+        runs.append({
+            "reads_per_sec": len(reads) / dt, "seconds": dt,
+            "n_dev": n_dev, "dev_rate_before": before[0],
+            "host_rate_before": before[1], "dev_rate": eng.dev_rate,
+            "host_rate": eng.host_rate,
+            "planned_host_share": eng.hybrid_host_reads / len(reads),
+            "overflow_drain_reads": eng.host_drain_reads,
+            "overflow_share": eng.host_drain_reads / len(reads),
+            "part_seconds": dict(eng.seconds)})
+        log(f"hybrid run: {len(reads) / dt:.1f} reads/s ({dt:.3f} s); "
+            f"n_dev {n_dev} of {len(reads)} (planned host share "
+            f"{100 * eng.hybrid_host_reads / len(reads):.2f} %), overflow "
+            f"drained on the host {eng.host_drain_reads}; rate EMAs "
+            f"{before} -> ({eng.dev_rate:.1f}, {eng.host_rate:.1f}); "
+            f"seconds per part {eng.seconds}")
+    counts = launched()
+    for name in ("dfs", "cal_width"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched by the hybrid")
+    one_c2_per_c1("hybrid runs", counts)
+    med = sorted(runs, key=lambda r: r["reads_per_sec"])[1]
+    log(f"hybrid: median {med['reads_per_sec']:.1f} reads/s over 3 runs; "
+        f"launches {counts}")
+    return {"reads_per_sec": med["reads_per_sec"], "median": med,
+            "runs": runs, "warm_rates": warm_rates, "launches": counts,
+            "batch": B}
+
+
+def fresh_cli_aln(fa, fq, n_reads, want, header):
+    """`aln --device cuda` through the CLI in a process of its own
+    (`ALN_FRESH`) whose kernels build cold into an empty directory, as in
+    a new checkout, on the bench reads twice over in two chunks: the
+    `.sai` must be the host engine's records twice over, and C1 and C2
+    must launch in each chunk, so a first hybrid window that held the
+    build has not benched the card.  Returns the process's summary."""
+    with tempfile.TemporaryDirectory(prefix="nabwa_fresh_aln_") as tmp:
+        work = pathlib.Path(tmp)
+        twice = work / "twice.fq"
+        body = fq.read_bytes()
+        twice.write_bytes(body + (b"" if body.endswith(b"\n") else b"\n")
+                          + body)
+        out = work / "twice.sai"
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", ALN_FRESH, str(work / "build"),
+             str(n_reads), "aln", "--device", "cuda", str(fa), str(twice),
+             "-f", str(out)], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = res.stdout.splitlines()
+        if res.returncode != 0 or not lines:
+            fail(f"the fresh CLI aln exited with {res.returncode}: "
+                 f"{res.stderr[-2000:]}")
+        got = json.loads(lines[-1])
+        if out.read_bytes() != want + want[header:]:
+            fail("the fresh CLI aln's .sai differs from the host native "
+                 "engine's")
+    if got["build_seconds"] is None:
+        fail("the fresh CLI aln did not build its kernels")
+    if len(got["chunks"]) != 2:
+        fail(f"the fresh CLI aln ran {len(got['chunks'])} chunks, not 2")
+    for i, chunk in enumerate(got["chunks"]):
+        for name in ("dfs", "cal_width"):
+            if chunk[name] <= 0:
+                fail(f"kernel {name} was not launched in chunk {i} of the "
+                     f"fresh CLI aln: {got['chunks']}")
+    one_c2_per_c1("fresh CLI aln", got)
+    got["seconds"] = seconds
+    log(f"fresh CLI aln --device cuda: {seconds:.2f} s end to end (kernel "
+        f"build {got['build_seconds']:.2f} s, index load included); per "
+        f"chunk {got['chunks']}")
+    return got
+
+
+def split_constants(idx, opt, reads, args, card_rate, host_rate):
+    """The split's constants re-derived on this host: the device route's
+    seconds on a one-slice chunk of 64 reads (the fixed per-chunk cost,
+    `DEV_LAT`), and on a chunk of one full slice, each the median of 7
+    after one warm call, on a fresh engine; the starting rates are the
+    card-only route's tier-0 rate (its rate EMA after the timed run) and
+    the host engine's on every core (`DEV_RATE0`, `HOST_RATE0`)."""
+    import torch
+    from nabwa_tpu_torch.models import aln as maln
+    eng = maln.AlnEngine(idx, opt, "cuda", host_frac=0)
+    out = {}
+    for label, n in (("dev_lat", 64), ("one_slice", args.batch)):
+        times = []
+        for _ in range(8):
+            before = eng.seconds["hybrid_device"]
+            eng.run_hybrid(reads[:n], device_batch=n, n_dev=n)
+            torch.cuda.synchronize()
+            times.append(eng.seconds["hybrid_device"] - before)
+        out[f"{label}_s"] = sorted(times[1:])[3]
+    out.update(card_rate=card_rate, host_rate=host_rate,
+               code_dev_lat=maln.AlnEngine.DEV_LAT,
+               code_dev_rate0=maln.AlnEngine.DEV_RATE0,
+               code_host_rate0=maln.AlnEngine.HOST_RATE0)
+    log(f"split constants: DEV_LAT measured {out['dev_lat_s']:.5f} s (a "
+        f"one-slice chunk of 64 reads; one slice of {args.batch} "
+        f"{out['one_slice_s']:.5f} s), code {maln.AlnEngine.DEV_LAT}; "
+        f"card-only tier-0 rate {card_rate:.1f} reads/s, code DEV_RATE0 "
+        f"{maln.AlnEngine.DEV_RATE0}; host engine {host_rate:.1f} reads/s "
+        f"({os.cpu_count()} cores), code HOST_RATE0 "
+        f"{maln.AlnEngine.HOST_RATE0}")
+    return out
+
+
+def mesh_phase(idx, opt, reads, want, args, zero, launched):
+    """Phase 19: `entry.dryrun_multichip` over every visible card and over
+    a two-shard mesh naming cuda:0 twice, then `AlnEngine(mesh=)` on that
+    mesh over phase 4's reads (its `.sai` equal to the host engine's, C2
+    launched once a C1 launch).  Returns the summary and the launch counts
+    of the whole phase."""
+    import torch
+    from nabwa_tpu_torch import entry
+    from nabwa_tpu_torch.models import aln as maln
+    from nabwa_tpu_torch.parallel.mesh import make_mesh
+    n_cards = torch.cuda.device_count()
+    out = {"cards": n_cards}
+    zero()
+    try:
+        out["dryrun_cards"] = entry.dryrun_multichip(n_cards, "cuda")
+        out["dryrun_two_shards"] = entry.dryrun_multichip(2, "cuda:0")
+    except AssertionError as e:
+        fail(f"dryrun_multichip: {e}")
+    counts = launched()
+    zero()
+    mesh = make_mesh(2, "cuda:0")
+    eng = maln.AlnEngine(idx, opt, mesh=mesh, retry_stack_cap=args.retry_stack,
+                         retry_hits_cap=args.retry_stack // 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run_chunk(reads, device_batch=args.batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if opt.pack() + native_block(res) != want:
+        fail("the mesh engine's .sai differs from the host native engine's")
+    eng_counts = launched()
+    one_c2_per_c1("mesh engine", eng_counts)
+    out["engine"] = {"mesh": [str(d) for d in mesh],
+                     "reads_per_sec": len(reads) / dt, "seconds": dt,
+                     "tier0_reads": eng.tier0_reads,
+                     "retry_reads": eng.retry_reads,
+                     "host_drain_reads": eng.host_drain_reads,
+                     "part_seconds": dict(eng.seconds),
+                     "launches": eng_counts}
+    log(f"mesh engine on {out['engine']['mesh']}: {len(reads) / dt:.1f} "
+        f"reads/s, .sai byte-identical; tiers {eng.tier0_reads} / "
+        f"{eng.retry_reads} / {eng.host_drain_reads}; launches {eng_counts}")
+    if n_cards == 1:
+        log("no measurement across cards exists: this host has one card")
+    out["across_cards_measured"] = n_cards > 1
+    return out, {k: counts[k] + eng_counts[k] for k in counts}
 
 
 def native_block(results):
@@ -3312,6 +3569,9 @@ def main():
     if not (ROOT / "nabwa_tpu_torch" / "csrc").is_dir() or \
             not (ROOT / "native").is_dir():
         fail("chip_smoke.py must run from a checkout of the repository")
+    for name in ROUTE_ENV:
+        if os.environ.get(name) is not None:
+            fail(f"{name} is set: it chooses the engine's routes by hand")
     sys.path.insert(0, str(ROOT))
     import torch
     if not torch.cuda.is_available():
@@ -3384,7 +3644,7 @@ def main():
     if len(reads) != args.reads:
         fail(f"read {len(reads)} reads, expected {args.reads}")
     eng = maln.AlnEngine(idx, opt, "cuda", retry_stack_cap=args.retry_stack,
-                         retry_hits_cap=args.retry_stack // 8)
+                         retry_hits_cap=args.retry_stack // 8, host_frac=0)
 
     phase_mark("2-3")
     # phases 2-3: kernels against their plain versions on the card, on the
@@ -3450,6 +3710,11 @@ def main():
                 "local_fwd": dp.launches_local,
                 "extend": dp.launches_extend}
 
+    # the hybrid split on a fresh engine, then the split's constants
+    hybrid = hybrid_runs(idx, opt, reads, want, args, zero, launched)
+    consts = split_constants(idx, opt, reads, args, eng.dev_rate,
+                             len(reads) / host_s)
+
     tmp = pathlib.Path(tempfile.gettempdir())
     out = tmp / "nabwa_torch_smoke.sai"
     out.unlink(missing_ok=True)
@@ -3460,8 +3725,9 @@ def main():
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     counts = launched()
-    log(f"CLI aln --device cuda: rc {rc}, {cli_s:.2f} s end to end "
-        f"(index load included); launches {counts}")
+    main_counts = [counts]
+    log(f"CLI aln --device cuda (the hybrid): rc {rc}, {cli_s:.2f} s end to "
+        f"end (index load included); launches {counts}")
     if rc != 0:
         fail(f"the port's aln CLI exited with {rc}")
     if out.read_bytes() != want:
@@ -3470,6 +3736,8 @@ def main():
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the aln path")
     one_c2_per_c1("CLI aln", counts)
+    fresh = fresh_cli_aln(fa, fq, len(reads), want, len(opt.pack()))
+    main_counts.append({k: fresh.get(k, 0) for k in counts})
 
     phase_mark("5-6")
     # phases 5-6: C3 on the SA rows samse asks for on the bench .sai, and
@@ -3595,7 +3863,6 @@ def main():
     # then sampe (C3, C4, C5)
     pe_sai = [tmp / f"nabwa_torch_smoke_p{end}.sai" for end in (1, 2)]
     pe_sam = tmp / "nabwa_torch_smoke_pe.sam"
-    main_counts = []
     for path, fqp, w in zip(pe_sai, (fq1, fq2), want_pe):
         path.unlink(missing_ok=True)
         zero()
@@ -3618,17 +3885,18 @@ def main():
                         str(pe_sam)])
     torch.cuda.synchronize()
     sampe_cli_s = time.perf_counter() - t0
-    main_counts.append(launched())
-    log(f"CLI chain on the pairs: aln launches {main_counts[:2]}; sampe "
+    pe_counts = launched()
+    main_counts.append(pe_counts)
+    log(f"CLI chain on the pairs: aln launches {main_counts[-3:-1]}; sampe "
         f"--device cuda rc {rc}, {sampe_cli_s:.2f} s end to end (index "
-        f"load included), launches {main_counts[2]}")
+        f"load included), launches {pe_counts}")
     if rc != 0:
         fail(f"the port's sampe CLI exited with {rc}")
     if pe_sam.read_bytes() != (sam_header(idx.bns).encode()
                                + pe_runs["reference"][0]):
         fail("CLI sampe SAM differs from the host reference route's")
     for name in ("sa_lookup", "banded_global", "local_fwd"):
-        if main_counts[2][name] <= 0:
+        if pe_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the sampe path")
 
     phase_mark("13")
@@ -3835,6 +4103,18 @@ def main():
     probes.update(check_reductions(torch.device("cuda", 0)))
     log(f"C31-C35 checked in {time.perf_counter() - t0:.1f} s")
     probe_counts, probe_lines = run_probe_entries()
+
+    phase_mark("19")
+    # phase 19: the data-parallel mesh, every launch count at 0
+    mesh_run, mesh_counts = mesh_phase(idx, opt, reads, want, args, zero,
+                                       launched)
+    main_counts.append(mesh_counts)
+    log(f"phase 19 launches {mesh_counts}")
+    for name in ("dfs", "cal_width", "sa_lookup"):
+        if mesh_counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the mesh")
+    mesh_run["launches"] = mesh_counts
+
 
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
     launches.update(probe_counts)
@@ -4047,7 +4327,10 @@ def main():
                       "host_drain_reads": eng.host_drain_reads,
                       "run_chunk_seconds": parts,
                       "host_native_reads_per_sec": len(reads) / host_s,
-                      "cli_seconds": cli_s, "profile": prof,
+                      "hybrid": hybrid, "split_constants": consts,
+                      "mesh": mesh_run,
+                      "cli_seconds": cli_s, "fresh_cli_aln": fresh,
+                      "profile": prof,
                       "samse": samse, "samse_cli_seconds": samse_cli_s,
                       "gapped_aln_launches": aln_g_counts,
                       "sampe": sampe, "bwasw": bwasw, "bam2bam": bam2bam,

@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Time one part of the port with the code of one checkout, on
+chip_smoke.py's 64 Mbp cell (the bench reads), on one NVIDIA GPU.
+
+    python3 compare.py c3 CHECKOUT
+    python3 compare.py aln CHECKOUT
+
+CHECKOUT is the root of a checkout of this repository: this one, or an
+older commit unpacked with `git archive` into a directory `.gitignore`
+lists.  Its chip_smoke.py, port and kernels are imported and built from
+there, so two commits are timed in turn in one run on one card (run them
+as A, B, B, A).  The genome, index and reads are chip_smoke.py's default
+cell, cached under the temp directory (chip_smoke.py run first makes them;
+else this does).  Prints one JSON object.
+
+c3: kernel C3 (the SA walk) on samse's SA rows.  Each strand's rows go to
+the checkout's one-strand wrapper, `sa_lookup_cuda`, exact against its
+plain version: the launch's time (CUDA events over 20 launches, and queued
+behind a sleeping kernel), its longest row's steps and that row alone, its
+time a step.  Where the checkout has `sa_lookup_both_cuda`, the two
+strands in one launch too.
+
+aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
+has the hybrid split): a warm-up chunk of one slice, then 5 timed
+`run_chunk`s of the 32768 reads at batch 2048, each `.sai` byte-identical
+to the shared host engine's, whose rate is timed in the same process.
+"""
+
+import inspect
+import json
+import sys
+import time
+
+BATCH = 2048
+RUNS = 5
+
+
+def time_c3(cs, idx, opt, reads):
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.models import aln as maln
+    from nabwa_tpu_torch.models import samse as msamse
+    from nabwa_tpu_torch.ops import sa_lookup as sl
+    from nabwa_tpu_torch.utils.rand48 import Rand48
+    eng = maln.AlnEngine(idx, opt, "cuda")
+    sai, _ = cs.native_reference(idx, reads, opt)
+    ch = msamse.select(reads, cs.sai_columns(sai), 3, Rand48(idx.bns.seed))
+    ix = eng.dev
+    out = {}
+    rows = {}
+    for a, _, _, r in msamse.sa_requests(ch):
+        args = (ix.bwt_fwd if a else ix.bwt_rev, ix.l2,
+                ix.primary_fwd if a else ix.primary_rev, ix.seq_len,
+                ix.sa_fwd if a else ix.sa_rev, ix.sa_intv,
+                torch.from_numpy(r.view(np.int32)).to(eng.device))
+        rows[a] = args[6]
+        cs.exact(f"C3 strand {a}", sl.sa_lookup_cuda(*args),
+                 sl.sa_lookup_plain(*args))
+        steps = sl.sa_walk_steps(*args[:4], args[5], args[6]) if hasattr(
+            sl, "sa_walk_steps") else cs.walk_steps(*args[:4], args[5],
+                                                     args[6])
+        i = int(steps.argmax())
+        lone = args[:6] + (args[6][i:i + 1],)
+        lone_ms = cs.queued_ms(lambda: sl.sa_lookup_cuda(*lone), 20)
+        out[f"strand{a}"] = {
+            "rows": len(r), "max_steps": int(steps[i]),
+            "ms": cs.cuda_ms(lambda: sl.sa_lookup_cuda(*args), 20),
+            "queued_ms": cs.queued_ms(lambda: sl.sa_lookup_cuda(*args), 20),
+            "lone_us_per_step": lone_ms * 1e3 / int(steps[i])}
+    if hasattr(sl, "sa_lookup_both_cuda"):
+        both = ((ix.bwt_rev, ix.bwt_fwd), ix.l2,
+                (ix.primary_rev, ix.primary_fwd), ix.seq_len,
+                (ix.sa_rev, ix.sa_fwd), ix.sa_intv,
+                torch.cat([rows[0], rows[1]]), len(rows[0]))
+        cs.exact("C3 both strands", sl.sa_lookup_both_cuda(*both),
+                 sl.sa_lookup_both_plain(*both))
+        out["both_ms"] = cs.cuda_ms(lambda: sl.sa_lookup_both_cuda(*both),
+                                    20)
+    return out
+
+
+def time_aln(cs, idx, opt, reads):
+    import torch
+    from nabwa_tpu_torch.models import aln as maln
+    want, host_s = cs.native_reference(idx, reads, opt)
+    kw = ({"host_frac": 0} if "host_frac" in
+          inspect.signature(maln.AlnEngine).parameters else {})
+    eng = maln.AlnEngine(idx, opt, "cuda", **kw)
+    eng.run_chunk(reads[:BATCH], device_batch=BATCH)
+    eng.seconds = dict.fromkeys(eng.seconds, 0.0)
+    rates = []
+    for _ in range(RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run_chunk(reads, device_batch=BATCH)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if opt.pack() + cs.native_block(res) != want:
+            cs.fail("the card-only .sai differs from the host native "
+                    "engine's")
+        rates.append(len(reads) / dt)
+    return {"reads_per_sec": rates, "median": sorted(rates)[RUNS // 2],
+            "host_native_reads_per_sec": len(reads) / host_s,
+            "part_seconds": {k: v / RUNS for k, v in eng.seconds.items()}}
+
+
+MODES = {"c3": time_c3, "aln": time_aln}
+
+
+def main(argv):
+    if len(argv) != 2 or argv[0] not in MODES:
+        print(f"usage: compare.py {{{','.join(MODES)}}} CHECKOUT",
+              file=sys.stderr)
+        return 2
+    mode, root = argv
+    sys.path.insert(0, root)
+    import torch
+    import chip_smoke as cs
+    from nabwa_tpu_torch import cli as port_cli
+    from nabwa_tpu_torch.index.fmindex import BwaIndex
+    from nabwa_tpu_torch.ops import _build
+    from nabwa_tpu_torch.options import GapOpt
+    if not torch.cuda.is_available():
+        cs.fail("no CUDA device")
+    _build.lib()
+    fa, fq, *_ = cs.make_data(64_000_000, 32768, 32768, 512)
+    idx = BwaIndex.load(str(fa))
+    opt = GapOpt()
+    reads = port_cli.open_reads(str(fq), opt.mode)(32768, 0)
+    out = {"mode": mode, "checkout": str(cs.ROOT), "card": cs.card_line()}
+    out.update(MODES[mode](cs, idx, opt, reads))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

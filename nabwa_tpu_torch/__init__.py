@@ -20,15 +20,18 @@ Layout:
             DP and the local-SW forward lattice: a plain PyTorch version of
             each (CPU tensors, tests) beside its CUDA kernel (CUDA tensors)
   csrc/     the CUDA sources, built with nvcc for sm_90a at first use
-  models/   AlnEngine (tiers, host padding, native drain), the samse,
-            sampe, bwasw and bam2bam workflows and their native host
-            steps (post_native)
-  parallel/ the chunk scheduler of bam2bam's local worker threads
+  models/   AlnEngine (tiers, host padding, native drain, the hybrid
+            host/card split), the samse, sampe, bwasw and bam2bam
+            workflows and their native host steps (post_native)
+  parallel/ the chunk scheduler of bam2bam's local worker threads, the
+            data-parallel mesh (make_mesh, shard_batch, replicate,
+            isize_histogram)
   probes/   ports of the Pallas micro-benchmarks under scripts/ (the row
             gather, the async row fetch, the two DFS-iteration mocks),
             each a plain version beside its CUDA kernel, with the
             scripts' entry points
   cli.py    the `aln`, `samse`, `sampe`, `bwasw` and `bam2bam` subcommands
+  entry.py  the single-device step and the data-parallel dry run
 
 This package imports torch and never jax.
 """

@@ -2,10 +2,12 @@
 ends without a CUDA device.
 
 No file of the port and not `chip_smoke.py` imports the reference package
-`nabwa_tpu` or jax: the port keeps its own copies of the host modules it
-needs, and its index build writes the same files as the reference's.
+`nabwa_tpu` or jax, and no file of the port imports the tests: the port
+keeps its own copies of the host modules it needs, and its index build
+writes the same files as the reference's.
 `chip_smoke.py` imports the port, `tests/genomes.py`, torch, numpy and the
-standard library, and `c3_compare.py` the same and `chip_smoke.py`.  With
+standard library, and `compare.py` the same, `inspect` and
+`chip_smoke.py`.  With
 `nabwa_tpu` and jax blocked, every port module imports and `aln` ->
 `samse` and `aln` x 2 -> `sampe` run end to end on the CPU.  Without a CUDA device, or copied alone into an empty directory, the
 script exits non-zero and prints nothing on standard output.
@@ -54,12 +56,22 @@ def test_smoke_imports_only_the_port():
             assert name in ("tests", "tests.genomes"), name
 
 
-def test_c3_compare_imports_only_the_port():
-    """`c3_compare.py` imports what the smoke script may, and the smoke
-    script itself."""
-    for root, name in _imported_roots(REPO / "c3_compare.py"):
-        assert root in SMOKE_ALLOWED | {"chip_smoke"}, \
-            f"c3_compare.py imports {name}"
+def test_compare_imports_only_the_port():
+    """`compare.py` imports what the smoke script may, `inspect`, and the
+    smoke script itself."""
+    for root, name in _imported_roots(REPO / "compare.py"):
+        assert root in SMOKE_ALLOWED | {"chip_smoke", "inspect"}, \
+            f"compare.py imports {name}"
+
+
+def test_compare_refuses_an_unknown_mode():
+    """`compare.py` names its modes and exits 2 on another, before it
+    imports anything of a checkout."""
+    res = subprocess.run([sys.executable, "compare.py", "c4", str(REPO)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=60)
+    assert res.returncode == 2 and not res.stdout
+    assert "{c3,aln}" in res.stderr
 
 
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -68,12 +80,22 @@ BLOCKED = "import sys; sys.modules['jax'] = sys.modules['nabwa_tpu'] = None\n"
 
 
 @pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py",
-                                  "c3_compare.py"])
+                                  "compare.py"])
 def test_port_reaches_reference_only_through_host(path):
     """No file of the port, and not the smoke script, imports the reference
     package or jax (the port has no facade over `nabwa_tpu` any more)."""
     for root, name in _imported_roots(REPO / path):
         assert root not in ("jax", "nabwa_tpu"), f"{path} imports {name}"
+
+
+def test_port_imports_no_tests():
+    """The rule covers the mesh and the entry points, and no file of the
+    port imports the repository's tests: its data come from the port."""
+    assert {"nabwa_tpu_torch/parallel/mesh.py",
+            "nabwa_tpu_torch/entry.py"} <= set(PORT_FILES)
+    for path in PORT_FILES:
+        for root, name in _imported_roots(REPO / path):
+            assert root != "tests", f"{path} imports {name}"
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
