@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of nabwa_tpu_torch, the `aln`, `samse`, `sampe`,
-`bwasw` and `bam2bam` paths, the hybrid split, the data-parallel mesh and
-the probes on one NVIDIA GPU.
+`bwasw` and `bam2bam` paths, the hybrid split, the data-parallel mesh,
+the probes, the `index` CLI and bam2bam's remote workers on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--glen BP] [--reads N] [--pairs N] [--batch B]
                           [--retry-stack S] [--long-reads N] [--profile]
@@ -238,8 +239,23 @@ Phases, any failure exits non-zero:
    `.sai` byte-identical to the host engine's.  C1, C2 and C3 must have
    launched.  With one card no measurement across cards exists, and the
    run says so.
-Phase 4's CLI run, phase 12's chain, phases 15 and 17 and phase 19 are the
-main paths, phase 18's entry points the probes' path: their launch counts,
+20. `python -m nabwa_tpu_torch index` in a process of its own on the
+   cell's FASTA (SA-IS, as the in-process build): its eight files must
+   equal the in-process build's, and its seconds are logged.  Then, with
+   every launch count at 0, the bam2bam CLI of phase 17's input as a
+   coordinator with no local worker (`-t 0 -p` a free port,
+   NABWA_LEASE_S=NET_LEASE_S) and NET_WORKERS `worker --device cuda -t
+   NET_WORKER_THREADS` processes (`WORKER_DRIVER`: each prints its chunks
+   and its C1-C5 launches) on the one card.  The first worker that holds
+   a chunk after the coordinator has taken a result of its own is
+   stopped, and killed if it still holds the chunk once any result it
+   had sent is in.  The phase fails unless the BAM equals phase 17's but
+   for the @PG command line, each worker ran a chunk, the survivors
+   launched C1 and C2, a chunk was resent and every process ended; its
+   records/s stand beside phase 17's.
+Phase 4's CLI run, phase 12's chain, phases 15 and 17, phase 19 and phase
+20 (the coordinator's launches and the surviving workers') are the main
+paths, phase 18's entry points the probes' path: their launch counts,
 summed, are the `launches` of the kernels line.  NABWA_FORCE_NATIVE,
 NABWA_HOST_FRAC and NABWA_DEV_SHARE choose routes by hand: the run fails
 at its start if any of them is set.  Every aln CLI run (phases 4, 8,
@@ -795,6 +811,37 @@ sys.exit(rc)
 """
 
 
+# `worker --device cuda` through the CLI in a process of its own for phase
+# 20's networked bam2bam: the chunks it runs of each pass and its launches
+# of C1-C5, printed on its last line of standard output
+WORKER_DRIVER = """\
+import json, sys
+from nabwa_tpu_torch import cli
+from nabwa_tpu_torch.models import bam2bam as b2b
+from nabwa_tpu_torch.ops import dfs_cuda, dp, occ, sa_lookup
+chunks = {1: 0, 2: 0}
+def counted(phase, work):
+    def run(*args, **kw):
+        out = work(*args, **kw)
+        chunks[phase] += 1
+        return out
+    return run
+b2b.pass1_work = counted(1, b2b.pass1_work)
+b2b.pass2_work = counted(2, b2b.pass2_work)
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "pass1_chunks": chunks[1],
+                  "pass2_chunks": chunks[2], "dfs": dfs_cuda.launches,
+                  "cal_width": occ.launches, "sa_lookup": sa_lookup.launches,
+                  "banded_global": dp.launches,
+                  "local_fwd": dp.launches_local}))
+sys.exit(rc)
+"""
+# phase 20's lease: a chunk of a killed worker re-issues after this long
+NET_LEASE_S = 15
+NET_WORKERS = 2
+NET_WORKER_THREADS = 3
+
+
 def make_data(glen, n_reads, n_pairs, n_long):
     """Genome, index, the bench reads, the gapped reads, the read pairs,
     the long reads and bam2bam's second read group (cached by size and
@@ -844,6 +891,196 @@ def make_data(glen, n_reads, n_pairs, n_long):
         log(f"genome + index + reads + pairs + long reads: "
             f"{time.perf_counter() - t0:.1f} s")
     return (fa, *fqs, *pe, lr, *pe2)
+
+
+def index_cli(fa, work):
+    """`python -m nabwa_tpu_torch index` in a process of its own on the
+    cell's FASTA (the builder the in-process build used: SA-IS,
+    NABWA_BWT_INC=0), into `work`; its eight files must equal the
+    in-process build's.  Returns its seconds."""
+    prefix = work / "cli_index"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "nabwa_tpu_torch", "index", "-p", str(prefix),
+         str(fa)], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, NABWA_BWT_INC="0"))
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"the index CLI exited with {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    for ext in (".pac", ".rpac", ".ann", ".amb", ".bwt", ".rbwt", ".sa",
+                ".rsa"):
+        got = pathlib.Path(str(prefix) + ext)
+        if got.read_bytes() != pathlib.Path(str(fa) + ext).read_bytes():
+            fail(f"the index CLI's {ext} differs from the in-process build")
+    log(f"index CLI on the {fa.stat().st_size}-byte FASTA: {seconds:.2f} s "
+        "end to end, its eight files equal to the in-process build's")
+    for made in work.glob("cli_index.*"):
+        made.unlink()
+    return seconds
+
+
+def bam_sections(path):
+    """(header text without the @PG line's CL field, the records' bytes) of
+    a BAM: two runs of one input whose command lines differ."""
+    from nabwa_tpu_torch.io import bam as pbam
+    raw = pbam.bgzf_decompress(path.read_bytes())
+
+    def i32(off):
+        return int.from_bytes(raw[off:off + 4], "little", signed=True)
+    l_text = i32(4)
+    text = raw[8:8 + l_text].decode("latin1")
+    off = 12 + l_text
+    for _ in range(i32(8 + l_text)):
+        off += 8 + i32(off)
+    lines = [ln.split("\tCL:")[0] if ln.startswith("@PG") else ln
+             for ln in text.split("\n")]
+    return "\n".join(lines), raw[off:]
+
+
+def net_bam2bam(fa, in_bam, n_records, want, zero, launched):
+    """Phase 20: the bam2bam CLI as a coordinator with no local worker
+    (`-t 0 -p` a free port, NABWA_LEASE_S=NET_LEASE_S) and NET_WORKERS
+    `worker --device cuda -t NET_WORKER_THREADS` processes (WORKER_DRIVER)
+    on the same card; the first worker the coordinator has taken a result
+    from while it holds another chunk is stopped, and killed if it still
+    holds it once any result it had sent is in.  The BAM must equal `want`
+    (phase 17's, but for the @PG command line), each worker must have run
+    a chunk, the survivors C1 and C2, the resends must be one or more, and
+    every process must end.  Returns the run's figures."""
+    import signal
+    import socket
+    from nabwa_tpu_torch import cli as port_cli
+    from nabwa_tpu_torch.models import bam2bam as b2b
+    from nabwa_tpu_torch.parallel import net
+
+    coords = []
+
+    class Seen(net.Coordinator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            coords.append(self)
+
+    def tally(pid):
+        if not coords:
+            return 0, 0
+        with coords[0].lock:
+            for (_, wpid), t in coords[0].workers.items():
+                if wpid == pid:
+                    return t["accepted"], len(t["held"])
+        return 0, 0
+
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    tmp = pathlib.Path(tempfile.gettempdir())
+    out = tmp / "nabwa_torch_smoke_net.bam"
+    out.unlink(missing_ok=True)
+    result = {}
+
+    def coordinator():
+        try:
+            result["rc"] = port_cli.main(
+                ["bam2bam", "--device", "cuda", "-t", "0", "-p", str(port),
+                 "-g", str(fa), "-f", str(out), str(in_bam)])
+        except (Exception, SystemExit) as e:    # reported by fail() below
+            result["error"] = repr(e)
+
+    real = net.Coordinator
+    net.Coordinator = Seen
+    os.environ["NABWA_LEASE_S"] = str(NET_LEASE_S)
+    procs, logs = [], []
+    killed = None
+    try:
+        zero()
+        t0 = time.perf_counter()
+        th = threading.Thread(target=coordinator, daemon=True)
+        th.start()
+        for i in range(NET_WORKERS):
+            logs.append((tmp / f"nabwa_torch_smoke_w{i}.out",
+                         tmp / f"nabwa_torch_smoke_w{i}.err"))
+            # files, not pipes: a worker whose pipe fills stops mid-chunk
+            with open(logs[-1][0], "w") as o, open(logs[-1][1], "w") as e:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", WORKER_DRIVER, "worker",
+                     "--device", "cuda", "-p", str(port), "-t",
+                     str(NET_WORKER_THREADS), "--idle-timeout", "120"],
+                    cwd=ROOT, stdout=o, stderr=e))
+        while th.is_alive():
+            if time.perf_counter() - t0 > 600:
+                fail("the networked bam2bam did not end within 600 s")
+            time.sleep(0.01)
+            for p in procs:
+                if killed is not None or p.poll() is not None:
+                    continue
+                if all(tally(p.pid)):
+                    p.send_signal(signal.SIGSTOP)
+                    time.sleep(0.5)
+                    if tally(p.pid)[1]:
+                        p.kill()
+                        killed = p
+                    else:
+                        p.send_signal(signal.SIGCONT)
+        seconds = time.perf_counter() - t0
+        coord_counts = launched()
+        ends = [p.wait(timeout=120) for p in procs]
+    finally:
+        net.Coordinator = real
+        os.environ.pop("NABWA_LEASE_S", None)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if result.get("rc") != 0:
+        fail(f"the networked bam2bam coordinator failed: {result}")
+    if killed is None:
+        fail("no worker held a chunk after a result of its own: none killed")
+    workers = []
+    for p, end, (out_log, err_log) in zip(procs, ends, logs):
+        if p is killed:
+            accepted = tally(p.pid)[0]
+            workers.append({"killed": True, "rc": end,
+                            "accepted_results": accepted})
+            if end != -signal.SIGKILL or accepted < 1:
+                fail(f"the killed worker ended with {end} after {accepted} "
+                     "results")
+            continue
+        lines = out_log.read_text().splitlines()
+        if end != 0 or not lines:
+            fail(f"a worker exited with {end}: "
+                 f"{err_log.read_text()[-2000:]}")
+        got = json.loads(lines[-1])
+        got["accepted_results"] = tally(p.pid)[0]
+        workers.append(got)
+        if got["pass1_chunks"] + got["pass2_chunks"] < 1:
+            fail(f"a surviving worker ran no chunk: {got}")
+        for name in ("dfs", "cal_width"):
+            if got[name] <= 0:
+                fail(f"kernel {name} was not launched in the surviving "
+                     f"worker: {got}")
+    resends = (b2b.telemetry["pass1_resends"]
+               + b2b.telemetry["pass2_resends"])
+    if resends < 1:
+        fail(f"no chunk was resent after the kill: {b2b.telemetry}")
+    if bam_sections(out) != bam_sections(want):
+        fail("the networked bam2bam BAM differs from phase 17's")
+    counts = dict(coord_counts)
+    for w in workers:
+        for name in counts:
+            counts[name] += w.get(name, 0)
+    run = {"seconds": seconds, "records_per_sec": n_records / seconds,
+           "lease_s": NET_LEASE_S, "workers": workers,
+           "worker_threads": NET_WORKER_THREADS,
+           "telemetry": dict(b2b.telemetry),
+           "coordinator_launches": coord_counts, "launches": counts}
+    log(f"networked bam2bam (-t 0 -p, {NET_WORKERS} cuda workers, one "
+        f"killed): {seconds:.2f} s end to end, "
+        f"{run['records_per_sec']:.1f} records/s (the kill's {NET_LEASE_S} s "
+        f"lease and the workers' start included); telemetry "
+        f"{b2b.telemetry}; workers {workers}; coordinator launches "
+        f"{coord_counts}")
+    return run
 
 
 def planes_bound(args, out):
@@ -4115,6 +4352,14 @@ def main():
             fail(f"kernel {name} was not launched on the mesh")
     mesh_run["launches"] = mesh_counts
 
+    phase_mark("20")
+    # phase 20: the index CLI, and bam2bam as a coordinator with worker
+    # processes on the card, every launch count at 0
+    index_cli_s = index_cli(fa, tmp)
+    net_run = net_bam2bam(fa, in_bam, n_records, cli_bam, zero, launched)
+    main_counts.append(net_run["launches"])
+    log(f"bam2bam records/s: networked {net_run['records_per_sec']:.1f}, "
+        f"phase 17's one engine {n_records / b2b_cli_s:.1f}")
 
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
     launches.update(probe_counts)
@@ -4318,7 +4563,8 @@ def main():
                for label, r in b2b_runs.items()}
     bam2bam.update(records=n_records, mate_rescued=b2b_rescued,
                    host_drain_share=b2b_host_share,
-                   cli_seconds=b2b_cli_s, cli_launches=b2b_counts)
+                   cli_seconds=b2b_cli_s, cli_launches=b2b_counts,
+                   networked=net_run)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "aln_reads_per_sec": len(reads) / dt,
                       "host_drain_share": host_share,
@@ -4335,6 +4581,7 @@ def main():
                       "gapped_aln_launches": aln_g_counts,
                       "sampe": sampe, "bwasw": bwasw, "bam2bam": bam2bam,
                       "probe_lines": probe_lines,
+                      "index_cli_seconds": index_cli_s,
                       "phase_start_seconds": phase_seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
-"""nabwa_tpu_torch — the `bwa aln`, `samse`, `sampe`, `bwasw` and
-`bam2bam` paths of nabwa_tpu on PyTorch and hand-written CUDA kernels for
-an NVIDIA H100 (sm_90a).
+"""nabwa_tpu_torch — nabwa_tpu (every command but colour space) on PyTorch
+and hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 
 The JAX package `nabwa_tpu` stays the reference: every function here is
 held against its counterpart there, bit for bit.  The port imports nothing
@@ -15,22 +14,25 @@ Layout:
             BwaIndex and DeviceIndex (the FM-index banks as flat int32
             tensors on an explicit torch.device)
   io/       FASTQ and BAM input, the .sai readers and writer, BGZF out
-  refmodel/ the stdaln parameters and path helpers, cal_maxdiff
+  refmodel/ the stdaln parameters, scalar DPs and path helpers,
+            cal_maxdiff
   ops/      occ/cal_width, the gapped DFS, the SA lookup, the banded global
             DP and the local-SW forward lattice: a plain PyTorch version of
             each (CPU tensors, tests) beside its CUDA kernel (CUDA tensors)
   csrc/     the CUDA sources, built with nvcc for sm_90a at first use
   models/   AlnEngine (tiers, host padding, native drain, the hybrid
             host/card split), the samse, sampe, bwasw and bam2bam
-            workflows and their native host steps (post_native)
-  parallel/ the chunk scheduler of bam2bam's local worker threads, the
+            workflows and their native host steps (post_native), stdsw
+  parallel/ the chunk scheduler of bam2bam's worker threads, its remote
+            workers over TCP (net: Coordinator, worker_main), the
             data-parallel mesh (make_mesh, shard_batch, replicate,
             isize_histogram)
   probes/   ports of the Pallas micro-benchmarks under scripts/ (the row
             gather, the async row fetch, the two DFS-iteration mocks),
             each a plain version beside its CUDA kernel, with the
             scripts' entry points
-  cli.py    the `aln`, `samse`, `sampe`, `bwasw` and `bam2bam` subcommands
+  cli.py    the subcommands of nabwa_tpu/cli.py but colour space
+  scripts.py  the xa2multi, qualfa2fq and solid2fastq converters
   entry.py  the single-device step and the data-parallel dry run
 
 This package imports torch and never jax.

@@ -1,5 +1,5 @@
-"""Command line of the port: `aln`, `samse`, `sampe`, `bwasw` and
-`bam2bam` on a torch device.
+"""Command line of the port: every subcommand of `nabwa_tpu` but colour
+space.
 
 Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
             <prefix> <reads.fq|reads.bam> [-f out.sai]
@@ -11,18 +11,34 @@ Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
             -t -w -z -s -N -c -m -H -f] <prefix> <reads.fq>
             (also as `bwtsw2` and `dbwtsw`)
         python -m nabwa_tpu_torch bam2bam [--device cuda|cpu] -g <prefix>
-            [options] [-f out.bam] <in.bam>
+            [options] [-t N] [-p PORT] [-f out.bam] <in.bam>
+        python -m nabwa_tpu_torch worker [--device cuda|cpu] [-h HOST]
+            -p PORT [-t N] [-T MINUTES] [--idle-timeout S]
+        python -m nabwa_tpu_torch index [-p PREFIX] [-a is|div|bwtsw]
+            <in.fasta>
+        python -m nabwa_tpu_torch fa2pac <in.fasta> [<out.prefix>]
+        python -m nabwa_tpu_torch pac_rev <in.pac>
+        python -m nabwa_tpu_torch pac2bwt [-d] <in.pac> <out.bwt>
+            (also `pac2bwtgen <in.pac> <out.bwt>`)
+        python -m nabwa_tpu_torch bwtupdate <the.bwt>
+        python -m nabwa_tpu_torch bwt2sa [-i 32] <in.bwt> <out.sa>
+        python -m nabwa_tpu_torch stdsw [-g -T N -f -r -p] <long.fa>
+            <short.fa>   (also as `sw`)
+        python -m nabwa_tpu_torch xa2multi [in.sam]
+        python -m nabwa_tpu_torch qualfa2fq <in.fa> <in.qual>
+        python -m nabwa_tpu_torch solid2fastq <in.title> <out.prefix>
 
 The options, the read input (FASTQ, or BAM with `aln -b -0 -1 -2`) and
-the `.sai`, SAM and BAM output are those of `nabwa_tpu aln`, `samse`,
-`sampe`, `bwasw` and `bam2bam` (nabwa_tpu/cli.py:222-625); the argument
-parser, option handling, read opener, `-f` recovery, @RG parsing and the
-bam2bam `.sai` sideload are copied from there.  Colour-space
-`samse`/`sampe` and bam2bam's remote workers (`-p`) are not ported and exit
-with an error.  The device is explicit: `--device cuda` (the default)
-needs a CUDA device and exits with an error without one; `--device cpu`
-runs the plain PyTorch versions.  Every other subcommand of `nabwa_tpu` is
-not ported yet and exits non-zero.
+every output are those of `nabwa_tpu`'s commands (nabwa_tpu/cli.py);
+the argument parsers, option handling, read opener, `-f` recovery, @RG
+parsing and the bam2bam `.sai` sideload are copied from there.
+`aln`, `samse`, `sampe`, `bwasw`, `bam2bam` and `worker` run kernels: the
+device is explicit, `--device cuda` (the default) needs a CUDA device and
+exits with an error without one; `--device cpu` runs the plain PyTorch
+versions.  `index`, the index tools, `stdsw` and the converters run on the
+host only, as in `nabwa_tpu`, and take no `--device`.  Colour space is not
+ported: `index -c`, `pac2cspac` and colour-space `samse`/`sampe` exit
+non-zero.
 """
 
 import argparse
@@ -43,13 +59,6 @@ from .io.sai import pack_aln_block, read_sai_columnar, read_sai_tuples
 from .options import GAP_OPT_SIZE, GapOpt, PeOpt
 from .utils.files import final_rename
 from .utils.rand48 import Rand48
-
-# the subcommands of nabwa_tpu/cli.py:760-782
-COMMANDS = ("index", "aln", "samse", "sampe", "bwasw", "bam2bam", "worker",
-            "xa2multi", "qualfa2fq", "solid2fastq", "fa2pac", "pac_rev",
-            "pac2bwt", "pac2cspac", "pac2bwtgen", "bwtupdate", "bwt2sa", "sw",
-            "stdsw", "bwtsw2", "dbwtsw")
-
 
 def _split_device(argv, cmd):
     """Pull `--device X` / `--device=X` out of argv."""
@@ -474,8 +483,8 @@ def cmd_bwasw(argv):
 def cmd_bam2bam(argv):
     """bwa_bam_to_bam's option surface (bam2bam.c:1942-2077, getopt string
     g:n:o:e:i:d:l:k:LR:m:t:NM:O:E:q:f:C:D:a:sc:h:H:Ap:0:1:2: plus the
-    long-only options), as nabwa_tpu/cli.py:462-625 parses it.  `-p`
-    (remote workers) is not ported and exits with an error."""
+    long-only options), as nabwa_tpu/cli.py:462-625 parses it.  `-p PORT`
+    serves chunk leases to `worker` processes on that port."""
     device, argv = _split_device(argv, "bam2bam")
     dev = _device(device, "bam2bam")
     if dev is None:
@@ -546,10 +555,6 @@ def cmd_bam2bam(argv):
     ap.add_argument("--temp-dir", dest="temp_dir", default="/var/tmp")
     ap.add_argument("in_bam")
     args = ap.parse_args(argv)
-    if args.port is not None:
-        print("[bam2bam] error: remote workers (-p) are not yet ported to "
-              "nabwa_tpu_torch", file=sys.stderr)
-        return 1
     from .models.aln import AlnEngine
     from .models.bam2bam import bam2bam
     from .refmodel.aln_scalar import cal_maxdiff
@@ -634,36 +639,217 @@ def cmd_bam2bam(argv):
             only_aligned=args.only_aligned, broken_input=args.broken_input,
             skip_duplicates=args.skip_duplicates,
             drop_aligned=args.drop_aligned, debug_bam=args.debug_bam,
-            n_workers=args.threads, sai_streams=sai_streams,
-            tmp_dir=args.temp_dir)
+            n_workers=args.threads, port=args.port, prefix=args.prefix,
+            sai_streams=sai_streams, tmp_dir=args.temp_dir)
     final_rename("bam2bam", args.out)
     return 0
 
 
-_PORTED = {"aln": cmd_aln, "samse": cmd_samse, "sampe": cmd_sampe,
-           "bwasw": cmd_bwasw, "bwtsw2": cmd_bwasw, "dbwtsw": cmd_bwasw,
-           "bam2bam": cmd_bam2bam}
+def cmd_worker(argv):
+    """bwa_worker (bam2bam.c:2213-2308), as nabwa_tpu/cli.py:628-645 parses
+    it: connect to a `bam2bam -p` coordinator, fetch the config and the
+    index prefix, drain chunk leases on this process's own engine until
+    the idle or lifetime timeout.  A CUDA worker with no card exits
+    non-zero before it connects."""
+    device, argv = _split_device(argv, "worker")
+    dev = _device(device, "worker")
+    if dev is None:
+        return 2
+    ap = argparse.ArgumentParser(prog="worker", add_help=False)
+    ap.add_argument("-h", "--host", dest="host", default="localhost")
+    ap.add_argument("-p", "--port", dest="port", type=int, required=True)
+    ap.add_argument("-t", "--num-threads", dest="threads", type=int,
+                    default=1)
+    ap.add_argument("-T", "--run-time", dest="minutes", type=float,
+                    default=90.0)
+    ap.add_argument("--idle-timeout", dest="idle", type=float, default=90.0)
+    args = ap.parse_args(argv)
+    from .parallel.net import ConfigRefused, worker_main
+
+    try:
+        worker_main(args.host, args.port, n_threads=args.threads,
+                    max_run_mins=args.minutes, idle_timeout=args.idle,
+                    device=dev)
+    except ConfigRefused as e:
+        print(f"[worker] error: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+# --- the index and its tools (host only) ---
+
+def _colour_not_ported(cmd):
+    print(f"[{cmd}] error: colour space is not yet ported to "
+          "nabwa_tpu_torch", file=sys.stderr)
+    return 1
+
+
+def cmd_index(argv):
+    """bwa index (bwtindex.c:42-192): the eight index files of a FASTA.
+    `-a` is accepted and ignored, as in nabwa_tpu: the construction does
+    not change the files."""
+    ap = argparse.ArgumentParser(prog="index")
+    ap.add_argument("-p", dest="prefix", default=None)
+    ap.add_argument("-a", dest="algo", default="is",
+                    choices=["is", "div", "bwtsw"])
+    ap.add_argument("-c", dest="color", action="store_true")
+    ap.add_argument("fasta")
+    args = ap.parse_args(argv)
+    if args.color:
+        return _colour_not_ported("index")
+    from .index.build import build_index
+    build_index(args.fasta, args.prefix)
+    return 0
+
+
+def cmd_pac2cspac(argv):
+    return _colour_not_ported("pac2cspac")
+
+
+def cmd_fa2pac(argv):
+    from .index.pack import fasta_to_pac
+    fasta_to_pac(argv[0], argv[1] if len(argv) > 1 else argv[0])
+    return 0
+
+
+def cmd_pac_rev(argv):
+    # argv: <in_prefix_with_pac> (writes .rpac beside it)
+    from .index.pack import reverse_pac
+    reverse_pac(argv[0].removesuffix(".pac"))
+    return 0
+
+
+def cmd_pac2bwt(argv):
+    """bwa pac2bwt [-d] <in.pac> <out.bwt> (bwtmisc.c:103-123): the plain
+    (pre-bwtupdate) BWT of the packed sequence.  -d (divsufsort) is
+    accepted and ignored: the SA algorithm does not change the output."""
+    ap = argparse.ArgumentParser(prog="pac2bwt")
+    ap.add_argument("-d", action="store_true")
+    ap.add_argument("in_pac")
+    ap.add_argument("out_bwt")
+    args = ap.parse_args(argv)
+    from .index import formats
+    from .index import sa as samod
+    from .index.pack import read_pac
+    codes = read_pac(args.in_pac)
+    bwt, primary, l2, _ = samod.bwt_from_codes(codes)
+    formats.write_plain_bwt(args.out_bwt, primary, l2,
+                            samod.pack_bwt_words(bwt))
+    return 0
+
+
+def cmd_pac2bwtgen(argv):
+    """bwa pac2bwtgen <in.pac> <out.bwt> (bwt_gen/bwt_gen.c:1558-1575): the
+    large-genome BWT builder, the same output as pac2bwt."""
+    ap = argparse.ArgumentParser(prog="pac2bwtgen")
+    ap.add_argument("in_pac")
+    ap.add_argument("out_bwt")
+    args = ap.parse_args(argv)
+    return cmd_pac2bwt([args.in_pac, args.out_bwt])
+
+
+def cmd_bwtupdate(argv):
+    """bwa bwtupdate <the.bwt> (bwtmisc.c:154-167): rewrite a plain BWT
+    file in place with the interleaved Occ-checkpoint layout."""
+    if not argv:
+        print("Usage: bwtupdate <the.bwt>", file=sys.stderr)
+        return 1
+    from .index import formats
+    from .index import sa as samod
+    primary, l2, words, seq_len = formats.read_plain_bwt(argv[0])
+    codes = samod.unpack_bwt_words(words, seq_len)
+    inter = samod.interleave_occ(words, codes, seq_len)
+    formats.write_bwt(argv[0], primary, l2, inter)
+    return 0
+
+
+def cmd_bwt2sa(argv):
+    """bwa bwt2sa [-i 32] <in.bwt> <out.sa> (bwtmisc.c:256-275)."""
+    ap = argparse.ArgumentParser(prog="bwt2sa")
+    ap.add_argument("-i", dest="intv", type=int, default=32)
+    ap.add_argument("in_bwt")
+    ap.add_argument("out_sa")
+    args = ap.parse_args(argv)
+    from .index import formats
+    from .index import sa as samod
+    primary, l2, inter, seq_len = formats.read_bwt(args.in_bwt)
+    sa = samod.cal_sa_from_bwt(inter, primary, l2, seq_len, args.intv)
+    formats.write_sa(args.out_sa, primary, l2, sa, seq_len, args.intv)
+    return 0
+
+
+# --- the small host tools ---
+
+def cmd_stdsw(argv):
+    """bwa stdsw / sw (simple_dp.c:129-162)."""
+    ap = argparse.ArgumentParser(prog="stdsw")
+    ap.add_argument("-g", dest="is_global", action="store_true")
+    ap.add_argument("-T", dest="thres", type=int, default=1)
+    ap.add_argument("-f", dest="fwd", action="store_true")
+    ap.add_argument("-r", dest="rev", action="store_true")
+    ap.add_argument("-p", dest="aa", action="store_true")
+    ap.add_argument("long_fa")
+    ap.add_argument("short_fa")
+    args = ap.parse_args(argv)
+    strand = (1 if args.fwd else 0) | (2 if args.rev else 0)
+    if strand == 0:
+        strand = 3
+    from .models.stdsw import run_stdsw
+    return run_stdsw(args.long_fa, args.short_fa, args.is_global,
+                     args.thres, strand, args.aa)
+
+
+def cmd_xa2multi(argv):
+    from .scripts import xa2multi
+    src = open(argv[0]) if argv else sys.stdin
+    sys.stdout.write(xa2multi(src))
+    return 0
+
+
+def cmd_qualfa2fq(argv):
+    from .scripts import qualfa2fq
+    qualfa2fq(argv[0], argv[1])
+    return 0
+
+
+def cmd_solid2fastq(argv):
+    from .scripts import solid2fastq
+    solid2fastq(argv[0], argv[1])
+    return 0
+
+
+# the subcommands of nabwa_tpu/cli.py:760-782, in its order
+COMMANDS = {
+    "index": cmd_index,
+    "aln": cmd_aln,
+    "samse": cmd_samse,
+    "sampe": cmd_sampe,
+    "bwasw": cmd_bwasw,
+    "bam2bam": cmd_bam2bam,
+    "worker": cmd_worker,
+    "xa2multi": cmd_xa2multi,
+    "qualfa2fq": cmd_qualfa2fq,
+    "solid2fastq": cmd_solid2fastq,
+    "fa2pac": cmd_fa2pac,
+    "pac_rev": cmd_pac_rev,
+    "pac2bwt": cmd_pac2bwt,
+    "pac2cspac": cmd_pac2cspac,
+    "pac2bwtgen": cmd_pac2bwtgen,
+    "bwtupdate": cmd_bwtupdate,
+    "bwt2sa": cmd_bwt2sa,
+    "sw": cmd_stdsw,
+    "stdsw": cmd_stdsw,
+    "bwtsw2": cmd_bwasw,
+    "dbwtsw": cmd_bwasw,
+}
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] in _PORTED:
-        return _PORTED[argv[0]](argv[1:])
     if argv and argv[0] in COMMANDS:
-        print(f"[{argv[0]}] not yet ported to nabwa_tpu_torch",
-              file=sys.stderr)
-        return 1
-    print("Program: nabwa_tpu_torch (the aln, samse, sampe, bwasw and "
-          "bam2bam paths on PyTorch + CUDA)\n"
-          "Usage:   python -m nabwa_tpu_torch aln [--device cuda|cpu] "
-          "[options] <prefix> <reads>\n"
-          "         python -m nabwa_tpu_torch samse [--device cuda|cpu] "
-          "[options] <prefix> <in.sai> <reads>\n"
-          "         python -m nabwa_tpu_torch sampe [--device cuda|cpu] "
-          "[options] <prefix> <1.sai> <2.sai> <1.fq> <2.fq>\n"
-          "         python -m nabwa_tpu_torch bwasw [--device cuda|cpu] "
-          "[options] <prefix> <reads>\n"
-          "         python -m nabwa_tpu_torch bam2bam [--device cuda|cpu] "
-          "-g <prefix> [options] <in.bam>",
-          file=sys.stderr)
+        return COMMANDS[argv[0]](argv[1:])
+    print("Program: nabwa_tpu_torch (nabwa_tpu on PyTorch + CUDA; colour "
+          "space, `index -c` and `pac2cspac`, is not yet ported)\n"
+          "Usage:   python -m nabwa_tpu_torch <command> [options]\n"
+          "Command: " + " ".join(COMMANDS), file=sys.stderr)
     return 1

@@ -1,7 +1,6 @@
 """.bwt / .sa binary file formats, bit-compatible with the reference
 (bwt_dump_bwt / bwt_dump_sa / restore, bwtio.c:17-37,147-217): the port's
-copy of nabwa_tpu/index/formats.py, without the plain (pre-bwtupdate)
-.bwt reader and writer."""
+copy of nabwa_tpu/index/formats.py."""
 
 import numpy as np
 
@@ -31,6 +30,30 @@ def read_bwt(path):
     if len(bwt) != expect:
         raise ValueError(f"{path}: {len(bwt)} words, expected {expect}")
     return primary, l2, bwt, seq_len
+
+
+def write_plain_bwt(path, primary, l2, words):
+    """Pre-bwtupdate .bwt: primary, L2[1..4], (seq_len+15)>>4 plain 2-bit
+    words, what `pac2bwt` writes before `bwtupdate` interleaves the Occ
+    checkpoints (bwtmisc.c:119, bwt_dump_bwt bwtio.c:17-25)."""
+    with open(path, "wb") as f:
+        np.asarray([primary], dtype=np.uint32).tofile(f)
+        np.asarray(l2[1:5], dtype=np.uint32).tofile(f)
+        np.asarray(words, dtype=np.uint32).tofile(f)
+
+
+def read_plain_bwt(path):
+    """Returns (primary, l2[5], plain_words, seq_len)."""
+    raw = np.fromfile(path, dtype=np.uint32)
+    primary = int(raw[0])
+    l2 = np.zeros(5, dtype=np.uint32)
+    l2[1:] = raw[1:5]
+    words = raw[5:].copy()
+    seq_len = int(l2[4])
+    if len(words) != (seq_len + 15) >> 4:
+        raise ValueError(f"{path}: {len(words)} words, expected "
+                         f"{(seq_len + 15) >> 4}")
+    return primary, l2, words, seq_len
 
 
 def write_sa(path, primary, l2, sa, seq_len, sa_intv=SA_INTERVAL):

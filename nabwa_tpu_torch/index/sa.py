@@ -1,6 +1,7 @@
 """Suffix array / BWT construction (host, offline): the port's copy of the
-parts of nabwa_tpu/index/sa.py that `index.build` and bwasw's per-read
-index (`models/bwasw.py::Bwtl`) use.
+parts of nabwa_tpu/index/sa.py that `index.build`, the index tools of the
+CLI (`pac2bwt`, `bwtupdate`, `bwt2sa`) and bwasw's per-read index
+(`models/bwasw.py::Bwtl`) use.
 
 Output parity with the reference's is_bwt (is.c:187-218) +
 bwt_bwtupdate_core (bwtmisc.c:125-152) + bwt_cal_sa (bwt.c:48-70): the BWT
@@ -20,6 +21,24 @@ def suffix_array(codes):
     """Suffix array of codes (values 0..3), the shorter suffix smaller on
     prefix ties (nabwa_tpu/index/sa.py:15): the native SA-IS."""
     return native.suffix_array_native(codes)
+
+
+def bwt_from_codes(codes):
+    """(BWT string without `$`, primary, L2, SA_full): is_bwt semantics
+    (is.c:204-218, nabwa_tpu/index/sa.py:56).  SA_full = [n] ++ SA(T);
+    BWT row i is T[SA_full[i]-1]; the row whose suffix starts at 0 (the
+    `$` row) is `primary` and is removed from the string."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    n = len(codes)
+    sa = native.suffix_array_native(codes)
+    primary = int(np.flatnonzero(sa == 0)[0]) + 1  # +1: sentinel row
+    sa_full = np.concatenate(([n], sa))
+    rows = np.delete(sa_full, primary)  # drop the '$' row
+    bwt = codes[rows - 1]
+    counts = np.bincount(codes, minlength=4)[:4]
+    l2 = np.zeros(5, dtype=np.uint32)
+    l2[1:] = np.cumsum(counts)
+    return bwt.astype(np.uint8), primary, l2, sa_full
 
 
 def bwt_and_sample_from_codes(codes, sa_intv=SA_INTERVAL):
@@ -76,6 +95,14 @@ def pack_bwt_words(bwt):
         q = seg.astype(np.uint32).reshape(-1, 16)
         out[w0:w1] = (q << shifts[None, :]).sum(axis=1, dtype=np.uint32)
     return out
+
+
+def unpack_bwt_words(words, seq_len):
+    """Inverse of `pack_bwt_words`: uint32 words -> base codes."""
+    w = np.asarray(words, dtype=np.uint32)
+    shifts = np.arange(15, -1, -1, dtype=np.uint32) * 2
+    codes = ((w[:, None] >> shifts[None, :]) & 3).reshape(-1)
+    return codes[:seq_len].astype(np.uint8)
 
 
 def cal_sa_from_bwt(bwt_interleaved, primary, l2, seq_len,

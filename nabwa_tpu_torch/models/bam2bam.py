@@ -3,8 +3,9 @@ nabwa_tpu/models/bam2bam.py `bam2bam` (bwa_bam2bam_core,
 bam2bam.c:1728-1940), unaligned BAM in, aligned BAM out.
 
 Two passes over chunks of logical records (a pair or a singleton), each
-chunk a job for the local worker threads of `parallel.scheduler`, results
-released to an ordered writer:
+chunk a job for the local worker threads of `parallel.scheduler` or, with
+`port`, for remote `worker` processes (`parallel.net`), results released
+to an ordered writer:
   pass 1   `pass1_work`: the chunk's reads through `engine.run_chunk` with
            per-read semantics (each read's own max_diff and clamped
            max_gapo; kernels C2 and C1 on a CUDA engine)
@@ -31,8 +32,18 @@ Copied from nabwa_tpu/models/bam2bam.py with their semantics: `Pair`,
 `_pass2_work_columnar` (here `pass2_work`, its steps shared with sampe).
 Not ported: the per-object pass 2 `_pass2_work_obj` (the JAX package's
 oracle for the columnar one, and its fallback when the native library is
-missing, which the port never allows) and the remote workers (`port`,
-`prefix`).
+missing, which the port never allows).
+
+`port` serves the chunk leases to remote `worker` processes on that TCP
+port, as nabwa_tpu/models/bam2bam.py:1108-1114 does (the ZeroMQ work
+stream's analog, bam2bam.c:1808-1812); `prefix` is the index path the
+config handshake ships.  Local threads and remote workers drain one
+scheduler; `n_workers=0` with a port leaves all chunk compute to the
+workers (`bam2bam -t 0 -p PORT`).  The writers, and with them the drand48
+sampling and `cal_pac_pos` (C3) between the passes, stay at the
+coordinator on its own engine, in record order, so the output does not
+depend on which worker ran which chunk.  The lease is `NABWA_LEASE_S`
+seconds (default 90, the reference's resend sweep, bam2bam.c:8).
 
 `host_reference=True` runs the DFS on the shared host engine, the SA walk
 with `samse.sa_rows_both_native` and the DPs through the native solvers: the
@@ -40,7 +51,9 @@ reference the card's output is held against.  Only that argument chooses
 it; nothing falls back to it.
 
 `seconds` holds the StageTimers totals of the last call ("read + pass 1
-align", "pass 2 finish", "write output"); `pass2_seconds` sums pass 2's
+align", "pass 2 finish", "write output"), `telemetry` its scheduler
+counters (pass1_resends, pass1_dups, pass2_resends, pass2_dups);
+`pass2_seconds` sums pass 2's
 host seconds per step over its chunks and workers (pairing, multi,
 rescue_drive, the rescue DP's rescue_fwd/rescue_rev/rescue_path, refine
 and its dp/dp_backtrace, md, splice).
@@ -74,6 +87,7 @@ EOF_KIND, SINGLETON, PROPER_PAIR = 0, 1, 2
 PRISTINE, ALIGNED, POSITIONED, FINISHED = 0, 1, 2, 3
 
 seconds = {}
+telemetry = {}
 PASS2_PARTS = ("pairing", "multi", "rescue_drive", "rescue_fwd",
                "rescue_rev", "rescue_path", "refine", "dp", "dp_backtrace",
                "md", "splice")
@@ -576,10 +590,11 @@ def bam2bam(engine, in_bam, out_bam, gopt, popt, rng, argv=None,
             skip_duplicates=False, drop_aligned=False, debug_bam=False,
             n_workers=1, chunk_size=4096, worker_wrapper=None,
             rng_mode="drand48", sai_streams=None, tmp_dir=None,
-            host_reference=False):
+            host_reference=False, port=None, prefix=None):
     """Two-pass bam2bam (bwa_bam2bam_core, bam2bam.c:1728-1940), driven
     through the chunk-lease scheduler over `n_workers` local threads that
-    share `engine`.  Returns the rescue counters {"n_tot", "n_mapped"}.
+    share `engine` and, with `port`, remote workers (see the module
+    docstring).  Returns the rescue counters {"n_tot", "n_mapped"}.
 
     The drand48 hit sampling runs in the ordered pass-1 writer in strict
     record order (rng_mode="drand48", the sequential reference's call
@@ -599,11 +614,23 @@ def bam2bam(engine, in_bam, out_bam, gopt, popt, rng, argv=None,
     bns = engine.index.bns
     reader = bamio.BamReader(in_bam)
     timers = StageTimers("bam2bam")
-    telemetry = Counters()
+    tally = Counters()
     sa_rows_both = se.sa_rows_both_fn(engine, host_reference)
     rev_len = engine.index.rev.seq_len
 
     pairs = []
+
+    coordinator = None
+    if port is not None:
+        from ..parallel.net import Coordinator
+        coordinator = Coordinator(port, {
+            "gap_opt": gopt.pack(), "pe_opt": popt.pack(),
+            "prefix": prefix or "",
+        })
+    # the lease: long enough that a legitimately slow chunk is never
+    # re-issued to a second worker (the reference's 90 s resend sweep,
+    # bam2bam.c:8,1577-1601); the worker-kill tests shorten it
+    lease_s = float(os.environ.get("NABWA_LEASE_S", "90"))
 
     # ---- PASS 1: align, chunk-distributed; the input BAM is parsed by a
     # producer thread and chunks stream into the scheduler as they fill
@@ -682,11 +709,13 @@ def bam2bam(engine, in_bam, out_bam, gopt, popt, rng, argv=None,
                                     n_workers=n_workers,
                                     writer=apply_align,
                                     worker_wrapper=worker_wrapper,
-                                    producer=produce_chunks)
+                                    producer=produce_chunks,
+                                    coordinator=coordinator, phase=1,
+                                    lease_s=lease_s)
     idx_chunks = [list(range(i, min(i + chunk_size, len(pairs))))
                   for i in range(0, len(pairs), chunk_size)]
-    telemetry.bump("pass1_resends", sched1.total_resends)
-    telemetry.bump("pass1_dups", sched1.total_dups)
+    tally.bump("pass1_resends", sched1.total_resends)
+    tally.bump("pass1_dups", sched1.total_dups)
 
     # ---- barrier: infer_all_isizes (bam2bam.c:1856-1870); the per-RG
     # histograms were accumulated in record order by the pass-1 writer --
@@ -745,9 +774,11 @@ def bam2bam(engine, in_bam, out_bam, gopt, popt, rng, argv=None,
         _, sched2 = run_distributed(chunks2, work_finish,
                                     n_workers=n_workers,
                                     writer=apply_finish,
-                                    worker_wrapper=worker_wrapper)
-    telemetry.bump("pass2_resends", sched2.total_resends)
-    telemetry.bump("pass2_dups", sched2.total_dups)
+                                    worker_wrapper=worker_wrapper,
+                                    coordinator=coordinator, phase=2,
+                                    ctx=iinfos, lease_s=lease_s)
+    tally.bump("pass2_resends", sched2.total_resends)
+    tally.bump("pass2_dups", sched2.total_dups)
 
     # mate-rescue tallies in the reference's format (bam2bam.c:1208-1214)
     print("[bwa_paired_sw] %d out of %d Q%d singletons are mated."
@@ -761,11 +792,15 @@ def bam2bam(engine, in_bam, out_bam, gopt, popt, rng, argv=None,
     with timers("write output"):
         bam_w.close()
         out_f.close()
+    if coordinator is not None:
+        coordinator.close()
     ema.final(len(pairs))
-    telemetry.report("bam2bam")
+    tally.report("bam2bam")
     timers.report_all()
     seconds.clear()
     seconds.update(timers.totals)
+    telemetry.clear()
+    telemetry.update(tally)
     return counters
 
 

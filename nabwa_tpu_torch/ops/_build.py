@@ -6,7 +6,11 @@ one shared library with a plain C interface,
 `nabwa_tpu_torch/build/libnabwa_torch_kernels.so`, loaded with ctypes.
 The library is rebuilt when the hash of the sources stored beside it
 differs from the checkout's.  No PyTorch header is compiled, so a build
-takes seconds.
+takes seconds.  The check, the build and the writes of the library, its
+hash and its ptxas log run under an `fcntl.flock` on a file in
+`BUILD_DIR`, as the host library's loader does (`index/native.py`): of
+several processes that start cold together (bam2bam's remote workers on
+one card), one builds and the others wait and load its library.
 
 Every C entry point takes device pointers and the CUDA stream as
 `c_void_p`, launches on that stream without synchronising, and returns
@@ -14,6 +18,7 @@ Every C entry point takes device pointers and the CUDA stream as
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -30,6 +35,7 @@ BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libnabwa_torch_kernels.so"
 _HASH_PATH = BUILD_DIR / "libnabwa_torch_kernels.srchash"
 _LOG_PATH = BUILD_DIR / "libnabwa_torch_kernels.ptxas.txt"
+_LOCK_NAME = ".libnabwa_torch_kernels.lock"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -200,12 +206,15 @@ def lib():
     with _lock:
         if _lib is None:
             h = source_hash()
-            if (not LIB_PATH.exists() or not _HASH_PATH.exists()
-                    or _HASH_PATH.read_text() != h):
-                _build(h)
-            elif _LOG_PATH.exists():
-                build_log = _LOG_PATH.read_text()
-            so = ctypes.CDLL(str(LIB_PATH))
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / _LOCK_NAME, "w") as lk:
+                fcntl.flock(lk, fcntl.LOCK_EX)
+                if (not LIB_PATH.exists() or not _HASH_PATH.exists()
+                        or _HASH_PATH.read_text() != h):
+                    _build(h)
+                elif _LOG_PATH.exists():
+                    build_log = _LOG_PATH.read_text()
+                so = ctypes.CDLL(str(LIB_PATH))
             for name, args in _SIGNATURES.items():
                 fn = getattr(so, name)
                 fn.argtypes = args

@@ -1,9 +1,9 @@
 """Elastic work distribution: chunk leases with at-least-once redelivery.
-The port's copy of nabwa_tpu/parallel/scheduler.py, local worker threads
-only: the remote workers of `parallel/net.py` (the `worker` command and
-`bam2bam -p`) are not ported, so `run_distributed` has no coordinator, and
-the knobs no local caller sets (the in-flight window, the attempt cap and
-the lease as arguments) are fixed: `LEASE_S`, `MAX_ATTEMPTS`.
+The port's copy of nabwa_tpu/parallel/scheduler.py: local worker threads
+and, through a `parallel.net.Coordinator`, remote `worker` processes
+(`bam2bam -p`) drain one scheduler.  The lease is an argument
+(`LEASE_S` by default; bam2bam reads `NABWA_LEASE_S`); the knobs no caller
+sets (the in-flight window, the attempt cap) are fixed: `MAX_ATTEMPTS`.
 
 The replacement for the reference's ZeroMQ I/O multiplexor
 (run_io_multiplexor, bam2bam.c:1462-1715).  The reference keeps a 512k-record
@@ -12,10 +12,12 @@ next_free, sends fresh work in order, re-sends unacknowledged records
 round-robin when idle, drops duplicate/stale results by recno, and restores
 input order for the writer.  Here the unit is a CHUNK of records (a device
 batch) instead of a single read, and workers are threads sharing one
-engine; the semantics carried over 1:1:
+engine or worker processes with engines of their own; the semantics
+carried over 1:1:
 
 - at-least-once: an expired lease re-issues the chunk to the next idle
-  worker (a failed chunk job and a straggler are both this one case);
+  worker (a failed chunk job, a dead worker process and a straggler are
+  all this one case);
 - idempotent dedup: the first completed copy of a chunk wins, later
   duplicates are counted and dropped (bam2bam.c:1620-1647);
 - ordered output: results release to the writer strictly in chunk order
@@ -40,13 +42,15 @@ MAX_ATTEMPTS = 16
 class ChunkScheduler:
     """Lease-tracked scheduler over a fixed sequence of chunk ids."""
 
-    def __init__(self, n_chunks):
+    def __init__(self, n_chunks, lease_s=LEASE_S):
         """n_chunks=None starts in STREAMING mode: chunks appear via
         append() while workers run (the reference's mux drains records
         as the reader produces them, bam2bam.c:1462-1530) and
-        close_input() marks the end of input."""
+        close_input() marks the end of input.  lease_s: seconds a worker
+        holds a chunk before it re-issues."""
         self.input_open = n_chunks is None
         self.n_chunks = 0 if n_chunks is None else n_chunks
+        self.lease_s = lease_s
         self.poisoned = None         # (chunk id, attempts) once a chunk
                                      # exhausts MAX_ATTEMPTS
         self.lock = threading.Lock()
@@ -67,7 +71,7 @@ class ChunkScheduler:
             if self.next_fresh < self.n_chunks:
                 cid = self.next_fresh
                 self.next_fresh += 1
-                self.leases[cid] = (now + LEASE_S, 1)
+                self.leases[cid] = (now + self.lease_s, 1)
                 return cid
             # re-issue expired leases, lowest chunk id first
             expired = [cid for cid, (dl, _) in self.leases.items()
@@ -75,7 +79,7 @@ class ChunkScheduler:
             if expired:
                 cid = min(expired)
                 dl, cnt = self.leases[cid]
-                self.leases[cid] = (now + LEASE_S, cnt + 1)
+                self.leases[cid] = (now + self.lease_s, cnt + 1)
                 self.total_resends += 1
                 return cid
             return None
@@ -133,22 +137,29 @@ class ChunkScheduler:
 
 
 def run_distributed(chunks, work_fn, n_workers, writer=None,
-                    worker_wrapper=None, producer=None):
+                    worker_wrapper=None, producer=None, coordinator=None,
+                    phase=0, ctx=None, lease_s=LEASE_S):
     """Drive chunks through worker threads with redelivery; returns
     (ordered results, the scheduler).
 
     work_fn(chunk_id, payload) -> result.  worker_wrapper lets tests inject
     failures/delays around work_fn per worker.
 
+    coordinator: optional parallel.net.Coordinator; remote worker
+    processes then drain the same scheduler over TCP (their results are
+    deduped and released through the same ordered writer); phase/ctx tag
+    and accompany the served chunks.  n_workers=0 is allowed only with a
+    coordinator: all compute is remote.
+
     producer: optional callable(append) run on its own thread; it
     appends payloads to `chunks` via append(payload) while the workers
     drain them (input overlapped with compute).  chunks then starts as
     an empty list owned by this call.
     """
-    if n_workers < 1:
-        raise ValueError("run_distributed needs at least one local worker "
-                         "(remote workers are not ported)")
-    sched = ChunkScheduler(None if producer else len(chunks))
+    if n_workers < 1 and coordinator is None:
+        raise ValueError("run_distributed needs a local worker or a "
+                         "coordinator")
+    sched = ChunkScheduler(None if producer else len(chunks), lease_s)
     results = []
     # Writer calls must be serialized AND ordered: release_ready() pops in
     # order under the scheduler lock, but without this lock worker A could
@@ -195,6 +206,14 @@ def run_distributed(chunks, work_fn, n_workers, writer=None,
                 sched.complete(cid, res)
             drain_to_writer()
 
+    if coordinator is not None:
+        def accept_remote(cid, data):
+            accepted = sched.complete(cid, data)
+            if accepted:
+                drain_to_writer()
+            return accepted
+
+        coordinator.begin_pass(phase, sched, chunks, accept_remote, ctx)
     prod_err = []
     prod_thread = None
     if producer is not None:
@@ -210,16 +229,23 @@ def run_distributed(chunks, work_fn, n_workers, writer=None,
                 sched.close_input()
         prod_thread = threading.Thread(target=run_producer)
         prod_thread.start()
-    threads = [threading.Thread(target=worker, args=(w,))
-               for w in range(n_workers)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if prod_thread is not None:
-        prod_thread.join()
-    if prod_err:
-        raise prod_err[0]
+    try:
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(n_workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if prod_thread is not None:
+            prod_thread.join()
+        if prod_err:
+            raise prod_err[0]
+        while (coordinator is not None and not sched.finished
+               and sched.poisoned is None):
+            time.sleep(0.02)
+    finally:
+        if coordinator is not None:
+            coordinator.end_pass()
     if sched.poisoned is not None:
         cid, cnt = sched.poisoned
         raise RuntimeError(

@@ -4,7 +4,8 @@ nabwa_tpu_torch aln --device cpu` must write a `.sai` byte-identical to
 
 96 reads on a ~30 kbp genome with substitutions and indels (batches of
 ~80+ reads are where scatter and ordering bugs show).  The `.sai` bytes
-are the whole contract: exact equality.
+are the whole contract: exact equality.  `-f` onto a `.sai` cut inside a
+record resumes after its last whole record, as `nabwa_tpu aln` does.
 """
 
 import os
@@ -51,6 +52,32 @@ def test_aln_cli_matches_jax(data):
     assert len(got) == len(want) and got == want
     _, per_read = sai.read_sai(str(out))
     assert len(per_read) == 96 and sum(1 for a in per_read if len(a)) > 80
+
+
+@pytest.mark.parametrize("keep", [0, 40])
+def test_aln_resumes_partial_sai(data, tmp_path, keep, monkeypatch):
+    """`aln -f` onto a `.sai` cut inside a record after `keep` whole ones:
+    the port keeps the header and those records, aligns the rest, and
+    writes `nabwa_tpu aln`'s file, as `nabwa_tpu aln` resuming the same
+    cut file does (both on the bit-exact host engine, NABWA_FORCE_NATIVE,
+    for speed: the case tests the recovery)."""
+    import struct
+
+    from nabwa_tpu_torch.options import GAP_OPT_SIZE
+    d, want = data
+    monkeypatch.setenv("NABWA_FORCE_NATIVE", "1")
+    off = GAP_OPT_SIZE
+    for _ in range(keep):
+        (n,) = struct.unpack_from("<i", want, off)
+        off += 4 + 16 * n
+    cut = want[:off + 7]                 # a count and part of its body
+    for name, main in (("port", port_cli.main), ("jax", ref_cli.main)):
+        out = tmp_path / f"{name}.sai"
+        out.write_bytes(cut)
+        argv = ["aln"] + (["--device", "cpu"] if name == "port" else [])
+        assert main(argv + [str(d / "g.fa"), str(d / "r.fq"), "-f",
+                            str(out)]) == 0
+        assert out.read_bytes() == want, name
 
 
 def test_aln_tiers_and_host_drain_match_jax(data):
@@ -118,11 +145,11 @@ def test_aln_cuda_device_required(data, monkeypatch):
     assert rc != 0 and not out.exists()
 
 
-@pytest.mark.parametrize("cmd", ["samse", "sampe", "index", "bam2bam"])
+@pytest.mark.parametrize("cmd", ["samse", "sampe", "pac2cspac", "bam2bam"])
 def test_other_commands_not_ported(cmd):
-    """Commands outside the port exit non-zero; `samse` and `sampe`,
-    ported since, exit non-zero on this malformed call (no device, or a
-    usage error)."""
+    """`pac2cspac` (colour space, outside the port) exits non-zero;
+    `samse`, `sampe` and `bam2bam`, ported since, exit non-zero on this
+    malformed call (no device, or a usage error)."""
     try:
         rc = port_cli.main([cmd, "x"])
     except SystemExit as e:

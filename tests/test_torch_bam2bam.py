@@ -33,7 +33,9 @@ and counter-mode RNG across chunk sizes each equal the sequential run
 Module cases hold `AlnEngine.run_chunk(per_read_semantics=True)`,
 `paired_sw_batch` with one estimate per pair and `io/bam.py` to the JAX
 package; the host reference route, a jax-blocked interpreter, a non-power-
-of-two `sa_intv`, `aln -b` and the CLI's refusals complete the slice.
+of-two `sa_intv`, `aln -b`, the CLI's refusals and `-t 0 -p` with one
+remote worker complete the slice (tests/test_torch_net.py has the rest of
+the remote workers).
 """
 
 import os
@@ -728,13 +730,44 @@ def test_bam2bam_cuda_device_required(made, monkeypatch, capsys, tmp_path):
     assert "no CUDA device is available" in capsys.readouterr().err
 
 
-def test_bam2bam_remote_workers_not_ported(made, capsys, tmp_path):
+def test_bam2bam_cli_remote_worker(made, sequential, tmp_path, monkeypatch):
+    """`bam2bam --device cpu -t 0 -p PORT` with one `worker --device cpu`
+    (both through the CLI, each on a thread of its own with a time limit;
+    NABWA_FORCE_NATIVE for speed, the host engine being bit-exact): its
+    records and header, but the @PG command line, are the sequential
+    run's, and its bytes are nabwa_tpu's bam2bam called with the same
+    command line."""
+    import socket
     d = made("dist")
-    out = tmp_path / "p.bam"
-    rc = port_cli.main(["bam2bam", "--device", "cpu", "-p", "5555", "-g",
-                        str(d / "g.fa"), "-f", str(out), str(d / "in.bam")])
-    assert rc != 0 and not out.exists()
-    assert "not yet ported" in capsys.readouterr().err
+    monkeypatch.setenv("NABWA_FORCE_NATIVE", "1")
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out = tmp_path / "net.bam"
+    rest = ["-t", "0", "-p", str(port), "-g", str(d / "g.fa"), "-f",
+            str(out), str(d / "in.bam")]
+    rcs = {}
+    runs = [threading.Thread(target=lambda k=k, argv=argv: rcs.__setitem__(
+        k, port_cli.main(argv)), daemon=True) for k, argv in (
+            ("bam2bam", ["bam2bam", "--device", "cpu", *rest]),
+            ("worker", ["worker", "--device", "cpu", "-p", str(port),
+                        "--idle-timeout", "60"]))]
+    for t in runs:
+        t.start()
+    for t in runs:
+        t.join(timeout=240)
+        assert not t.is_alive()
+    assert rcs == {"bam2bam": 0, "worker": 0}
+    (tmp_path / "seq.bam").write_bytes(sequential)
+    text, recs = dump_records(str(out))
+    seq_text, seq_recs = dump_records(str(tmp_path / "seq.bam"))
+    assert recs == seq_recs
+    assert [ln.split("\tCL:")[0] for ln in text.split("\n")] == \
+        [ln.split("\tCL:")[0] for ln in seq_text.split("\n")]
+    monkeypatch.delenv("NABWA_FORCE_NATIVE")
+    assert out.read_bytes() == _jax_b2b(d, tmp_path / "jax.bam",
+                                        ["bam2bam"] + rest)
 
 
 def test_bam2bam_sai_sideload_matches_jax(made, tmp_path, monkeypatch):

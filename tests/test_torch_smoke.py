@@ -26,8 +26,9 @@ from . import genomes
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SMOKE_ALLOWED = {"argparse", "collections", "json", "os", "pathlib",
-                 "subprocess", "sys", "tempfile", "threading", "time",
-                 "numpy", "torch", "nabwa_tpu_torch", "tests"}
+                 "signal", "socket", "subprocess", "sys", "tempfile",
+                 "threading", "time", "numpy", "torch", "nabwa_tpu_torch",
+                 "tests"}
 
 
 def _imported_roots(path):
