@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of nabwa_tpu_torch, the `aln`, `samse`, `sampe`,
 `bwasw` and `bam2bam` paths, the hybrid split, the data-parallel mesh,
-the probes, the `index` CLI and bam2bam's remote workers on one NVIDIA
-GPU.
+the probes, the `index` CLI, bam2bam's remote workers and colour space on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--glen BP] [--reads N] [--pairs N] [--batch B]
                           [--retry-stack S] [--long-reads N] [--profile]
@@ -253,9 +253,26 @@ Phases, any failure exits non-zero:
    for the @PG command line, each worker ran a chunk, the survivors
    launched C1 and C2, a chunk was resent and every process ended; its
    records/s stand beside phase 17's.
-Phase 4's CLI run, phase 12's chain, phases 15 and 17, phase 19 and phase
-20 (the coordinator's launches and the surviving workers') are the main
-paths, phase 18's entry points the probes' path: their launch counts,
+21. colour space (`colour_phase`): `python -m nabwa_tpu_torch index -c` in
+   a process of its own on the cell's FASTA (its `.nt.pac/.ann/.amb`
+   equal to phase 4's `.pac/.ann/.amb`, its `.pac/.ann/.amb` to
+   `pac2cspac`'s of them, its seconds); COLOUR_READS colour reads of 50
+   colours (2 % colour errors, a `.` in a tenth, a 1-base indel in the
+   fragment of a tenth, seed 105) and COLOUR_PAIRS pairs in the SOLiD
+   orientation (insert 300 +- 30, seed 106, the last COLOUR_RESCUE with a
+   mate only the rescue places, taken from phase 9's decoy contig).  With
+   every launch count at 0: `aln -c` through the CLI (the hybrid), its
+   `.sai` equal to the host engine's; samse and sampe (BWA_PET_SOLID,
+   cs2nt against the `.nt` pac) on the host reference route and on the
+   card, byte-identical SAM, reads/s, pairs/s and host seconds per part
+   (`cs2nt` on its own).  C1 and C2 must launch in aln -c, C3 and C4 in
+   both, C5 in sampe, and C4 in the second refine round (against the
+   `.nt` pac); MIN_PROPER of the ends must come out properly paired and
+   the rescue must place a mate.  One of aln -c's C1 launches and every
+   C2-C5 launch of the phase are held to their plain versions (exact).
+Phase 4's CLI run, phase 12's chain, phases 15 and 17, phase 19, phase
+20 (the coordinator's launches and the surviving workers') and phase
+21's aln -c, samse and sampe card runs are the main paths, phase 18's entry points the probes' path: their launch counts,
 summed, are the `launches` of the kernels line.  NABWA_FORCE_NATIVE,
 NABWA_HOST_FRAC and NABWA_DEV_SHARE choose routes by hand: the run fails
 at its start if any of them is set.  Every aln CLI run (phases 4, 8,
@@ -306,7 +323,9 @@ kernels' registers, static shared memory and spills, `edge_launches` the
 shapes of the edge launches checked; the `bam2bam_*` fields
 of C2-C5 are those of bam2bam's one-worker card run (C1's
 `bam2bam_err` of its replayed launch), and `bam2bam_launches` of every
-kernel its count in phase 17.  C2's `ms` is phase 2's four-plane launch,
+kernel its count in phase 17; `colour_launches` is each kernel's count
+in phase 21's main-path runs and `colour_err` (C1-C5), `colour_ms`,
+`colour_plain_ms` and `colour_total_ms` (C2-C5) those of its checks.  C2's `ms` is phase 2's four-plane launch,
 8 lanes a row (`form`), `ms_per_plane` a quarter of it and
 `single_plane_ms` the one-plane launch of the reads' strand 0; its bound
 counts two Occ blocks a position of each plane.  C5's `form` is its timed
@@ -682,8 +701,8 @@ def cold_ms(fn, reps, flush):
 
 def make_pairs(genome, n_pairs, n_rescue, read_len, isize_mean, isize_std,
                seed, err_rate, frac_broken):
-    """FASTQ text of both ends and a decoy contig's FASTA text, drawn in
-    bulk with numpy.  The first n_pairs - n_rescue pairs follow the pair
+    """FASTQ text of both ends, a decoy contig's FASTA text and the rescue
+    mates' true places, drawn in bulk with numpy.  The first n_pairs - n_rescue pairs follow the pair
     model of tests/test_sampe.py:18-49 (FR pairs, substitutions in both
     reads, a fraction of broken mates: half with every second base of read
     2 replaced, half with read 2 moved far).  The last n_rescue pairs are
@@ -691,7 +710,10 @@ def make_pairs(genome, n_pairs, n_rescue, read_len, isize_mean, isize_std,
     builds them: read 2 carries three substitutions in its 32-base seed
     against its true place (more than aln's -k 2 allows) and an exact copy
     on the decoy contig, so aln maps it there and the rescue finds it
-    beside read 1 (XT:A:M)."""
+    beside read 1 (XT:A:M).  Returns (the two ends' FASTQ text, the decoy's
+    FASTA text, (t, cols)): each rescue mate's copy on the decoy is the
+    reverse complement of the genome's bases from t on, with substitutions
+    at its columns cols (sorted, below 32)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     g = np.frombuffer(genome, dtype=np.uint8)
@@ -735,7 +757,14 @@ def make_pairs(genome, n_pairs, n_rescue, read_len, isize_mean, isize_std,
                                                 * read_len],
                                            q[i * read_len:(i + 1) * read_len])
             for i in range(n)))
-    return out, decoy_fa
+    t = (start + isize - read_len)[n - n_rescue:]
+    return out, decoy_fa, (t, np.sort(seed_col, axis=1))
+
+
+def phase9_pairs_args(genome, n_pairs):
+    """make_pairs' arguments for phase 9's pairs (and its decoy contig)."""
+    return (genome, n_pairs, n_pairs // RESCUE_SHARE, 100, 300, 30, 102,
+            0.01, 0.10)
 
 
 def make_long_reads(genome_seq, n_reads, read_len, seed, err=0.02,
@@ -868,12 +897,11 @@ def make_data(glen, n_reads, n_pairs, n_long):
             not all(p.exists() for p in [*fqs, *pe, *pe2, lr]):
         t0 = time.perf_counter()
         text, seqs = genomes.random_genome(glen, seed=99)
-        pairs, decoy = make_pairs(seqs[0], n_pairs, n_pairs // RESCUE_SHARE,
-                                  100, 300, 30, 102, 0.01, 0.10)
+        pairs, decoy, _ = make_pairs(*phase9_pairs_args(seqs[0], n_pairs))
         for path, fq in zip(pe, pairs):
             path.write_bytes(fq)
-        pairs2, _ = make_pairs(seqs[0], n_pairs // BAM_SHARE, 0, 100, 500,
-                               50, 104, 0.01, 0.10)
+        pairs2, _, _ = make_pairs(seqs[0], n_pairs // BAM_SHARE, 0, 100,
+                                  500, 50, 104, 0.01, 0.10)
         for path, fq in zip(pe2, pairs2):
             path.write_bytes(fq)
         if not (work / "g.fa.rsa").exists():
@@ -918,6 +946,332 @@ def index_cli(fa, work):
     for made in work.glob("cli_index.*"):
         made.unlink()
     return seconds
+
+
+# phase 21: colour reads of SOLiD 4's length (in colours), their count, the
+# colour pairs, how many of them have a mate only the rescue places, and
+# the share of pairs that must come out properly paired
+COLOUR_LEN = 50
+COLOUR_READS = 16384
+COLOUR_PAIRS = 8192
+COLOUR_RESCUE = 512
+MIN_PROPER = 0.80
+COLOUR_READ_SEED = 105
+COLOUR_PAIR_SEED = 106
+
+
+def colour_fastq(tag, cols, quals, end=None):
+    """FASTQ text of colour reads written as solid2fastq writes them (ACGT
+    for colours 0-3, N for a `.`): cols int [n, L] (4 is a `.`), quals
+    their ASCII qualities."""
+    import numpy as np
+    n, L = cols.shape
+    rows = np.frombuffer(b"ACGTN", dtype=np.uint8)[cols].tobytes()
+    q = np.ascontiguousarray(quals, dtype=np.uint8).tobytes()
+    suffix = b"" if end is None else b"/%d" % end
+    return b"".join(b"@%s%d%s\n%s\n+\n%s\n" % (
+        tag, i, suffix, rows[i * L:(i + 1) * L], q[i * L:(i + 1) * L])
+        for i in range(n))
+
+
+def colours_of(nt, rng, err, dot):
+    """The colours of nucleotide rows nt (int [n, L + 1], codes 0-3; a
+    colour is the XOR of its two bases' codes), with colour errors at rate
+    err and a `.` in a share dot of the rows, and their qualities."""
+    import numpy as np
+    cols = nt[:, :-1] ^ nt[:, 1:]
+    hit = rng.random(cols.shape) < err
+    cols = np.where(hit, (cols + rng.integers(1, 4, cols.shape)) % 4, cols)
+    rows = np.nonzero(rng.random(len(cols)) < dot)[0]
+    cols[rows, rng.integers(0, cols.shape[1], len(rows))] = 4
+    quals = (33 + rng.integers(20, 40, cols.shape)).astype(np.uint8)
+    return cols, quals
+
+
+def make_colour_data(fa, glen, n_pairs9, work):
+    """Phase 21's colour reads and pairs, drawn in bulk with numpy from the
+    cell's random contig: COLOUR_READS reads of COLOUR_LEN colours, either
+    strand, 2 % colour errors, a `.` in a tenth and a 1-base indel in the
+    fragment of a tenth (seed COLOUR_READ_SEED); COLOUR_PAIRS pairs in the
+    SOLiD orientation (F3/R3: both ends on one strand, end 2 right of end 1
+    on the forward strand), insert 300 +- 30, 2 % colour errors and a `.`
+    in a twentieth (seed COLOUR_PAIR_SEED).  The last COLOUR_RESCUE pairs
+    (at most as many as phase 9 has rescue mates) take their end 2 from
+    phase 9's decoy contig: the colours of a rescue mate's decoy copy from
+    just past its first substitution, which carry three or four colour
+    mismatches in the seed against the mate's true place (more than aln's
+    -k 2 allows) and none on the decoy, so aln maps them there and only
+    the rescue places them beside end 1.  Returns the read file and the
+    two pair files."""
+    import numpy as np
+    from nabwa_tpu_torch.index.pack import read_pac, restore_ann_amb
+    fq = work / "colour.fq"
+    pe = [work / f"colour_p{end}.fq" for end in (1, 2)]
+    if fq.exists() and all(p.exists() for p in pe):
+        return fq, pe
+    t0 = time.perf_counter()
+    L = COLOUR_LEN
+    col = np.arange(L + 1)
+    codes = read_pac(str(fa) + ".pac")
+    g = codes[:glen]
+
+    def revcomp(nt):
+        return 3 - nt[:, ::-1]
+
+    rng = np.random.default_rng(COLOUR_READ_SEED)
+    n = COLOUR_READS
+    start = rng.integers(0, glen - L - 3, n)
+    j = rng.integers(L // 3, 2 * L // 3, n)[:, None]
+    kind = rng.random(n)[:, None]
+    dele, ins = kind < 0.05, (kind >= 0.05) & (kind < 0.1)
+    idx = start[:, None] + col + (dele & (col >= j)) - (ins & (col > j))
+    nt = g[idx].astype(np.int64)
+    nt = np.where(ins & (col == j), rng.integers(0, 4, (n, 1)), nt)
+    nt = np.where(rng.random((n, 1)) < 0.5, revcomp(nt), nt)
+    fq.write_bytes(colour_fastq(b"cs", *colours_of(nt, rng, 0.02, 0.1)))
+
+    rng = np.random.default_rng(COLOUR_PAIR_SEED)
+    n = COLOUR_PAIRS
+    isz = np.maximum(rng.normal(300, 30, n).astype(np.int64), L + 11)
+    start = rng.integers(0, glen - int(isz.max()) - 1, n)
+    genome = np.frombuffer(b"ACGT", dtype=np.uint8)[g].tobytes()
+    _, _, (t, cols9) = make_pairs(*phase9_pairs_args(genome, n_pairs9))
+    del genome
+    n_r = min(COLOUR_RESCUE, len(t))
+    u = cols9[:n_r, 0] + 1
+    # a rescue mate's copy on the decoy is the reverse complement of the
+    # genome's bases t..t+99; its columns u..u+L are those of the bases
+    # from t + 99 - u - L on
+    start[n - n_r:] = t[:n_r] + 99 - u - L
+    left = g[start[:, None] + col].astype(np.int64)
+    right = g[(start + isz - L - 1)[:, None] + col].astype(np.int64)
+    rev = rng.random((n, 1)) < 0.5
+    rev[n - n_r:] = True
+    ends = [np.where(rev, revcomp(right), left),
+            np.where(rev, revcomp(left), right)]
+    decoy = [a.offset for a in restore_ann_amb(str(fa)).anns
+             if a.name == "decoy"][0]
+    # the decoy holds a 150 bp spacer and the 100 bp mate per rescue pair
+    at = decoy + np.arange(n_r) * 250 + 150 + u
+    ends[1][n - n_r:] = codes[at[:, None] + col]
+    for end, nt in zip((1, 2), ends):
+        cols, quals = colours_of(nt, rng, 0.02, 0.05)
+        if end == 2:
+            cols[n - n_r:] = nt[n - n_r:, :-1] ^ nt[n - n_r:, 1:]
+        pe[end - 1].write_bytes(colour_fastq(b"cpair", cols, quals, end))
+    log(f"colour reads and pairs: {time.perf_counter() - t0:.1f} s")
+    return fq, pe
+
+
+def colour_index(fa, work):
+    """`python -m nabwa_tpu_torch index -c` in a process of its own on the
+    cell's FASTA (SA-IS, as phase 4's build): its `.nt.pac`, `.nt.ann` and
+    `.nt.amb` must equal phase 4's `.pac`, `.ann` and `.amb`, and its
+    `.pac`, `.ann` and `.amb` those `pac2cspac` writes from phase 4's
+    files.  Returns (the colour index's prefix, the CLI's seconds)."""
+    from nabwa_tpu_torch.index.pack import pac2cspac
+    prefix = work / "cs"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "nabwa_tpu_torch", "index", "-c", "-p",
+         str(prefix), str(fa)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, NABWA_BWT_INC="0"))
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"index -c exited with {res.returncode}: {res.stderr[-2000:]}")
+    pac2cspac(str(fa), str(work / "cs_check"))
+    for ext in (".pac", ".ann", ".amb"):
+        nt = pathlib.Path(f"{prefix}.nt{ext}").read_bytes()
+        if nt != pathlib.Path(f"{fa}{ext}").read_bytes():
+            fail(f"index -c's .nt{ext} differs from phase 4's {ext}")
+        if pathlib.Path(f"{prefix}{ext}").read_bytes() != \
+                pathlib.Path(f"{work / 'cs_check'}{ext}").read_bytes():
+            fail(f"index -c's {ext} differs from pac2cspac's")
+    log(f"index -c on the {fa.stat().st_size}-byte FASTA: {seconds:.2f} s "
+        "end to end; its .nt files equal phase 4's, its colour .pac, .ann "
+        "and .amb pac2cspac's")
+    return prefix, seconds
+
+
+def colour_routes(label, module, call, n, zero, launched):
+    """A colour-space chunk, `call(host_reference)` -> SAM bytes, on the
+    host reference route and on the card, every launch count at 0 before
+    each: identical SAM.  `module` is models.samse or models.sampe, whose
+    `seconds` are read; n reads or pairs give the rate.  Returns ({route:
+    (SAM, rate, seconds per part)}, the card run's launch counts, its C3,
+    C4 and C5 launches recorded, and the C4 launches of its second refine
+    round, the one against the `.nt` pac)."""
+    import torch
+    from nabwa_tpu_torch.models import samse as msamse
+    from nabwa_tpu_torch.ops import dp
+    from nabwa_tpu_torch.ops import sa_lookup as sl
+    refine = msamse.refine_jobs
+    second = [0]
+
+    def counted_refine(*args, **kw):
+        before = dp.launches
+        refine(*args, **kw)
+        if kw.get("is_end_correct", True) is False:
+            second[0] += dp.launches - before
+
+    out, recorded = {}, {}
+    for route in ("reference", "cuda"):
+        module.seconds = dict.fromkeys(module.seconds, 0.0)
+        msamse.refine_jobs = counted_refine
+        restore = [lambda: setattr(msamse, "refine_jobs", refine)]
+        if route == "cuda":
+            for name, mod, fn in (("sa_lookup", sl, "sa_lookup_both_cuda"),
+                                  ("banded_global", dp, "banded_global_cuda"),
+                                  ("local_fwd", dp, "local_fwd_cuda")):
+                recorded[name], undo = record(mod, fn)
+                restore.append(undo)
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            blob = call(route == "reference")
+        finally:
+            for undo in restore:
+                undo()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launched()
+        parts = dict(module.seconds)
+        parts["rest"] = dt - sum(parts.values())
+        out[route] = (blob, n / dt, parts)
+        log(f"{label}, {route}: {n / dt:.1f}/s ({dt:.3f} s); host seconds "
+            f"per part {parts}; launches {counts}")
+    if out["cuda"][0] != out["reference"][0]:
+        fail(f"{label}: the SAM on the card differs from the host reference "
+             f"route's")
+    return out, counts, recorded, second[0]
+
+
+def colour_phase(fa, glen, n_pairs9, tmp, zero, launched):
+    """Phase 21, colour space: `index -c` (`colour_index`), the colour
+    reads and pairs (`make_colour_data`), `aln -c` through the CLI (the
+    hybrid) with every launch count at 0 and C1 and C2 recorded, its
+    `.sai` equal to the host engine's; then samse and sampe
+    (BWA_PET_SOLID, the `.nt` pac for cs2nt) on the card and on the host
+    reference route (`colour_routes`), the host engine's `.sai` of each
+    read set.  Returns (the phase's figures, the main path's launch counts
+    [aln -c, samse, sampe], the recorded launches {kernel: [...]})."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch import cli as port_cli
+    from nabwa_tpu_torch.constants import BWA_MODE_COMPREAD, BWA_PET_SOLID
+    from nabwa_tpu_torch.index.fmindex import BwaIndex
+    from nabwa_tpu_torch.index.pack import read_pac
+    from nabwa_tpu_torch.models import aln as maln
+    from nabwa_tpu_torch.models import sampe as msampe
+    from nabwa_tpu_torch.models import samse as msamse
+    from nabwa_tpu_torch.ops import dfs_cuda, occ
+    from nabwa_tpu_torch.options import GapOpt, PeOpt
+    from nabwa_tpu_torch.utils.rand48 import Rand48
+    work = tmp / "nabwa_torch_smoke_colour"
+    work.mkdir(exist_ok=True)
+    prefix, index_s = colour_index(fa, work)
+    fq, (fq1, fq2) = make_colour_data(fa, glen, n_pairs9, work)
+    opt = GapOpt()
+    opt.mode &= ~BWA_MODE_COMPREAD
+    idx = BwaIndex.load(str(prefix))
+    ntpac = read_pac(f"{prefix}.nt.pac")
+    reads = port_cli.open_reads(str(fq), opt.mode)(COLOUR_READS, 0)
+    pairs = tuple(port_cli.open_reads(str(f), opt.mode)(COLOUR_PAIRS, 0)
+                  for f in (fq1, fq2))
+    if len(reads) != COLOUR_READS or any(len(p) != COLOUR_PAIRS
+                                         for p in pairs):
+        fail(f"read {len(reads)} colour reads and {[len(p) for p in pairs]} "
+             f"pairs")
+    want, host_s = native_reference(idx, reads, opt)
+    log(f"host native engine, colour reads: {len(reads) / host_s:.1f} "
+        f"reads/s")
+
+    # aln -c through the CLI, C1 and C2 recorded
+    sai = work / "colour.sai"
+    sai.unlink(missing_ok=True)
+    recorded, restore = {}, []
+    for name, mod, fn in (("dfs", dfs_cuda, "dfs_match_gap_cuda"),
+                          ("cal_width", occ, "cal_width_planes_cuda")):
+        recorded[name], undo = record(mod, fn)
+        restore.append(undo)
+    zero()
+    t0 = time.perf_counter()
+    try:
+        rc = port_cli.main(["aln", "--device", "cuda", "-c", str(prefix),
+                            str(fq), "-f", str(sai)])
+    finally:
+        for undo in restore:
+            undo()
+    torch.cuda.synchronize()
+    aln_s = time.perf_counter() - t0
+    aln_counts = launched()
+    log(f"CLI aln -c --device cuda (the hybrid): rc {rc}, {aln_s:.2f} s end "
+        f"to end (index load included); launches {aln_counts}")
+    if rc != 0 or sai.read_bytes() != want:
+        fail(f"CLI aln -c: rc {rc}, or its .sai differs from the host "
+             f"native engine's")
+    for name in ("dfs", "cal_width"):
+        if aln_counts[name] <= 0:
+            fail(f"kernel {name} was not launched by aln -c")
+    one_c2_per_c1("CLI aln -c", aln_counts)
+
+    eng = maln.AlnEngine(idx, opt, "cuda")
+    seed = idx.bns.seed
+    se_runs, se_counts, se_rec, se_second = colour_routes(
+        "samse, colour reads", msamse,
+        lambda hr: msamse.samse_bytes(eng, reads, sai_columns(want), opt,
+                                      rng=Rand48(seed), ntpac=ntpac,
+                                      host_reference=hr),
+        len(reads), zero, launched)
+    sais = [sai_columns(native_reference(idx, p, opt)[0]) for p in pairs]
+    popt = PeOpt()
+    popt.type = BWA_PET_SOLID
+    pe_runs, pe_counts, pe_rec, pe_second = colour_routes(
+        "sampe, colour pairs", msampe,
+        lambda hr: msampe.sampe_bytes(eng, pairs, tuple(sais), opt, popt,
+                                      Rand48(seed), ntpac=ntpac,
+                                      host_reference=hr)[0],
+        COLOUR_PAIRS, zero, launched)
+    for name in ("sa_lookup", "banded_global"):
+        if se_counts[name] <= 0 or pe_counts[name] <= 0:
+            fail(f"kernel {name} was not launched by colour samse and sampe")
+    if pe_counts["local_fwd"] <= 0:
+        fail("kernel local_fwd was not launched by colour sampe")
+    if se_second + pe_second <= 0:
+        fail("the second refine round (against the .nt pac) launched C4 no "
+             "time")
+    sam = pe_runs["cuda"][0]
+    flags = np.array([int(ln.split(b"\t", 2)[1]) for ln in sam.splitlines()])
+    proper = float((flags & 2 != 0).mean())
+    rescued = sam.count(b"XT:A:M")
+    n_r = min(COLOUR_RESCUE, n_pairs9 // RESCUE_SHARE)
+    log(f"colour sampe: {100 * proper:.2f} % of the ends properly paired, "
+        f"{rescued} mates placed by the rescue ({n_r} pairs built for it); "
+        f"second refine round C4 launches: samse {se_second}, sampe "
+        f"{pe_second}")
+    if proper < MIN_PROPER:
+        fail(f"colour sampe paired {100 * proper:.1f} % of the ends "
+             f"properly, below {100 * MIN_PROPER:.0f} %")
+    if rescued < 1:
+        fail("colour sampe's rescue placed no mate")
+    for rec in (se_rec, pe_rec):
+        for name, calls in rec.items():
+            recorded.setdefault(name, []).extend(calls)
+    figures = {
+        "index_c_seconds": index_s, "aln_c_cli_seconds": aln_s,
+        "aln_c_launches": aln_counts,
+        "host_native_reads_per_sec": len(reads) / host_s,
+        "samse": {route: {"reads_per_sec": r[1], "seconds": r[2]}
+                  for route, r in se_runs.items()},
+        "sampe": {route: {"pairs_per_sec": r[1], "seconds": r[2]}
+                  for route, r in pe_runs.items()},
+        "samse_launches": se_counts, "sampe_launches": pe_counts,
+        "second_round_c4_launches": se_second + pe_second,
+        "proper_share": proper, "mate_rescued": rescued,
+        "pairs_built_for_rescue": n_r,
+        "reads": COLOUR_READS, "pairs": COLOUR_PAIRS}
+    return figures, [aln_counts, se_counts, pe_counts], recorded
 
 
 def bam_sections(path):
@@ -4361,16 +4715,52 @@ def main():
     log(f"bam2bam records/s: networked {net_run['records_per_sec']:.1f}, "
         f"phase 17's one engine {n_records / b2b_cli_s:.1f}")
 
+    phase_mark("21")
+    # phase 21: colour space, `index -c`, then `aln -c`, samse and sampe
+    # (BWA_PET_SOLID) every launch count at 0, and each C1-C5 launch they
+    # made against its plain version (C1 on one, as in phase 16)
+    colour, colour_counts, crec = colour_phase(fa, args.glen, args.pairs,
+                                               tmp, zero, launched)
+    main_counts.extend(colour_counts)
+    cs_dfs_err = replay_dfs("C1 dfs, one of aln -c's launches", crec["dfs"])
+    cs_cw = check_launches(
+        "C2 cal_width, aln -c's launches", crec["cal_width"],
+        occ.cal_width_planes_cuda, occ.cal_width_planes_plain,
+        lambda a: a[6].numel(), planes_bound)
+    cs_sa = check_launches(
+        "C3 sa_lookup, colour samse's and sampe's launches",
+        crec["sa_lookup"], sl.sa_lookup_both_cuda, sl.sa_lookup_both_plain,
+        lambda a: a[6].shape[0], lambda a, _: sa_walk_bound(a))
+    cs_dp = check_launches(
+        "C4 banded_global, colour samse's and sampe's launches (both "
+        "refine rounds and the rescue's paths)", crec["banded_global"],
+        dp.banded_global_cuda, dp.banded_global_plain, dp_size,
+        global_bound)
+    cs_lf = check_launches(
+        "C5 local_fwd, colour sampe's rescue rounds", crec["local_fwd"],
+        dp.local_fwd_cuda, dp.local_fwd_plain, dp_size, local_bound)
+    del crec
+    colour_checks = {"dfs": {"err": cs_dfs_err}, "cal_width": cs_cw,
+                     "sa_lookup": cs_sa, "banded_global": cs_dp,
+                     "local_fwd": cs_lf}
+    colour_launches = {k: sum(c[k] for c in colour_counts)
+                       for k in colour_counts[0]}
+
     launches = {k: sum(c[k] for c in main_counts) for k in main_counts[0]}
     launches.update(probe_counts)
 
     def entry(name, source, replaces, err, ms, plain_ms, bnd, **extra):
+        chk = colour_checks.get(name, {})
         return {"name": name, "route": "cuda",
                 "source": f"nabwa_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": max(err, chk.get("err", 0)), "ms": ms,
+                "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "bound_int32_ms": bnd[2], "library_ms": None,
+                "colour_launches": colour_launches[name],
+                **{f"colour_{k}": chk[k] for k in ("err", "ms", "plain_ms",
+                                                    "total_ms") if k in chk},
                 **extra}
 
     def b2b_fields(chk, n_cli):
@@ -4582,6 +4972,7 @@ def main():
                       "sampe": sampe, "bwasw": bwasw, "bam2bam": bam2bam,
                       "probe_lines": probe_lines,
                       "index_cli_seconds": index_cli_s,
+                      "colour": colour,
                       "phase_start_seconds": phase_seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""nabwa_tpu_torch — nabwa_tpu (every command but colour space) on PyTorch
-and hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
+"""nabwa_tpu_torch — nabwa_tpu (every command, colour space included) on
+PyTorch and hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 
 The JAX package `nabwa_tpu` stays the reference: every function here is
 held against its counterpart there, bit for bit.  The port imports nothing
@@ -15,7 +15,8 @@ Layout:
             tensors on an explicit torch.device)
   io/       FASTQ and BAM input, the .sai readers and writer, BGZF out
   refmodel/ the stdaln parameters, scalar DPs and path helpers,
-            cal_maxdiff
+            cal_maxdiff, the colour-space decode cs2nt (scalar and
+            columnar)
   ops/      occ/cal_width, the gapped DFS, the SA lookup, the banded global
             DP and the local-SW forward lattice: a plain PyTorch version of
             each (CPU tensors, tests) beside its CUDA kernel (CUDA tensors)
@@ -31,7 +32,7 @@ Layout:
             gather, the async row fetch, the two DFS-iteration mocks),
             each a plain version beside its CUDA kernel, with the
             scripts' entry points
-  cli.py    the subcommands of nabwa_tpu/cli.py but colour space
+  cli.py    the subcommands of nabwa_tpu/cli.py
   scripts.py  the xa2multi, qualfa2fq and solid2fastq converters
   entry.py  the single-device step and the data-parallel dry run
 

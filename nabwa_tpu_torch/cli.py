@@ -1,5 +1,4 @@
-"""Command line of the port: every subcommand of `nabwa_tpu` but colour
-space.
+"""Command line of the port: every subcommand of `nabwa_tpu`.
 
 Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
             <prefix> <reads.fq|reads.bam> [-f out.sai]
@@ -14,10 +13,11 @@ Usage:  python -m nabwa_tpu_torch aln [--device cuda|cpu] [aln options]
             [options] [-t N] [-p PORT] [-f out.bam] <in.bam>
         python -m nabwa_tpu_torch worker [--device cuda|cpu] [-h HOST]
             -p PORT [-t N] [-T MINUTES] [--idle-timeout S]
-        python -m nabwa_tpu_torch index [-p PREFIX] [-a is|div|bwtsw]
+        python -m nabwa_tpu_torch index [-p PREFIX] [-a is|div|bwtsw] [-c]
             <in.fasta>
         python -m nabwa_tpu_torch fa2pac <in.fasta> [<out.prefix>]
         python -m nabwa_tpu_torch pac_rev <in.pac>
+        python -m nabwa_tpu_torch pac2cspac <in.nt.prefix> <out.cs.prefix>
         python -m nabwa_tpu_torch pac2bwt [-d] <in.pac> <out.bwt>
             (also `pac2bwtgen <in.pac> <out.bwt>`)
         python -m nabwa_tpu_torch bwtupdate <the.bwt>
@@ -36,9 +36,10 @@ parsing and the bam2bam `.sai` sideload are copied from there.
 device is explicit, `--device cuda` (the default) needs a CUDA device and
 exits with an error without one; `--device cpu` runs the plain PyTorch
 versions.  `index`, the index tools, `stdsw` and the converters run on the
-host only, as in `nabwa_tpu`, and take no `--device`.  Colour space is not
-ported: `index -c`, `pac2cspac` and colour-space `samse`/`sampe` exit
-non-zero.
+host only, as in `nabwa_tpu`, and take no `--device`.  Colour space
+(SOLiD) is `index -c` (or `pac2cspac` of a nucleotide index), `aln -c`,
+then `samse`/`sampe` on that `.sai`: they read `<prefix>.nt.pac` to decode
+the colours (cs2nt), and `sampe` pairs in the SOLiD orientation.
 """
 
 import argparse
@@ -51,7 +52,8 @@ import torch
 from .constants import (BWA_AVG_ERR, BWA_MODE_BAM, BWA_MODE_BAM_READ1,
                         BWA_MODE_BAM_READ2, BWA_MODE_BAM_SE, BWA_MODE_CFY,
                         BWA_MODE_COMPREAD, BWA_MODE_GAPE, BWA_MODE_IL13,
-                        BWA_MODE_LOGGAP, BWA_MODE_NONSTOP, READ_CHUNK)
+                        BWA_MODE_LOGGAP, BWA_MODE_NONSTOP, BWA_PET_SOLID,
+                        READ_CHUNK)
 from .index.fmindex import BwaIndex
 from .io import fastq
 from .io.bam import BamReader
@@ -262,12 +264,14 @@ def read_sai(path):
     return opt, per_read
 
 
-def _colour_refused(opt, cmd):
-    if opt.mode & BWA_MODE_COMPREAD:
-        return False
-    print(f"[{cmd}] error: colour-space reads are not yet ported to "
-          "nabwa_tpu_torch", file=sys.stderr)
-    return True
+def open_ntpac(prefix, mode):
+    """bwa_open_nt (bwase.c:594-602): the .nt nucleotide pac for
+    colour-space decoding, unpacked, or None for nucleotide reads
+    (nabwa_tpu/cli.py:160-166)."""
+    if mode & BWA_MODE_COMPREAD:
+        return None
+    from .index.pack import read_pac
+    return read_pac(str(prefix) + ".nt.pac")
 
 
 # --- subcommands ---
@@ -332,10 +336,9 @@ def cmd_samse(argv):
     from .models.samse import sam_header, samse_bytes
 
     opt, per_read = read_sai(args.sai)
-    if _colour_refused(opt, "samse"):
-        return 1
     idx = BwaIndex.load(args.prefix)
     eng = AlnEngine(idx, opt, dev)
+    ntpac = open_ntpac(args.prefix, opt.mode)
     rng = Rand48(idx.bns.seed)
     rg_line, rg_id = parse_rg(args.rg)
     out = open(args.out, "wb") if args.out else sys.stdout.buffer
@@ -349,7 +352,7 @@ def cmd_samse(argv):
         alns = per_read[off:off + len(reads)]
         off += len(reads)
         out.write(samse_bytes(eng, reads, alns, opt, n_occ=args.n_occ,
-                              rng=rng, rg_id=rg_id))
+                              rng=rng, rg_id=rg_id, ntpac=ntpac))
     if args.out:
         out.close()
         final_rename("samse", args.out)
@@ -396,10 +399,11 @@ def cmd_sampe(argv):
 
     opt0, per_read0 = read_sai(args.sai1)
     opt, per_read1 = read_sai(args.sai2)
-    if _colour_refused(opt, "sampe"):
-        return 1
     idx = BwaIndex.load(args.prefix)
     eng = AlnEngine(idx, opt, dev)
+    ntpac = open_ntpac(args.prefix, opt.mode)
+    if ntpac is not None:   # SOLiD pairing orientation (bwape.c:692-694)
+        popt.type = BWA_PET_SOLID
     rng = Rand48(idx.bns.seed)
     rg_line, rg_id = parse_rg(args.rg)
     out = open(args.out, "wb") if args.out else sys.stdout.buffer
@@ -419,7 +423,7 @@ def cmd_sampe(argv):
         off += n
         blob, last_ii = sampe_bytes(eng, (reads0, reads1), alns, opt, popt,
                                     rng, rg_id=rg_id, last_ii=last_ii,
-                                    pos_memo=memo)
+                                    pos_memo=memo, ntpac=ntpac)
         out.write(blob)
     if args.out:
         out.close()
@@ -678,16 +682,11 @@ def cmd_worker(argv):
 
 # --- the index and its tools (host only) ---
 
-def _colour_not_ported(cmd):
-    print(f"[{cmd}] error: colour space is not yet ported to "
-          "nabwa_tpu_torch", file=sys.stderr)
-    return 1
-
-
 def cmd_index(argv):
-    """bwa index (bwtindex.c:42-192): the eight index files of a FASTA.
-    `-a` is accepted and ignored, as in nabwa_tpu: the construction does
-    not change the files."""
+    """bwa index (bwtindex.c:42-192): the eight index files of a FASTA, and
+    with `-c` the colour-space index and its `.nt.{pac,ann,amb}`.  `-a` is
+    accepted and ignored, as in nabwa_tpu: the construction does not change
+    the files."""
     ap = argparse.ArgumentParser(prog="index")
     ap.add_argument("-p", dest="prefix", default=None)
     ap.add_argument("-a", dest="algo", default="is",
@@ -695,15 +694,20 @@ def cmd_index(argv):
     ap.add_argument("-c", dest="color", action="store_true")
     ap.add_argument("fasta")
     args = ap.parse_args(argv)
-    if args.color:
-        return _colour_not_ported("index")
     from .index.build import build_index
-    build_index(args.fasta, args.prefix)
+    build_index(args.fasta, args.prefix, color=args.color)
     return 0
 
 
 def cmd_pac2cspac(argv):
-    return _colour_not_ported("pac2cspac")
+    """bwa pac2cspac <in.nt.prefix> <out.cs.prefix> (bwtmisc.c:228-254)."""
+    if len(argv) < 2:
+        print("Usage: pac2cspac <in.nt.prefix> <out.cs.prefix>",
+              file=sys.stderr)
+        return 1
+    from .index.pack import pac2cspac
+    pac2cspac(argv[0], argv[1])
+    return 0
 
 
 def cmd_fa2pac(argv):
@@ -848,8 +852,7 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] in COMMANDS:
         return COMMANDS[argv[0]](argv[1:])
-    print("Program: nabwa_tpu_torch (nabwa_tpu on PyTorch + CUDA; colour "
-          "space, `index -c` and `pac2cspac`, is not yet ported)\n"
+    print("Program: nabwa_tpu_torch (nabwa_tpu on PyTorch + CUDA)\n"
           "Usage:   python -m nabwa_tpu_torch <command> [options]\n"
           "Command: " + " ".join(COMMANDS), file=sys.stderr)
     return 1

@@ -1,7 +1,6 @@
 """`index` pipeline: FASTA → the eight reference-compatible index files
 (.pac .rpac .ann .amb .bwt .rbwt .sa .rsa), mirroring bwa_index
-(bwtindex.c:42-192).  The port's copy of nabwa_tpu/index/build.py, without
-colour space (`-c`)."""
+(bwtindex.c:42-192).  The port's copy of nabwa_tpu/index/build.py."""
 
 import os
 
@@ -66,12 +65,22 @@ def _build_one(codes, prefix, ext_bwt, ext_sa, sa_intv):
                      len(codes), sa_intv)
 
 
-def build_index(fa_path, prefix=None, sa_intv=SA_INTERVAL):
+def build_index(fa_path, prefix=None, sa_intv=SA_INTERVAL, color=False):
     """Build all index files of `fa_path` at `prefix` (default: the FASTA
-    path).  Returns the BntSeq metadata."""
+    path).  Returns the BntSeq metadata.
+
+    color=True mirrors `bwa index -c` (bwtindex.c:86-102): the FASTA
+    packs to prefix.nt.{pac,ann,amb}, pac2cspac derives the color-space
+    pac (+ copied ann/amb) at `prefix`, and the BWT chain runs on the
+    color sequence."""
     if prefix is None:
         prefix = fa_path
-    bns, codes = packmod.fasta_to_pac(fa_path, prefix)
+    if color:
+        nt_prefix = str(prefix) + ".nt"
+        packmod.fasta_to_pac(fa_path, nt_prefix)
+        bns, codes = packmod.pac2cspac(nt_prefix, prefix)
+    else:
+        bns, codes = packmod.fasta_to_pac(fa_path, prefix)
     if bns.l_pac > 0xFFFFFFFF:
         raise ValueError("references over 4GB not supported (bwtint_t is "
                          "uint32, bwtindex.c:103-105)")

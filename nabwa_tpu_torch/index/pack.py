@@ -1,6 +1,6 @@
 """FASTA → 2-bit packed reference (.pac) + annotations (.ann) + ambiguity
-holes (.amb): the port's copy of nabwa_tpu/index/pack.py, without the
-colour-space conversion (pac2cspac).
+holes (.amb), and the colour-space conversion `pac2cspac`: the port's copy of
+nabwa_tpu/index/pack.py.
 
 Exact behavioral parity with bns_fasta2bntseq (reference bntseq.c:166-257):
 ambiguous bases are recorded as holes (runs of the *same* raw character,
@@ -231,6 +231,27 @@ def reverse_pac(prefix, as_memmap=False):
         del rcodes, codes
         return read_pac(str(prefix) + ".rpac")
     return rcodes
+
+
+# nst_color_space_table (bwtmisc.c:207): cs code of base pair
+# (1<<b1 | 1<<b2) — 0 same, 1 A<->C/G<->T, 2 A<->G/C<->T, 3 A<->T/C<->G
+CS_TABLE = np.array([4, 0, 0, 1, 0, 2, 3, 4, 0, 3, 2, 4, 1, 4, 4, 4],
+                    dtype=np.uint8)
+
+
+def pac2cspac(nt_prefix, cs_prefix):
+    """bwa_pac2cspac (bwtmisc.c:215-254): convert a nucleotide index
+    prefix to a color-space one — cspac[0] keeps the first nt base,
+    cspac[i] = color(nt[i-1], nt[i]); .ann/.amb copied verbatim."""
+    bns = restore_ann_amb(nt_prefix)
+    nt = read_pac(str(nt_prefix) + ".pac")
+    cs = np.empty_like(nt)
+    cs[0] = nt[0]
+    cs[1:] = CS_TABLE[(1 << nt[:-1].astype(np.int16))
+                      | (1 << nt[1:].astype(np.int16))]
+    dump_ann_amb(bns, cs_prefix)
+    write_pac(str(cs_prefix) + ".pac", cs)
+    return bns, cs
 
 
 def dump_ann_amb(bns, prefix):

@@ -68,7 +68,7 @@ import time
 
 import numpy as np
 
-from ..constants import BWA_PET_STD, SAM_FDP, SAM_FQC, SAM_FSR, SAM_FSU
+from ..constants import SAM_FDP, SAM_FQC, SAM_FSR, SAM_FSU
 from ..index import native
 from ..io import bam as bamio
 from ..io import sai as saiio
@@ -440,11 +440,9 @@ def pass2_work(engine, gopt, popt, iinfos, payload, host_reference=False):
     (paired rows first, interleaved ends; singletons after), the native
     pairing/multi kernels, proxy-based mate rescue, refine/MD/trim, and
     the native BAM splice into FRESH records, so a redelivered chunk is
-    idempotent.  Returns ([(recno, records)], rescue counters)."""
-    if popt.type != BWA_PET_STD:
-        raise NotImplementedError(
-            "colour-space pairs (BWA_PET_SOLID) are not yet ported to "
-            "nabwa_tpu_torch")
+    idempotent.  `popt.type` BWA_PET_SOLID pairs and rescues in the SOLiD
+    orientation, as the JAX pass 2 does (it has no colour decoding).
+    Returns ([(recno, records)], rescue counters)."""
     parts = dict.fromkeys(PASS2_PARTS, 0.0)
     try:
         return _pass2(engine, gopt, popt, iinfos, payload, host_reference,

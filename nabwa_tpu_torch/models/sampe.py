@@ -21,15 +21,18 @@ row 2i+1 end 1: the emit order).  Steps, in the reference's order:
               pass: native; path: kernel C4), on per-pair proxies written
               back into the table
   7. refine   gapped refinement of the rows that rescue did not place and
-              of the gapped multi slots (`models.samse.refine_jobs`, C4)
-  8. md, trim, emit  native MD/NM, quality-trim fix-ups, native SAM
-              emission with mate_idx = row ^ 1
+              of the gapped multi slots (`models.samse.refine_jobs`, C4);
+              in colour space then `models.samse.colour_step` on both
+              ends: cs2nt and the second round against the `.nt` pac
+  8. md, trim, emit  native MD/NM, quality-trim fix-ups (not in colour
+              space), native SAM emission with mate_idx = row ^ 1
 
 `host_reference=True` runs the SA, rescue and DP steps on the native host
 code instead (the `bwt_sa_batch` walk, `local_fwd_native`,
 `aln_global_native`): the reference the card's output is held against.
 Only that argument chooses it; nothing falls back to it.  Colour space
-(`ntpac`, BWA_PET_SOLID) is not ported and raises.
+(`ntpac`, with `popt.type` BWA_PET_SOLID) pairs and rescues in the SOLiD
+orientation, both ends on one strand.
 
 The rescue generators, `infer_isize_core`, `IsizeInfo` and `hash_64` (for
 bam2bam's counter RNG) are copied from nabwa_tpu/models/sampe.py.
@@ -37,7 +40,8 @@ bam2bam's counter RNG) are copied from nabwa_tpu/models/sampe.py.
 isize, pairing, multi, rescue_drive (the rescue's generators, proxies and
 write-back), rescue_fwd, rescue_rev and rescue_path
 (`ops.dp.local_sw_batch`'s parts), dp and dp_backtrace (the refine step,
-as in `models.samse`), md and emit (with the trim fix-ups).
+as in `models.samse`), cs2nt (colour space's decode), md and emit (with
+the trim fix-ups).
 """
 
 import math
@@ -45,8 +49,9 @@ import time
 
 import numpy as np
 
-from ..constants import (BWA_PET_STD, BWA_TYPE_MATESW, BWA_TYPE_NO_MATCH,
-                         SAM_FPD, SAM_FPP, SAM_FR1, SAM_FR2)
+from ..constants import (BWA_PET_SOLID, BWA_PET_STD, BWA_TYPE_MATESW,
+                         BWA_TYPE_NO_MATCH, SAM_FPD, SAM_FPP, SAM_FR1,
+                         SAM_FR2)
 from ..index import native
 from ..io.fastq import ReadBatch
 from ..io.sai import AlnColumn
@@ -69,8 +74,8 @@ _U64MAX = (1 << 64) - 1
 
 seconds = dict.fromkeys(("select", "sa", "isize", "pairing", "multi",
                          "rescue_drive", "rescue_fwd", "rescue_rev",
-                         "rescue_path", "dp", "dp_backtrace", "md", "emit"),
-                        0.0)
+                         "rescue_path", "dp", "dp_backtrace", "cs2nt", "md",
+                         "emit"), 0.0)
 # the parts `ops.dp.local_sw_batch` books while it solves rescue jobs
 RESCUE_SOLVE = ("rescue_fwd", "rescue_rev", "rescue_path")
 
@@ -238,8 +243,8 @@ def sw_core_gen(l_pac, pac, seq_codes, beg, reglen):
 
 
 def paired_sw1_gen(bns, pac, p, popt, ii, counters):
-    """bwa_paired_sw1 (bwape.c:519-633), standard pairs; local-SW DPs via
-    yield."""
+    """bwa_paired_sw1 (bwape.c:519-633), standard and SOLiD pairs;
+    local-SW DPs via yield."""
     if not ((p[0].mapQ >= SW_MIN_MAPQ or p[1].mapQ >= SW_MIN_MAPQ)
             and (p[0].extra_flag & SAM_FPP) == 0):
         return
@@ -251,13 +256,16 @@ def paired_sw1_gen(bns, pac, p, popt, ii, counters):
     beg = [0, 0]
     end = [0, 0]
     cnt = [0, 0]
+    if popt.type not in (BWA_PET_STD, BWA_PET_SOLID):
+        return
     for k in (0, 1):
         ref = p[1 - k]
         mate = p[k]
         if ref.type == BWA_TYPE_NO_MATCH:
             return
         rd = mate.read
-        if ref.strand == 0:
+
+        def rght_coor():
             # __set_rght_coor (bwape.c:531-536): a is truncated to int64
             # first; b is computed from the truncated a
             a = int(ref.pos + ii.avg - 3 * ii.std - mate.len * 1.5)
@@ -266,8 +274,9 @@ def paired_sw1_gen(bns, pac, p, popt, ii, counters):
                 a = ref.pos + ref.len
             if b > bns.l_pac:
                 b = bns.l_pac
-            seq = rd.rseq
-        else:
+            return a, b
+
+        def left_coor():
             # __set_left_coor (bwape.c:538-543)
             a = int(ref.pos + ref.len - ii.avg - 3 * ii.std
                     - mate.len * 0.5)
@@ -276,7 +285,22 @@ def paired_sw1_gen(bns, pac, p, popt, ii, counters):
                 a = 0
             if b > ref.pos:
                 b = ref.pos
-            seq = rd.seq[::-1]  # forward orientation
+            return a, b
+
+        if popt.type == BWA_PET_STD:
+            if ref.strand == 0:
+                a, b = rght_coor()
+                seq = rd.rseq
+            else:
+                a, b = left_coor()
+                seq = rd.seq[::-1]  # forward orientation
+        else:  # BWA_PET_SOLID (bwape.c:574-585)
+            if ref.strand == 0:
+                a, b = left_coor() if k == 0 else rght_coor()
+                seq = rd.rseq[::-1]
+            else:
+                a, b = rght_coor() if k == 0 else left_coor()
+                seq = rd.seq
         beg[k], end[k] = a, b
         cigar[k], beg[k], cnt[k] = yield from sw_core_gen(
             bns.l_pac, pac, seq, beg[k], end[k] - beg[k])
@@ -331,7 +355,8 @@ def paired_sw1_gen(bns, pac, p, popt, ii, counters):
         p[k].type = BWA_TYPE_MATESW
         p[k].pos = beg[k]
         p[k].seQ = p[1 - k].seQ
-        p[k].strand = 1 - p[1 - k].strand
+        p[k].strand = (1 - p[1 - k].strand) if popt.type == BWA_PET_STD \
+            else p[1 - k].strand
         p[k].n_mm = cnt[k] >> 16
         p[k].n_gapo = (cnt[k] >> 8) & 0xFF
         p[k].n_gape = cnt[k] & 0xFF
@@ -575,7 +600,8 @@ def pairing(engine, pc, gopt, popt, iis, pos_memo, host_reference=False):
         pos_memo)
     native.lib().pe_pairing_batch(
         n, flat_keys, key_off, pc.recs, 4 * pc.hit_off,
-        pc.state.reshape(-1), 0, popt.max_isize, gopt.s_mm,
+        pc.state.reshape(-1), 0 if popt.type == BWA_PET_STD else 1,
+        popt.max_isize, gopt.s_mm,
         _per_pair(iis, n, "high", np.int64),
         _per_pair(iis, n, "high_bayesian", np.int64),
         _per_pair(iis, n, "avg", np.float64),
@@ -740,11 +766,14 @@ def gapped_jobs(pc):
     return jobs
 
 
-def md(pc, bns, pac):
+def md(pc, bns, pac, seqs=None):
     """Step 8a: MD/NM with ambiguity holes (native md_batch); the MD text
-    buffer and its offsets."""
+    buffer and its offsets.  seqs: the rows' reference-forward codes
+    (flat, offsets) where they are not the reads' own (colour space)."""
     n2, strand = len(pc.state), pc.strand
-    if pc.colsrc is not None:
+    if seqs is not None:
+        seq_flat, seq_off = seqs
+    elif pc.colsrc is not None:
         f0, o0 = pc.colsrc[0].aligned_codes(strand[0::2])
         f1, o1 = pc.colsrc[1].aligned_codes(strand[1::2])
         seq_flat, seq_off = interleave_flats(f0, o0, f1, o1)
@@ -780,17 +809,41 @@ def correct_trim(pc):
         state[i, F_LEN] = s.len
 
 
-def emit(pc, bns, gopt, rg_id, md_buf, md_off):
+def clipped_columns(pc):
+    """`models.samse.clipped_columns` of the interleaved rows."""
+    if pc.colsrc is not None:
+        (c0, q0, o0), (c1, q1, o1) = map(se.clipped_columns, pc.colsrc)
+        codes, off = interleave_flats(c0, o0, c1, o1)
+        quals, _ = interleave_flats(q0, o0, q1, o1)
+        return codes, quals, off
+    return se.clipped_columns([pc.read(i) for i in range(len(pc.state))])
+
+
+def emit_columns(pc):
+    """The emitter's (codes, offsets) and (quals, offsets) columns of the
+    interleaved rows: each read's untrimmed codes and qualities."""
+    if pc.colsrc is not None:
+        c0, c1 = pc.colsrc
+        return (interleave_flats(*c0.code_bytes(), *c1.code_bytes()),
+                interleave_flats(*c0.qual_bytes(), *c1.qual_bytes()))
+    reads = [pc.read(i) for i in range(len(pc.state))]
+    return (flat([r.full_codes for r in reads]),
+            flat([(r.qual.tobytes() if r.qual is not None else b"")
+                  for r in reads]))
+
+
+def emit(pc, bns, gopt, rg_id, md_buf, md_off, cols=None):
     """Step 8c: the chunk's SAM text, the two ends of a pair on
-    neighbouring lines (native sam_emit_batch, mate_idx = row ^ 1)."""
+    neighbouring lines (native sam_emit_batch, mate_idx = row ^ 1).
+    cols: the (codes, quals) columns where they are not
+    `emit_columns(pc)` (colour space)."""
     n, n2 = pc.n, 2 * pc.n
+    codes, quals = cols if cols is not None else emit_columns(pc)
     if pc.colsrc is not None:
         # columnar batches carry no barcodes
         c0, c1 = pc.colsrc
         names = interleave_flats(*c0.name_bytes(), *c1.name_bytes())
         bcs = (np.zeros(0, dtype=np.uint8), np.zeros(n2 + 1, dtype=np.int64))
-        codes = interleave_flats(*c0.code_bytes(), *c1.code_bytes())
-        quals = interleave_flats(*c0.qual_bytes(), *c1.qual_bytes())
     else:
         reads = [pc.read(i) for i in range(n2)]
         # the bc concat quirk (bwape.c:731-740)
@@ -800,9 +853,6 @@ def emit(pc, bns, gopt, rg_id, md_buf, md_off):
                 bc[2 * i] = bc[2 * i + 1] = bc[2 * i] + bc[2 * i + 1]
         names = flat([r.name.encode() for r in reads])
         bcs = flat(bc)
-        codes = flat([r.full_codes for r in reads])
-        quals = flat([(r.qual.tobytes() if r.qual is not None else b"")
-                      for r in reads])
     multi = (pc.multi_pos, pc.multi_gap, pc.multi_mm, pc.multi_strand,
              pc.multi_n)
     return se.emit_rows(pc.state, np.arange(n2, dtype=np.int64) ^ 1, names,
@@ -816,11 +866,9 @@ def sampe_bytes(engine, reads, per_read_alns, gopt, popt, rng, rg_id=None,
     """sampe for one chunk on the port's engine.  reads: (reads0, reads1);
     per_read_alns: (alns0, alns1); rng: the shared drand48 stream;
     last_ii: the previous chunk's IsizeInfo; pos_memo: the wide-interval
-    memo carried across chunks.  Returns (SAM bytes, IsizeInfo)."""
-    if ntpac is not None or popt.type != BWA_PET_STD:
-        raise NotImplementedError(
-            "colour-space sampe (BWA_PET_SOLID) is not yet ported to "
-            "nabwa_tpu_torch")
+    memo carried across chunks; ntpac: the unpacked `.nt` pac of colour
+    space (`popt.type` BWA_PET_SOLID then).  Returns (SAM bytes,
+    IsizeInfo)."""
     if pos_memo is None:
         pos_memo = {}
     index = engine.index
@@ -853,11 +901,17 @@ def sampe_bytes(engine, reads, per_read_alns, gopt, popt, rng, rg_id=None,
     seconds["dp"] += time.perf_counter() - t7
     se.refine_jobs(jobs, pac, bns.l_pac, engine.device, host_reference,
                    parts=seconds)
+    seqs = cols = None
+    if ntpac is not None:
+        seqs, *cols = se.colour_step(pc, clipped_columns(pc),
+                                     emit_columns(pc), bns.l_pac, ntpac,
+                                     engine.device, host_reference, seconds)
     t8 = time.perf_counter()
-    md_buf, md_off = md(pc, bns, pac)
+    md_buf, md_off = md(pc, bns, pac if ntpac is None else ntpac, seqs)
     t9 = time.perf_counter()
-    correct_trim(pc)
-    blob = emit(pc, bns, gopt, rg_id, md_buf, md_off)
+    if ntpac is None:          # trim correction is Illumina-only
+        correct_trim(pc)
+    blob = emit(pc, bns, gopt, rg_id, md_buf, md_off, cols)
     t10 = time.perf_counter()
     seconds["pairing"] += t5 - t4
     seconds["multi"] += t6 - t5

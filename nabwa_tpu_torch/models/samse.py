@@ -11,8 +11,15 @@ Steps, in the reference's order:
   3. mapQ     vectorised bwa_approx_mapQ
   4. refine   gapped refinement (bwa_refine_gapped): the banded global DP of
               `ops/dp.py`, kernel C4 on CUDA, and the backtrace on the host
-  5. md       MD/NM (native `md_batch`)
-  6. trim     quality-trim cigar correction (bwa_correct_trimmed)
+  4c. colour  colour space only (`ntpac`, bwase.c:383-401): `colour_step`
+              decodes the matched rows with `refmodel.cs2nt.cs2nt_batch`,
+              writes the decoded codes, qualities and lengths back, and
+              refines the gapped slots and every row with a cigar again,
+              against the `.nt` pac with is_end_correct=0 (C4 again)
+  5. md       MD/NM (native `md_batch`; against the `.nt` pac in colour
+              space)
+  6. trim     quality-trim cigar correction (bwa_correct_trimmed), not in
+              colour space (bwase.c:418)
   7. emit     SAM text (native `sam_emit_batch`)
 
 Steps 1, 5 and 7 run in the native host library (native/post.cpp).
@@ -30,8 +37,9 @@ driver uses them too.
 
 `seconds` sums host seconds per part over calls: select (steps 1 and 3),
 sa, dp (windows, packing, the copy to the device and the DP to its end),
-dp_backtrace (the lattice copy back, backtraces, cigars), md, emit
-(steps 6 and 7).  On the host reference route sa and dp are the native
+dp_backtrace (the lattice copy back, backtraces, cigars), cs2nt (step
+4c's decode and write-back; its refine books to dp and dp_backtrace), md,
+emit (steps 6 and 7).  On the host reference route sa and dp are the native
 walks.
 """
 
@@ -49,6 +57,7 @@ from ..io.sai import AlnColumn
 from ..ops import dp
 from ..ops.sa_lookup import sa_lookup_plain
 from ..refmodel.aln_scalar import cal_maxdiff
+from ..refmodel.cs2nt import cs2nt_batch
 from ..refmodel.stdaln_scalar import (ALN_PARAM_BWA, FROM_D, FROM_I, FROM_M,
                                       FROM_S, path2cigar32)
 from ..utils.rand48 import Rand48
@@ -59,8 +68,8 @@ from .post_native import (F_C1, F_C2, F_CLIP_LEN, F_FULL_LEN, F_LEN, F_MAPQ,
 
 _NEG1 = 0xFFFFFFFF
 
-seconds = dict.fromkeys(("select", "sa", "dp", "dp_backtrace", "md",
-                         "emit"), 0.0)
+seconds = dict.fromkeys(("select", "sa", "dp", "dp_backtrace", "cs2nt",
+                         "md", "emit"), 0.0)
 
 
 # --- per-read host steps, copied from nabwa_tpu/models/samse.py ---
@@ -542,24 +551,25 @@ def gapped_jobs(ch):
     return jobs
 
 
-def refine_pairs(jobs, pac, l_pac):
+def refine_pairs(jobs, pac, l_pac, is_end_correct=True):
     """The (reference window, read) pair of every job (bwase.c:193-207)."""
-    return [(refine_window(l_pac, pac, seqc, pos, ext)[0],
+    return [(refine_window(l_pac, pac, seqc, pos, ext, is_end_correct)[0],
              np.asarray(seqc)) for _, seqc, pos, ext in jobs]
 
 
 def refine_jobs(jobs, pac, l_pac, device, host_reference=False,
-                parts=None):
+                parts=None, is_end_correct=True):
     """Solve (apply, seq_codes, pos, ext) refinement jobs with the banded
     global DP on `device` (nabwa_tpu/models/samse.py:480-496), or with the
-    native DP when host_reference is set, and apply each result.  Host
-    seconds go to parts["dp"] and parts["dp_backtrace"] (this module's
-    `seconds` when parts is None)."""
+    native DP when host_reference is set, and apply each result.
+    is_end_correct=False is colour space's second round against the `.nt`
+    pac.  Host seconds go to parts["dp"] and parts["dp_backtrace"] (this
+    module's `seconds` when parts is None)."""
     if not jobs:
         return
     parts = seconds if parts is None else parts
     t0 = time.perf_counter()
-    pairs = refine_pairs(jobs, pac, l_pac)
+    pairs = refine_pairs(jobs, pac, l_pac, is_end_correct)
     parts["dp"] += time.perf_counter() - t0
     if host_reference:
         res = dp.banded_global_native(pairs, ALN_PARAM_BWA, seconds=parts)
@@ -568,8 +578,126 @@ def refine_jobs(jobs, pac, l_pac, device, host_reference=False,
                                      seconds=parts)
     t0 = time.perf_counter()
     for (apply, seqc, pos, ext), (_, path) in zip(jobs, res):
-        apply(*refine_gapped_core(l_pac, pac, seqc, pos, ext, path=path))
+        apply(*refine_gapped_core(l_pac, pac, seqc, pos, ext, path=path,
+                                  is_end_correct=is_end_correct))
     parts["dp_backtrace"] += time.perf_counter() - t0
+
+
+def ragged_take(src, starts, lens, flags=None):
+    """(flat, offsets) of the uint8 slices src[starts[i]:starts[i] +
+    lens[i]] by the native ragged gather: flags[i] 1 reverses slice i, 3
+    reverses and complements it."""
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    n = len(lens)
+    off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=off[1:])
+    out = np.empty(int(off[-1]), dtype=np.uint8)
+    flags = (np.zeros(n, dtype=np.uint8) if flags is None
+             else np.ascontiguousarray(flags, dtype=np.uint8))
+    native.lib().gather_rows_u8(
+        np.ascontiguousarray(src, dtype=np.uint8),
+        np.ascontiguousarray(starts, dtype=np.int64), lens, flags, n, out,
+        off, post_threads())
+    return out, off
+
+
+def clipped_columns(reads):
+    """(codes, quals, off): each read's codes and ASCII qualities over its
+    clipped length, in the read's own orientation (`r.seq[::-1]` and the
+    head of `r.qual`)."""
+    if isinstance(reads, ReadBatch):
+        lens = reads.clip_lens()
+        starts = reads.seq_off[reads.lo:reads.hi]
+        codes, off = ragged_take(reads.codes_flat, starts, lens)
+        quals, _ = ragged_take(reads.qual_flat, starts, lens)
+        return codes, quals, off
+    codes, off = flat([r.seq[::-1] for r in reads])
+    quals, _ = flat([r.qual[:len(r.seq)] for r in reads])
+    return codes, quals, off
+
+
+def _revcomp(codes):
+    return np.where(codes < 4, 3 - codes, codes)[::-1]
+
+
+def colour_step(ch, clipped, full, l_pac, ntpac, device,
+                host_reference=False, parts=None):
+    """Step 4c, colour space (bwase.c:383-401) on a samse `Chunk` or a
+    sampe `PairChunk`: cs2nt on every matched row, then the second refine
+    round against the `.nt` pac with is_end_correct=0 over the gapped
+    multi slots and the rows with a cigar.  clipped: `clipped_columns` of
+    the rows; full: the rows' (codes, offsets) and (quals, offsets) as
+    the emitter takes them.  Writes F_LEN and F_FULL_LEN (the decoded
+    length) and returns (seqs, codes, quals): the rows' reference-forward
+    codes for `md` (decoded rows only) and the emitter's columns with the
+    decoded rows' codes and qualities in their original orientation."""
+    parts = seconds if parts is None else parts
+    t0 = time.perf_counter()
+    state = ch.state
+    codes, quals, off = clipped
+    rows = np.nonzero(ch.matched)[0]
+    strand = ch.strand
+    lens = off[1:] - off[:-1]
+    c_sel, o_sel = ragged_take(codes, off[rows], lens[rows])
+    q_sel, _ = ragged_take(quals, off[rows], lens[rows])
+    dec, dq, doff = cs2nt_batch(c_sel, q_sel, o_sel, strand[rows],
+                                state[rows, F_POS],
+                                [ch.cigars.get(i) for i in rows.tolist()],
+                                l_pac, ntpac)
+    n = doff[1:] - doff[:-1]
+    state[rows, F_LEN] = n
+    state[rows, F_FULL_LEN] = n
+    # the emitter's columns: decoded rows in their original orientation
+    # (reversed and complemented on the reverse strand), the rest as read
+    rs = strand[rows].astype(np.uint8)
+    dec_o, doff_o = ragged_take(dec, doff[:-1], n, 3 * rs)
+    dq_o, _ = ragged_take(dq, doff[:-1], n, rs)
+    cols = []
+    for (src, soff), new in ((full[0], dec_o), (full[1], dq_o)):
+        starts, slen = soff[:-1].copy(), soff[1:] - soff[:-1]
+        starts[rows] = len(src) + doff_o[:-1]
+        slen[rows] = n
+        cols.append(ragged_take(np.concatenate([src, new]), starts, slen))
+    mlen = np.zeros(len(state), dtype=np.int64)
+    mlen[rows] = n
+    mstart = np.zeros(len(state), dtype=np.int64)
+    mstart[rows] = doff[:-1]
+    seqs = ragged_take(dec, mstart, mlen)
+    parts["cs2nt"] += time.perf_counter() - t0
+
+    # the second round (bwase.c:390-399): a slot on the row's strand reads
+    # the decoded codes, one on the other strand their reverse complement
+    t0 = time.perf_counter()
+    rf = {int(i): dec[doff[k]:doff[k + 1]] for k, i in enumerate(rows)}
+    jobs = []
+    for o in ch.mslot.tolist():
+        if ch.multi_gap[o] == 0:
+            continue
+        i = o // ch.stride
+        same = bool(ch.multi_strand[o]) == bool(strand[i])
+        seqc = rf[i] if same else _revcomp(rf[i])
+
+        def apply_m(cig, newpos, o=o):
+            ch.mcigars[o] = cig
+            ch.multi_pos[o] = newpos
+
+        jobs.append((apply_m, seqc, int(ch.multi_pos[o]),
+                     (1 if ch.multi_strand[o] else -1) * int(ch.multi_gap[o])))
+    for i in rows.tolist():
+        if not ch.cigars.get(i):
+            continue
+
+        def apply_s(cig, newpos, i=i):
+            ch.cigars[i] = cig if cig else None
+            state[i, F_POS] = newpos
+
+        jobs.append((apply_s, rf[i], int(state[i, F_POS]),
+                     (1 if strand[i] else -1)
+                     * int(state[i, F_NGO] + state[i, F_NGE])))
+    parts["dp"] += time.perf_counter() - t0
+    refine_jobs(jobs, ntpac, l_pac, device, host_reference, parts,
+                is_end_correct=False)
+    return seqs, cols[0], cols[1]
 
 
 def cigar_flat(cigars, n, extra=None, n_extra=0):
@@ -599,11 +727,15 @@ def cigar_flat(cigars, n, extra=None, n_extra=0):
     return cig, np.concatenate([o for _, o in parts])
 
 
-def md(ch, bns, pac):
+def md(ch, bns, pac, seqs=None):
     """Step 5: MD/NM with ambiguity holes (native md_batch); returns the
-    MD text buffer and its offsets."""
+    MD text buffer and its offsets.  seqs: the rows' reference-forward
+    codes (flat, offsets) where they are not the reads' own (colour
+    space's decoded rows)."""
     n, strand = ch.n, ch.strand
-    if ch.colsrc is not None:
+    if seqs is not None:
+        seq_flat, seq_off = seqs
+    elif ch.colsrc is not None:
         seq_flat, seq_off = ch.colsrc.aligned_codes(strand)
     else:
         seq_flat, seq_off = flat([
@@ -666,20 +798,27 @@ def emit_rows(state, mate_idx, names, bcs, codes, quals, cigars, mcigars,
     return out[:total].tobytes()
 
 
-def emit(ch, bns, opt, rg_id, md_buf, md_off):
-    """Step 7: the chunk's SAM text, no mates."""
+def emit_columns(ch):
+    """The emitter's (codes, offsets) and (quals, offsets) columns of a
+    samse chunk: each read's untrimmed codes and qualities."""
+    if ch.colsrc is not None:
+        return ch.colsrc.code_bytes(), ch.colsrc.qual_bytes()
+    return (flat([r.full_codes for r in ch.reads]),
+            flat([(r.qual.tobytes() if r.qual is not None else b"")
+                  for r in ch.reads]))
+
+
+def emit(ch, bns, opt, rg_id, md_buf, md_off, cols=None):
+    """Step 7: the chunk's SAM text, no mates.  cols: the (codes, quals)
+    columns where they are not `emit_columns(ch)` (colour space)."""
     n, reads = ch.n, ch.reads
+    codes, quals = cols if cols is not None else emit_columns(ch)
     if ch.colsrc is not None:
         names = ch.colsrc.name_bytes()
         bcs = (np.zeros(0, np.uint8), np.zeros(n + 1, np.int64))
-        codes = ch.colsrc.code_bytes()
-        quals = ch.colsrc.qual_bytes()
     else:
         names = flat([r.name.encode() for r in reads])
         bcs = flat([r.bc.encode() if r.bc else b"" for r in reads])
-        codes = flat([r.full_codes for r in reads])
-        quals = flat([(r.qual.tobytes() if r.qual is not None else b"")
-                      for r in reads])
     multi = (ch.multi_pos, ch.multi_gap, ch.multi_mm, ch.multi_strand,
              ch.multi_n)
     return emit_rows(ch.state, np.full(n, -1, dtype=np.int64), names, bcs,
@@ -691,11 +830,9 @@ def samse_bytes(engine, reads, per_read_alns, opt, n_occ=3, rng=None,
                 rg_id=None, ntpac=None, host_reference=False):
     """samse for one chunk on the port's engine: the SAM text as bytes, one
     newline-terminated line per read.  rng is the shared drand48 stream
-    (a fresh one seeded from the index when None); host_reference runs
-    steps 2 and 4 on the host's native walks (see the module docstring)."""
-    if ntpac is not None:
-        raise NotImplementedError(
-            "colour-space samse is not yet ported to nabwa_tpu_torch")
+    (a fresh one seeded from the index when None); ntpac, the unpacked
+    `.nt` pac, turns on colour space (step 4c); host_reference runs steps
+    2 and 4 on the host's native walks (see the module docstring)."""
     if not len(reads):
         return b""
     index = engine.index
@@ -712,11 +849,17 @@ def samse_bytes(engine, reads, per_read_alns, opt, n_occ=3, rng=None,
     jobs = gapped_jobs(ch)
     t4 = time.perf_counter()
     refine_jobs(jobs, pac, bns.l_pac, engine.device, host_reference)
+    seqs = cols = None
+    if ntpac is not None:
+        seqs, *cols = colour_step(ch, clipped_columns(reads),
+                                  emit_columns(ch), bns.l_pac, ntpac,
+                                  engine.device, host_reference)
     t5 = time.perf_counter()
-    md_buf, md_off = md(ch, bns, pac)
+    md_buf, md_off = md(ch, bns, pac if ntpac is None else ntpac, seqs)
     t6 = time.perf_counter()
-    correct_trim(ch)
-    blob = emit(ch, bns, opt, rg_id, md_buf, md_off)
+    if ntpac is None:          # trim correction is Illumina-only
+        correct_trim(ch)
+    blob = emit(ch, bns, opt, rg_id, md_buf, md_off, cols)
     t7 = time.perf_counter()
     seconds["select"] += (t1 - t0) + (t3 - t2)
     seconds["sa"] += t2 - t1

@@ -147,9 +147,8 @@ def test_aln_cuda_device_required(data, monkeypatch):
 
 @pytest.mark.parametrize("cmd", ["samse", "sampe", "pac2cspac", "bam2bam"])
 def test_other_commands_not_ported(cmd):
-    """`pac2cspac` (colour space, outside the port) exits non-zero;
-    `samse`, `sampe` and `bam2bam`, ported since, exit non-zero on this
-    malformed call (no device, or a usage error)."""
+    """`pac2cspac`, `samse`, `sampe` and `bam2bam`, ported since, exit
+    non-zero on this malformed call (no device, or a usage error)."""
     try:
         rc = port_cli.main([cmd, "x"])
     except SystemExit as e:

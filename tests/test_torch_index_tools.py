@@ -10,9 +10,10 @@ Genomes (drawn with numpy from a seed by tests/genomes.py):
 `nabwa_tpu.index.build.build_index` (and `-p` the same at another prefix);
 the chain fa2pac -> pac_rev -> pac2bwt -> bwtupdate -> bwt2sa (at -i 32
 and 24) and pac2bwtgen must write the files `nabwa_tpu.cli`'s `cmd_*`
-write on the same inputs.  `index -c` and `pac2cspac` (colour space) exit
-non-zero.  The tools run no kernel, so there is no device.  Tolerance:
-exact, whole files.
+write on the same inputs; `index -c` and `pac2cspac` (colour space) the
+files of `build_index(color=True)` and `nabwa_tpu.index.pack.pac2cspac`.
+The tools run no kernel, so there is no device.  Tolerance: exact, whole
+files.
 """
 
 import os
@@ -110,13 +111,32 @@ def test_bwtupdate_without_argument():
 
 @pytest.mark.parametrize("argv", [["index", "-c", "x.fa"],
                                   ["pac2cspac", "nt", "cs"]])
-def test_colour_space_refused(argv, fastas, capsys, tmp_path):
-    """Colour space is not ported: `index -c` and `pac2cspac` exit non-zero
-    with an error and write nothing."""
-    argv = [str(tmp_path / a) if a.endswith(".fa") else a for a in argv]
+def test_colour_space_refused(argv, fastas, tmp_path):
+    """Colour space is ported: `index -c` writes the eleven files of
+    `nabwa_tpu.index.build.build_index(color=True)` (the `.nt` pac and its
+    annotations, then the colour index), and `pac2cspac <nt prefix> <cs
+    prefix>` the `.pac`, `.ann` and `.amb` of
+    `nabwa_tpu.index.pack.pac2cspac`, on the genome with N runs and three
+    contigs."""
+    from nabwa_tpu.index.pack import pac2cspac
+    fa = fastas["multi"].read_bytes()
+    (tmp_path / "x.fa").write_bytes(fa)
+    (tmp_path / "want.fa").write_bytes(fa)
+    build_index(str(tmp_path / "want.fa"), color=True)
     if argv[0] == "index":
-        (tmp_path / "x.fa").write_bytes(fastas["odd"].read_bytes())
-    before = set(tmp_path.iterdir())
-    assert port_cli.main(argv) != 0
-    assert "colour space is not yet ported" in capsys.readouterr().err
-    assert set(tmp_path.iterdir()) == before
+        assert port_cli.main([argv[0], argv[1],
+                              str(tmp_path / argv[2])]) == 0
+        exts = [".nt.pac", ".nt.ann", ".nt.amb", *INDEX_EXTS]
+        got, want = "x.fa", "want.fa"
+    else:
+        nt = str(tmp_path / "want.fa.nt")
+        assert port_cli.main([argv[0], nt, str(tmp_path / argv[2])]) == 0
+        pac2cspac(nt, str(tmp_path / "jax_cs"))
+        exts = [".pac", ".ann", ".amb"]
+        got, want = argv[2], "jax_cs"
+        for ext in exts:
+            assert (tmp_path / f"want.fa{ext}").read_bytes() == \
+                (tmp_path / f"{want}{ext}").read_bytes(), ext
+    for ext in exts:
+        assert (tmp_path / f"{got}{ext}").read_bytes() == \
+            (tmp_path / f"{want}{ext}").read_bytes(), ext

@@ -296,19 +296,29 @@ def test_sampe_cuda_device_required(made, monkeypatch):
     assert rc != 0 and not out.exists()
 
 
-def test_sampe_colour_space_not_ported(made, capsys):
+def test_sampe_colour_space_not_ported(made):
+    """Colour space is ported: on a colour index of the same genome
+    (`build_index(color=True)`), both ends' colour `.sai` of `nabwa_tpu aln
+    -c` go through the port's `sampe` (BWA_PET_SOLID pairing, cs2nt
+    decoding) to the bytes of `nabwa_tpu sampe`."""
+    from .test_torch_colour import colour_pairs
     d = made("broken")
-    opt, per_read = sai.read_sai_tuples(str(d / "r2.sai"))
-    opt.mode &= ~0x02                      # BWA_MODE_COMPREAD off: colour
-    cs = d / "colour.sai"
-    sai.write_sai(str(cs), opt, per_read)
-    out = d / "colour.sam"
-    args = _args(d)
-    args[2] = str(cs)
-    rc = port_cli.main(["sampe", "--device", "cpu", *args, "-f", str(out)])
-    assert rc != 0 and not out.exists()
-    assert "colour-space" in capsys.readouterr().err
-    eng = AlnEngine(BwaIndex.load(str(d / "g.fa")), GapOpt(), "cpu")
-    with pytest.raises(NotImplementedError):
-        msampe.sampe_bytes(eng, ([], []), ([], []), GapOpt(), PeOpt(),
-                           Rand48(1), ntpac=np.zeros(4))
+    cs = str(d / "cs.fa")
+    build_index(str(d / "g.fa"), cs, color=True)
+    g = b"".join(ln for ln in (d / "g.fa").read_bytes().split(b"\n")
+                 if not ln.startswith(b">"))
+    fqs = colour_pairs(g, 100, 40, seed=861)[:2]
+    for e, fq in zip((1, 2), fqs):
+        (d / f"colour{e}.fq").write_bytes(fq)
+        assert ref_cli.main(["aln", "-c", cs, str(d / f"colour{e}.fq"),
+                             "-f", str(d / f"colour{e}.sai")]) == 0
+    args = [cs, str(d / "colour1.sai"), str(d / "colour2.sai"),
+            str(d / "colour1.fq"), str(d / "colour2.fq")]
+    assert ref_cli.main(["sampe", *args, "-f", str(d / "colour.jax.sam")]) == 0
+    assert port_cli.main(["sampe", "--device", "cpu", *args, "-f",
+                          str(d / "colour.sam")]) == 0
+    got = (d / "colour.sam").read_bytes()
+    assert got == (d / "colour.jax.sam").read_bytes()
+    flags = [int(ln.split(b"\t")[1]) for ln in got.splitlines()
+             if not ln.startswith(b"@")]
+    assert len(flags) == 200 and sum(1 for f in flags if f & 2) >= 140

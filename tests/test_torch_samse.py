@@ -20,7 +20,6 @@ from nabwa_tpu.index.build import build_index
 from nabwa_tpu.index.fmindex import BwaIndex
 from nabwa_tpu.io import fastq, sai
 from nabwa_tpu.models.samse import sam_header
-from nabwa_tpu.options import GapOpt
 from nabwa_tpu.utils.rand48 import Rand48
 from nabwa_tpu_torch import cli as port_cli
 from nabwa_tpu_torch.models import samse as msamse
@@ -153,17 +152,25 @@ def test_samse_cuda_device_required(made, monkeypatch):
     assert rc != 0 and not out.exists()
 
 
-def test_samse_colour_space_not_ported(made, capsys):
+def test_samse_colour_space_not_ported(made):
+    """Colour space is ported: on a colour index of the same genome
+    (`build_index(color=True)`), a colour `.sai` of `nabwa_tpu aln -c`
+    goes through the port's `samse` (cs2nt decoding against the `.nt`
+    pac) to the bytes of `nabwa_tpu samse`."""
+    from .test_torch_colour import colour_reads
     d = made("exact")
-    opt, per_read = sai.read_sai_tuples(str(d / "r.sai"))
-    opt.mode &= ~0x02                      # BWA_MODE_COMPREAD off: colour
-    cs = d / "colour.sai"
-    sai.write_sai(str(cs), opt, per_read)
-    out = d / "colour.sam"
-    rc = port_cli.main(["samse", "--device", "cpu", str(d / "g.fa"),
-                        str(cs), str(d / "r.fq"), "-f", str(out)])
-    assert rc != 0 and not out.exists()
-    assert "colour-space" in capsys.readouterr().err
-    eng = AlnEngine(BwaIndex.load(str(d / "g.fa")), GapOpt(), "cpu")
-    with pytest.raises(NotImplementedError):
-        msamse.samse_bytes(eng, [], [], GapOpt(), ntpac=np.zeros(4))
+    cs = str(d / "cs.fa")
+    build_index(str(d / "g.fa"), cs, color=True)
+    g = b"".join(ln for ln in (d / "g.fa").read_bytes().split(b"\n")
+                 if not ln.startswith(b">"))
+    fq = d / "colour.fq"
+    fq.write_bytes(colour_reads(g, 96, 36, seed=851, indel=0.2))
+    assert ref_cli.main(["aln", "-c", cs, str(fq), "-f",
+                         str(d / "colour.sai")]) == 0
+    args = [cs, str(d / "colour.sai"), str(fq)]
+    assert ref_cli.main(["samse", *args, "-f", str(d / "colour.jax.sam")]) == 0
+    assert port_cli.main(["samse", "--device", "cpu", *args, "-f",
+                          str(d / "colour.sam")]) == 0
+    got = (d / "colour.sam").read_bytes()
+    assert got == (d / "colour.jax.sam").read_bytes()
+    assert got.count(b"\tCM:i:") >= 60
