@@ -170,12 +170,21 @@ Phases, any failure exits non-zero:
    (csrc/probe_dfs_shape.cu) at 256 x 128 x 200 and 2048 x 128 x 200,
    timed, and at S 32, 64 and 96 (256 reads, 200 iterations); C10 at
    probe 5's 256 x 128 x 100; C11-C14 (csrc/probe_pallas2.cu) at
-   scripts/probe_pallas2.py's shapes: C11 x + 1 on [8, 128], timed by
-   CUDA events and by the host's clock (200 calls, one synchronize), as
-   is `x + 1`; C12's two loads a body over 256 bodies from a [32768, 128]
-   table, rolled and unrolled; C13's 50 pop rounds on [256, 256] (out,
-   the whole final key and each round's minimum, on the script's input,
-   on forced ties and on sums that wrap); C14's lane sum of [512, 128];
+   scripts/probe_pallas2.py's shapes, first the launch path
+   (`check_launch_path`: `stream_of` is the current stream, default and
+   side, C14 exact on a side stream, its launch count exact over
+   COUNT_THREADS threads) and its host split (`launch_split`: each step
+   of C14's and C11's wrappers over SPLIT_CALLS calls, the host's clock
+   and one synchronize, beside torch.sum and `x + 1`): C11 x + 1 on [8,
+   128]; C12's 2 x 256 row loads from a [32768, 128] table, the grid form
+   (either unroll; also on index_cases' four index sets, idx 2 and 3
+   columns wide, BB 0, 1, 257 and 5,001, seed LOADS_EDGE_SEED) and the
+   serial forms, one warp, rolled and unrolled (`serial_*`); C11, C12
+   and C14 timed by CUDA events, queued and by the host's clock
+   (LAUNCH_REPS calls, one synchronize), each beside its library call;
+   C13's 50 pop rounds on [256, 256] (out, the whole final key and each
+   round's minimum, on the script's input, on forced ties and on sums
+   that wrap); C14's lane sum of [512, 128];
    C15-C18 (csrc/probe_pallas.cu) at scripts/probe_pallas.py's shapes:
    C15 probe 2's 256 rows of a [4096, 128] table with the indices staged
    in shared memory (also both ends of the table and repeats; a table
@@ -300,8 +309,10 @@ on a cast made beforehand as `library_precast_ms`); none computes C31-C34
 back-to-back launches, which wait on the host's enqueue when it is the
 slower), C7 and C11-C35 carry
 `queued_ms`, the same launches queued behind a sleeping kernel (the
-card's own time a launch), and C11 `wall_ms`, the host's clock a call;
-C11 has all three for `x + 1` too.
+card's own time a launch), every probe with a library call
+`library_queued_ms`, and C11, C12 and C14 `wall_ms` and
+`library_wall_ms`, the host's clock a call; C11 and C14 carry
+`host_split`.
 The probes' bounds count their table rows once (the distinct rows the
 run reads) and their operations as the header of each .cu file counts
 them.
@@ -341,8 +352,8 @@ launches.  C3's `ms` is phase 5's launch of samse's rows of both strands
 (`bwasw_max_steps`, `bam2bam_max_steps` those of the largest launch
 there), `lone_us_per_step` is the longest row's launch alone over its
 steps, `lone_chain_ms` max_steps times that, and `chain_bound_ms`
-max_steps times C12's serial load (phase 18's `ns_per_load`): a chain
-of one dependent load a step.  Its bound counts one Occ block a step;
+max_steps times C12's serial load (phase 18's `serial_ns_per_load`): a
+chain of one dependent load a step.  Its bound counts one Occ block a step;
 `ptxas` holds both interval tests' registers, stack and spills.
 
 Data and the index are cached under the temp directory.  The last two
@@ -500,6 +511,14 @@ DFS_EDGE_SEED = 22
 LOCAL_EDGE_SEED = 23
 CW_EDGE_SEED = 24
 SA_EDGE_SEED = 25
+LOADS_EDGE_SEED = 26
+# calls a step of a wrapper is timed over in the host split (launch_split),
+# and the back-to-back launches C11's, C12's and C14's ms and wall_ms and
+# their library calls' are timed over
+SPLIT_CALLS = 10_000
+LAUNCH_REPS = 1000
+# threads launching C14 together, and calls each, for the launch count
+COUNT_THREADS, COUNT_CALLS = 4, 250
 # C1's edge launches: the retry tier's slot pool and hit list (tier 0's
 # pool of 256 overflows on every gapped edge read), at most 100,000 steps
 DFS_EDGE_STATICS = dict(stack_cap=1024, hits_cap=128, max_iters=100000)
@@ -2532,6 +2551,127 @@ def skewed(t):
     return view
 
 
+def launch_split(dev, calls=SPLIT_CALLS):
+    """The host's microseconds a call of each step of kernel C14's and
+    C11's wrappers, of each wrapper whole and of the PyTorch call that
+    computes the same (`wall_ms` over `calls` calls after a warm-up, one
+    synchronize at the end), with the port's helpers as they stand
+    (`compare.py launch` runs this over another checkout's).  `helpers`:
+    `loop` an empty call (inside every other figure), `lib`, `stream_of`,
+    `check` and `count` (the launch counter's locked add) as the wrappers
+    call them, and beside them a `torch.cuda.Stream` built for the
+    handle (`stream_object`), the raw handle (`stream_raw`), a lock
+    taken and left (`lock`), a ctypes call into the library that touches
+    no CUDA API (`ctypes_host`, `nabwa_local_form`) and PyTorch's own
+    launch of a kernel that does nothing (`torch_launch`,
+    torch.cuda._sleep(0)).  Per kernel: `checks` (`cuda_input` and the
+    width), the allocation of its output (`torch_empty`, `new_empty` with
+    a tuple and with the sizes as arguments, or `empty_like`), `launch`
+    (the ctypes call, whose C function launches the kernel and reads
+    cudaGetLastError), `wrapper` and `library`."""
+    import torch
+    from nabwa_tpu_torch.ops import _build
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas2 as pp2
+    lib = _build.lib()
+    lock = threading.Lock()
+    x = torch.zeros(pp2.REDUCE_SHAPE, dtype=torch.int32, device=dev)
+    x1 = torch.zeros(pp2.EMPTY_SHAPE, dtype=torch.int32, device=dev)
+    rows, n1 = x.shape[0], x1.numel()
+    out, out1 = torch.empty((rows, 1), dtype=torch.int32,
+                            device=dev), torch.empty_like(x1)
+    st = _build.stream_of(x)
+    form = torch.zeros(2, dtype=torch.int32)
+    saved = pp2.launches_lanereduce
+
+    def count():
+        with _build.count_lock:
+            pp2.launches_lanereduce += 1
+
+    def taken():
+        with lock:
+            pass
+
+    steps = {
+        "helpers": {
+            "loop": lambda: None, "lib": _build.lib,
+            "stream_of": lambda: _build.stream_of(x),
+            "check": lambda: _build.check(0, "launch"), "count": count,
+            "stream_object": lambda: torch.cuda.current_stream(
+                dev).cuda_stream,
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(
+                dev.index),
+            "lock": taken,
+            "ctypes_host": lambda: lib.nabwa_local_form(
+                100, 1 << 14, form.data_ptr()),
+            "torch_launch": lambda: torch.cuda._sleep(0)},
+        "probe_lanereduce": {
+            "checks": lambda: (common.cuda_input(x, "x", 2),
+                               x.shape[1] != 128),
+            "torch_empty": lambda: torch.empty((rows, 1), dtype=torch.int32,
+                                               device=dev),
+            "new_empty": lambda: x.new_empty((rows, 1)),
+            "new_empty_args": lambda: x.new_empty(rows, 1),
+            "launch": lambda: lib.nabwa_probe_lanereduce(
+                x.data_ptr(), rows, out.data_ptr(), st),
+            "wrapper": lambda: pp2.lanereduce_cuda(x),
+            "library": lambda: torch.sum(x, dim=1, keepdim=True,
+                                         dtype=torch.int32)},
+        "probe_empty": {
+            "checks": lambda: common.cuda_input(x1, "x", x1.dim()),
+            "empty_like": lambda: torch.empty_like(x1),
+            "launch": lambda: lib.nabwa_probe_empty(
+                x1.data_ptr(), n1, out1.data_ptr(), st),
+            "wrapper": lambda: pp2.empty_cuda(x1),
+            "library": lambda: x1 + 1}}
+    split = {part: {name: wall_ms(fn, calls) * 1e3
+                    for name, fn in fns.items()}
+             for part, fns in steps.items()}
+    pp2.launches_lanereduce = saved
+    split["calls"] = calls
+    return split
+
+
+def check_launch_path(dev):
+    """The shared launch path keeps its meaning: `stream_of` gives
+    PyTorch's current stream on the default stream and on a side stream,
+    a kernel launched under a side stream is exact there, and C14's
+    launch count is exact when COUNT_THREADS threads launch together."""
+    import torch
+    from nabwa_tpu_torch.ops import _build
+    from nabwa_tpu_torch.probes import probe_pallas2 as pp2
+    x = torch.randint(-2**31, 2**31 - 1, pp2.REDUCE_SHAPE,
+                      dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    if _build.stream_of(x) != torch.cuda.current_stream(dev).cuda_stream:
+        fail("stream_of differs from the current stream")
+    with torch.cuda.stream(side):
+        if _build.stream_of(x) != side.cuda_stream:
+            fail("stream_of differs from the current side stream")
+        side.wait_stream(torch.cuda.default_stream(dev))
+        got = pp2.lanereduce_cuda(x)
+    side.synchronize()
+    exact("C14 on a side stream", got, pp2.lanereduce_plain(x))
+    before = pp2.launches_lanereduce
+
+    def launch():
+        for _ in range(COUNT_CALLS):
+            pp2.lanereduce_cuda(x)
+    threads = [threading.Thread(target=launch) for _ in range(COUNT_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize(dev)
+    if pp2.launches_lanereduce - before != COUNT_THREADS * COUNT_CALLS:
+        fail(f"C14's count rose by {pp2.launches_lanereduce - before} over "
+             f"{COUNT_THREADS * COUNT_CALLS} launches from "
+             f"{COUNT_THREADS} threads")
+    log(f"launch path: stream_of is the current stream (default and side), "
+        f"C14 exact on a side stream, its count exact over "
+        f"{COUNT_THREADS} threads x {COUNT_CALLS} launches")
+
+
 def check_probes(dev):
     """Phase 18: kernels C7-C22 against their plain versions on the card, at
     the probes' shapes, inputs made with numpy from PROBE_SEED.  Returns
@@ -2564,6 +2704,8 @@ def check_probes(dev):
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, lib_idx),
                               200),
+        "library_queued_ms": queued_ms(
+            lambda: torch.index_select(tab_t, 0, lib_idx), 200),
         "library_call": "torch.index_select(table, 0, idx[:, 0])",
         "queued_ms": queued_ms(lambda: pp.rowload_cuda(idx_t, tab_t), 200),
         "rows": len(idx), "distinct_rows": n_rows}
@@ -2685,8 +2827,24 @@ def check_probes(dev):
     log(f"C10 probe_pallas_dfs_shape: exact; "
         f"{out['probe_pallas_dfs_shape']}")
 
+    # the launch path's meaning, then its host split: each step of C14's
+    # and C11's wrappers beside torch.sum and x + 1
+    check_launch_path(dev)
+    split = launch_split(dev)
+    log(f"host split, us a call over {split['calls']} calls: {split}")
+
+    def launch_times(fn, lib_fn):
+        """ms (events), queued_ms and wall_ms of fn and of lib_fn."""
+        return {"ms": cuda_ms(fn, LAUNCH_REPS),
+                "queued_ms": queued_ms(fn, 200),
+                "wall_ms": wall_ms(fn, LAUNCH_REPS),
+                "library_ms": cuda_ms(lib_fn, LAUNCH_REPS),
+                "library_queued_ms": queued_ms(lib_fn, 200),
+                "library_wall_ms": wall_ms(lib_fn, LAUNCH_REPS)}
+
     # C11: probe A, x + 1 over [8, 128]: a launch and little else, timed
-    # on the card (events) and on the host's clock, beside the library's
+    # on the card (events, and queued) and on the host's clock, beside the
+    # library's
     x = rng.randint(I32_MIN, I32_MAX + 1, pp2.EMPTY_SHAPE)
     x[0, :4] = (I32_MAX, I32_MIN, -1, 0)
     x_t, = common.tensors(dev, x)
@@ -2694,51 +2852,72 @@ def check_probes(dev):
     bnd = bound(2 * nbytes(x_t), OPS_ONE * x_t.numel())
     out["probe_empty"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: pp2.empty_cuda(x_t), 200),
+        **launch_times(lambda: pp2.empty_cuda(x_t), lambda: x_t + 1),
         "plain_ms": cuda_ms(lambda: pp2.empty_plain(x_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: x_t + 1, 200),
         "library_call": "x + 1",
-        "wall_ms": wall_ms(lambda: pp2.empty_cuda(x_t), 200),
-        "library_wall_ms": wall_ms(lambda: x_t + 1, 200),
-        "queued_ms": queued_ms(lambda: pp2.empty_cuda(x_t), 200),
-        "library_queued_ms": queued_ms(lambda: x_t + 1, 200)}
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_empty"],
+                       "calls": split["calls"]}}
     log(f"C11 probe_empty: exact; {out['probe_empty']}")
 
-    # C12: probe B, 256 bodies of two row loads from a 16 MB table, one
-    # warp, rolled (B1) and unrolled (BU)
+    # C12: probe B, 2 x 256 row loads from a 16 MB table.  The grid form
+    # (loads_cuda, either unroll) exact on the script's inputs and on
+    # index_cases' (the table's first and last rows, four rows repeated,
+    # one row throughout), idx 2 and 3 columns wide, and BB 0, 1, 257 (not
+    # a multiple of a block's 4 rows) and 5,001 (past the grid's 2,048
+    # blocks, so its warps take two steps); the serial forms
+    # (loads_serial_cuda, one warp) exact and timed as the witness of one
+    # load's latency (`serial_*`, C3's chain bound)
     idx = rng.randint(0, pp2.NROW, (pp2.BB, 128))
     table = rng.randint(0, 1 << 30, (pp2.NROW, 128))
     idx_t, tab_t = common.tensors(dev, idx, table)
     want = pp2.loads_plain(idx_t, tab_t)
+    err = 0
+    for unroll in (1, pp2.LOADS_UNROLL):
+        err = max(err, exact(f"C12 probe_loads unroll={unroll}",
+                             pp2.loads_cuda(idx_t, tab_t, unroll), want))
+    erng = np.random.RandomState(LOADS_EDGE_SEED)
+    cases = index_cases(erng, pp2.NROW, (pp2.BB, 128))
+    cases.update({"width2": idx[:, :2], "width3": idx[:, :3],
+                  "bb0": idx[:0], "bb1": idx[:1],
+                  "bb257": erng.randint(0, pp2.NROW, (257, 5)),
+                  "bb5001": erng.randint(0, pp2.NROW, (5001, 2))})
+    for name, case in cases.items():
+        c_t, = common.tensors(dev, case)
+        for unroll in (1, pp2.LOADS_UNROLL):
+            if unroll == 1 or len(case) % pp2.LOADS_UNROLL == 0:
+                err = max(err, exact(
+                    f"C12 probe_loads {name} unroll={unroll}",
+                    pp2.loads_cuda(c_t, tab_t, unroll),
+                    pp2.loads_plain(c_t, tab_t)))
+    log(f"C12 probe_loads: exact on the script's inputs and {list(cases)}")
     flat = idx_t[:, :2].t().reshape(-1).contiguous()
     n_rows = distinct_rows(flat)
     bnd = bound(4 * flat.numel() + ROW_BYTES * (n_rows + flat.numel()), 0)
-    variants = []
-    for unroll in (1, pp2.LOADS_UNROLL):
-        err = exact(f"C12 probe_loads unroll={unroll}",
-                    pp2.loads_cuda(idx_t, tab_t, unroll), want)
+    serial = {}
+    for unroll, tag in ((1, "serial"), (pp2.LOADS_UNROLL,
+                                        "serial_unrolled")):
+        err = max(err, exact(f"C12 probe_loads serial unroll={unroll}",
+                             pp2.loads_serial_cuda(idx_t, tab_t, unroll),
+                             want))
         def launch():
-            pp2.loads_cuda(idx_t, tab_t, unroll)
+            pp2.loads_serial_cuda(idx_t, tab_t, unroll)
         ms = cuda_ms(launch, 200)
-        variants.append({"unroll": unroll, "max_abs_err": err, "ms": ms,
-                         "ns_per_load": ms * 1e6 / flat.numel(),
-                         "queued_ms": queued_ms(launch, 200)})
+        serial.update({f"{tag}_ms": ms,
+                       f"{tag}_ns_per_load": ms * 1e6 / flat.numel(),
+                       f"{tag}_queued_ms": queued_ms(launch, 200)})
+    times = launch_times(lambda: pp2.loads_cuda(idx_t, tab_t),
+                         lambda: torch.index_select(tab_t, 0, flat))
     out["probe_loads"] = {
-        "max_abs_err": max(v["max_abs_err"] for v in variants),
-        "ms": variants[0]["ms"],
+        "max_abs_err": err, **times,
         "plain_ms": cuda_ms(lambda: pp2.loads_plain(idx_t, tab_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, flat),
-                              200),
         "library_call": "torch.index_select(table, 0, "
                         "idx[:, :2].t().reshape(-1))",
-        "ns_per_load": variants[0]["ns_per_load"],
-        "queued_ms": variants[0]["queued_ms"],
-        "unrolled_ms": variants[1]["ms"],
-        "unrolled_ns_per_load": variants[1]["ns_per_load"],
-        "unrolled_queued_ms": variants[1]["queued_ms"],
-        "loads": flat.numel(), "distinct_rows": n_rows}
+        "ns_per_load": times["ms"] * 1e6 / flat.numel(),
+        **serial, "loads": flat.numel(), "distinct_rows": n_rows,
+        "exact_inputs": ["script"] + list(cases)}
     log(f"C12 probe_loads: exact; {out['probe_loads']}")
 
     # C13: probe F, 50 pop rounds over 256 rows of 256 slots; out, the
@@ -2790,14 +2969,16 @@ def check_probes(dev):
     bnd = bound(nbytes(x_t) + 4 * rows, OPS_SUM * (rows * (width - 1)))
     out["probe_lanereduce"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: pp2.lanereduce_cuda(x_t), 200),
+        **launch_times(lambda: pp2.lanereduce_cuda(x_t),
+                       lambda: torch.sum(x_t, dim=1, keepdim=True,
+                                         dtype=torch.int32)),
         "plain_ms": cuda_ms(lambda: pp2.lanereduce_plain(x_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: torch.sum(x_t, dim=1, keepdim=True,
-                                                dtype=torch.int32), 200),
         "library_call": "torch.sum(x, dim=1, keepdim=True, "
                         "dtype=torch.int32)",
-        "queued_ms": queued_ms(lambda: pp2.lanereduce_cuda(x_t), 200)}
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_lanereduce"],
+                       "calls": split["calls"]}}
     log(f"C14 probe_lanereduce: exact; {out['probe_lanereduce']}")
 
     # C15: probe 2, C7's gather with each block's indices staged in shared
@@ -2826,6 +3007,8 @@ def check_probes(dev):
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, idx_t),
                               200),
+        "library_queued_ms": queued_ms(
+            lambda: torch.index_select(tab_t, 0, idx_t), 200),
         "library_call": "torch.index_select(table, 0, idx)",
         "queued_ms": queued_ms(lambda: pp.smem_idx_cuda(idx_t, tab_t), 200),
         "rows": len(idx), "distinct_rows": n_rows}
@@ -2844,6 +3027,7 @@ def check_probes(dev):
     bnd = bound(2 * nbytes(x_t), OPS_ONE * x_t.numel())
     lib_fn = getattr(torch, "bitwise_count", None)
     lib = ({"library_ms": cuda_ms(lambda: lib_fn(x_t), 200),
+            "library_queued_ms": queued_ms(lambda: lib_fn(x_t), 200),
             "library_call": "torch.bitwise_count(x)"} if lib_fn else
            {"library_ms": None,
             "library_why": f"none: torch {torch.__version__} has no "
@@ -2957,6 +3141,8 @@ def check_probes(dev):
         "plain_ms": cuda_ms(lambda: pp2.lane_gather_plain(x_t, i_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.gather(x_t, 1, i_long), 200),
+        "library_queued_ms": queued_ms(lambda: torch.gather(x_t, 1, i_long),
+                                       200),
         "library_call": "torch.gather(x, 1, i.long()), the int64 index "
                         "made once beforehand",
         "queued_ms": queued_ms(lambda: pp2.lane_gather_cuda(x_t, i_t), 200),
@@ -3825,6 +4011,8 @@ def check_copies(dev, rng):
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.index_select(t_t, 0, flat),
                               200),
+        "library_queued_ms": queued_ms(
+            lambda: torch.index_select(t_t, 0, flat), 200),
         "library_call": "torch.index_select(t, 0, i[:, :2].t().reshape(-1))"
                         ", the index made once beforehand",
         "queued_ms": queued_ms(lambda: p3.p1_cuda(i_t, t_t), 200),
@@ -3859,6 +4047,8 @@ def check_copies(dev, rng):
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.index_select(t_t, 0, flat),
                               200),
+        "library_queued_ms": queued_ms(
+            lambda: torch.index_select(t_t, 0, flat), 200),
         "library_call": "torch.index_select(t, 0, torch.cat((i[:, 0], "
                         "j[:, 0]))), the index made once beforehand",
         "queued_ms": queued_ms(lambda: p3.p1b_cuda(i_t, j_t, t_t), 200),
@@ -3896,6 +4086,8 @@ def check_copies(dev, rng):
         "plain_ms": cuda_ms(lambda: p3.p3_plain(x_t, i_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.gather(x_t, 0, i_long), 200),
+        "library_queued_ms": queued_ms(lambda: torch.gather(x_t, 0, i_long),
+                                       200),
         "library_call": "torch.gather(x, 0, i.long()), the int64 index "
                         "made once beforehand",
         "queued_ms": queued_ms(lambda: p3.p3_cuda(x_t, i_t), 200),
@@ -3922,6 +4114,8 @@ def check_copies(dev, rng):
         "plain_ms": cuda_ms(lambda: p3.p4_plain(x_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: x_t[:, :16].reshape(64, 128), 200),
+        "library_queued_ms": queued_ms(
+            lambda: x_t[:, :16].reshape(64, 128), 200),
         "library_call": "x[:, :16].reshape(64, 128), a copy (the slice is "
                         "not contiguous)",
         "queued_ms": queued_ms(lambda: p3.p4_cuda(x_t), 200),
@@ -4067,6 +4261,8 @@ def check_reductions(dev):
         "plain_ms": cuda_ms(lambda: p3.p6_plain(x_t, w_t), 3),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
         "library_ms": cuda_ms(lambda: torch.matmul(x_t.float(), w_t), 200),
+        "library_queued_ms": queued_ms(
+            lambda: torch.matmul(x_t.float(), w_t), 200),
         "library_call": "torch.matmul(x.float(), w), the cast included",
         "library_precast_ms": cuda_ms(lambda: torch.matmul(xf, w_t), 200),
         "library_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
@@ -4797,7 +4993,7 @@ def main():
               sa["plain_ms"], sa["bound"], rows_by_strand=sa["rows"],
               **{key: sa[key] for key in SA_FIELDS},
               chain_bound_ms=(sa["max_steps"] * 1e-6
-                              * probes["probe_loads"]["ns_per_load"]),
+                              * probes["probe_loads"]["serial_ns_per_load"]),
               lone_chain_ms=sa["max_steps"] * 1e-3 * sa["lone_us_per_step"],
               ptxas=forms_ptxas["sa_lookup"],
               edge_launches=sa_edges,

@@ -4,6 +4,7 @@ chip_smoke.py's 64 Mbp cell (the bench reads), on one NVIDIA GPU.
 
     python3 compare.py c3 CHECKOUT
     python3 compare.py aln CHECKOUT
+    python3 compare.py launch CHECKOUT
 
 CHECKOUT is the root of a checkout of this repository: this one, or an
 older commit unpacked with `git archive` into a directory `.gitignore`
@@ -20,14 +21,24 @@ behind a sleeping kernel), its longest row's steps and that row alone, its
 time a step.  Where the checkout has `sa_lookup_both_cuda`, the two
 strands in one launch too.
 
+launch: the host's cost of a launch, on no cell.  The host split of kernel
+C14's and C11's wrappers (`launch_split` of this checkout's
+chip_smoke.py, run over the other checkout's port: its own helpers and
+wrappers), and C11, C12 (unroll 1 and LOADS_UNROLL) and C14 at
+scripts/probe_pallas2.py's shapes, exact against their plain versions,
+each with `ms` (CUDA events), `queued_ms` and `wall_ms` (the host's clock)
+beside `x + 1`, torch.index_select and torch.sum.
+
 aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
 has the hybrid split): a warm-up chunk of one slice, then 5 timed
 `run_chunk`s of the 32768 reads at batch 2048, each `.sai` byte-identical
 to the shared host engine's, whose rate is timed in the same process.
 """
 
+import importlib.util
 import inspect
 import json
+import pathlib
 import sys
 import time
 
@@ -104,7 +115,56 @@ def time_aln(cs, idx, opt, reads):
             "part_seconds": {k: v / RUNS for k, v in eng.seconds.items()}}
 
 
-MODES = {"c3": time_c3, "aln": time_aln}
+def own_smoke():
+    """The chip_smoke.py beside this file: the other checkout's may lack
+    `launch_split`."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", pathlib.Path(__file__).resolve().parent
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_launch():
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas2 as pp2
+    here = own_smoke()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(here.PROBE_SEED)
+    idx_t, tab_t, x_t, x1_t = common.tensors(
+        dev, rng.randint(0, pp2.NROW, (pp2.BB, 128)),
+        rng.randint(0, 1 << 30, (pp2.NROW, 128)),
+        rng.randint(0, 99, pp2.REDUCE_SHAPE),
+        rng.randint(-2**31, 2**31, pp2.EMPTY_SHAPE))
+    flat = idx_t[:, :2].t().reshape(-1).contiguous()
+    calls = {
+        "probe_empty": (lambda: pp2.empty_cuda(x1_t),
+                        lambda: pp2.empty_plain(x1_t)),
+        "x + 1": (lambda: x1_t + 1, None),
+        "probe_loads": (lambda: pp2.loads_cuda(idx_t, tab_t, 1),
+                        lambda: pp2.loads_plain(idx_t, tab_t)),
+        "probe_loads_unrolled": (
+            lambda: pp2.loads_cuda(idx_t, tab_t, pp2.LOADS_UNROLL),
+            lambda: pp2.loads_plain(idx_t, tab_t)),
+        "index_select": (lambda: torch.index_select(tab_t, 0, flat), None),
+        "probe_lanereduce": (lambda: pp2.lanereduce_cuda(x_t),
+                             lambda: pp2.lanereduce_plain(x_t)),
+        "torch.sum": (lambda: torch.sum(x_t, dim=1, keepdim=True,
+                                        dtype=torch.int32), None)}
+    out = {"split": here.launch_split(dev)}
+    for name, (fn, plain) in calls.items():
+        if plain is not None:
+            here.exact(name, fn(), plain())
+        out[name] = {"ms": here.cuda_ms(fn, here.LAUNCH_REPS),
+                     "queued_ms": here.queued_ms(fn, 200),
+                     "wall_ms": here.wall_ms(fn, here.LAUNCH_REPS)}
+    return out
+
+
+MODES = {"c3": time_c3, "aln": time_aln, "launch": time_launch}
 
 
 def main(argv):
@@ -123,12 +183,15 @@ def main(argv):
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     _build.lib()
-    fa, fq, *_ = cs.make_data(64_000_000, 32768, 32768, 512)
-    idx = BwaIndex.load(str(fa))
-    opt = GapOpt()
-    reads = port_cli.open_reads(str(fq), opt.mode)(32768, 0)
     out = {"mode": mode, "checkout": str(cs.ROOT), "card": cs.card_line()}
-    out.update(MODES[mode](cs, idx, opt, reads))
+    if mode == "launch":
+        out.update(time_launch())
+    else:
+        fa, fq, *_ = cs.make_data(64_000_000, 32768, 32768, 512)
+        idx = BwaIndex.load(str(fa))
+        opt = GapOpt()
+        reads = port_cli.open_reads(str(fq), opt.mode)(32768, 0)
+        out.update(MODES[mode](cs, idx, opt, reads))
     print(json.dumps(out))
     return 0
 

@@ -7,7 +7,8 @@
 // and `_group` entry points; the serial forms stay as their oracles); and
 // the probe
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
-// C9's and C10's counts and expansion, C13's slot of a pop, C16's
+// C9's and C10's counts and expansion, C12's grid and the row each warp
+// copies at each step, C13's slot of a pop, C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
 // pushed fields, C23's value update, C24's step, C25's and C26's steps,
 // C30's source int4, C32's rotation source, C34's trip count), one value
@@ -709,6 +710,33 @@ extern "C" int nabwa_host_probe_pallas_word_counts(const int32_t* x, int n,
         pr::pallas_word_counts(x[i], &u1, &u3);
         c1[i] = (int32_t)u1;
         c3[i] = (int32_t)u3;
+    }
+    return 0;
+}
+
+// C12's grid form: its blocks for each (bb, warps, max_blocks), and for
+// each (block, warp, step) of a grid of `blocks` blocks of `warps` warps the
+// output row copied and, where that row lies below 2 bb, the word of idx
+// (idx_w words a row) that holds its table row's index, else -1
+extern "C" int nabwa_host_probe_loads_blocks(const int32_t* bb,
+                                             const int32_t* warps,
+                                             const int32_t* max_blocks, int n,
+                                             int32_t* out) {
+    for (int i = 0; i < n; ++i)
+        out[i] = pr::loads_blocks(bb[i], warps[i], max_blocks[i]);
+    return 0;
+}
+
+extern "C" int nabwa_host_probe_loads_rows(const int32_t* block,
+                                           const int32_t* warp,
+                                           const int32_t* step, int n,
+                                           int32_t warps, int32_t blocks,
+                                           int32_t bb, int32_t idx_w,
+                                           int64_t* row, int64_t* idx_at) {
+    for (int i = 0; i < n; ++i) {
+        row[i] = pr::loads_out_row(block[i], warp[i], step[i], warps, blocks);
+        idx_at[i] = row[i] < 2 * (int64_t)bb
+                        ? pr::loads_idx_at(row[i], bb, idx_w) : -1;
     }
     return 0;
 }

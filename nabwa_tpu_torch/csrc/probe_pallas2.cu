@@ -1,5 +1,5 @@
 // Kernels C11-C14, C20 and C21: probes A, B, E, F, C and D of
-// scripts/probe_pallas2.py, the launch, the serial row-load loop, the lane
+// scripts/probe_pallas2.py, the launch, the row loads, the lane
 // sum, the pop, the lane gather and the scalar push.  All values are int32
 // and wrap as jnp's do (probes.cuh).
 //
@@ -11,16 +11,26 @@
 // C12 replaces `probe_loads(unroll)` (:55, pallas_call :67): for i < BB,
 // out[i] = table[idx[i, 0]] and out[i + BB] = table[idx[i, 1]], a serial
 // loop of two dynamic row loads a body on one TPU core, unrolled once or
-// BB times.  Bound by bytes: the 2 BB index words, the distinct rows read
-// once and the 2 BB rows written; no arithmetic.  The probe's question is
-// the cost of each load in a loop on one core, so one warp in one block
-// walks the BB iterations in order: every lane reads the two indices (a
-// broadcast load), then both 512 B rows are copied with one int4 a lane.
-// The rolled variant (`#pragma unroll 1`) waits on each body's index, row
-// and store before the next body issues; the unrolled one (LOADS_UNROLL
-// bodies at a time, bb a multiple of it) lets the compiler issue many
-// bodies' loads together.  The indices are not checked on the card, as in
-// C7 and the TPU kernel: they must lie in [0, rows of the table).
+// BB times.  The unroll does not change the result.  Bound by bytes: the
+// 2 BB index words, the distinct rows read once and the 2 BB rows written
+// (0.000156 ms at BB = 256, 3.35 TB/s); no arithmetic.  At BB = 256 that is
+// 512 independent row copies of 512 B, so on this card the time is a
+// launch and one index load, one row load and one store deep: the grid
+// form spreads the copies over the card, LOADS_WARPS warps a block and
+// one row a warp a step (`loads_out_row`, probes.cuh; 128 blocks at BB =
+// 256), lane 0 reading the row's index and sharing it by shuffle, each
+// lane moving one int4 of the row, neighbouring lanes on neighbouring
+// addresses; a warp whose row lies past 2 BB stops, which masks the
+// ragged edge.  Past LOADS_MAX_BLOCKS blocks the warps walk on, a grid's
+// width of rows a step.  The serial forms stay as the probe's witness of
+// one load's latency (C3's chain bound): one warp in one block walks the
+// BB bodies in order, every lane reading the two indices (a broadcast
+// load), then both rows copied with one int4 a lane; rolled (`#pragma
+// unroll 1`) each body's index, row and store wait on the last's, and
+// unrolled (LOADS_UNROLL bodies at a time, BB a multiple of it) the
+// compiler issues many bodies' loads together.  The indices are not
+// checked on the card, as in C7 and the TPU kernel: they must lie in [0,
+// rows of the table).
 //
 // C13 replaces `probe_pop` (:182, pallas_call :202): key = x, f = x ^ 21
 // over [BB, 256] slots, then 50 rounds of: mk = the row's minimum; every
@@ -37,8 +47,16 @@
 //
 // C14 replaces `probe_lanereduce` (:164, pallas_call :170): out[r, 0] =
 // the sum of x[r, :] for x [512, 128], wrapped.  Bound by bytes (x read
-// once, out written once, 258 KB); 127 adds a row.  One warp per row, one
-// int4 a lane, four adds and one warp reduction.
+// once, out written once, 258 KB, 0.0000789 ms); 127 adds a row.  One
+// warp per row, one int4 a lane, four adds and one warp reduction: on the
+// card a launch takes the launch floor (2 us queued).  What bounds a call
+// is the host: the wrapper's checks, the output's allocation and the
+// ctypes call with its cudaLaunchKernel, against one PyTorch call's C++
+// path.  The wrapper reads the raw handle of the current stream (building
+// a torch.cuda.Stream object for it cost more than the launch), reaches
+// the bound library without a lock (ops/_build.py), as every kernel's
+// wrapper now does, and allocates with the sizes as arguments, not as a
+// tuple (PERF.md has the host split).
 //
 // C20 replaces `probe_lane_gather` (:86, pallas_call :92): out[r, c] =
 // x[r, i[r, c]] over [256, 128], take_along_axis on axis 1.  Bound by
@@ -86,6 +104,8 @@ namespace pr = nabwa::probe;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int EMPTY_THREADS = 256;
 constexpr int LOADS_UNROLL = 256;       // scripts/probe_pallas2.py BB
+constexpr int LOADS_WARPS = 4;          // the grid form's warps a block
+constexpr int LOADS_MAX_BLOCKS = 2048;  // then 8,192 rows a step
 constexpr int POP_S = 256;
 constexpr int POP_PER_LANE = POP_S / 32;
 constexpr int POP_OUT = 128;
@@ -130,9 +150,9 @@ __device__ __forceinline__ void load_pair(const int32_t* __restrict__ idx,
 
 template <bool UNROLL>
 __global__ void __launch_bounds__(32)
-probe_loads_kernel(const int32_t* __restrict__ idx, int idx_w,
-                   const int4* __restrict__ table, int bb,
-                   int4* __restrict__ out) {
+probe_loads_serial_kernel(const int32_t* __restrict__ idx, int idx_w,
+                          const int4* __restrict__ table, int bb,
+                          int4* __restrict__ out) {
     const int lane = threadIdx.x;
     if constexpr (UNROLL) {
 #pragma unroll 1
@@ -145,6 +165,28 @@ probe_loads_kernel(const int32_t* __restrict__ idx, int idx_w,
 #pragma unroll 1
         for (int i = 0; i < bb; ++i)
             load_pair(idx, idx_w, table, bb, out, i, lane);
+    }
+}
+
+// the grid form: warp `warp` of each block copies rows loads_out_row(...)
+// in turn, lane 0 reading the row's index and sharing it by shuffle, then
+// one int4 a lane; the loop's row is the same for the whole warp, so the
+// warp leaves it together
+__global__ void __launch_bounds__(LOADS_WARPS * 32)
+probe_loads_kernel(const int32_t* __restrict__ idx, int idx_w,
+                   const int4* __restrict__ table, int bb,
+                   int4* __restrict__ out) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int64_t rows = 2 * (int64_t)bb;
+    for (int step = 0;; ++step) {
+        const int64_t r = pr::loads_out_row(blockIdx.x, warp, step,
+                                            LOADS_WARPS, gridDim.x);
+        if (r >= rows) break;
+        int32_t src = 0;
+        if (lane == 0) src = idx[pr::loads_idx_at(r, bb, idx_w)];
+        src = __shfl_sync(FULL, src, 0);
+        out[r * 32 + lane] = table[(size_t)src * 32 + lane];
     }
 }
 
@@ -295,17 +337,31 @@ extern "C" int nabwa_probe_empty(const void* x, long long n, void* out,
 }
 
 // idx: int32 [bb, idx_w] (columns 0 and 1 read); table: int32 [rows, 128];
-// out: int32 [2 bb, 128]; unroll: 0 rolled, else LOADS_UNROLL bodies at a
-// time (bb a multiple of it).
+// out: int32 [2 bb, 128], all 16-byte aligned; the grid form.
 extern "C" int nabwa_probe_loads(const void* idx, int idx_w,
-                                 const void* table, int bb, int unroll,
-                                 void* out, void* stream) {
+                                 const void* table, int bb, void* out,
+                                 void* stream) {
+    const int blocks = pr::loads_blocks(bb, LOADS_WARPS, LOADS_MAX_BLOCKS);
+    if (blocks > 0)
+        probe_loads_kernel<<<blocks, LOADS_WARPS * 32, 0,
+                             (cudaStream_t)stream>>>(
+            (const int32_t*)idx, idx_w, (const int4*)table, bb, (int4*)out);
+    return (int)cudaGetLastError();
+}
+
+// The serial forms, one warp walking the loop: as nabwa_probe_loads, and
+// unroll: 0 rolled, else LOADS_UNROLL bodies at a time (bb a multiple of
+// it).
+extern "C" int nabwa_probe_loads_serial(const void* idx, int idx_w,
+                                        const void* table, int bb,
+                                        int unroll, void* out,
+                                        void* stream) {
     if (unroll)
-        probe_loads_kernel<true><<<1, 32, 0, (cudaStream_t)stream>>>(
+        probe_loads_serial_kernel<true><<<1, 32, 0, (cudaStream_t)stream>>>(
             (const int32_t*)idx, idx_w, (const int4*)table, bb,
             (int4*)out);
     else
-        probe_loads_kernel<false><<<1, 32, 0, (cudaStream_t)stream>>>(
+        probe_loads_serial_kernel<false><<<1, 32, 0, (cudaStream_t)stream>>>(
             (const int32_t*)idx, idx_w, (const int4*)table, bb,
             (int4*)out);
     return (int)cudaGetLastError();

@@ -3,8 +3,9 @@
 // probe_pallas.cu, probe_spill.cu, probe_colops.cu, probe_pallas3.cu):
 // int32 arithmetic that wraps as jnp's does, the floor modulo of jnp's
 // `%`, the row indices of scripts/probe_dma.py, the staged-row counts and
-// the candidate expansion of the two DFS-iteration mocks, one slot of
-// probe_pallas2.py's pop and the fields of its scalar push, and the
+// the candidate expansion of the two DFS-iteration mocks, the rows of
+// probe_pallas2.py's row loads that each warp copies, one slot of its pop
+// and the fields of its scalar push, and the
 // popcount, one slot of a round of probe_pallas.py's probes 3, 4 and 4b,
 // one step of probe 4c's body, one value's update of probe_spill.py, one
 // step of probe_colops.py, one step of probe_pallas3.py's p7 and p8, the
@@ -101,6 +102,29 @@ NABWA_HD void pallas_word_counts(int32_t x, uint32_t* c1, uint32_t* c3) {
     const uint32_t hi = (uint32_t)((x >> 1) & 0x55555555);
     *c1 += popc(lo);
     *c3 += popc(lo & hi);
+}
+
+// C12's grid form (probe_pallas2.py:55): blocks of `warps` warps, each warp
+// copying one of the 2 bb output rows a step.  The grid: enough blocks for
+// one row a warp, at most max_blocks (then the warps walk on by the grid's
+// width of warps a step).
+NABWA_HD int32_t loads_blocks(int32_t bb, int32_t warps, int32_t max_blocks) {
+    const int64_t need = (2 * (int64_t)bb + warps - 1) / warps;
+    return need < max_blocks ? (int32_t)need : max_blocks;
+}
+
+// the output row that warp `warp` of block `block` copies at step `step`
+// of a grid of `blocks` such blocks; a warp stops at its first row past
+// 2 bb, and the rows rise with the step, so that row masks the ragged edge
+NABWA_HD int64_t loads_out_row(int32_t block, int32_t warp, int32_t step,
+                               int32_t warps, int32_t blocks) {
+    return ((int64_t)step * blocks + block) * warps + warp;
+}
+
+// where output row r reads its table row's index: idx[r, 0] for r < bb,
+// idx[r - bb, 1] after, in an idx of idx_w words a row
+NABWA_HD int64_t loads_idx_at(int64_t r, int32_t bb, int32_t idx_w) {
+    return r < bb ? r * idx_w : (r - bb) * idx_w + 1;
 }
 
 // probe_pallas2.py:191-193 for one slot of the pop: a slot equal to its

@@ -15,6 +15,11 @@ one card), one builds and the others wait and load its library.
 Every C entry point takes device pointers and the CUDA stream as
 `c_void_p`, launches on that stream without synchronising, and returns
 `cudaGetLastError()`; `check()` raises on a non-zero code.
+
+`lib()`, `stream_of`, `require` and `check` sit on every launch's path:
+`lib()` takes its lock only until the library is bound, and `stream_of`
+reads the current stream's raw handle without building a
+`torch.cuda.Stream`.
 """
 
 import ctypes
@@ -94,8 +99,10 @@ _SIGNATURES = {
     "nabwa_probe_dfs_pallas": [_P, _P, _I, _I, _I, _P, _P],
     # (x, n, out, stream)
     "nabwa_probe_empty": [_P, ctypes.c_longlong, _P, _P],
+    # (idx, idx_w, table, bb, out, stream)
+    "nabwa_probe_loads": [_P, _I, _P, _I, _P, _P],
     # (idx, idx_w, table, bb, unroll, out, stream)
-    "nabwa_probe_loads": [_P, _I, _P, _I, _I, _P, _P],
+    "nabwa_probe_loads_serial": [_P, _I, _P, _I, _I, _P, _P],
     # (x, rows, iters, out, state, witness, stream)
     "nabwa_probe_pop": [_P, _I, _I, _P, _P, _P, _P],
     # (x, rows, out, stream)
@@ -203,6 +210,8 @@ def _build(src_hash):
 def lib():
     """The loaded kernel library, built first if the sources changed."""
     global _lib, build_log
+    if _lib is not None:        # bound: set only once its functions are
+        return _lib
     with _lock:
         if _lib is None:
             h = source_hash()
@@ -243,7 +252,10 @@ def check(rc, what):
 
 
 def stream_of(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of PyTorch's current stream on CUDA tensor t's device
+    (what torch.cuda.current_stream(t.device).cuda_stream gives, without
+    building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require(t, name, device, ndim, dtype=torch.int32):

@@ -70,9 +70,10 @@ def cuda_input(t, name, ndim, dev=None, dtype=torch.int32):
     """The device of `t`, a contiguous CUDA tensor of `dtype` (int32 unless
     said) with `ndim` dimensions (on `dev` if given) whose start the
     kernels may read as int4; raises ValueError otherwise."""
-    dev = t.device if dev is None else dev
-    if t.device.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {t.device}")
+    on = t.device
+    if on.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {on}")
+    dev = on if dev is None else dev
     _build.require(t, name, dev, ndim, dtype)
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: not 16-byte aligned")

@@ -10,7 +10,9 @@ out = x + 1 over [8, 128] int32, the cost of a launch; kernel C11.
 Probes B1 and BU, `probe_loads(unroll)` (:55, pallas_call at :67): a
 serial loop of BB = 256 bodies, each copying rows idx[i, 0] and idx[i, 1]
 of a [32768, 128] int32 table to out[i] and out[i + BB]; unrolled once
-(B1) or BB times (BU); kernel C12, one warp walking the loop.
+(B1) or BB times (BU); kernel C12, its 512 row copies spread over the
+card, whatever the unroll.  `loads_serial_cuda` keeps the TPU's loop, one
+warp walking the bodies in order, as a witness of one load's latency.
 
 Probe C, `probe_lane_gather` (:86, pallas_call at :92): out[r, c] =
 x[r, i[r, c]] over [256, 128] int32, take_along_axis on axis 1; kernel
@@ -61,11 +63,12 @@ GATHER_W = 128
 PUSH_S, PUSH_OUT, PUSH_ROUNDS, PUSH_FIELDS = 256, 128, 50, 5
 UNWRITTEN = -2**31       # what interpret mode reads from an unwritten slot
 
-# kernel launches made on CUDA tensors: C11 by `empty`, C12 by `loads`,
-# C13 by `pop`, C14 by `lanereduce`, C20 by `lane_gather`, C21 by
-# `scalar_push`
+# kernel launches made on CUDA tensors: C11 by `empty`, C12 by `loads`
+# (its serial forms by `loads_serial_cuda`), C13 by `pop`, C14 by
+# `lanereduce`, C20 by `lane_gather`, C21 by `scalar_push`
 launches_empty = 0
 launches_loads = 0
+launches_loads_serial = 0
 launches_pop = 0
 launches_lanereduce = 0
 launches_lane_gather = 0
@@ -109,11 +112,9 @@ def loads_plain(idx, table, unroll=1):
     return torch.cat([table[idx[:, 0].long()], table[idx[:, 1].long()]])
 
 
-def loads_cuda(idx, table, unroll=1):
-    """`loads_plain` by kernel C12, rolled (unroll 1) or LOADS_UNROLL
-    bodies at a time (unroll LOADS_UNROLL, BB a multiple of it); every
-    index read must lie in [0, NROW)."""
-    global launches_loads
+def _loads_out(idx, table, unroll):
+    """Check the arguments of `loads_cuda` and `loads_serial_cuda`;
+    returns (BB, idx's width, the output, not yet written)."""
     dev = common.cuda_input(idx, "idx", 2)
     common.cuda_input(table, "table", 2, dev)
     if table.shape[1] != 128:
@@ -126,15 +127,38 @@ def loads_cuda(idx, table, unroll=1):
     if unroll != 1 and bb % LOADS_UNROLL:
         raise ValueError(f"unrolled: BB must be a multiple of "
                          f"{LOADS_UNROLL}, got {bb}")
-    out = torch.empty((2 * bb, 128), dtype=torch.int32, device=dev)
-    if bb == 0:
-        return out
-    rc = _build.lib().nabwa_probe_loads(
-        idx.data_ptr(), width, table.data_ptr(), bb, int(unroll != 1),
-        out.data_ptr(), _build.stream_of(idx))
-    _build.check(rc, "probe_loads kernel launch")
-    with _build.count_lock:
-        launches_loads += 1
+    return bb, width, idx.new_empty(2 * bb, 128)
+
+
+def loads_cuda(idx, table, unroll=1):
+    """`loads_plain` by kernel C12's grid form, the 2 BB row copies spread
+    over the card, for either unroll (1, or LOADS_UNROLL with BB a
+    multiple of it); every index read must lie in [0, NROW)."""
+    global launches_loads
+    bb, width, out = _loads_out(idx, table, unroll)
+    if bb:
+        _build.check(_build.lib().nabwa_probe_loads(
+            idx.data_ptr(), width, table.data_ptr(), bb, out.data_ptr(),
+            _build.stream_of(idx)), "probe_loads kernel launch")
+        with _build.count_lock:
+            launches_loads += 1
+    return out
+
+
+def loads_serial_cuda(idx, table, unroll=1):
+    """`loads_plain` by C12's serial forms, one warp walking the BB bodies
+    in order, rolled (unroll 1) or LOADS_UNROLL bodies at a time: the
+    probe's witness of one row load's latency.  Arguments as
+    `loads_cuda`."""
+    global launches_loads_serial
+    bb, width, out = _loads_out(idx, table, unroll)
+    if bb:
+        _build.check(_build.lib().nabwa_probe_loads_serial(
+            idx.data_ptr(), width, table.data_ptr(), bb, int(unroll != 1),
+            out.data_ptr(), _build.stream_of(idx)),
+            "probe_loads_serial kernel launch")
+        with _build.count_lock:
+            launches_loads_serial += 1
     return out
 
 
@@ -153,17 +177,17 @@ def lanereduce_plain(x):
 def lanereduce_cuda(x):
     """`lanereduce_plain` by kernel C14 (W = 128)."""
     global launches_lanereduce
-    dev = common.cuda_input(x, "x", 2)
-    if x.shape[1] != 128:
-        raise ValueError(f"x rows have {x.shape[1]} words, not 128")
-    out = torch.empty((x.shape[0], 1), dtype=torch.int32, device=dev)
-    if x.shape[0] == 0:
-        return out
-    rc = _build.lib().nabwa_probe_lanereduce(
-        x.data_ptr(), x.shape[0], out.data_ptr(), _build.stream_of(x))
-    _build.check(rc, "probe_lanereduce kernel launch")
-    with _build.count_lock:
-        launches_lanereduce += 1
+    common.cuda_input(x, "x", 2)
+    rows, width = x.shape
+    if width != 128:
+        raise ValueError(f"x rows have {width} words, not 128")
+    out = x.new_empty(rows, 1)
+    if rows:
+        _build.check(_build.lib().nabwa_probe_lanereduce(
+            x.data_ptr(), rows, out.data_ptr(), _build.stream_of(x)),
+            "probe_lanereduce kernel launch")
+        with _build.count_lock:
+            launches_lanereduce += 1
     return out
 
 

@@ -26,10 +26,17 @@ import pytest
 
 from nabwa_tpu import cli as ref_cli
 from nabwa_tpu.index.build import build_index
+from nabwa_tpu.index.fmindex import BwaIndex as JaxIndex
 from nabwa_tpu.index.pack import pac2cspac as ref_pac2cspac
+from nabwa_tpu.index.pack import read_pac as jax_read_pac
+from nabwa_tpu.io import sai as jax_sai
 from nabwa_tpu.io.fastq import Read as JaxRead
+from nabwa_tpu.models import sampe as jsampe
+from nabwa_tpu.models.aln import AlnEngine as JaxEngine
 from nabwa_tpu.models.samse import SeqState as JaxSeqState
+from nabwa_tpu.options import PeOpt as JaxPeOpt
 from nabwa_tpu.refmodel.cs2nt import cs2nt_core as jax_cs2nt_core
+from nabwa_tpu.utils.rand48 import Rand48 as JaxRand48
 from nabwa_tpu_torch import cli as port_cli
 from nabwa_tpu_torch.index.fmindex import BwaIndex
 from nabwa_tpu_torch.index.pack import read_pac
@@ -429,6 +436,68 @@ def test_sampe_colour_routes(paired):
         assert header + blob == want.read_bytes(), ref_route
         assert msampe.seconds["cs2nt"] > before
         assert ii.avg > 0
+
+
+def test_sampe_colour_two_chunks_carry_isize_and_memo(genome):
+    """Colour sampe (BWA_PET_SOLID, the `.nt` pac) over two chunks in turn,
+    100 pairs then 12 (too few for an insert-size estimate of their own),
+    with the insert size and the wide-interval memo carried over, as the
+    CLI carries them: each chunk's bytes equal `nabwa_tpu`'s sampe called
+    the same way.  The pairs lie around a tandem repeat, so reads inside it
+    have SA intervals of ~1,200 rows and go through the memo."""
+    d = genome
+    rng = np.random.default_rng(2061)
+    unit = ACGT[rng.integers(0, 4, 37)].tobytes()
+    seq = (ACGT[rng.integers(0, 4, 30000)].tobytes() + unit * 1200
+           + ACGT[rng.integers(0, 4, 30000)].tobytes())
+    fq1, fq2, _ = colour_pairs(seq, 112, 40, seed=2062, isize=200, std=20)
+    (d / "tr.fa").write_bytes(b">tandem\n" + b"\n".join(
+        seq[i:i + 70] for i in range(0, len(seq), 70)) + b"\n")
+    build_index(str(d / "tr.fa"), color=True)
+    for e, fq in ((1, fq1), (2, fq2)):
+        (d / f"tr{e}.fq").write_bytes(fq)
+        _jax_aln(d, "tr.fa", f"tr{e}.fq", f"tr{e}.sai")
+    prefix = str(d / "tr.fa")
+    jidx, idx = JaxIndex.load(prefix), BwaIndex.load(prefix)
+    _, jalns0 = jax_sai.read_sai_tuples(str(d / "tr1.sai"))
+    jopt, jalns1 = jax_sai.read_sai_tuples(str(d / "tr2.sai"))
+    _, alns0 = sai.read_sai_tuples(str(d / "tr1.sai"))
+    opt, alns1 = sai.read_sai_tuples(str(d / "tr2.sai"))
+    jreads = [ref_cli._open_reads(str(d / f"tr{e}.fq"), jopt.mode)(
+        1000, jopt.trim_qual) for e in (1, 2)]
+    reads = [port_cli.open_reads(str(d / f"tr{e}.fq"), opt.mode)(
+        1000, opt.trim_qual) for e in (1, 2)]
+    jntpac = jax_read_pac(prefix + ".nt.pac")
+    ntpac = read_pac(prefix + ".nt.pac")
+    jpopt, popt = JaxPeOpt(), PeOpt()
+    jpopt.type = popt.type = 2                    # BWA_PET_SOLID
+    jeng, eng = JaxEngine(jidx, jopt), AlnEngine(idx, opt, "cpu")
+    jrng, prng = JaxRand48(idx.bns.seed), Rand48(idx.bns.seed)
+    jmemo, memo = {}, {}
+    jii = ii = None
+    for lo, hi in ((0, 100), (100, 112)):
+        want, jii_new = jsampe.sampe(
+            jeng, (jreads[0][lo:hi], jreads[1][lo:hi]),
+            (jalns0[lo:hi], jalns1[lo:hi]), jopt, jpopt, jrng, last_ii=jii,
+            pos_memo=jmemo, ntpac=jntpac)
+        if not isinstance(want, bytes):
+            want = "".join(ln + "\n" for ln in want).encode("latin1")
+        got, ii_new = msampe.sampe_bytes(
+            eng, (reads[0][lo:hi], reads[1][lo:hi]),
+            (alns0[lo:hi], alns1[lo:hi]), opt, popt, prng, last_ii=ii,
+            pos_memo=memo, ntpac=ntpac)
+        assert got == want, (lo, hi)
+        assert (ii_new.avg, ii_new.std, ii_new.high) == \
+            (jii_new.avg, jii_new.std, jii_new.high)
+        if lo:
+            assert ii_new is ii and jii_new is jii
+        jii, ii = jii_new, ii_new
+        assert prng.x == jrng.x
+    assert ii.avg > 0
+    assert memo and sorted(memo) == sorted(jmemo)
+    assert all(np.array_equal(memo[k], jmemo[k]) for k in memo)
+    body = [ln.split(b"\t") for ln in got.splitlines()]
+    assert len(body) == 24 and any(int(f[1]) & 2 for f in body)
 
 
 # --- cs2nt_batch ---

@@ -42,8 +42,8 @@ from nabwa_tpu_torch.probes import probe_pallas2 as pp2
 
 # fixtures and helpers shared with the other probe ports' tests: the script
 # loader (interpret mode), one torch thread, the host harness
-from .test_torch_probes import (_call, _i32, _t, host,  # noqa: F401
-                                one_torch_thread, script)
+from .test_torch_probes import (_I, _P, _call, _i32, _t,  # noqa: F401
+                                host, one_torch_thread, script)
 
 REPO = pp2.__file__.rsplit("/nabwa_tpu_torch/", 1)[0]
 CPU = torch.device("cpu")
@@ -385,6 +385,71 @@ def test_host_push_fields_match_plain(host):
     np.testing.assert_array_equal(got, want.numpy())
 
 
+def _cu_constant(name):
+    """An int constant of csrc/probe_pallas2.cu (`constexpr int NAME = v;`)."""
+    src = open(os.path.join(REPO, "nabwa_tpu_torch", "csrc",
+                            "probe_pallas2.cu")).read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _loads_blocks(host, bb, warps, max_blocks):
+    got, = _call(host.nabwa_host_probe_loads_blocks, 1,
+                 *(np.array([v], dtype=np.int32)
+                   for v in (bb, warps, max_blocks)))
+    return int(got[0])
+
+
+def _loads_rows(host, warps, blocks, bb, idx_w, steps):
+    """Every (block, warp, step) of the grid through the harness: (block,
+    warp, step, output row, index word or -1) as int64 arrays."""
+    block, warp, step = (a.ravel().astype(np.int32) for a in np.meshgrid(
+        np.arange(blocks), np.arange(warps), np.arange(steps),
+        indexing="ij"))
+    n = len(block)
+    row, at = np.empty(n, dtype=np.int64), np.empty(n, dtype=np.int64)
+    fn = host.nabwa_host_probe_loads_rows
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+    fn.restype = _I
+    assert fn(*[a.ctypes.data_as(_P) for a in (block, warp, step)], n,
+              warps, blocks, bb, idx_w, row.ctypes.data_as(_P),
+              at.ctypes.data_as(_P)) == 0
+    return block, warp, step, row, at
+
+
+@pytest.mark.parametrize("bb", [0, 1, 7, 256, 1000])
+@pytest.mark.parametrize("shape", ["kernel", "8x3"])
+def test_host_loads_grid_copies_each_row_once(host, bb, shape):
+    """csrc/probes.cuh `loads_blocks` and `loads_out_row`, kernel C12's
+    grid and the row each warp copies at each step, built for the host:
+    walking every warp of the grid as the kernel does (on to its first row
+    past 2 BB), every row in [0, 2 BB) is copied exactly once and no
+    other; each reads idx[r, 0] below BB and idx[r - BB, 1] above.  At
+    the kernel's block shape, and at 8 warps in at most 3 blocks, where
+    the warps take several steps."""
+    warps, max_blocks = ((_cu_constant("LOADS_WARPS"),
+                          _cu_constant("LOADS_MAX_BLOCKS"))
+                         if shape == "kernel" else (8, 3))
+    blocks = _loads_blocks(host, bb, warps, max_blocks)
+    assert blocks == min(-(-2 * bb // warps), max_blocks)
+    idx_w = 3
+    steps = -(-2 * bb // max(warps * blocks, 1)) + 1   # one step past all
+    block, warp, step, row, at = _loads_rows(host, warps, blocks, bb,
+                                             idx_w, steps)
+    copied = []
+    for b in range(blocks):
+        for w in range(warps):
+            mine = row[(block == b) & (warp == w)]
+            assert (np.diff(mine) > 0).all()     # rising: the stop masks
+            assert mine[-1] >= 2 * bb            # every warp stops
+            copied.append(mine[mine < 2 * bb])
+    copied = np.concatenate(copied) if copied else np.zeros(0, np.int64)
+    np.testing.assert_array_equal(np.sort(copied), np.arange(2 * bb))
+    r = row[row < 2 * bb]
+    np.testing.assert_array_equal(
+        at[row < 2 * bb], np.where(r < bb, r * idx_w, (r - bb) * idx_w + 1))
+    assert (at[row >= 2 * bb] == -1).all()
+
+
 RESULT_LINES = [
     r"devices: \['cpu'\]",
     r"probeA empty kernel: [\d.]+us",
@@ -435,6 +500,7 @@ def _zeros(*shape):
 @pytest.mark.parametrize("call", [
     lambda: pp2.empty_cuda(_zeros(8, 128)),
     lambda: pp2.loads_cuda(_zeros(256, 128), _zeros(8, 128), 1),
+    lambda: pp2.loads_serial_cuda(_zeros(256, 128), _zeros(8, 128), 1),
     lambda: pp2.pop_cuda(_zeros(4, 256)),
     lambda: pp2.lanereduce_cuda(_zeros(4, 128)),
     lambda: pp2.lane_gather_cuda(_zeros(4, 128), _zeros(4, 128)),

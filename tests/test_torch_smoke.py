@@ -58,10 +58,12 @@ def test_smoke_imports_only_the_port():
 
 
 def test_compare_imports_only_the_port():
-    """`compare.py` imports what the smoke script may, `inspect`, and the
-    smoke script itself."""
+    """`compare.py` imports what the smoke script may, `inspect`,
+    `importlib` (to load the smoke script beside it under another name)
+    and the smoke script itself."""
     for root, name in _imported_roots(REPO / "compare.py"):
-        assert root in SMOKE_ALLOWED | {"chip_smoke", "inspect"}, \
+        assert root in SMOKE_ALLOWED | {"chip_smoke", "importlib",
+                                        "inspect"}, \
             f"compare.py imports {name}"
 
 
@@ -72,7 +74,7 @@ def test_compare_refuses_an_unknown_mode():
                          cwd=REPO, capture_output=True, text=True,
                          timeout=60)
     assert res.returncode == 2 and not res.stdout
-    assert "{c3,aln}" in res.stderr
+    assert "{c3,aln,launch}" in res.stderr
 
 
 PORT_FILES = sorted(str(p.relative_to(REPO))
