@@ -169,14 +169,15 @@ Phases, any failure exits non-zero:
    witness, timed warm and with L2 flushed before each launch; C9
    (csrc/probe_dfs_shape.cu) at 256 x 128 x 200 and 2048 x 128 x 200,
    timed, and at S 32, 64 and 96 (256 reads, 200 iterations); C10 at
-   probe 5's 256 x 128 x 100; C11-C14 (csrc/probe_pallas2.cu) at
-   scripts/probe_pallas2.py's shapes, first the launch path
-   (`check_launch_path`: `stream_of` is the current stream, default and
-   side, C14 exact on a side stream, its launch count exact over
-   COUNT_THREADS threads) and its host split (`launch_split`: each step
-   of C14's and C11's wrappers over SPLIT_CALLS calls, the host's clock
-   and one synchronize, beside torch.sum and `x + 1`): C11 x + 1 on [8,
-   128]; C12's 2 x 256 row loads from a [32768, 128] table, the grid form
+   probe 5's 256 x 128 x 100 (before all of them the launch path,
+   `check_launch_path`: `stream_of` is the current stream, default and
+   side, C14, C29 and C28 exact on a side stream, C14's and C29's launch
+   counts exact over COUNT_THREADS threads, and its host split,
+   `launch_split`: each step of C14's, C11's, C29's and C28's wrappers
+   over SPLIT_CALLS calls, the host's clock and one synchronize, beside
+   torch.sum, `x + 1`, torch.gather and torch.index_select); C11-C14
+   (csrc/probe_pallas2.cu) at scripts/probe_pallas2.py's shapes: C11 x +
+   1 on [8, 128]; C12's 2 x 256 row loads from a [32768, 128] table, the grid form
    (either unroll; also on index_cases' four index sets, idx 2 and 3
    columns wide, BB 0, 1, 257 and 5,001, seed LOADS_EDGE_SEED) and the
    serial forms, one warp, rolled and unrolled (`serial_*`); C11, C12
@@ -223,7 +224,10 @@ Phases, any failure exits non-zero:
    tables, at indices on both ends of the table, four repeated rows and
    one row everywhere (C29 also a permutation of each column, C30 int32
    edges); indices out of range and misaligned inputs are refused on the
-   card; C31-C35 (csrc/probe_pallas3.cu, `check_reductions`) probes 2
+   card, and by C28 and C29 also int64, non-contiguous and transposed
+   inputs and one on another card where the machine has two, none
+   launched; C28 also queued at C28_ROW_PAIRS row pairs, C28's and C29's
+   `queued_ms` over C11's (`queued_over_c11`); C31-C35 (csrc/probe_pallas3.cu, `check_reductions`) probes 2
    (C31 `native`, C32 `roll`, C33 `subl`), 5 and 6 of that script at its
    shapes: C31-C34 exact at its inputs and at int32 edges (C31-C33 values
    within 8 of both ends with each row's or column's minimum repeated, and
@@ -235,8 +239,8 @@ Phases, any failure exits non-zero:
    `.probe_pallas2`, `.probe_sem` at K=4, `.probe_spill` and
    `.probe_colops` at their scripts' default K and T, `.probe_pallas3`,
    `--device cuda`, the scripts' default arguments) once in a process of
-   its own, every launch counter starting at 0; its result lines are
-   logged and each of C7-C35 must have launched.
+   its own, the eight side by side, every launch counter starting at 0;
+   its result lines are logged and each of C7-C35 must have launched.
 19. the data-parallel mesh (`nabwa_tpu_torch/parallel/mesh.py`, with every
    launch count at 0): `entry.dryrun_multichip` over every visible card
    and over a two-shard mesh naming cuda:0 twice, so that the shard-and-
@@ -310,9 +314,9 @@ back-to-back launches, which wait on the host's enqueue when it is the
 slower), C7 and C11-C35 carry
 `queued_ms`, the same launches queued behind a sleeping kernel (the
 card's own time a launch), every probe with a library call
-`library_queued_ms`, and C11, C12 and C14 `wall_ms` and
-`library_wall_ms`, the host's clock a call; C11 and C14 carry
-`host_split`.
+`library_queued_ms`, and C11, C12, C14, C28 and C29 `wall_ms` and
+`library_wall_ms`, the host's clock a call; C11, C14, C28 and C29
+carry `host_split`.
 The probes' bounds count their table rows once (the distinct rows the
 run reads) and their operations as the header of each .cu file counts
 them.
@@ -517,8 +521,11 @@ LOADS_EDGE_SEED = 26
 # their library calls' are timed over
 SPLIT_CALLS = 10_000
 LAUNCH_REPS = 1000
-# threads launching C14 together, and calls each, for the launch count
+# threads launching C14 (and C29) together, and calls each, for the
+# launch count
 COUNT_THREADS, COUNT_CALLS = 4, 250
+# C28's row pairs a launch, queued, to take its launch floor apart
+C28_ROW_PAIRS = (1, 16, 256)
 # C1's edge launches: the retry tier's slot pool and hit list (tier 0's
 # pool of 256 overflows on every gapped edge read), at most 100,000 steps
 DFS_EDGE_STATICS = dict(stack_cap=1024, hits_cap=128, max_iters=100000)
@@ -2551,42 +2558,84 @@ def skewed(t):
     return view
 
 
+def other_device(dev):
+    """A CUDA device other than dev, or None on a one-card machine."""
+    import torch
+    for k in range(torch.cuda.device_count()):
+        if k != dev.index:
+            return torch.device("cuda", k)
+    return None
+
+
 def launch_split(dev, calls=SPLIT_CALLS):
-    """The host's microseconds a call of each step of kernel C14's and
-    C11's wrappers, of each wrapper whole and of the PyTorch call that
-    computes the same (`wall_ms` over `calls` calls after a warm-up, one
-    synchronize at the end), with the port's helpers as they stand
-    (`compare.py launch` runs this over another checkout's).  `helpers`:
-    `loop` an empty call (inside every other figure), `lib`, `stream_of`,
-    `check` and `count` (the launch counter's locked add) as the wrappers
-    call them, and beside them a `torch.cuda.Stream` built for the
-    handle (`stream_object`), the raw handle (`stream_raw`), a lock
-    taken and left (`lock`), a ctypes call into the library that touches
-    no CUDA API (`ctypes_host`, `nabwa_local_form`) and PyTorch's own
-    launch of a kernel that does nothing (`torch_launch`,
-    torch.cuda._sleep(0)).  Per kernel: `checks` (`cuda_input` and the
-    width), the allocation of its output (`torch_empty`, `new_empty` with
-    a tuple and with the sizes as arguments, or `empty_like`), `launch`
-    (the ctypes call, whose C function launches the kernel and reads
-    cudaGetLastError), `wrapper` and `library`."""
+    """The host's microseconds a call of each step of kernel C14's, C11's,
+    C29's and C28's wrappers, of each wrapper whole and of the PyTorch
+    call that computes the same (`wall_ms` over `calls` calls after a
+    warm-up, one synchronize at the end), with the port's helpers as they
+    stand (`compare.py launch` runs this over another checkout's; a step
+    whose helper that checkout lacks is None).  `helpers`: `loop` an
+    empty call (inside every other figure), `lib`, `stream_of`, `check`
+    and `count` (the launch counter's locked add) as the wrappers call
+    them, and beside them a `torch.cuda.Stream` built for the handle
+    (`stream_object`), the raw handle (`stream_raw`), a lock taken and
+    left (`lock`), a ctypes call into the library that touches no CUDA
+    API (`ctypes_host`, `nabwa_local_form`) and PyTorch's own launch of
+    a kernel that does nothing (`torch_launch`, torch.cuda._sleep(0)).
+    Per kernel: `checks` (`cuda_input` and the width), or for C29 and
+    C28 each input's `cuda_input_<name>` as their old path called it and
+    `cuda_inputs` (one pass over all of them) and `shape` (the shape
+    tests); the allocation of its output (`torch_empty`, `new_empty` with
+    a tuple and with the sizes as arguments, or `empty_like`);
+    `stream_of` and `stream_raw` (from the device index); `data_ptr`
+    (each tensor's pointer read once); `launch` (the ctypes call on
+    pointers read beforehand, whose C function launches the kernel and
+    reads cudaGetLastError); `check`; `count`; `wrapper` and `library`,
+    C29's and C28's at phase 18's shapes and calls."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import common
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
     lib = _build.lib()
     lock = threading.Lock()
-    x = torch.zeros(pp2.REDUCE_SHAPE, dtype=torch.int32, device=dev)
-    x1 = torch.zeros(pp2.EMPTY_SHAPE, dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    x = torch.zeros(pp2.REDUCE_SHAPE, dtype=i32, device=dev)
+    x1 = torch.zeros(pp2.EMPTY_SHAPE, dtype=i32, device=dev)
     rows, n1 = x.shape[0], x1.numel()
-    out, out1 = torch.empty((rows, 1), dtype=torch.int32,
+    out, out1 = torch.empty((rows, 1), dtype=i32,
                             device=dev), torch.empty_like(x1)
     st = _build.stream_of(x)
-    form = torch.zeros(2, dtype=torch.int32)
-    saved = pp2.launches_lanereduce
+    form = torch.zeros(2, dtype=i32)
+    # C29: x [128, 128], i [8, 128]; C28: i and j [256, 1], t [4096, 128]
+    gx = torch.randint(0, 99, p3.P3_X, dtype=i32, device=dev)
+    gi = torch.randint(0, p3.P3_X[0], p3.P3_I, dtype=i32, device=dev)
+    gi_long, g_out = gi.long(), torch.empty_like(gi)
+    m, c = gi.shape
+    nrow, cols = p3.P1_TABLE
+    ri, rj = (torch.randint(0, nrow, (p3.P1_ROUNDS, 1), dtype=i32,
+                            device=dev) for _ in range(2))
+    rt = torch.randint(0, 99, p3.P1_TABLE, dtype=i32, device=dev)
+    flat = torch.cat((ri[:, 0], rj[:, 0]))
+    n = ri.shape[0]
+    r_out = rt.new_empty(2 * n, cols)
+    gp = [t.data_ptr() for t in (gx, gi, g_out)]
+    rp = [t.data_ptr() for t in (ri, rj, rt, r_out)]
+    multi = getattr(common, "cuda_inputs", None)
+    index = dev.index
+    saved = (pp2.launches_lanereduce, pp2.launches_empty, p3.launches_p3,
+             p3.launches_p1b)
 
     def count():
         with _build.count_lock:
             pp2.launches_lanereduce += 1
+
+    def count_p3():
+        with _build.count_lock:
+            p3.launches_p3 += 1
+
+    def count_p1b():
+        with _build.count_lock:
+            p3.launches_p1b += 1
 
     def taken():
         with lock:
@@ -2623,11 +2672,52 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "launch": lambda: lib.nabwa_probe_empty(
                 x1.data_ptr(), n1, out1.data_ptr(), st),
             "wrapper": lambda: pp2.empty_cuda(x1),
-            "library": lambda: x1 + 1}}
-    split = {part: {name: wall_ms(fn, calls) * 1e3
+            "library": lambda: x1 + 1},
+        "probe_p3": {
+            "cuda_input_x": lambda: common.cuda_input(gx, "x", 2),
+            "cuda_input_i": lambda: common.cuda_input(gi, "i", 2, dev),
+            "cuda_inputs": multi and (lambda: multi((gx, "x", 2, i32),
+                                                    (gi, "i", 2, i32))),
+            "shape": lambda: gi.shape[1] != gx.shape[1],
+            "empty_like": lambda: torch.empty_like(gi),
+            "new_empty_args": lambda: gi.new_empty(m, c),
+            "stream_of": lambda: _build.stream_of(gx),
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "data_ptr": lambda: (gx.data_ptr(), gi.data_ptr(),
+                                 g_out.data_ptr()),
+            "launch": lambda: lib.nabwa_probe_p3(gp[0], c, gp[1], m * c,
+                                                 gp[2], st),
+            "check": lambda: _build.check(0, "probe_p3 kernel launch"),
+            "count": count_p3,
+            "wrapper": lambda: p3.p3_cuda(gx, gi),
+            "library": lambda: torch.gather(gx, 0, gi_long)},
+        "probe_p1b": {
+            "cuda_input_i": lambda: common.cuda_input(ri, "i", 2),
+            "cuda_input_j": lambda: common.cuda_input(rj, "j", 2, dev),
+            "cuda_input_t": lambda: common.cuda_input(rt, "t", 2, dev),
+            "cuda_inputs": multi and (lambda: multi(
+                (ri, "i", 2, i32), (rj, "j", 2, i32), (rt, "t", 2, i32))),
+            "shape": lambda: (rt.shape[1] % 4, ri.shape[1] != 1
+                              or rj.shape != ri.shape),
+            "torch_empty": lambda: torch.empty((2 * n, cols), dtype=i32,
+                                               device=dev),
+            "new_empty": lambda: rt.new_empty((2 * n, cols)),
+            "new_empty_args": lambda: rt.new_empty(2 * n, cols),
+            "stream_of": lambda: _build.stream_of(ri),
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "data_ptr": lambda: (ri.data_ptr(), rj.data_ptr(),
+                                 rt.data_ptr(), r_out.data_ptr()),
+            "launch": lambda: lib.nabwa_probe_p1b(rp[0], rp[1], n, rp[2],
+                                                  cols, rp[3], st),
+            "check": lambda: _build.check(0, "probe_p1b kernel launch"),
+            "count": count_p1b,
+            "wrapper": lambda: p3.p1b_cuda(ri, rj, rt),
+            "library": lambda: torch.index_select(rt, 0, flat)}}
+    split = {part: {name: None if fn is None else wall_ms(fn, calls) * 1e3
                     for name, fn in fns.items()}
              for part, fns in steps.items()}
-    pp2.launches_lanereduce = saved
+    (pp2.launches_lanereduce, pp2.launches_empty, p3.launches_p3,
+     p3.launches_p1b) = saved
     split["calls"] = calls
     return split
 
@@ -2635,13 +2725,24 @@ def launch_split(dev, calls=SPLIT_CALLS):
 def check_launch_path(dev):
     """The shared launch path keeps its meaning: `stream_of` gives
     PyTorch's current stream on the default stream and on a side stream,
-    a kernel launched under a side stream is exact there, and C14's
-    launch count is exact when COUNT_THREADS threads launch together."""
+    C14, C29 and C28 launched under a side stream are exact there (C29
+    and C28 take the handle from the device index their one check pass
+    read), and C14's and C29's launch counts are exact when
+    COUNT_THREADS threads launch together."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
     x = torch.randint(-2**31, 2**31 - 1, pp2.REDUCE_SHAPE,
                       dtype=torch.int32, device=dev)
+    gx = torch.randint(-2**31, 2**31 - 1, p3.P3_X, dtype=torch.int32,
+                       device=dev)
+    gi = torch.randint(0, p3.P3_X[0], p3.P3_I, dtype=torch.int32,
+                       device=dev)
+    ri, rj = (torch.randint(0, p3.P1_TABLE[0], (p3.P1_ROUNDS, 1),
+                            dtype=torch.int32, device=dev) for _ in range(2))
+    rt = torch.randint(-2**31, 2**31 - 1, p3.P1_TABLE, dtype=torch.int32,
+                       device=dev)
     side = torch.cuda.Stream(dev)
     if _build.stream_of(x) != torch.cuda.current_stream(dev).cuda_stream:
         fail("stream_of differs from the current stream")
@@ -2649,32 +2750,54 @@ def check_launch_path(dev):
         if _build.stream_of(x) != side.cuda_stream:
             fail("stream_of differs from the current side stream")
         side.wait_stream(torch.cuda.default_stream(dev))
-        got = pp2.lanereduce_cuda(x)
+        got = (pp2.lanereduce_cuda(x), p3.p3_cuda(gx, gi),
+               p3.p1b_cuda(ri, rj, rt))
     side.synchronize()
-    exact("C14 on a side stream", got, pp2.lanereduce_plain(x))
-    before = pp2.launches_lanereduce
+    exact("C14 on a side stream", got[0], pp2.lanereduce_plain(x))
+    exact("C29 on a side stream", got[1], p3.p3_plain(gx, gi))
+    exact("C28 on a side stream", got[2], p3.p1b_plain(ri, rj, rt))
+    for label, mod, name, fn in (
+            ("C14", pp2, "launches_lanereduce",
+             lambda: pp2.lanereduce_cuda(x)),
+            ("C29", p3, "launches_p3", lambda: p3.p3_cuda(gx, gi))):
+        before = getattr(mod, name)
 
-    def launch():
-        for _ in range(COUNT_CALLS):
-            pp2.lanereduce_cuda(x)
-    threads = [threading.Thread(target=launch) for _ in range(COUNT_THREADS)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    torch.cuda.synchronize(dev)
-    if pp2.launches_lanereduce - before != COUNT_THREADS * COUNT_CALLS:
-        fail(f"C14's count rose by {pp2.launches_lanereduce - before} over "
-             f"{COUNT_THREADS * COUNT_CALLS} launches from "
-             f"{COUNT_THREADS} threads")
+        def launch():
+            for _ in range(COUNT_CALLS):
+                fn()
+        threads = [threading.Thread(target=launch)
+                   for _ in range(COUNT_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize(dev)
+        rose = getattr(mod, name) - before
+        if rose != COUNT_THREADS * COUNT_CALLS:
+            fail(f"{label}'s count rose by {rose} over "
+                 f"{COUNT_THREADS * COUNT_CALLS} launches from "
+                 f"{COUNT_THREADS} threads")
     log(f"launch path: stream_of is the current stream (default and side), "
-        f"C14 exact on a side stream, its count exact over "
-        f"{COUNT_THREADS} threads x {COUNT_CALLS} launches")
+        f"C14, C29 and C28 exact on a side stream, C14's and C29's counts "
+        f"exact over {COUNT_THREADS} threads x {COUNT_CALLS} launches")
 
 
-def check_probes(dev):
+def launch_times(fn, lib_fn):
+    """ms (CUDA events over LAUNCH_REPS launches back to back), queued_ms
+    and wall_ms (the host's clock) of fn, and the same of lib_fn, the
+    library call beside it."""
+    return {"ms": cuda_ms(fn, LAUNCH_REPS),
+            "queued_ms": queued_ms(fn, 200),
+            "wall_ms": wall_ms(fn, LAUNCH_REPS),
+            "library_ms": cuda_ms(lib_fn, LAUNCH_REPS),
+            "library_queued_ms": queued_ms(lib_fn, 200),
+            "library_wall_ms": wall_ms(lib_fn, LAUNCH_REPS)}
+
+
+def check_probes(dev, split):
     """Phase 18: kernels C7-C22 against their plain versions on the card, at
-    the probes' shapes, inputs made with numpy from PROBE_SEED.  Returns
+    the probes' shapes, inputs made with numpy from PROBE_SEED; `split` is
+    `launch_split`'s, whose parts go into C11's and C14's entries.  Returns
     {kernel name: fields of its kernels-line entry but `launches`}."""
     import numpy as np
     import torch
@@ -2826,21 +2949,6 @@ def check_probes(dev):
         "bb": pp.DFS_BB, "s": pp.DFS_S, "iters": pp.DFS_ITERS}
     log(f"C10 probe_pallas_dfs_shape: exact; "
         f"{out['probe_pallas_dfs_shape']}")
-
-    # the launch path's meaning, then its host split: each step of C14's
-    # and C11's wrappers beside torch.sum and x + 1
-    check_launch_path(dev)
-    split = launch_split(dev)
-    log(f"host split, us a call over {split['calls']} calls: {split}")
-
-    def launch_times(fn, lib_fn):
-        """ms (events), queued_ms and wall_ms of fn and of lib_fn."""
-        return {"ms": cuda_ms(fn, LAUNCH_REPS),
-                "queued_ms": queued_ms(fn, 200),
-                "wall_ms": wall_ms(fn, LAUNCH_REPS),
-                "library_ms": cuda_ms(lib_fn, LAUNCH_REPS),
-                "library_queued_ms": queued_ms(lib_fn, 200),
-                "library_wall_ms": wall_ms(lib_fn, LAUNCH_REPS)}
 
     # C11: probe A, x + 1 over [8, 128]: a launch and little else, timed
     # on the card (events, and queued) and on the host's clock, beside the
@@ -3796,12 +3904,12 @@ def forced_device_state(label, kernel, args, kw, want):
     return ms
 
 
-def check_chains(dev):
+def check_chains(dev, split):
     """Phase 18, kernels C23-C30 against their plain versions on the card,
     exact, at the scripts' shapes and inputs and at seeded random and int32
     edge inputs; C23 also over every K it is built for, C27-C29 at edge
-    indices.  Returns {kernel name: fields of its kernels-line entry but
-    `launches`}."""
+    indices (`check_copies`, given `split`).  Returns {kernel name: fields
+    of its kernels-line entry but `launches`}."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.ops import _build
@@ -3963,17 +4071,21 @@ def check_chains(dev):
         "library_why": why,
         "queued_ms": queued_ms(lambda: p3.p8_cuda(a_t, b_t), 200)}
     log(f"C26 probe_p8: exact; {out['probe_p8']}")
-    out.update(check_copies(dev, rng))
+    out.update(check_copies(dev, rng, split))
     return out
 
 
-def check_copies(dev, rng):
+def check_copies(dev, rng, split):
     """Phase 18, kernels C27-C30 (probes 1, 1b, 3 and 4 of
     scripts/probe_pallas3.py) against their plain versions on the card,
     exact, at the script's shapes: its inputs, then int32 tables at the
     indices of `index_cases` (C29 also a permutation of each column, C30
-    int32 edges); out-of-range and misaligned inputs refused.  Returns
-    {kernel name: fields of its kernels-line entry but `launches`}."""
+    int32 edges); out-of-range and misaligned inputs refused, and for C28
+    and C29 also int64, non-contiguous and transposed inputs and (where
+    the machine has a second card) an input on another device, none of
+    them launched.  C28 and C29 carry `launch_times` and their parts of
+    `split` (`launch_split`).  Returns {kernel name: fields of its
+    kernels-line entry but `launches`}."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.probes import common
@@ -4031,29 +4143,50 @@ def check_copies(dev, rng):
                              p3.p1b_plain(i_t, j_t, t_t)))
     i_t, j_t, t_t = common.tensors(dev, cases["script"], j_cases["script"],
                                    table)
+    before = p3.launches_p1b
     wrong = j_t.clone()
     wrong[7, 0] = nrow
     refused("C28 index out of range", lambda: p3.p1b(i_t, wrong, t_t))
     refused("C28 misaligned table", lambda: p3.p1b(i_t, j_t, skewed(t_t)))
     refused("C28 misaligned index", lambda: p3.p1b(i_t, skewed(j_t), t_t))
+    refused("C28 int64 index", lambda: p3.p1b(i_t, j_t.long(), t_t))
+    wide = torch.cat((i_t, j_t), 1)
+    refused("C28 non-contiguous index (a column of [n, 2])",
+            lambda: p3.p1b(i_t, wide[:, 1:], t_t))
+    refused("C28 transposed index ([1, n])",
+            lambda: p3.p1b(i_t.t(), j_t, t_t))
+    refused("C28 transposed table",
+            lambda: p3.p1b(i_t, j_t, t_t.t().contiguous().t()))
+    other = other_device(dev)
+    if other is not None:
+        refused(f"C28 index on {other}",
+                lambda: p3.p1b(i_t, j_t.to(other), t_t))
+    if p3.launches_p1b != before:
+        fail("C28 launched on an input its wrapper refused")
+    # C28 taken apart on the card: queued at 1, 16 and 256 row pairs of
+    # one table, so the chain of a launch, an index load and the row it
+    # names shows beside the bytes
+    by_rows = {}
+    for k in C28_ROW_PAIRS:
+        ik, jk = i_t[:k], j_t[:k]
+        by_rows[k] = queued_ms(lambda: p3.p1b_cuda(ik, jk, t_t), 200)
     flat = torch.cat((i_t[:, 0], j_t[:, 0]))
     n_rows = distinct_rows(flat)
     # bytes: each distinct row read once, the index words, out; Work 0
     bnd = bound(ROW_BYTES * (n_rows + flat.numel()) + nbytes(flat), 0)
     out["probe_p1b"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: p3.p1b_cuda(i_t, j_t, t_t), 200),
+        **launch_times(lambda: p3.p1b_cuda(i_t, j_t, t_t),
+                       lambda: torch.index_select(t_t, 0, flat)),
         "plain_ms": cuda_ms(lambda: p3.p1b_plain(i_t, j_t, t_t), 3),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: torch.index_select(t_t, 0, flat),
-                              200),
-        "library_queued_ms": queued_ms(
-            lambda: torch.index_select(t_t, 0, flat), 200),
         "library_call": "torch.index_select(t, 0, torch.cat((i[:, 0], "
                         "j[:, 0]))), the index made once beforehand",
-        "queued_ms": queued_ms(lambda: p3.p1b_cuda(i_t, j_t, t_t), 200),
         "rows": flat.numel(), "distinct_rows": n_rows,
-        "exact_inputs": list(cases)}
+        "exact_inputs": list(cases), "queued_ms_by_row_pairs": by_rows,
+        "other_device_refused": other is not None,
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_p1b"], "calls": split["calls"]}}
     log(f"C28 probe_p1b: exact; {out['probe_p1b']}")
 
     # C29: probe 3, out[r, c] = x[i[r, c], c]; x over int32 but for the
@@ -4071,27 +4204,38 @@ def check_copies(dev, rng):
         err = max(err, exact(f"C29 probe_p3 {name}", p3.p3(x_t, i_t),
                              p3.p3_plain(x_t, i_t)))
     x_t, i_t = common.tensors(dev, x, cases["script"])
+    before = p3.launches_p3
     for bad in (-1, rows):
         wrong = i_t.clone()
         wrong[2, 9] = bad
         refused(f"C29 index {bad}", lambda: p3.p3(x_t, wrong))
     refused("C29 misaligned x", lambda: p3.p3(skewed(x_t), i_t))
+    refused("C29 misaligned index", lambda: p3.p3(x_t, skewed(i_t)))
+    refused("C29 int64 index", lambda: p3.p3(x_t, i_t.long()))
+    refused("C29 transposed index",
+            lambda: p3.p3(x_t, i_t.t().contiguous().t()))
+    refused("C29 transposed x", lambda: p3.p3(x_t.t(), i_t))
+    if other is not None:
+        refused(f"C29 index on {other}", lambda: p3.p3(x_t, i_t.to(other)))
+    if p3.launches_p3 != before:
+        fail("C29 launched on an input its wrapper refused")
     i_long = i_t.long()
     cells = int(torch.unique(i_long * width + torch.arange(
         width, device=dev)).numel())
     # bytes: each distinct gathered word read once, i, out; Work 0
     bnd = bound(4 * cells + 2 * nbytes(i_t), 0)
     out["probe_p3"] = {
-        "max_abs_err": err, "ms": cuda_ms(lambda: p3.p3_cuda(x_t, i_t), 200),
+        "max_abs_err": err,
+        **launch_times(lambda: p3.p3_cuda(x_t, i_t),
+                       lambda: torch.gather(x_t, 0, i_long)),
         "plain_ms": cuda_ms(lambda: p3.p3_plain(x_t, i_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: torch.gather(x_t, 0, i_long), 200),
-        "library_queued_ms": queued_ms(lambda: torch.gather(x_t, 0, i_long),
-                                       200),
         "library_call": "torch.gather(x, 0, i.long()), the int64 index "
                         "made once beforehand",
-        "queued_ms": queued_ms(lambda: p3.p3_cuda(x_t, i_t), 200),
-        "distinct_words": cells, "exact_inputs": list(cases)}
+        "distinct_words": cells, "exact_inputs": list(cases),
+        "other_device_refused": other is not None,
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_p3"], "calls": split["calls"]}}
     log(f"C29 probe_p3: exact; {out['probe_p3']}")
 
     # C30: probe 4, x[:, :16].reshape(64, 128), on the script's values and
@@ -4277,28 +4421,41 @@ def run_probe_entries():
     """Each probe entry point once with `--device cuda`, in a process of
     its own (every launch counter starts at 0) with its environment of
     PROBE_ENTRIES: probe_sem at K=SEM_K, probe_spill and probe_colops at
-    their scripts' default K and T.  Returns ({kernel: launches summed
-    over the runs}, {entry: its printed lines})."""
+    their scripts' default K and T.  The processes run side by side (each
+    spends most of its ~10 s starting PyTorch and the card; the times the
+    entries print are then taken beside the others'); every one is ended
+    before this returns or fails.  Returns ({kernel: launches summed over
+    the runs}, {entry: its printed lines})."""
     base = {k: v for k, v in os.environ.items()
             if k not in ("ROWS", "T", "K")}
     counts, printed = {}, {}
-    for name, extra in PROBE_ENTRIES.items():
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-c", PROBE_COUNT, name,
-                              "--device", "cuda"], cwd=ROOT,
-                             env={**base, **extra}, capture_output=True,
-                             text=True, timeout=600)
-        lines = res.stdout.splitlines()
-        if res.returncode != 0 or not lines:
-            fail(f"python -m nabwa_tpu_torch.probes.{name} --device cuda "
-                 f"exited with {res.returncode}: {res.stderr[-2000:]}")
-        printed[name] = lines[:-1]
-        for key, v in json.loads(lines[-1]).items():
-            counts[key] = counts.get(key, 0) + v
-        log(f"probes.{name} --device cuda ({time.perf_counter() - t0:.1f} s,"
-            f" launches {lines[-1]}):")
-        for ln in lines[:-1]:
-            log("    " + ln)
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, extra in PROBE_ENTRIES.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", PROBE_COUNT, name, "--device",
+                 "cuda"], cwd=ROOT, env={**base, **extra},
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            lines = out.splitlines()
+            if proc.returncode != 0 or not lines:
+                fail(f"python -m nabwa_tpu_torch.probes.{name} --device "
+                     f"cuda exited with {proc.returncode}: {err[-2000:]}")
+            printed[name] = lines[:-1]
+            for key, v in json.loads(lines[-1]).items():
+                counts[key] = counts.get(key, 0) + v
+            log(f"probes.{name} --device cuda (done "
+                f"{time.perf_counter() - t0:.1f} s after the entries "
+                f"started, launches {lines[-1]}):")
+            for ln in lines[:-1]:
+                log("    " + ln)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     for key, v in counts.items():
         if v <= 0:
             fail(f"kernel {key} was not launched by its probe's entry point")
@@ -4880,12 +5037,21 @@ def main():
     one_c2_per_c1("CLI bam2bam", b2b_counts)
 
     phase_mark("18")
-    # phase 18: the probes, C7-C35 against their plain versions on the
-    # card, then each probe's entry point in a process of its own
-    probes = check_probes(torch.device("cuda", 0))
+    # phase 18: the launch path's meaning and its host split (each step
+    # of C14's, C11's, C29's and C28's wrappers beside their library
+    # calls), the probes, C7-C35 against their plain versions on the card,
+    # then each probe's entry point in a process of its own
+    dev0 = torch.device("cuda", 0)
+    check_launch_path(dev0)
+    split = launch_split(dev0)
+    log(f"host split, us a call over {split['calls']} calls: {split}")
+    probes = check_probes(dev0, split)
     t0 = time.perf_counter()
-    probes.update(check_chains(torch.device("cuda", 0)))
+    probes.update(check_chains(dev0, split))
     log(f"C23-C30 checked in {time.perf_counter() - t0:.1f} s")
+    for k in ("probe_p1b", "probe_p3"):     # C28, C29 against the floor
+        probes[k]["queued_over_c11"] = (probes[k]["queued_ms"]
+                                        / probes["probe_empty"]["queued_ms"])
     t0 = time.perf_counter()
     probes.update(check_reductions(torch.device("cuda", 0)))
     log(f"C31-C35 checked in {time.perf_counter() - t0:.1f} s")

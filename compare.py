@@ -22,12 +22,15 @@ time a step.  Where the checkout has `sa_lookup_both_cuda`, the two
 strands in one launch too.
 
 launch: the host's cost of a launch, on no cell.  The host split of kernel
-C14's and C11's wrappers (`launch_split` of this checkout's
-chip_smoke.py, run over the other checkout's port: its own helpers and
-wrappers), and C11, C12 (unroll 1 and LOADS_UNROLL) and C14 at
-scripts/probe_pallas2.py's shapes, exact against their plain versions,
-each with `ms` (CUDA events), `queued_ms` and `wall_ms` (the host's clock)
-beside `x + 1`, torch.index_select and torch.sum.
+C14's, C11's, C29's and C28's wrappers (`launch_split` of this
+checkout's chip_smoke.py, run over the other checkout's port: its own
+helpers and wrappers; a step whose helper it lacks is null), and C11,
+C12 (unroll 1 and LOADS_UNROLL) and C14 at scripts/probe_pallas2.py's
+shapes and C29 and C28 at scripts/probe_pallas3.py's, exact against
+their plain versions, each with `ms` (CUDA events), `queued_ms` and
+`wall_ms` (the host's clock) beside `x + 1`, torch.index_select,
+torch.sum, torch.gather (its int64 index made beforehand) and C28's
+torch.index_select (its index made beforehand).
 
 aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
 has the hybrid split): a warm-up chunk of one slice, then 5 timed
@@ -131,6 +134,7 @@ def time_launch():
     import torch
     from nabwa_tpu_torch.probes import common
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
     here = own_smoke()
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(here.PROBE_SEED)
@@ -140,6 +144,15 @@ def time_launch():
         rng.randint(0, 99, pp2.REDUCE_SHAPE),
         rng.randint(-2**31, 2**31, pp2.EMPTY_SHAPE))
     flat = idx_t[:, :2].t().reshape(-1).contiguous()
+    nrow = p3.P1_TABLE[0]
+    gx_t, gi_t, ri_t, rj_t, rt_t = common.tensors(
+        dev, rng.randint(0, 99, p3.P3_X),
+        rng.randint(0, p3.P3_X[0], p3.P3_I),
+        rng.randint(0, nrow, (p3.P1_ROUNDS, 1)),
+        rng.randint(0, nrow, (p3.P1_ROUNDS, 1)),
+        rng.randint(0, 99, p3.P1_TABLE))
+    gi_long = gi_t.long()
+    r_flat = torch.cat((ri_t[:, 0], rj_t[:, 0]))
     calls = {
         "probe_empty": (lambda: pp2.empty_cuda(x1_t),
                         lambda: pp2.empty_plain(x1_t)),
@@ -153,7 +166,14 @@ def time_launch():
         "probe_lanereduce": (lambda: pp2.lanereduce_cuda(x_t),
                              lambda: pp2.lanereduce_plain(x_t)),
         "torch.sum": (lambda: torch.sum(x_t, dim=1, keepdim=True,
-                                        dtype=torch.int32), None)}
+                                        dtype=torch.int32), None),
+        "probe_p3": (lambda: p3.p3_cuda(gx_t, gi_t),
+                     lambda: p3.p3_plain(gx_t, gi_t)),
+        "torch.gather": (lambda: torch.gather(gx_t, 0, gi_long), None),
+        "probe_p1b": (lambda: p3.p1b_cuda(ri_t, rj_t, rt_t),
+                      lambda: p3.p1b_plain(ri_t, rj_t, rt_t)),
+        "index_select_p1b": (lambda: torch.index_select(rt_t, 0, r_flat),
+                             None)}
     out = {"split": here.launch_split(dev)}
     for name, (fn, plain) in calls.items():
         if plain is not None:

@@ -1,8 +1,8 @@
 """What the probe ports share: int32 wrap-around and floor modulo for the
 plain versions, a popcount, the conversion of the scripts' numpy inputs,
 the dispatch between a plain version and its kernel, the kernels' input
-check and the dispatchers' index check, the `--device` option and the
-timer.
+checks (one tensor, or all of a launch's in one pass) and the
+dispatchers' index check, the `--device` option and the timer.
 
 The plain versions compute on int64 tensors that hold int32 values:
 `wrap32` after each `+`, `-` or `*` gives jnp's int32 wrap-around, `>>`
@@ -69,15 +69,52 @@ def dispatch(name, t, plain, cuda, *args):
 def cuda_input(t, name, ndim, dev=None, dtype=torch.int32):
     """The device of `t`, a contiguous CUDA tensor of `dtype` (int32 unless
     said) with `ndim` dimensions (on `dev` if given) whose start the
-    kernels may read as int4; raises ValueError otherwise."""
-    on = t.device
-    if on.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {on}")
-    dev = on if dev is None else dev
+    kernels may read as int4; raises ValueError otherwise.  `is_cuda`
+    tests the device's type: `t.device.type` formats the type's name on
+    every read."""
+    if not t.is_cuda:
+        raise ValueError(f"the kernel needs CUDA tensors, got {t.device}")
+    if dev is None:
+        dev = t.device
     _build.require(t, name, dev, ndim, dtype)
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: not 16-byte aligned")
     return dev
+
+
+def cuda_inputs(*specs):
+    """One check pass over a kernel's tensor inputs, each given as (t,
+    name, ndim, dtype): every t a contiguous CUDA tensor of its dtype with
+    ndim dimensions, on the first one's device, starting on a 16-byte
+    boundary.  The checks and their ValueError messages are those of
+    `cuda_input` called on each in turn, the later ones with the first's
+    device, in that order.  Returns (the device's index, [each tensor's
+    data pointer]), each read once, for the stream's handle and the
+    launch."""
+    index = None
+    ptrs = []
+    for t, name, ndim, dtype in specs:
+        if not t.is_cuda:
+            raise ValueError(f"the kernel needs CUDA tensors, got {t.device}")
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name}: expected a tensor, got {type(t)}")
+        on = t.get_device()
+        if index is None:
+            index = on
+        elif on != index:
+            raise ValueError(f"{name}: on {t.device}, expected "
+                             f"{specs[0][0].device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"{name}: {t.dim()} dims, expected {ndim}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+        ptr = t.data_ptr()
+        if ptr % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+        ptrs.append(ptr)
+    return index, ptrs
 
 
 def check_indices(name, n, *indices):

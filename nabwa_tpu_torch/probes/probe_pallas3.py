@@ -81,6 +81,7 @@ P5_X = (256, 128)                                       # :174
 P5_MAX_WORDS = 232448 // 4       # C34's s: a block's shared memory
 P6_X, P6_W = (512, 128), (128, 8)                       # :191-192
 TIMED_CALLS_P2_P5 = 5                                   # :115, :176
+I32 = torch.int32
 
 # kernel launches made on CUDA tensors: C25 by `p7`, C26 by `p8`, C27 by
 # `p1`, C28 by `p1b`, C29 by `p3`, C30 by `p4`, C31-C33 by `p2` in its
@@ -168,22 +169,27 @@ def p1b_plain(i, j, t):
 
 def p1b_cuda(i, j, t):
     """`p1b_plain` by kernel C28; t's columns a multiple of 4.  The
-    indices are not checked (`p1b` does)."""
+    indices are not checked (`p1b` does).  One check pass over the three
+    inputs reads each one's device and data pointer once; the launch
+    reuses them."""
     global launches_p1b
-    dev = common.cuda_input(i, "i", 2)
-    common.cuda_input(j, "j", 2, dev)
-    _table_input(t, dev)
-    if i.shape[1] != 1 or j.shape != i.shape:
-        raise ValueError(f"i and j must be [n, 1], got {tuple(i.shape)} "
+    dev, (pi, pj, pt) = common.cuda_inputs(
+        (i, "i", 2, I32), (j, "j", 2, I32), (t, "t", 2, I32))
+    cols = t.shape[1]
+    if cols % 4:
+        raise ValueError(f"t's rows must be a multiple of 4 words, got "
+                         f"{cols}")
+    shape = i.shape
+    if shape[1] != 1 or j.shape != shape:
+        raise ValueError(f"i and j must be [n, 1], got {tuple(shape)} "
                          f"and {tuple(j.shape)}")
-    out = torch.empty((2 * i.shape[0], t.shape[1]), dtype=torch.int32,
-                      device=dev)
-    if out.numel() == 0:
+    n = shape[0]
+    out = t.new_empty(2 * n, cols)
+    if n == 0 or cols == 0:
         return out
-    rc = _build.lib().nabwa_probe_p1b(i.data_ptr(), j.data_ptr(),
-                                      i.shape[0], t.data_ptr(), t.shape[1],
-                                      out.data_ptr(), _build.stream_of(i))
-    _build.check(rc, "probe_p1b kernel launch")
+    _build.check(_build.lib().nabwa_probe_p1b(
+        pi, pj, n, pt, cols, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev)), "probe_p1b kernel launch")
     with _build.count_lock:
         launches_p1b += 1
     return out
@@ -209,20 +215,21 @@ def p3_plain(x, i):
 
 def p3_cuda(x, i):
     """`p3_plain` by kernel C29.  The indices are not checked (`p3`
-    does)."""
+    does).  One check pass over both inputs reads each one's device and
+    data pointer once; the launch reuses them."""
     global launches_p3
-    dev = common.cuda_input(x, "x", 2)
-    common.cuda_input(i, "i", 2, dev)
-    if i.shape[1] != x.shape[1]:
+    dev, (px, pi) = common.cuda_inputs((x, "x", 2, I32), (i, "i", 2, I32))
+    cols, (m, c) = x.shape[1], i.shape
+    if c != cols:
         raise ValueError(f"x and i must be [R, C] and [M, C], got "
-                         f"{tuple(x.shape)} and {tuple(i.shape)}")
-    out = torch.empty_like(i)
-    if i.numel() == 0:
+                         f"{tuple(x.shape)} and {(m, c)}")
+    out = i.new_empty(m, c)
+    n = m * c
+    if n == 0:
         return out
-    rc = _build.lib().nabwa_probe_p3(x.data_ptr(), x.shape[1], i.data_ptr(),
-                                     i.numel(), out.data_ptr(),
-                                     _build.stream_of(x))
-    _build.check(rc, "probe_p3 kernel launch")
+    _build.check(_build.lib().nabwa_probe_p3(
+        px, cols, pi, n, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev)), "probe_p3 kernel launch")
     with _build.count_lock:
         launches_p3 += 1
     return out

@@ -296,11 +296,20 @@ def test_kernels_refuse_cpu_tensors(call):
 
 class _OnCard(torch.Tensor):
     """A CPU tensor that says it lies on the card, so that a wrapper's
-    checks run on it; a launch would fail, so only a refusal passes."""
+    checks run on it; a launch would fail, so only a refusal passes.  It
+    answers `is_cuda` and `get_device()` as a tensor on its device does,
+    since the checks read those where they are cheaper than `device`."""
 
     @property
     def device(self):
         return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+    def get_device(self):
+        return self.device.index
 
 
 def _misaligned(*shape):

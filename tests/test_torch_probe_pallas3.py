@@ -42,7 +42,9 @@ from nabwa_tpu_torch.probes import common
 from nabwa_tpu_torch.probes import probe_pallas3 as p3
 
 # fixtures and helpers shared with the other probe ports' tests
-from .test_torch_probe_pallas import _misaligned, _on_card
+from nabwa_tpu_torch.ops import _build
+
+from .test_torch_probe_pallas import _misaligned, _on_card, _OnCard
 from .test_torch_probe_spill import masked
 from .test_torch_probes import (_call, _i32, _t, host,  # noqa: F401
                                 one_torch_thread, script)
@@ -426,6 +428,21 @@ def test_kernels_refuse_cpu_tensors(call):
      "not 16-byte aligned"),
     (lambda: p3.p3_cuda(_on_card(128, 128), _on_card(8, 64)),
      r"\[R, C\] and \[M, C\]"),
+    (lambda: p3.p3_cuda(_on_card(128, 128), _on_card(8, 128).long()),
+     "i: dtype torch.int64, expected torch.int32"),
+    (lambda: p3.p3_cuda(_on_card(128, 128), _on_card(128, 8).t()),
+     "i: not contiguous"),
+    (lambda: p3.p3_cuda(_on_card(128, 128).t(), _on_card(8, 128)),
+     "x: not contiguous"),
+    (lambda: p3.p1b_cuda(_on_card(256, 1), _on_card(256, 1).long(),
+                         _on_card(4096, 128)),
+     "j: dtype torch.int64, expected torch.int32"),
+    (lambda: p3.p1b_cuda(_on_card(256, 1).t(), _on_card(256, 1),
+                         _on_card(4096, 128)), r"must be \[n, 1\]"),
+    (lambda: p3.p1b_cuda(_on_card(256, 1), _on_card(256, 2)[:, 1:],
+                         _on_card(4096, 128)), "j: not contiguous"),
+    (lambda: p3.p1b_cuda(_on_card(256, 1), _on_card(256, 1),
+                         _on_card(128, 4096).t()), "t: not contiguous"),
     (lambda: p3.p4_cuda(_misaligned(512, 128)), "not 16-byte aligned"),
     (lambda: p3.p4_cuda(_on_card(500, 128)), "multiple of 8"),
     (lambda: p3.p4_cuda(_on_card(512, 12)), "at least 16"),
@@ -435,3 +452,229 @@ def test_kernels_refuse_inputs(call, match):
     launch."""
     with pytest.raises(ValueError, match=match):
         call()
+
+
+class _OnCard1(_OnCard):
+    """A CPU tensor that says it lies on the second card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 1)
+
+
+def _reference_cuda_input(t, name, ndim, dev=None, dtype=torch.int32):
+    """`common.cuda_input` written with `t.device` for every test: the
+    type's name, then `_build.require`'s order (the device read again),
+    then the alignment."""
+    on = t.device
+    if on.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {on}")
+    dev = on if dev is None else dev
+    _build.require(t, name, dev, ndim, dtype)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+    return dev
+
+
+def _one_at_a_time(check, specs):
+    """`check` on each spec in turn, the later ones with the first's
+    device, as a wrapper checked its inputs one by one."""
+    dev = None
+    for t, name, ndim, dtype in specs:
+        dev = check(t, name, ndim, dev, dtype)
+
+
+# C28's inputs (i, j, t) and what may be wrong with each: the first
+# tensor's bad form, given a position
+_C28 = (("i", (256, 1)), ("j", (256, 1)), ("t", (4096, 128)))
+_BAD = {
+    "cpu": lambda shape: _zeros(*shape),
+    "int64": lambda shape: _on_card(*shape).long(),
+    "dims": lambda shape: _on_card(shape[0] * shape[1]),
+    "transposed": lambda shape: _on_card(*shape[::-1]).t(),
+    "column": lambda shape: _on_card(shape[0], shape[1] + 1)[:, 1:],
+    "misaligned": lambda shape: _misaligned(*shape),
+    "cuda1": lambda shape: _zeros(*shape).as_subclass(_OnCard1)}
+_BAD_CASES = [(kind, pos) for kind in _BAD for pos in range(3)
+              if not (kind == "cuda1" and pos == 0)
+              and not (kind == "transposed" and pos < 2)]
+
+
+def _no_build(monkeypatch):
+    """Fail the test if anything asks for the kernel library."""
+    def refuse():
+        raise AssertionError("the kernel library was asked for")
+    monkeypatch.setattr(_build, "lib", refuse)
+
+
+@pytest.mark.parametrize("kind, pos", _BAD_CASES)
+def test_cuda_inputs_refuses_as_one_at_a_time(kind, pos, monkeypatch):
+    """The one check pass refuses a bad input in any position with the
+    ValueError that checking the inputs one at a time raised (the
+    reference's reads of `t.device`, and `common.cuda_input`'s), before
+    anything is built or launched.  ([n, 1] has no transposed view that
+    is not contiguous, so "transposed" is tried on t only.)"""
+    _no_build(monkeypatch)
+    specs = [(_BAD[kind](shape) if k == pos else _on_card(*shape), name, 2,
+              torch.int32) for k, (name, shape) in enumerate(_C28)]
+    msgs = []
+    for check in (lambda: common.cuda_inputs(*specs),
+                  lambda: _one_at_a_time(_reference_cuda_input, specs),
+                  lambda: _one_at_a_time(common.cuda_input, specs)):
+        with pytest.raises(ValueError) as err:
+            check()
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1] == msgs[2]
+    name = _C28[pos][0]
+    assert msgs[0] == {
+        "cpu": "the kernel needs CUDA tensors, got cpu",
+        "int64": f"{name}: dtype torch.int64, expected torch.int32",
+        "dims": f"{name}: 1 dims, expected 2",
+        "transposed": f"{name}: not contiguous",
+        "column": f"{name}: not contiguous",
+        "misaligned": f"{name}: not 16-byte aligned",
+        "cuda1": f"{name}: on cuda:1, expected cuda:0"}[kind]
+
+
+def test_cuda_inputs_returns_index_and_pointers(monkeypatch):
+    """On good inputs the pass returns the device's index and each
+    tensor's data pointer in order (a dtype per tensor: C35's float32 w
+    beside an int32 x)."""
+    _no_build(monkeypatch)
+    ts = [_on_card(256, 1), _on_card(256, 1), _on_card(4096, 128),
+          torch.zeros(128, 8).as_subclass(_OnCard)]
+    got = common.cuda_inputs(*[(t, f"t{k}", 2, t.dtype)
+                               for k, t in enumerate(ts)])
+    assert got == (0, [t.data_ptr() for t in ts])
+    one = torch.zeros(4, 4, dtype=torch.int32).as_subclass(_OnCard1)
+    assert common.cuda_inputs((one, "x", 2, torch.int32)) == (
+        1, [one.data_ptr()])
+
+
+@pytest.mark.parametrize("call", [
+    lambda: p3.p3_cuda(_on_card(128, 128),
+                       _zeros(8, 128).as_subclass(_OnCard1)),
+    lambda: p3.p1b_cuda(_on_card(256, 1), _on_card(256, 1),
+                        _zeros(4096, 128).as_subclass(_OnCard1))])
+def test_c28_c29_refuse_other_device(call, monkeypatch):
+    """C29 and C28 refuse an input on another card than the first's,
+    before anything is built or launched; their counts stay."""
+    _no_build(monkeypatch)
+    counts = (p3.launches_p3, p3.launches_p1b)
+    with pytest.raises(ValueError, match="on cuda:1, expected cuda:0"):
+        call()
+    assert (p3.launches_p3, p3.launches_p1b) == counts
+
+
+class _Counted(_OnCard):
+    """An `_OnCard` tensor that counts its reads of `data_ptr()`,
+    `get_device()` and `device`."""
+    reads = None
+
+    def data_ptr(self):
+        _Counted.reads["data_ptr", id(self)] += 1
+        return super().data_ptr()
+
+    def get_device(self):
+        _Counted.reads["get_device", id(self)] += 1
+        return 0
+
+    @property
+    def device(self):
+        _Counted.reads["device", id(self)] += 1
+        return torch.device("cuda", 0)
+
+
+class _FakeLib:
+    """Records C29's and C28's launch arguments; every launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nabwa_probe_p3(self, *args):
+        self.calls.append(args)
+        return 0
+
+    nabwa_probe_p1b = nabwa_probe_p3
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """`_build.lib()` answers with a `_FakeLib`, and the current stream's
+    handle on device k is 1000 + k."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    return fake
+
+
+def test_c28_c29_launch_on_pointers_read_once(fake_launch, monkeypatch):
+    """C29 and C28 launch on the data pointers and the device index their
+    one check pass read: each input's pointer read once, its device index
+    once, `device` never (a launch needs no torch.device); the stream is
+    the one of that index, the sizes are the shapes', and each count
+    rises by one."""
+    from collections import Counter
+    monkeypatch.setattr(_Counted, "reads", Counter())
+    x, i = (_zeros(*s).as_subclass(_Counted) for s in (p3.P3_X, p3.P3_I))
+    before = p3.launches_p3
+    out = p3.p3_cuda(x, i)
+    assert _Counted.reads == Counter(
+        {(k, id(a)): 1 for k in ("data_ptr", "get_device") for a in (x, i)}
+        | {("data_ptr", id(out)): 1})
+    assert fake_launch.calls[-1] == (x.data_ptr(), 128, i.data_ptr(), 1024,
+                                     out.data_ptr(), 1000)
+    assert tuple(out.shape) == p3.P3_I and out.dtype == torch.int32
+    assert p3.launches_p3 == before + 1
+    ij = [_zeros(p3.P1_ROUNDS, 1).as_subclass(_Counted) for _ in range(2)]
+    t = _zeros(*p3.P1_TABLE).as_subclass(_Counted)
+    reads = dict(_Counted.reads)
+    before = p3.launches_p1b
+    out = p3.p1b_cuda(*ij, t)
+    new = _Counted.reads - Counter(reads)
+    assert new == Counter({(k, id(a)): 1 for k in ("data_ptr", "get_device")
+                           for a in (*ij, t)} | {("data_ptr", id(out)): 1})
+    assert fake_launch.calls[-1] == (ij[0].data_ptr(), ij[1].data_ptr(),
+                                     256, t.data_ptr(), 128, out.data_ptr(),
+                                     1000)
+    assert tuple(out.shape) == (512, 128) and out.dtype == torch.int32
+    assert p3.launches_p1b == before + 1
+    one = [_zeros(*s).as_subclass(_OnCard1) for s in (p3.P3_X, p3.P3_I)]
+    p3.p3_cuda(*one)
+    assert fake_launch.calls[-1][-1] == 1001
+
+
+def test_c28_c29_empty_launch_nothing(fake_launch):
+    """No rows: an empty output and no launch, no count."""
+    counts = (p3.launches_p3, p3.launches_p1b)
+    assert p3.p3_cuda(_on_card(128, 128), _on_card(0, 128)).shape == (0, 128)
+    assert p3.p1b_cuda(_on_card(0, 1), _on_card(0, 1),
+                       _on_card(4096, 128)).shape == (0, 128)
+    assert not fake_launch.calls
+    assert (p3.launches_p3, p3.launches_p1b) == counts
+
+
+def test_c29_count_exact_under_threads(fake_launch):
+    """Eight threads launching C29 together, the interpreter switching
+    threads every microsecond: the count rises by exactly the launches
+    made."""
+    import threading
+    x, i = _on_card(*p3.P3_X), _on_card(*p3.P3_I)
+    before, calls = p3.launches_p3, 300
+
+    def launch():
+        for _ in range(calls):
+            p3.p3_cuda(x, i)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch) for _ in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert p3.launches_p3 - before == 8 * calls == len(fake_launch.calls)
