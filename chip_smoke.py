@@ -118,7 +118,7 @@ Phases, any failure exits non-zero:
    command: `aln --device cuda` on each end (each `.sai` equal to the host
    engine's, C1 and C2 launched), then `sampe --device cuda` (its SAM
    equal to the host reference route's, C3, C4 and C5 launched);
-13. a long-read set on the same genome: 512 x 1000 bp reads of the model
+13. a long-read set on the same genome: 384 x 1000 bp reads of the model
    of tests/test_bwasw.py (3 % substitutions, an indel in half the reads,
    chimeric tails, a run of N in a tenth, either strand; seed 103);
 14. bwasw on that set, on the host reference route (the native
@@ -171,11 +171,12 @@ Phases, any failure exits non-zero:
    timed, and at S 32, 64 and 96 (256 reads, 200 iterations); C10 at
    probe 5's 256 x 128 x 100 (before all of them the launch path,
    `check_launch_path`: `stream_of` is the current stream, default and
-   side, C14, C29 and C28 exact on a side stream, C14's and C29's launch
-   counts exact over COUNT_THREADS threads, and its host split,
-   `launch_split`: each step of C14's, C11's, C29's and C28's wrappers
-   over SPLIT_CALLS calls, the host's clock and one synchronize, beside
-   torch.sum, `x + 1`, torch.gather and torch.index_select); C11-C14
+   side, C14, C29, C28, C27 and C20 exact on a side stream, C14's, C29's
+   and C20's launch counts exact over COUNT_THREADS threads, and its host
+   split, `launch_split`: each step of C14's, C11's, C29's, C28's, C27's
+   and C20's wrappers over SPLIT_CALLS calls, the host's clock and one
+   synchronize, beside torch.sum, `x + 1`, torch.gather and
+   torch.index_select); C11-C14
    (csrc/probe_pallas2.cu) at scripts/probe_pallas2.py's shapes: C11 x +
    1 on [8, 128]; C12's 2 x 256 row loads from a [32768, 128] table, the grid form
    (either unroll; also on index_cases' four index sets, idx 2 and 3
@@ -198,7 +199,9 @@ Phases, any failure exits non-zero:
    near both int32 ends and on every residue mod 8), with `us_per_iter`;
    C20 and C21 (csrc/probe_pallas2.cu) probe C's lane gather of [256,
    128] (also indices all 0, all 127, a permutation of each row, x at
-   +-(2^31 - 1); indices out of range are refused) beside torch.gather,
+   +-(2^31 - 1); indices out of range, misaligned, int64 and transposed
+   inputs and one on another card where the machine has two are refused,
+   none launched; queued at C20_ROWS rows) beside torch.gather,
    and probe D's 50 rounds of pushes into five [256, 256] buffers (out,
    the five buffers and top, on the script's input, near both int32 ends,
    3 pushes a round and none); C22 (csrc/probe_sem.cu) scripts/
@@ -224,10 +227,11 @@ Phases, any failure exits non-zero:
    tables, at indices on both ends of the table, four repeated rows and
    one row everywhere (C29 also a permutation of each column, C30 int32
    edges); indices out of range and misaligned inputs are refused on the
-   card, and by C28 and C29 also int64, non-contiguous and transposed
-   inputs and one on another card where the machine has two, none
-   launched; C28 also queued at C28_ROW_PAIRS row pairs, C28's and C29's
-   `queued_ms` over C11's (`queued_over_c11`); C31-C35 (csrc/probe_pallas3.cu, `check_reductions`) probes 2
+   card, and by C27, C28 and C29 also int64, non-contiguous and
+   transposed inputs and one on another card where the machine has two,
+   none launched; C27 and C28 also queued at C28_ROW_PAIRS row pairs,
+   C20's and C27-C29's `queued_ms` over C11's (`queued_over_c11`);
+   C31-C35 (csrc/probe_pallas3.cu, `check_reductions`) probes 2
    (C31 `native`, C32 `roll`, C33 `subl`), 5 and 6 of that script at its
    shapes: C31-C34 exact at its inputs and at int32 edges (C31-C33 values
    within 8 of both ends with each row's or column's minimum repeated, and
@@ -314,8 +318,8 @@ back-to-back launches, which wait on the host's enqueue when it is the
 slower), C7 and C11-C35 carry
 `queued_ms`, the same launches queued behind a sleeping kernel (the
 card's own time a launch), every probe with a library call
-`library_queued_ms`, and C11, C12, C14, C28 and C29 `wall_ms` and
-`library_wall_ms`, the host's clock a call; C11, C14, C28 and C29
+`library_queued_ms`, and C11, C12, C14, C20 and C27-C29 `wall_ms` and
+`library_wall_ms`, the host's clock a call; C11, C14, C20 and C27-C29
 carry `host_split`.
 The probes' bounds count their table rows once (the distinct rows the
 run reads) and their operations as the header of each .cu file counts
@@ -526,6 +530,8 @@ LAUNCH_REPS = 1000
 COUNT_THREADS, COUNT_CALLS = 4, 250
 # C28's row pairs a launch, queued, to take its launch floor apart
 C28_ROW_PAIRS = (1, 16, 256)
+# rows of C20's x and i it is queued at, one launch each
+C20_ROWS = (1, 16, 256)
 # C1's edge launches: the retry tier's slot pool and hit list (tier 0's
 # pool of 256 overflows on every gapped edge read), at most 100,000 steps
 DFS_EDGE_STATICS = dict(stack_cap=1024, hits_cap=128, max_iters=100000)
@@ -2569,11 +2575,11 @@ def other_device(dev):
 
 def launch_split(dev, calls=SPLIT_CALLS):
     """The host's microseconds a call of each step of kernel C14's, C11's,
-    C29's and C28's wrappers, of each wrapper whole and of the PyTorch
-    call that computes the same (`wall_ms` over `calls` calls after a
-    warm-up, one synchronize at the end), with the port's helpers as they
-    stand (`compare.py launch` runs this over another checkout's; a step
-    whose helper that checkout lacks is None).  `helpers`: `loop` an
+    C29's, C28's, C27's and C20's wrappers, of each wrapper whole and of
+    the PyTorch call that computes the same (`wall_ms` over `calls` calls
+    after a warm-up, one synchronize at the end), with the port's helpers
+    as they stand (`compare.py launch` runs this over another checkout's;
+    a step whose helper that checkout lacks is None).  `helpers`: `loop` an
     empty call (inside every other figure), `lib`, `stream_of`, `check`
     and `count` (the launch counter's locked add) as the wrappers call
     them, and beside them a `torch.cuda.Stream` built for the handle
@@ -2581,16 +2587,16 @@ def launch_split(dev, calls=SPLIT_CALLS):
     left (`lock`), a ctypes call into the library that touches no CUDA
     API (`ctypes_host`, `nabwa_local_form`) and PyTorch's own launch of
     a kernel that does nothing (`torch_launch`, torch.cuda._sleep(0)).
-    Per kernel: `checks` (`cuda_input` and the width), or for C29 and
-    C28 each input's `cuda_input_<name>` as their old path called it and
-    `cuda_inputs` (one pass over all of them) and `shape` (the shape
-    tests); the allocation of its output (`torch_empty`, `new_empty` with
-    a tuple and with the sizes as arguments, or `empty_like`);
+    Per kernel: `checks` (`cuda_input` and the width), or for C29, C28,
+    C27 and C20 each input's `cuda_input_<name>` as their old path called
+    it and `cuda_inputs` (one pass over all of them) and `shape` (the
+    shape tests); the allocation of its output (`torch_empty`, `new_empty`
+    with a tuple and with the sizes as arguments, or `empty_like`);
     `stream_of` and `stream_raw` (from the device index); `data_ptr`
     (each tensor's pointer read once); `launch` (the ctypes call on
     pointers read beforehand, whose C function launches the kernel and
     reads cudaGetLastError); `check`; `count`; `wrapper` and `library`,
-    C29's and C28's at phase 18's shapes and calls."""
+    C29's, C28's, C27's and C20's at phase 18's shapes and calls."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import common
@@ -2618,12 +2624,24 @@ def launch_split(dev, calls=SPLIT_CALLS):
     flat = torch.cat((ri[:, 0], rj[:, 0]))
     n = ri.shape[0]
     r_out = rt.new_empty(2 * n, cols)
+    # C27: i [256, 128], its lanes 0 and 1 indexing C28's t; C20: x and
+    # i [256, 128]
+    pi = torch.randint(0, nrow, (p3.P1_ROUNDS, cols), dtype=i32, device=dev)
+    pn, width = pi.shape
+    p_flat = pi[:, :2].t().reshape(-1).contiguous()
+    p_out = rt.new_empty(2 * pn, cols)
+    lx = torch.randint(0, 99, (pp2.BB, pp2.GATHER_W), dtype=i32, device=dev)
+    li = torch.randint(0, pp2.GATHER_W, lx.shape, dtype=i32, device=dev)
+    li_long, l_out = li.long(), torch.empty_like(lx)
+    lrows = lx.shape[0]
     gp = [t.data_ptr() for t in (gx, gi, g_out)]
     rp = [t.data_ptr() for t in (ri, rj, rt, r_out)]
+    pp = [t.data_ptr() for t in (pi, rt, p_out)]
+    lp = [t.data_ptr() for t in (lx, li, l_out)]
     multi = getattr(common, "cuda_inputs", None)
     index = dev.index
     saved = (pp2.launches_lanereduce, pp2.launches_empty, p3.launches_p3,
-             p3.launches_p1b)
+             p3.launches_p1b, p3.launches_p1, pp2.launches_lane_gather)
 
     def count():
         with _build.count_lock:
@@ -2636,6 +2654,14 @@ def launch_split(dev, calls=SPLIT_CALLS):
     def count_p1b():
         with _build.count_lock:
             p3.launches_p1b += 1
+
+    def count_p1():
+        with _build.count_lock:
+            p3.launches_p1 += 1
+
+    def count_lane_gather():
+        with _build.count_lock:
+            pp2.launches_lane_gather += 1
 
     def taken():
         with lock:
@@ -2712,12 +2738,51 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "check": lambda: _build.check(0, "probe_p1b kernel launch"),
             "count": count_p1b,
             "wrapper": lambda: p3.p1b_cuda(ri, rj, rt),
-            "library": lambda: torch.index_select(rt, 0, flat)}}
+            "library": lambda: torch.index_select(rt, 0, flat)},
+        "probe_p1": {
+            "cuda_input_i": lambda: common.cuda_input(pi, "i", 2),
+            "cuda_input_t": lambda: common.cuda_input(rt, "t", 2, dev),
+            "cuda_inputs": multi and (lambda: multi((pi, "i", 2, i32),
+                                                    (rt, "t", 2, i32))),
+            "shape": lambda: (rt.shape[1] % 4, pi.shape[1] < 2),
+            "torch_empty": lambda: torch.empty((2 * pn, cols), dtype=i32,
+                                               device=dev),
+            "new_empty_args": lambda: rt.new_empty(2 * pn, cols),
+            "stream_of": lambda: _build.stream_of(pi),
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "data_ptr": lambda: (pi.data_ptr(), rt.data_ptr(),
+                                 p_out.data_ptr()),
+            "launch": lambda: lib.nabwa_probe_p1(pp[0], width, pn, pp[1],
+                                                 cols, pp[2], st),
+            "check": lambda: _build.check(0, "probe_p1 kernel launch"),
+            "count": count_p1,
+            "wrapper": lambda: p3.p1_cuda(pi, rt),
+            "library": lambda: torch.index_select(rt, 0, p_flat)},
+        "probe_lane_gather": {
+            "cuda_input_x": lambda: common.cuda_input(lx, "x", 2),
+            "cuda_input_i": lambda: common.cuda_input(li, "i", 2, dev),
+            "cuda_inputs": multi and (lambda: multi((lx, "x", 2, i32),
+                                                    (li, "i", 2, i32))),
+            "shape": lambda: (lx.shape[1] != pp2.GATHER_W
+                              or li.shape != lx.shape),
+            "empty_like": lambda: torch.empty_like(lx),
+            "new_empty_args": lambda: lx.new_empty(lrows, pp2.GATHER_W),
+            "stream_of": lambda: _build.stream_of(lx),
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "data_ptr": lambda: (lx.data_ptr(), li.data_ptr(),
+                                 l_out.data_ptr()),
+            "launch": lambda: lib.nabwa_probe_lane_gather(
+                lp[0], lp[1], lrows, lp[2], st),
+            "check": lambda: _build.check(0,
+                                          "probe_lane_gather kernel launch"),
+            "count": count_lane_gather,
+            "wrapper": lambda: pp2.lane_gather_cuda(lx, li),
+            "library": lambda: torch.gather(lx, 1, li_long)}}
     split = {part: {name: None if fn is None else wall_ms(fn, calls) * 1e3
                     for name, fn in fns.items()}
              for part, fns in steps.items()}
     (pp2.launches_lanereduce, pp2.launches_empty, p3.launches_p3,
-     p3.launches_p1b) = saved
+     p3.launches_p1b, p3.launches_p1, pp2.launches_lane_gather) = saved
     split["calls"] = calls
     return split
 
@@ -2725,10 +2790,10 @@ def launch_split(dev, calls=SPLIT_CALLS):
 def check_launch_path(dev):
     """The shared launch path keeps its meaning: `stream_of` gives
     PyTorch's current stream on the default stream and on a side stream,
-    C14, C29 and C28 launched under a side stream are exact there (C29
-    and C28 take the handle from the device index their one check pass
-    read), and C14's and C29's launch counts are exact when
-    COUNT_THREADS threads launch together."""
+    C14, C29, C28, C27 and C20 launched under a side stream are exact
+    there (C29, C28, C27 and C20 take the handle from the device index
+    their one check pass read), and C14's, C29's and C20's launch counts
+    are exact when COUNT_THREADS threads launch together."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
@@ -2743,6 +2808,12 @@ def check_launch_path(dev):
                             dtype=torch.int32, device=dev) for _ in range(2))
     rt = torch.randint(-2**31, 2**31 - 1, p3.P1_TABLE, dtype=torch.int32,
                        device=dev)
+    pi = torch.randint(0, p3.P1_TABLE[0], (p3.P1_ROUNDS, p3.P1_TABLE[1]),
+                       dtype=torch.int32, device=dev)
+    lx = torch.randint(-2**31, 2**31 - 1, (pp2.BB, pp2.GATHER_W),
+                       dtype=torch.int32, device=dev)
+    li = torch.randint(0, pp2.GATHER_W, lx.shape, dtype=torch.int32,
+                       device=dev)
     side = torch.cuda.Stream(dev)
     if _build.stream_of(x) != torch.cuda.current_stream(dev).cuda_stream:
         fail("stream_of differs from the current stream")
@@ -2751,15 +2822,20 @@ def check_launch_path(dev):
             fail("stream_of differs from the current side stream")
         side.wait_stream(torch.cuda.default_stream(dev))
         got = (pp2.lanereduce_cuda(x), p3.p3_cuda(gx, gi),
-               p3.p1b_cuda(ri, rj, rt))
+               p3.p1b_cuda(ri, rj, rt), p3.p1_cuda(pi, rt),
+               pp2.lane_gather_cuda(lx, li))
     side.synchronize()
     exact("C14 on a side stream", got[0], pp2.lanereduce_plain(x))
     exact("C29 on a side stream", got[1], p3.p3_plain(gx, gi))
     exact("C28 on a side stream", got[2], p3.p1b_plain(ri, rj, rt))
+    exact("C27 on a side stream", got[3], p3.p1_plain(pi, rt))
+    exact("C20 on a side stream", got[4], pp2.lane_gather_plain(lx, li))
     for label, mod, name, fn in (
             ("C14", pp2, "launches_lanereduce",
              lambda: pp2.lanereduce_cuda(x)),
-            ("C29", p3, "launches_p3", lambda: p3.p3_cuda(gx, gi))):
+            ("C29", p3, "launches_p3", lambda: p3.p3_cuda(gx, gi)),
+            ("C20", pp2, "launches_lane_gather",
+             lambda: pp2.lane_gather_cuda(lx, li))):
         before = getattr(mod, name)
 
         def launch():
@@ -2778,8 +2854,9 @@ def check_launch_path(dev):
                  f"{COUNT_THREADS * COUNT_CALLS} launches from "
                  f"{COUNT_THREADS} threads")
     log(f"launch path: stream_of is the current stream (default and side), "
-        f"C14, C29 and C28 exact on a side stream, C14's and C29's counts "
-        f"exact over {COUNT_THREADS} threads x {COUNT_CALLS} launches")
+        f"C14, C29, C28, C27 and C20 exact on a side stream, C14's, C29's "
+        f"and C20's counts exact over {COUNT_THREADS} threads x "
+        f"{COUNT_CALLS} launches")
 
 
 def launch_times(fn, lib_fn):
@@ -2797,7 +2874,8 @@ def launch_times(fn, lib_fn):
 def check_probes(dev, split):
     """Phase 18: kernels C7-C22 against their plain versions on the card, at
     the probes' shapes, inputs made with numpy from PROBE_SEED; `split` is
-    `launch_split`'s, whose parts go into C11's and C14's entries.  Returns
+    `launch_split`'s, whose parts go into C11's, C14's and C20's entries.
+    Returns
     {kernel name: fields of its kernels-line entry but `launches`}."""
     import numpy as np
     import torch
@@ -3238,23 +3316,45 @@ def check_probes(dev, split):
                              pp2.lane_gather(x_t, i_t),
                              pp2.lane_gather_plain(x_t, i_t)))
     x_t, i_t = common.tensors(dev, *inputs["script"])
-    bad = i_t.clone()
-    bad[3, 9] = pp2.GATHER_W
-    refused("C20 index out of range", lambda: pp2.lane_gather(x_t, bad))
+    before = pp2.launches_lane_gather
+    for r, c, v in ((3, 9, pp2.GATHER_W), (5, 17, -1)):
+        bad = i_t.clone()
+        bad[r, c] = v
+        refused(f"C20 index {v}", lambda: pp2.lane_gather(x_t, bad))
+    refused("C20 misaligned x", lambda: pp2.lane_gather(skewed(x_t), i_t))
+    refused("C20 misaligned index",
+            lambda: pp2.lane_gather(x_t, skewed(i_t)))
+    refused("C20 int64 index", lambda: pp2.lane_gather(x_t, i_t.long()))
+    refused("C20 transposed x",
+            lambda: pp2.lane_gather(x_t.t().contiguous().t(), i_t))
+    refused("C20 transposed index",
+            lambda: pp2.lane_gather(x_t, i_t.t().contiguous().t()))
+    other = other_device(dev)
+    if other is not None:
+        refused(f"C20 index on {other}",
+                lambda: pp2.lane_gather(x_t, i_t.to(other)))
+    if pp2.launches_lane_gather != before:
+        fail("C20 launched on an input its wrapper refused")
+    # queued at 1, 16 and 256 rows: the launch floor beside the rows' work
+    by_rows = {}
+    for k in C20_ROWS:
+        xk, ik = x_t[:k], i_t[:k]
+        by_rows[k] = queued_ms(lambda: pp2.lane_gather_cuda(xk, ik), 200)
     i_long = i_t.long()
     bnd = bound(3 * nbytes(x_t), OPS_GATHER * x_t.numel())
     out["probe_lane_gather"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: pp2.lane_gather_cuda(x_t, i_t), 200),
+        **launch_times(lambda: pp2.lane_gather_cuda(x_t, i_t),
+                       lambda: torch.gather(x_t, 1, i_long)),
         "plain_ms": cuda_ms(lambda: pp2.lane_gather_plain(x_t, i_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: torch.gather(x_t, 1, i_long), 200),
-        "library_queued_ms": queued_ms(lambda: torch.gather(x_t, 1, i_long),
-                                       200),
         "library_call": "torch.gather(x, 1, i.long()), the int64 index "
                         "made once beforehand",
-        "queued_ms": queued_ms(lambda: pp2.lane_gather_cuda(x_t, i_t), 200),
-        "exact_inputs": list(inputs)}
+        "exact_inputs": list(inputs), "queued_ms_by_rows": by_rows,
+        "other_device_refused": other is not None,
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_lane_gather"],
+                       "calls": split["calls"]}}
     log(f"C20 probe_lane_gather: exact; {out['probe_lane_gather']}")
 
     # C21: probe D, 50 rounds of up to three 5-field pushes a row into
@@ -4080,12 +4180,13 @@ def check_copies(dev, rng, split):
     scripts/probe_pallas3.py) against their plain versions on the card,
     exact, at the script's shapes: its inputs, then int32 tables at the
     indices of `index_cases` (C29 also a permutation of each column, C30
-    int32 edges); out-of-range and misaligned inputs refused, and for C28
-    and C29 also int64, non-contiguous and transposed inputs and (where
-    the machine has a second card) an input on another device, none of
-    them launched.  C28 and C29 carry `launch_times` and their parts of
-    `split` (`launch_split`).  Returns {kernel name: fields of its
-    kernels-line entry but `launches`}."""
+    int32 edges); out-of-range and misaligned inputs refused, and for
+    C27, C28 and C29 also int64, non-contiguous and transposed inputs and
+    (where the machine has a second card) an input on another device, none
+    of them launched.  C27, C28 and C29 carry `launch_times` and their
+    parts of `split` (`launch_split`), C27 and C28 `queued_ms` at 1, 16
+    and 256 row pairs.  Returns {kernel name: fields of its kernels-line
+    entry but `launches`}."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.probes import common
@@ -4108,8 +4209,25 @@ def check_copies(dev, rng, split):
         wrong = i_t.clone()
         wrong[3, col] = bad
         refused(f"C27 index {bad} in lane {col}", lambda: p3.p1(wrong, t_t))
+    before = p3.launches_p1
     refused("C27 misaligned table", lambda: p3.p1(i_t, skewed(t_t)))
     refused("C27 misaligned indices", lambda: p3.p1(skewed(i_t), t_t))
+    refused("C27 int64 indices", lambda: p3.p1(i_t.long(), t_t))
+    refused("C27 transposed indices",
+            lambda: p3.p1(i_t.t().contiguous().t(), t_t))
+    refused("C27 transposed table",
+            lambda: p3.p1(i_t, t_t.t().contiguous().t()))
+    refused("C27 one lane", lambda: p3.p1(i_t[:, :1].contiguous(), t_t))
+    other = other_device(dev)
+    if other is not None:
+        refused(f"C27 table on {other}", lambda: p3.p1(i_t, t_t.to(other)))
+    if p3.launches_p1 != before:
+        fail("C27 launched on an input its wrapper refused")
+    # queued at 1, 16 and 256 rounds (row pairs), as C28 below
+    by_rows = {}
+    for k in C28_ROW_PAIRS:
+        ik = i_t[:k]
+        by_rows[k] = queued_ms(lambda: p3.p1_cuda(ik, t_t), 200)
     flat = i_t[:, :2].t().reshape(-1).contiguous()
     n_rows = distinct_rows(flat)
     # bytes: each distinct row read once, one 32 B sector of index words a
@@ -4118,18 +4236,18 @@ def check_copies(dev, rng, split):
     bnd = bound(ROW_BYTES * (n_rows + flat.numel()) + 32 * p3.P1_ROUNDS,
                 0)
     out["probe_p1"] = {
-        "max_abs_err": err, "ms": cuda_ms(lambda: p3.p1_cuda(i_t, t_t), 200),
+        "max_abs_err": err,
+        **launch_times(lambda: p3.p1_cuda(i_t, t_t),
+                       lambda: torch.index_select(t_t, 0, flat)),
         "plain_ms": cuda_ms(lambda: p3.p1_plain(i_t, t_t), 3),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: torch.index_select(t_t, 0, flat),
-                              200),
-        "library_queued_ms": queued_ms(
-            lambda: torch.index_select(t_t, 0, flat), 200),
         "library_call": "torch.index_select(t, 0, i[:, :2].t().reshape(-1))"
                         ", the index made once beforehand",
-        "queued_ms": queued_ms(lambda: p3.p1_cuda(i_t, t_t), 200),
         "rows": flat.numel(), "distinct_rows": n_rows,
-        "exact_inputs": list(cases)}
+        "exact_inputs": list(cases), "queued_ms_by_row_pairs": by_rows,
+        "other_device_refused": other is not None,
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_p1"], "calls": split["calls"]}}
     log(f"C27 probe_p1: exact; {out['probe_p1']}")
 
     # C28: probe 1b, the same copies with the indices in two columns
@@ -4157,7 +4275,6 @@ def check_copies(dev, rng, split):
             lambda: p3.p1b(i_t.t(), j_t, t_t))
     refused("C28 transposed table",
             lambda: p3.p1b(i_t, j_t, t_t.t().contiguous().t()))
-    other = other_device(dev)
     if other is not None:
         refused(f"C28 index on {other}",
                 lambda: p3.p1b(i_t, j_t.to(other), t_t))
@@ -4504,7 +4621,8 @@ def main():
     ap.add_argument("--retry-stack", type=int, default=1024,
                     help="retry-tier slot pool of the timed engine run; "
                     "its hit list is an eighth of it, as at the default")
-    ap.add_argument("--long-reads", type=int, default=512,
+    # 384 keeps the whole run inside 900 s
+    ap.add_argument("--long-reads", type=int, default=384,
                     help="1 kb reads of the bwasw phases")
     ap.add_argument("--profile", action="store_true",
                     help="run torch.profiler over one more engine run and "
@@ -5049,13 +5167,16 @@ def main():
     t0 = time.perf_counter()
     probes.update(check_chains(dev0, split))
     log(f"C23-C30 checked in {time.perf_counter() - t0:.1f} s")
-    for k in ("probe_p1b", "probe_p3"):     # C28, C29 against the floor
+    # C28, C29, C27, C20 against the floor
+    for k in ("probe_p1b", "probe_p3", "probe_p1", "probe_lane_gather"):
         probes[k]["queued_over_c11"] = (probes[k]["queued_ms"]
                                         / probes["probe_empty"]["queued_ms"])
     t0 = time.perf_counter()
     probes.update(check_reductions(torch.device("cuda", 0)))
     log(f"C31-C35 checked in {time.perf_counter() - t0:.1f} s")
     probe_counts, probe_lines = run_probe_entries()
+    phase18_s = time.perf_counter() - t_start - phase_seconds["18"]
+    log(f"phase 18 took {phase18_s:.1f} s")
 
     phase_mark("19")
     # phase 19: the data-parallel mesh, every launch count at 0
@@ -5317,7 +5438,8 @@ def main():
                    host_drain_share=b2b_host_share,
                    cli_seconds=b2b_cli_s, cli_launches=b2b_counts,
                    networked=net_run)
-    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    total_s = time.perf_counter() - t_start
+    log(f"all phases passed in {total_s:.1f} s (phase 18 {phase18_s:.1f} s)")
     print(json.dumps({"kernels": kernels, "aln_reads_per_sec": len(reads) / dt,
                       "host_drain_share": host_share,
                       "tier0_reads": eng.tier0_reads,
@@ -5335,7 +5457,9 @@ def main():
                       "probe_lines": probe_lines,
                       "index_cli_seconds": index_cli_s,
                       "colour": colour,
-                      "phase_start_seconds": phase_seconds}))
+                      "phase_start_seconds": phase_seconds,
+                      "phase18_seconds": phase18_s,
+                      "total_seconds": total_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,15 +22,16 @@ time a step.  Where the checkout has `sa_lookup_both_cuda`, the two
 strands in one launch too.
 
 launch: the host's cost of a launch, on no cell.  The host split of kernel
-C14's, C11's, C29's and C28's wrappers (`launch_split` of this
-checkout's chip_smoke.py, run over the other checkout's port: its own
-helpers and wrappers; a step whose helper it lacks is null), and C11,
-C12 (unroll 1 and LOADS_UNROLL) and C14 at scripts/probe_pallas2.py's
-shapes and C29 and C28 at scripts/probe_pallas3.py's, exact against
-their plain versions, each with `ms` (CUDA events), `queued_ms` and
-`wall_ms` (the host's clock) beside `x + 1`, torch.index_select,
-torch.sum, torch.gather (its int64 index made beforehand) and C28's
-torch.index_select (its index made beforehand).
+C14's, C11's, C29's, C28's, C27's and C20's wrappers (`launch_split` of
+this checkout's chip_smoke.py, run over the other checkout's port: its
+own helpers and wrappers; a step whose helper it lacks is null), and
+C11, C12 (unroll 1 and LOADS_UNROLL), C14 and C20 at
+scripts/probe_pallas2.py's shapes and C29, C28 and C27 at
+scripts/probe_pallas3.py's, exact against their plain versions, each
+with `ms` (CUDA events), `queued_ms` and `wall_ms` (the host's clock)
+beside `x + 1`, torch.index_select, torch.sum, torch.gather on axis 0
+and on axis 1 (their int64 indices made beforehand) and C28's and C27's
+torch.index_select (their indices made beforehand).
 
 aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
 has the hybrid split): a warm-up chunk of one slice, then 5 timed
@@ -151,8 +152,13 @@ def time_launch():
         rng.randint(0, nrow, (p3.P1_ROUNDS, 1)),
         rng.randint(0, nrow, (p3.P1_ROUNDS, 1)),
         rng.randint(0, 99, p3.P1_TABLE))
-    gi_long = gi_t.long()
+    pi_t, lx_t, li_t = common.tensors(
+        dev, rng.randint(0, nrow, (p3.P1_ROUNDS, p3.P1_TABLE[1])),
+        rng.randint(0, 99, (pp2.BB, pp2.GATHER_W)),
+        rng.randint(0, pp2.GATHER_W, (pp2.BB, pp2.GATHER_W)))
+    gi_long, li_long = gi_t.long(), li_t.long()
     r_flat = torch.cat((ri_t[:, 0], rj_t[:, 0]))
+    p_flat = pi_t[:, :2].t().reshape(-1).contiguous()
     calls = {
         "probe_empty": (lambda: pp2.empty_cuda(x1_t),
                         lambda: pp2.empty_plain(x1_t)),
@@ -173,7 +179,15 @@ def time_launch():
         "probe_p1b": (lambda: p3.p1b_cuda(ri_t, rj_t, rt_t),
                       lambda: p3.p1b_plain(ri_t, rj_t, rt_t)),
         "index_select_p1b": (lambda: torch.index_select(rt_t, 0, r_flat),
-                             None)}
+                             None),
+        "probe_p1": (lambda: p3.p1_cuda(pi_t, rt_t),
+                     lambda: p3.p1_plain(pi_t, rt_t)),
+        "index_select_p1": (lambda: torch.index_select(rt_t, 0, p_flat),
+                            None),
+        "probe_lane_gather": (lambda: pp2.lane_gather_cuda(lx_t, li_t),
+                              lambda: pp2.lane_gather_plain(lx_t, li_t)),
+        "torch.gather_lanes": (lambda: torch.gather(lx_t, 1, li_long),
+                               None)}
     out = {"split": here.launch_split(dev)}
     for name, (fn, plain) in calls.items():
         if plain is not None:

@@ -62,6 +62,7 @@ POP_S, POP_OUT, POP_ITERS = 256, 128, 50
 GATHER_W = 128
 PUSH_S, PUSH_OUT, PUSH_ROUNDS, PUSH_FIELDS = 256, 128, 50, 5
 UNWRITTEN = -2**31       # what interpret mode reads from an unwritten slot
+I32 = torch.int32
 
 # kernel launches made on CUDA tensors: C11 by `empty`, C12 by `loads`
 # (its serial forms by `loads_serial_cuda`), C13 by `pop`, C14 by
@@ -252,20 +253,23 @@ def lane_gather_plain(x, i):
 
 def lane_gather_cuda(x, i):
     """`lane_gather_plain` by kernel C20 (x and i [R, 128]); the indices
-    are not checked (`lane_gather` does)."""
+    are not checked (`lane_gather` does).  One check pass over both
+    inputs reads each one's device and data pointer once; the launch
+    reuses them."""
     global launches_lane_gather
-    dev = common.cuda_input(x, "x", 2)
-    common.cuda_input(i, "i", 2, dev)
-    if x.shape[1] != GATHER_W or i.shape != x.shape:
+    dev, (px, pi) = common.cuda_inputs((x, "x", 2, I32), (i, "i", 2, I32))
+    shape = x.shape
+    if shape[1] != GATHER_W or i.shape != shape:
         raise ValueError(f"x and i must be [R, {GATHER_W}], got "
-                         f"{tuple(x.shape)} and {tuple(i.shape)}")
-    out = torch.empty_like(x)
-    if x.shape[0] == 0:
+                         f"{tuple(shape)} and {tuple(i.shape)}")
+    rows = shape[0]
+    out = x.new_empty(rows, GATHER_W)
+    if rows == 0:
         return out
-    rc = _build.lib().nabwa_probe_lane_gather(
-        x.data_ptr(), i.data_ptr(), x.shape[0], out.data_ptr(),
-        _build.stream_of(x))
-    _build.check(rc, "probe_lane_gather kernel launch")
+    _build.check(_build.lib().nabwa_probe_lane_gather(
+        px, pi, rows, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev)),
+        "probe_lane_gather kernel launch")
     with _build.count_lock:
         launches_lane_gather += 1
     return out

@@ -119,31 +119,26 @@ def p1_plain(i, t):
     return row_copies(i[:, 0], i[:, 1], t)
 
 
-def _table_input(t, dev):
-    """Check the table of C27 and C28 (its rows are read as int4)."""
-    common.cuda_input(t, "t", 2, dev)
-    if t.shape[1] % 4:
-        raise ValueError(f"t's rows must be a multiple of 4 words, got "
-                         f"{t.shape[1]}")
-
-
 def p1_cuda(i, t):
     """`p1_plain` by kernel C27; t's columns a multiple of 4.  The indices
-    are not checked (`p1` does)."""
+    are not checked (`p1` does).  One check pass over both inputs reads
+    each one's device and data pointer once; the launch reuses them."""
     global launches_p1
-    dev = common.cuda_input(i, "i", 2)
-    _table_input(t, dev)
-    if i.shape[1] < 2:
+    dev, (pi, pt) = common.cuda_inputs((i, "i", 2, I32), (t, "t", 2, I32))
+    cols = t.shape[1]
+    if cols % 4:
+        raise ValueError(f"t's rows must be a multiple of 4 words, got "
+                         f"{cols}")
+    n, width = i.shape
+    if width < 2:
         raise ValueError(f"i must be [n, W] with W >= 2, got "
-                         f"{tuple(i.shape)}")
-    out = torch.empty((2 * i.shape[0], t.shape[1]), dtype=torch.int32,
-                      device=dev)
-    if out.numel() == 0:
+                         f"{(n, width)}")
+    out = t.new_empty(2 * n, cols)
+    if n == 0 or cols == 0:
         return out
-    rc = _build.lib().nabwa_probe_p1(i.data_ptr(), i.shape[1], i.shape[0],
-                                     t.data_ptr(), t.shape[1],
-                                     out.data_ptr(), _build.stream_of(i))
-    _build.check(rc, "probe_p1 kernel launch")
+    _build.check(_build.lib().nabwa_probe_p1(
+        pi, width, n, pt, cols, out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev)), "probe_p1 kernel launch")
     with _build.count_lock:
         launches_p1 += 1
     return out

@@ -21,6 +21,7 @@ build and `bwasw`.  SAM bytes are the whole contract: exact equality.
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -50,6 +51,8 @@ SETS = {
                 ["-H", "-m", "0.3", "-N", "3", "-w", "20"]),
 }
 N_BRIDGING = 4
+# seconds to wait for the JAX package's native library to load whole
+NATIVE_WAIT_S = 600
 
 
 def _bridging_reads(seqs, seed):
@@ -92,6 +95,27 @@ def _jax_opt(args):
 
 
 @pytest.fixture(scope="module")
+def jax_native():
+    """The JAX package's native library, whole and loaded in this process.
+    Its loader (`nabwa_tpu.index.native._load`) runs g++ straight into
+    native/build/ with no lock across processes and caches a failed load:
+    a test process that reads the library while another process's g++ is
+    writing it keeps None, and the JAX package's native routes then return
+    None.  So wait here until the library loads, clearing that cached
+    failure between tries; the JAX package's files stay as they are."""
+    from nabwa_tpu.index import native
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    while native._load() is None:
+        if time.monotonic() > deadline:
+            pytest.fail(f"the JAX package's native library did not load "
+                        f"within {NATIVE_WAIT_S} s")
+        time.sleep(1)
+        with native._load_lock:
+            native._checked = False
+    return native._lib
+
+
+@pytest.fixture(scope="module")
 def made(tmp_path_factory):
     """Per set: the directory with genome, index and reads, and the port
     CLI's SAM on the CPU (each made once)."""
@@ -120,7 +144,7 @@ def made(tmp_path_factory):
 
 @pytest.mark.parametrize("route", ["native", "objects"])
 @pytest.mark.parametrize("name", list(SETS))
-def test_bwasw_cli_matches_jax(made, monkeypatch, name, route):
+def test_bwasw_cli_matches_jax(jax_native, made, monkeypatch, name, route):
     d, got = made(name)
     taken = []
     if route == "objects":

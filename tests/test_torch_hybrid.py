@@ -42,6 +42,7 @@ from nabwa_tpu_torch.models.aln import (AlnEngine, hybrid_route,
 from nabwa_tpu_torch.options import GapOpt
 
 from .test_torch_aln import data  # noqa: F401  (the 96-read fixture)
+from .test_torch_bwasw import jax_native  # noqa: F401
 
 N_READS = 96
 
@@ -341,7 +342,8 @@ def test_dev_share_as_jax(data, monkeypatch, share):  # noqa: F811
     assert eng.tier0_reads + eng.host_drain_reads == n_dev
 
 
-def test_force_native_as_jax(data, monkeypatch):  # noqa: F811
+def test_force_native_as_jax(jax_native, data,  # noqa: F811
+                             monkeypatch):
     """NABWA_FORCE_NATIVE: every read on the host engine, on the batch and
     the per-read paths, and SA rows on the native walk; the JAX engine
     routes the same reads to its native engine and gets the same hits."""

@@ -24,7 +24,11 @@ value by value.  The entry point prints the script's lines for each
 probe and, with no name, for all nine in the script's order, whose names
 are exactly the script's; a name the script lacks exits non-zero as no
 such probe; a missing card, CPU tensors, misaligned inputs and shapes
-the kernels do not take are refused.
+the kernels do not take are refused.  The launch path shared by C29, C28,
+C27 and C20 (scripts/probe_pallas2.py's lane gather, whose cases sit here
+beside the others' for the card-tensor helpers) is held on fake card
+tensors and a fake kernel library: one check pass, each pointer and
+device index read once, the stream of that index, exact counts.
 """
 
 import ast
@@ -39,6 +43,7 @@ import pytest
 import torch
 
 from nabwa_tpu_torch.probes import common
+from nabwa_tpu_torch.probes import probe_pallas2 as pp2
 from nabwa_tpu_torch.probes import probe_pallas3 as p3
 
 # fixtures and helpers shared with the other probe ports' tests
@@ -414,6 +419,15 @@ def test_kernels_refuse_cpu_tensors(call):
     (lambda: p3.p1_cuda(_on_card(256, 1), _on_card(4096, 128)),
      r"W >= 2"),
     (lambda: p3.p1_cuda(_on_card(256), _on_card(4096, 128)), "1 dims"),
+    pytest.param(lambda: p3.p1_cuda(_on_card(256, 1), _on_card(4096, 126)),
+                 "multiple of 4 words", id="c27-table-before-width"),
+    pytest.param(lambda: pp2.lane_gather_cuda(_on_card(256, 64),
+                                              _on_card(256, 64)),
+                 r"x and i must be \[R, 128\], got \(256, 64\) and "
+                 r"\(256, 64\)", id="c20-narrow"),
+    pytest.param(lambda: pp2.lane_gather_cuda(_on_card(256, 128),
+                                              _on_card(255, 128)),
+                 r"x and i must be \[R, 128\]", id="c20-shapes-differ"),
     (lambda: p3.p1b_cuda(_on_card(256, 1), _misaligned(256, 1),
                          _on_card(4096, 128)), "not 16-byte aligned"),
     (lambda: p3.p1b_cuda(_on_card(256, 1), _on_card(256, 1),
@@ -484,9 +498,15 @@ def _one_at_a_time(check, specs):
         dev = check(t, name, ndim, dev, dtype)
 
 
-# C28's inputs (i, j, t) and what may be wrong with each: the first
-# tensor's bad form, given a position
-_C28 = (("i", (256, 1)), ("j", (256, 1)), ("t", (4096, 128)))
+# the inputs of C28 (i, j, t), C27 (i, t) and C20 (x, i) by name and
+# shape, and each kernel's wrapper
+_INPUTS = {
+    "c28": ((("i", (256, 1)), ("j", (256, 1)), ("t", (4096, 128))),
+            p3.p1b_cuda),
+    "c27": ((("i", (p3.P1_ROUNDS, 128)), ("t", p3.P1_TABLE)), p3.p1_cuda),
+    "c20": ((("x", (pp2.BB, pp2.GATHER_W)), ("i", (pp2.BB, pp2.GATHER_W))),
+            pp2.lane_gather_cuda)}
+# what may be wrong with an input: its bad form, given its shape
 _BAD = {
     "cpu": lambda shape: _zeros(*shape),
     "int64": lambda shape: _on_card(*shape).long(),
@@ -495,9 +515,16 @@ _BAD = {
     "column": lambda shape: _on_card(shape[0], shape[1] + 1)[:, 1:],
     "misaligned": lambda shape: _misaligned(*shape),
     "cuda1": lambda shape: _zeros(*shape).as_subclass(_OnCard1)}
-_BAD_CASES = [(kind, pos) for kind in _BAD for pos in range(3)
-              if not (kind == "cuda1" and pos == 0)
-              and not (kind == "transposed" and pos < 2)]
+# each kernel, each bad form, each position ([n, 1] has no transposed
+# view that is not contiguous; the first input sets the device); C28's
+# cases keep their ids
+_BAD_CASES = [
+    pytest.param(kernel, kind, pos, id=(f"{kind}-{pos}" if kernel == "c28"
+                                        else f"{kernel}-{kind}-{pos}"))
+    for kernel, (inputs, _) in _INPUTS.items() for kind in _BAD
+    for pos in range(len(inputs))
+    if not (kind == "cuda1" and pos == 0)
+    and not (kind == "transposed" and inputs[pos][1][1] == 1)]
 
 
 def _no_build(monkeypatch):
@@ -507,25 +534,28 @@ def _no_build(monkeypatch):
     monkeypatch.setattr(_build, "lib", refuse)
 
 
-@pytest.mark.parametrize("kind, pos", _BAD_CASES)
-def test_cuda_inputs_refuses_as_one_at_a_time(kind, pos, monkeypatch):
-    """The one check pass refuses a bad input in any position with the
-    ValueError that checking the inputs one at a time raised (the
-    reference's reads of `t.device`, and `common.cuda_input`'s), before
-    anything is built or launched.  ([n, 1] has no transposed view that
-    is not contiguous, so "transposed" is tried on t only.)"""
+@pytest.mark.parametrize("kernel, kind, pos", _BAD_CASES)
+def test_cuda_inputs_refuses_as_one_at_a_time(kernel, kind, pos,
+                                              monkeypatch):
+    """The one check pass refuses a bad input in any position of C28's,
+    C27's or C20's inputs with the ValueError that checking the inputs
+    one at a time raised (the reference's reads of `t.device`, and
+    `common.cuda_input`'s), and so does the kernel's wrapper, before
+    anything is built or launched."""
     _no_build(monkeypatch)
+    inputs, wrapper = _INPUTS[kernel]
     specs = [(_BAD[kind](shape) if k == pos else _on_card(*shape), name, 2,
-              torch.int32) for k, (name, shape) in enumerate(_C28)]
+              torch.int32) for k, (name, shape) in enumerate(inputs)]
     msgs = []
     for check in (lambda: common.cuda_inputs(*specs),
                   lambda: _one_at_a_time(_reference_cuda_input, specs),
-                  lambda: _one_at_a_time(common.cuda_input, specs)):
+                  lambda: _one_at_a_time(common.cuda_input, specs),
+                  lambda: wrapper(*[t for t, *_ in specs])):
         with pytest.raises(ValueError) as err:
             check()
         msgs.append(str(err.value))
-    assert msgs[0] == msgs[1] == msgs[2]
-    name = _C28[pos][0]
+    assert msgs[0] == msgs[1] == msgs[2] == msgs[3]
+    name = inputs[pos][0]
     assert msgs[0] == {
         "cpu": "the kernel needs CUDA tensors, got cpu",
         "int64": f"{name}: dtype torch.int64, expected torch.int32",
@@ -555,15 +585,21 @@ def test_cuda_inputs_returns_index_and_pointers(monkeypatch):
     lambda: p3.p3_cuda(_on_card(128, 128),
                        _zeros(8, 128).as_subclass(_OnCard1)),
     lambda: p3.p1b_cuda(_on_card(256, 1), _on_card(256, 1),
-                        _zeros(4096, 128).as_subclass(_OnCard1))])
+                        _zeros(4096, 128).as_subclass(_OnCard1)),
+    lambda: p3.p1_cuda(_on_card(256, 128),
+                       _zeros(4096, 128).as_subclass(_OnCard1)),
+    lambda: pp2.lane_gather_cuda(_on_card(256, 128),
+                                 _zeros(256, 128).as_subclass(_OnCard1))])
 def test_c28_c29_refuse_other_device(call, monkeypatch):
-    """C29 and C28 refuse an input on another card than the first's,
-    before anything is built or launched; their counts stay."""
+    """C29, C28, C27 and C20 refuse an input on another card than the
+    first's, before anything is built or launched; their counts stay."""
     _no_build(monkeypatch)
-    counts = (p3.launches_p3, p3.launches_p1b)
+    counts = (p3.launches_p3, p3.launches_p1b, p3.launches_p1,
+              pp2.launches_lane_gather)
     with pytest.raises(ValueError, match="on cuda:1, expected cuda:0"):
         call()
-    assert (p3.launches_p3, p3.launches_p1b) == counts
+    assert (p3.launches_p3, p3.launches_p1b, p3.launches_p1,
+            pp2.launches_lane_gather) == counts
 
 
 class _Counted(_OnCard):
@@ -586,7 +622,8 @@ class _Counted(_OnCard):
 
 
 class _FakeLib:
-    """Records C29's and C28's launch arguments; every launch succeeds."""
+    """Records C29's, C28's, C27's and C20's launch arguments; every
+    launch succeeds."""
 
     def __init__(self):
         self.calls = []
@@ -595,7 +632,8 @@ class _FakeLib:
         self.calls.append(args)
         return 0
 
-    nabwa_probe_p1b = nabwa_probe_p3
+    nabwa_probe_p1b = nabwa_probe_p1 = nabwa_probe_p3
+    nabwa_probe_lane_gather = nabwa_probe_p3
 
 
 @pytest.fixture
@@ -655,26 +693,84 @@ def test_c28_c29_empty_launch_nothing(fake_launch):
     assert (p3.launches_p3, p3.launches_p1b) == counts
 
 
+@pytest.mark.parametrize("kernel", ["c27", "c20"])
+def test_c27_c20_launch_on_pointers_read_once(kernel, fake_launch,
+                                              monkeypatch):
+    """C27 and C20 launch as C29 and C28 do: on the data pointers and the
+    device index their one check pass read, each input's pointer and
+    device index read once, `device` never, the stream of that index
+    (of index 1 for inputs on the second card), the sizes the shapes';
+    the count rises by one."""
+    from collections import Counter
+    monkeypatch.setattr(_Counted, "reads", Counter())
+    inputs, wrapper = _INPUTS[kernel]
+    mod, count = {"c27": (p3, "launches_p1"),
+                  "c20": (pp2, "launches_lane_gather")}[kernel]
+    ts = [_zeros(*shape).as_subclass(_Counted) for _, shape in inputs]
+    before = getattr(mod, count)
+    out = wrapper(*ts)
+    assert _Counted.reads == Counter(
+        {(k, id(a)): 1 for k in ("data_ptr", "get_device") for a in ts}
+        | {("data_ptr", id(out)): 1})
+    a, b = (t.data_ptr() for t in ts)
+    assert fake_launch.calls[-1] == {
+        "c27": (a, 128, p3.P1_ROUNDS, b, 128, out.data_ptr(), 1000),
+        "c20": (a, b, pp2.BB, out.data_ptr(), 1000)}[kernel]
+    assert tuple(out.shape) == {"c27": (2 * p3.P1_ROUNDS, 128),
+                                "c20": (pp2.BB, pp2.GATHER_W)}[kernel]
+    assert out.dtype == torch.int32
+    assert getattr(mod, count) == before + 1
+    wrapper(*[_zeros(*shape).as_subclass(_OnCard1) for _, shape in inputs])
+    assert fake_launch.calls[-1][-1] == 1001
+
+
+def test_c27_c20_empty_launch_nothing(fake_launch):
+    """No rows: an empty output and no launch, no count."""
+    counts = (p3.launches_p1, pp2.launches_lane_gather)
+    assert p3.p1_cuda(_on_card(0, 128), _on_card(4096, 128)).shape == (0, 128)
+    assert pp2.lane_gather_cuda(_on_card(0, 128),
+                                _on_card(0, 128)).shape == (0, 128)
+    assert not fake_launch.calls
+    assert (p3.launches_p1, pp2.launches_lane_gather) == counts
+
+
+def _launch_from_threads(launch, threads=8, calls=300):
+    """`launch()` `calls` times in each of `threads` threads started
+    together, the interpreter switching threads every microsecond;
+    returns the launches made."""
+    import threading
+
+    def run():
+        for _ in range(calls):
+            launch()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=run) for _ in range(threads)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in pool)
+    return threads * calls
+
+
 def test_c29_count_exact_under_threads(fake_launch):
     """Eight threads launching C29 together, the interpreter switching
     threads every microsecond: the count rises by exactly the launches
     made."""
-    import threading
     x, i = _on_card(*p3.P3_X), _on_card(*p3.P3_I)
-    before, calls = p3.launches_p3, 300
+    before = p3.launches_p3
+    made = _launch_from_threads(lambda: p3.p3_cuda(x, i))
+    assert p3.launches_p3 - before == made == len(fake_launch.calls)
 
-    def launch():
-        for _ in range(calls):
-            p3.p3_cuda(x, i)
-    interval = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        threads = [threading.Thread(target=launch) for _ in range(8)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=60)
-    finally:
-        sys.setswitchinterval(interval)
-    assert not any(th.is_alive() for th in threads)
-    assert p3.launches_p3 - before == 8 * calls == len(fake_launch.calls)
+
+def test_c20_count_exact_under_threads(fake_launch):
+    """The same for C20."""
+    x, i = (_on_card(pp2.BB, pp2.GATHER_W) for _ in range(2))
+    before = pp2.launches_lane_gather
+    made = _launch_from_threads(lambda: pp2.lane_gather_cuda(x, i))
+    assert pp2.launches_lane_gather - before == made == len(
+        fake_launch.calls)
