@@ -163,7 +163,12 @@ Phases, any failure exits non-zero:
    (its BAM equal to the host reference route's, C1-C5 launched);
 18. the probes (nabwa_tpu_torch/probes/), inputs made with numpy from a
    fixed seed: kernel C7 (csrc/probe_rowload.cu) at probe 1's 256 rows of
-   a [4096, 128] table, beside torch.index_select; C8 (csrc/probe_dma.cu)
+   a [4096, 128] table (also both ends of the table and repeats, and the
+   index off a 16-byte boundary, which it reads as int32; indices out of
+   range, int64, [BB, 2] and [1, BB] indices, transposed and misaligned
+   tables and an input on another card where the machine has two are
+   refused, none launched; queued at C20_ROWS rows), beside
+   torch.index_select; C8 (csrc/probe_dma.cu)
    at T=64 for N 64 and 128, unroll on and off, every `src`, on tables of
    100,000 and 4,000,000 rows, out, the whole stage and each round's
    witness, timed warm and with L2 flushed before each launch; C9
@@ -171,10 +176,11 @@ Phases, any failure exits non-zero:
    timed, and at S 32, 64 and 96 (256 reads, 200 iterations); C10 at
    probe 5's 256 x 128 x 100 (before all of them the launch path,
    `check_launch_path`: `stream_of` is the current stream, default and
-   side, C14, C29, C28, C27 and C20 exact on a side stream, C14's, C29's
-   and C20's launch counts exact over COUNT_THREADS threads, and its host
-   split, `launch_split`: each step of C14's, C11's, C29's, C28's, C27's
-   and C20's wrappers over SPLIT_CALLS calls, the host's clock and one
+   side, C14, C29, C28, C27, C20, C7 and C15 exact on a side stream,
+   C14's, C29's, C20's and C7's launch counts exact over COUNT_THREADS
+   threads, and its host split, `launch_split`: each step of C14's,
+   C11's, C29's, C28's, C27's, C20's, C7's and C15's wrappers over
+   SPLIT_CALLS calls, the host's clock and one
    synchronize, beside torch.sum, `x + 1`, torch.gather and
    torch.index_select); C11-C14
    (csrc/probe_pallas2.cu) at scripts/probe_pallas2.py's shapes: C11 x +
@@ -189,8 +195,9 @@ Phases, any failure exits non-zero:
    that wrap); C14's lane sum of [512, 128];
    C15-C18 (csrc/probe_pallas.cu) at scripts/probe_pallas.py's shapes:
    C15 probe 2's 256 rows of a [4096, 128] table with the indices staged
-   in shared memory (also both ends of the table and repeats; a table
-   off a 16-byte boundary is refused), C16 probe
+   in shared memory (also both ends of the table and repeats, and the
+   index off a 16-byte boundary; refused as C7's but for the index's
+   shapes; queued at C20_ROWS rows), C16 probe
    3's popcount of [256, 128] (also every int32, INT32_MIN, -1 and
    INT32_MAX), C17 and C18 probes 4 and 4b, 50 rounds over a [256, 128]
    pool with a scalar and a vector carry (on the script's values, within
@@ -230,7 +237,8 @@ Phases, any failure exits non-zero:
    card, and by C27, C28 and C29 also int64, non-contiguous and
    transposed inputs and one on another card where the machine has two,
    none launched; C27 and C28 also queued at C28_ROW_PAIRS row pairs,
-   C20's and C27-C29's `queued_ms` over C11's (`queued_over_c11`);
+   C7's, C15's, C20's and C27-C29's `queued_ms` over C11's
+   (`queued_over_c11`);
    C31-C35 (csrc/probe_pallas3.cu, `check_reductions`) probes 2
    (C31 `native`, C32 `roll`, C33 `subl`), 5 and 6 of that script at its
    shapes: C31-C34 exact at its inputs and at int32 edges (C31-C33 values
@@ -318,9 +326,9 @@ back-to-back launches, which wait on the host's enqueue when it is the
 slower), C7 and C11-C35 carry
 `queued_ms`, the same launches queued behind a sleeping kernel (the
 card's own time a launch), every probe with a library call
-`library_queued_ms`, and C11, C12, C14, C20 and C27-C29 `wall_ms` and
-`library_wall_ms`, the host's clock a call; C11, C14, C20 and C27-C29
-carry `host_split`.
+`library_queued_ms`, and C7, C11, C12, C14, C15, C20 and C27-C29
+`wall_ms` and `library_wall_ms`, the host's clock a call; C7, C11, C14,
+C15, C20 and C27-C29 carry `host_split`.
 The probes' bounds count their table rows once (the distinct rows the
 run reads) and their operations as the header of each .cu file counts
 them.
@@ -530,7 +538,8 @@ LAUNCH_REPS = 1000
 COUNT_THREADS, COUNT_CALLS = 4, 250
 # C28's row pairs a launch, queued, to take its launch floor apart
 C28_ROW_PAIRS = (1, 16, 256)
-# rows of C20's x and i it is queued at, one launch each
+# rows of C20's x and i it is queued at, one launch each (and of C7's and
+# C15's index)
 C20_ROWS = (1, 16, 256)
 # C1's edge launches: the retry tier's slot pool and hit list (tier 0's
 # pool of 256 overflows on every gapped edge read), at most 100,000 steps
@@ -2575,7 +2584,8 @@ def other_device(dev):
 
 def launch_split(dev, calls=SPLIT_CALLS):
     """The host's microseconds a call of each step of kernel C14's, C11's,
-    C29's, C28's, C27's and C20's wrappers, of each wrapper whole and of
+    C29's, C28's, C27's, C20's, C7's and C15's wrappers, of each wrapper
+    whole and of
     the PyTorch call that computes the same (`wall_ms` over `calls` calls
     after a warm-up, one synchronize at the end), with the port's helpers
     as they stand (`compare.py launch` runs this over another checkout's;
@@ -2596,10 +2606,21 @@ def launch_split(dev, calls=SPLIT_CALLS):
     (each tensor's pointer read once); `launch` (the ctypes call on
     pointers read beforehand, whose C function launches the kernel and
     reads cudaGetLastError); `check`; `count`; `wrapper` and `library`,
-    C29's, C28's, C27's and C20's at phase 18's shapes and calls."""
+    C29's, C28's, C27's and C20's at phase 18's shapes and calls.  C7's
+    and C15's parts, `probe_rowload` and `probe_smem_idx` (idx [256, 1]
+    and [256] rows of a [4096, 128] table), time their old path's steps,
+    `dev_type` (`idx.device.type`), `require_idx` (`_build.require`),
+    `check_table` (`_check_table`, a second `cuda_input`), `torch_empty`
+    and `stream_of`, beside the new path's: `cuda_inputs` (one pass over
+    the index, at 4-byte alignment, and the table, with C7's `[BB, 1]`
+    test run inside it; null on a checkout whose pass takes no alignment),
+    `shape` (C7's `[BB, 1]` test and the table's width), `new_empty_args`,
+    `stream_raw`, `data_ptr`, `launch`, `check`, `count`; `library` is
+    torch.index_select on the index (C7's column taken beforehand)."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas as pp
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
     lib = _build.lib()
@@ -2636,12 +2657,25 @@ def launch_split(dev, calls=SPLIT_CALLS):
     lrows = lx.shape[0]
     gp = [t.data_ptr() for t in (gx, gi, g_out)]
     rp = [t.data_ptr() for t in (ri, rj, rt, r_out)]
-    pp = [t.data_ptr() for t in (pi, rt, p_out)]
+    qp = [t.data_ptr() for t in (pi, rt, p_out)]
     lp = [t.data_ptr() for t in (lx, li, l_out)]
+    # C7: idx [256, 1] rows of a [4096, 128] table; C15: idx [256]
+    wi = torch.randint(0, pp.ROWLOAD_NROW, (pp.ROWLOAD_BB, 1), dtype=i32,
+                       device=dev)
+    wt = torch.randint(0, 99, (pp.ROWLOAD_NROW, 128), dtype=i32, device=dev)
+    w_col, si = wi[:, 0], wi[:, 0].contiguous()
+    bb = wi.shape[0]
+    w_out = wt.new_empty(bb, 128)
+    wp = [t.data_ptr() for t in (wi, wt, w_out)]
+    sp = [t.data_ptr() for t in (si, wt, w_out)]
     multi = getattr(common, "cuda_inputs", None)
+    # the six-element spec (an alignment and a follow-on check) came with
+    # `_one_column`
+    one_col = getattr(pp, "_one_column", None)
     index = dev.index
     saved = (pp2.launches_lanereduce, pp2.launches_empty, p3.launches_p3,
-             p3.launches_p1b, p3.launches_p1, pp2.launches_lane_gather)
+             p3.launches_p1b, p3.launches_p1, pp2.launches_lane_gather,
+             pp.launches_rowload, pp.launches_smem_idx)
 
     def count():
         with _build.count_lock:
@@ -2662,6 +2696,14 @@ def launch_split(dev, calls=SPLIT_CALLS):
     def count_lane_gather():
         with _build.count_lock:
             pp2.launches_lane_gather += 1
+
+    def count_rowload():
+        with _build.count_lock:
+            pp.launches_rowload += 1
+
+    def count_smem_idx():
+        with _build.count_lock:
+            pp.launches_smem_idx += 1
 
     def taken():
         with lock:
@@ -2752,8 +2794,8 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
             "data_ptr": lambda: (pi.data_ptr(), rt.data_ptr(),
                                  p_out.data_ptr()),
-            "launch": lambda: lib.nabwa_probe_p1(pp[0], width, pn, pp[1],
-                                                 cols, pp[2], st),
+            "launch": lambda: lib.nabwa_probe_p1(qp[0], width, pn, qp[1],
+                                                 cols, qp[2], st),
             "check": lambda: _build.check(0, "probe_p1 kernel launch"),
             "count": count_p1,
             "wrapper": lambda: p3.p1_cuda(pi, rt),
@@ -2777,12 +2819,55 @@ def launch_split(dev, calls=SPLIT_CALLS):
                                           "probe_lane_gather kernel launch"),
             "count": count_lane_gather,
             "wrapper": lambda: pp2.lane_gather_cuda(lx, li),
-            "library": lambda: torch.gather(lx, 1, li_long)}}
+            "library": lambda: torch.gather(lx, 1, li_long)},
+        "probe_rowload": {
+            "dev_type": lambda: wi.device.type,
+            "require_idx": lambda: _build.require(wi, "idx", dev, 2),
+            "check_table": lambda: pp._check_table(wt, dev),
+            "torch_empty": lambda: torch.empty((bb, 128), dtype=i32,
+                                               device=dev),
+            "stream_of": lambda: _build.stream_of(wi),
+            "cuda_inputs": one_col and (lambda: multi(
+                (wi, "idx", 2, i32, 4, one_col), (wt, "table", 2, i32))),
+            "shape": lambda: (wi.shape[1] != 1, wt.shape[1] != 128),
+            "new_empty_args": lambda: wt.new_empty(bb, 128),
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "data_ptr": lambda: (wi.data_ptr(), wt.data_ptr(),
+                                 w_out.data_ptr()),
+            "launch": lambda: lib.nabwa_probe_rowload(wp[0], wp[1], bb,
+                                                      wp[2], st),
+            "check": lambda: _build.check(
+                0, "nabwa_probe_rowload kernel launch"),
+            "count": count_rowload,
+            "wrapper": lambda: pp.rowload_cuda(wi, wt),
+            "library": lambda: torch.index_select(wt, 0, w_col)},
+        "probe_smem_idx": {
+            "dev_type": lambda: si.device.type,
+            "require_idx": lambda: _build.require(si, "idx", dev, 1),
+            "check_table": lambda: pp._check_table(wt, dev),
+            "torch_empty": lambda: torch.empty((bb, 128), dtype=i32,
+                                               device=dev),
+            "stream_of": lambda: _build.stream_of(si),
+            "cuda_inputs": one_col and (lambda: multi(
+                (si, "idx", 1, i32, 4, None), (wt, "table", 2, i32))),
+            "shape": lambda: wt.shape[1] != 128,
+            "new_empty_args": lambda: wt.new_empty(bb, 128),
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "data_ptr": lambda: (si.data_ptr(), wt.data_ptr(),
+                                 w_out.data_ptr()),
+            "launch": lambda: lib.nabwa_probe_smem_idx(sp[0], sp[1], bb,
+                                                       sp[2], st),
+            "check": lambda: _build.check(
+                0, "nabwa_probe_smem_idx kernel launch"),
+            "count": count_smem_idx,
+            "wrapper": lambda: pp.smem_idx_cuda(si, wt),
+            "library": lambda: torch.index_select(wt, 0, si)}}
     split = {part: {name: None if fn is None else wall_ms(fn, calls) * 1e3
                     for name, fn in fns.items()}
              for part, fns in steps.items()}
     (pp2.launches_lanereduce, pp2.launches_empty, p3.launches_p3,
-     p3.launches_p1b, p3.launches_p1, pp2.launches_lane_gather) = saved
+     p3.launches_p1b, p3.launches_p1, pp2.launches_lane_gather,
+     pp.launches_rowload, pp.launches_smem_idx) = saved
     split["calls"] = calls
     return split
 
@@ -2790,12 +2875,13 @@ def launch_split(dev, calls=SPLIT_CALLS):
 def check_launch_path(dev):
     """The shared launch path keeps its meaning: `stream_of` gives
     PyTorch's current stream on the default stream and on a side stream,
-    C14, C29, C28, C27 and C20 launched under a side stream are exact
-    there (C29, C28, C27 and C20 take the handle from the device index
-    their one check pass read), and C14's, C29's and C20's launch counts
+    C14, C29, C28, C27, C20, C7 and C15 launched under a side stream are
+    exact there (all but C14 take the handle from the device index their
+    one check pass read), and C14's, C29's, C20's and C7's launch counts
     are exact when COUNT_THREADS threads launch together."""
     import torch
     from nabwa_tpu_torch.ops import _build
+    from nabwa_tpu_torch.probes import probe_pallas as pp
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
     x = torch.randint(-2**31, 2**31 - 1, pp2.REDUCE_SHAPE,
@@ -2814,6 +2900,11 @@ def check_launch_path(dev):
                        dtype=torch.int32, device=dev)
     li = torch.randint(0, pp2.GATHER_W, lx.shape, dtype=torch.int32,
                        device=dev)
+    wi = torch.randint(0, pp.ROWLOAD_NROW, (pp.ROWLOAD_BB, 1),
+                       dtype=torch.int32, device=dev)
+    wt = torch.randint(-2**31, 2**31 - 1, (pp.ROWLOAD_NROW, 128),
+                       dtype=torch.int32, device=dev)
+    si = wi[:, 0].flip(0).contiguous()
     side = torch.cuda.Stream(dev)
     if _build.stream_of(x) != torch.cuda.current_stream(dev).cuda_stream:
         fail("stream_of differs from the current stream")
@@ -2823,19 +2914,24 @@ def check_launch_path(dev):
         side.wait_stream(torch.cuda.default_stream(dev))
         got = (pp2.lanereduce_cuda(x), p3.p3_cuda(gx, gi),
                p3.p1b_cuda(ri, rj, rt), p3.p1_cuda(pi, rt),
-               pp2.lane_gather_cuda(lx, li))
+               pp2.lane_gather_cuda(lx, li), pp.rowload_cuda(wi, wt),
+               pp.smem_idx_cuda(si, wt))
     side.synchronize()
     exact("C14 on a side stream", got[0], pp2.lanereduce_plain(x))
     exact("C29 on a side stream", got[1], p3.p3_plain(gx, gi))
     exact("C28 on a side stream", got[2], p3.p1b_plain(ri, rj, rt))
     exact("C27 on a side stream", got[3], p3.p1_plain(pi, rt))
     exact("C20 on a side stream", got[4], pp2.lane_gather_plain(lx, li))
+    exact("C7 on a side stream", got[5], pp.rowload_plain(wi, wt))
+    exact("C15 on a side stream", got[6], pp.smem_idx_plain(si, wt))
     for label, mod, name, fn in (
             ("C14", pp2, "launches_lanereduce",
              lambda: pp2.lanereduce_cuda(x)),
             ("C29", p3, "launches_p3", lambda: p3.p3_cuda(gx, gi)),
             ("C20", pp2, "launches_lane_gather",
-             lambda: pp2.lane_gather_cuda(lx, li))):
+             lambda: pp2.lane_gather_cuda(lx, li)),
+            ("C7", pp, "launches_rowload",
+             lambda: pp.rowload_cuda(wi, wt))):
         before = getattr(mod, name)
 
         def launch():
@@ -2854,9 +2950,44 @@ def check_launch_path(dev):
                  f"{COUNT_THREADS * COUNT_CALLS} launches from "
                  f"{COUNT_THREADS} threads")
     log(f"launch path: stream_of is the current stream (default and side), "
-        f"C14, C29, C28, C27 and C20 exact on a side stream, C14's, C29's "
-        f"and C20's counts exact over {COUNT_THREADS} threads x "
-        f"{COUNT_CALLS} launches")
+        f"C14, C29, C28, C27, C20, C7 and C15 exact on a side stream, "
+        f"C14's, C29's, C20's and C7's counts exact over {COUNT_THREADS} "
+        f"threads x {COUNT_CALLS} launches")
+
+
+def gather_refused(label, gather, mod, count, idx_t, tab_t, other, more):
+    """C7's or C15's dispatcher `gather` refuses, before any launch (the
+    count `mod.<count>` unchanged): indices NROW and -1, an int64 index, a
+    transposed and a misaligned table, the index or the table on `other`
+    (a second card, where there is one), and the (label, idx, table)
+    inputs of `more`."""
+    before = getattr(mod, count)
+    nrow = tab_t.shape[0]
+    for bad in (nrow, -1):
+        wrong = idx_t.clone()
+        wrong[3] = bad
+        refused(f"{label} index {bad}", lambda: gather(wrong, tab_t))
+    cases = [("int64 index", idx_t.long(), tab_t),
+             ("transposed table", idx_t, tab_t.t().contiguous().t()),
+             ("misaligned table", idx_t, skewed(tab_t)), *more]
+    if other is not None:
+        cases += [(f"index on {other}", idx_t.to(other), tab_t),
+                  (f"table on {other}", idx_t, tab_t.to(other))]
+    for what, i, t in cases:
+        refused(f"{label} {what}", lambda: gather(i, t))
+    if getattr(mod, count) != before:
+        fail(f"{label} launched on an input its wrapper refused")
+
+
+def gather_by_rows(cuda, idx_t, tab_t):
+    """{k: queued_ms of C7's or C15's wrapper `cuda` on the first k rows of
+    idx_t} for k in C20_ROWS: the launch and the index load before each
+    row, beside the rows' bytes."""
+    by_rows = {}
+    for k in C20_ROWS:
+        ik = idx_t[:k]
+        by_rows[k] = queued_ms(lambda: cuda(ik, tab_t), 200)
+    return by_rows
 
 
 def launch_times(fn, lib_fn):
@@ -2888,28 +3019,47 @@ def check_probes(dev, split):
     rng = np.random.RandomState(PROBE_SEED)
     out = {}
 
-    # C7: probe 1's row gather, 256 rows of a [4096, 128] table
-    idx = rng.randint(0, pp.ROWLOAD_NROW, (pp.ROWLOAD_BB, 1))
-    table = (np.arange(pp.ROWLOAD_NROW * 128).reshape(pp.ROWLOAD_NROW, 128)
-             % 9973)
-    idx_t, tab_t = common.tensors(dev, idx, table)
-    err = exact("C7 probe_rowload", pp.rowload_cuda(idx_t, tab_t),
-                pp.rowload_plain(idx_t, tab_t))
+    # C7: probe 1's row gather, 256 rows of a [4096, 128] table; the
+    # script's indices, then both ends of the table and repeats, and the
+    # script's indices off a 16-byte boundary (read as int32, accepted)
+    nrow = pp.ROWLOAD_NROW
+    idx = rng.randint(0, nrow, (pp.ROWLOAD_BB, 1))
+    edge = idx.copy()
+    edge[:4, 0] = (0, nrow - 1, 0, nrow - 1)
+    edge[100:140, 0] = 7
+    table = np.arange(nrow * 128).reshape(nrow, 128) % 9973
+    idx_t, edge_t, tab_t = common.tensors(dev, idx, edge, table)
+    err = max(exact("C7 probe_rowload", pp.rowload(idx_t, tab_t),
+                    pp.rowload_plain(idx_t, tab_t)),
+              exact("C7 probe_rowload edges", pp.rowload(edge_t, tab_t),
+                    pp.rowload_plain(edge_t, tab_t)),
+              exact("C7 probe_rowload misaligned index",
+                    pp.rowload(skewed(idx_t), tab_t),
+                    pp.rowload_plain(idx_t, tab_t)))
+    other = other_device(dev)
+    gather_refused("C7", pp.rowload, pp, "launches_rowload", idx_t, tab_t,
+                   other, [("index [BB, 2]",
+                            torch.cat((idx_t, idx_t), 1), tab_t),
+                           ("transposed index ([1, BB])", idx_t.t(),
+                            tab_t)])
     lib_idx = idx_t[:, 0]
     n_rows = distinct_rows(idx_t)
     bnd = bound(4 * len(idx) + ROW_BYTES * (n_rows + len(idx)), 0)
     out["probe_rowload"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: pp.rowload_cuda(idx_t, tab_t), 200),
+        **launch_times(lambda: pp.rowload_cuda(idx_t, tab_t),
+                       lambda: torch.index_select(tab_t, 0, lib_idx)),
         "plain_ms": cuda_ms(lambda: pp.rowload_plain(idx_t, tab_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, lib_idx),
-                              200),
-        "library_queued_ms": queued_ms(
-            lambda: torch.index_select(tab_t, 0, lib_idx), 200),
-        "library_call": "torch.index_select(table, 0, idx[:, 0])",
-        "queued_ms": queued_ms(lambda: pp.rowload_cuda(idx_t, tab_t), 200),
-        "rows": len(idx), "distinct_rows": n_rows}
+        "library_call": "torch.index_select(table, 0, idx[:, 0]), the "
+                        "column taken beforehand",
+        "rows": len(idx), "distinct_rows": n_rows,
+        "exact_inputs": ["script", "edges", "misaligned_index"],
+        "queued_ms_by_rows": gather_by_rows(pp.rowload_cuda, idx_t, tab_t),
+        "other_device_refused": other is not None,
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_rowload"],
+                       "calls": split["calls"]}}
     log(f"C7 probe_rowload: exact; {out['probe_rowload']}")
 
     # C8: T=64 iterations of N row copies, every mode, two table sizes;
@@ -3168,7 +3318,8 @@ def check_probes(dev, split):
     log(f"C14 probe_lanereduce: exact; {out['probe_lanereduce']}")
 
     # C15: probe 2, C7's gather with each block's indices staged in shared
-    # memory; the script's indices, then both ends of the table and repeats
+    # memory; the script's indices, then both ends of the table and
+    # repeats, and the script's indices off a 16-byte boundary
     nrow = pp.ROWLOAD_NROW
     idx = rng.randint(0, nrow, pp.ROWLOAD_BB)
     edge = idx.copy()
@@ -3176,28 +3327,32 @@ def check_probes(dev, split):
     edge[100:140] = 7
     table = np.arange(nrow * 128).reshape(nrow, 128) % 9973
     idx_t, edge_t, tab_t = common.tensors(dev, idx, edge, table)
-    err = max(exact("C15 probe_smem_idx", pp.smem_idx_cuda(idx_t, tab_t),
+    err = max(exact("C15 probe_smem_idx", pp.smem_idx(idx_t, tab_t),
                     pp.smem_idx_plain(idx_t, tab_t)),
-              exact("C15 probe_smem_idx edges",
-                    pp.smem_idx_cuda(edge_t, tab_t),
-                    pp.smem_idx_plain(edge_t, tab_t)))
-    # a table that starts off a 16-byte boundary is refused, not read
-    refused("C15 misaligned table",
-            lambda: pp.smem_idx_cuda(idx_t, skewed(tab_t)))
+              exact("C15 probe_smem_idx edges", pp.smem_idx(edge_t, tab_t),
+                    pp.smem_idx_plain(edge_t, tab_t)),
+              exact("C15 probe_smem_idx misaligned index",
+                    pp.smem_idx(skewed(idx_t), tab_t),
+                    pp.smem_idx_plain(idx_t, tab_t)))
+    other = other_device(dev)
+    gather_refused("C15", pp.smem_idx, pp, "launches_smem_idx", idx_t,
+                   tab_t, other, [])
     n_rows = distinct_rows(idx_t)
     bnd = bound(4 * len(idx) + ROW_BYTES * (n_rows + len(idx)), 0)
     out["probe_smem_idx"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: pp.smem_idx_cuda(idx_t, tab_t), 200),
+        **launch_times(lambda: pp.smem_idx_cuda(idx_t, tab_t),
+                       lambda: torch.index_select(tab_t, 0, idx_t)),
         "plain_ms": cuda_ms(lambda: pp.smem_idx_plain(idx_t, tab_t), 200),
         "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-        "library_ms": cuda_ms(lambda: torch.index_select(tab_t, 0, idx_t),
-                              200),
-        "library_queued_ms": queued_ms(
-            lambda: torch.index_select(tab_t, 0, idx_t), 200),
         "library_call": "torch.index_select(table, 0, idx)",
-        "queued_ms": queued_ms(lambda: pp.smem_idx_cuda(idx_t, tab_t), 200),
-        "rows": len(idx), "distinct_rows": n_rows}
+        "rows": len(idx), "distinct_rows": n_rows,
+        "exact_inputs": ["script", "edges", "misaligned_index"],
+        "queued_ms_by_rows": gather_by_rows(pp.smem_idx_cuda, idx_t, tab_t),
+        "other_device_refused": other is not None,
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_smem_idx"],
+                       "calls": split["calls"]}}
     log(f"C15 probe_smem_idx: exact; {out['probe_smem_idx']}")
 
     # C16: probe 3, the popcount of [256, 128]; the script's values lie in
@@ -5156,9 +5311,10 @@ def main():
 
     phase_mark("18")
     # phase 18: the launch path's meaning and its host split (each step
-    # of C14's, C11's, C29's and C28's wrappers beside their library
-    # calls), the probes, C7-C35 against their plain versions on the card,
-    # then each probe's entry point in a process of its own
+    # of C14's, C11's, C29's, C28's, C27's, C20's, C7's and C15's wrappers
+    # beside their library calls), the probes, C7-C35 against their plain
+    # versions on the card, then each probe's entry point in a process of
+    # its own
     dev0 = torch.device("cuda", 0)
     check_launch_path(dev0)
     split = launch_split(dev0)
@@ -5167,8 +5323,9 @@ def main():
     t0 = time.perf_counter()
     probes.update(check_chains(dev0, split))
     log(f"C23-C30 checked in {time.perf_counter() - t0:.1f} s")
-    # C28, C29, C27, C20 against the floor
-    for k in ("probe_p1b", "probe_p3", "probe_p1", "probe_lane_gather"):
+    # C28, C29, C27, C20, C7, C15 against the floor
+    for k in ("probe_p1b", "probe_p3", "probe_p1", "probe_lane_gather",
+              "probe_rowload", "probe_smem_idx"):
         probes[k]["queued_over_c11"] = (probes[k]["queued_ms"]
                                         / probes["probe_empty"]["queued_ms"])
     t0 = time.perf_counter()

@@ -22,15 +22,16 @@ time a step.  Where the checkout has `sa_lookup_both_cuda`, the two
 strands in one launch too.
 
 launch: the host's cost of a launch, on no cell.  The host split of kernel
-C14's, C11's, C29's, C28's, C27's and C20's wrappers (`launch_split` of
-this checkout's chip_smoke.py, run over the other checkout's port: its
-own helpers and wrappers; a step whose helper it lacks is null), and
-C11, C12 (unroll 1 and LOADS_UNROLL), C14 and C20 at
-scripts/probe_pallas2.py's shapes and C29, C28 and C27 at
-scripts/probe_pallas3.py's, exact against their plain versions, each
-with `ms` (CUDA events), `queued_ms` and `wall_ms` (the host's clock)
-beside `x + 1`, torch.index_select, torch.sum, torch.gather on axis 0
-and on axis 1 (their int64 indices made beforehand) and C28's and C27's
+C14's, C11's, C29's, C28's, C27's, C20's, C7's and C15's wrappers
+(`launch_split` of this checkout's chip_smoke.py, run over the other
+checkout's port: its own helpers and wrappers; a step whose helper it
+lacks is null), and C11, C12 (unroll 1 and LOADS_UNROLL), C14 and C20 at
+scripts/probe_pallas2.py's shapes, C29, C28 and C27 at
+scripts/probe_pallas3.py's and C7 and C15 at scripts/probe_pallas.py's,
+exact against their plain versions, each with `ms` (CUDA events),
+`queued_ms` and `wall_ms` (the host's clock) beside `x + 1`,
+torch.index_select, torch.sum, torch.gather on axis 0 and on axis 1
+(their int64 indices made beforehand) and C28's, C27's, C7's and C15's
 torch.index_select (their indices made beforehand).
 
 aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
@@ -134,6 +135,7 @@ def time_launch():
     import numpy as np
     import torch
     from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas as pp
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
     here = own_smoke()
@@ -156,6 +158,10 @@ def time_launch():
         dev, rng.randint(0, nrow, (p3.P1_ROUNDS, p3.P1_TABLE[1])),
         rng.randint(0, 99, (pp2.BB, pp2.GATHER_W)),
         rng.randint(0, pp2.GATHER_W, (pp2.BB, pp2.GATHER_W)))
+    wi_t, wt_t = common.tensors(
+        dev, rng.randint(0, pp.ROWLOAD_NROW, (pp.ROWLOAD_BB, 1)),
+        rng.randint(0, 99, (pp.ROWLOAD_NROW, 128)))
+    w_col, si_t = wi_t[:, 0], wi_t[:, 0].contiguous()
     gi_long, li_long = gi_t.long(), li_t.long()
     r_flat = torch.cat((ri_t[:, 0], rj_t[:, 0]))
     p_flat = pi_t[:, :2].t().reshape(-1).contiguous()
@@ -187,7 +193,15 @@ def time_launch():
         "probe_lane_gather": (lambda: pp2.lane_gather_cuda(lx_t, li_t),
                               lambda: pp2.lane_gather_plain(lx_t, li_t)),
         "torch.gather_lanes": (lambda: torch.gather(lx_t, 1, li_long),
-                               None)}
+                               None),
+        "probe_rowload": (lambda: pp.rowload_cuda(wi_t, wt_t),
+                          lambda: pp.rowload_plain(wi_t, wt_t)),
+        "index_select_rowload": (lambda: torch.index_select(wt_t, 0, w_col),
+                                 None),
+        "probe_smem_idx": (lambda: pp.smem_idx_cuda(si_t, wt_t),
+                           lambda: pp.smem_idx_plain(si_t, wt_t)),
+        "index_select_smem_idx": (lambda: torch.index_select(wt_t, 0, si_t),
+                                  None)}
     out = {"split": here.launch_split(dev)}
     for name, (fn, plain) in calls.items():
         if plain is not None:

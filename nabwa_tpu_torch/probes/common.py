@@ -84,16 +84,26 @@ def cuda_input(t, name, ndim, dev=None, dtype=torch.int32):
 
 def cuda_inputs(*specs):
     """One check pass over a kernel's tensor inputs, each given as (t,
-    name, ndim, dtype): every t a contiguous CUDA tensor of its dtype with
-    ndim dimensions, on the first one's device, starting on a 16-byte
-    boundary.  The checks and their ValueError messages are those of
-    `cuda_input` called on each in turn, the later ones with the first's
-    device, in that order.  Returns (the device's index, [each tensor's
-    data pointer]), each read once, for the stream's handle and the
-    launch."""
+    name, ndim, dtype) or (t, name, ndim, dtype, align, then): every t a
+    contiguous CUDA tensor of its dtype with ndim dimensions, on the first
+    one's device, starting on a multiple of `align` bytes (16 in the short
+    form: the kernels read most inputs as int4; an input they read as
+    int32 needs 4).  `then(t)`, unless None, runs once t has passed and
+    before the next input is checked, and raises ValueError for a shape
+    its kernel does not take, so that a wrapper keeps the order of the
+    checks it made one input at a time.  The checks and their ValueError
+    messages are those of `cuda_input` called on each in turn, the later
+    ones with the first's device, in that order.  Returns (the device's
+    index, [each tensor's data pointer]), each read once, for the stream's
+    handle and the launch."""
     index = None
     ptrs = []
-    for t, name, ndim, dtype in specs:
+    for spec in specs:
+        if len(spec) == 4:
+            t, name, ndim, dtype = spec
+            align, then = 16, None
+        else:
+            t, name, ndim, dtype, align, then = spec
         if not t.is_cuda:
             raise ValueError(f"the kernel needs CUDA tensors, got {t.device}")
         if not isinstance(t, torch.Tensor):
@@ -111,8 +121,10 @@ def cuda_inputs(*specs):
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
         ptr = t.data_ptr()
-        if ptr % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
+        if ptr % align:
+            raise ValueError(f"{name}: not {align}-byte aligned")
+        if then is not None:
+            then(t)
         ptrs.append(ptr)
     return index, ptrs
 

@@ -49,6 +49,7 @@ from ..ops import _build
 from . import common
 from .common import FREE_KEY, popcount32, wrap32, wsum
 
+I32 = torch.int32
 ROWLOAD_BB, ROWLOAD_NROW = 256, 4096
 POPCOUNT_SHAPE = (256, 128)
 WHILE_BB, WHILE_S, WHILE_ITERS = 256, 128, 50
@@ -69,7 +70,8 @@ launches_dfs_shape = 0
 
 def _check_table(table, device):
     """Raise ValueError unless table is an int32 [NROW, 128] CUDA tensor
-    on `device` that kernels C7, C10 and C15 may read as int4."""
+    on `device` that kernel C10 may read as int4 (C10's wrapper checks its
+    inputs one at a time; C7's and C15's check theirs in one pass)."""
     common.cuda_input(table, "table", 2, device)
     if table.shape[1] != 128:
         raise ValueError(f"table rows have {table.shape[1]} words, not 128")
@@ -81,38 +83,54 @@ def rowload_plain(idx, table):
     return table[idx[:, 0].long()]
 
 
-def _gather_cuda(idx, table, name):
-    """Launch row-gather kernel `name` (C7 or C15) for idx's BB rows."""
-    dev = idx.device
-    _check_table(table, dev)
-    bb = idx.shape[0]
-    out = torch.empty((bb, 128), dtype=torch.int32, device=dev)
-    if bb == 0:
-        return out
-    rc = getattr(_build.lib(), name)(idx.data_ptr(), table.data_ptr(), bb,
-                                     out.data_ptr(), _build.stream_of(idx))
-    _build.check(rc, f"{name} kernel launch")
+def _one_column(idx):
+    """C7's idx must be [BB, 1] (checked before the table)."""
+    if idx.shape[1] != 1:
+        raise ValueError(f"idx must be [BB, 1], got {tuple(idx.shape)}")
+
+
+def _gather_cuda(idx_spec, table, name):
+    """Launch row-gather kernel `name` (C7 or C15) for the BB rows of the
+    index that `idx_spec` (its `common.cuda_inputs` spec) names, unless BB
+    is 0.  One check pass over the index and the table reads each one's
+    device and data pointer once, and the launch reuses them; the index
+    may start off a 16-byte boundary (the kernels read it as int32)."""
+    index, (pi, pt) = common.cuda_inputs(idx_spec,
+                                         (table, "table", 2, I32))
+    width = table.shape[1]
+    if width != 128:
+        raise ValueError(f"table rows have {width} words, not 128")
+    bb = idx_spec[0].shape[0]
+    out = table.new_empty(bb, 128)
+    if bb:
+        rc = getattr(_build.lib(), name)(
+            pi, pt, bb, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index))
+        _build.check(rc, f"{name} kernel launch")
     return out
 
 
 def rowload_cuda(idx, table):
-    """`rowload_plain` by kernel C7; every idx must lie in [0, NROW)."""
+    """`rowload_plain` by kernel C7; the indices are not checked
+    (`rowload` does)."""
     global launches_rowload
-    dev = idx.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
-    _build.require(idx, "idx", dev, 2)
-    if idx.shape[1] != 1:
-        raise ValueError(f"idx must be [BB, 1], got {tuple(idx.shape)}")
-    out = _gather_cuda(idx, table, "nabwa_probe_rowload")
-    with _build.count_lock:
-        launches_rowload += 1
+    out = _gather_cuda((idx, "idx", 2, I32, 4, _one_column), table,
+                       "nabwa_probe_rowload")
+    if idx.shape[0]:
+        with _build.count_lock:
+            launches_rowload += 1
     return out
 
 
 def rowload(idx, table):
     """Probe 1's row gather: the plain version for CPU tensors, kernel C7
-    for CUDA tensors."""
+    for CUDA tensors; refuses indices outside [0, NROW)."""
+    common.check_indices("rowload", table.shape[0], idx)
+    return _rowload(idx, table)
+
+
+def _rowload(idx, table):
+    """`rowload` without its index check."""
     return common.dispatch("rowload", idx, rowload_plain, rowload_cuda,
                            table)
 
@@ -124,21 +142,26 @@ def smem_idx_plain(idx, table):
 
 
 def smem_idx_cuda(idx, table):
-    """`smem_idx_plain` by kernel C15; every idx must lie in [0, NROW)."""
+    """`smem_idx_plain` by kernel C15; the indices are not checked
+    (`smem_idx` does)."""
     global launches_smem_idx
-    dev = idx.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
-    _build.require(idx, "idx", dev, 1)
-    out = _gather_cuda(idx, table, "nabwa_probe_smem_idx")
-    with _build.count_lock:
-        launches_smem_idx += 1
+    out = _gather_cuda((idx, "idx", 1, I32, 4, None), table,
+                       "nabwa_probe_smem_idx")
+    if idx.shape[0]:
+        with _build.count_lock:
+            launches_smem_idx += 1
     return out
 
 
 def smem_idx(idx, table):
     """Probe 2's row gather: the plain version for CPU tensors, kernel C15
-    for CUDA tensors."""
+    for CUDA tensors; refuses indices outside [0, NROW)."""
+    common.check_indices("smem_idx", table.shape[0], idx)
+    return _smem_idx(idx, table)
+
+
+def _smem_idx(idx, table):
+    """`smem_idx` without its index check."""
     return common.dispatch("smem_idx", idx, smem_idx_plain, smem_idx_cuda,
                            table)
 
@@ -359,24 +382,27 @@ def dfs_shape(k, table, iters=DFS_ITERS):
 
 
 def probe_rowload(device):
-    """Probe 1 on the script's inputs; prints its line.  Returns (seconds
+    """Probe 1 on the script's inputs; prints its line.  The indices are
+    checked once, and the timed calls skip the check.  Returns (seconds
     per call, result, ok)."""
     idx = np.random.randint(0, ROWLOAD_NROW, (ROWLOAD_BB, 1))
     table = np.arange(ROWLOAD_NROW * 128).reshape(ROWLOAD_NROW, 128) % 9973
     idx_t, table_t = common.tensors(device, idx, table)
-    dt, r = common.timeit(lambda: rowload(idx_t, table_t), device)
+    common.check_indices("rowload", table_t.shape[0], idx_t)
+    dt, r = common.timeit(lambda: _rowload(idx_t, table_t), device)
     ok = np.array_equal(r.cpu().numpy(), table[idx[:, 0]])
     print(f"probe1 rowload fori BB={ROWLOAD_BB}: {dt*1e6:.1f}us  ok={ok}")
     return dt, r, ok
 
 
 def probe_smem_idx(device):
-    """Probe 2 on the script's inputs; prints its line.  Returns (seconds
-    per call, result, ok)."""
+    """Probe 2 on the script's inputs, as `probe_rowload`.  Returns
+    (seconds per call, result, ok)."""
     idx = np.random.randint(0, ROWLOAD_NROW, (ROWLOAD_BB,))
     table = np.arange(ROWLOAD_NROW * 128).reshape(ROWLOAD_NROW, 128) % 9973
     idx_t, table_t = common.tensors(device, idx, table)
-    dt, r = common.timeit(lambda: smem_idx(idx_t, table_t), device)
+    common.check_indices("smem_idx", table_t.shape[0], idx_t)
+    dt, r = common.timeit(lambda: _smem_idx(idx_t, table_t), device)
     ok = np.array_equal(r.cpu().numpy(), table[idx])
     print(f"probe2 smem-idx rowload BB={ROWLOAD_BB}: {dt*1e6:.1f}us  "
           f"ok={ok}")

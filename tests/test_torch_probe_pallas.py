@@ -14,7 +14,11 @@ values near both ends of int32 and on every residue mod 8 with 0 and -1.
 The kernels' new `__host__ __device__` helpers (csrc/probes.cuh), built
 for the host with g++, must equal the plain formulas value by value.  The
 entry point runs the five probes with `--device cpu` and prints the
-script's lines.
+script's lines.  C7's and C15's wrappers (probes 1 and 2), given tensors
+that say they lie on the card, refuse what their checks one input at a
+time refused, with the same messages and in the same order, before
+anything is built and with their counts unchanged, and take an index off
+a 16-byte boundary; their dispatchers refuse indices outside the table.
 """
 
 import os
@@ -339,3 +343,140 @@ def test_kernels_refuse_misaligned_tensors(call):
     launch."""
     with pytest.raises(ValueError, match="not 16-byte aligned"):
         call()
+
+
+class _OnCard1(_OnCard):
+    """A CPU tensor that says it lies on the second card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 1)
+
+
+def _no_build(monkeypatch):
+    """Fail the test if anything asks for the kernel library."""
+    def refuse():
+        raise AssertionError("the kernel library was asked for")
+    monkeypatch.setattr(pp._build, "lib", refuse)
+
+
+def _old_gather_checks(idx, table, idx_ndim):
+    """C7's (idx_ndim 2) and C15's (1) checks as their wrappers made them
+    one input at a time: the index's type, device, dtype, dims and
+    contiguity (not its alignment), C7's [BB, 1], then `cuda_input` on
+    the table with the index's device, then the table's width."""
+    dev = idx.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    pp._build.require(idx, "idx", dev, idx_ndim)
+    if idx_ndim == 2 and idx.shape[1] != 1:
+        raise ValueError(f"idx must be [BB, 1], got {tuple(idx.shape)}")
+    common.cuda_input(table, "table", 2, dev)
+    if table.shape[1] != 128:
+        raise ValueError(f"table rows have {table.shape[1]} words, not 128")
+
+
+_GATHER_BB, _GATHER_NROW = 8, 16
+# C7's and C15's index by form, given its shape: [BB, 1] for C7, [BB] for
+# C15 (a 1-D index has no transposed or [BB, 2] form)
+_GATHER_IDX = {
+    "good": lambda shape: _on_card(*shape),
+    "cpu": lambda shape: _zeros(*shape),
+    "int64": lambda shape: _on_card(*shape).long(),
+    "dims": lambda shape: _on_card(_GATHER_BB, *((1,) if len(shape) == 1
+                                                 else ())),
+    "transposed": lambda shape: _on_card(*shape).t(),
+    "column": lambda shape: _on_card(_GATHER_BB, 2)[:, 1:]
+    if len(shape) == 2 else _on_card(_GATHER_BB, 2)[:, 1],
+    "wide": lambda shape: _on_card(_GATHER_BB, 2),
+    "misaligned": lambda shape: _misaligned(*shape),
+    "cuda1": lambda shape: _zeros(*shape).as_subclass(_OnCard1)}
+_GATHER_TABLE = {
+    "good": lambda: _on_card(_GATHER_NROW, 128),
+    "cpu": lambda: _zeros(_GATHER_NROW, 128),
+    "int64": lambda: _on_card(_GATHER_NROW, 128).long(),
+    "dims": lambda: _on_card(_GATHER_NROW * 128),
+    "transposed": lambda: _on_card(128, _GATHER_NROW).t(),
+    "column": lambda: _on_card(_GATHER_NROW, 132)[:, 4:],
+    "misaligned": lambda: _misaligned(_GATHER_NROW, 128),
+    "narrow": lambda: _on_card(_GATHER_NROW, 124),
+    "cuda1": lambda: _zeros(_GATHER_NROW, 128).as_subclass(_OnCard1)}
+# what each bad table alone is refused with
+_TABLE_MSG = {"cpu": "the kernel needs CUDA tensors, got cpu",
+              "int64": "table: dtype torch.int64, expected torch.int32",
+              "dims": "table: 1 dims, expected 2",
+              "transposed": "table: not contiguous",
+              "column": "table: not contiguous",
+              "misaligned": "table: not 16-byte aligned",
+              "narrow": "table rows have 124 words, not 128",
+              "cuda1": "table: on cuda:1, expected cuda:0"}
+# what each bad index is refused with, whatever the table
+_IDX_MSG = {
+    "c7": {"cpu": "the kernel needs CUDA tensors, got cpu",
+           "int64": "idx: dtype torch.int64, expected torch.int32",
+           "dims": "idx: 1 dims, expected 2",
+           "transposed": "idx must be [BB, 1], got (1, 8)",
+           "column": "idx: not contiguous",
+           "wide": "idx must be [BB, 1], got (8, 2)"},
+    "c15": {"cpu": "the kernel needs CUDA tensors, got cpu",
+            "int64": "idx: dtype torch.int64, expected torch.int32",
+            "dims": "idx: 2 dims, expected 1",
+            "column": "idx: not contiguous"}}
+_GATHERS = {"c7": (2, pp.rowload_cuda), "c15": (1, pp.smem_idx_cuda)}
+
+
+@pytest.mark.parametrize("kernel, idx_form", [
+    (kernel, form) for kernel in _GATHERS for form in _GATHER_IDX
+    if kernel == "c7" or form not in ("transposed", "wide")])
+def test_gathers_refuse_as_one_at_a_time(kernel, idx_form, monkeypatch):
+    """C7's and C15's one check pass refuses, with every table form beside
+    the index, what their checks one input at a time refused, with the
+    same message: the index's faults first, C7's [BB, 1] before any of
+    the table's (its width last); before anything is built or launched,
+    and their counts unchanged.  What those checks took, the pass takes:
+    an index off a 16-byte boundary (the kernels read it as int32) with a
+    good table reaches the kernel library."""
+    _no_build(monkeypatch)
+    ndim, wrapper = _GATHERS[kernel]
+    shape = (_GATHER_BB, 1)[:ndim]
+    for table_form, make_table in _GATHER_TABLE.items():
+        idx, table = _GATHER_IDX[idx_form](shape), make_table()
+        try:
+            _old_gather_checks(idx, table, ndim)
+            want = None
+        except ValueError as err:
+            want = str(err)
+        if idx_form in _IDX_MSG[kernel]:
+            assert want == _IDX_MSG[kernel][idx_form], table_form
+        elif idx_form in ("good", "misaligned") and table_form != "good":
+            assert want == _TABLE_MSG[table_form], table_form
+        counts = (pp.launches_rowload, pp.launches_smem_idx)
+        if want is None:
+            with pytest.raises(AssertionError, match="library was asked"):
+                wrapper(idx, table)
+        else:
+            with pytest.raises(ValueError) as err:
+                wrapper(idx, table)
+            assert str(err.value) == want, table_form
+        assert (pp.launches_rowload, pp.launches_smem_idx) == counts
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+@pytest.mark.parametrize("bad", [pp.ROWLOAD_NROW, -1])
+@pytest.mark.parametrize("probe", ["rowload", "smem_idx"])
+def test_gathers_refuse_out_of_range(probe, bad, on_card, monkeypatch):
+    """An index outside the table's rows is refused by the dispatchers
+    before any copy: on the CPU (where 4096 raised IndexError and -1 read
+    the last row) and before any launch for tensors on the card (which
+    would read out of bounds); the launch counts stay."""
+    _no_build(monkeypatch)
+    make = _on_card if on_card else _zeros
+    table = make(pp.ROWLOAD_NROW, 128)
+    idx = _zeros(*((8, 1) if probe == "rowload" else (8,)))
+    idx[5] = bad
+    if on_card:
+        idx = idx.as_subclass(_OnCard)
+    counts = (pp.launches_rowload, pp.launches_smem_idx)
+    with pytest.raises(ValueError, match=r"indices outside \[0, 4096\)"):
+        getattr(pp, probe)(idx, table)
+    assert (pp.launches_rowload, pp.launches_smem_idx) == counts

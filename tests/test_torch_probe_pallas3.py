@@ -25,10 +25,11 @@ probe and, with no name, for all nine in the script's order, whose names
 are exactly the script's; a name the script lacks exits non-zero as no
 such probe; a missing card, CPU tensors, misaligned inputs and shapes
 the kernels do not take are refused.  The launch path shared by C29, C28,
-C27 and C20 (scripts/probe_pallas2.py's lane gather, whose cases sit here
-beside the others' for the card-tensor helpers) is held on fake card
-tensors and a fake kernel library: one check pass, each pointer and
-device index read once, the stream of that index, exact counts.
+C27, C20, C7 and C15 (scripts/probe_pallas2.py's lane gather and
+scripts/probe_pallas.py's row gathers, whose cases sit here beside the
+others' for the card-tensor helpers) is held on fake card tensors and a
+fake kernel library: one check pass, each pointer and device index read
+once, the stream of that index, exact counts.
 """
 
 import ast
@@ -43,13 +44,15 @@ import pytest
 import torch
 
 from nabwa_tpu_torch.probes import common
+from nabwa_tpu_torch.probes import probe_pallas as pp
 from nabwa_tpu_torch.probes import probe_pallas2 as pp2
 from nabwa_tpu_torch.probes import probe_pallas3 as p3
 
 # fixtures and helpers shared with the other probe ports' tests
 from nabwa_tpu_torch.ops import _build
 
-from .test_torch_probe_pallas import _misaligned, _on_card, _OnCard
+from .test_torch_probe_pallas import (_misaligned, _no_build, _on_card,
+                                      _OnCard, _OnCard1)
 from .test_torch_probe_spill import masked
 from .test_torch_probes import (_call, _i32, _t, host,  # noqa: F401
                                 one_torch_thread, script)
@@ -468,14 +471,6 @@ def test_kernels_refuse_inputs(call, match):
         call()
 
 
-class _OnCard1(_OnCard):
-    """A CPU tensor that says it lies on the second card."""
-
-    @property
-    def device(self):
-        return torch.device("cuda", 1)
-
-
 def _reference_cuda_input(t, name, ndim, dev=None, dtype=torch.int32):
     """`common.cuda_input` written with `t.device` for every test: the
     type's name, then `_build.require`'s order (the device read again),
@@ -498,14 +493,16 @@ def _one_at_a_time(check, specs):
         dev = check(t, name, ndim, dev, dtype)
 
 
-# the inputs of C28 (i, j, t), C27 (i, t) and C20 (x, i) by name and
-# shape, and each kernel's wrapper
+# the inputs of C28 (i, j, t), C27 (i, t), C20 (x, i) and C29 (x, i) by
+# name and shape, and each kernel's wrapper: every caller of the one check
+# pass with the four-element spec
 _INPUTS = {
     "c28": ((("i", (256, 1)), ("j", (256, 1)), ("t", (4096, 128))),
             p3.p1b_cuda),
     "c27": ((("i", (p3.P1_ROUNDS, 128)), ("t", p3.P1_TABLE)), p3.p1_cuda),
     "c20": ((("x", (pp2.BB, pp2.GATHER_W)), ("i", (pp2.BB, pp2.GATHER_W))),
-            pp2.lane_gather_cuda)}
+            pp2.lane_gather_cuda),
+    "c29": ((("x", p3.P3_X), ("i", p3.P3_I)), p3.p3_cuda)}
 # what may be wrong with an input: its bad form, given its shape
 _BAD = {
     "cpu": lambda shape: _zeros(*shape),
@@ -527,18 +524,11 @@ _BAD_CASES = [
     and not (kind == "transposed" and inputs[pos][1][1] == 1)]
 
 
-def _no_build(monkeypatch):
-    """Fail the test if anything asks for the kernel library."""
-    def refuse():
-        raise AssertionError("the kernel library was asked for")
-    monkeypatch.setattr(_build, "lib", refuse)
-
-
 @pytest.mark.parametrize("kernel, kind, pos", _BAD_CASES)
 def test_cuda_inputs_refuses_as_one_at_a_time(kernel, kind, pos,
                                               monkeypatch):
     """The one check pass refuses a bad input in any position of C28's,
-    C27's or C20's inputs with the ValueError that checking the inputs
+    C27's, C20's or C29's inputs with the ValueError that checking the inputs
     one at a time raised (the reference's reads of `t.device`, and
     `common.cuda_input`'s), and so does the kernel's wrapper, before
     anything is built or launched."""
@@ -579,6 +569,38 @@ def test_cuda_inputs_returns_index_and_pointers(monkeypatch):
     one = torch.zeros(4, 4, dtype=torch.int32).as_subclass(_OnCard1)
     assert common.cuda_inputs((one, "x", 2, torch.int32)) == (
         1, [one.data_ptr()])
+
+
+def test_cuda_inputs_long_spec(monkeypatch):
+    """The six-element spec: with alignment 16 and no follow-on check it
+    is the four-element one; an int32 tensor 4 bytes past a 16-byte
+    boundary passes at alignment 4 (C7's and C15's index, read as int32)
+    and is refused at 16; `then` runs on its tensor once that tensor has
+    passed its own checks, and before the next tensor is checked."""
+    _no_build(monkeypatch)
+    i32 = torch.int32
+    a, b, m = _on_card(8, 1), _on_card(16, 128), _misaligned(8, 1)
+    assert common.cuda_inputs((a, "a", 2, i32, 16, None),
+                              (b, "b", 2, i32)) == common.cuda_inputs(
+        (a, "a", 2, i32), (b, "b", 2, i32))
+    assert common.cuda_inputs((m, "m", 2, i32, 4, None)) == (
+        0, [m.data_ptr()])
+    for spec in ((m, "m", 2, i32), (m, "m", 2, i32, 16, None)):
+        with pytest.raises(ValueError, match="^m: not 16-byte aligned$"):
+            common.cuda_inputs(spec)
+    seen = []
+
+    def then(t):
+        seen.append(t)
+        raise ValueError("then")
+    with pytest.raises(ValueError, match="^a: 1 dims, expected 2$"):
+        common.cuda_inputs((_on_card(8), "a", 2, i32, 4, then),
+                           (b, "b", 2, i32))
+    assert not seen
+    with pytest.raises(ValueError, match="^then$"):
+        common.cuda_inputs((a, "a", 2, i32, 4, then),
+                           (_zeros(16, 128), "b", 2, i32))
+    assert len(seen) == 1 and seen[0] is a
 
 
 @pytest.mark.parametrize("call", [
@@ -622,8 +644,8 @@ class _Counted(_OnCard):
 
 
 class _FakeLib:
-    """Records C29's, C28's, C27's and C20's launch arguments; every
-    launch succeeds."""
+    """Records C29's, C28's, C27's, C20's, C7's and C15's launch
+    arguments; every launch succeeds."""
 
     def __init__(self):
         self.calls = []
@@ -634,6 +656,7 @@ class _FakeLib:
 
     nabwa_probe_p1b = nabwa_probe_p1 = nabwa_probe_p3
     nabwa_probe_lane_gather = nabwa_probe_p3
+    nabwa_probe_rowload = nabwa_probe_smem_idx = nabwa_probe_p3
 
 
 @pytest.fixture
@@ -734,6 +757,54 @@ def test_c27_c20_empty_launch_nothing(fake_launch):
     assert (p3.launches_p1, pp2.launches_lane_gather) == counts
 
 
+# C7's and C15's index shape, wrapper and launch counter
+_GATHERS = {"c7": ((pp.ROWLOAD_BB, 1), pp.rowload_cuda, "launches_rowload"),
+            "c15": ((pp.ROWLOAD_BB,), pp.smem_idx_cuda, "launches_smem_idx")}
+
+
+@pytest.mark.parametrize("kernel", list(_GATHERS))
+def test_c7_c15_launch_on_pointers_read_once(kernel, fake_launch,
+                                             monkeypatch):
+    """C7 and C15 launch as C27 and C20 do: on the data pointers and the
+    device index their one check pass read, each input's pointer and
+    device index read once, `device` never, the stream of that index (of
+    index 1 for inputs on the second card), BB rows; an index 4 bytes
+    past a 16-byte boundary is launched on its own pointer; the count
+    rises by one a launch."""
+    from collections import Counter
+    monkeypatch.setattr(_Counted, "reads", Counter())
+    shape, wrapper, count = _GATHERS[kernel]
+    idx = _zeros(*shape).as_subclass(_Counted)
+    table = _zeros(pp.ROWLOAD_NROW, 128).as_subclass(_Counted)
+    before = getattr(pp, count)
+    out = wrapper(idx, table)
+    assert _Counted.reads == Counter(
+        {(k, id(a)): 1 for k in ("data_ptr", "get_device")
+         for a in (idx, table)} | {("data_ptr", id(out)): 1})
+    assert fake_launch.calls[-1] == (idx.data_ptr(), table.data_ptr(),
+                                     pp.ROWLOAD_BB, out.data_ptr(), 1000)
+    assert tuple(out.shape) == (pp.ROWLOAD_BB, 128)
+    assert out.dtype == torch.int32
+    assert getattr(pp, count) == before + 1
+    m = _misaligned(*shape)
+    wrapper(m, _on_card(pp.ROWLOAD_NROW, 128))
+    assert fake_launch.calls[-1][0] == m.data_ptr()
+    wrapper(_zeros(*shape).as_subclass(_OnCard1),
+            _zeros(pp.ROWLOAD_NROW, 128).as_subclass(_OnCard1))
+    assert fake_launch.calls[-1][-1] == 1001
+    assert getattr(pp, count) == before + 3
+
+
+def test_c7_c15_empty_launch_nothing(fake_launch):
+    """No rows: an empty output and no launch, no count."""
+    counts = (pp.launches_rowload, pp.launches_smem_idx)
+    table = _on_card(pp.ROWLOAD_NROW, 128)
+    assert pp.rowload_cuda(_on_card(0, 1), table).shape == (0, 128)
+    assert pp.smem_idx_cuda(_on_card(0), table).shape == (0, 128)
+    assert not fake_launch.calls
+    assert (pp.launches_rowload, pp.launches_smem_idx) == counts
+
+
 def _launch_from_threads(launch, threads=8, calls=300):
     """`launch()` `calls` times in each of `threads` threads started
     together, the interpreter switching threads every microsecond;
@@ -774,3 +845,11 @@ def test_c20_count_exact_under_threads(fake_launch):
     made = _launch_from_threads(lambda: pp2.lane_gather_cuda(x, i))
     assert pp2.launches_lane_gather - before == made == len(
         fake_launch.calls)
+
+
+def test_c7_count_exact_under_threads(fake_launch):
+    """The same for C7."""
+    idx, table = _on_card(pp.ROWLOAD_BB, 1), _on_card(pp.ROWLOAD_NROW, 128)
+    before = pp.launches_rowload
+    made = _launch_from_threads(lambda: pp.rowload_cuda(idx, table))
+    assert pp.launches_rowload - before == made == len(fake_launch.calls)

@@ -2,8 +2,10 @@
 `scripts/`, run in Pallas interpret mode on the CPU.
 
 Each plain version must equal the JAX probe's output exactly on the same
-numpy inputs: probe 1 (`probe_rowload`) and probe 5 (`probe_dfs_shape`)
-of scripts/probe_pallas.py at their only shapes, scripts/probe_dma.py's
+numpy inputs: probe 1 (`probe_rowload`, also through the script's
+captured jitted `run` at indices on both ends of the table and repeated)
+and probe 5 (`probe_dfs_shape`) of scripts/probe_pallas.py at their only
+shapes, scripts/probe_dma.py's
 `make` over every `src` x `unroll` at N=8, T=3, ROWS=1000 (and the whole
 stage and each round's witness against a numpy model of the copies,
 since `out` cannot tell the modes apart), scripts/probe_dfs_shape.py at
@@ -31,6 +33,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -84,11 +87,12 @@ def script(monkeypatch):
 
 def _captured(mod, monkeypatch):
     """Replace probe_pallas.py's timeit by one call that records the
-    inputs and the result."""
+    jitted function, the inputs and the result."""
     seen = {}
 
     def timeit(f, *args, n=20):
         r = f(*args)
+        seen["run"] = f
         seen["args"] = [np.asarray(a) for a in args]
         seen["r"] = np.asarray(r)
         return 0.0, r
@@ -96,16 +100,27 @@ def _captured(mod, monkeypatch):
     return seen
 
 
-def test_rowload_matches_jax(script, monkeypatch):
+@pytest.mark.parametrize("case", ["script", "edges"])
+def test_rowload_matches_jax(script, monkeypatch, case):
+    """Probe 1 at the script's inputs and, through its captured jitted
+    `run`, at indices on both ends of the table and repeated."""
     np.random.seed(701)
     mod = script("probe_pallas")
     seen = _captured(mod, monkeypatch)
     mod.probe_rowload()
     idx, table = seen["args"]
     assert idx.shape == (256, 1) and table.shape == (4096, 128)
+    want = seen["r"]
+    if case == "edges":
+        idx = np.random.default_rng(701).integers(
+            0, pp.ROWLOAD_NROW, idx.shape).astype(np.int32)
+        idx[:4, 0] = (0, pp.ROWLOAD_NROW - 1, 0, pp.ROWLOAD_NROW - 1)
+        idx[100:140, 0] = 7
+        want = np.asarray(seen["run"](jnp.asarray(idx), jnp.asarray(table)))
     got = pp.rowload(*common.tensors(CPU, idx, table))
-    assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), seen["r"])
+    assert got.shape == (pp.ROWLOAD_BB, 128) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), table[idx[:, 0]])
 
 
 def test_dfs_shape_pallas_matches_jax(script, monkeypatch):
