@@ -171,15 +171,21 @@ Phases, any failure exits non-zero:
    torch.index_select; C8 (csrc/probe_dma.cu)
    at T=64 for N 64 and 128, unroll on and off, every `src`, on tables of
    100,000 and 4,000,000 rows, out, the whole stage and each round's
-   witness, timed warm and with L2 flushed before each launch; C9
+   witness: its grid form (one block a round of cp.async copies) timed
+   warm, queued, on the host's clock beside torch.index_select of the same T N rows, and with
+   L2 flushed before each launch, its serial form (one block, the rounds
+   in order, the witness of a round's latency) timed warm, queued and
+   cold, and both at the edges (`check_dma_edges`: T 0, 1 and 1,000, N 1
+   and MAX_N, n_rows 1, a table longer than n_rows); C9
    (csrc/probe_dfs_shape.cu) at 256 x 128 x 200 and 2048 x 128 x 200,
    timed, and at S 32, 64 and 96 (256 reads, 200 iterations); C10 at
    probe 5's 256 x 128 x 100 (before all of them the launch path,
    `check_launch_path`: `stream_of` is the current stream, default and
-   side, C14, C29, C28, C27, C20, C7 and C15 exact on a side stream,
-   C14's, C29's, C20's and C7's launch counts exact over COUNT_THREADS
-   threads, and its host split, `launch_split`: each step of C14's,
-   C11's, C29's, C28's, C27's, C20's, C7's and C15's wrappers over
+   side, C14, C29, C28, C27, C20, C7, C15, C8 and C11 exact on a side
+   stream, C14's, C29's, C20's, C7's and C8's launch counts exact over
+   COUNT_THREADS threads, C8's and C11's refusals before any launch, and
+   its host split, `launch_split`: each step of C14's, C11's, C29's,
+   C28's, C27's, C20's, C7's, C15's and C8's wrappers over
    SPLIT_CALLS calls, the host's clock and one
    synchronize, beside torch.sum, `x + 1`, torch.gather and
    torch.index_select); C11-C14
@@ -569,6 +575,7 @@ mod = importlib.import_module("nabwa_tpu_torch.probes." + sys.argv[1])
 rc = mod.main(sys.argv[2:])
 print(json.dumps({"probe_rowload": probe_pallas.launches_rowload,
                   "probe_dma": probe_dma.launches,
+                  "probe_dma_serial": probe_dma.launches_serial,
                   "probe_dfs_shape": probe_dfs_shape.launches,
                   "probe_pallas_dfs_shape": probe_pallas.launches_dfs_shape,
                   "probe_empty": probe_pallas2.launches_empty,
@@ -2584,7 +2591,8 @@ def other_device(dev):
 
 def launch_split(dev, calls=SPLIT_CALLS):
     """The host's microseconds a call of each step of kernel C14's, C11's,
-    C29's, C28's, C27's, C20's, C7's and C15's wrappers, of each wrapper
+    C29's, C28's, C27's, C20's, C7's, C15's and C8's wrappers, of each
+    wrapper
     whole and of
     the PyTorch call that computes the same (`wall_ms` over `calls` calls
     after a warm-up, one synchronize at the end), with the port's helpers
@@ -2616,10 +2624,28 @@ def launch_split(dev, calls=SPLIT_CALLS):
     test run inside it; null on a checkout whose pass takes no alignment),
     `shape` (C7's `[BB, 1]` test and the table's width), `new_empty_args`,
     `stream_raw`, `data_ptr`, `launch`, `check`, `count`; `library` is
-    torch.index_select on the index (C7's column taken beforehand)."""
+    torch.index_select on the index (C7's column taken beforehand).
+    C11's part, `probe_empty` (x [8, 128]), times beside its old path's
+    `checks` (`cuda_input`) the new path's `cuda_inputs`, `stream_raw`,
+    `data_ptr` (x's and the output's), `check` and `count`; both paths
+    allocate by `empty_like`; `library` is `x + 1`.  C8's, `probe_dma` (the
+    script's default: 100,000 rows, N 128, T 64, `reg`, unroll off), its
+    old path's `dev_type`, `check_args` (`_check`), `require`, the four
+    allocations `torch_empty_vec`, `torch_empty_out`, `torch_empty_stage`
+    and `torch_zeros_rounds` (a fill launch) and `stream_of`, beside the
+    new path's `cuda_inputs`, `shape`, `new_empty_args` (the one buffer),
+    `views` (out, rounds and the stage cut from it, an `as_strided` each),
+    `stream_raw`,
+    `data_ptr`, `launch` (`nabwa_probe_dma`: the grid form here, the
+    serial form with its `cudaFuncSetAttribute` on a checkout before the
+    grid form; the serial form's 10,000 launches then take the card's
+    ~5 s), `check`, `count` and `wrapper` (`dma_cuda`); `library` is
+    torch.index_select of the T N rows the copies read, the rows made
+    beforehand: the bytes' yardstick, not the same function."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_dma as pdma
     from nabwa_tpu_torch.probes import probe_pallas as pp
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
@@ -2668,6 +2694,18 @@ def launch_split(dev, calls=SPLIT_CALLS):
     w_out = wt.new_empty(bb, 128)
     wp = [t.data_ptr() for t in (wi, wt, w_out)]
     sp = [t.data_ptr() for t in (si, wt, w_out)]
+    # C8 at the script's default: 100,000 rows, N 128, T 64, reg, unroll
+    # off; the buffer of the one allocation (stage, out, rounds) and the
+    # old path's four, and the T N rows its copies read
+    d_rows, d_n, d_t = DMA_ROWS[0], 128, DMA_T
+    dt = torch.arange(d_rows * 128, dtype=i32, device=dev).view(d_rows, 128)
+    d_words = 2 * d_n * 128
+    d_buf = dt.new_empty(d_words + 1 + d_t)
+    d_scratch = torch.empty(d_t * 1024, dtype=i32, device=dev)
+    d_base = d_buf.data_ptr()
+    dp = [dt.data_ptr(), d_scratch.data_ptr(), d_base + 4 * d_words,
+          d_base, d_base + 4 * d_words + 4]
+    d_flat = pdma.copy_rows(d_n, d_t, d_rows, "reg")[0].reshape(-1).to(dev)
     multi = getattr(common, "cuda_inputs", None)
     # the six-element spec (an alignment and a follow-on check) came with
     # `_one_column`
@@ -2675,7 +2713,7 @@ def launch_split(dev, calls=SPLIT_CALLS):
     index = dev.index
     saved = (pp2.launches_lanereduce, pp2.launches_empty, p3.launches_p3,
              p3.launches_p1b, p3.launches_p1, pp2.launches_lane_gather,
-             pp.launches_rowload, pp.launches_smem_idx)
+             pp.launches_rowload, pp.launches_smem_idx, pdma.launches)
 
     def count():
         with _build.count_lock:
@@ -2704,6 +2742,14 @@ def launch_split(dev, calls=SPLIT_CALLS):
     def count_smem_idx():
         with _build.count_lock:
             pp.launches_smem_idx += 1
+
+    def count_empty():
+        with _build.count_lock:
+            pp2.launches_empty += 1
+
+    def count_dma():
+        with _build.count_lock:
+            pdma.launches += 1
 
     def taken():
         with lock:
@@ -2737,10 +2783,45 @@ def launch_split(dev, calls=SPLIT_CALLS):
         "probe_empty": {
             "checks": lambda: common.cuda_input(x1, "x", x1.dim()),
             "empty_like": lambda: torch.empty_like(x1),
+            "cuda_inputs": multi and (lambda: multi((x1, "x", x1.dim(),
+                                                     i32))),
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "data_ptr": lambda: (x1.data_ptr(), out1.data_ptr()),
             "launch": lambda: lib.nabwa_probe_empty(
                 x1.data_ptr(), n1, out1.data_ptr(), st),
+            "check": lambda: _build.check(0, "probe_empty kernel launch"),
+            "count": count_empty,
             "wrapper": lambda: pp2.empty_cuda(x1),
             "library": lambda: x1 + 1},
+        "probe_dma": {
+            "dev_type": lambda: dt.device.type,
+            "check_args": lambda: pdma._check(d_n, d_t, d_rows, "reg"),
+            "require": lambda: _build.require(dt, "tab", dev, 2),
+            "torch_empty_vec": lambda: torch.empty(1024, dtype=i32,
+                                                   device=dev),
+            "torch_empty_out": lambda: torch.empty(1, dtype=i32,
+                                                   device=dev),
+            "torch_empty_stage": lambda: torch.empty((2 * d_n, 128),
+                                                     dtype=i32, device=dev),
+            "torch_zeros_rounds": lambda: torch.zeros(d_t, dtype=i32,
+                                                      device=dev),
+            "stream_of": lambda: _build.stream_of(dt),
+            "cuda_inputs": multi and (lambda: multi((dt, "tab", 2, i32))),
+            "shape": lambda: dt.shape[1] != 128 or dt.shape[0] < d_rows,
+            "new_empty_args": lambda: dt.new_empty(d_words + 1 + d_t),
+            "views": lambda: (d_buf.as_strided((1, 1), (1, 1), d_words),
+                              d_buf.as_strided((d_t,), (1,), d_words + 1),
+                              d_buf.as_strided((2 * d_n, 128), (128, 1))),
+            "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+            "data_ptr": lambda: (dt.data_ptr(), d_buf.data_ptr()),
+            "launch": lambda: lib.nabwa_probe_dma(
+                dp[0], d_rows, d_n, d_t, 0, 0, dp[1], dp[2], dp[3], dp[4],
+                st),
+            "check": lambda: _build.check(0, "nabwa_probe_dma kernel launch"),
+            "count": count_dma,
+            "wrapper": lambda: pdma.dma_cuda(dt, d_n, d_t, d_rows, "reg",
+                                             False),
+            "library": lambda: torch.index_select(dt, 0, d_flat)},
         "probe_p3": {
             "cuda_input_x": lambda: common.cuda_input(gx, "x", 2),
             "cuda_input_i": lambda: common.cuda_input(gi, "i", 2, dev),
@@ -2867,7 +2948,7 @@ def launch_split(dev, calls=SPLIT_CALLS):
              for part, fns in steps.items()}
     (pp2.launches_lanereduce, pp2.launches_empty, p3.launches_p3,
      p3.launches_p1b, p3.launches_p1, pp2.launches_lane_gather,
-     pp.launches_rowload, pp.launches_smem_idx) = saved
+     pp.launches_rowload, pp.launches_smem_idx, pdma.launches) = saved
     split["calls"] = calls
     return split
 
@@ -2875,12 +2956,15 @@ def launch_split(dev, calls=SPLIT_CALLS):
 def check_launch_path(dev):
     """The shared launch path keeps its meaning: `stream_of` gives
     PyTorch's current stream on the default stream and on a side stream,
-    C14, C29, C28, C27, C20, C7 and C15 launched under a side stream are
-    exact there (all but C14 take the handle from the device index their
-    one check pass read), and C14's, C29's, C20's and C7's launch counts
-    are exact when COUNT_THREADS threads launch together."""
+    C14, C29, C28, C27, C20, C7, C15, C8's grid form and C11 launched
+    under a side stream are exact there (all but C14 take the handle from
+    the device index their one check pass read), C14's, C29's, C20's,
+    C7's and C8's launch counts are exact when COUNT_THREADS threads
+    launch together, and C8's wrappers and C11's refuse, before any
+    launch, what their checks refuse (`check_dma_empty_refusals`)."""
     import torch
     from nabwa_tpu_torch.ops import _build
+    from nabwa_tpu_torch.probes import probe_dma as pdma
     from nabwa_tpu_torch.probes import probe_pallas as pp
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
@@ -2905,6 +2989,12 @@ def check_launch_path(dev):
     wt = torch.randint(-2**31, 2**31 - 1, (pp.ROWLOAD_NROW, 128),
                        dtype=torch.int32, device=dev)
     si = wi[:, 0].flip(0).contiguous()
+    # C8 at N 128, T 64 over a 4,096-row table, `reg` and `cond`; C11's x
+    dma_rows = 4096
+    dmt = torch.randint(-2**31, 2**31 - 1, (dma_rows, 128), dtype=torch.int32,
+                        device=dev)
+    ex = torch.randint(-2**31, 2**31 - 1, pp2.EMPTY_SHAPE, dtype=torch.int32,
+                       device=dev)
     side = torch.cuda.Stream(dev)
     if _build.stream_of(x) != torch.cuda.current_stream(dev).cuda_stream:
         fail("stream_of differs from the current stream")
@@ -2915,7 +3005,9 @@ def check_launch_path(dev):
         got = (pp2.lanereduce_cuda(x), p3.p3_cuda(gx, gi),
                p3.p1b_cuda(ri, rj, rt), p3.p1_cuda(pi, rt),
                pp2.lane_gather_cuda(lx, li), pp.rowload_cuda(wi, wt),
-               pp.smem_idx_cuda(si, wt))
+               pp.smem_idx_cuda(si, wt),
+               *(pdma.dma_cuda(dmt, 128, DMA_T, dma_rows, src, False)
+                 for src in ("reg", "cond")), pp2.empty_cuda(ex))
     side.synchronize()
     exact("C14 on a side stream", got[0], pp2.lanereduce_plain(x))
     exact("C29 on a side stream", got[1], p3.p3_plain(gx, gi))
@@ -2924,6 +3016,12 @@ def check_launch_path(dev):
     exact("C20 on a side stream", got[4], pp2.lane_gather_plain(lx, li))
     exact("C7 on a side stream", got[5], pp.rowload_plain(wi, wt))
     exact("C15 on a side stream", got[6], pp.smem_idx_plain(si, wt))
+    for src, res in zip(("reg", "cond"), got[7:9]):
+        for part, g, w in zip(("out", "stage", "rounds"), res,
+                              pdma.dma_plain(dmt, 128, DMA_T, dma_rows,
+                                             src)):
+            exact(f"C8 {src} {part} on a side stream", g, w)
+    exact("C11 on a side stream", got[9], pp2.empty_plain(ex))
     for label, mod, name, fn in (
             ("C14", pp2, "launches_lanereduce",
              lambda: pp2.lanereduce_cuda(x)),
@@ -2931,7 +3029,10 @@ def check_launch_path(dev):
             ("C20", pp2, "launches_lane_gather",
              lambda: pp2.lane_gather_cuda(lx, li)),
             ("C7", pp, "launches_rowload",
-             lambda: pp.rowload_cuda(wi, wt))):
+             lambda: pp.rowload_cuda(wi, wt)),
+            ("C8", pdma, "launches",
+             lambda: pdma.dma_cuda(dmt, 128, DMA_T, dma_rows, "reg",
+                                   False))):
         before = getattr(mod, name)
 
         def launch():
@@ -2949,10 +3050,51 @@ def check_launch_path(dev):
             fail(f"{label}'s count rose by {rose} over "
                  f"{COUNT_THREADS * COUNT_CALLS} launches from "
                  f"{COUNT_THREADS} threads")
+    check_dma_empty_refusals(dmt, ex)
     log(f"launch path: stream_of is the current stream (default and side), "
-        f"C14, C29, C28, C27, C20, C7 and C15 exact on a side stream, "
-        f"C14's, C29's, C20's and C7's counts exact over {COUNT_THREADS} "
-        f"threads x {COUNT_CALLS} launches")
+        f"C14, C29, C28, C27, C20, C7, C15, C8 and C11 exact on a side "
+        f"stream, C14's, C29's, C20's, C7's and C8's counts exact over "
+        f"{COUNT_THREADS} threads x {COUNT_CALLS} launches, C8's and C11's "
+        f"refusals before any launch")
+
+
+def check_dma_empty_refusals(tab, x):
+    """C8's wrappers (the grid form, the serial form) and
+    C11's refuse, each before any launch (every count unchanged), CUDA
+    inputs their checks do not take: for C8 an int64, transposed,
+    non-contiguous, misaligned or 1-D table, one under n_rows rows or not
+    128 wide, a bad src, N 0 and MAX_N + 1, T -1; for C11 an int64,
+    transposed, non-contiguous or misaligned x.  tab: int32 [rows, 128]
+    on the card, x: int32 [8, 128]."""
+    from nabwa_tpu_torch.probes import probe_dma as pdma
+    from nabwa_tpu_torch.probes import probe_pallas2 as pp2
+    rows = tab.shape[0]
+    forms = {"grid": pdma.dma_cuda, "serial": pdma.dma_serial_cuda}
+    wide = tab.new_zeros(rows, 132)
+    bad = [("int64 table", tab.long(), 128, 4, rows, "reg"),
+           ("transposed table", tab.t().contiguous().t(), 128, 4, rows,
+            "reg"),
+           ("non-contiguous table", wide[:, 4:], 128, 4, rows, "reg"),
+           ("misaligned table", skewed(tab), 128, 4, rows, "reg"),
+           ("1-D table", tab.view(-1), 128, 4, rows, "reg"),
+           ("table under n_rows rows", tab, 128, 4, rows + 1, "reg"),
+           ("table not 128 wide", wide, 128, 4, rows, "reg"),
+           ("src", tab, 128, 4, rows, "hbm"),
+           ("N 0", tab, 0, 4, rows, "vmem"),
+           ("N MAX_N + 1", tab, pdma.MAX_N + 1, 4, rows, "cond"),
+           ("T -1", tab, 128, -1, rows, "smem")]
+    before = (pdma.launches, pdma.launches_serial, pp2.launches_empty)
+    for name, fn in forms.items():
+        for what, t, n, it, n_rows, src in bad:
+            refused(f"C8 {name} {what}",
+                    lambda: fn(t, n, it, n_rows, src, False))
+    xw = x.new_zeros(8, 132)
+    for what, xx in (("int64", x.long()), ("transposed", x.t()),
+                     ("non-contiguous", xw[:, 4:]),
+                     ("misaligned", skewed(x))):
+        refused(f"C11 {what} x", lambda: pp2.empty_cuda(xx))
+    if (pdma.launches, pdma.launches_serial, pp2.launches_empty) != before:
+        fail("C8 or C11 launched on an input its wrapper refused")
 
 
 def gather_refused(label, gather, mod, count, idx_t, tab_t, other, more):
@@ -3000,6 +3142,43 @@ def launch_times(fn, lib_fn):
             "library_ms": cuda_ms(lib_fn, LAUNCH_REPS),
             "library_queued_ms": queued_ms(lib_fn, 200),
             "library_wall_ms": wall_ms(lib_fn, LAUNCH_REPS)}
+
+
+def check_dma_edges(dev):
+    """C8's grid form and its serial form exact against the
+    plain version (out, stage, rounds) in every mode at its edges: T 0
+    (one block, no copies), 1 and 1,000 (past one wave of 132 blocks) at
+    N 128; N 1 and MAX_N at T 64; n_rows 1 (a one-row table); a table of
+    100,000 rows read as 1,000.  Returns {"max_abs_err", "cases"}."""
+    import torch
+    from nabwa_tpu_torch.probes import probe_dma as pdma
+    big = torch.arange(DMA_ROWS[0] * 128, dtype=torch.int32,
+                       device=dev).view(DMA_ROWS[0], 128)
+    one = big[:1].contiguous()
+    cases = {"t0": (big, 128, 0, DMA_ROWS[0]),
+             "t1": (big, 128, 1, DMA_ROWS[0]),
+             "t1000": (big, 128, 1000, DMA_ROWS[0]),
+             "n1": (big, 1, DMA_T, DMA_ROWS[0]),
+             "n_max": (big, pdma.MAX_N, DMA_T, DMA_ROWS[0]),
+             "n_rows1": (one, 128, DMA_T, 1),
+             "more_rows": (big, 128, DMA_T, 1000)}
+    worst = 0
+    for name, (tab, n, t, n_rows) in cases.items():
+        for src in pdma.SRCS:
+            want = pdma.dma_plain(tab, n, t, n_rows, src)
+            for form, got in (
+                    ("grid", pdma.dma_cuda(tab, n, t, n_rows, src, False)),
+                    ("serial", pdma.dma_serial_cuda(tab, n, t, n_rows, src,
+                                                    False))):
+                for part, g, w in zip(("out", "stage", "rounds"), got,
+                                      want):
+                    worst = max(worst, exact(
+                        f"C8 edge {name} {src} {form} {part}", g, w))
+        log(f"C8 edge {name} (N {n}, T {t}, n_rows {n_rows}, table rows "
+            f"{tab.shape[0]}): exact in every mode, grid and serial")
+    return {"max_abs_err": worst, "cases": {
+        name: {"n": n, "t": t, "n_rows": n_rows, "table_rows": tab.shape[0]}
+        for name, (tab, n, t, n_rows) in cases.items()}}
 
 
 def check_probes(dev, split):
@@ -3062,9 +3241,18 @@ def check_probes(dev, split):
                        "calls": split["calls"]}}
     log(f"C7 probe_rowload: exact; {out['probe_rowload']}")
 
-    # C8: T=64 iterations of N row copies, every mode, two table sizes;
-    # timed warm (the rows the last launch read are in L2, as the script's
-    # second call finds them) and cold (L2 flushed before each launch)
+    # C8: T=64 rounds of N row copies, every mode, two table sizes.  The
+    # grid form (dma_cuda, one block a round, its copies by cp.async) exact
+    # against the plain version (out, stage, rounds), timed back to back,
+    # queued and on the host's clock beside the gather of the same T N
+    # rows (torch.index_select, the rows made beforehand: the bytes'
+    # yardstick, not the same function), and L2-cold (flushed before each
+    # launch); the serial form (dma_serial_cuda, one block, the rounds in
+    # order) exact and timed as the witness of a serial round's latency.
+    # The grid form's time a copy is queued_us_per_copy, the card's own
+    # time over T N copies made side by side: a rate, not a copy's
+    # latency, which serial_us_per_iter gives a round.  Then the edges of
+    # both forms (check_dma_edges)
     configs, worst = [], 0
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     for rows in DMA_ROWS:
@@ -3075,47 +3263,68 @@ def check_probes(dev, split):
                 for src in pdma.SRCS:
                     label = (f"C8 probe_dma rows={rows} N={n} "
                              f"unroll={unroll} src={src}")
-                    k_out, k_stage, k_rounds = pdma.dma_cuda(
-                        tab, n, DMA_T, rows, src, unroll)
-                    p_out, p_stage, p_rounds = pdma.dma_plain(
-                        tab, n, DMA_T, rows, src)
-                    worst = max(worst, exact(label, k_out, p_out),
-                                exact(label + " stage", k_stage, p_stage),
-                                exact(label + " rounds", k_rounds, p_rounds))
+                    forms = {
+                        "grid": lambda: pdma.dma_cuda(tab, n, DMA_T, rows,
+                                                      src, unroll),
+                        "serial": lambda: pdma.dma_serial_cuda(
+                            tab, n, DMA_T, rows, src, unroll)}
+                    want = pdma.dma_plain(tab, n, DMA_T, rows, src)
+                    for form, fn in forms.items():
+                        for part, g, w in zip(("out", "stage", "rounds"),
+                                              fn(), want):
+                            worst = max(worst, exact(
+                                f"{label} {form} {part}", g, w))
                     r1, r2, _ = pdma.copy_rows(n, DMA_T, rows, src)
+                    flat = torch.cat([r.reshape(-1) for r in (r1, r2)
+                                      if r is not None]).to(dev)
                     bnd = bound(ROW_BYTES * (distinct_rows(r1, r2) + 2 * n)
                                 + 4 + 4 * DMA_T, 0)
-                    def launch():
-                        pdma.dma_cuda(tab, n, DMA_T, rows, src, unroll)
-                    ms = cuda_ms(launch, 10)
-                    cold = cold_ms(launch, 5, flush)
+                    times = launch_times(
+                        forms["grid"],
+                        lambda: torch.index_select(tab, 0, flat))
+                    ms = times["ms"]
+                    serial_ms = cuda_ms(forms["serial"], 10)
                     configs.append({
                         "rows": rows, "n": n, "unroll": unroll, "src": src,
-                        "ms": ms, "plain_ms": cuda_ms(lambda: pdma.dma_plain(
+                        "ms": ms, "queued_ms": times["queued_ms"],
+                        "wall_ms": times["wall_ms"],
+                        "plain_ms": cuda_ms(lambda: pdma.dma_plain(
                             tab, n, DMA_T, rows, src), 2),
                         "bound_ms": bnd[0], "bound_by": bnd[1],
                         "bound_int32_ms": bnd[2],
-                        "us_per_iter": ms * 1e3 / DMA_T,
-                        "us_per_copy": ms * 1e3 / DMA_T / n,
-                        "cold_ms": cold,
-                        "cold_us_per_copy": cold * 1e3 / DMA_T / n})
-                    log(f"{label}: exact; {configs[-1]}")
+                        "queued_us_per_copy":
+                            times["queued_ms"] * 1e3 / DMA_T / n,
+                        "cold_ms": cold_ms(forms["grid"], 5, flush),
+                        "gather_ms": times["library_ms"],
+                        "gather_queued_ms": times["library_queued_ms"],
+                        "gather_wall_ms": times["library_wall_ms"],
+                        "gather_rows": flat.numel(),
+                        "serial_ms": serial_ms,
+                        "serial_queued_ms": queued_ms(forms["serial"], 10),
+                        "serial_us_per_iter": serial_ms * 1e3 / DMA_T,
+                        "serial_cold_ms": cold_ms(forms["serial"], 3,
+                                                  flush)})
+                    log(f"{label}: exact (grid, serial); "
+                        f"{configs[-1]}")
         del tab
+    edges = check_dma_edges(dev)
     # the script's own default: ROWS=100000, N=128, unroll off, reg
     main_cfg = next(c for c in configs if c["rows"] == DMA_ROWS[0]
                     and c["n"] == 128 and not c["unroll"]
                     and c["src"] == "reg")
     out["probe_dma"] = {
-        "max_abs_err": worst, "ms": main_cfg["ms"],
-        "plain_ms": main_cfg["plain_ms"], "bound_ms": main_cfg["bound_ms"],
-        "bound_by": main_cfg["bound_by"],
-        "bound_int32_ms": main_cfg["bound_int32_ms"], "library_ms": None,
-        "library_why": "none: serial rounds of async row copies into shared "
-                       "memory",
-        "us_per_iter": main_cfg["us_per_iter"],
-        "us_per_copy": main_cfg["us_per_copy"],
-        "cold_ms": main_cfg["cold_ms"], "t": DMA_T,
-        "configs": configs}
+        **main_cfg, "max_abs_err": max(worst, edges["max_abs_err"]),
+        "library_ms": None,
+        "library_why": "none: one PyTorch call does not compute out, the "
+                       "stage and the rounds' witness",
+        "gather_why": "torch.index_select(tab, 0, rows) over the T N rows "
+                      "the copies read, the rows made beforehand: the "
+                      "bytes' yardstick, not the same function",
+        "t": DMA_T, "configs": configs,
+        "edges": edges["cases"],
+        "host_split": {"helpers": split["helpers"],
+                       "steps": split["probe_dma"],
+                       "calls": split["calls"]}}
 
     # C9: scripts/probe_dfs_shape.py at its default and at C1's batch
     table = rng.randint(0, 1 << 30, (pds.NROW, 128))
@@ -5311,10 +5520,10 @@ def main():
 
     phase_mark("18")
     # phase 18: the launch path's meaning and its host split (each step
-    # of C14's, C11's, C29's, C28's, C27's, C20's, C7's and C15's wrappers
-    # beside their library calls), the probes, C7-C35 against their plain
-    # versions on the card, then each probe's entry point in a process of
-    # its own
+    # of C14's, C11's, C29's, C28's, C27's, C20's, C7's, C15's and C8's
+    # wrappers beside their library calls), the probes, C7-C35 against
+    # their plain versions on the card, then each probe's entry point in a
+    # process of its own
     dev0 = torch.device("cuda", 0)
     check_launch_path(dev0)
     split = launch_split(dev0)
@@ -5332,6 +5541,10 @@ def main():
     probes.update(check_reductions(torch.device("cuda", 0)))
     log(f"C31-C35 checked in {time.perf_counter() - t0:.1f} s")
     probe_counts, probe_lines = run_probe_entries()
+    # C8's serial witness, launched by probe_dma's entry beside the grid
+    # form, is listed in C8's entry as C12's serial forms are in C12's
+    probes["probe_dma"]["serial_launches"] = probe_counts.pop(
+        "probe_dma_serial")
     phase18_s = time.perf_counter() - t_start - phase_seconds["18"]
     log(f"phase 18 took {phase18_s:.1f} s")
 

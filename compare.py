@@ -22,17 +22,20 @@ time a step.  Where the checkout has `sa_lookup_both_cuda`, the two
 strands in one launch too.
 
 launch: the host's cost of a launch, on no cell.  The host split of kernel
-C14's, C11's, C29's, C28's, C27's, C20's, C7's and C15's wrappers
+C14's, C11's, C29's, C28's, C27's, C20's, C7's, C15's and C8's wrappers
 (`launch_split` of this checkout's chip_smoke.py, run over the other
 checkout's port: its own helpers and wrappers; a step whose helper it
 lacks is null), and C11, C12 (unroll 1 and LOADS_UNROLL), C14 and C20 at
 scripts/probe_pallas2.py's shapes, C29, C28 and C27 at
-scripts/probe_pallas3.py's and C7 and C15 at scripts/probe_pallas.py's,
-exact against their plain versions, each with `ms` (CUDA events),
-`queued_ms` and `wall_ms` (the host's clock) beside `x + 1`,
-torch.index_select, torch.sum, torch.gather on axis 0 and on axis 1
-(their int64 indices made beforehand) and C28's, C27's, C7's and C15's
-torch.index_select (their indices made beforehand).
+scripts/probe_pallas3.py's, C7 and C15 at scripts/probe_pallas.py's and
+C8 at scripts/probe_dma.py's default (100,000 rows, N 128, T 64, `reg`,
+unroll off: the serial kernel on a checkout before C8's grid form, the
+grid form after), exact against their plain versions (C8's out, stage and
+rounds), each with `ms` (CUDA events), `queued_ms` and `wall_ms` (the
+host's clock) beside `x + 1`, torch.index_select, torch.sum,
+torch.gather on axis 0 and on axis 1 (their int64 indices made
+beforehand) and C28's, C27's, C7's, C15's and C8's torch.index_select
+(their indices made beforehand; C8's the T N rows its copies read).
 
 aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
 has the hybrid split): a warm-up chunk of one slice, then 5 timed
@@ -135,6 +138,7 @@ def time_launch():
     import numpy as np
     import torch
     from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_dma as pdma
     from nabwa_tpu_torch.probes import probe_pallas as pp
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
@@ -165,6 +169,10 @@ def time_launch():
     gi_long, li_long = gi_t.long(), li_t.long()
     r_flat = torch.cat((ri_t[:, 0], rj_t[:, 0]))
     p_flat = pi_t[:, :2].t().reshape(-1).contiguous()
+    d_rows, d_n, d_t = here.DMA_ROWS[0], 128, here.DMA_T
+    d_tab = torch.arange(d_rows * 128, dtype=torch.int32,
+                         device=dev).view(d_rows, 128)
+    d_flat = pdma.copy_rows(d_n, d_t, d_rows, "reg")[0].reshape(-1).to(dev)
     calls = {
         "probe_empty": (lambda: pp2.empty_cuda(x1_t),
                         lambda: pp2.empty_plain(x1_t)),
@@ -201,11 +209,17 @@ def time_launch():
         "probe_smem_idx": (lambda: pp.smem_idx_cuda(si_t, wt_t),
                            lambda: pp.smem_idx_plain(si_t, wt_t)),
         "index_select_smem_idx": (lambda: torch.index_select(wt_t, 0, si_t),
-                                  None)}
+                                  None),
+        "probe_dma": (
+            lambda: pdma.dma_cuda(d_tab, d_n, d_t, d_rows, "reg", False),
+            lambda: pdma.dma_plain(d_tab, d_n, d_t, d_rows, "reg")),
+        "index_select_dma": (lambda: torch.index_select(d_tab, 0, d_flat),
+                             None)}
     out = {"split": here.launch_split(dev)}
     for name, (fn, plain) in calls.items():
         if plain is not None:
-            here.exact(name, fn(), plain())
+            for got, want in zip(here.as_tuple(fn()), here.as_tuple(plain())):
+                here.exact(name, got, want)
         out[name] = {"ms": here.cuda_ms(fn, here.LAUNCH_REPS),
                      "queued_ms": here.queued_ms(fn, 200),
                      "wall_ms": here.wall_ms(fn, here.LAUNCH_REPS)}

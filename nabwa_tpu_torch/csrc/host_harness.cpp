@@ -672,6 +672,12 @@ extern "C" int nabwa_host_probe_lcg_next(const int32_t* s, int n,
     return 0;
 }
 
+extern "C" int nabwa_host_probe_lcg_jump(const int32_t* s, const int64_t* k,
+                                         int n, int32_t* out) {
+    for (int i = 0; i < n; ++i) out[i] = pr::lcg_jump(s[i], k[i]);
+    return 0;
+}
+
 extern "C" int nabwa_host_probe_dma_vec_row(const int32_t* c,
                                             const int32_t* t,
                                             const int32_t* n_rows, int n,

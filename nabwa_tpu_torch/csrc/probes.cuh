@@ -55,6 +55,25 @@ NABWA_HD int32_t lcg_next(int32_t s) {
     return wadd(wmul(s, 1103515245), 12345) & 0x7FFFFFFF;
 }
 
+// the state of that LCG k >= 0 steps after s.  The mask keeps the low 31
+// bits of a wrapped product, so a step is s -> (a s + c) mod 2^31 and k
+// steps are one affine map (A_k, C_k) mod 2^31, built here by squaring
+// in log2(k) steps (mod 2^32, which 2^31 divides).  k = 0 leaves s as it
+// is, unmasked.
+NABWA_HD int32_t lcg_jump(int32_t s, int64_t k) {
+    if (k <= 0) return s;
+    uint32_t a_k = 1, c_k = 0, a = 1103515245u, c = 12345u;
+    for (; k; k >>= 1) {
+        if (k & 1) {
+            a_k *= a;
+            c_k = c_k * a + c;
+        }
+        c = c * a + c;
+        a *= a;
+    }
+    return (int32_t)((a_k * (uint32_t)s + c_k) & 0x7FFFFFFFu);
+}
+
 // column c of probe_dma.py's (8, 128) index vector at iteration t (:40-41);
 // every one of its 8 rows holds the same values
 NABWA_HD int32_t dma_vec_row(int32_t c, int32_t t, int32_t n_rows) {

@@ -91,8 +91,11 @@ _SIGNATURES = {
                      _P, _P, _P],
     # (idx, table, bb, out, stream)
     "nabwa_probe_rowload": [_P, _P, _I, _P, _P],
-    # (table, n_rows, n, t, src, unroll, vec, out, stage, stream)
+    # (table, n_rows, n, t, src, unroll, scratch, out, stage, rounds,
+    # stream): C8's grid form and its serial form
     "nabwa_probe_dma": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "nabwa_probe_dma_serial": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                               _P],
     # (seed, seed_w, table, nrow, bb, s, iters, acc, stream)
     "nabwa_probe_dfs_shape": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     # (k, table, nrow, bb, iters, acc, stream)

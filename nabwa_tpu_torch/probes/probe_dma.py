@@ -17,12 +17,20 @@ can, and both see only the last round.  The stage has 2N rows where the
 script's has max(N, 8), so each `cond` copy (to row (i + N) % 2N) has a
 row of its own; it starts zeroed.
 
-On a CUDA table the function launches kernel C8 (csrc/probe_dma.cu), one
-block of cp.async row copies; on a CPU table it runs the plain version,
-the same copies in issue order.  `main` times the script's configurations
-(N 64 and 128, unroll on and off, `reg`, `vmem` and `cond`) with CUDA
-events and prints the script's lines; ROWS and T come from the
-environment as there.
+On a CUDA table the function launches kernel C8's grid form
+(csrc/probe_dma.cu), the T rounds side by side, one block of cp.async row
+copies a round, `reg` mode's rows by the LCG's jump-ahead (`lcg_jump`);
+on a CPU table it runs the plain version, the same copies in issue order.
+`dma_serial_cuda` launches the serial form, one block running the rounds
+in order as the TPU kernel does: the probe's witness of a serial round's
+latency.  `main` times the script's configurations (N 64 and 128, unroll
+on and off, `reg`, `vmem` and `cond`) on the grid form with CUDA events
+and prints the script's lines, then the serial form's line at the
+script's default (N 128, unroll off, `reg`); ROWS and T come from the
+environment as there.  The grid form's lines divide a call's time, mostly
+the host's launch, by T and by T N: the rounds run side by side, so these
+are not a round's or a copy's latency.  The `serial` line's us/iter is a
+round's latency, the probe's question.
 """
 
 import os
@@ -35,12 +43,17 @@ from . import common
 from .common import floor_mod, wrap32
 
 SRCS = ("reg", "vmem", "smem", "cond")
-# 2N stage rows of 512 B and two 4 kB index vectors in the block's shared
-# memory (232,448 bytes on the H100)
+# 2N stage rows of 512 B and two 4 kB index vectors in the serial form's
+# shared memory (232,448 bytes on the H100); the grid form needs less
 MAX_N = (232448 - 2 * 4096) // 1024
+VEC = 8 * 128                     # the (8, 128) index vector
+LCG_A, LCG_C, M31 = 1103515245, 12345, 0x7FFFFFFF
+I32 = torch.int32
 
-# kernel launches made on CUDA tensors
+# kernel launches made on CUDA tensors: the grid form by `dma_cuda`, the
+# serial form by `dma_serial_cuda`
 launches = 0
+launches_serial = 0
 
 
 def _check(n, t, n_rows, src):
@@ -54,7 +67,28 @@ def _check(n, t, n_rows, src):
 
 def lcg_next(s):
     """One step of the script's register LCG (:50)."""
-    return wrap32(s * 1103515245 + 12345) & 0x7FFFFFFF
+    return wrap32(s * LCG_A + LCG_C) & M31
+
+
+def lcg_jump(s, k):
+    """The LCG's state k >= 0 steps after s (ints, or int64 tensors that
+    broadcast): a step is s -> (a s + c) mod 2^31, so k steps are one
+    affine map mod 2^31, built by squaring; k = 0 leaves s as it is.
+    csrc/probes.cuh `lcg_jump`."""
+    a_k, c_k, a, c = 1, 0, LCG_A, LCG_C
+    rest = k
+    while bool((rest > 0).any()) if torch.is_tensor(rest) else rest > 0:
+        bit = rest & 1
+        a_k = (a * a_k & M31) * bit + a_k * (1 - bit)
+        c_k = ((a * c_k + c) & M31) * bit + c_k * (1 - bit)
+        c = (a * c + c) & M31
+        a = a * a & M31
+        rest = rest >> 1
+    moved = (a_k * s + c_k) & M31
+    if torch.is_tensor(k) or torch.is_tensor(s):
+        return torch.where(torch.as_tensor(k) == 0, torch.as_tensor(s),
+                           torch.as_tensor(moved))
+    return s if k == 0 else moved
 
 
 def vec_value(col, it, n_rows):
@@ -70,14 +104,8 @@ def copy_rows(n, t, n_rows, src):
     mode).  scripts/probe_dma.py:38-70."""
     _check(n, t, n_rows, src)
     if src == "reg":
-        s, rows = 1, []
-        for _ in range(t):
-            it_rows = []
-            for _ in range(n):
-                s = lcg_next(s)
-                it_rows.append(s % n_rows)
-            rows.append(it_rows)
-        return torch.tensor(rows, dtype=torch.int64).view(t, n), None, s
+        steps = torch.arange(1, t * n + 1, dtype=torch.int64).view(t, n)
+        return lcg_jump(1, steps) % n_rows, None, lcg_jump(1, t * n)
     col = torch.arange(128, dtype=torch.int64)
     it = torch.arange(t, dtype=torch.int64)[:, None]
     vec = vec_value(col, it, n_rows)[:, None, :].expand(t, 8, 128)
@@ -108,34 +136,64 @@ def dma_plain(tab, n, t, n_rows, src):
     return out, stage, wrap32(rounds).to(torch.int32)
 
 
-def dma_cuda(tab, n, t, n_rows, src, unroll):
-    """`dma_plain` by kernel C8."""
-    global launches
-    dev = tab.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+def _dma_launch(entry, tab, n, t, n_rows, src, unroll):
+    """Check the arguments of `dma_cuda` and `dma_serial_cuda`, allocate
+    out, the stage, rounds and `smem` mode's scratch ([T, 1024] words) in
+    one buffer, and launch library entry `entry` on them; returns (out
+    int32 [1, 1], stage int32 [2N, 128], rounds int32 [T]), views of the
+    buffer.  The checks and messages are the one-at-a-time checks': CUDA,
+    then `_check`, then the table's dtype, dims and contiguity (and its
+    16-byte alignment, the kernels' int4 reads) in one pass that reads its
+    device index and pointer once, then its shape."""
+    if not tab.is_cuda:
+        raise ValueError(f"the kernel needs CUDA tensors, got {tab.device}")
     _check(n, t, n_rows, src)
-    _build.require(tab, "tab", dev, 2)
+    index, (ptr,) = common.cuda_inputs((tab, "tab", 2, I32))
     if tab.shape[1] != 128 or tab.shape[0] < n_rows:
         raise ValueError(f"tab must be [>= {n_rows}, 128], got "
                          f"{tuple(tab.shape)}")
-    vec = torch.empty(1024, dtype=torch.int32, device=dev)
-    out = torch.empty(1, dtype=torch.int32, device=dev)
-    stage = torch.empty((2 * n, 128), dtype=torch.int32, device=dev)
-    rounds = torch.zeros(t, dtype=torch.int32, device=dev)
-    rc = _build.lib().nabwa_probe_dma(
-        tab.data_ptr(), n_rows, n, t, SRCS.index(src), int(bool(unroll)),
-        vec.data_ptr(), out.data_ptr(), stage.data_ptr(), rounds.data_ptr(),
-        _build.stream_of(tab))
-    _build.check(rc, "probe_dma kernel launch")
+    words = 2 * n * 128
+    at = words + (t * VEC if src == "smem" else 0)
+    buf = tab.new_empty(at + 1 + t)
+    base = buf.data_ptr()
+    # one as_strided a view: a split and views of its parts cost twice it
+    out = buf.as_strided((1, 1), (1, 1), at)
+    rounds = buf.as_strided((t,), (1,), at + 1)
+    if entry == "nabwa_probe_dma_serial":
+        rounds.zero_()              # its warps add to it
+    _build.check(getattr(_build.lib(), entry)(
+        ptr, n_rows, n, t, SRCS.index(src), int(bool(unroll)),
+        base + 4 * words, base + 4 * at, base, base + 4 * at + 4,
+        torch._C._cuda_getCurrentRawStream(index)), f"{entry} kernel launch")
+    return out, buf.as_strided((2 * n, 128), (128, 1)), rounds
+
+
+def dma_cuda(tab, n, t, n_rows, src, unroll):
+    """`dma_plain` by kernel C8's grid form, one block a round; `unroll`
+    does not change the result."""
+    global launches
+    res = _dma_launch("nabwa_probe_dma", tab, n, t, n_rows, src, unroll)
     with _build.count_lock:
         launches += 1
-    return out.view(1, 1), stage, rounds
+    return res
+
+
+def dma_serial_cuda(tab, n, t, n_rows, src, unroll):
+    """`dma_plain` by C8's serial form, one block running the T rounds in
+    order: the probe's witness of a serial round's latency.  Its rounds
+    are zeroed first (one fill launch), since its warps add to them."""
+    global launches_serial
+    res = _dma_launch("nabwa_probe_dma_serial", tab, n, t, n_rows, src,
+                      unroll)
+    with _build.count_lock:
+        launches_serial += 1
+    return res
 
 
 def make(n, t, n_rows, unroll, src="reg"):
     """The probe as a function of the table (scripts/probe_dma.py:31):
-    the plain version for a CPU table, kernel C8 for a CUDA table.
+    the plain version for a CPU table, kernel C8's grid form for a CUDA
+    table.
     `unroll` unrolls the kernel's issue loop; results do not depend on
     it."""
     _check(n, t, n_rows, src)
@@ -167,12 +225,27 @@ def main(argv=None):
             for src in ("reg", "vmem", "cond"):
                 f = make(n, t, rows, unroll, src)
                 dt, _ = common.timeit(lambda: f(tab), device, n=1)
-                per_iter = dt / t
-                per_copy = per_iter / n
-                print(f"N={n:4d} unroll={int(unroll)} src={src:4s}  "
-                      f"{per_iter*1e6:9.1f} us/iter  "
-                      f"{per_copy*1e6:7.2f} us/copy")
+                _print_line("", n, unroll, src, dt, t)
+    # the serial form at the script's default, on the card; the plain
+    # version on the CPU, which runs the rounds in order too
+    n, unroll, src = 128, False, "reg"
+    if device.type == "cuda":
+        def f(tab):
+            return dma_serial_cuda(tab, n, t, rows, src, unroll)
+    else:
+        f = make(n, t, rows, unroll, src)
+    dt, _ = common.timeit(lambda: f(tab), device, n=1)
+    _print_line("serial ", n, unroll, src, dt, t)
     return 0
+
+
+def _print_line(form, n, unroll, src, dt, t):
+    """The script's line for one configuration timed at dt seconds a call,
+    per round and per copy."""
+    per_iter = dt / t
+    per_copy = per_iter / n
+    print(f"{form}N={n:4d} unroll={int(unroll)} src={src:4s}  "
+          f"{per_iter*1e6:9.1f} us/iter  {per_copy*1e6:7.2f} us/copy")
 
 
 if __name__ == "__main__":

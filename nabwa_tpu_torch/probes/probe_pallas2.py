@@ -86,17 +86,20 @@ def empty_plain(x):
 
 
 def empty_cuda(x):
-    """`empty_plain` by kernel C11."""
+    """`empty_plain` by kernel C11, for x of any shape (0-d and empty
+    too; no launch when x is empty).  One check pass reads x's device
+    index and pointer once (16-byte aligned: the kernel reads int4);
+    `empty_like` is the cheapest allocation of x's shape (PERF.md)."""
     global launches_empty
-    common.cuda_input(x, "x", x.dim())
+    index, (px,) = common.cuda_inputs((x, "x", x.dim(), I32))
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    rc = _build.lib().nabwa_probe_empty(x.data_ptr(), x.numel(),
-                                        out.data_ptr(), _build.stream_of(x))
-    _build.check(rc, "probe_empty kernel launch")
-    with _build.count_lock:
-        launches_empty += 1
+    n = x.numel()
+    if n:
+        _build.check(_build.lib().nabwa_probe_empty(
+            px, n, out.data_ptr(), torch._C._cuda_getCurrentRawStream(index)),
+            "probe_empty kernel launch")
+        with _build.count_lock:
+            launches_empty += 1
     return out
 
 

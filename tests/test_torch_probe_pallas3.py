@@ -25,11 +25,14 @@ probe and, with no name, for all nine in the script's order, whose names
 are exactly the script's; a name the script lacks exits non-zero as no
 such probe; a missing card, CPU tensors, misaligned inputs and shapes
 the kernels do not take are refused.  The launch path shared by C29, C28,
-C27, C20, C7 and C15 (scripts/probe_pallas2.py's lane gather and
-scripts/probe_pallas.py's row gathers, whose cases sit here beside the
-others' for the card-tensor helpers) is held on fake card tensors and a
-fake kernel library: one check pass, each pointer and device index read
-once, the stream of that index, exact counts.
+C27, C20, C7, C15, C8 and C11 (scripts/probe_pallas2.py's lane gather and
+launch, scripts/probe_pallas.py's row gathers and scripts/probe_dma.py's
+row fetches, whose cases sit here beside the others' for the card-tensor
+helpers) is held on fake card tensors and a fake kernel library: one
+check pass, each pointer and device index read once, the stream of that
+index, exact counts, and every refusal with the message and in the order
+of the wrapper's checks one at a time (C8's grid and serial forms, C11
+on every shape, 0-d and empty included).
 """
 
 import ast
@@ -44,6 +47,7 @@ import pytest
 import torch
 
 from nabwa_tpu_torch.probes import common
+from nabwa_tpu_torch.probes import probe_dma as pdma
 from nabwa_tpu_torch.probes import probe_pallas as pp
 from nabwa_tpu_torch.probes import probe_pallas2 as pp2
 from nabwa_tpu_torch.probes import probe_pallas3 as p3
@@ -644,8 +648,8 @@ class _Counted(_OnCard):
 
 
 class _FakeLib:
-    """Records C29's, C28's, C27's, C20's, C7's and C15's launch
-    arguments; every launch succeeds."""
+    """Records C29's, C28's, C27's, C20's, C7's, C15's, C8's (both forms)
+    and C11's launch arguments; every launch succeeds."""
 
     def __init__(self):
         self.calls = []
@@ -657,6 +661,8 @@ class _FakeLib:
     nabwa_probe_p1b = nabwa_probe_p1 = nabwa_probe_p3
     nabwa_probe_lane_gather = nabwa_probe_p3
     nabwa_probe_rowload = nabwa_probe_smem_idx = nabwa_probe_p3
+    nabwa_probe_dma = nabwa_probe_dma_serial = nabwa_probe_p3
+    nabwa_probe_empty = nabwa_probe_p3
 
 
 @pytest.fixture
@@ -853,3 +859,237 @@ def test_c7_count_exact_under_threads(fake_launch):
     before = pp.launches_rowload
     made = _launch_from_threads(lambda: pp.rowload_cuda(idx, table))
     assert pp.launches_rowload - before == made == len(fake_launch.calls)
+
+
+# C8's wrappers, the grid form and the serial form, with their launch
+# counters
+_DMA_FORMS = {
+    "grid": (pdma.dma_cuda, "launches"),
+    "serial": (pdma.dma_serial_cuda, "launches_serial")}
+_DMA_NROW = 16
+# C8's table by form ([_DMA_NROW, 128] when good)
+_DMA_TABLE = {
+    "good": lambda: _on_card(_DMA_NROW, 128),
+    "more_rows": lambda: _on_card(40, 128),
+    "cpu": lambda: _zeros(_DMA_NROW, 128),
+    "int64": lambda: _on_card(_DMA_NROW, 128).long(),
+    "dims": lambda: _on_card(_DMA_NROW * 128),
+    "transposed": lambda: _on_card(128, _DMA_NROW).t(),
+    "column": lambda: _on_card(_DMA_NROW, 132)[:, 4:],
+    "misaligned": lambda: _misaligned(_DMA_NROW, 128),
+    "short": lambda: _on_card(_DMA_NROW - 1, 128),
+    "narrow": lambda: _on_card(_DMA_NROW, 124)}
+# C8's (N, T, n_rows, src) by form
+_DMA_ARGS = {"good": (4, 2, _DMA_NROW, "reg"),
+             "src": (4, 2, _DMA_NROW, "hbm"),
+             "n0": (0, 2, _DMA_NROW, "cond"),
+             "n_big": (pdma.MAX_N + 1, 2, _DMA_NROW, "vmem"),
+             "t": (4, -1, _DMA_NROW, "smem"),
+             "rows0": (4, 2, 0, "reg")}
+
+
+def _old_dma_checks(tab, n, t, n_rows, src):
+    """C8's checks as its wrapper made them one at a time: CUDA, the
+    arguments (`_check`), the table's dtype, dims and contiguity
+    (`_build.require`), then its shape [>= n_rows, 128].  The one pass
+    adds the table's 16-byte alignment after its contiguity (the kernels
+    read it as int4; the old wrapper did not check it)."""
+    dev = tab.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
+    pdma._check(n, t, n_rows, src)
+    _build.require(tab, "tab", dev, 2)
+    if tab.data_ptr() % 16:
+        raise ValueError("tab: not 16-byte aligned")
+    if tab.shape[1] != 128 or tab.shape[0] < n_rows:
+        raise ValueError(f"tab must be [>= {n_rows}, 128], got "
+                         f"{tuple(tab.shape)}")
+
+
+@pytest.mark.parametrize("form, table_form", [
+    (form, table_form) for form in _DMA_FORMS for table_form in _DMA_TABLE])
+def test_c8_refuses_as_one_at_a_time(form, table_form, monkeypatch):
+    """C8's grid and serial wrappers refuse, with every
+    argument form beside the table, what its checks one at a time refused,
+    with the same message and in the same order (CUDA, then a bad src, an
+    N outside [1, MAX_N], a negative T or n_rows 0, then the table's
+    dtype, dims, contiguity and alignment, then a table of fewer than
+    n_rows rows or not 128 wide); before anything is built or launched,
+    their counts unchanged.  What the checks took reaches the library."""
+    _no_build(monkeypatch)
+    wrapper, count = _DMA_FORMS[form]
+    seen = set()
+    for args_form, args in _DMA_ARGS.items():
+        tab = _DMA_TABLE[table_form]()
+        try:
+            _old_dma_checks(tab, *args)
+            want = None
+        except ValueError as err:
+            want = str(err)
+        seen.add(want)
+        before = (pdma.launches, pdma.launches_serial)
+        if want is None:
+            with pytest.raises(AssertionError, match="library was asked"):
+                wrapper(tab, *args, False)
+        else:
+            with pytest.raises(ValueError) as err:
+                wrapper(tab, *args, False)
+            assert str(err.value) == want, args_form
+        assert (pdma.launches, pdma.launches_serial) == before
+    if table_form in ("good", "more_rows"):
+        assert None in seen
+    else:
+        assert None not in seen
+
+
+def test_c8_refusal_messages():
+    """The messages the table forms meet first, with good arguments, and
+    the order where a bad table meets a bad src."""
+    want = {"cpu": "the kernel needs CUDA tensors, got cpu",
+            "int64": "tab: dtype torch.int64, expected torch.int32",
+            "dims": "tab: 1 dims, expected 2",
+            "transposed": "tab: not contiguous",
+            "column": "tab: not contiguous",
+            "misaligned": "tab: not 16-byte aligned",
+            "short": "tab must be [>= 16, 128], got (15, 128)",
+            "narrow": "tab must be [>= 16, 128], got (16, 124)"}
+    for form, msg in want.items():
+        for wrapper, _ in _DMA_FORMS.values():
+            with pytest.raises(ValueError) as err:
+                wrapper(_DMA_TABLE[form](), *_DMA_ARGS["good"], True)
+            assert str(err.value) == msg, form
+    # CUDA before the arguments, the arguments before the table
+    with pytest.raises(ValueError, match="needs CUDA tensors, got cpu"):
+        pdma.dma_cuda(_zeros(4, 128), 4, 2, 4, "hbm", False)
+    with pytest.raises(ValueError, match="src must be one of"):
+        pdma.dma_cuda(_on_card(4, 128).long(), 4, 2, 4, "hbm", False)
+
+
+@pytest.mark.parametrize("form", list(_DMA_FORMS))
+@pytest.mark.parametrize("src", pdma.SRCS)
+def test_c8_launch_on_pointers_read_once(form, src, fake_launch,
+                                         monkeypatch):
+    """C8's wrappers launch on the table's pointer and device index read
+    once by their one check pass (`device` never), and on one buffer read
+    once: the stage at its start, then `smem` mode's scratch ([T, 1024]
+    words, none in the other modes), out, rounds, each returned as a view
+    at its place; the stream of that index (of index 1 on the second
+    card); the count rises by one a launch.  The serial form's rounds are
+    zeroed (its warps add to them); the grid form's are not touched."""
+    from collections import Counter
+    monkeypatch.setattr(_Counted, "reads", Counter())
+    wrapper, count = _DMA_FORMS[form]
+    n, t = 5, 3
+    tab = _zeros(_DMA_NROW, 128).as_subclass(_Counted)
+    before = getattr(pdma, count)
+    out, stage, rounds = wrapper(tab, n, t, _DMA_NROW, src, True)
+    reads = dict(_Counted.reads)
+    assert reads.pop(("data_ptr", id(tab))) == 1
+    assert reads.pop(("get_device", id(tab))) == 1
+    assert [k for k, _ in reads] == ["data_ptr"] and sum(
+        reads.values()) == 1                  # the buffer's, once
+    call = fake_launch.calls[-1]
+    assert call[:6] == (tab.data_ptr(), _DMA_NROW, n, t,
+                        pdma.SRCS.index(src), 1)
+    words = 2 * n * 128
+    scratch = t * pdma.VEC if src == "smem" else 0
+    base = stage.data_ptr()
+    assert call[6:] == (base + 4 * words, out.data_ptr(), base,
+                        rounds.data_ptr(), 1000)
+    assert out.data_ptr() == base + 4 * (words + scratch)
+    assert rounds.data_ptr() == out.data_ptr() + 4
+    assert (tuple(out.shape), tuple(stage.shape), tuple(rounds.shape)) == (
+        (1, 1), (2 * n, 128), (t,))
+    assert stage.is_contiguous() and stage.dtype == torch.int32
+    if form == "serial":
+        assert not rounds.any()
+    assert getattr(pdma, count) == before + 1
+    wrapper(_zeros(_DMA_NROW, 128).as_subclass(_OnCard1), n, t, _DMA_NROW,
+            src, False)
+    assert fake_launch.calls[-1][-1] == 1001
+    out, stage, rounds = wrapper(_on_card(_DMA_NROW, 128), n, 0, _DMA_NROW,
+                                 src, False)
+    assert fake_launch.calls[-1][3] == 0 and rounds.shape == (0,)
+    assert getattr(pdma, count) == before + 3
+
+
+def test_c8_count_exact_under_threads(fake_launch):
+    """Eight threads launching C8's grid form together: the count rises by
+    exactly the launches made."""
+    tab = _on_card(_DMA_NROW, 128)
+    before = pdma.launches
+    made = _launch_from_threads(
+        lambda: pdma.dma_cuda(tab, 4, 2, _DMA_NROW, "reg", False))
+    assert pdma.launches - before == made == len(fake_launch.calls)
+
+
+# C11's input by form
+_EMPTY_X = {"good": lambda: _on_card(8, 128),
+            "zero_d": lambda: _on_card(),
+            "three_d": lambda: _on_card(2, 3, 8),
+            "empty": lambda: _on_card(0, 128),
+            "cpu": lambda: _zeros(8, 128),
+            "int64": lambda: _on_card(8, 128).long(),
+            "transposed": lambda: _on_card(128, 8).t(),
+            "column": lambda: _on_card(8, 132)[:, 4:],
+            "misaligned": lambda: _misaligned(8, 128)}
+_EMPTY_MSG = {"cpu": "the kernel needs CUDA tensors, got cpu",
+              "int64": "x: dtype torch.int64, expected torch.int32",
+              "transposed": "x: not contiguous",
+              "column": "x: not contiguous",
+              "misaligned": "x: not 16-byte aligned"}
+
+
+@pytest.mark.parametrize("x_form", list(_EMPTY_X))
+def test_c11_refuses_as_one_at_a_time(x_form, monkeypatch):
+    """C11's one check pass refuses what its `cuda_input` refused, with the
+    same message, before anything is built or launched (its count
+    unchanged); it takes every shape that took, 0-d and empty included,
+    and an empty x gives an empty output without asking for the
+    library."""
+    _no_build(monkeypatch)
+    x = _EMPTY_X[x_form]()
+    try:
+        common.cuda_input(x, "x", x.dim())
+        want = None
+    except ValueError as err:
+        want = str(err)
+    assert want == _EMPTY_MSG.get(x_form)
+    before = pp2.launches_empty
+    if want is not None:
+        with pytest.raises(ValueError) as err:
+            pp2.empty_cuda(x)
+        assert str(err.value) == want
+    elif x.numel():
+        with pytest.raises(AssertionError, match="library was asked"):
+            pp2.empty_cuda(x)
+    else:
+        out = pp2.empty_cuda(x)
+        assert out.shape == x.shape and out.dtype == torch.int32
+    assert pp2.launches_empty == before
+
+
+def test_c11_launch_on_pointers_read_once(fake_launch, monkeypatch):
+    """C11 launches on x's pointer and device index read once by its one
+    check pass (`device` never), the output's pointer read once, x's
+    word count and the stream of that index; an output of x's shape, 0-d
+    too; no launch and no count on an empty x."""
+    from collections import Counter
+    monkeypatch.setattr(_Counted, "reads", Counter())
+    x = _zeros(*pp2.EMPTY_SHAPE).as_subclass(_Counted)
+    before = pp2.launches_empty
+    out = pp2.empty_cuda(x)
+    assert _Counted.reads == Counter(
+        {(k, id(x)): 1 for k in ("data_ptr", "get_device")}
+        | {("data_ptr", id(out)): 1})
+    assert fake_launch.calls[-1] == (x.data_ptr(), 1024, out.data_ptr(),
+                                     1000)
+    assert out.shape == x.shape and out.dtype == torch.int32
+    assert out.is_contiguous()
+    scalar = pp2.empty_cuda(_zeros().as_subclass(_OnCard1))
+    assert scalar.shape == () and fake_launch.calls[-1][1:] == (
+        1, scalar.data_ptr(), 1001)
+    calls = len(fake_launch.calls)
+    assert pp2.empty_cuda(_on_card(0, 128)).shape == (0, 128)
+    assert len(fake_launch.calls) == calls
+    assert pp2.launches_empty == before + 2

@@ -6,13 +6,16 @@ numpy inputs: probe 1 (`probe_rowload`, also through the script's
 captured jitted `run` at indices on both ends of the table and repeated)
 and probe 5 (`probe_dfs_shape`) of scripts/probe_pallas.py at their only
 shapes, scripts/probe_dma.py's
-`make` over every `src` x `unroll` at N=8, T=3, ROWS=1000 (and the whole
-stage and each round's witness against a numpy model of the copies,
-since `out` cannot tell the modes apart), scripts/probe_dfs_shape.py at
-two shapes.  The kernels' `__host__ __device__` helpers (csrc/probes.cuh),
-built for the host with g++ (csrc/host_harness.cpp), must equal the plain
-versions' formulas value by value on random and edge inputs.  The entry
-points run with `--device cpu` and print their scripts' lines, and exit
+`make` over every `src` x `unroll` at N=8, T=3, ROWS=1000 and over every
+`src` at N=130, T=2 (and the whole stage and each round's witness against
+a numpy model of the copies, since `out` cannot tell the modes apart),
+scripts/probe_dfs_shape.py at two shapes.  `reg` mode's rows come from the
+LCG's jump-ahead, held to the script's loop of steps.  The kernels'
+`__host__ __device__` helpers (csrc/probes.cuh), built for the host with
+g++ (csrc/host_harness.cpp), must equal the plain versions' formulas value
+by value on random and edge inputs (`lcg_jump` also k steps of the LCG,
+stepped or in closed form).  The entry points run with `--device cpu` and
+print their scripts' lines (probe_dma's also the serial form's), and exit
 non-zero without a card.
 
 The scripts are loaded as the JAX package's tests would run them here:
@@ -167,10 +170,21 @@ def _numpy_copies(n, t, n_rows, src):
     return _int32(s + int(stage[0, 0])), stage, rounds
 
 
-@pytest.mark.parametrize("unroll", [True, False])
-@pytest.mark.parametrize("src", pdma.SRCS)
-def test_dma_matches_jax(script, src, unroll):
-    n, t, rows = 8, 3, 1000
+# (src, unroll, N, T): every mode and unroll at N 8, T 3, and every mode
+# at N 130, T 2 (copies 128 and 129 read the vector's second row, i // 128)
+DMA_CASES = [pytest.param(src, unroll, 8, 3, id=f"{src}-{unroll}")
+             for src in pdma.SRCS for unroll in (True, False)] + [
+    pytest.param(src, False, 130, 2, id=f"{src}-False-N130")
+    for src in pdma.SRCS]
+
+
+@pytest.mark.parametrize("src, unroll, n, t", DMA_CASES)
+def test_dma_matches_jax(script, src, unroll, n, t):
+    """`make` on 1,000 rows: out against the script's jitted `make`, the
+    stage and each round's witness against `_numpy_copies`.  In `cond` the
+    script's stage has max(N, 8) rows, and interpret mode clamps the
+    copies past its end; they never touch row 0, and so not out."""
+    rows = 1000
     mod = script("probe_dma")
     tab = np.arange(rows * 128, dtype=np.int32).reshape(rows, 128)
     want = np.asarray(jax.jit(mod.make(n, t, rows, unroll, src))(tab))
@@ -187,6 +201,81 @@ def test_dma_matches_jax(script, src, unroll):
         assert stage[n:].any()
     else:
         assert not stage[n:].any()
+
+
+def _loop_rows(n, t, n_rows):
+    """`reg` mode's rows as the script's loop makes them, one lcg_next a
+    copy: (rows [T, N], the state after the last round)."""
+    s, rows = 1, []
+    for _ in range(t):
+        it_rows = []
+        for _ in range(n):
+            s = pdma.lcg_next(s)
+            it_rows.append(s % n_rows)
+        rows.append(it_rows)
+    return torch.tensor(rows, dtype=torch.int64).view(t, n), s
+
+
+@pytest.mark.parametrize("n, t, n_rows", [(8, 3, 1000), (130, 2, 1000),
+                                          (1, 0, 7), (219, 4, 1),
+                                          (128, 64, 100_000)])
+def test_copy_rows_by_jump(n, t, n_rows):
+    """`copy_rows` builds `reg` mode's rows by the jump-ahead; they and
+    the final state equal the script's loop of lcg_next."""
+    rows, rows2, final = pdma.copy_rows(n, t, n_rows, "reg")
+    want, want_final = _loop_rows(n, t, n_rows)
+    assert rows2 is None and final == want_final
+    assert rows.dtype == torch.int64 and torch.equal(rows, want)
+
+
+def _lcg_steps(s, k):
+    """k steps of the script's LCG from each seed of s (numpy int64)."""
+    s = s.copy()
+    for _ in range(k):
+        s = ((s * 1103515245 + 12345) & 0xFFFFFFFF) & 0x7FFFFFFF
+    return s
+
+
+def _lcg_closed(s, k):
+    """The LCG's state k steps after s in closed form: a^k s + c (a^k -
+    1) / (a - 1) mod 2^31, the division exact modulo 2^31 (a - 1)."""
+    a, c, m = 1103515245, 12345, 1 << 31
+    if k == 0:
+        return s
+    geo = (pow(a, k, m * (a - 1)) - 1) // (a - 1)
+    return (pow(a, k, m) * s + c * geo) % m
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 127, 128, 8192, "random"])
+def test_lcg_jump_matches_steps(host, k):
+    """`lcg_jump` of csrc/probes.cuh (built by g++) and its plain twin
+    equal k steps of lcg_next from random int32 seeds, 0, 2^31 - 1 and
+    negative ones among them (k = 0 leaves a negative seed unmasked):
+    stepped for the fixed k, in closed form for random k up to 2^31 (too
+    many to step)."""
+    rng = np.random.default_rng(731 if k == "random" else 732 + k)
+    s = _i32(rng, 2000, [0, 1, 2**31 - 1, 12345, 1103515245, -1, -2**31])
+    if k == "random":
+        ks = rng.integers(0, 2**31, len(s))
+        ks[:3] = (2**31 - 1, 2**31, 1)
+        want = np.array([_lcg_closed(int(a), int(b)) for a, b in
+                         zip(s, ks)], dtype=np.int64)
+    else:
+        ks = np.full(len(s), k, dtype=np.int64)
+        want = _lcg_steps(s.astype(np.int64), k)
+        assert [_lcg_closed(int(a), k) for a in s[:50]] == want[:50].tolist()
+    fn = host.nabwa_host_probe_lcg_jump
+    fn.argtypes = [_P, _P, _I, _P]
+    fn.restype = _I
+    got = np.empty(len(s), dtype=np.int32)
+    ks = np.ascontiguousarray(ks, dtype=np.int64)
+    assert fn(s.ctypes.data_as(_P), ks.ctypes.data_as(_P), len(s),
+              got.ctypes.data_as(_P)) == 0
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(pdma.lcg_jump(_t(s), _t(ks)).numpy(),
+                                  want)
+    assert [pdma.lcg_jump(int(a), int(b)) for a, b in
+            zip(s[:20], ks[:20])] == want[:20].tolist()
 
 
 @pytest.mark.parametrize("bb,s,iters", [(256, 128, 200), (16, 64, 5)])
@@ -362,10 +451,12 @@ RESULT_LINES = {
                      r"\([\d.]+us/iter\)",
                      r"probe5 dfs-shaped 100 iters BB=256 S=128: "
                      r"[\d.]+ms \([\d.]+us/iter\)"],
-    "probe_dma": [rf"N=\s+{n} unroll={u} src={s:4s}  \s*[\d.]+ us/iter  "
+    "probe_dma": [rf"{f}N=\s+{n} unroll={u} src={s:4s}  \s*[\d.]+ us/iter  "
                   r"\s*[\d.]+ us/copy"
-                  for n in (64, 128) for u in (1, 0)
-                  for s in ("reg", "vmem", "cond")],
+                  for f, n, u, s in [("", n, u, s) for n in (64, 128)
+                                     for u in (1, 0)
+                                     for s in ("reg", "vmem", "cond")]
+                  + [("serial ", 128, 0, "reg")]],
     "probe_dfs_shape": [r"devices: \['cpu'\] BB=16 S=64 ITERS=5",
                         r"dfs-shaped 5 iters BB=16 S=64: [\d.]+ms total, "
                         r"[\d.]+us/iter, [\d.]+M lane-iters/s"],
@@ -414,7 +505,9 @@ def test_unported_probe_exits_nonzero(capsys):
     lambda: pdma.dma_cuda(torch.zeros((8, 128), dtype=torch.int32), 4, 1, 8,
                           "reg", False),
     lambda: pds.run_cuda(torch.zeros((4, 128), dtype=torch.int32),
-                         torch.zeros((8, 128), dtype=torch.int32), 128, 1)])
+                         torch.zeros((8, 128), dtype=torch.int32), 128, 1),
+    lambda: pdma.dma_serial_cuda(torch.zeros((8, 128), dtype=torch.int32), 4,
+                                 1, 8, "reg", False)])
 def test_kernels_refuse_cpu_tensors(call):
     """A kernel wrapper given CPU tensors raises; only the dispatchers run
     the plain versions, and only for CPU tensors."""
