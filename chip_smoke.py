@@ -177,15 +177,18 @@ Phases, any failure exits non-zero:
    in order, the witness of a round's latency) timed warm, queued and
    cold, and both at the edges (`check_dma_edges`: T 0, 1 and 1,000, N 1
    and MAX_N, n_rows 1, a table longer than n_rows); C9
-   (csrc/probe_dfs_shape.cu) at 256 x 128 x 200 and 2048 x 128 x 200,
-   timed, and at S 32, 64 and 96 (256 reads, 200 iterations); C10 at
-   probe 5's 256 x 128 x 100 (before all of them the launch path,
+   (csrc/probe_dfs_shape.cu) at 256 x 128 x 200 and 2048 x 128 x 200 in
+   both forms, the lean one and the witness (the first design), each
+   exact, timed and queued, and each stamped once (`check_dfs_shape`:
+   the stage split, the calibration latencies and the SM clock), and
+   both at S 32, 64 and 96 (256 reads, 200 iterations); C10 at probe
+   5's 256 x 128 x 100, timed and queued (before all of them the launch path,
    `check_launch_path`: `stream_of` is the current stream, default and
    side, C14, C29, C28, C27, C20, C7, C15, C8 and C11 exact on a side
    stream, C14's, C29's, C20's, C7's and C8's launch counts exact over
    COUNT_THREADS threads, C8's and C11's refusals before any launch, and
    its host split, `launch_split`: each step of C14's, C11's, C29's,
-   C28's, C27's, C20's, C7's, C15's and C8's wrappers over
+   C28's, C27's, C20's, C7's, C15's and C8's wrappers as they stand over
    SPLIT_CALLS calls, the host's clock and one
    synchronize, beside torch.sum, `x + 1`, torch.gather and
    torch.index_select); C11-C14
@@ -376,7 +379,16 @@ there), `lone_us_per_step` is the longest row's launch alone over its
 steps, `lone_chain_ms` max_steps times that, and `chain_bound_ms`
 max_steps times C12's serial load (phase 18's `serial_ns_per_load`): a
 chain of one dependent load a step.  Its bound counts one Occ block a step;
-`ptxas` holds both interval tests' registers, stack and spills.
+`ptxas` holds both interval tests' registers, stack and spills.  C9's
+`ms`, `queued_ms` and `us_per_iter` are its lean form's at 256 reads,
+`witness_*` the witness's (`queued_ms_turns` each queued reading);
+`shapes` holds both reads counts with each form's stamped `split`
+(`stages`: median, p90 and share of each stage; `iteration`;
+`latency_cycles` of a dependent IMAD, C24's step, a redux.sync, a
+shuffle and a shared load; `sm_clock_ghz`; `stamped_ms`) and
+nvidia-smi's `clocks.sm` beside; `chain_bound_ms` of C9, C23, C24, C25
+and C34 prices each one's dependent path (`chain_steps`) at those
+latencies and C12's serial load (`chain_bounds`).
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
@@ -480,6 +492,21 @@ OCC_BLOCK_BYTES = 48      # bwt.h:61-68, 4 counters + 8 words
 OPS_SHAPE = (Work(6, 3, 5), Work(17, 6, 13), Work(16, 11, 16),
              Work(178, 70, 149))
 OPS_PALLAS = (Work(8, 3, 7), Work(11, 5, 10), Work(10, 2, 7))
+# C9's chain: one iteration's least dependent path, counted from the
+# function (the header of csrc/probe_dfs_shape.cu) in dependent integer
+# steps, warp reductions, shuffles and L2 row loads (the two side by
+# side).  The pop: a lane's minimum of 4 keys (2), a reduction, the
+# compare, select and 2-level minimum of the slot index held (3), a
+# reduction, its register row and lane (1), the fields' select (2) and a
+# shuffle: 8; the row index and its address (2); a load; the count: a
+# shuffle of words 0 and 1, the block test (2), the word's mask (1), the
+# and (1), a popcount (1), a lane's sum (2), a reduction: 7; the
+# expansion: its first add and 10 rounds of 7 (the compare and its
+# select, the shift and the xor, the and and the add, the add-and-
+# minimum): 71; the push: the valid mask (1), a prefix's and and popcount
+# (2), its compare (1) and the sum over 9 (2), the candidate's add (1)
+# and the key's select (1): 8.  chain_bounds prices the steps.
+C9_CHAIN = {"int": 8 + 2 + 7 + 71 + 8, "redux": 3, "shfl": 2, "load": 1}
 # C11 and C16: an add, a popcount a word; C14: an add (IADD3, two a
 # instruction)
 OPS_ONE = Work(1, 0, 1)
@@ -2591,57 +2618,39 @@ def other_device(dev):
 
 def launch_split(dev, calls=SPLIT_CALLS):
     """The host's microseconds a call of each step of kernel C14's, C11's,
-    C29's, C28's, C27's, C20's, C7's, C15's and C8's wrappers, of each
-    wrapper
-    whole and of
-    the PyTorch call that computes the same (`wall_ms` over `calls` calls
-    after a warm-up, one synchronize at the end), with the port's helpers
-    as they stand (`compare.py launch` runs this over another checkout's;
-    a step whose helper that checkout lacks is None).  `helpers`: `loop` an
-    empty call (inside every other figure), `lib`, `stream_of`, `check`
-    and `count` (the launch counter's locked add) as the wrappers call
-    them, and beside them a `torch.cuda.Stream` built for the handle
+    C29's, C28's, C27's, C20's, C7's, C15's and C8's wrappers as they stand
+    (the steps of each one's chosen launch path), of each wrapper whole and
+    of the PyTorch call that computes the same (`wall_ms` over `calls`
+    calls after a warm-up, one synchronize at the end), with the port's
+    helpers (`compare.py launch` runs this over another checkout's; a step
+    whose helper that checkout lacks is None).  `helpers`: `loop` an empty
+    call (inside every other figure), `lib`, `stream_of`, `check` and
+    `count` (the launch counter's locked add) as the wrappers call them,
+    and beside them a `torch.cuda.Stream` built for the handle
     (`stream_object`), the raw handle (`stream_raw`), a lock taken and
     left (`lock`), a ctypes call into the library that touches no CUDA
     API (`ctypes_host`, `nabwa_local_form`) and PyTorch's own launch of
     a kernel that does nothing (`torch_launch`, torch.cuda._sleep(0)).
-    Per kernel: `checks` (`cuda_input` and the width), or for C29, C28,
-    C27 and C20 each input's `cuda_input_<name>` as their old path called
-    it and `cuda_inputs` (one pass over all of them) and `shape` (the
-    shape tests); the allocation of its output (`torch_empty`, `new_empty`
-    with a tuple and with the sizes as arguments, or `empty_like`);
-    `stream_of` and `stream_raw` (from the device index); `data_ptr`
-    (each tensor's pointer read once); `launch` (the ctypes call on
-    pointers read beforehand, whose C function launches the kernel and
-    reads cudaGetLastError); `check`; `count`; `wrapper` and `library`,
-    C29's, C28's, C27's and C20's at phase 18's shapes and calls.  C7's
-    and C15's parts, `probe_rowload` and `probe_smem_idx` (idx [256, 1]
-    and [256] rows of a [4096, 128] table), time their old path's steps,
-    `dev_type` (`idx.device.type`), `require_idx` (`_build.require`),
-    `check_table` (`_check_table`, a second `cuda_input`), `torch_empty`
-    and `stream_of`, beside the new path's: `cuda_inputs` (one pass over
-    the index, at 4-byte alignment, and the table, with C7's `[BB, 1]`
-    test run inside it; null on a checkout whose pass takes no alignment),
-    `shape` (C7's `[BB, 1]` test and the table's width), `new_empty_args`,
-    `stream_raw`, `data_ptr`, `launch`, `check`, `count`; `library` is
-    torch.index_select on the index (C7's column taken beforehand).
-    C11's part, `probe_empty` (x [8, 128]), times beside its old path's
-    `checks` (`cuda_input`) the new path's `cuda_inputs`, `stream_raw`,
-    `data_ptr` (x's and the output's), `check` and `count`; both paths
-    allocate by `empty_like`; `library` is `x + 1`.  C8's, `probe_dma` (the
-    script's default: 100,000 rows, N 128, T 64, `reg`, unroll off), its
-    old path's `dev_type`, `check_args` (`_check`), `require`, the four
-    allocations `torch_empty_vec`, `torch_empty_out`, `torch_empty_stage`
-    and `torch_zeros_rounds` (a fill launch) and `stream_of`, beside the
-    new path's `cuda_inputs`, `shape`, `new_empty_args` (the one buffer),
-    `views` (out, rounds and the stage cut from it, an `as_strided` each),
-    `stream_raw`,
-    `data_ptr`, `launch` (`nabwa_probe_dma`: the grid form here, the
-    serial form with its `cudaFuncSetAttribute` on a checkout before the
-    grid form; the serial form's 10,000 launches then take the card's
-    ~5 s), `check`, `count` and `wrapper` (`dma_cuda`); `library` is
-    torch.index_select of the T N rows the copies read, the rows made
-    beforehand: the bytes' yardstick, not the same function."""
+    Per kernel: the input checks, `checks` (C14: `cuda_input` and the
+    width) or `cuda_inputs` (one pass over all of them; C7's and C15's
+    index at 4-byte alignment, C7's `[BB, 1]` test run inside it; null
+    on a checkout without the pass) and `shape` (the shape tests); the
+    allocation of its output (`new_empty_args`, `new_empty` with the sizes
+    as arguments, or C11's `empty_like`); `stream_raw` (from the device
+    index); `data_ptr` (each tensor's pointer read once); `launch` (the
+    ctypes call on pointers read beforehand, whose C function launches the
+    kernel and reads cudaGetLastError); `check`; `count`; `wrapper` and
+    `library`.  C29, C28, C27 and C20 at phase 18's shapes; C7 and C15
+    (`probe_rowload`, `probe_smem_idx`) at idx [256, 1] and [256] rows of
+    a [4096, 128] table, `library` torch.index_select on the index (C7's
+    column taken beforehand); C11 (`probe_empty`) at x [8, 128], `library`
+    `x + 1`; C8 (`probe_dma`) at the script's default (100,000 rows, N
+    128, T 64, `reg`, unroll off), also `check_args` (`_check`) and
+    `views` (out, rounds and the stage cut from its one buffer, an
+    `as_strided` each), `launch` the grid form's `nabwa_probe_dma`,
+    `wrapper` `dma_cuda`, `library` torch.index_select of the T N rows the
+    copies read, the rows made beforehand: the bytes' yardstick, not the
+    same function."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import common
@@ -2771,9 +2780,6 @@ def launch_split(dev, calls=SPLIT_CALLS):
         "probe_lanereduce": {
             "checks": lambda: (common.cuda_input(x, "x", 2),
                                x.shape[1] != 128),
-            "torch_empty": lambda: torch.empty((rows, 1), dtype=torch.int32,
-                                               device=dev),
-            "new_empty": lambda: x.new_empty((rows, 1)),
             "new_empty_args": lambda: x.new_empty(rows, 1),
             "launch": lambda: lib.nabwa_probe_lanereduce(
                 x.data_ptr(), rows, out.data_ptr(), st),
@@ -2781,7 +2787,6 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "library": lambda: torch.sum(x, dim=1, keepdim=True,
                                          dtype=torch.int32)},
         "probe_empty": {
-            "checks": lambda: common.cuda_input(x1, "x", x1.dim()),
             "empty_like": lambda: torch.empty_like(x1),
             "cuda_inputs": multi and (lambda: multi((x1, "x", x1.dim(),
                                                      i32))),
@@ -2794,18 +2799,7 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "wrapper": lambda: pp2.empty_cuda(x1),
             "library": lambda: x1 + 1},
         "probe_dma": {
-            "dev_type": lambda: dt.device.type,
             "check_args": lambda: pdma._check(d_n, d_t, d_rows, "reg"),
-            "require": lambda: _build.require(dt, "tab", dev, 2),
-            "torch_empty_vec": lambda: torch.empty(1024, dtype=i32,
-                                                   device=dev),
-            "torch_empty_out": lambda: torch.empty(1, dtype=i32,
-                                                   device=dev),
-            "torch_empty_stage": lambda: torch.empty((2 * d_n, 128),
-                                                     dtype=i32, device=dev),
-            "torch_zeros_rounds": lambda: torch.zeros(d_t, dtype=i32,
-                                                      device=dev),
-            "stream_of": lambda: _build.stream_of(dt),
             "cuda_inputs": multi and (lambda: multi((dt, "tab", 2, i32))),
             "shape": lambda: dt.shape[1] != 128 or dt.shape[0] < d_rows,
             "new_empty_args": lambda: dt.new_empty(d_words + 1 + d_t),
@@ -2823,14 +2817,10 @@ def launch_split(dev, calls=SPLIT_CALLS):
                                              False),
             "library": lambda: torch.index_select(dt, 0, d_flat)},
         "probe_p3": {
-            "cuda_input_x": lambda: common.cuda_input(gx, "x", 2),
-            "cuda_input_i": lambda: common.cuda_input(gi, "i", 2, dev),
             "cuda_inputs": multi and (lambda: multi((gx, "x", 2, i32),
                                                     (gi, "i", 2, i32))),
             "shape": lambda: gi.shape[1] != gx.shape[1],
-            "empty_like": lambda: torch.empty_like(gi),
             "new_empty_args": lambda: gi.new_empty(m, c),
-            "stream_of": lambda: _build.stream_of(gx),
             "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
             "data_ptr": lambda: (gx.data_ptr(), gi.data_ptr(),
                                  g_out.data_ptr()),
@@ -2841,18 +2831,11 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "wrapper": lambda: p3.p3_cuda(gx, gi),
             "library": lambda: torch.gather(gx, 0, gi_long)},
         "probe_p1b": {
-            "cuda_input_i": lambda: common.cuda_input(ri, "i", 2),
-            "cuda_input_j": lambda: common.cuda_input(rj, "j", 2, dev),
-            "cuda_input_t": lambda: common.cuda_input(rt, "t", 2, dev),
             "cuda_inputs": multi and (lambda: multi(
                 (ri, "i", 2, i32), (rj, "j", 2, i32), (rt, "t", 2, i32))),
             "shape": lambda: (rt.shape[1] % 4, ri.shape[1] != 1
                               or rj.shape != ri.shape),
-            "torch_empty": lambda: torch.empty((2 * n, cols), dtype=i32,
-                                               device=dev),
-            "new_empty": lambda: rt.new_empty((2 * n, cols)),
             "new_empty_args": lambda: rt.new_empty(2 * n, cols),
-            "stream_of": lambda: _build.stream_of(ri),
             "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
             "data_ptr": lambda: (ri.data_ptr(), rj.data_ptr(),
                                  rt.data_ptr(), r_out.data_ptr()),
@@ -2863,15 +2846,10 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "wrapper": lambda: p3.p1b_cuda(ri, rj, rt),
             "library": lambda: torch.index_select(rt, 0, flat)},
         "probe_p1": {
-            "cuda_input_i": lambda: common.cuda_input(pi, "i", 2),
-            "cuda_input_t": lambda: common.cuda_input(rt, "t", 2, dev),
             "cuda_inputs": multi and (lambda: multi((pi, "i", 2, i32),
                                                     (rt, "t", 2, i32))),
             "shape": lambda: (rt.shape[1] % 4, pi.shape[1] < 2),
-            "torch_empty": lambda: torch.empty((2 * pn, cols), dtype=i32,
-                                               device=dev),
             "new_empty_args": lambda: rt.new_empty(2 * pn, cols),
-            "stream_of": lambda: _build.stream_of(pi),
             "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
             "data_ptr": lambda: (pi.data_ptr(), rt.data_ptr(),
                                  p_out.data_ptr()),
@@ -2882,15 +2860,11 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "wrapper": lambda: p3.p1_cuda(pi, rt),
             "library": lambda: torch.index_select(rt, 0, p_flat)},
         "probe_lane_gather": {
-            "cuda_input_x": lambda: common.cuda_input(lx, "x", 2),
-            "cuda_input_i": lambda: common.cuda_input(li, "i", 2, dev),
             "cuda_inputs": multi and (lambda: multi((lx, "x", 2, i32),
                                                     (li, "i", 2, i32))),
             "shape": lambda: (lx.shape[1] != pp2.GATHER_W
                               or li.shape != lx.shape),
-            "empty_like": lambda: torch.empty_like(lx),
             "new_empty_args": lambda: lx.new_empty(lrows, pp2.GATHER_W),
-            "stream_of": lambda: _build.stream_of(lx),
             "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
             "data_ptr": lambda: (lx.data_ptr(), li.data_ptr(),
                                  l_out.data_ptr()),
@@ -2902,12 +2876,6 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "wrapper": lambda: pp2.lane_gather_cuda(lx, li),
             "library": lambda: torch.gather(lx, 1, li_long)},
         "probe_rowload": {
-            "dev_type": lambda: wi.device.type,
-            "require_idx": lambda: _build.require(wi, "idx", dev, 2),
-            "check_table": lambda: pp._check_table(wt, dev),
-            "torch_empty": lambda: torch.empty((bb, 128), dtype=i32,
-                                               device=dev),
-            "stream_of": lambda: _build.stream_of(wi),
             "cuda_inputs": one_col and (lambda: multi(
                 (wi, "idx", 2, i32, 4, one_col), (wt, "table", 2, i32))),
             "shape": lambda: (wi.shape[1] != 1, wt.shape[1] != 128),
@@ -2923,12 +2891,6 @@ def launch_split(dev, calls=SPLIT_CALLS):
             "wrapper": lambda: pp.rowload_cuda(wi, wt),
             "library": lambda: torch.index_select(wt, 0, w_col)},
         "probe_smem_idx": {
-            "dev_type": lambda: si.device.type,
-            "require_idx": lambda: _build.require(si, "idx", dev, 1),
-            "check_table": lambda: pp._check_table(wt, dev),
-            "torch_empty": lambda: torch.empty((bb, 128), dtype=i32,
-                                               device=dev),
-            "stream_of": lambda: _build.stream_of(si),
             "cuda_inputs": one_col and (lambda: multi(
                 (si, "idx", 1, i32, 4, None), (wt, "table", 2, i32))),
             "shape": lambda: wt.shape[1] != 128,
@@ -3181,6 +3143,159 @@ def check_dma_edges(dev):
         for name, (tab, n, t, n_rows) in cases.items()}}
 
 
+def chain_bounds(probes):
+    """`chain_bound_ms` of C9, C23, C24, C25 and C34: the least dependent
+    path of a launch, counted from the function (each kernel's header),
+    each step priced at the latency C9's stamped launch measured
+    (`latency_cycles` at its `sm_clock_ghz`: an IMAD for an integer step,
+    a redux.sync, a shuffle, a shared load) and a row load at C12's serial
+    load (`serial_ns_per_load`); the path's steps go beside it
+    (`chain_steps`).  C24: T K steps of an element, each an IMAD beside
+    a shift, then the xor; C23: T rounds of the same; C25: 200 steps of an
+    add beside a shift, then the xor; C34: per inner round a shared load
+    and the add, per outer round a shared load of s[0, 0] and its trip
+    count's and and add (the barriers and the stores not counted, so a
+    lower bound)."""
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
+    c9 = probes["probe_dfs_shape"]
+    lat, ghz = c9["latency_cycles"], c9["sm_clock_ghz"]
+    load_ns = probes["probe_loads"]["serial_ns_per_load"]
+    price = {"int": lat["imad"] / ghz, "redux": lat["redux"] / ghz,
+             "shfl": lat["shfl"] / ghz, "lds": lat["lds"] / ghz,
+             "load": load_ns}
+    colops, spill = probes["probe_colops"], probes["probe_spill"]
+    p5 = probes["probe_p5"]
+    chains = {
+        "probe_dfs_shape": {k: v * c9["iters"] for k, v in C9_CHAIN.items()},
+        "probe_colops": {"int": 2 * colops["t"] * colops["k"]},
+        "probe_spill": {"int": 2 * spill["t"]},
+        "probe_p7": {"int": 2 * p3.P7_STEPS},
+        "probe_p5": {"lds": p5["inner_rounds"] + p3.P5_ROUNDS,
+                     "int": p5["inner_rounds"] + 2 * p3.P5_ROUNDS}}
+    for name, steps in chains.items():
+        ns = sum(n * price[k] for k, n in steps.items())
+        probes[name].update(chain_bound_ms=ns * 1e-6, chain_steps=steps)
+    c9["chain_ns_per_iter"] = c9["chain_bound_ms"] * 1e6 / c9["iters"]
+    for sh in c9["shapes"]:
+        sh["queued_over_chain"] = sh["queued_ms"] / c9["chain_bound_ms"]
+        sh["witness_queued_over_chain"] = (sh["witness_queued_ms"]
+                                           / c9["chain_bound_ms"])
+
+
+def sm_clocks():
+    """The card's SM clock and its maximum as nvidia-smi reads them now."""
+    res = subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return res.stdout.strip() if res.returncode == 0 else None
+
+
+def stage_split(stages, cal):
+    """C9's stamped launch taken apart: each stage's median and p90 cycles
+    over every read and iteration, and its share of the summed cycles;
+    the iteration's (the five stages') median and p90; the calibration
+    chains' cycles a step (median over reads); the SM clock in GHz from
+    each read's clock64 and %globaltimer spans (median)."""
+    import numpy as np
+    from nabwa_tpu_torch.probes import probe_dfs_shape as pds
+    st = stages.cpu().numpy().astype(np.int64)
+    cw = cal.cpu().numpy().astype(np.int64)
+    it = st.sum(axis=2)
+    total = int(st.sum())
+    out = {"stages": {
+        name: {"median": float(np.median(st[:, :, i])),
+               "p90": float(np.percentile(st[:, :, i], 90)),
+               "share": int(st[:, :, i].sum()) / total}
+        for i, name in enumerate(pds.STAGES)},
+        "iteration": {"median": float(np.median(it)),
+                      "p90": float(np.percentile(it, 90))}}
+    names = list(pds.CAL)
+    out["latency_cycles"] = {
+        k: float(np.median(cw[:, names.index(k)])) / n
+        for k, n in pds.CAL_STEPS.items()}
+    out["sm_clock_ghz"] = float(np.median(cw[:, names.index("cycles")]
+                                          / cw[:, names.index("ns")]))
+    return out
+
+
+def check_dfs_shape(dev, rng):
+    """Kernel C9 (scripts/probe_dfs_shape.py, S 128, 200 iterations) at the
+    script's 256 reads and at C1's batch of 2,048: the lean form
+    (`run_cuda`) and the witness (`run_witness_cuda`), each exact against
+    one plain call, timed back to back (`ms`) and queued, in turns
+    (witness, lean, lean, witness); each stamped (`run_stamped_cuda`,
+    exact too) and taken apart (`stage_split`), nvidia-smi's SM clock read
+    beside; then both forms exact at S 32, 64 and 96 (256 reads).  Returns
+    C9's fields of the kernels line (`chain_bounds` adds its chain)."""
+    import torch
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_dfs_shape as pds
+    forms = {"lean": pds.run_cuda, "witness": pds.run_witness_cuda}
+    table = rng.randint(0, 1 << 30, (pds.NROW, 128))
+    shapes, worst = [], 0
+    for bb in (256, 2048):
+        s, iters = 128, 200
+        seed = rng.randint(0, 1 << 20, (bb, 128))
+        seed_t, tab_t = common.tensors(dev, seed, table)
+        touched = []
+        plain_ms, want = once_ms(
+            lambda: pds.run_plain(seed_t, tab_t, s, iters, touched))
+        row, word, slot, read = OPS_SHAPE
+        bnd = bound(4 * seed.size + ROW_BYTES * distinct_rows(*touched) + 4,
+                    bb * iters * (2 * (row + 8 * word) + s * slot + read))
+        sh = {"bb": bb, "s": s, "iters": iters, "plain_ms": plain_ms,
+              "bound_ms": bnd[0], "bound_by": bnd[1],
+              "bound_int32_ms": bnd[2], "split": {}}
+        for form, run in forms.items():
+            worst = max(worst, exact(f"C9 probe_dfs_shape {form} BB={bb}",
+                                     run(seed_t, tab_t, s, iters), want))
+            acc, stages, cal = pds.run_stamped_cuda(seed_t, tab_t, s, iters,
+                                                    form == "lean")
+            worst = max(worst, exact(
+                f"C9 probe_dfs_shape {form} stamped BB={bb}", acc, want))
+            sh["split"][form] = stage_split(stages, cal)
+            sh["split"][form]["stamped_ms"] = cuda_ms(
+                lambda: pds.run_stamped_cuda(seed_t, tab_t, s, iters,
+                                             form == "lean"), 3)
+        sh["nvidia_smi_clocks"] = sm_clocks()
+        queued = {form: [] for form in forms}
+        for form in ("witness", "lean", "lean", "witness"):
+            queued[form].append(queued_ms(
+                lambda: forms[form](seed_t, tab_t, s, iters), 20))
+        for form, run in forms.items():
+            pre = "" if form == "lean" else "witness_"
+            ms = cuda_ms(lambda: run(seed_t, tab_t, s, iters), 20)
+            q = sum(queued[form]) / 2
+            sh.update({f"{pre}ms": ms, f"{pre}queued_ms": q,
+                       f"{pre}queued_ms_turns": queued[form],
+                       f"{pre}us_per_iter": ms * 1e3 / iters,
+                       f"{pre}queued_us_per_iter": q * 1e3 / iters})
+        sh["m_lane_iters_per_s"] = bb / (sh["ms"] / 1e3 / iters) / 1e6
+        shapes.append(sh)
+        log(f"C9 probe_dfs_shape BB={bb}: both forms exact; {sh}")
+    # the other slot counts, each a kernel of its own (S / 32 registers a
+    # field a lane)
+    for s in (32, 64, 96):
+        seed = rng.randint(0, 1 << 20, (256, 128))
+        seed_t, tab_t = common.tensors(dev, seed, table)
+        want = pds.run_plain(seed_t, tab_t, s, 200)
+        for form, run in forms.items():
+            worst = max(worst, exact(
+                f"C9 probe_dfs_shape {form} BB=256 S={s}",
+                run(seed_t, tab_t, s, 200), want))
+        log(f"C9 probe_dfs_shape BB=256 S={s} ITERS=200: both forms exact")
+    head = {k: v for k, v in shapes[0].items() if k != "split"}
+    return dict(
+        head, max_abs_err=worst, library_ms=None,
+        library_why="none: a pop, row loads and pushes per read, iterated",
+        shapes=shapes, exact_s=[32, 64, 96, 128],
+        witness_launches=pds.launches_witness,
+        stamped_launches=pds.launches_stamped,
+        latency_cycles=shapes[0]["split"]["witness"]["latency_cycles"],
+        sm_clock_ghz=shapes[0]["split"]["witness"]["sm_clock_ghz"])
+
+
 def check_probes(dev, split):
     """Phase 18: kernels C7-C22 against their plain versions on the card, at
     the probes' shapes, inputs made with numpy from PROBE_SEED; `split` is
@@ -3326,43 +3441,9 @@ def check_probes(dev, split):
                        "steps": split["probe_dma"],
                        "calls": split["calls"]}}
 
-    # C9: scripts/probe_dfs_shape.py at its default and at C1's batch
-    table = rng.randint(0, 1 << 30, (pds.NROW, 128))
-    shapes = []
-    for bb in (256, 2048):
-        s, iters = 128, 200
-        seed = rng.randint(0, 1 << 20, (bb, 128))
-        seed_t, tab_t = common.tensors(dev, seed, table)
-        touched = []
-        err = exact(f"C9 probe_dfs_shape BB={bb}",
-                    pds.run_cuda(seed_t, tab_t, s, iters),
-                    pds.run_plain(seed_t, tab_t, s, iters, touched))
-        row, word, slot, read = OPS_SHAPE
-        bnd = bound(4 * seed.size + ROW_BYTES * distinct_rows(*touched) + 4,
-                    bb * iters * (2 * (row + 8 * word) + s * slot + read))
-        ms = cuda_ms(lambda: pds.run_cuda(seed_t, tab_t, s, iters), 20)
-        shapes.append({
-            "bb": bb, "s": s, "iters": iters, "max_abs_err": err, "ms": ms,
-            "plain_ms": cuda_ms(lambda: pds.run_plain(seed_t, tab_t, s,
-                                                      iters), 1),
-            "bound_ms": bnd[0], "bound_by": bnd[1], "bound_int32_ms": bnd[2],
-            "us_per_iter": ms * 1e3 / iters,
-            "m_lane_iters_per_s": bb / (ms / 1e3 / iters) / 1e6})
-        log(f"C9 probe_dfs_shape BB={bb}: exact; {shapes[-1]}")
-    # C9's other slot counts, each a kernel of its own (S / 32 registers
-    # a field a lane)
-    worst = max(sh["max_abs_err"] for sh in shapes)
-    for s in (32, 64, 96):
-        seed = rng.randint(0, 1 << 20, (256, 128))
-        seed_t, tab_t = common.tensors(dev, seed, table)
-        worst = max(worst, exact(f"C9 probe_dfs_shape BB=256 S={s}",
-                                 pds.run_cuda(seed_t, tab_t, s, 200),
-                                 pds.run_plain(seed_t, tab_t, s, 200)))
-        log(f"C9 probe_dfs_shape BB=256 S={s} ITERS=200: exact")
-    out["probe_dfs_shape"] = dict(
-        shapes[0], max_abs_err=worst, library_ms=None,
-        library_why="none: a pop, row loads and pushes per read, iterated",
-        shapes=shapes, exact_s=[32, 64, 96, 128])
+    # C9: scripts/probe_dfs_shape.py at its default and at C1's batch, both
+    # forms and their stamped split (check_dfs_shape)
+    out["probe_dfs_shape"] = check_dfs_shape(dev, rng)
 
     # C10: probe 5, 100 iterations, 256 reads of 128 slots, a 16 MB table
     k = rng.randint(0, pp.DFS_NROW, (pp.DFS_BB, 128))
@@ -3376,9 +3457,11 @@ def check_probes(dev, split):
                 pp.DFS_BB * pp.DFS_ITERS
                 * (128 * word + pp.DFS_S * slot + read))
     ms = cuda_ms(lambda: pp.dfs_shape_cuda(k_t, tab_t), 20)
+    queued = queued_ms(lambda: pp.dfs_shape_cuda(k_t, tab_t), 20)
     out["probe_pallas_dfs_shape"] = {
-        "max_abs_err": err, "ms": ms,
-        "plain_ms": cuda_ms(lambda: pp.dfs_shape_plain(k_t, tab_t), 1),
+        "max_abs_err": err, "ms": ms, "queued_ms": queued,
+        "queued_us_per_iter": queued * 1e3 / pp.DFS_ITERS,
+        "plain_ms": once_ms(lambda: pp.dfs_shape_plain(k_t, tab_t))[0],
         "bound_ms": bnd[0], "bound_by": bnd[1],
         "bound_int32_ms": bnd[2], "library_ms": None,
         "library_why": "none: a pop, row loads and pushes per read, iterated",
@@ -4444,15 +4527,14 @@ def check_chains(dev, split):
 
     # C24: scripts/probe_colops.py at its defaults (T=2000, K=64) on its
     # five shapes; the plain version takes ~0.9M small launches a call, so
-    # it runs twice: once timed on [64, 128]'s zeros, once on every other
-    # checked input flattened into one tensor (the steps are elementwise)
+    # it runs once, timed, on every checked input flattened into one tensor
+    # (the steps are elementwise; their launches, not the elements, take
+    # its time)
     t, k = pc.DEFAULT_T, pc.DEFAULT_K
     shapes, kern, rest = {}, [], []
     for shape in pc.SHAPES:
         for name, x in (("script", np.zeros(shape)),
                         ("mixed", int32_mixed(rng, shape))):
-            if shape == SPILL_SWEEP_SHAPE and name == "script":
-                continue
             x_t, = common.tensors(dev, x)
             kern.append(pc.colops_cuda(x_t, t, k).reshape(-1))
             rest.append(x_t.reshape(-1))
@@ -4461,12 +4543,10 @@ def check_chains(dev, split):
         queued = queued_ms(lambda: pc.colops_cuda(x_t, t, k), 10)
         shapes[str(shape)] = {"ms": ms, "queued_ms": queued,
                               "queued_ns_per_op": queued * 1e6 / (t * k * 3)}
-    err = exact("C24 probe_colops, all inputs but [64, 128]'s zeros",
-                torch.cat(kern), pc.colops_plain(torch.cat(rest), t, k))
-    x_t, = common.tensors(dev, np.zeros(SPILL_SWEEP_SHAPE))
-    plain_ms, want = once_ms(lambda: pc.colops_plain(x_t, t, k))
-    err = max(err, exact("C24 probe_colops (64, 128) script",
-                         pc.colops_cuda(x_t, t, k), want))
+    flat = torch.cat(rest)
+    plain_ms, want = once_ms(lambda: pc.colops_plain(flat, t, k))
+    err = exact("C24 probe_colops, every shape's inputs", torch.cat(kern),
+                want)
     # the K loop is unrolled by 4: every remainder of K mod 4, at T=3
     x_t, = common.tensors(dev, int32_mixed(rng, (8, 128)))
     for kk in (1, 2, 3, 5, 6, 7):
@@ -4479,6 +4559,7 @@ def check_chains(dev, split):
     out["probe_colops"] = {
         "max_abs_err": err, "ms": shapes[str(SPILL_SWEEP_SHAPE)]["ms"],
         "plain_ms": plain_ms, "plain_calls_timed": 1,
+        "plain_elements": flat.numel(),
         "bound_ms": bnd[0], "bound_by": bnd[1],
         "bound_int32_ms": bnd[2], "library_ms": None,
         "library_why": why,
@@ -5540,6 +5621,11 @@ def main():
     t0 = time.perf_counter()
     probes.update(check_reductions(torch.device("cuda", 0)))
     log(f"C31-C35 checked in {time.perf_counter() - t0:.1f} s")
+    chain_bounds(probes)
+    log("chain bounds, ms: " + ", ".join(
+        f"{k} {probes[k]['chain_bound_ms']:.5f}" for k in (
+            "probe_dfs_shape", "probe_colops", "probe_spill", "probe_p7",
+            "probe_p5")))
     probe_counts, probe_lines = run_probe_entries()
     # C8's serial witness, launched by probe_dma's entry beside the grid
     # form, is listed in C8's entry as C12's serial forms are in C12's

@@ -5,6 +5,7 @@ chip_smoke.py's 64 Mbp cell (the bench reads), on one NVIDIA GPU.
     python3 compare.py c3 CHECKOUT
     python3 compare.py aln CHECKOUT
     python3 compare.py launch CHECKOUT
+    python3 compare.py c9 CHECKOUT [SASS_DIR]
 
 CHECKOUT is the root of a checkout of this repository: this one, or an
 older commit unpacked with `git archive` into a directory `.gitignore`
@@ -36,6 +37,16 @@ host's clock) beside `x + 1`, torch.index_select, torch.sum,
 torch.gather on axis 0 and on axis 1 (their int64 indices made
 beforehand) and C28's, C27's, C7's, C15's and C8's torch.index_select
 (their indices made beforehand; C8's the T N rows its copies read).
+
+c9: kernel C9 (the DFS-step mock, scripts/probe_dfs_shape.py at S 128
+and 200 iterations) at 256 and 2,048 reads, on no cell: each C9 wrapper
+the checkout has (`run_cuda`; `run_witness_cuda`, the first design, where
+it is kept beside the lean form) exact against the plain version, with
+`ms` (CUDA events) and `queued_ms`; where it has `run_stamped_cuda`,
+each form's stage split (this checkout's chip_smoke.py `stage_split`).
+With SASS_DIR, the checkout's csrc/probe_dfs_shape.cu is built alone to a
+cubin for sm_90a and its SASS written there (`cuobjdump -sass`), and each
+kernel's instructions are counted, by opcode, in the JSON.
 
 aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
 has the hybrid split): a warm-up chunk of one slice, then 5 timed
@@ -226,15 +237,98 @@ def time_launch():
     return out
 
 
-MODES = {"c3": time_c3, "aln": time_aln, "launch": time_launch}
+def dump_sass(out_dir):
+    """Build the checkout's csrc/probe_dfs_shape.cu alone to a cubin for
+    sm_90a, write its SASS into out_dir and return, for each kernel, its
+    instruction count and the count of each opcode."""
+    import collections
+    import subprocess
+    from nabwa_tpu_torch.ops import _build
+    nvcc = _build._nvcc()
+    out = pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    tag = pathlib.Path(_build.CSRC).parents[1].name or "checkout"
+    cubin = out / f"{tag}_probe_dfs_shape.cubin"
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-I", str(_build.CSRC), "-o",
+                    str(cubin), str(_build.CSRC / "probe_dfs_shape.cu")],
+                   check=True, capture_output=True, text=True)
+    sass = subprocess.run(
+        [str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+        check=True, capture_output=True, text=True).stdout
+    (out / f"{tag}_probe_dfs_shape.sass").write_text(sass)
+    kernels, name = {}, None
+    for line in sass.splitlines():
+        t = line.strip()
+        if t.startswith("Function : "):
+            name = t.split(":", 1)[1].strip()
+            kernels[name] = collections.Counter()
+            continue
+        # an instruction: /*addr*/ [@predicate] OPCODE.modifiers ...
+        end = t.find("*/")
+        addr = t[2:end] if t.startswith("/*") and end > 2 else ""
+        if not name or not addr or addr.strip("0123456789abcdef"):
+            continue
+        words = t[end + 2:].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            kernels[name][words[0].split(".")[0]] += 1
+    return {k: {"instructions": sum(c.values()), "by_opcode": dict(c)}
+            for k, c in kernels.items()}
+
+
+def time_c9(sass_dir=None):
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_dfs_shape as pds
+    here = own_smoke()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(here.PROBE_SEED)
+    table = rng.randint(0, 1 << 30, (pds.NROW, 128))
+    forms = {"run_cuda": pds.run_cuda}
+    if hasattr(pds, "run_witness_cuda"):
+        forms["run_witness_cuda"] = pds.run_witness_cuda
+    s, iters = 128, 200
+    out = {}
+    for bb in (256, 2048):
+        seed_t, tab_t = common.tensors(
+            dev, rng.randint(0, 1 << 20, (bb, 128)), table)
+        want = pds.run_plain(seed_t, tab_t, s, iters)
+        res = {}
+        for name, fn in forms.items():
+            here.exact(f"C9 {name} BB={bb}", fn(seed_t, tab_t, s, iters),
+                       want)
+            res[name] = {
+                "ms": here.cuda_ms(lambda: fn(seed_t, tab_t, s, iters), 20),
+                "queued_ms": here.queued_ms(
+                    lambda: fn(seed_t, tab_t, s, iters), 20)}
+        if hasattr(pds, "run_stamped_cuda"):
+            for lean in (False, True):
+                acc, stages, cal = pds.run_stamped_cuda(seed_t, tab_t, s,
+                                                        iters, lean)
+                here.exact(f"C9 stamped lean={lean} BB={bb}", acc, want)
+                res["split_" + ("lean" if lean else "witness")] = \
+                    here.stage_split(stages, cal)
+        out[str(bb)] = res
+    out["nvidia_smi_clocks"] = here.sm_clocks()
+    if sass_dir:
+        out["sass"] = dump_sass(sass_dir)
+    return out
+
+
+MODES = {"c3": time_c3, "aln": time_aln, "launch": time_launch,
+         "c9": time_c9}
 
 
 def main(argv):
-    if len(argv) != 2 or argv[0] not in MODES:
-        print(f"usage: compare.py {{{','.join(MODES)}}} CHECKOUT",
-              file=sys.stderr)
+    if (len(argv) not in (2, 3) or argv[0] not in MODES
+            or (len(argv) == 3 and argv[0] != "c9")):
+        print(f"usage: compare.py {{{','.join(MODES)}}} CHECKOUT "
+              "(c9: [SASS_DIR])", file=sys.stderr)
         return 2
-    mode, root = argv
+    mode, root = argv[:2]
     sys.path.insert(0, root)
     import torch
     import chip_smoke as cs
@@ -248,6 +342,8 @@ def main(argv):
     out = {"mode": mode, "checkout": str(cs.ROOT), "card": cs.card_line()}
     if mode == "launch":
         out.update(time_launch())
+    elif mode == "c9":
+        out.update(time_c9(*argv[2:]))
     else:
         fa, fq, *_ = cs.make_data(64_000_000, 32768, 32768, 512)
         idx = BwaIndex.load(str(fa))

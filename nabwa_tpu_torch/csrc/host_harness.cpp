@@ -7,8 +7,9 @@
 // and `_group` entry points; the serial forms stay as their oracles); and
 // the probe
 // kernels' helpers (probes.cuh: the int32 arithmetic, C8's row indices,
-// C9's and C10's counts and expansion, C12's grid and the row each warp
-// copies at each step, C13's slot of a pop, C16's
+// C9's and C10's counts and expansion, C9's lean counts and push, C12's
+// grid and the row each warp copies at each step, C13's slot of a pop,
+// C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
 // pushed fields, C23's value update, C24's step, C25's and C26's steps,
 // C30's source int4, C32's rotation source, C34's trip count), one value
@@ -704,6 +705,33 @@ extern "C" int nabwa_host_probe_shape_expand(const int32_t* e0,
                                              int32_t* a, int32_t* b) {
     for (int i = 0; i < n; ++i)
         pr::shape_expand(e0[i], e1[i], cnt_k[i], cnt_l[i], a + i, b + i);
+    return 0;
+}
+
+// C9's lean form: the counts of the 8 block words of each 128-word row,
+// each word read where the warp fetches it (component i & 3 of lane
+// shape_block_lane), out[8 r + i]
+extern "C" int nabwa_host_probe_shape_block_counts(const int32_t* rows, int n,
+                                                   int32_t* out) {
+    for (int r = 0; r < n; ++r) {
+        const int32_t* row = rows + 128 * (size_t)r;
+        for (int i = 0; i < 8; ++i) {
+            const int32_t src = pr::shape_block_lane(row[0], i);
+            out[8 * r + i] = pr::shape_block_count(row[4 * src + (i & 3)], i,
+                                                   (row[1] >> 4) & 7);
+        }
+    }
+    return 0;
+}
+
+// C9's lean push: the candidate the free slot of rank r takes under the
+// valid mask, read as the warp reads it (lane push_lane(r) of the lanes'
+// push_nth), 9 for none
+extern "C" int nabwa_host_probe_push_take(const int32_t* valid,
+                                          const int32_t* rank, int n,
+                                          int32_t* out) {
+    for (int i = 0; i < n; ++i)
+        out[i] = pr::push_nth((uint32_t)valid[i], pr::push_lane(rank[i]));
     return 0;
 }
 

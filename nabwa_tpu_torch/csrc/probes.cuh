@@ -3,14 +3,14 @@
 // probe_pallas.cu, probe_spill.cu, probe_colops.cu, probe_pallas3.cu):
 // int32 arithmetic that wraps as jnp's does, the floor modulo of jnp's
 // `%`, the row indices of scripts/probe_dma.py, the staged-row counts and
-// the candidate expansion of the two DFS-iteration mocks, the rows of
-// probe_pallas2.py's row loads that each warp copies, one slot of its pop
-// and the fields of its scalar push, and the
-// popcount, one slot of a round of probe_pallas.py's probes 3, 4 and 4b,
-// one step of probe 4c's body, one value's update of probe_spill.py, one
-// step of probe_colops.py, one step of probe_pallas3.py's p7 and p8, the
-// source of p4's relayout, the source word of p2's rotation and p5's trip
-// count.
+// the candidate expansion of the two DFS-iteration mocks (and C9's lean
+// form's count from the block's side and its push from the slots' side),
+// the rows of probe_pallas2.py's row loads that each warp copies, one slot
+// of its pop and the fields of its scalar push, and the popcount, one
+// slot of a round of probe_pallas.py's probes 3, 4 and 4b, one step of
+// probe 4c's body, one value's update of probe_spill.py, one step of
+// probe_colops.py, one step of probe_pallas3.py's p7 and p8, the source of
+// p4's relayout, the source word of p2's rotation and p5's trip count.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -94,6 +94,44 @@ NABWA_HD int32_t shape_word_count(int32_t x, int32_t w, int32_t w0,
     const uint32_t hi = (uint32_t)((x >> 1) & vm & 0x55555555);
     const uint32_t p1 = popc(lo), p2 = popc(hi), p3 = popc(lo & hi);
     return (int32_t)(p1 - p3 + p2 + p3 * 2);
+}
+
+// probe_dfs_shape.py:59-73 from the block's side.  A staged row's count is
+// the sum of shape_word_count over its 8-word block, words 4 to 11 past
+// (w0 & 7) * 16, and nothing else.  Block word i (0..7) lies in component
+// i & 3 of lane shape_block_lane(w0, i) of a warp holding the row as one
+// int4 a lane, and shape_block_count is its count: i against the word
+// offset, (w1 >> 4) & 7, gives its mask vm, and since vm's bits are equal in
+// each bit pair, p1 - p3 + p2 + 2 p3 is popc(x & vm) + popc(x & (x >> 1)
+// & vm & 0x55555555).  Only w0's low 3 bits matter.
+NABWA_HD int32_t shape_block_lane(int32_t w0, int32_t i) {
+    return (w0 & 7) * 4 + 1 + (i >> 2);
+}
+
+NABWA_HD int32_t shape_block_count(int32_t x, int32_t i, int32_t wordoff) {
+    const int32_t vm = i < wordoff ? -1 : i == wordoff ? -65536 : 0;
+    return (int32_t)(popc((uint32_t)(x & vm))
+                     + popc((uint32_t)(x & (x >> 1) & vm & 0x55555555)));
+}
+
+// probe_dfs_shape.py:104-118 from the slots' side: the free slot of
+// inclusive rank r (1-based, in slot order) takes the r-th valid
+// candidate, the r-th set bit of `valid` (~b & 0x1FF), when r is at most
+// its popcount; none otherwise.  push_nth(valid, t) is that bit for
+// r = t + 1, and 9 when fewer than t + 1 bits are set: the count of
+// positions q < 9 whose inclusive prefix of valid holds at most t bits
+// (9 less those holding more, each a sign bit, for t >= 0).  Lane t of a
+// warp computes it for t = lane, and a slot of rank r reads
+// lane push_lane(r): ranks past 9 read lane 9, whose answer is 9.
+NABWA_HD int32_t push_nth(uint32_t valid, int32_t t) {
+    int32_t more = 0;      // minus the prefixes holding more than t bits
+    for (int32_t q = 0; q < 9; ++q)
+        more += (t - (int32_t)popc(valid & ((2u << q) - 1u))) >> 31;
+    return 9 + more;
+}
+
+NABWA_HD int32_t push_lane(int32_t r) {
+    return (r < 10 ? r : 10) - 1;
 }
 
 // probe_dfs_shape.py:78-87: the ten rounds of column arithmetic from the

@@ -96,8 +96,8 @@ _SIGNATURES = {
     "nabwa_probe_dma": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "nabwa_probe_dma_serial": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                _P],
-    # (seed, seed_w, table, nrow, bb, s, iters, acc, stream)
-    "nabwa_probe_dfs_shape": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # (seed, seed_w, table, nrow, bb, s, iters, lean, acc, stamps, stream)
+    "nabwa_probe_dfs_shape": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # (k, table, nrow, bb, iters, acc, stream)
     "nabwa_probe_dfs_pallas": [_P, _P, _I, _I, _I, _P, _P],
     # (x, n, out, stream)

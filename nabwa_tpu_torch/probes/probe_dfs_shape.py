@@ -12,9 +12,14 @@ int32 sum of the first row's count over reads and iterations, [1, 1].
 
 On CUDA tensors kernel C9 (csrc/probe_dfs_shape.cu) runs it, one warp per
 read; on CPU tensors the plain version below.  S must be a multiple of 32
-up to 128.  `main` makes the script's inputs (unseeded `np.random`, as
-there), times 10 calls after a warm-up (CUDA events on the card) and
-prints the script's line.
+up to 128.  C9 has two forms: `run_cuda` launches the lean one (its
+reductions one redux.sync each, the counts from the rows' blocks, a
+one-pass push), `run_witness_cuda` the first design, kept as
+the witness that the lean one is timed against; `run_stamped_cuda` runs
+either with clock64 stamps and returns each stage's cycles (S 128 only).
+`main` makes the script's inputs (unseeded `np.random`, as there), times
+10 calls after a warm-up (CUDA events on the card) and prints the
+script's line.
 """
 
 import sys
@@ -26,11 +31,21 @@ from ..ops import _build
 from . import common
 from .common import FREE_KEY, popcount32, wrap32, wsum
 
+I32 = torch.int32
 NROW = 4096           # scripts/probe_dfs_shape.py:18
 SHIFTS = (1, 2, 4, 8, 16, 32, 64)
+# the stamped form: an iteration's stages, in order, and the calibration
+# words a read after them (csrc/probe_dfs_shape.cu STAGES, CAL)
+STAGES = ("pop", "loads", "counts", "expand", "push")
+CAL = ("imad", "colops", "redux", "shfl", "lds", "cycles", "ns", "sink")
+# the steps of each calibration chain (CAL_INT_STEPS, CAL_WARP_STEPS)
+CAL_STEPS = {"imad": 64, "colops": 64, "redux": 32, "shfl": 32, "lds": 32}
 
-# kernel launches made on CUDA tensors
+# kernel launches made on CUDA tensors: C9's lean form by `run_cuda`, its
+# witness by `run_witness_cuda`, either stamped by `run_stamped_cuda`
 launches = 0
+launches_witness = 0
+launches_stamped = 0
 
 
 def _check(seed, table, s):
@@ -131,25 +146,69 @@ def run_plain(seed, table, s, iters, touched=None):
     return acc.to(torch.int32).view(1, 1)
 
 
-def run_cuda(seed, table, s, iters):
-    """`run_plain` by kernel C9."""
-    global launches
-    dev = seed.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
-    _build.require(seed, "seed", dev, 2)
-    _build.require(table, "table", dev, 2)
+def _launch(seed, table, s, iters, lean, stamped=False):
+    """Check C9's inputs in one pass and launch: the checks and messages
+    of the one-at-a-time ones (CUDA tensors; seed's dtype, dims and
+    contiguity; the table's on seed's device, and its 16-byte alignment,
+    the kernel's int4 reads), then `_check`, then the stamped form's S.
+    acc, and the stamped form's side buffer right after it, are one
+    allocation; the library zeroes acc on the stream before the kernel.
+    Returns (the buffer, whether a kernel ran): no rows launch nothing,
+    and their acc is 0."""
+    index, (ps, pt) = common.cuda_inputs((seed, "seed", 2, I32, 4, None),
+                                         (table, "table", 2, I32))
     _check(seed, table, s)
-    acc = torch.zeros(1, dtype=torch.int32, device=dev)
-    if seed.shape[0] == 0:
-        return acc.view(1, 1)
-    rc = _build.lib().nabwa_probe_dfs_shape(
-        seed.data_ptr(), seed.shape[1], table.data_ptr(), table.shape[0],
-        seed.shape[0], s, int(iters), acc.data_ptr(), _build.stream_of(seed))
-    _build.check(rc, "probe_dfs_shape kernel launch")
-    with _build.count_lock:
-        launches += 1
-    return acc.view(1, 1)
+    if stamped and s != 128:
+        raise ValueError(f"the stamped form takes S 128, got {s}")
+    bb = seed.shape[0]
+    extra = bb * (iters * len(STAGES) + len(CAL)) if stamped else 0
+    if not bb:
+        return seed.new_zeros(1 + extra), False
+    buf = seed.new_empty(1 + extra)
+    base = buf.data_ptr()
+    _build.check(_build.lib().nabwa_probe_dfs_shape(
+        ps, seed.shape[1], pt, table.shape[0], bb, s, int(iters), int(lean),
+        base, base + 4 if stamped else None,
+        torch._C._cuda_getCurrentRawStream(index)),
+        "probe_dfs_shape kernel launch")
+    return buf, True
+
+
+def run_cuda(seed, table, s, iters):
+    """`run_plain` by kernel C9's lean form."""
+    global launches
+    buf, ran = _launch(seed, table, s, iters, True)
+    if ran:
+        with _build.count_lock:
+            launches += 1
+    return buf.view(1, 1)
+
+
+def run_witness_cuda(seed, table, s, iters):
+    """`run_plain` by C9's witness, the first design (butterflies, a
+    ballot argmin, the push's 9 x K passes)."""
+    global launches_witness
+    buf, ran = _launch(seed, table, s, iters, False)
+    if ran:
+        with _build.count_lock:
+            launches_witness += 1
+    return buf.view(1, 1)
+
+
+def run_stamped_cuda(seed, table, s, iters, lean):
+    """C9's lean form (`lean`) or witness with clock64 stamps, S 128 only:
+    (acc int32 [1, 1], each stage's cycles int32 [BB, ITERS, STAGES], the
+    calibration words int32 [BB, len(CAL)]).  Not for timing: the stamps
+    add a store and a clock read a stage."""
+    global launches_stamped
+    buf, ran = _launch(seed, table, s, iters, lean, True)
+    if ran:
+        with _build.count_lock:
+            launches_stamped += 1
+    bb, n = seed.shape[0], iters * len(STAGES)
+    stamps = buf[1:].view(bb, n + len(CAL))
+    return (buf[:1].view(1, 1), stamps[:, :n].view(bb, iters, len(STAGES)),
+            stamps[:, n:])
 
 
 def run(seed, table, s, iters):

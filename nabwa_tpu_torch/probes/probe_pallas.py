@@ -68,11 +68,9 @@ launches_body_scale = 0
 launches_dfs_shape = 0
 
 
-def _check_table(table, device):
-    """Raise ValueError unless table is an int32 [NROW, 128] CUDA tensor
-    on `device` that kernel C10 may read as int4 (C10's wrapper checks its
-    inputs one at a time; C7's and C15's check theirs in one pass)."""
-    common.cuda_input(table, "table", 2, device)
+def _table_width(table):
+    """Raise ValueError unless table rows have 128 words (C10's table
+    check, run inside its one pass)."""
     if table.shape[1] != 128:
         raise ValueError(f"table rows have {table.shape[1]} words, not 128")
 
@@ -350,28 +348,32 @@ def dfs_shape_plain(k, table, iters=DFS_ITERS, touched=None):
 
 
 def dfs_shape_cuda(k, table, iters=DFS_ITERS):
-    """`dfs_shape_plain` by kernel C10."""
+    """`dfs_shape_plain` by kernel C10.  One check pass over k and the
+    table (the one-at-a-time checks' order and messages: CUDA tensors, k's
+    dtype, dims and contiguity, the table's on k's device and its 16-byte
+    alignment, its width), each device index and pointer read once; acc
+    is one allocation, zeroed by the library on the stream before the
+    kernel.  No rows launch nothing."""
     global launches_dfs_shape
-    dev = k.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
-    _build.require(k, "k", dev, 2)
-    _check_table(table, dev)
+    index, (pk, pt) = common.cuda_inputs((k, "k", 2, I32, 4, None),
+                                         (table, "table", 2, I32, 16,
+                                          _table_width))
     nrow = table.shape[0]
     if k.shape[1] != 128:
         raise ValueError(f"k must be [BB, 128], got {tuple(k.shape)}")
     if nrow & (nrow - 1):
         raise ValueError(f"table rows must be a power of two, got {nrow}")
-    acc = torch.zeros(1, dtype=torch.int32, device=dev)
-    if k.shape[0] == 0:
-        return acc.view(1, 1)
-    rc = _build.lib().nabwa_probe_dfs_pallas(
-        k.data_ptr(), table.data_ptr(), nrow, k.shape[0], int(iters),
-        acc.data_ptr(), _build.stream_of(k))
-    _build.check(rc, "probe_dfs_pallas kernel launch")
+    bb = k.shape[0]
+    if not bb:
+        return k.new_zeros(1, 1)
+    acc = k.new_empty(1, 1)
+    _build.check(_build.lib().nabwa_probe_dfs_pallas(
+        pk, pt, nrow, bb, int(iters), acc.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(index)),
+        "probe_dfs_pallas kernel launch")
     with _build.count_lock:
         launches_dfs_shape += 1
-    return acc.view(1, 1)
+    return acc
 
 
 def dfs_shape(k, table, iters=DFS_ITERS):

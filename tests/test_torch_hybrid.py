@@ -22,7 +22,7 @@ Tolerance: exact (integers, whole files).
 
 import concurrent.futures
 import sys
-import time
+import threading
 
 import numpy as np
 import pytest
@@ -225,23 +225,50 @@ def test_hybrid_route_matches_jax(data, n_dev, small_stack):  # noqa: F811
     assert (eng.dev_rate is not None) == (n_dev > 0)
 
 
+class _ThreadClock:
+    """A stand-in for the `time` module of nabwa_tpu_torch.models.aln
+    whose `perf_counter` reads a clock of the calling thread's own: each
+    call moves it on by STEP seconds, and `add` moves the calling thread's
+    on by more.  The hybrid's windows (the card route on its helper thread,
+    the host drain on the caller's) then last a fixed step a call they
+    make, whatever the machine's speed and the threads' interleaving."""
+    STEP = 1e-3
+
+    def __init__(self):
+        self._now = threading.local()
+
+    def _get(self):
+        return getattr(self._now, "t", 0.0)
+
+    def perf_counter(self):
+        self._now.t = self._get() + self.STEP
+        return self._now.t
+
+    def add(self, seconds):
+        self._now.t = self._get() + seconds
+
+
 def test_slow_first_device_window_keeps_the_card(data,  # noqa: F811
                                                  monkeypatch):
     """An engine's first device window, made slow here as a kernel build
-    inside it would make it, stays out of the rate EMA: the plan at the
-    bench's size (262,144 reads, batch 2048, 8 cores) still gives the
-    card a share, where that window taken as it is would bench the card
-    for every later chunk.  The next window enters the EMA."""
+    inside it would make it (2 s more on the window's clock), stays out of
+    the rate EMA: the plan at the bench's size (262,144 reads, batch 2048,
+    8 cores) still gives the card a share, where that window taken as it
+    is would bench the card for every later chunk.  The next window enters
+    the EMA.  The windows' seconds come from `_ThreadClock`, not the wall
+    clock."""
     d, want = data
     opt = GapOpt()
     eng = AlnEngine(BwaIndex.load(str(d / "g.fa")), opt, "cpu")
     reads = _reads(d)
     device_pass = eng._device_pass
     calls = []
+    clock = _ThreadClock()
+    monkeypatch.setattr(maln, "time", clock)
 
     def first_slow(*args, **kw):
         if not calls:
-            time.sleep(2.0)
+            clock.add(2.0)
         calls.append(1)
         return device_pass(*args, **kw)
 

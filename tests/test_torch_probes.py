@@ -42,6 +42,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from nabwa_tpu_torch.ops import _build
 from nabwa_tpu_torch.probes import common
 from nabwa_tpu_torch.probes import probe_dfs_shape as pds
 from nabwa_tpu_torch.probes import probe_dma as pdma
@@ -411,6 +412,56 @@ def test_host_probe_helpers_match_plain(host, name):
     np.testing.assert_array_equal(got, want.numpy())
 
 
+def test_host_block_counts_match_plain(host):
+    """C9's lean count from the block's side (`shape_block_lane`,
+    `shape_block_count`), built for the host: each of a row's 8 block
+    words, read where the warp fetches it, counts what the plain version
+    counts for that word, and the 8 sum to the row's count, at every
+    block and word offset."""
+    rng = np.random.default_rng(730)
+    rows = rng.integers(-2**31, 2**31, (128, 128))
+    rows[:, 0] = (rows[:, 0] & ~7) | np.arange(128) % 8
+    rows[:, 1] = (rows[:, 1] & ~0x70) | ((np.arange(128) // 8 % 8) << 4)
+    rows[64::5, 4:] = -1
+    rows[65::5, 4:] = -2**31
+    rows[66::5, 4:] = 0x55555555
+    rows = rows.astype(np.int32).astype(np.int64)
+    fn = host.nabwa_host_probe_shape_block_counts
+    fn.argtypes = [_P, _I, _P]
+    fn.restype = _I
+    x = np.ascontiguousarray(rows.reshape(-1), dtype=np.int32)
+    got = np.empty((len(rows), 8), dtype=np.int32)
+    assert fn(x.ctypes.data_as(_P), len(rows), got.ctypes.data_as(_P)) == 0
+    words = pds.word_counts(_t(rows)).numpy()
+    blk = (rows[:, 0] & 7) * 16 + 4
+    want = words[np.arange(len(rows))[:, None], blk[:, None] + np.arange(8)]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got.sum(axis=1), words.sum(axis=1))
+    assert (want > 0).sum() > 256
+
+
+def test_host_push_takes_the_rth_valid_candidate(host):
+    """C9's lean push from the slots' side (`push_nth` read at lane
+    `push_lane(rank)`), built for the host, for every 9-bit valid mask and
+    every rank 1-128: the free slot of inclusive rank r takes candidate j
+    where j is valid and the valid candidates before it number r - 1, as
+    the plain version's pushes place them; 9 (none) when fewer than r
+    are valid."""
+    masks = np.arange(512, dtype=np.int32)
+    ranks = np.arange(1, 129, dtype=np.int32)
+    valid = np.ascontiguousarray(np.repeat(masks, len(ranks)))
+    rank = np.ascontiguousarray(np.tile(ranks, len(masks)))
+    got, = _call(host.nabwa_host_probe_push_take, 1, valid, rank)
+    want = np.full((len(masks), len(ranks)), 9, dtype=np.int64)
+    for m in masks.tolist():
+        pref = 0
+        for j in range(9):
+            if (m >> j) & 1:
+                want[m, pref] = j         # rank pref + 1
+                pref += 1
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
 def test_wrap_and_floor_mod_edges():
     vals = [0, 1, -1, 2**31 - 1, -2**31, 2**31, 2**32 - 1, 2**32,
             -2**31 - 1, 3 * 2**32 + 5, 1103515245 * 63]
@@ -506,6 +557,12 @@ def test_unported_probe_exits_nonzero(capsys):
                           "reg", False),
     lambda: pds.run_cuda(torch.zeros((4, 128), dtype=torch.int32),
                          torch.zeros((8, 128), dtype=torch.int32), 128, 1),
+    lambda: pds.run_witness_cuda(torch.zeros((4, 128), dtype=torch.int32),
+                                 torch.zeros((8, 128), dtype=torch.int32),
+                                 128, 1),
+    lambda: pds.run_stamped_cuda(torch.zeros((4, 128), dtype=torch.int32),
+                                 torch.zeros((8, 128), dtype=torch.int32),
+                                 128, 1, True),
     lambda: pdma.dma_serial_cuda(torch.zeros((8, 128), dtype=torch.int32), 4,
                                  1, 8, "reg", False)])
 def test_kernels_refuse_cpu_tensors(call):
@@ -513,3 +570,224 @@ def test_kernels_refuse_cpu_tensors(call):
     the plain versions, and only for CPU tensors."""
     with pytest.raises(ValueError, match="CUDA tensors"):
         call()
+
+
+def _card(*shape, dtype=torch.int32, index=0, skew=False):
+    """Zeros that say they lie on card `index` (test_torch_probe_pallas.py's
+    `_OnCard`), or, with `skew`, int32 zeros 4 bytes past a 16-byte
+    boundary on card 0."""
+    from . import test_torch_probe_pallas as tpp
+    if skew:
+        return tpp._misaligned(*shape)
+    t = torch.zeros(shape, dtype=dtype)
+    return t.as_subclass(tpp._OnCard1 if index else tpp._OnCard)
+
+
+# C9's refusals: (seed, table) made on call, S, the message, in the order
+# of the one-at-a-time checks (seed, then the table, then `_check`)
+C9_REFUSALS = {
+    "seed int64": (lambda: (_card(4, 128, dtype=torch.int64),
+                            _card(8, 128)), 128, "seed: dtype torch.int64"),
+    "seed 1-D": (lambda: (_card(128), _card(8, 128)), 128,
+                 "seed: 1 dims, expected 2"),
+    "seed transposed": (lambda: (_card(128, 4).t(), _card(8, 128)), 128,
+                        "seed: not contiguous"),
+    "table on cuda:1": (lambda: (_card(4, 128), _card(8, 128, index=1)), 128,
+                        "table: on cuda:1, expected cuda:0"),
+    "table int64": (lambda: (_card(4, 128), _card(8, 128,
+                                                  dtype=torch.int64)),
+                    128, "table: dtype torch.int64"),
+    "table 3-D": (lambda: (_card(4, 128), _card(2, 4, 128)), 128,
+                  "table: 3 dims, expected 2"),
+    "table transposed": (lambda: (_card(4, 128), _card(128, 8).t()), 128,
+                         "table: not contiguous"),
+    "table misaligned": (lambda: (_card(4, 128), _card(8, 128, skew=True)),
+                         128, "table: not 16-byte aligned"),
+    "S 48": (lambda: (_card(4, 128), _card(8, 128)), 48,
+             "S must be 32, 64, 96 or 128, got 48"),
+    "S 64 narrower than its seed": (lambda: (_card(4, 32), _card(8, 128)),
+                                    64, r"seed must be \[BB, >= 64\]"),
+    "seed narrower than S": (lambda: (_card(4, 64), _card(8, 128)), 128,
+                             r"seed must be \[BB, >= 128\]"),
+    "table width": (lambda: (_card(4, 128), _card(8, 64)), 128,
+                    r"table must be \[NROW, 128\]"),
+    "table rows": (lambda: (_card(4, 128), _card(6, 128)), 128,
+                   "NROW a power of two"),
+    "seed before table": (lambda: (_card(4, 128, dtype=torch.int64),
+                                   _card(8, 128, skew=True)), 128,
+                          "seed: dtype"),
+    "table before S": (lambda: (_card(4, 128), _card(8, 128, skew=True)),
+                       48, "table: not 16-byte aligned")}
+C9_WRAPPERS = {"run_cuda": pds.run_cuda,
+               "run_witness_cuda": pds.run_witness_cuda,
+               "run_stamped_cuda": lambda *a: pds.run_stamped_cuda(*a, True)}
+
+
+def _counts():
+    return (pds.launches, pds.launches_witness, pds.launches_stamped,
+            pp.launches_dfs_shape)
+
+
+def _refuse_library(monkeypatch):
+    def refuse():
+        raise AssertionError("the kernel library was asked for")
+    monkeypatch.setattr(_build, "lib", refuse)
+
+
+@pytest.mark.parametrize("wrapper", list(C9_WRAPPERS))
+@pytest.mark.parametrize("case", list(C9_REFUSALS))
+def test_c9_refusals(case, wrapper, monkeypatch):
+    """Each of C9's wrappers refuses what its kernel does not take with
+    the one-at-a-time checks' message and in their order, before asking
+    for the library; no count moves."""
+    _refuse_library(monkeypatch)
+    make, s, msg = C9_REFUSALS[case]
+    before = _counts()
+    with pytest.raises(ValueError, match=msg):
+        C9_WRAPPERS[wrapper](*make(), s, 200)
+    assert _counts() == before
+
+
+def test_c9_stamped_refuses_other_s(monkeypatch):
+    """The stamped form runs at S 128 only, refused after the inputs'
+    checks."""
+    _refuse_library(monkeypatch)
+    before = _counts()
+    with pytest.raises(ValueError, match="stamped form takes S 128, got 64"):
+        pds.run_stamped_cuda(_card(4, 128), _card(8, 128), 64, 200, True)
+    assert _counts() == before
+
+
+# C10's refusals: (k, table) made on call and the message, in the order of
+# the one-at-a-time checks (k, the table and its width, k's width, rows)
+C10_REFUSALS = {
+    "k int64": (lambda: (_card(4, 128, dtype=torch.int64), _card(8, 128)),
+                "k: dtype torch.int64"),
+    "k 1-D": (lambda: (_card(128), _card(8, 128)), "k: 1 dims, expected 2"),
+    "k transposed": (lambda: (_card(128, 4).t(), _card(8, 128)),
+                     "k: not contiguous"),
+    "table on cuda:1": (lambda: (_card(4, 128), _card(8, 128, index=1)),
+                        "table: on cuda:1, expected cuda:0"),
+    "table int64": (lambda: (_card(4, 128), _card(8, 128,
+                                                  dtype=torch.int64)),
+                    "table: dtype torch.int64"),
+    "table transposed": (lambda: (_card(4, 128), _card(128, 8).t()),
+                         "table: not contiguous"),
+    "table misaligned": (lambda: (_card(4, 128), _card(8, 128, skew=True)),
+                         "table: not 16-byte aligned"),
+    "table width": (lambda: (_card(4, 128), _card(8, 64)),
+                    "table rows have 64 words, not 128"),
+    "k width": (lambda: (_card(4, 64), _card(8, 128)),
+                r"k must be \[BB, 128\]"),
+    "table rows": (lambda: (_card(4, 128), _card(6, 128)),
+                   "table rows must be a power of two, got 6"),
+    "table width before k width": (lambda: (_card(4, 64), _card(8, 64)),
+                                   "table rows have 64 words")}
+
+
+@pytest.mark.parametrize("case", list(C10_REFUSALS))
+def test_c10_refusals(case, monkeypatch):
+    """C10's wrapper refuses what its kernel does not take with the
+    one-at-a-time checks' message and in their order, before asking for
+    the library; no count moves."""
+    _refuse_library(monkeypatch)
+    make, msg = C10_REFUSALS[case]
+    before = _counts()
+    with pytest.raises(ValueError, match=msg):
+        pp.dfs_shape_cuda(*make())
+    assert _counts() == before
+
+
+@pytest.fixture
+def fake_dfs_lib(monkeypatch):
+    """`_build.lib()` answers with a library that records C9's and C10's
+    launch arguments (every launch succeeds), and the current stream's
+    handle on device k is 1000 + k."""
+    calls = []
+
+    class Lib:
+        def nabwa_probe_dfs_shape(self, *args):
+            calls.append(("c9",) + args)
+            return 0
+
+        def nabwa_probe_dfs_pallas(self, *args):
+            calls.append(("c10",) + args)
+            return 0
+    monkeypatch.setattr(_build, "lib", Lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    return calls
+
+
+def _counted_pair(shape_a, shape_b, monkeypatch):
+    from collections import Counter
+    from . import test_torch_probe_pallas3 as tpp3
+    monkeypatch.setattr(tpp3._Counted, "reads", Counter())
+    a, b = (torch.zeros(s, dtype=torch.int32).as_subclass(tpp3._Counted)
+            for s in (shape_a, shape_b))
+    return a, b, tpp3._Counted.reads
+
+
+@pytest.mark.parametrize("form", ["lean", "witness", "stamped"])
+def test_c9_launch_on_pointers_read_once(form, fake_dfs_lib, monkeypatch):
+    """C9's wrappers launch on the pointers and the device index their one
+    pass read (each input's pointer and device index once, `device`
+    never), acc in one allocation (the side buffer right after it in the
+    stamped form), the stream of that index, the form's flag; each count
+    rises by one."""
+    from collections import Counter
+    seed, table, reads = _counted_pair((6, 128), (4096, 128), monkeypatch)
+    counts = _counts()
+    if form == "stamped":
+        out, stages, cal = pds.run_stamped_cuda(seed, table, 128, 7, True)
+        assert stages.shape == (6, 7, len(pds.STAGES))
+        assert cal.shape == (6, len(pds.CAL))
+        assert stages.data_ptr() == out.data_ptr() + 4
+        assert cal.data_ptr() == out.data_ptr() + 4 + 4 * 7 * 5
+    else:
+        wrapper = pds.run_cuda if form == "lean" else pds.run_witness_cuda
+        out = wrapper(seed, table, 128, 7)
+    assert {k: v for k, v in reads.items() if k[1] in (id(seed), id(table))
+            } == Counter({(k, id(a)): 1 for k in ("data_ptr", "get_device")
+                          for a in (seed, table)})
+    base = out.data_ptr()
+    assert fake_dfs_lib == [("c9", seed.data_ptr(), 128, table.data_ptr(),
+                             4096, 6, 128, 7, int(form != "witness"), base,
+                             base + 4 if form == "stamped" else None, 1000)]
+    assert out.shape == (1, 1) and out.dtype == torch.int32
+    bump = {"lean": 0, "witness": 1, "stamped": 2}[form]
+    assert _counts() == tuple(c + (i == bump) for i, c in enumerate(counts))
+    pds.run_cuda(_card(6, 128, index=1), _card(4096, 128, index=1), 128, 7)
+    assert fake_dfs_lib[-1][-1] == 1001
+
+
+def test_c10_launch_on_pointers_read_once(fake_dfs_lib, monkeypatch):
+    """C10's wrapper launches as C9's does: each input's pointer and device
+    index read once, acc one allocation, the stream of that index; its
+    count rises by one."""
+    from collections import Counter
+    k, table, reads = _counted_pair((6, 128), (32768, 128), monkeypatch)
+    before = pp.launches_dfs_shape
+    out = pp.dfs_shape_cuda(k, table, 9)
+    assert {key: v for key, v in reads.items()
+            if key[1] in (id(k), id(table))} == Counter(
+        {(key, id(a)): 1 for key in ("data_ptr", "get_device")
+         for a in (k, table)})
+    assert fake_dfs_lib == [("c10", k.data_ptr(), table.data_ptr(), 32768,
+                             6, 9, out.data_ptr(), 1000)]
+    assert out.shape == (1, 1) and out.dtype == torch.int32
+    assert pp.launches_dfs_shape == before + 1
+
+
+def test_c9_c10_empty_launch_nothing(fake_dfs_lib):
+    """No reads: acc 0 and no launch, no count."""
+    before = _counts()
+    for got in (pds.run_cuda(_card(0, 128), _card(4096, 128), 128, 5),
+                pds.run_witness_cuda(_card(0, 128), _card(4096, 128), 128,
+                                     5),
+                pds.run_stamped_cuda(_card(0, 128), _card(4096, 128), 128, 5,
+                                     False)[0],
+                pp.dfs_shape_cuda(_card(0, 128), _card(32768, 128))):
+        assert got.shape == (1, 1) and int(got[0, 0]) == 0
+    assert not fake_dfs_lib
+    assert _counts() == before

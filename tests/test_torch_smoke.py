@@ -74,7 +74,7 @@ def test_compare_refuses_an_unknown_mode():
                          cwd=REPO, capture_output=True, text=True,
                          timeout=60)
     assert res.returncode == 2 and not res.stdout
-    assert "{c3,aln,launch}" in res.stderr
+    assert "{c3,aln,launch,c9}" in res.stderr
 
 
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -208,3 +208,83 @@ def test_build_index_matches_reference(tmp_path, n, n_frac, n_seqs):
         want = (tmp_path / "ref" / ("g.fa" + ext)).read_bytes()
         assert got == want, ext
     assert b"N" in fa.split(b"\n", 1)[1] or n_seqs > 1
+
+
+def _smoke_module():
+    """chip_smoke.py imported as a module (its top level needs no card)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_cpu",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_stage_split_of_known_stamps():
+    """`stage_split` on stamps made up here: each stage's median, p90 and
+    share of the summed cycles, the iteration's median, the calibration
+    chains' cycles a step and the SM clock from the clock64 and
+    %globaltimer spans."""
+    import numpy as np
+    import torch
+    from nabwa_tpu_torch.probes import probe_dfs_shape as pds
+    cs = _smoke_module()
+    bb, iters = 4, 10
+    base = np.array([100, 400, 200, 300, 100])          # a stage's cycles
+    stages = np.broadcast_to(base, (bb, iters, 5)).copy()
+    stages[:, :, 1] += np.arange(iters)                 # loads 400..409
+    cal = np.zeros((bb, len(pds.CAL)), dtype=np.int64)
+    steps = [pds.CAL_STEPS[k] for k in ("imad", "colops", "redux", "shfl",
+                                        "lds")]
+    cal[:, :5] = np.array([4, 10, 30, 25, 30]) * np.array(steps)
+    cal[:, 5], cal[:, 6] = 1_980_000, 1_000_000
+    out = cs.stage_split(torch.from_numpy(stages.astype(np.int32)),
+                         torch.from_numpy(cal.astype(np.int32)))
+    st = out["stages"]
+    assert list(st) == list(pds.STAGES)
+    assert st["pop"]["median"] == 100 and st["push"]["p90"] == 100
+    assert st["loads"]["median"] == 404.5
+    assert st["loads"]["p90"] == np.percentile(400 + np.arange(iters), 90)
+    total = stages.sum()
+    assert st["counts"]["share"] == 200 * bb * iters / total
+    assert abs(sum(v["share"] for v in st.values()) - 1) < 1e-12
+    assert out["iteration"]["median"] == 1104.5
+    assert out["latency_cycles"] == {"imad": 4, "colops": 10, "redux": 30,
+                                     "shfl": 25, "lds": 30}
+    assert out["sm_clock_ghz"] == 1.98
+
+
+def test_chain_bounds_price_each_path():
+    """`chain_bounds` prices each kernel's dependent path at the measured
+    latencies: C9's C9_CHAIN steps an iteration, C24's 2 T K, C23's 2 T,
+    C25's 400 integer steps, C34's shared loads and steps; ns = cycles /
+    GHz, an L2 row load at C12's serial load."""
+    cs = _smoke_module()
+    lat = {"imad": 4.0, "colops": 8.0, "redux": 30.0, "shfl": 20.0,
+           "lds": 32.0}
+    probes = {
+        "probe_dfs_shape": {"latency_cycles": lat, "sm_clock_ghz": 2.0,
+                            "iters": 200,
+                            "shapes": [{"queued_ms": 0.2,
+                                        "witness_queued_ms": 0.3}]},
+        "probe_loads": {"serial_ns_per_load": 170.0},
+        "probe_colops": {"t": 2000, "k": 64}, "probe_spill": {"t": 2000},
+        "probe_p7": {}, "probe_p5": {"inner_rounds": 126}}
+    cs.chain_bounds(probes)
+    c = cs.C9_CHAIN
+    per_iter = (c["int"] * 4 + c["redux"] * 30 + c["shfl"] * 20) / 2.0 + 170
+    assert probes["probe_dfs_shape"]["chain_bound_ms"] == \
+        pytest.approx(200 * per_iter * 1e-6)
+    assert probes["probe_dfs_shape"]["chain_ns_per_iter"] == \
+        pytest.approx(per_iter)
+    sh = probes["probe_dfs_shape"]["shapes"][0]
+    assert sh["queued_over_chain"] == pytest.approx(0.2 / (per_iter * 2e-4))
+    assert probes["probe_colops"]["chain_bound_ms"] == \
+        pytest.approx(2 * 2000 * 64 * 2.0 * 1e-6)
+    assert probes["probe_spill"]["chain_bound_ms"] == \
+        pytest.approx(2 * 2000 * 2.0 * 1e-6)
+    assert probes["probe_p7"]["chain_bound_ms"] == \
+        pytest.approx(400 * 2.0 * 1e-6)
+    assert probes["probe_p5"]["chain_steps"] == {"lds": 176, "int": 226}
+    assert probes["probe_p5"]["chain_bound_ms"] == \
+        pytest.approx((176 * 16.0 + 226 * 2.0) * 1e-6)
