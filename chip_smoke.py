@@ -228,9 +228,12 @@ Phases, any failure exits non-zero:
    out[0], the copies landed when it read, counted over the timed
    launches; the others exact against their plain versions.  C23
    (csrc/probe_spill.cu) scripts/probe_spill.py at its K=24, T=2000 on its
-   four shapes, then at [64, 128] for every K it is built for, each with
-   its registers and spill bytes from the build's ptxas report (the run
-   fails unless some K spills; `ptxas_from_cache` says whether the report
+   four shapes in both forms, the lane form (the probe's route; also at
+   SPILL_LANES lanes a group) and the witness, queued in turns, then both
+   at [64, 128] for every K the witness is built for, the witness with its
+   registers and spill bytes from the build's ptxas report (the run fails
+   unless some K spills, and if any instantiation of the lane form spills
+   or takes a stack frame; `ptxas_from_cache` says whether the report
    came from this run's nvcc or from the one kept beside the library); C24
    (csrc/probe_colops.cu) scripts/probe_colops.py at its T=2000, K=64 on
    its five shapes, and at T=3 for K 1-3 and 5-7 (its K loop's unrolling
@@ -252,10 +255,12 @@ Phases, any failure exits non-zero:
    (C31 `native`, C32 `roll`, C33 `subl`), 5 and 6 of that script at its
    shapes: C31-C34 exact at its inputs and at int32 edges (C31-C33 values
    within 8 of both ends with each row's or column's minimum repeated, and
-   values within 8 of INT32_MAX; C34 a negative s[0, 0] and values near
-   INT32_MAX that wrap), C35 bit for bit at its inputs, at a random
-   float32 w and at x over int32; misaligned and wrong-shape inputs are
-   refused on the card.  Then each probe's entry point (`python -m
+   values within 8 of INT32_MAX; C34 in both forms, the grid form and the
+   witness, a negative s[0, 0] and values near INT32_MAX that wrap, the
+   grid form also at P5_GRID_SHAPES, queued in turns), C35 bit for bit at
+   its inputs, at a random float32 w and at x over int32; misaligned and
+   wrong-shape inputs are refused on the card.  Then each probe's entry
+   point (`python -m
    nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`, `.probe_dfs_shape`,
    `.probe_pallas2`, `.probe_sem` at K=4, `.probe_spill` and
    `.probe_colops` at their scripts' default K and T, `.probe_pallas3`,
@@ -388,7 +393,12 @@ chain of one dependent load a step.  Its bound counts one Occ block a step;
 shuffle and a shared load; `sm_clock_ghz`; `stamped_ms`) and
 nvidia-smi's `clocks.sm` beside; `chain_bound_ms` of C9, C23, C24, C25
 and C34 prices each one's dependent path (`chain_steps`) at those
-latencies and C12's serial load (`chain_bounds`).
+latencies and C12's serial load (`chain_bounds`).  C23's and C34's `ms`,
+`queued_ms` and `launches` are their new forms' (C23's lane form at
+`lanes` lanes a group, C34's grid form), `witness_*` the first design's,
+kept beside as the witness; C23's `shapes` and `k_sweep` hold both,
+`lane_ptxas` the lane form's registers by M, and C34's
+`witness_smem_ceiling_ms` its witness's one-SM shared-memory ceiling.
 
 Data and the index are cached under the temp directory.  The last two
 lines of standard output are the card line and
@@ -549,6 +559,11 @@ OPS_P2 = {"native": Work(2, 0.75, 2.0), "roll": Work(8, 7, 18),
 OPS_P5 = Work(1, 0, 1)
 OPS_P6 = Work(2, 0, 3)
 SPILL_SWEEP_SHAPE = (64, 128)     # C23's K sweep, at the script's T
+SPILL_LANES = (2, 4, 8)           # the lane form's groups tried at K 24
+# C34's grid form past the witness's shared memory, and at a word count
+# that is not a multiple of 4 (16,383)
+P5_GRID_SHAPES = ((512, 128), (129, 127))
+SMEM_BYTES_PER_CLOCK = 128        # one SM's shared memory
 ROW_BYTES = 512               # one 128-word int32 table row
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 # a sleep on the card long enough for the host to enqueue 200 launches
@@ -717,30 +732,39 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def queued_ms(fn, reps):
+def queued_ms(fn, reps, tries=3):
     """Mean device milliseconds a launch of fn() over reps launches queued
     behind a sleeping kernel (CUDA events): the card's time back to back,
-    without the host's enqueue between launches.  Fails if the host took
-    longer to enqueue them than the sleep lasted."""
+    without the host's enqueue between launches.  A reading counts only if
+    the sleep outlasted the host's enqueue of the launches; where it did
+    not (a busy host), the launches are drained and queued again behind a
+    sleep twice as long, and the run fails if that happens in all of
+    `tries` tries."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     slept = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
-    slept.record()
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    if slept.query():
-        fail(f"queued_ms: the sleep ended within the {host_ms:.3f} ms the "
-             f"host took to enqueue {reps} launches")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = QUEUE_SLEEP_CYCLES
+    for _ in range(tries):
+        torch.cuda._sleep(cycles)
+        slept.record()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        done = slept.query()
+        torch.cuda.synchronize()
+        if not done:
+            return start.elapsed_time(end) / reps
+        log(f"queued_ms: the sleep of {cycles} cycles ended within the "
+            f"{host_ms:.3f} ms the host took to enqueue {reps} launches")
+        cycles *= 2
+    fail(f"queued_ms: in {tries} tries the sleep ended before the host "
+         f"had enqueued {reps} launches")
 
 
 def wall_ms(fn, reps):
@@ -2918,18 +2942,20 @@ def launch_split(dev, calls=SPLIT_CALLS):
 def check_launch_path(dev):
     """The shared launch path keeps its meaning: `stream_of` gives
     PyTorch's current stream on the default stream and on a side stream,
-    C14, C29, C28, C27, C20, C7, C15, C8's grid form and C11 launched
-    under a side stream are exact there (all but C14 take the handle from
-    the device index their one check pass read), C14's, C29's, C20's,
-    C7's and C8's launch counts are exact when COUNT_THREADS threads
-    launch together, and C8's wrappers and C11's refuse, before any
-    launch, what their checks refuse (`check_dma_empty_refusals`)."""
+    C14, C29, C28, C27, C20, C7, C15, C8's grid form, C11 and both forms
+    of C23 (at T 3) and C34 launched under a side stream are exact there
+    (all but C14 take the handle from the device index their one check
+    pass read), C14's, C29's, C20's, C7's, C8's, C23's and C34's launch
+    counts (both forms of the last two) are exact when COUNT_THREADS
+    threads launch together, and C8's wrappers and C11's refuse, before
+    any launch, what their checks refuse (`check_dma_empty_refusals`)."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import probe_dma as pdma
     from nabwa_tpu_torch.probes import probe_pallas as pp
     from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
+    from nabwa_tpu_torch.probes import probe_spill as ps
     x = torch.randint(-2**31, 2**31 - 1, pp2.REDUCE_SHAPE,
                       dtype=torch.int32, device=dev)
     gx = torch.randint(-2**31, 2**31 - 1, p3.P3_X, dtype=torch.int32,
@@ -2957,6 +2983,11 @@ def check_launch_path(dev):
                         device=dev)
     ex = torch.randint(-2**31, 2**31 - 1, pp2.EMPTY_SHAPE, dtype=torch.int32,
                        device=dev)
+    # C23 at [64, 128], K 24, T 3; C34 at the script's [256, 128]
+    sx = torch.randint(-2**31, 2**31 - 1, SPILL_SWEEP_SHAPE,
+                       dtype=torch.int32, device=dev)
+    px = torch.randint(-2**31, 2**31 - 1, p3.P5_X, dtype=torch.int32,
+                       device=dev)
     side = torch.cuda.Stream(dev)
     if _build.stream_of(x) != torch.cuda.current_stream(dev).cuda_stream:
         fail("stream_of differs from the current stream")
@@ -2969,7 +3000,10 @@ def check_launch_path(dev):
                pp2.lane_gather_cuda(lx, li), pp.rowload_cuda(wi, wt),
                pp.smem_idx_cuda(si, wt),
                *(pdma.dma_cuda(dmt, 128, DMA_T, dma_rows, src, False)
-                 for src in ("reg", "cond")), pp2.empty_cuda(ex))
+                 for src in ("reg", "cond")), pp2.empty_cuda(ex),
+               ps.spill_cuda(sx, ps.DEFAULT_K, 3),
+               ps.spill_witness_cuda(sx, ps.DEFAULT_K, 3),
+               p3.p5_cuda(px), p3.p5_witness_cuda(px))
     side.synchronize()
     exact("C14 on a side stream", got[0], pp2.lanereduce_plain(x))
     exact("C29 on a side stream", got[1], p3.p3_plain(gx, gi))
@@ -2984,6 +3018,11 @@ def check_launch_path(dev):
                                              src)):
             exact(f"C8 {src} {part} on a side stream", g, w)
     exact("C11 on a side stream", got[9], pp2.empty_plain(ex))
+    for form, g in zip(("lane", "witness"), got[10:12]):
+        exact(f"C23 {form} on a side stream", g,
+              ps.spill_plain(sx, ps.DEFAULT_K, 3))
+    for form, g in zip(("grid", "witness"), got[12:14]):
+        exact(f"C34 {form} on a side stream", g, p3.p5_plain(px))
     for label, mod, name, fn in (
             ("C14", pp2, "launches_lanereduce",
              lambda: pp2.lanereduce_cuda(x)),
@@ -2994,7 +3033,14 @@ def check_launch_path(dev):
              lambda: pp.rowload_cuda(wi, wt)),
             ("C8", pdma, "launches",
              lambda: pdma.dma_cuda(dmt, 128, DMA_T, dma_rows, "reg",
-                                   False))):
+                                   False)),
+            ("C23's lane form", ps, "launches",
+             lambda: ps.spill_cuda(sx, ps.DEFAULT_K, 3)),
+            ("C23's witness", ps, "launches_witness",
+             lambda: ps.spill_witness_cuda(sx, ps.DEFAULT_K, 3)),
+            ("C34's grid form", p3, "launches_p5", lambda: p3.p5_cuda(px)),
+            ("C34's witness", p3, "launches_p5_witness",
+             lambda: p3.p5_witness_cuda(px))):
         before = getattr(mod, name)
 
         def launch():
@@ -3014,8 +3060,9 @@ def check_launch_path(dev):
                  f"{COUNT_THREADS} threads")
     check_dma_empty_refusals(dmt, ex)
     log(f"launch path: stream_of is the current stream (default and side), "
-        f"C14, C29, C28, C27, C20, C7, C15, C8 and C11 exact on a side "
-        f"stream, C14's, C29's, C20's, C7's and C8's counts exact over "
+        f"C14, C29, C28, C27, C20, C7, C15, C8, C11, C23 and C34 exact on "
+        f"a side stream, C14's, C29's, C20's, C7's, C8's, C23's and C34's "
+        f"counts exact over "
         f"{COUNT_THREADS} threads x {COUNT_CALLS} launches, C8's and C11's "
         f"refusals before any launch")
 
@@ -3151,11 +3198,13 @@ def chain_bounds(probes):
     a redux.sync, a shuffle, a shared load) and a row load at C12's serial
     load (`serial_ns_per_load`); the path's steps go beside it
     (`chain_steps`).  C24: T K steps of an element, each an IMAD beside
-    a shift, then the xor; C23: T rounds of the same; C25: 200 steps of an
-    add beside a shift, then the xor; C34: per inner round a shared load
-    and the add, per outer round a shared load of s[0, 0] and its trip
-    count's and and add (the barriers and the stores not counted, so a
-    lower bound)."""
+    a shift, then the xor; C23: T rounds of the same (both forms); C25:
+    200 steps of an add beside a shift, then the xor; C34 (both forms):
+    the load of s[0, 0], then its 226 dependent integer steps, an add an
+    inner round and an and and an add an outer round's trip count.  C34's
+    witness also gets its one SM's shared-memory ceiling
+    (`witness_smem_ceiling_ms`): s read and written once an inner round
+    at 128 bytes a clock of that SM clock."""
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
     c9 = probes["probe_dfs_shape"]
     lat, ghz = c9["latency_cycles"], c9["sm_clock_ghz"]
@@ -3170,11 +3219,14 @@ def chain_bounds(probes):
         "probe_colops": {"int": 2 * colops["t"] * colops["k"]},
         "probe_spill": {"int": 2 * spill["t"]},
         "probe_p7": {"int": 2 * p3.P7_STEPS},
-        "probe_p5": {"lds": p5["inner_rounds"] + p3.P5_ROUNDS,
-                     "int": p5["inner_rounds"] + 2 * p3.P5_ROUNDS}}
+        "probe_p5": {"load": 1, "int": p5["inner_rounds"]
+                     + 2 * p3.P5_ROUNDS}}
     for name, steps in chains.items():
         ns = sum(n * price[k] for k, n in steps.items())
         probes[name].update(chain_bound_ms=ns * 1e-6, chain_steps=steps)
+    p5["witness_smem_ceiling_ms"] = (
+        p5["inner_rounds"] * 2 * 4 * p5["words"] / SMEM_BYTES_PER_CLOCK
+        / ghz * 1e-6)
     c9["chain_ns_per_iter"] = c9["chain_bound_ms"] * 1e6 / c9["iters"]
     for sh in c9["shapes"]:
         sh["queued_over_chain"] = sh["queued_ms"] / c9["chain_bound_ms"]
@@ -3967,11 +4019,18 @@ def ptxas_report(log_text, key_of):
     return report
 
 
-def spill_ptxas(log_text):
-    """The ptxas report of kernel C23's instantiations, keyed by K."""
-    tag = "probe_spill_kernelILi"
+def spill_ptxas(log_text, tag="probe_spill_kernelILi"):
+    """The ptxas report of the instantiations of C23's witness, keyed by
+    K (or of the kernel whose mangled name holds `tag`, keyed by its
+    integer template argument)."""
     return ptxas_report(log_text, lambda name: int(
         name.split(tag)[1].split("E")[0]) if tag in name else None)
+
+
+def spill_lane_ptxas(log_text):
+    """The ptxas report of the instantiations of C23's lane form, keyed
+    by M, its values a lane."""
+    return spill_ptxas(log_text, "probe_spill_lane_kernelILi")
 
 
 def kernel_ptxas(log_text, tag):
@@ -4469,42 +4528,80 @@ def check_chains(dev, split):
     why = "none: no single PyTorch call computes a chain of dependent steps"
 
     # C23: scripts/probe_spill.py at its defaults (K=24, T=2000) on its four
-    # shapes, on its zeros and on random and edge inputs; then every K the
-    # kernel is built for at [64, 128], with ptxas's registers and spills
+    # shapes in both forms, the lane form (`spill_cuda`, the probe's route)
+    # and the witness (`spill_witness_cuda`), each exact on the script's
+    # zeros and on random and edge inputs (the lane form also at L 2, 4 and
+    # 8), queued in turns (witness, lane, lane, witness) and at each L;
+    # then every K the witness is built for at [64, 128] in both forms,
+    # with ptxas's registers and spills: the witness's (the run fails
+    # unless some K spills) and the lane form's (the run fails if any of
+    # its instantiations spills or takes a stack frame)
     k, t = ps.DEFAULT_K, ps.DEFAULT_T
+    forms = {"lane": ps.spill_cuda, "witness": ps.spill_witness_cuda}
     err, shapes = 0, {}
     for shape in ps.SHAPES:
         for name, x in (("script", np.zeros(shape)),
                         ("mixed", int32_mixed(rng, shape))):
             x_t, = common.tensors(dev, x)
-            err = max(err, exact(f"C23 probe_spill {shape} {name}",
-                                 ps.spill_cuda(x_t, k, t),
-                                 ps.spill_plain(x_t, k, t)))
+            want = ps.spill_plain(x_t, k, t)
+            for form, fn in forms.items():
+                err = max(err, exact(f"C23 probe_spill {form} {shape} {name}",
+                                     fn(x_t, k, t), want))
+            for n in SPILL_LANES:
+                err = max(err, exact(f"C23 probe_spill L={n} {shape} {name}",
+                                     ps.spill_cuda(x_t, k, t, n), want))
         x_t, = common.tensors(dev, np.zeros(shape))
-        ms = cuda_ms(lambda: ps.spill_cuda(x_t, k, t), 20)
-        queued = queued_ms(lambda: ps.spill_cuda(x_t, k, t), 20)
-        shapes[str(shape)] = {"ms": ms, "queued_ms": queued,
-                              "us_per_iter": ms * 1e3 / t,
-                              "queued_us_per_iter": queued * 1e3 / t}
+        sh = {"lanes": ps.default_lanes(k, x_t.numel())}
+        queued = {form: [] for form in forms}
+        for form in ("witness", "lane", "lane", "witness"):
+            queued[form].append(queued_ms(
+                lambda: forms[form](x_t, k, t), 20))
+        for form, fn in forms.items():
+            pre = "" if form == "lane" else "witness_"
+            ms = cuda_ms(lambda: fn(x_t, k, t), 20)
+            q = sum(queued[form]) / 2
+            sh.update({f"{pre}ms": ms, f"{pre}queued_ms": q,
+                       f"{pre}queued_ms_turns": queued[form],
+                       f"{pre}us_per_iter": ms * 1e3 / t,
+                       f"{pre}queued_us_per_iter": q * 1e3 / t})
+        sh["queued_ms_by_lanes"] = {
+            str(n): queued_ms(lambda: ps.spill_cuda(x_t, k, t, n), 20)
+            for n in SPILL_LANES}
+        shapes[str(shape)] = sh
+        log(f"C23 probe_spill {shape}: both forms exact; {sh}")
     report = spill_ptxas(_build.build_log)
     missing = [kk for kk in ps.SPILL_KS if "registers" not in
                report.get(kk, {})]
     if missing:
         fail(f"C23: no ptxas report for K {missing}")
+    lane_report = spill_lane_ptxas(_build.build_log)
+    missing = [m for m in ps.SPILL_MS if "registers" not in
+               lane_report.get(m, {})]
+    if missing:
+        fail(f"C23's lane form: no ptxas report for M {missing}")
+    heavy = {m: r for m, r in lane_report.items()
+             if r["stack_bytes"] or r["spill_store_bytes"]
+             or r["spill_load_bytes"]}
+    if heavy:
+        fail(f"C23's lane form spills or takes a stack frame: {heavy}")
     sweep = {}
     x_t, = common.tensors(dev, int32_mixed(rng, SPILL_SWEEP_SHAPE))
     for kk in ps.SPILL_KS:
-        e = exact(f"C23 probe_spill K={kk}", ps.spill_cuda(x_t, kk, t),
-                  ps.spill_plain(x_t, kk, t))
+        want = ps.spill_plain(x_t, kk, t)
+        e = max(exact(f"C23 probe_spill {form} K={kk}", fn(x_t, kk, t), want)
+                for form, fn in forms.items())
         err = max(err, e)
-        ms = cuda_ms(lambda: ps.spill_cuda(x_t, kk, t), 10)
-        queued = queued_ms(lambda: ps.spill_cuda(x_t, kk, t), 10)
-        sweep[str(kk)] = {"ms": ms, "queued_ms": queued,
-                          "queued_us_per_round": queued * 1e3 / t,
-                          "bound_int32_ms": bound(
-                              2 * nbytes(x_t),
-                              OPS_SPILL * t * kk * x_t.numel())[2],
-                          "max_abs_err": e, **report[kk]}
+        sw = {"lanes": ps.default_lanes(kk, x_t.numel())}
+        for form, fn in forms.items():
+            pre = "" if form == "lane" else "witness_"
+            queued = queued_ms(lambda: fn(x_t, kk, t), 10)
+            sw.update({f"{pre}ms": cuda_ms(lambda: fn(x_t, kk, t), 10),
+                       f"{pre}queued_ms": queued,
+                       f"{pre}queued_us_per_round": queued * 1e3 / t})
+        sweep[str(kk)] = dict(
+            sw, bound_int32_ms=bound(2 * nbytes(x_t),
+                                     OPS_SPILL * t * kk * x_t.numel())[2],
+            max_abs_err=e, **report[kk])
         log(f"C23 K={kk}: {sweep[str(kk)]}")
     spilled = [kk for kk in ps.SPILL_KS if report[kk]["spill_store_bytes"]]
     if not spilled:
@@ -4519,10 +4616,14 @@ def check_chains(dev, split):
         "bound_ms": bnd[0], "bound_by": bnd[1],
         "bound_int32_ms": bnd[2], "library_ms": None,
         "library_why": why, "queued_ms": head["queued_ms"],
+        "lanes": head["lanes"], "witness_ms": head["witness_ms"],
+        "witness_queued_ms": head["witness_queued_ms"],
         "shape": list(SPILL_SWEEP_SHAPE), "k": k, "t": t, "shapes": shapes,
         "k_sweep": sweep, "first_k_spilling": spilled[0],
+        "lane_ptxas": {str(m): r for m, r in sorted(lane_report.items())},
+        "witness_launches": ps.launches_witness,
         "ptxas_from_cache": _build.build_seconds is None}
-    log(f"C23 probe_spill: exact; first spill at K={spilled[0]}; "
+    log(f"C23 probe_spill: both forms exact; first spill at K={spilled[0]}; "
         f"{ {n: v for n, v in out['probe_spill'].items() if n != 'k_sweep'} }")
 
     # C24: scripts/probe_colops.py at its defaults (T=2000, K=64) on its
@@ -4896,9 +4997,14 @@ def check_reductions(dev):
             "exact_inputs": list(cases)}
         log(f"probe_p2 {kind}: exact; {out[f'probe_p2_{kind}']}")
 
-    # C34: probe 5 on the script's input, then s[0, 0] negative with the
-    # rest near both int32 ends, then every value near INT32_MAX and s[0, 0]
-    # wrapping in its first rounds
+    # C34: probe 5 in both forms, the grid form (`p5_cuda`, the probe's
+    # route) and the witness (`p5_witness_cuda`), on the script's input,
+    # then s[0, 0] negative with the rest near both int32 ends, then every
+    # value near INT32_MAX and s[0, 0] wrapping in its first rounds; the
+    # grid form also at [512, 128] (past the witness's shared memory,
+    # which it refuses) and at a word count that is not a multiple of its
+    # int4; both queued in turns (witness, grid, grid, witness)
+    forms = {"grid": p3.p5_cuda, "witness": p3.p5_witness_cuda}
     x = rng.randint(0, 1 << 20, p3.P5_X)
     neg = I32_MAX - rng.randint(0, 8, p3.P5_X)
     neg[1::2] = I32_MIN + rng.randint(0, 8, neg[1::2].shape)
@@ -4908,17 +5014,27 @@ def check_reductions(dev):
     err = 0
     for name, xs in (("script", x), ("negative", neg), ("wraps", wraps)):
         x_t, = common.tensors(dev, xs)
-        err = max(err, exact(f"C34 probe_p5 {name}", p3.p5(x_t),
+        want = p3.p5_plain(x_t)
+        for form, fn in forms.items():
+            err = max(err, exact(f"C34 probe_p5 {form} {name}", fn(x_t),
+                                 want))
+    for shape in P5_GRID_SHAPES:
+        x_t, = common.tensors(dev, int32_mixed(rng, shape))
+        err = max(err, exact(f"C34 probe_p5 grid {shape}", p3.p5_cuda(x_t),
                              p3.p5_plain(x_t)))
     x_t, = common.tensors(dev, x)
-    refused("C34 misaligned x", lambda: p3.p5(skewed(x_t)))
-    refused("C34 s past a block's shared memory",
-            lambda: p3.p5(torch.zeros((512, 128), dtype=torch.int32,
-                                      device=dev)))
+    for form, fn in forms.items():
+        refused(f"C34 {form} misaligned x", lambda: fn(skewed(x_t)))
+    refused("C34 witness, s past a block's shared memory",
+            lambda: p3.p5_witness_cuda(torch.zeros(
+                (512, 128), dtype=torch.int32, device=dev)))
     trips = p3.p5_trips(int(x[0, 0]))
     inner = sum(trips)
     bnd = bound(2 * nbytes(x_t), OPS_P5 * inner * x_t.numel())
-    queued = queued_ms(lambda: p3.p5_cuda(x_t), 100)
+    queued = {form: [] for form in forms}
+    for form in ("witness", "grid", "grid", "witness"):
+        queued[form].append(queued_ms(lambda: forms[form](x_t), 100))
+    q, wq = (sum(queued[form]) / 2 for form in ("grid", "witness"))
     out["probe_p5"] = {
         "max_abs_err": err, "ms": cuda_ms(lambda: p3.p5_cuda(x_t), 100),
         "plain_ms": cuda_ms(lambda: p3.p5_plain(x_t), 3),
@@ -4927,10 +5043,17 @@ def check_reductions(dev):
         "library_why": "none: 50 outer rounds whose inner trip count "
                        "hangs on s[0, 0], each inner round an add over the "
                        "whole array; no single PyTorch call iterates them",
-        "queued_ms": queued, "inner_rounds": inner, "trips": trips,
-        "queued_us_per_inner_round": queued * 1e3 / inner,
-        "exact_inputs": ["script", "negative", "wraps"]}
-    log(f"C34 probe_p5: exact; {out['probe_p5']}")
+        "queued_ms": q, "queued_ms_turns": queued["grid"],
+        "queued_us_per_inner_round": q * 1e3 / inner,
+        "witness_ms": cuda_ms(lambda: p3.p5_witness_cuda(x_t), 100),
+        "witness_queued_ms": wq, "witness_queued_ms_turns":
+            queued["witness"],
+        "witness_queued_us_per_inner_round": wq * 1e3 / inner,
+        "witness_launches": p3.launches_p5_witness,
+        "inner_rounds": inner, "trips": trips, "words": x_t.numel(),
+        "exact_inputs": ["script", "negative", "wraps"],
+        "grid_exact_shapes": [list(sh) for sh in P5_GRID_SHAPES]}
+    log(f"C34 probe_p5: both forms exact; {out['probe_p5']}")
 
     # C35: probe 6 on the script's inputs (w of ones), then a random
     # float32 w, then x over all of int32 with it; bit for bit

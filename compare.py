@@ -6,6 +6,8 @@ chip_smoke.py's 64 Mbp cell (the bench reads), on one NVIDIA GPU.
     python3 compare.py aln CHECKOUT
     python3 compare.py launch CHECKOUT
     python3 compare.py c9 CHECKOUT [SASS_DIR]
+    python3 compare.py c23 CHECKOUT [SASS_DIR]
+    python3 compare.py c34 CHECKOUT [SASS_DIR]
 
 CHECKOUT is the root of a checkout of this repository: this one, or an
 older commit unpacked with `git archive` into a directory `.gitignore`
@@ -47,6 +49,21 @@ each form's stage split (this checkout's chip_smoke.py `stage_split`).
 With SASS_DIR, the checkout's csrc/probe_dfs_shape.cu is built alone to a
 cubin for sm_90a and its SASS written there (`cuobjdump -sass`), and each
 kernel's instructions are counted, by opcode, in the JSON.
+
+c23: kernel C23 (scripts/probe_spill.py at K 24, T 2000) at the script's
+four shapes, on no cell: the checkout's `spill_cuda` and, where it is
+kept, `spill_witness_cuda`, exact against the plain version on seeded
+int32, with `ms` and `queued_ms` (queued in turns: witness, lane, lane,
+witness); where `spill_cuda` takes `lanes`, its lane form at L 2, 4 and 8,
+then at every K of SPILL_KS on [64, 128] (exact, queued), and the
+ptxas report of its instantiations.  With SASS_DIR, the checkout's
+csrc/probe_spill.cu is built alone and its SASS written and counted as
+for c9, with the build's seconds.
+
+c34: kernel C34 (probe 5 of scripts/probe_pallas3.py) at the script's
+[256, 128], on no cell: `p5_cuda` and, where it is kept,
+`p5_witness_cuda`, exact, with `ms` and `queued_ms` in turns; with
+SASS_DIR, the SASS of its csrc/probe_pallas3.cu as for c9.
 
 aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
 has the hybrid split): a warm-up chunk of one slice, then 5 timed
@@ -237,10 +254,11 @@ def time_launch():
     return out
 
 
-def dump_sass(out_dir):
-    """Build the checkout's csrc/probe_dfs_shape.cu alone to a cubin for
-    sm_90a, write its SASS into out_dir and return, for each kernel, its
-    instruction count and the count of each opcode."""
+def dump_sass(out_dir, stem="probe_dfs_shape"):
+    """Build the checkout's csrc/<stem>.cu alone to a cubin for sm_90a,
+    write its SASS into out_dir and return, for each kernel, its
+    instruction count and the count of each opcode, and the build's wall
+    seconds under "nvcc_seconds"."""
     import collections
     import subprocess
     from nabwa_tpu_torch.ops import _build
@@ -248,15 +266,17 @@ def dump_sass(out_dir):
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     tag = pathlib.Path(_build.CSRC).parents[1].name or "checkout"
-    cubin = out / f"{tag}_probe_dfs_shape.cubin"
+    cubin = out / f"{tag}_{stem}.cubin"
+    t0 = time.perf_counter()
     subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-I", str(_build.CSRC), "-o",
-                    str(cubin), str(_build.CSRC / "probe_dfs_shape.cu")],
+                    str(cubin), str(_build.CSRC / f"{stem}.cu")],
                    check=True, capture_output=True, text=True)
+    nvcc_s = time.perf_counter() - t0
     sass = subprocess.run(
         [str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
         check=True, capture_output=True, text=True).stdout
-    (out / f"{tag}_probe_dfs_shape.sass").write_text(sass)
+    (out / f"{tag}_{stem}.sass").write_text(sass)
     kernels, name = {}, None
     for line in sass.splitlines():
         t = line.strip()
@@ -274,8 +294,10 @@ def dump_sass(out_dir):
             words = words[1:]
         if words:
             kernels[name][words[0].split(".")[0]] += 1
-    return {k: {"instructions": sum(c.values()), "by_opcode": dict(c)}
-            for k, c in kernels.items()}
+    res = {k: {"instructions": sum(c.values()), "by_opcode": dict(c)}
+           for k, c in kernels.items()}
+    res["nvcc_seconds"] = nvcc_s
+    return res
 
 
 def time_c9(sass_dir=None):
@@ -318,15 +340,104 @@ def time_c9(sass_dir=None):
     return out
 
 
+def in_turns(forms, fn_of, reps):
+    """{form: its two queued_ms readings} taken in turns: the first form,
+    the others, the others again, the first (A, B, B, A for two)."""
+    here = own_smoke()
+    names = list(forms)
+    order = names[:1] + names[1:] + names[1:][::-1] + names[:1]
+    got = {name: [] for name in names}
+    for name in order:
+        got[name].append(here.queued_ms(fn_of(forms[name]), reps))
+    return got
+
+
+def time_c23(sass_dir=None):
+    import inspect
+    import numpy as np
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_spill as ps
+    import torch
+    here = own_smoke()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(here.PROBE_SEED + 1)
+    forms = {}
+    if hasattr(ps, "spill_witness_cuda"):
+        forms["spill_witness_cuda"] = ps.spill_witness_cuda
+    forms["spill_cuda"] = ps.spill_cuda
+    lanes = "lanes" in inspect.signature(ps.spill_cuda).parameters
+    k, t = ps.DEFAULT_K, ps.DEFAULT_T
+    out = {"shapes": {}}
+    for shape in ps.SHAPES:
+        x_t, = common.tensors(dev, here.int32_mixed(rng, shape))
+        want = ps.spill_plain(x_t, k, t)
+        for name, fn in forms.items():
+            here.exact(f"C23 {name} {shape}", fn(x_t, k, t), want)
+        res = {name: {"ms": here.cuda_ms(lambda: fn(x_t, k, t), 20)}
+               for name, fn in forms.items()}
+        for name, q in in_turns(forms, lambda fn: lambda: fn(x_t, k, t),
+                                20).items():
+            res[name].update(queued_ms=sum(q) / 2, queued_ms_turns=q)
+        if lanes:
+            for n_lanes in (2, 4, 8):
+                here.exact(f"C23 spill_cuda L={n_lanes} {shape}",
+                           ps.spill_cuda(x_t, k, t, n_lanes), want)
+                res[f"L={n_lanes}"] = {"queued_ms": here.queued_ms(
+                    lambda: ps.spill_cuda(x_t, k, t, n_lanes), 20)}
+        out["shapes"][str(shape)] = res
+    if lanes:
+        x_t, = common.tensors(dev, here.int32_mixed(rng, (64, 128)))
+        out["k_sweep"] = {}
+        for kk in ps.SPILL_KS:
+            here.exact(f"C23 spill_cuda K={kk}", ps.spill_cuda(x_t, kk, t),
+                       ps.spill_plain(x_t, kk, t))
+            out["k_sweep"][str(kk)] = here.queued_ms(
+                lambda: ps.spill_cuda(x_t, kk, t), 10)
+        from nabwa_tpu_torch.ops import _build
+        out["ptxas_lane"] = here.ptxas_report(
+            _build.build_log, lambda name: int(
+                name.split("probe_spill_lane_kernelILi")[1].split("E")[0])
+            if "probe_spill_lane_kernelILi" in name else None)
+    out["nvidia_smi_clocks"] = here.sm_clocks()
+    if sass_dir:
+        out["sass"] = dump_sass(sass_dir, "probe_spill")
+    return out
+
+
+def time_c34(sass_dir=None):
+    import numpy as np
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
+    import torch
+    here = own_smoke()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(here.PROBE_SEED + 2)
+    forms = {}
+    if hasattr(p3, "p5_witness_cuda"):
+        forms["p5_witness_cuda"] = p3.p5_witness_cuda
+    forms["p5_cuda"] = p3.p5_cuda
+    x_t, = common.tensors(dev, rng.randint(0, 1 << 20, p3.P5_X))
+    want = p3.p5_plain(x_t)
+    res = {}
+    for name, fn in forms.items():
+        here.exact(f"C34 {name}", fn(x_t), want)
+        res[name] = {"ms": here.cuda_ms(lambda: fn(x_t), 100)}
+    for name, q in in_turns(forms, lambda fn: lambda: fn(x_t), 100).items():
+        res[name].update(queued_ms=sum(q) / 2, queued_ms_turns=q)
+    if sass_dir:
+        res["sass"] = dump_sass(sass_dir, "probe_pallas3")
+    return {"inner_rounds": sum(p3.p5_trips(int(x_t[0, 0]))), **res}
+
+
 MODES = {"c3": time_c3, "aln": time_aln, "launch": time_launch,
-         "c9": time_c9}
+         "c9": time_c9, "c23": time_c23, "c34": time_c34}
 
 
 def main(argv):
     if (len(argv) not in (2, 3) or argv[0] not in MODES
-            or (len(argv) == 3 and argv[0] != "c9")):
+            or (len(argv) == 3 and argv[0] not in ("c9", "c23", "c34"))):
         print(f"usage: compare.py {{{','.join(MODES)}}} CHECKOUT "
-              "(c9: [SASS_DIR])", file=sys.stderr)
+              "(c9, c23, c34: [SASS_DIR])", file=sys.stderr)
         return 2
     mode, root = argv[:2]
     sys.path.insert(0, root)
@@ -342,8 +453,8 @@ def main(argv):
     out = {"mode": mode, "checkout": str(cs.ROOT), "card": cs.card_line()}
     if mode == "launch":
         out.update(time_launch())
-    elif mode == "c9":
-        out.update(time_c9(*argv[2:]))
+    elif mode in ("c9", "c23", "c34"):
+        out.update(MODES[mode](*argv[2:]))
     else:
         fa, fq, *_ = cs.make_data(64_000_000, 32768, 32768, 512)
         idx = BwaIndex.load(str(fa))

@@ -11,9 +11,10 @@
 // grid and the row each warp copies at each step, C13's slot of a pop,
 // C16's
 // popcount, C17's and C18's slot of a round, C19's step of a body, C21's
-// pushed fields, C23's value update, C24's step, C25's and C26's steps,
-// C30's source int4, C32's rotation source, C34's trip count), one value
-// at a time.  It is not part of the kernel library.
+// pushed fields, C23's value update and its lane form's groups, C24's
+// step, C25's and C26's steps, C30's source int4, C32's rotation source,
+// C34's trip count and its grid form's threads), one value at a time.
+// It is not part of the kernel library.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libhost.so host_harness.cpp
 
@@ -825,6 +826,41 @@ extern "C" int nabwa_host_probe_spill_update(const int32_t* v,
     return 0;
 }
 
+// C23's lane form on n elements x: each element's K values over a group
+// of `lanes` lanes, played lane by lane.  A round first reads, for every
+// lane, the first value of lane spill_next_lane (an array read in place
+// of the card's shuffle, so every lane sees the old value), then runs
+// each lane's spill_lane_round; the sum is each lane's spill_lane_sum,
+// then log2 lanes xor steps over the group as the card's shuffles take
+// it.  Returns -1 (nothing written) unless lanes is a power of two
+// dividing k.
+extern "C" int nabwa_host_probe_spill_lanes(const int32_t* x, int n, int k,
+                                            int lanes, int t,
+                                            int32_t* out) {
+    if (k < 1 || lanes < 1 || (lanes & (lanes - 1)) || k % lanes) return -1;
+    const int m = k / lanes;
+    std::vector<int32_t> v(k), next(lanes);
+    std::vector<uint32_t> acc(lanes), sw(lanes);
+    for (int e = 0; e < n; ++e) {
+        for (int l = 0; l < lanes; ++l)
+            pr::spill_lane_init(x[e], l, m, &v[(size_t)l * m]);
+        for (int it = 0; it < t; ++it) {
+            for (int l = 0; l < lanes; ++l)
+                next[l] = v[(size_t)pr::spill_next_lane(l, lanes) * m];
+            for (int l = 0; l < lanes; ++l)
+                pr::spill_lane_round(&v[(size_t)l * m], m, next[l]);
+        }
+        for (int l = 0; l < lanes; ++l)
+            acc[l] = pr::spill_lane_sum(&v[(size_t)l * m], m);
+        for (int d = lanes >> 1; d; d >>= 1) {
+            for (int l = 0; l < lanes; ++l) sw[l] = acc[l ^ d];
+            for (int l = 0; l < lanes; ++l) acc[l] += sw[l];
+        }
+        out[e] = (int32_t)acc[0];
+    }
+    return 0;
+}
+
 // C24's step of each value v
 extern "C" int nabwa_host_probe_colops_step(const int32_t* v, int n,
                                             int32_t* out) {
@@ -867,5 +903,19 @@ extern "C" int nabwa_host_probe_roll_src(const int32_t* c, const int32_t* sh,
 extern "C" int nabwa_host_probe_p5_trips(const int32_t* s, int n,
                                          int32_t* out) {
     for (int k = 0; k < n; ++k) out[k] = pr::p5_trips(s[k]);
+    return 0;
+}
+
+// C34's grid form on s = x of n words: thread q's 4 words (4 q ..,
+// zeros past n) and its copy of x[0] through `rounds` outer rounds
+// (p5_words), the words below n written back
+extern "C" int nabwa_host_probe_p5_words(const int32_t* x, int n, int rounds,
+                                         int32_t* out) {
+    for (int at = 0; at < n; at += 4) {
+        int32_t w[4];
+        for (int k = 0; k < 4; ++k) w[k] = at + k < n ? x[at + k] : 0;
+        pr::p5_words(x[0], rounds, w, 4);
+        for (int k = 0; k < 4 && at + k < n; ++k) out[at + k] = w[k];
+    }
     return 0;
 }

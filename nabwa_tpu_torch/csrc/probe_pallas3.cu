@@ -99,17 +99,31 @@
 //
 // C34 replaces `p5` (:156): from s = x int32 [256, 128], 50 outer rounds,
 // each reading n = (s[0, 0] & 3) + 1 (`p5_trips`) and then running n inner
-// rounds s <- s + j, j = 0..n-1 (wrapping).  One block of 1024 threads
-// keeps s, 128 KB, in dynamic shared memory (above the default 48 KB, so
-// the launcher raises the block's limit first, and returns the error if
-// the card refuses) as the script keeps it in VMEM scratch: each outer
-// round, after a barrier, every thread reads s[0, 0], and after a second
-// barrier (so that thread 0 adds to s[0, 0] only once every thread has
-// read it) adds j to its 32 words for each inner round.  The loop keeps its
-// data-dependent trip count.  One add a word and inner round (126 inner
-// rounds at one seed of the script's inputs); not the card's bytes or adds
-// bound it but its one SM's shared memory, whose 128 bytes a clock take
-// ~2,048 clocks to read and write s once an inner round.
+// rounds s <- s + j, j = 0..n-1 (wrapping).  One add a word and inner
+// round (126 inner rounds at one seed of the script's inputs).  Two forms.
+// - The grid form (`probe_p5_grid_kernel`, the probe's route): every word
+//   gets the same adds, so s[0, 0] alone decides the trip counts, and a
+//   thread that holds s[0, 0]'s first value can follow it by the same adds
+//   without seeing any other word.  So a thread of a grid loads x[0, 0]
+//   and one int4 of s (16 B, the last thread also the tail of a word count
+//   that is not a multiple of 4), and runs the 50 outer rounds on its own
+//   (`p5_words`): each reads its trip count from its copy of s[0, 0] and
+//   adds j to the copy and to its 4 words for each inner round.  The loop
+//   keeps its data-dependent trip count, the same in every thread, so no
+//   lane diverges.  No shared memory, no barrier, no cap on the words.  Its
+//   path is one load and the copy's 226 dependent integer steps (an add an
+//   inner round; the and and the add of each outer round's count).
+// - The witness (`probe_p5_kernel`, the first design): one block of 1024
+//   threads keeps s, 128 KB, in dynamic shared memory (above the default
+//   48 KB, so the launcher raises the block's limit first, and returns the
+//   error if the card refuses) as the script keeps it in VMEM scratch:
+//   each outer round, after a barrier, every thread reads s[0, 0], and
+//   after a second barrier (so that thread 0 adds to s[0, 0] only once
+//   every thread has read it) adds j to its 32 words for each inner round.
+//   It answers the script's question as it ran, a barrier-bound loop on
+//   one core: not the card's bytes or adds bound it but its one SM's
+//   shared memory, whose 128 bytes a clock take ~2,048 clocks to read and
+//   write s once an inner round.  s of at most P5_MAX_BYTES.
 //
 // C35 replaces `p6` (:183): x int32 [512, 128] cast to float32 times w
 // float32 [128, 8] (ones in the script) -> float32 [512, 8].  A thread an
@@ -147,7 +161,8 @@ constexpr int P2_ROWS = 256;          // C33: x's rows (:110)
 constexpr int P2_COL_WARPS = 8;       // C33: warps a block
 constexpr int P2_COL_WORDS = P2_ROWS / P2_COL_WARPS;   // C33: rows a thread
 constexpr int P5_ROUNDS = 50;         // scripts/probe_pallas3.py:169
-constexpr int P5_THREADS = 1024;
+constexpr int P5_THREADS = 1024;      // the witness's block
+constexpr int P5_GRID_THREADS = 128;  // the grid form's blocks
 constexpr int P5_MAX_BYTES = 232448;  // an H100 block's shared memory
 constexpr int P6_THREADS = 128;
 constexpr unsigned FULL = 0xFFFFFFFFu;
@@ -301,7 +316,7 @@ probe_p2_subl_kernel(const int32_t* __restrict__ x, int cols,
     for (int j = 0; j < P2_COL_WORDS; ++j) dst[j * step] = v[j];
 }
 
-// C34: one block, s of n words in dynamic shared memory
+// C34's witness: one block, s of n words in dynamic shared memory
 __global__ void __launch_bounds__(P5_THREADS)
 probe_p5_kernel(const int32_t* __restrict__ x, int n,
                 int32_t* __restrict__ out) {
@@ -316,6 +331,33 @@ probe_p5_kernel(const int32_t* __restrict__ x, int n,
                 s[e] = pr::wadd(s[e], j);
     }
     for (int e = threadIdx.x; e < n; e += P5_THREADS) out[e] = s[e];
+}
+
+// C34's grid form: thread q holds words 4 q .. 4 q + 3 of s (those below
+// n), read as one int4 where all four are
+__global__ void __launch_bounds__(P5_GRID_THREADS)
+probe_p5_grid_kernel(const int32_t* __restrict__ x, long long n,
+                     int32_t* __restrict__ out) {
+    const long long q = (long long)blockIdx.x * P5_GRID_THREADS + threadIdx.x;
+    const long long at = 4 * q;
+    if (at >= n) return;
+    const bool whole = at + 4 <= n;
+    int32_t w[4];
+    if (whole) {
+        const int4 v = reinterpret_cast<const int4*>(x)[q];
+        w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = at + k < n ? x[at + k] : 0;
+    }
+    pr::p5_words(x[0], P5_ROUNDS, w, 4);
+    if (whole) {
+        reinterpret_cast<int4*>(out)[q] = make_int4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            if (at + k < n) out[at + k] = w[k];
+    }
 }
 
 // C35: a thread an out element of x [rows, depth] times w [depth, width]
@@ -435,12 +477,26 @@ extern "C" int nabwa_probe_p2(const void* x, int rows, int cols, int kind,
     return (int)cudaGetLastError();
 }
 
-// x, out: int32 [n], 0 < n <= P5_MAX_BYTES / 4.  Returns the error of
-// raising the block's shared memory limit to 4 n bytes, else
+// x, out: int32 [n], 16-byte aligned, n > 0.  Returns cudaGetLastError();
+// cudaErrorInvalidValue for n <= 0 (nothing launched).
+extern "C" int nabwa_probe_p5(const void* x, long long n, void* out,
+                              void* stream) {
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    const long long blocks =
+        ((n + 3) / 4 + P5_GRID_THREADS - 1) / P5_GRID_THREADS;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    probe_p5_grid_kernel<<<(unsigned)blocks, P5_GRID_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+        (const int32_t*)x, n, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
+// C34's witness.  x, out: int32 [n], 0 < n <= P5_MAX_BYTES / 4.  Returns
+// the error of raising the block's shared memory limit to 4 n bytes, else
 // cudaGetLastError(); cudaErrorInvalidValue for another n (nothing
 // launched).
-extern "C" int nabwa_probe_p5(const void* x, int n, void* out,
-                              void* stream) {
+extern "C" int nabwa_probe_p5_witness(const void* x, int n, void* out,
+                                      void* stream) {
     if (n <= 0 || n > P5_MAX_BYTES / 4) return (int)cudaErrorInvalidValue;
     const int bytes = n * 4;
     const cudaError_t rc = cudaFuncSetAttribute(

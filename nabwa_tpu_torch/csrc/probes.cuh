@@ -8,9 +8,11 @@
 // the rows of probe_pallas2.py's row loads that each warp copies, one slot
 // of its pop and the fields of its scalar push, and the popcount, one
 // slot of a round of probe_pallas.py's probes 3, 4 and 4b, one step of
-// probe 4c's body, one value's update of probe_spill.py, one step of
-// probe_colops.py, one step of probe_pallas3.py's p7 and p8, the source of
-// p4's relayout, the source word of p2's rotation and p5's trip count.
+// probe 4c's body, one value's update of probe_spill.py and a lane's
+// round of C23's lane form, one step of probe_colops.py, one step of
+// probe_pallas3.py's p7 and p8, the source of p4's relayout, the source
+// word of p2's rotation, p5's trip count and a thread's rounds of C34's
+// grid form.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -232,6 +234,39 @@ NABWA_HD int32_t spill_update(int32_t v, int32_t next) {
     return wadd(wmul(v, 3), 1) ^ (next >> 2);
 }
 
+// C23's lane form (probe_spill.cu): an element's K values over a group of
+// `lanes` lanes (a power of two dividing K), lane l of the group holding
+// the m = K / lanes values v_{l m} .. v_{l m + m - 1} in order, from
+// spill_lane_init.  A round needs one value the lane does not hold: the
+// old v_{(l + 1) m mod K}, the first value of lane spill_next_lane(l) (its
+// own v_0 in a one-lane group), read before any lane updates (a shuffle
+// within the group on the card).  spill_lane_round takes it as `next`
+// and updates the lane's values in place in index order: v_j's neighbour
+// v_{j + 1} is still the old value when v_j is written, and the last
+// value takes `next`.  The element's sum is the lanes' spill_lane_sum
+// added over the group in any order (uint32 wraps).
+NABWA_HD void spill_lane_init(int32_t x0, int32_t l, int32_t m, int32_t* v) {
+#pragma unroll
+    for (int32_t j = 0; j < m; ++j) v[j] = wadd(x0, l * m + j);
+}
+
+NABWA_HD int32_t spill_next_lane(int32_t l, int32_t lanes) {
+    return (l + 1) & (lanes - 1);
+}
+
+NABWA_HD void spill_lane_round(int32_t* v, int32_t m, int32_t next) {
+#pragma unroll
+    for (int32_t j = 0; j + 1 < m; ++j) v[j] = spill_update(v[j], v[j + 1]);
+    v[m - 1] = spill_update(v[m - 1], next);
+}
+
+NABWA_HD uint32_t spill_lane_sum(const int32_t* v, int32_t m) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int32_t j = 0; j < m; ++j) acc += (uint32_t)v[j];
+    return acc;
+}
+
 // probe_colops.py:30, one of the K dependent steps: (v * 3 + 1) ^ (v >> 2)
 NABWA_HD int32_t colops_step(int32_t v) {
     return spill_update(v, v);
@@ -268,6 +303,22 @@ NABWA_HD int32_t roll_src(int32_t c, int32_t sh, int32_t n) {
 // s[0, 0]: (s & 3) + 1 on the int32 bit pattern, 1-4 for a negative s too
 NABWA_HD int32_t p5_trips(int32_t s00) {
     return (s00 & 3) + 1;
+}
+
+// probe_pallas3.py:159-166 for one thread of C34's grid form, holding nw
+// words w of s and its own copy s00 of s[0, 0]: `rounds` outer rounds,
+// each reading its inner trip count from s00 and then adding j to s00
+// and to each word for j < trips (wrapping).  Every word gets the same
+// adds, so s00 follows s[0, 0] and every thread takes the same trips.
+NABWA_HD void p5_words(int32_t s00, int32_t rounds, int32_t* w, int32_t nw) {
+    for (int32_t it = 0; it < rounds; ++it) {
+        const int32_t trips = p5_trips(s00);
+        for (int32_t j = 0; j < trips; ++j) {
+            s00 = wadd(s00, j);
+#pragma unroll
+            for (int32_t k = 0; k < nw; ++k) w[k] = wadd(w[k], j);
+        }
+    }
 }
 
 }  // namespace probe

@@ -56,6 +56,7 @@ build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _U32 = ctypes.c_uint32
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -125,8 +126,10 @@ _SIGNATURES = {
     "nabwa_probe_scalar_push": [_P, _I, _P, _P, _P, _P],
     # (table, k, out, stage, stream)
     "nabwa_probe_sem": [_P, _I, _P, _P, _P],
+    # (x, n, k, lanes, t, out, stream)
+    "nabwa_probe_spill": [_P, _I, _I, _I, _I, _P, _P],
     # (x, n, k, t, out, stream)
-    "nabwa_probe_spill": [_P, _I, _I, _I, _P, _P],
+    "nabwa_probe_spill_witness": [_P, _I, _I, _I, _P, _P],
     # (x, n, t, k, out, stream)
     "nabwa_probe_colops": [_P, _I, _I, _I, _P, _P],
     # (x, n, out, stream)
@@ -144,7 +147,8 @@ _SIGNATURES = {
     # (x, rows, cols, kind, out, stream)
     "nabwa_probe_p2": [_P, _I, _I, _I, _P, _P],
     # (x, n, out, stream)
-    "nabwa_probe_p5": [_P, _I, _P, _P],
+    "nabwa_probe_p5": [_P, _LL, _P, _P],
+    "nabwa_probe_p5_witness": [_P, _I, _P, _P],
     # (x, w, rows, depth, width, out, stream)
     "nabwa_probe_p6": [_P, _P, _I, _I, _I, _P, _P],
 }

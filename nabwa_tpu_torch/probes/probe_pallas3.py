@@ -29,7 +29,10 @@ or the minimum of v's column (`subl`, C33), broadcast back.
 
 Probe 5, `p5` (:156): 50 outer rounds over s = x int32 [256, 128], each
 running n = (s[0, 0] & 3) + 1 inner rounds s <- s + j, j < n (wrapping);
-kernel C34, one block with s in shared memory.
+kernel C34's grid form, each thread an int4 of s and its own copy of
+s[0, 0], which alone decides the trip counts (`p5_cuda`); its witness,
+one block with s in shared memory as the script kept it in VMEM, by
+`p5_witness_cuda`.
 
 Probe 6, `p6` (:183): x int32 [512, 128] cast to float32 times w float32
 [128, 8] (ones) -> float32 [512, 8]; kernel C35, a thread an out element
@@ -78,14 +81,14 @@ P2_X = (256, 128)                                       # :110
 P2_ROW_COLS, P2_COL_ROWS = 128, 256   # C31, C32's rows; C33's columns
 P5_ROUNDS = 50                                          # :169
 P5_X = (256, 128)                                       # :174
-P5_MAX_WORDS = 232448 // 4       # C34's s: a block's shared memory
+P5_MAX_WORDS = 232448 // 4       # C34's witness: a block's shared memory
 P6_X, P6_W = (512, 128), (128, 8)                       # :191-192
 TIMED_CALLS_P2_P5 = 5                                   # :115, :176
 I32 = torch.int32
 
 # kernel launches made on CUDA tensors: C25 by `p7`, C26 by `p8`, C27 by
 # `p1`, C28 by `p1b`, C29 by `p3`, C30 by `p4`, C31-C33 by `p2` in its
-# three kinds, C34 by `p5`, C35 by `p6`
+# three kinds, C34 by `p5` (its witness by `p5_witness_cuda`), C35 by `p6`
 launches_p7 = 0
 launches_p8 = 0
 launches_p1 = 0
@@ -96,6 +99,7 @@ launches_p2_native = 0
 launches_p2_roll = 0
 launches_p2_subl = 0
 launches_p5 = 0
+launches_p5_witness = 0
 launches_p6 = 0
 
 
@@ -445,26 +449,46 @@ def p5_plain(x):
 
 
 def p5_cuda(x):
-    """`p5_plain` by kernel C34; x of at most P5_MAX_WORDS words."""
+    """`p5_plain` by kernel C34's grid form, x of any word count.  One
+    check pass reads x's device index and pointer once (16-byte aligned:
+    the kernel reads int4); the launch is on the raw current stream of
+    that index."""
     global launches_p5
-    common.cuda_input(x, "x", 2)
-    if x.numel() > P5_MAX_WORDS:
-        raise ValueError(f"x must fit one block's shared memory, "
-                         f"{P5_MAX_WORDS} words, got {x.numel()}")
+    index, (px,) = common.cuda_inputs((x, "x", 2, I32))
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    rc = _build.lib().nabwa_probe_p5(x.data_ptr(), x.numel(),
-                                     out.data_ptr(), _build.stream_of(x))
-    _build.check(rc, "probe_p5 kernel launch")
-    with _build.count_lock:
-        launches_p5 += 1
+    n = x.numel()
+    if n:
+        _build.check(_build.lib().nabwa_probe_p5(
+            px, n, out.data_ptr(), torch._C._cuda_getCurrentRawStream(index)),
+            "probe_p5 kernel launch")
+        with _build.count_lock:
+            launches_p5 += 1
+    return out
+
+
+def p5_witness_cuda(x):
+    """`p5_plain` by C34's witness, one block with s in shared memory: the
+    script's barrier-bound loop on one core; x of at most P5_MAX_WORDS
+    words.  The launch path of `p5_cuda`."""
+    global launches_p5_witness
+    index, (px,) = common.cuda_inputs((x, "x", 2, I32))
+    n = x.numel()
+    if n > P5_MAX_WORDS:
+        raise ValueError(f"x must fit one block's shared memory, "
+                         f"{P5_MAX_WORDS} words, got {n}")
+    out = torch.empty_like(x)
+    if n:
+        _build.check(_build.lib().nabwa_probe_p5_witness(
+            px, n, out.data_ptr(), torch._C._cuda_getCurrentRawStream(index)),
+            "probe_p5 witness kernel launch")
+        with _build.count_lock:
+            launches_p5_witness += 1
     return out
 
 
 def p5(x):
-    """Probe 5: the plain version for CPU tensors, kernel C34 for CUDA
-    tensors."""
+    """Probe 5: the plain version for CPU tensors, kernel C34's grid form
+    for CUDA tensors."""
     return common.dispatch("p5", x, p5_plain, p5_cuda)
 
 

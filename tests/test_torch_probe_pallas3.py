@@ -32,7 +32,16 @@ helpers) is held on fake card tensors and a fake kernel library: one
 check pass, each pointer and device index read once, the stream of that
 index, exact counts, and every refusal with the message and in the order
 of the wrapper's checks one at a time (C8's grid and serial forms, C11
-on every shape, 0-d and empty included).
+on every shape, 0-d and empty included).  C23's and C34's wrappers, both
+forms of each (the lane form and the witness, the grid form and the
+witness), are held the same way: refusals in the order of the checks one
+at a time (x, then K, then the lane form's group or the witness's shared
+memory), nothing launched on an empty x, the pointers read once, and
+each form's count exact over 4 threads.  C34's grid form is also played
+thread by thread on the host (`p5_words` of csrc/probes.cuh, built by
+g++) and held to the plain version and the script at its inputs, and to
+the plain version at [512, 128] and at a word count that is not a
+multiple of a thread's 4.
 """
 
 import ast
@@ -51,6 +60,7 @@ from nabwa_tpu_torch.probes import probe_dma as pdma
 from nabwa_tpu_torch.probes import probe_pallas as pp
 from nabwa_tpu_torch.probes import probe_pallas2 as pp2
 from nabwa_tpu_torch.probes import probe_pallas3 as p3
+from nabwa_tpu_torch.probes import probe_spill as ps
 
 # fixtures and helpers shared with the other probe ports' tests
 from nabwa_tpu_torch.ops import _build
@@ -58,8 +68,8 @@ from nabwa_tpu_torch.ops import _build
 from .test_torch_probe_pallas import (_misaligned, _no_build, _on_card,
                                       _OnCard, _OnCard1)
 from .test_torch_probe_spill import masked
-from .test_torch_probes import (_call, _i32, _t, host,  # noqa: F401
-                                one_torch_thread, script)
+from .test_torch_probes import (_I, _P, _call, _i32, _t,  # noqa: F401
+                                host, one_torch_thread, script)
 
 REPO = p3.__file__.rsplit("/nabwa_tpu_torch/", 1)[0]
 CPU = torch.device("cpu")
@@ -648,8 +658,9 @@ class _Counted(_OnCard):
 
 
 class _FakeLib:
-    """Records C29's, C28's, C27's, C20's, C7's, C15's, C8's (both forms)
-    and C11's launch arguments; every launch succeeds."""
+    """Records C29's, C28's, C27's, C20's, C7's, C15's, C8's (both forms),
+    C11's, C23's and C34's (both forms each) launch arguments; every
+    launch succeeds."""
 
     def __init__(self):
         self.calls = []
@@ -663,6 +674,8 @@ class _FakeLib:
     nabwa_probe_rowload = nabwa_probe_smem_idx = nabwa_probe_p3
     nabwa_probe_dma = nabwa_probe_dma_serial = nabwa_probe_p3
     nabwa_probe_empty = nabwa_probe_p3
+    nabwa_probe_spill = nabwa_probe_spill_witness = nabwa_probe_p3
+    nabwa_probe_p5 = nabwa_probe_p5_witness = nabwa_probe_p3
 
 
 @pytest.fixture
@@ -1093,3 +1106,201 @@ def test_c11_launch_on_pointers_read_once(fake_launch, monkeypatch):
     assert pp2.empty_cuda(_on_card(0, 128)).shape == (0, 128)
     assert len(fake_launch.calls) == calls
     assert pp2.launches_empty == before + 2
+
+
+def _p5_input(rng, case):
+    """int32 [256, 128] for `case`: "negative", s[0, 0] = -5 and the rest
+    within 8 of both int32 ends; "wraps", every value within 8 of
+    INT32_MAX and s[0, 0] = INT32_MAX - 2, so that s[0, 0] wraps in its
+    first rounds and its trip counts follow the wrapped value."""
+    x = I32_MAX - rng.integers(0, 8, p3.P5_X)
+    if case == "negative":
+        x[1::2] = I32_MIN + rng.integers(0, 8, x[1::2].shape)
+        x[0, 0] = -5
+    else:
+        x[0, 0] = I32_MAX - 2
+    return x.astype(np.int32)
+
+
+# C34's grid form on the host: the script's inputs, and shapes the script
+# does not run (only the plain version holds those)
+_P5_SHAPES = {"wide": (512, 128), "ragged": (129, 127)}
+
+
+@pytest.mark.parametrize("case", ["script", "negative", "wraps", "wide",
+                                  "ragged"])
+def test_host_p5_grid_form_matches_plain(script, monkeypatch, capsys, host,
+                                         case):
+    """C34's grid form played thread by thread on the host (`p5_words`,
+    each thread its 4 words, zeros past the end, and its own copy of
+    s[0, 0]) equals the plain version and the script (interpret mode) at
+    the script's input, a negative s[0, 0] and an s[0, 0] that wraps;
+    and the plain version at [512, 128] (past the witness's shared
+    memory) and at [129, 127], 16,383 words (not a multiple of 4)."""
+    rng = np.random.default_rng(1321)
+    want_jax = None
+    if case in _P5_SHAPES:
+        x = rng.integers(I32_MIN, I32_MAX, _P5_SHAPES[case], endpoint=True)
+        x.reshape(-1)[:len(EDGES)] = EDGES
+        x = x.astype(np.int32)
+    else:
+        (call,), _ = _load(script, monkeypatch, capsys, 1321, "p5")
+        x, = call["args"]
+        want_jax = call["r"]
+        if case != "script":
+            x = _p5_input(rng, case)
+            want_jax = _run(call, x)
+    fn = host.nabwa_host_probe_p5_words
+    fn.argtypes = [_P, _I, _I, _P]
+    fn.restype = _I
+    out = np.full_like(x, 7)
+    assert fn(x.ctypes.data_as(_P), x.size, p3.P5_ROUNDS,
+              out.ctypes.data_as(_P)) == 0
+    want = p3.p5_plain(*common.tensors(CPU, x)).numpy()
+    np.testing.assert_array_equal(out, want)
+    if want_jax is not None:
+        np.testing.assert_array_equal(out, want_jax)
+    if case == "ragged":
+        assert x.size % 4 == 3
+
+
+# C23's and C34's wrappers, both forms of each: the call on x, the module
+# and name of its launch counter
+_SPILL_T = 5
+_FORMS = {
+    "c23_lane": (lambda x, k=ps.DEFAULT_K, lanes=None:
+                 ps.spill_cuda(x, k, _SPILL_T, lanes), ps, "launches"),
+    "c23_witness": (lambda x, k=ps.DEFAULT_K, lanes=None:
+                    ps.spill_witness_cuda(x, k, _SPILL_T), ps,
+                    "launches_witness"),
+    "c34_grid": (lambda x, k=None, lanes=None: p3.p5_cuda(x), p3,
+                 "launches_p5"),
+    "c34_witness": (lambda x, k=None, lanes=None: p3.p5_witness_cuda(x), p3,
+                    "launches_p5_witness")}
+# x by form ([64, 128] when good)
+_FORM_X = {"good": lambda: _on_card(64, 128),
+           "cpu": lambda: _zeros(64, 128),
+           "int64": lambda: _on_card(64, 128).long(),
+           "dims": lambda: _on_card(64 * 128),
+           "transposed": lambda: _on_card(128, 64).t(),
+           "column": lambda: _on_card(64, 132)[:, 4:],
+           "misaligned": lambda: _misaligned(64, 128),
+           "wide": lambda: _on_card(512, 128)}
+# C23's (K, lanes) by form; C34 takes none
+_FORM_ARGS = {"good": (ps.DEFAULT_K, None), "k": (25, None),
+              "lanes": (ps.DEFAULT_K, 3), "k_lanes": (25, 3)}
+
+
+def _form_refusal(form, x, k, lanes):
+    """The message of the first check one at a time that refuses x, K or
+    the group (None if all pass): `common.cuda_input` on x (C23 any dims,
+    C34 two), then C23's K, then the lane form's group, or the witness's
+    shared memory for C34's."""
+    try:
+        common.cuda_input(x, "x", x.dim() if form.startswith("c23") else 2)
+    except ValueError as err:
+        return str(err)
+    if form.startswith("c23") and k not in ps.SPILL_KS:
+        return (f"K={k} is not one of the K kernel C23 is built for: "
+                + ", ".join(map(str, ps.SPILL_KS)))
+    if form == "c23_lane" and lanes == 3:
+        return (f"C23's lane form is not built for K={k} over 3 lanes: L "
+                f"one of {ps.LANES} dividing K, K / L one of "
+                f"{ps.SPILL_MS}")
+    if form == "c34_witness" and x.numel() > p3.P5_MAX_WORDS:
+        return (f"x must fit one block's shared memory, {p3.P5_MAX_WORDS} "
+                f"words, got {x.numel()}")
+    return None
+
+
+@pytest.mark.parametrize("form, x_form, args", [
+    (form, x_form, args) for form in _FORMS for x_form in _FORM_X
+    for args in (_FORM_ARGS if form.startswith("c23") else ["good"])
+    if form == "c23_lane" or "lanes" not in args])
+def test_c23_c34_refuse_in_order(form, x_form, args, monkeypatch):
+    """Both forms of C23 and C34 refuse what their checks one at a time
+    refused, with the same message and in the same order: x (CUDA, dtype,
+    dims for C34, contiguity, 16-byte alignment), then C23's K, then the
+    lane form's group or C34's witness's shared memory (the grid form
+    takes [512, 128]); before anything is built or launched, every count
+    unchanged."""
+    _no_build(monkeypatch)
+    call, mod, count = _FORMS[form]
+    x = _FORM_X[x_form]()
+    k, lanes = _FORM_ARGS[args]
+    want = _form_refusal(form, x, k, lanes)
+    before = {name: getattr(m, name) for _, m, name in _FORMS.values()}
+    if want is None:
+        with pytest.raises(AssertionError, match="library was asked"):
+            call(x, k, lanes)
+    else:
+        with pytest.raises(ValueError) as err:
+            call(x, k, lanes)
+        assert str(err.value) == want
+    assert {name: getattr(m, name) for _, m, name in _FORMS.values()} == \
+        before
+    takes = (x_form == "good"
+             or x_form == "wide" and form != "c34_witness"
+             or x_form == "dims" and form.startswith("c23"))
+    assert (want is None) == (takes and args == "good")
+
+
+@pytest.mark.parametrize("form", list(_FORMS))
+def test_c23_c34_launch_on_pointers_read_once(form, fake_launch,
+                                              monkeypatch):
+    """Both forms of C23 and C34 launch on x's pointer and device index
+    read once by their one check pass (`device` never), the output's
+    pointer read once, the stream of that index (of index 1 on the second
+    card); the sizes x's, C23's K, group (`default_lanes`: 2 at [64, 128])
+    and T (a negative T as 0); an output of x's shape; the count rises
+    by one a launch."""
+    from collections import Counter
+    monkeypatch.setattr(_Counted, "reads", Counter())
+    call, mod, count = _FORMS[form]
+    x = _zeros(64, 128).as_subclass(_Counted)
+    before = getattr(mod, count)
+    out = call(x)
+    assert _Counted.reads == Counter(
+        {(k, id(x)): 1 for k in ("data_ptr", "get_device")}
+        | {("data_ptr", id(out)): 1})
+    n = 64 * 128
+    args = {"c23_lane": (ps.DEFAULT_K, 2, _SPILL_T),
+            "c23_witness": (ps.DEFAULT_K, _SPILL_T)}.get(form, ())
+    assert fake_launch.calls[-1] == (x.data_ptr(), n, *args, out.data_ptr(),
+                                     1000)
+    assert out.shape == x.shape and out.dtype == torch.int32
+    assert out.is_contiguous()
+    one = _zeros(8, 128).as_subclass(_OnCard1)
+    call(one)
+    assert fake_launch.calls[-1][1] == 8 * 128
+    assert fake_launch.calls[-1][-1] == 1001
+    if form == "c23_lane":
+        assert fake_launch.calls[-1][2:4] == (ps.DEFAULT_K, 8)
+        ps.spill_cuda(_on_card(64, 128), 64, -3, 2)
+        assert fake_launch.calls[-1][2:5] == (64, 2, 0)
+    if form == "c23_witness":
+        ps.spill_witness_cuda(_on_card(64, 128), 320, -3)
+        assert fake_launch.calls[-1][2:4] == (320, 0)
+    assert getattr(mod, count) == before + 2 + form.startswith("c23")
+
+
+@pytest.mark.parametrize("form", list(_FORMS))
+def test_c23_c34_empty_launch_nothing(form, fake_launch):
+    """No words: an empty output of x's shape, no launch, no count."""
+    call, mod, count = _FORMS[form]
+    before = getattr(mod, count)
+    assert call(_on_card(0, 128)).shape == (0, 128)
+    assert not fake_launch.calls
+    assert getattr(mod, count) == before
+
+
+@pytest.mark.parametrize("form", list(_FORMS))
+def test_c23_c34_count_exact_under_threads(form, fake_launch):
+    """Four threads launching one form together, the interpreter switching
+    threads every microsecond: its count rises by exactly the launches
+    made."""
+    call, mod, count = _FORMS[form]
+    x = _on_card(64, 128)
+    before = getattr(mod, count)
+    made = _launch_from_threads(lambda: call(x), threads=4)
+    assert getattr(mod, count) - before == made == len(fake_launch.calls)

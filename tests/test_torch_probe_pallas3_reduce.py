@@ -20,7 +20,8 @@ need not add in index order as the plain version does).  Kernel C32's
 rotation source and C34's trip count, `roll_src` and `p5_trips` of
 csrc/probes.cuh built by g++, equal np.roll and the plain formula value by
 value.  The wrappers refuse CPU tensors, misaligned inputs, other dtypes
-and shapes their kernels do not take, and an unknown kind.
+and shapes their kernels do not take (C34's witness, an s past one
+block's shared memory), and an unknown kind.
 """
 
 import numpy as np
@@ -32,7 +33,8 @@ from nabwa_tpu_torch.probes import probe_pallas3 as p3
 
 # fixtures and helpers shared with the other probe ports' tests
 from .test_torch_probe_pallas import _misaligned, _on_card, _OnCard
-from .test_torch_probe_pallas3 import CPU, EDGES, I32_MAX, I32_MIN, _load, _run
+from .test_torch_probe_pallas3 import (CPU, EDGES, I32_MAX, I32_MIN, _load,
+                                       _p5_input, _run)
 from .test_torch_probe_spill import masked
 from .test_torch_probes import _call, _i32, host, one_torch_thread  # noqa: F401
 from .test_torch_probes import script  # noqa: F401
@@ -112,20 +114,6 @@ def test_p2_ties_and_wraps_in_edge_inputs():
         assert ((y == y.min(axis=1, keepdims=True)).sum(axis=1) >= 4).all()
         assert set(EDGES) <= set(x.reshape(-1).tolist())
         assert _first_wrap(x, kind) == 0
-
-
-def _p5_input(rng, case):
-    """int32 [256, 128] for `case`: "negative", s[0, 0] = -5 and the rest
-    within 8 of both int32 ends; "wraps", every value within 8 of
-    INT32_MAX and s[0, 0] = INT32_MAX - 2, so that s[0, 0] wraps in its
-    first rounds and its trip counts follow the wrapped value."""
-    x = I32_MAX - rng.integers(0, 8, p3.P5_X)
-    if case == "negative":
-        x[1::2] = I32_MIN + rng.integers(0, 8, x[1::2].shape)
-        x[0, 0] = -5
-    else:
-        x[0, 0] = I32_MAX - 2
-    return x.astype(np.int32)
 
 
 @pytest.mark.parametrize("case", ["script", "negative", "wraps"])
@@ -245,7 +233,8 @@ def _floats_on_card(*shape):
     lambda: p3.p2_cuda(_zeros(*p3.P2_X), "subl"),
     lambda: p3.p5_cuda(_zeros(*p3.P5_X)),
     lambda: p3.p6_cuda(_zeros(*p3.P6_X), _zeros(*p3.P6_W,
-                                                dtype=torch.float32))])
+                                                dtype=torch.float32)),
+    lambda: p3.p5_witness_cuda(_zeros(*p3.P5_X))])
 def test_kernels_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA tensors"):
         call()
@@ -262,7 +251,7 @@ def test_kernels_refuse_cpu_tensors(call):
     (lambda: p3.p2_cuda(_on_card(256, 48), "subl"), "multiple of 32"),
     (lambda: p3.p2_cuda(_on_card(256 * 128), "native"), "1 dims"),
     (lambda: p3.p5_cuda(_misaligned(*p3.P5_X)), "not 16-byte aligned"),
-    (lambda: p3.p5_cuda(_on_card(512, 128)), "shared memory"),
+    (lambda: p3.p5_witness_cuda(_on_card(512, 128)), "shared memory"),
     (lambda: p3.p6_cuda(_misaligned(*p3.P6_X), _floats_on_card(*p3.P6_W)),
      "not 16-byte aligned"),
     (lambda: p3.p6_cuda(_on_card(*p3.P6_X), _on_card(*p3.P6_W)),
@@ -270,7 +259,10 @@ def test_kernels_refuse_cpu_tensors(call):
     (lambda: p3.p6_cuda(_floats_on_card(*p3.P6_X),
                         _floats_on_card(*p3.P6_W)), "expected torch.int32"),
     (lambda: p3.p6_cuda(_on_card(512, 64), _floats_on_card(*p3.P6_W)),
-     r"\[R, K\] and \[K, N\]")])
+     r"\[R, K\] and \[K, N\]"),
+    (lambda: p3.p5_witness_cuda(_misaligned(*p3.P5_X)),
+     "not 16-byte aligned"),
+    (lambda: p3.p5_cuda(_on_card(256 * 128)), "1 dims, expected 2")])
 def test_kernels_refuse_inputs(call, match):
     """A wrapper refuses what its kernel does not take, before any
     launch."""

@@ -11,9 +11,17 @@ within 8 of INT32_MAX and INT32_MIN (where x + i and the sums wrap).
 Kernel C23's loop order (in place, index order, the old v_0 saved for the
 last value) is run on the host with its `spill_update` helper built by
 g++ and must equal the plain version too; without the saved v_0 it must
-not.  The entry point prints the script's lines; a K that C23 is not
-built for, a missing card, CPU tensors and a misaligned input are
-refused.
+not.  C23's lane form (csrc/probes.cuh `spill_lane_init`,
+`spill_next_lane`, `spill_lane_round`, `spill_lane_sum`) is played on the
+host lane by lane, an array read in place of the shuffle
+(`nabwa_host_probe_spill_lanes`), and must equal the plain version at
+every K of SPILL_KS over groups of 1, 2, 4 and 8 lanes (those dividing
+K), T 0, 1, 3 and 17, on seeded and int32-edge inputs.  The lists of K
+and M the kernels are built for match the source, and the lane form's
+choice of group is one it is built for.  The entry point prints the
+script's lines; a K that C23 is not built for, a missing card, CPU
+tensors and a misaligned input are refused.  (The wrappers' launch path
+is held on fake card tensors in tests/test_torch_probe_pallas3.py.)
 """
 
 import os
@@ -35,8 +43,8 @@ from nabwa_tpu_torch.probes import probe_spill as ps
 # loader (interpret mode), one torch thread, the host harness; tensors that
 # say they lie on the card
 from .test_torch_probe_pallas import _misaligned, _on_card
-from .test_torch_probes import (_call, _i32, _t, host,  # noqa: F401
-                                one_torch_thread, script)
+from .test_torch_probes import (_I, _P, _call, _i32, _t,  # noqa: F401
+                                host, one_torch_thread, script)
 
 REPO = ps.__file__.rsplit("/nabwa_tpu_torch/", 1)[0]
 CPU = torch.device("cpu")
@@ -139,6 +147,82 @@ def test_host_spill_update_matches_plain(host):
     got, = _call(host.nabwa_host_probe_spill_update, 1, v, nxt)
     want = common.wrap32(_t(v) * 3 + 1) ^ (_t(nxt) >> 2)
     np.testing.assert_array_equal(got, want.numpy())
+
+
+# (K, L): every K of SPILL_KS over every group of 1, 2, 4 or 8 lanes that
+# divides it
+_LANE_CASES = [(k, n) for k in ps.SPILL_KS for n in ps.LANES if k % n == 0]
+
+
+def _host_lanes(host, x, k, lanes, t):
+    """(the harness's return code, out) of C23's lane form played on the
+    host over x."""
+    fn = host.nabwa_host_probe_spill_lanes
+    fn.argtypes = [_P, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    out = np.full_like(x, 7)
+    rc = fn(x.ctypes.data_as(_P), len(x), k, lanes, t,
+            out.ctypes.data_as(_P))
+    return rc, out
+
+
+@pytest.mark.parametrize("t", [0, 1, 3, 17])
+@pytest.mark.parametrize("k, lanes", _LANE_CASES)
+def test_host_lane_form_matches_plain(host, k, lanes, t):
+    """C23's lane form, each group played lane by lane on the host (the
+    kernel's per-lane round and group exchange from probes.cuh, an array
+    read in place of the shuffle), equals the plain version exactly on
+    int32 edges and seeded int32."""
+    x = _inputs((40,), 1160 + k + lanes)["edges_random"]
+    assert {I32_MAX, I32_MIN, 0, -1} <= set(x.tolist())
+    rc, out = _host_lanes(host, x, k, lanes, t)
+    assert rc == 0
+    want = ps.spill_plain(*common.tensors(CPU, x), k, t).numpy()
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("k, lanes", [(24, 3), (24, 16 * 3), (2, 4),
+                                      (1, 2), (24, 0)])
+def test_host_lane_form_refuses_groups(host, k, lanes):
+    """A group that is not a power of two or does not divide K is refused,
+    nothing written."""
+    x = _inputs((8,), 1170)["edges_random"]
+    rc, out = _host_lanes(host, x, k, lanes, 3)
+    assert rc != 0 and (out == 7).all()
+
+
+def test_spill_ms_match_the_kernel():
+    """SPILL_MS is the list of M csrc/probe_spill.cu instantiates its lane
+    form for; `default_lanes` picks, for every K of SPILL_KS and element
+    counts from 1 to a million, a group of 1, 2, 4 or 8 lanes that divides
+    K with K / L built and at least 3 values a lane (or one lane); at the
+    script's K the small shapes take 8 lanes and [64, 128] takes 2 (a
+    warp for each of the card's schedulers), and K 1 and 2 one lane."""
+    src = (_build.CSRC / "probe_spill.cu").read_text()
+    body = src.split("#define SPILL_MS(X)", 1)[1].split("\n\n", 1)[0]
+    ms = tuple(int(m) for m in re.findall(r"X\((\d+)\)", body))
+    assert ms == ps.SPILL_MS
+    for k in ps.SPILL_KS:
+        for n in (1, 64, 128, 1024, 2112, 2113, 8192, 10**6):
+            lanes = ps.default_lanes(k, n)
+            assert lanes in ps.LANES and k % lanes == 0, (k, n)
+            assert k // lanes in ps.SPILL_MS, (k, n)
+            assert lanes == 1 or k // lanes >= 3, (k, n)
+            ps.check_lanes(k, lanes)
+    assert [ps.default_lanes(24, r * c) for r, c in ps.SHAPES] == [8, 8, 8,
+                                                                   2]
+    assert ps.default_lanes(24, 2112) == 8 and ps.default_lanes(24, 2113) == 4
+    assert ps.default_lanes(1, 8192) == ps.default_lanes(2, 8192) == 1
+    assert ps.default_lanes(128, 8192) == 4
+
+
+@pytest.mark.parametrize("k, lanes", [(24, 16), (24, 3), (24, 1), (256, 4),
+                                      (64, 1), (320, 4)])
+def test_lanes_outside_the_built_groups_are_refused(k, lanes):
+    """The lane form refuses a group it is not built for (an L not among
+    1, 2, 4, 8, or K / L not in SPILL_MS), before anything is built."""
+    with pytest.raises(ValueError, match="lane form is not built for"):
+        ps.check_lanes(k, lanes)
 
 
 def test_spill_ks_match_the_kernel():

@@ -74,7 +74,7 @@ def test_compare_refuses_an_unknown_mode():
                          cwd=REPO, capture_output=True, text=True,
                          timeout=60)
     assert res.returncode == 2 and not res.stdout
-    assert "{c3,aln,launch,c9}" in res.stderr
+    assert "{c3,aln,launch,c9,c23,c34}" in res.stderr
 
 
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -257,8 +257,10 @@ def test_stage_split_of_known_stamps():
 def test_chain_bounds_price_each_path():
     """`chain_bounds` prices each kernel's dependent path at the measured
     latencies: C9's C9_CHAIN steps an iteration, C24's 2 T K, C23's 2 T,
-    C25's 400 integer steps, C34's shared loads and steps; ns = cycles /
-    GHz, an L2 row load at C12's serial load."""
+    C25's 400 integer steps, C34's load and 226 integer steps (both
+    forms); ns = cycles / GHz, an L2 row load at C12's serial load.  C34's
+    witness gets its one SM's shared-memory ceiling: s read and written
+    an inner round at 128 bytes a clock."""
     cs = _smoke_module()
     lat = {"imad": 4.0, "colops": 8.0, "redux": 30.0, "shfl": 20.0,
            "lds": 32.0}
@@ -269,7 +271,7 @@ def test_chain_bounds_price_each_path():
                                         "witness_queued_ms": 0.3}]},
         "probe_loads": {"serial_ns_per_load": 170.0},
         "probe_colops": {"t": 2000, "k": 64}, "probe_spill": {"t": 2000},
-        "probe_p7": {}, "probe_p5": {"inner_rounds": 126}}
+        "probe_p7": {}, "probe_p5": {"inner_rounds": 126, "words": 32768}}
     cs.chain_bounds(probes)
     c = cs.C9_CHAIN
     per_iter = (c["int"] * 4 + c["redux"] * 30 + c["shfl"] * 20) / 2.0 + 170
@@ -285,6 +287,8 @@ def test_chain_bounds_price_each_path():
         pytest.approx(2 * 2000 * 2.0 * 1e-6)
     assert probes["probe_p7"]["chain_bound_ms"] == \
         pytest.approx(400 * 2.0 * 1e-6)
-    assert probes["probe_p5"]["chain_steps"] == {"lds": 176, "int": 226}
+    assert probes["probe_p5"]["chain_steps"] == {"load": 1, "int": 226}
     assert probes["probe_p5"]["chain_bound_ms"] == \
-        pytest.approx((176 * 16.0 + 226 * 2.0) * 1e-6)
+        pytest.approx((170 + 226 * 2.0) * 1e-6)
+    assert probes["probe_p5"]["witness_smem_ceiling_ms"] == \
+        pytest.approx(126 * 2048 / 2.0 * 1e-6)
