@@ -517,6 +517,32 @@ OPS_PALLAS = (Work(8, 3, 7), Work(11, 5, 10), Work(10, 2, 7))
 # (2), its compare (1) and the sum over 9 (2), the candidate's add (1)
 # and the key's select (1): 8.  chain_bounds prices the steps.
 C9_CHAIN = {"int": 8 + 2 + 7 + 71 + 8, "redux": 3, "shfl": 2, "load": 1}
+# The chains of C13, C17-C19, C21 and C31-C33 a round, step or push,
+# counted from each function as its kernel's header counts it; a launch's
+# path is a load, then these (`chain_bounds`).  C17 and C18: the lane's
+# minimum of its 4 keys (2), a redux.sync, the compare and the select
+# (2).  C13: a lane's minimum of its 8 slots (3), a redux.sync, the
+# compare (1), f's select (1), the lane's sum of 8 (3), a redux.sync, slot
+# 0's minimum (1).  C19: the and, the compare, the select of p + j, the
+# shift, the xor and p * 3.  C21, a push of its busiest row: t's add and
+# mask.  C31: the lane's minimum of 4 words (2), a redux.sync, the add.
+# C32: two minima whose registers are known (sh 64, 32), five of a
+# shuffle, its register's select and the minimum, the add.  C33: a
+# thread's minimum of its 32 rows (5), the partials' shared load, their
+# minimum of 8 (3), the add.  (C33's barrier and C17's cluster barrier
+# and remote store are not priced: no latency of theirs is measured.)
+WHILE_CHAIN = {"int": 4, "redux": 1}
+POP_CHAIN = {"int": 9, "redux": 2}
+BODY_CHAIN = {"int": 6}
+PUSH_CHAIN = {"int": 2}
+P2_CHAIN = {"native": {"int": 3, "redux": 1}, "roll": {"int": 13, "shfl": 5},
+            "subl": {"int": 9, "lds": 1}}
+# C17's and C18's witnesses: warp instructions every warp issues a round,
+# counted in the SASS of their loop bodies (`compare.py c17 . DIR`, its
+# `sass_loops`): C18's 111; C17's 140 less the 14 of the carry's add
+# that only warp 0 runs (left out, so the ceiling stays a lower bound).
+# The 32 warps of the one SM share its 4 schedulers.
+WHILE_WITNESS_ISSUE = {"probe_while_scratch": 126, "probe_while_vector": 111}
 # C11 and C16: an add, a popcount a word; C14: an add (IADD3, two a
 # instruction)
 OPS_ONE = Work(1, 0, 1)
@@ -1750,8 +1776,10 @@ def check_dfs_edges(dev):
     """C1's edge launches (`dfs_edge_data`) against the plain DFS on the
     card: each case in both state forms (the first 4H+3 columns exact
     against the plain version, all 4H+5 equal across the forms), then the
-    defaults' first read alone (B = 1) and none (B = 0).  Returns {label:
-    [B, L, S, H, shared bytes a warp (0: device memory)]}."""
+    defaults' first read alone (B = 1) and none (B = 0).  Returns ({label:
+    [B, L, S, H, shared bytes a warp (0: device memory)]}, seconds: the
+    edge index's build and load ("index"), and each launch's plain
+    version and its two card launches ({label: {"plain", "card"}}))."""
     import numpy as np
     import torch
     from nabwa_tpu_torch import cli as port_cli
@@ -1761,12 +1789,14 @@ def check_dfs_edges(dev):
     from nabwa_tpu_torch.ops import dfs, dfs_cuda, occ
     from nabwa_tpu_torch.options import GapOpt
     fasta, cases = dfs_edge_data()
-    checked = {}
+    checked, seconds = {}, {}
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         fa = pathlib.Path(tmp) / "edge.fa"
         fa.write_bytes(fasta)
         build_index(str(fa))
         ix = DeviceIndex.from_host(BwaIndex.load(str(fa)), dev)
+        seconds["index"] = time.perf_counter() - t0
         fq_path = pathlib.Path(tmp) / "edge.fq"
         for label, (fq, zero, opt_kw, st_kw) in cases.items():
             opt = GapOpt(**opt_kw)
@@ -1793,13 +1823,18 @@ def check_dfs_edges(dev):
                                and a.dim() and a.shape[0] == len(lens)
                                else a for a in args) for m in (1, 0)]
             for run in runs:
+                t0 = time.perf_counter()
                 plain = dfs.dfs_match_gap_plain(*run, **statics)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
                 got = dfs_cuda.dfs_match_gap_cuda(*run, **statics)
                 with dfs_device_state():
                     got_dev = dfs_cuda.dfs_match_gap_cuda(*run, **statics)
                 torch.cuda.synchronize()
                 B = int(run[6].shape[0])
                 name = label if B == len(lens) else f"{label}_B{B}"
+                seconds[name] = {"plain": t1 - t0,
+                                 "card": time.perf_counter() - t1}
                 exact(f"C1 edge {name}", got[:, :n], plain[:, :n])
                 exact(f"C1 edge {name}, device state", got_dev, got)
                 warps, blocks, per_warp = (dfs_shape(run, statics, False)
@@ -1810,8 +1845,8 @@ def check_dfs_edges(dev):
             if label == "wide_device" and checked[label][4]:
                 fail("C1 edge wide_device: its state fits in shared memory")
     log(f"C1 dfs: {len(checked)} edge launches exact in both state forms "
-        f"({checked})")
-    return checked
+        f"({checked}); seconds {seconds}")
+    return checked, seconds
 
 
 def native_reference(idx, reads, opt):
@@ -2943,12 +2978,13 @@ def check_launch_path(dev):
     """The shared launch path keeps its meaning: `stream_of` gives
     PyTorch's current stream on the default stream and on a side stream,
     C14, C29, C28, C27, C20, C7, C15, C8's grid form, C11 and both forms
-    of C23 (at T 3) and C34 launched under a side stream are exact there
-    (all but C14 take the handle from the device index their one check
-    pass read), C14's, C29's, C20's, C7's, C8's, C23's and C34's launch
-    counts (both forms of the last two) are exact when COUNT_THREADS
-    threads launch together, and C8's wrappers and C11's refuse, before
-    any launch, what their checks refuse (`check_dma_empty_refusals`)."""
+    of C23 (at T 3), C34, C17 and C18 launched under a side stream are
+    exact there (all but C14 take the handle from the device index their
+    one check pass read), C14's, C29's, C20's, C7's, C8's, C23's, C34's,
+    C17's and C18's launch counts (both forms of the last four) are exact
+    when COUNT_THREADS threads launch together, and C8's wrappers and
+    C11's refuse, before any launch, what their checks refuse
+    (`check_dma_empty_refusals`)."""
     import torch
     from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import probe_dma as pdma
@@ -2988,6 +3024,17 @@ def check_launch_path(dev):
                        dtype=torch.int32, device=dev)
     px = torch.randint(-2**31, 2**31 - 1, p3.P5_X, dtype=torch.int32,
                        device=dev)
+    # C17 and C18 at the script's [256, 128]
+    wx = torch.randint(-2**31, 2**31 - 1, (pp.WHILE_BB, pp.WHILE_S),
+                       dtype=torch.int32, device=dev)
+    whiles = {"C17's grid form": (pp.while_scratch_cuda,
+                                  "launches_while_scratch"),
+              "C17's witness": (pp.while_scratch_witness_cuda,
+                                "launches_while_scratch_witness"),
+              "C18's grid form": (pp.while_vector_cuda,
+                                  "launches_while_vector"),
+              "C18's witness": (pp.while_vector_witness_cuda,
+                                "launches_while_vector_witness")}
     side = torch.cuda.Stream(dev)
     if _build.stream_of(x) != torch.cuda.current_stream(dev).cuda_stream:
         fail("stream_of differs from the current stream")
@@ -3003,7 +3050,8 @@ def check_launch_path(dev):
                  for src in ("reg", "cond")), pp2.empty_cuda(ex),
                ps.spill_cuda(sx, ps.DEFAULT_K, 3),
                ps.spill_witness_cuda(sx, ps.DEFAULT_K, 3),
-               p3.p5_cuda(px), p3.p5_witness_cuda(px))
+               p3.p5_cuda(px), p3.p5_witness_cuda(px),
+               *(fn(wx) for fn, _ in whiles.values()))
     side.synchronize()
     exact("C14 on a side stream", got[0], pp2.lanereduce_plain(x))
     exact("C29 on a side stream", got[1], p3.p3_plain(gx, gi))
@@ -3023,6 +3071,10 @@ def check_launch_path(dev):
               ps.spill_plain(sx, ps.DEFAULT_K, 3))
     for form, g in zip(("grid", "witness"), got[12:14]):
         exact(f"C34 {form} on a side stream", g, p3.p5_plain(px))
+    for label, g in zip(whiles, got[14:]):
+        exact(f"{label} on a side stream", g,
+              (pp.while_scratch_plain if label.startswith("C17")
+               else pp.while_vector_plain)(wx))
     for label, mod, name, fn in (
             ("C14", pp2, "launches_lanereduce",
              lambda: pp2.lanereduce_cuda(x)),
@@ -3040,7 +3092,9 @@ def check_launch_path(dev):
              lambda: ps.spill_witness_cuda(sx, ps.DEFAULT_K, 3)),
             ("C34's grid form", p3, "launches_p5", lambda: p3.p5_cuda(px)),
             ("C34's witness", p3, "launches_p5_witness",
-             lambda: p3.p5_witness_cuda(px))):
+             lambda: p3.p5_witness_cuda(px)),
+            *((label, pp, name, lambda fn=fn: fn(wx))
+              for label, (fn, name) in whiles.items())):
         before = getattr(mod, name)
 
         def launch():
@@ -3060,9 +3114,9 @@ def check_launch_path(dev):
                  f"{COUNT_THREADS} threads")
     check_dma_empty_refusals(dmt, ex)
     log(f"launch path: stream_of is the current stream (default and side), "
-        f"C14, C29, C28, C27, C20, C7, C15, C8, C11, C23 and C34 exact on "
-        f"a side stream, C14's, C29's, C20's, C7's, C8's, C23's and C34's "
-        f"counts exact over "
+        f"C14, C29, C28, C27, C20, C7, C15, C8, C11, C23, C34, C17 and C18 "
+        f"exact on a side stream, C14's, C29's, C20's, C7's, C8's, C23's, "
+        f"C34's, C17's and C18's counts exact over "
         f"{COUNT_THREADS} threads x {COUNT_CALLS} launches, C8's and C11's "
         f"refusals before any launch")
 
@@ -3191,42 +3245,81 @@ def check_dma_edges(dev):
 
 
 def chain_bounds(probes):
-    """`chain_bound_ms` of C9, C23, C24, C25 and C34: the least dependent
-    path of a launch, counted from the function (each kernel's header),
-    each step priced at the latency C9's stamped launch measured
-    (`latency_cycles` at its `sm_clock_ghz`: an IMAD for an integer step,
-    a redux.sync, a shuffle, a shared load) and a row load at C12's serial
-    load (`serial_ns_per_load`); the path's steps go beside it
-    (`chain_steps`).  C24: T K steps of an element, each an IMAD beside
-    a shift, then the xor; C23: T rounds of the same (both forms); C25:
-    200 steps of an add beside a shift, then the xor; C34 (both forms):
-    the load of s[0, 0], then its 226 dependent integer steps, an add an
-    inner round and an and and an add an outer round's trip count.  C34's
-    witness also gets its one SM's shared-memory ceiling
-    (`witness_smem_ceiling_ms`): s read and written once an inner round
-    at 128 bytes a clock of that SM clock."""
+    """`chain_bound_ms` of C9, C13, C17-C19, C21, C23-C25 and C31-C35: the
+    least dependent path of a launch, counted from the function (each
+    kernel's header), each step priced at the latency C9's stamped launch
+    measured (`latency_cycles` at its `sm_clock_ghz`: an IMAD for an
+    integer step and for an fp32 add or multiply, both on the FMA pipe; a
+    redux.sync, a shuffle, a shared load) and a load at C12's serial load
+    (`serial_ns_per_load`); the path's steps go beside it (`chain_steps`).
+    C24: T K steps of an element, each an IMAD beside a shift, then the
+    xor; C23: T rounds of the same (both forms); C25: 200 steps of an add
+    beside a shift, then the xor; C34 (both forms): the load of s[0, 0],
+    then its 226 dependent integer steps, an add an inner round and an and
+    and an add an outer round's trip count.  A load, then: C17 and C18
+    (both forms of each) 50 rounds of WHILE_CHAIN, C17's carry a shared
+    load and a redux.sync more; C13 50 rounds of POP_CHAIN; C19 1,000
+    steps of BODY_CHAIN; C21 PUSH_CHAIN for each push of its busiest row
+    (`max_row_pushes`), then f0's read back at a shared load's latency (an
+    L1 hit at best) and the add of top; C31-C33 50 rounds of P2_CHAIN;
+    C35 an out element's first conversion and product, then its K fp32
+    adds in index order.  C34's witness also gets its one SM's
+    shared-memory ceiling (`witness_smem_ceiling_ms`): s read and written
+    once an inner round at 128 bytes a clock of that SM clock; C17's and
+    C18's witnesses their one SM's issue ceiling
+    (`witness_issue_ceiling_ms`): WHILE_WITNESS_ISSUE warp instructions a
+    warp and round, 32 warps over 4 schedulers, one instruction a clock
+    each."""
+    from nabwa_tpu_torch.probes import probe_pallas as pp
+    from nabwa_tpu_torch.probes import probe_pallas2 as pp2
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
     c9 = probes["probe_dfs_shape"]
     lat, ghz = c9["latency_cycles"], c9["sm_clock_ghz"]
     load_ns = probes["probe_loads"]["serial_ns_per_load"]
-    price = {"int": lat["imad"] / ghz, "redux": lat["redux"] / ghz,
-             "shfl": lat["shfl"] / ghz, "lds": lat["lds"] / ghz,
-             "load": load_ns}
+    price = {"int": lat["imad"] / ghz, "fp32": lat["imad"] / ghz,
+             "redux": lat["redux"] / ghz, "shfl": lat["shfl"] / ghz,
+             "lds": lat["lds"] / ghz, "load": load_ns}
     colops, spill = probes["probe_colops"], probes["probe_spill"]
     p5 = probes["probe_p5"]
+
+    def path(steps, n, **more):
+        """A load, then `steps` n times, then `more`."""
+        out = {"load": 1, **{k: v * n for k, v in steps.items()}}
+        for k, v in more.items():
+            out[k] = out.get(k, 0) + v
+        return out
+    iters = pp.WHILE_ITERS
     chains = {
         "probe_dfs_shape": {k: v * c9["iters"] for k, v in C9_CHAIN.items()},
         "probe_colops": {"int": 2 * colops["t"] * colops["k"]},
         "probe_spill": {"int": 2 * spill["t"]},
         "probe_p7": {"int": 2 * p3.P7_STEPS},
         "probe_p5": {"load": 1, "int": p5["inner_rounds"]
-                     + 2 * p3.P5_ROUNDS}}
+                     + 2 * p3.P5_ROUNDS},
+        "probe_while_scratch": path(WHILE_CHAIN, iters, redux=1, lds=1),
+        "probe_while_vector": path(WHILE_CHAIN, iters),
+        "probe_pop": path(POP_CHAIN, pp2.POP_ITERS),
+        "probe_body_scale": path(BODY_CHAIN,
+                                 pp.BODY_ROUNDS * pp.BODY_STEPS),
+        "probe_scalar_push": path(
+            PUSH_CHAIN, probes["probe_scalar_push"]["max_row_pushes"],
+            int=1, lds=1),
+        **{f"probe_p2_{kind}": path(steps, p3.P2_ROUNDS)
+           for kind, steps in P2_CHAIN.items()},
+        "probe_p6": {"load": 1, "fp32": 2 + p3.P6_X[1]}}
     for name, steps in chains.items():
         ns = sum(n * price[k] for k, n in steps.items())
         probes[name].update(chain_bound_ms=ns * 1e-6, chain_steps=steps)
     p5["witness_smem_ceiling_ms"] = (
         p5["inner_rounds"] * 2 * 4 * p5["words"] / SMEM_BYTES_PER_CLOCK
         / ghz * 1e-6)
+    for name, per_warp in WHILE_WITNESS_ISSUE.items():
+        e = probes[name]
+        e["witness_issue_ceiling_ms"] = (iters * per_warp * 32 / 4 / ghz
+                                         * 1e-6)
+        e["queued_over_chain"] = e["queued_ms"] / e["chain_bound_ms"]
+        e["witness_queued_over_chain"] = (e["witness_queued_ms"]
+                                          / e["chain_bound_ms"])
     c9["chain_ns_per_iter"] = c9["chain_bound_ms"] * 1e6 / c9["iters"]
     for sh in c9["shapes"]:
         sh["queued_over_chain"] = sh["queued_ms"] / c9["chain_bound_ms"]
@@ -3356,6 +3449,7 @@ def check_probes(dev, split):
     {kernel name: fields of its kernels-line entry but `launches`}."""
     import numpy as np
     import torch
+    from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import common
     from nabwa_tpu_torch.probes import probe_dfs_shape as pds
     from nabwa_tpu_torch.probes import probe_dma as pdma
@@ -3726,45 +3820,90 @@ def check_probes(dev, split):
         "queued_ms": queued_ms(lambda: pp.popcount_cuda(x_t), 200)}
     log(f"C16 probe_popcount: exact; {out['probe_popcount']}")
 
-    # C17, C18: probes 4 and 4b, 50 rounds over a [256, 128] pool, on the
-    # script's values, within 8 of both ends of int32 (+ 7 wraps, the sums
-    # wrap) and on heavy ties
+    # C17, C18: probes 4 and 4b, 50 rounds over a [256, 128] pool, both
+    # forms of each, the grid form (the probe's route) and the one-block
+    # witness: on the script's values, within 8 of both ends of int32 (+ 7
+    # wraps, the sums wrap), all INT32_MAX - 3, heavy ties, and values from
+    # 2^30, whose every row sum and C17's carry wrap many times (drawn
+    # from a generator of their own, so that the later probes' inputs stay
+    # as they were); queued in turns (witness, grid, grid, witness)
     pool = (pp.WHILE_BB, pp.WHILE_S)
     inputs = {"script": rng.randint(0, 1000, pool),
               "near_max": I32_MAX - rng.randint(0, 8, pool),
               "near_min": I32_MIN + rng.randint(0, 8, pool),
               "all_max_minus_3": np.full(pool, I32_MAX - 3),
-              "ties": rng.randint(0, 8, pool)}
-    worst = {"while_scratch": 0, "while_vector": 0}
+              "ties": rng.randint(0, 8, pool),
+              "wraps": (1 << 30) + np.random.RandomState(
+                  PROBE_SEED + 17).randint(0, 1000, pool)}
+    forms = {kern: {"grid": getattr(pp, kern + "_cuda"),
+                    "witness": getattr(pp, kern + "_witness_cuda")}
+             for kern in ("while_scratch", "while_vector")}
+    worst = dict.fromkeys(forms, 0)
     for name, x in inputs.items():
         x_t, = common.tensors(dev, x)
-        for kern in worst:
-            got = getattr(pp, kern + "_cuda")(x_t)
+        for kern, fns in forms.items():
             want = getattr(pp, kern + "_plain")(x_t)
-            worst[kern] = max(worst[kern],
-                              exact(f"probe_{kern} {name}", got, want))
-        log(f"C17, C18 on {name}: exact")
+            for form, fn in fns.items():
+                worst[kern] = max(worst[kern], exact(
+                    f"probe_{kern} {form} {name}", fn(x_t), want))
+        log(f"C17, C18 on {name}: both forms exact")
+    wraps = inputs["wraps"].astype(np.int64)
+    if wraps.min() * pp.WHILE_ITERS * pp.WHILE_BB < 1000 * 2**32:
+        fail("C17's wrapping input does not wrap its carry 1,000 times")
     x_t, = common.tensors(dev, inputs["script"])
     slot, row = OPS_WHILE
     n_ops = pp.WHILE_ITERS * pp.WHILE_BB * (pp.WHILE_S * slot + row)
-    for kern, label, out_bytes in (("while_scratch", "C17", 4),
-                                   ("while_vector", "C18", nbytes(x_t))):
-        cuda = getattr(pp, kern + "_cuda")
-        plain = getattr(pp, kern + "_plain")
+    for kern, label, out_bytes, tag, warps in (
+            ("while_scratch", "C17", 4, "probe_while_scratch",
+             pp.WHILE_SCRATCH_WARPS),
+            ("while_vector", "C18", nbytes(x_t), "probe_while_vector",
+             pp.WHILE_VECTOR_WARPS)):
+        fns = forms[kern]
         bnd = bound(nbytes(x_t) + out_bytes, n_ops)
-        ms = cuda_ms(lambda: cuda(x_t), 200)
-        queued = queued_ms(lambda: cuda(x_t), 200)
+        queued = {form: [] for form in fns}
+        for form in ("witness", "grid", "grid", "witness"):
+            queued[form].append(queued_ms(lambda: fns[form](x_t), 200))
+        q, wq = (sum(queued[form]) / 2 for form in ("grid", "witness"))
+        ms, wms = (cuda_ms(lambda: fns[form](x_t), 200)
+                   for form in ("grid", "witness"))
+        report = grid_witness_ptxas(_build.build_log, tag)
+        if sorted(report) != ["grid", "witness"] or any(
+                "registers" not in v for v in report.values()):
+            fail(f"{label}: no ptxas report for both forms: {report}")
+        grid, wit = report["grid"], report["witness"]
+        if grid["spill_store_bytes"] or grid["spill_load_bytes"] or \
+                grid["stack_bytes"]:
+            fail(f"{label}'s grid form spills or keeps a stack frame: "
+                 f"{grid}")
+        # C18's witness keeps two of its eight row sums in local memory
+        known = 16 if kern == "while_vector" else 0
+        if max(wit["spill_store_bytes"], wit["spill_load_bytes"]) > known:
+            fail(f"{label}'s witness spills more than {known} bytes: {wit}")
         out["probe_" + kern] = {
             "max_abs_err": worst[kern], "ms": ms,
-            "plain_ms": cuda_ms(lambda: plain(x_t), 5),
+            "plain_ms": cuda_ms(lambda: getattr(pp, kern + "_plain")(x_t),
+                                5),
             "bound_ms": bnd[0], "bound_by": bnd[1],
             "bound_int32_ms": bnd[2], "library_ms": None,
             "library_why": "none: 50 dependent rounds of a row minimum and "
                            "update",
-            "queued_ms": queued, "us_per_iter": ms * 1e3 / pp.WHILE_ITERS,
-            "queued_us_per_iter": queued * 1e3 / pp.WHILE_ITERS,
+            "queued_ms": q, "queued_ms_turns": queued["grid"],
+            "us_per_iter": ms * 1e3 / pp.WHILE_ITERS,
+            "queued_us_per_iter": q * 1e3 / pp.WHILE_ITERS,
+            "warps_a_block": warps, "blocks": pp.WHILE_BB // warps,
+            "witness_ms": wms, "witness_queued_ms": wq,
+            "witness_queued_ms_turns": queued["witness"],
+            "witness_queued_us_per_iter": wq * 1e3 / pp.WHILE_ITERS,
+            "witness_over_grid_queued": wq / q,
+            "witness_launches": getattr(pp, f"launches_{kern}_witness"),
+            "ptxas": report, "ptxas_from_cache": _build.build_seconds is None,
             "exact_inputs": list(inputs)}
-        log(f"{label} probe_{kern}: exact; {out['probe_' + kern]}")
+        log(f"{label} probe_{kern}: both forms exact; "
+            f"{out['probe_' + kern]}")
+    c17, c18 = out["probe_while_scratch"], out["probe_while_vector"]
+    c17["carry_over_c18_queued"] = c17["queued_ms"] / c18["queued_ms"]
+    c17["witness_carry_over_c18_queued"] = (c17["witness_queued_ms"]
+                                            / c18["witness_queued_ms"])
 
     # C19: probe 4c, 50 x 20 elementwise steps over [256, 128], on the
     # script's values, near both ends of int32 and on every residue mod 8
@@ -3895,7 +4034,7 @@ def check_probes(dev, split):
                        "by row",
         "queued_ms": queued, "us_per_iter": ms * 1e3 / pp2.PUSH_ROUNDS,
         "queued_us_per_iter": queued * 1e3 / pp2.PUSH_ROUNDS,
-        "pushes": pushes,
+        "pushes": pushes, "max_row_pushes": int(res[2][:, 0].max()),
         "exact_inputs": list(inputs)}
     log(f"C21 probe_scalar_push: exact; {out['probe_scalar_push']}")
 
@@ -4040,6 +4179,15 @@ def kernel_ptxas(log_text, tag):
     return ptxas_report(log_text, lambda name: (
         "shared" if tag + "ILb1E" in name
         else "device" if tag + "ILb0E" in name else None))
+
+
+def grid_witness_ptxas(log_text, tag):
+    """The ptxas report of the two forms of C17, C18 or C34, whose kernels'
+    mangled names hold `tag`: "grid" (`<tag>_grid_kernel`) and "witness"
+    (`<tag>_kernel`)."""
+    return ptxas_report(log_text, lambda name: (
+        "grid" if tag + "_grid_kernel" in name
+        else "witness" if tag + "_kernel" in name else None))
 
 
 def ext_matrix(a, b):
@@ -4950,6 +5098,7 @@ def check_reductions(dev):
     name: fields of its kernels-line entry but `launches`}."""
     import numpy as np
     import torch
+    from nabwa_tpu_torch.ops import _build
     from nabwa_tpu_torch.probes import common
     from nabwa_tpu_torch.probes import probe_pallas3 as p3
     rng = np.random.RandomState(PROBE_SEED + 2)
@@ -5050,6 +5199,7 @@ def check_reductions(dev):
             queued["witness"],
         "witness_queued_us_per_inner_round": wq * 1e3 / inner,
         "witness_launches": p3.launches_p5_witness,
+        "ptxas": grid_witness_ptxas(_build.build_log, "probe_p5"),
         "inner_rounds": inner, "trips": trips, "words": x_t.numel(),
         "exact_inputs": ["script", "negative", "wraps"],
         "grid_exact_shapes": [list(sh) for sh in P5_GRID_SHAPES]}
@@ -5285,22 +5435,30 @@ def main():
     part = reads[:CHECK_B]
     inputs = maln.batch_inputs(part, lens[:CHECK_B], maxdiff[:CHECK_B],
                                local, max_len, eng.device)
-    cw = check_cal_width(eng, inputs)
-    cw_edges = check_cal_width_edges(eng)
-    tier0 = check_dfs(
-        eng, inputs, maln.dfs_statics(local, eng.stack_cap, eng.hits_cap,
-                                      eng.tier0_max_iters), "tier 0")
+    # each check's seconds (`phase23_seconds`), to find what to cut
+    phase23 = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        phase23[name] = time.perf_counter() - t0
+        return res
+    cw = timed("cal_width", check_cal_width, eng, inputs)
+    cw_edges = timed("cal_width_edges", check_cal_width_edges, eng)
+    tier0 = timed("tier0", check_dfs, eng, inputs, maln.dfs_statics(
+        local, eng.stack_cap, eng.hits_cap, eng.tier0_max_iters), "tier 0")
     # the retry tier's settings on the reads tier 0 flagged (all of the
     # batch where it flagged none)
     flagged = tier0["flagged"]
     redo = flagged if len(flagged) else np.arange(len(part))
     again = maln.batch_inputs([part[int(i)] for i in redo], lens[redo],
                               maxdiff[redo], local, max_len, eng.device)
-    retry = check_dfs(
-        eng, again, maln.dfs_statics(local, eng.retry_stack_cap,
-                                     eng.retry_hits_cap, eng.max_iters),
+    retry = timed("retry", check_dfs, eng, again, maln.dfs_statics(
+        local, eng.retry_stack_cap, eng.retry_hits_cap, eng.max_iters),
         "retry tier")
-    dfs_edges = check_dfs_edges(torch.device("cuda", 0))
+    dfs_edges, phase23["dfs_edges"] = check_dfs_edges(
+        torch.device("cuda", 0))
+    log(f"phases 2-3, seconds: {phase23}")
 
     phase_mark("4")
     # phase 4: the aln path at full size
@@ -5746,9 +5904,8 @@ def main():
     log(f"C31-C35 checked in {time.perf_counter() - t0:.1f} s")
     chain_bounds(probes)
     log("chain bounds, ms: " + ", ".join(
-        f"{k} {probes[k]['chain_bound_ms']:.5f}" for k in (
-            "probe_dfs_shape", "probe_colops", "probe_spill", "probe_p7",
-            "probe_p5")))
+        f"{k} {v['chain_bound_ms']:.5f}" for k, v in probes.items()
+        if "chain_bound_ms" in v))
     probe_counts, probe_lines = run_probe_entries()
     # C8's serial witness, launched by probe_dma's entry beside the grid
     # form, is listed in C8's entry as C12's serial forms are in C12's
@@ -5992,10 +6149,19 @@ def main():
              "scripts/probe_pallas3.py:156"),
             ("probe_p6", "probe_pallas3.cu",
              "scripts/probe_pallas3.py:183")):
+        e = probes[name]
+        if "queued_ms" in e:
+            # the ranking of ROADMAP B.2: launches x (queued - the larger
+            # of the bounds)
+            e["larger_bound_ms"] = max(e["bound_ms"],
+                                       e.get("bound_int32_ms") or 0,
+                                       e.get("chain_bound_ms") or 0)
+            e["launches_x_gap_ms"] = launches[name] * (
+                e["queued_ms"] - e["larger_bound_ms"])
         kernels.append({"name": name, "route": "cuda",
                         "source": f"nabwa_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[name],
-                        **probes[name]})
+                        **e})
     samse = {label: {route: {"reads_per_sec": r[1], "seconds": r[2]}
                      for route, r in runs.items()}
              for label, runs in (("bench", se_bench), ("gapped", se_gap))}
@@ -6037,6 +6203,7 @@ def main():
                       "index_cli_seconds": index_cli_s,
                       "colour": colour,
                       "phase_start_seconds": phase_seconds,
+                      "phase23_seconds": phase23,
                       "phase18_seconds": phase18_s,
                       "total_seconds": total_s}))
     print(card)

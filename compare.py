@@ -8,6 +8,7 @@ chip_smoke.py's 64 Mbp cell (the bench reads), on one NVIDIA GPU.
     python3 compare.py c9 CHECKOUT [SASS_DIR]
     python3 compare.py c23 CHECKOUT [SASS_DIR]
     python3 compare.py c34 CHECKOUT [SASS_DIR]
+    python3 compare.py c17 CHECKOUT [SASS_DIR]
 
 CHECKOUT is the root of a checkout of this repository: this one, or an
 older commit unpacked with `git archive` into a directory `.gitignore`
@@ -64,6 +65,21 @@ c34: kernel C34 (probe 5 of scripts/probe_pallas3.py) at the script's
 [256, 128], on no cell: `p5_cuda` and, where it is kept,
 `p5_witness_cuda`, exact, with `ms` and `queued_ms` in turns; with
 SASS_DIR, the SASS of its csrc/probe_pallas3.cu as for c9.
+
+c17: kernels C17 and C18 (probes 4 and 4b of scripts/probe_pallas.py,
+50 rounds over a [256, 128] pool) at the script's input, on no cell:
+the checkout's `while_scratch_cuda` and `while_vector_cuda` and, where
+they are kept, their witnesses, exact against the plain versions, with
+`ms` and `queued_ms` in turns; where the witnesses are kept (the grid
+forms take their warps a block), each grid form also at every block size
+its entry takes (C17 16 and 32 warps, one cluster of 16 or 8 blocks; C18
+1, 2, 4 and 8), a launch the card refuses recorded as its error, and the
+four kernels' ptxas report.  With SASS_DIR, the SASS of its
+csrc/probe_pallas.cu as for c9.
+
+The SASS's JSON gives, for each kernel, its instructions by opcode and
+its loops: each backward branch with the instructions from its target
+to it, the body a warp runs each time round.
 
 aln: the `aln` engine's card-only route (`host_frac=0` where the checkout
 has the hybrid split): a warm-up chunk of one slice, then 5 timed
@@ -259,7 +275,6 @@ def dump_sass(out_dir, stem="probe_dfs_shape"):
     write its SASS into out_dir and return, for each kernel, its
     instruction count and the count of each opcode, and the build's wall
     seconds under "nvcc_seconds"."""
-    import collections
     import subprocess
     from nabwa_tpu_torch.ops import _build
     nvcc = _build._nvcc()
@@ -277,12 +292,23 @@ def dump_sass(out_dir, stem="probe_dfs_shape"):
         [str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
         check=True, capture_output=True, text=True).stdout
     (out / f"{tag}_{stem}.sass").write_text(sass)
-    kernels, name = {}, None
+    return {**sass_counts(sass), "nvcc_seconds": nvcc_s}
+
+
+def sass_counts(sass):
+    """For each kernel of `cuobjdump -sass` text: its instruction count,
+    the count of each opcode and its loops (`sass_loops`)."""
+    import collections
+    kernels, code, labels, name = {}, {}, {}, None
     for line in sass.splitlines():
         t = line.strip()
         if t.startswith("Function : "):
             name = t.split(":", 1)[1].strip()
             kernels[name] = collections.Counter()
+            code[name], labels[name] = [], {}
+            continue
+        if name and t.startswith(".L") and t.endswith(":"):
+            labels[name][t[:-1]] = len(code[name])
             continue
         # an instruction: /*addr*/ [@predicate] OPCODE.modifiers ...
         end = t.find("*/")
@@ -293,11 +319,34 @@ def dump_sass(out_dir, stem="probe_dfs_shape"):
         if words and words[0].startswith("@"):
             words = words[1:]
         if words:
-            kernels[name][words[0].split(".")[0]] += 1
-    res = {k: {"instructions": sum(c.values()), "by_opcode": dict(c)}
-           for k, c in kernels.items()}
-    res["nvcc_seconds"] = nvcc_s
-    return res
+            kernels[name][words[0].split(".")[0].rstrip(";")] += 1
+            code[name].append((int(addr, 16), words))
+    return {k: {"instructions": sum(c.values()), "by_opcode": dict(c),
+                "loops": sass_loops(code[k], labels[k])}
+            for k, c in kernels.items()}
+
+
+def sass_loops(code, labels):
+    """The backward branches of one kernel's SASS (not a branch to itself,
+    the end's trap), `code` its instructions in order as (address, words)
+    and `labels` the index of each label's first instruction: [{"from",
+    "to" (hex addresses), "instructions" from the target to the
+    branch}]."""
+    at = {a: i for i, (a, _) in enumerate(code)}
+    loops = []
+    for i, (a, words) in enumerate(code):
+        if words[0].split(".")[0] != "BRA":
+            continue
+        # the target, the last operand before the `;` (a comment may follow)
+        target = " ".join(words[1:]).split(";")[0].split(",")[-1]
+        target = target.strip(" `()")
+        j = (labels.get(target) if target.startswith(".L")
+             else at.get(int(target, 16)) if target.startswith("0x")
+             else None)
+        if j is not None and j < i:
+            loops.append({"from": hex(code[j][0]), "to": hex(a),
+                          "instructions": i - j + 1})
+    return loops
 
 
 def time_c9(sass_dir=None):
@@ -429,15 +478,71 @@ def time_c34(sass_dir=None):
     return {"inner_rounds": sum(p3.p5_trips(int(x_t[0, 0]))), **res}
 
 
+def time_c17(sass_dir=None):
+    import numpy as np
+    from nabwa_tpu_torch.ops import _build
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas as pp
+    import torch
+    here = own_smoke()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(here.PROBE_SEED + 3)
+    x_t, = common.tensors(dev, rng.randint(0, 1000,
+                                           (pp.WHILE_BB, pp.WHILE_S)))
+    kept = hasattr(pp, "while_scratch_witness_cuda")
+
+    def at_warps(kern, warps):
+        def launch(x):
+            out = (x.new_empty(1, 1) if kern == "while_scratch"
+                   else torch.empty_like(x))
+            _build.check(getattr(_build.lib(), "nabwa_probe_" + kern)(
+                x.data_ptr(), warps, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), kern)
+            return out
+        return launch
+    out = {}
+    for kern, sizes in (("while_scratch", (16, 32)),
+                        ("while_vector", (1, 2, 4, 8))):
+        want = getattr(pp, kern + "_plain")(x_t)
+        forms = {}
+        if kept:
+            forms[kern + "_witness_cuda"] = getattr(pp, kern + "_witness_cuda")
+        forms[kern + "_cuda"] = getattr(pp, kern + "_cuda")
+        res = {}
+        for w in sizes if kept else ():
+            fn = at_warps(kern, w)
+            try:
+                here.exact(f"{kern} at {w} warps a block", fn(x_t), want)
+            except RuntimeError as err:
+                res[f"warps={w}"] = {"error": str(err)}
+                continue
+            forms[f"warps={w}"] = fn
+        for name, fn in forms.items():
+            here.exact(f"{kern} {name}", fn(x_t), want)
+            res[name] = {"ms": here.cuda_ms(lambda: fn(x_t), 200)}
+        for name, q in in_turns(forms, lambda fn: lambda: fn(x_t),
+                                200).items():
+            res[name].update(queued_ms=sum(q) / 2, queued_ms_turns=q)
+        if kept:
+            res["ptxas"] = here.grid_witness_ptxas(_build.build_log,
+                                                   "probe_" + kern)
+        out[kern] = res
+    out["nvidia_smi_clocks"] = here.sm_clocks()
+    if sass_dir:
+        out["sass"] = dump_sass(sass_dir, "probe_pallas")
+    return out
+
+
 MODES = {"c3": time_c3, "aln": time_aln, "launch": time_launch,
-         "c9": time_c9, "c23": time_c23, "c34": time_c34}
+         "c9": time_c9, "c23": time_c23, "c34": time_c34, "c17": time_c17}
 
 
 def main(argv):
+    probe_modes = ("c9", "c23", "c34", "c17")
     if (len(argv) not in (2, 3) or argv[0] not in MODES
-            or (len(argv) == 3 and argv[0] not in ("c9", "c23", "c34"))):
+            or (len(argv) == 3 and argv[0] not in probe_modes)):
         print(f"usage: compare.py {{{','.join(MODES)}}} CHECKOUT "
-              "(c9, c23, c34: [SASS_DIR])", file=sys.stderr)
+              "(c9, c23, c34, c17: [SASS_DIR])", file=sys.stderr)
         return 2
     mode, root = argv[:2]
     sys.path.insert(0, root)
@@ -453,7 +558,7 @@ def main(argv):
     out = {"mode": mode, "checkout": str(cs.ROOT), "card": cs.card_line()}
     if mode == "launch":
         out.update(time_launch())
-    elif mode in ("c9", "c23", "c34"):
+    elif mode in probe_modes:
         out.update(MODES[mode](*argv[2:]))
     else:
         fa, fq, *_ = cs.make_data(64_000_000, 32768, 32768, 512)

@@ -803,6 +803,36 @@ extern "C" int nabwa_host_probe_while_step(const int32_t* key,
     return 0;
 }
 
+// C17's and C18's grid form on x int32 [rows, 128], each row played over
+// its 32 lanes of 4 slots: a round takes every lane's while_lane_min,
+// their minimum (the card's redux.sync), then every lane's
+// while_lane_round.  row_sums[r] is row r's sum (lane 0's; every lane's
+// must agree, else -1), *acc the rows' sums added as uint32 (C17's
+// carry).
+extern "C" int nabwa_host_probe_while_rows(const int32_t* x, int rows,
+                                           int rounds, int32_t* row_sums,
+                                           int32_t* acc) {
+    uint32_t total = 0;
+    for (int r = 0; r < rows; ++r) {
+        int32_t k[32][4];
+        uint32_t sum[32] = {};
+        for (int l = 0; l < 32; ++l)
+            for (int j = 0; j < 4; ++j) k[l][j] = x[(size_t)r * 128 + 4 * l + j];
+        for (int it = 0; it < rounds; ++it) {
+            int32_t m = pr::while_lane_min(k[0]);
+            for (int l = 1; l < 32; ++l)
+                m = std::min(m, pr::while_lane_min(k[l]));
+            for (int l = 0; l < 32; ++l) pr::while_lane_round(k[l], m, &sum[l]);
+        }
+        for (int l = 1; l < 32; ++l)
+            if (sum[l] != sum[0]) return -1;
+        row_sums[r] = (int32_t)sum[0];
+        total += sum[0];
+    }
+    *acc = (int32_t)total;
+    return 0;
+}
+
 // C19's step j of each value p
 extern "C" int nabwa_host_probe_body_step(const int32_t* p, const int32_t* j,
                                           int n, int32_t* out) {

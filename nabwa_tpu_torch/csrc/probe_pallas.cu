@@ -29,21 +29,46 @@
 // are bound by operations: per slot and round 4 (its part of the row's
 // minimum, the compare, the add, the select), per row and round 1 (the
 // minimum's add into the carry or the row's sum); the bytes (the pool in,
-// C18's result out) come below.  The rounds are a dependent chain.  One
-// block of 1024 threads holds the whole pool, as the TPU kernel's one core
-// does: a warp has 8 rows and a lane 4 slots of each (one int4 of the
-// row), 32 keys in registers.  A round takes the rows in turn: a row's
-// warp-shuffle minimum, then `while_step` on its slots (one minimum live
-// at a time).  C17 then adds the warp's 8 minima (uint32, so it wraps as
-// jnp does), lane 0 stores that partial in shared memory (double-buffered
-// by the round's parity, so one `__syncthreads()` a round suffices), and
-// warp 0 sums the 32 partials into the carry with one warp reduction: a
-// block-wide reduction every round, the probe's question.  C18 keeps each
-// row's sum in registers and has no cross-warp step, so C17's time against
-// C18's is the price of that reduction.  C18's 8 row sums bring it to the
-// 64-register cap of 1024 threads: ptxas keeps two of them in local memory
-// (16 bytes, a load and a store of each a round, from L1), which ran
-// faster than keeping each row's sum in one lane or in shared memory.
+// C18's result out) come below.  Each has two forms.
+// - The grid form (`probe_while_*_grid_kernel`, the probe's route).  A
+//   row's minimum, its + 7 update and its sum of minima never read another
+//   row; only C17's carry joins the rows, and a sum that wraps mod 2^32 is
+//   the same in any order, so it can be taken once, after the rounds.  So
+//   a row is one warp, lane l holding slots 4 l .. 4 l + 3 (one int4) in
+//   registers, and a round is the lane's minimum, one redux.sync, then
+//   `while_lane_round` (probes.cuh): the 4 keys against the minimum and
+//   its add into the row's sum.  A row's path is one load and 50 rounds of
+//   two minima, a redux.sync, a compare and a select; the 256 warps run
+//   side by side over the card.  The warps a block are the launch's
+//   argument (the wrappers' are the fastest of those timed, PERF.md).
+//   C18's lanes write make_int4(s, s, s, s).  C17's grid is one thread
+//   block cluster of 256 / warps blocks (16 at most, past 8 a size the
+//   card allows only on request), so that the carry is summed in the same
+//   launch, with nothing to zero first and nothing shared with another
+//   launch: each warp's lane 0 stores its row's sum into block 0's shared
+//   memory (distributed shared memory), the cluster's barrier orders those
+//   stores before block 0's first warp reads the 256 sums, adds them and
+//   writes out[0].  A block may write into block 0 only once every block
+//   of the cluster has started, so a first barrier phase is armed at the
+//   start and waited on only after the rounds, off their path.
+// - The witness (`probe_while_*_kernel`, the first design): one block of
+//   1024 threads holds the whole pool, as the TPU kernel's one core does:
+//   a warp has 8 rows and a lane 4 slots of each (one int4 of the row), 32
+//   keys in registers.  A round takes the rows in turn: a row's warp-
+//   shuffle minimum, then `while_step` on its slots (one minimum live at a
+//   time).  C17 then adds the warp's 8 minima (uint32, so it wraps as jnp
+//   does), lane 0 stores that partial in shared memory (double-buffered by
+//   the round's parity, so one `__syncthreads()` a round suffices), and
+//   warp 0 sums the 32 partials into the carry with one warp reduction: a
+//   block-wide reduction every round, the probe's question as the script
+//   asked it of one core.  C18 keeps each row's sum in registers and has
+//   no cross-warp step.  C18's 8 row sums bring it to the 64-register cap
+//   of 1024 threads: ptxas keeps two of them in local memory (16 bytes, a
+//   load and a store of each a round, from L1), which ran faster than
+//   keeping each row's sum in one lane or in shared memory.  Both stay
+//   beside the grid forms, timed in the same run: the witnesses' C17 over
+//   C18 is the price of 50 block-wide sums on one SM, the grid forms' the
+//   price of one sum at the end.
 //
 // C19 replaces `probe_body_scale` (:193, pallas_call :213): 50 rounds of
 // 20 steps over x int32 [256, 128], step j being `body_step` (probes.cuh):
@@ -56,8 +81,10 @@
 // a loop; device memory is read and written once.  Blocks of 128 threads,
 // 256 blocks over the 132 SMs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "probes.cuh"
@@ -76,6 +103,9 @@ constexpr int WHILE_WARPS = WHILE_THREADS / 32;
 constexpr int ROWS_PER_WARP = WHILE_ROWS / WHILE_WARPS;
 constexpr int SLOTS_PER_LANE = 4;          // S = 128, one int4 a lane
 static_assert(WHILE_WARPS == 32, "warp 0 sums one partial a lane");
+constexpr int WHILE_GRID_MAX_WARPS = 8;    // C18's grid form's largest block
+constexpr int WHILE_MAX_CLUSTER = 16;      // C17's grid: one cluster
+constexpr int WHILE_PORTABLE_CLUSTER = 8;
 constexpr int BODY_THREADS = 128;
 constexpr int BODY_ROUNDS = 50;            // scripts/probe_pallas.py:208
 constexpr int BODY_STEPS = 20;             // its inner loop (:201)
@@ -188,6 +218,52 @@ probe_while_vector_kernel(const int4* __restrict__ x,
     }
 }
 
+// the grid form's row (warp `row` of the grid, lane `lane`): its 50
+// rounds with its 4 keys in registers; returns the row's sum of minima
+__device__ __forceinline__ uint32_t while_row(const int4* __restrict__ x,
+                                              int row, int lane) {
+    const int4 v = x[(size_t)row * 32 + lane];
+    int32_t k[SLOTS_PER_LANE] = {v.x, v.y, v.z, v.w};
+    uint32_t sum = 0;
+#pragma unroll
+    for (int it = 0; it < WHILE_ITERS; ++it)
+        pr::while_lane_round(k, __reduce_min_sync(FULL, pr::while_lane_min(k)),
+                             &sum);
+    return sum;
+}
+
+__global__ void __launch_bounds__(WHILE_GRID_MAX_WARPS * 32)
+probe_while_vector_grid_kernel(const int4* __restrict__ x,
+                               int4* __restrict__ out) {
+    const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    const int32_t s = (int32_t)while_row(x, row, lane);
+    out[(size_t)row * 32 + lane] = make_int4(s, s, s, s);
+}
+
+// launched as one cluster of gridDim.x blocks covering the 256 rows
+__global__ void __launch_bounds__(WHILE_THREADS)
+probe_while_scratch_grid_kernel(const int4* __restrict__ x,
+                                int32_t* __restrict__ out) {
+    namespace cg = cooperative_groups;
+    __shared__ uint32_t row_sum[WHILE_ROWS];   // block 0's: every row's sum
+    cg::cluster_group cluster = cg::this_cluster();
+    const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+    const uint32_t s = while_row(x, row, lane);
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    if (lane == 0) *cluster.map_shared_rank(row_sum + row, 0) = s;
+    cluster.sync();
+    if (cluster.block_rank() == 0 && threadIdx.x < 32) {
+        uint32_t acc = 0;
+#pragma unroll
+        for (int r = 0; r < WHILE_ROWS; r += 32) acc += row_sum[r + lane];
+        acc = __reduce_add_sync(FULL, acc);
+        if (lane == 0) out[0] = (int32_t)acc;
+    }
+}
+
 __global__ void __launch_bounds__(BODY_THREADS)
 probe_body_scale_kernel(const int32_t* __restrict__ x, int n,
                         int32_t* __restrict__ out) {
@@ -224,18 +300,74 @@ extern "C" int nabwa_probe_popcount(const void* x, long long n, void* out,
     return (int)cudaGetLastError();
 }
 
-// x: int32 [256, 128], 16-byte aligned; out: int32 [1].
-extern "C" int nabwa_probe_while_scratch(const void* x, void* out,
+// C17's grid form: x int32 [256, 128], 16-byte aligned; out: int32 [1];
+// `warps` a block, one cluster of 256 / warps blocks (warps 16 or 32).
+// The first launch on a device allows the card's non-portable cluster
+// sizes (past 8 blocks).
+extern "C" int nabwa_probe_while_scratch(const void* x, int warps, void* out,
                                          void* stream) {
+    if (warps < 1 || warps > WHILE_WARPS || WHILE_ROWS % warps ||
+        WHILE_ROWS / warps > WHILE_MAX_CLUSTER)
+        return (int)cudaErrorInvalidValue;
+    const int blocks = WHILE_ROWS / warps;
+    // the devices (a bit each; past 64, every launch asks again) on which
+    // the kernel may take a non-portable cluster size
+    static std::atomic<unsigned long long> allowed{0};
+    cudaError_t rc;
+    if (blocks > WHILE_PORTABLE_CLUSTER) {
+        int dev = 0;
+        rc = cudaGetDevice(&dev);
+        if (rc != cudaSuccess) return (int)rc;
+        const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+        if (!(allowed.load(std::memory_order_acquire) & bit)) {
+            rc = cudaFuncSetAttribute(
+                probe_while_scratch_grid_kernel,
+                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            if (rc != cudaSuccess) return (int)rc;
+            allowed.fetch_or(bit, std::memory_order_release);
+        }
+    }
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(32 * warps);
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    rc = cudaLaunchKernelEx(&cfg, probe_while_scratch_grid_kernel,
+                            (const int4*)x, (int32_t*)out);
+    if (rc != cudaSuccess) return (int)rc;
+    return (int)cudaGetLastError();
+}
+
+// C18's grid form: x, out int32 [256, 128], 16-byte aligned; `warps` a
+// block, 1, 2, 4 or 8.
+extern "C" int nabwa_probe_while_vector(const void* x, int warps, void* out,
+                                        void* stream) {
+    if (warps < 1 || warps > WHILE_GRID_MAX_WARPS || WHILE_ROWS % warps)
+        return (int)cudaErrorInvalidValue;
+    probe_while_vector_grid_kernel<<<WHILE_ROWS / warps, 32 * warps, 0,
+                                     (cudaStream_t)stream>>>(
+        (const int4*)x, (int4*)out);
+    return (int)cudaGetLastError();
+}
+
+// C17's witness: x int32 [256, 128], 16-byte aligned; out: int32 [1].
+extern "C" int nabwa_probe_while_scratch_witness(const void* x, void* out,
+                                                 void* stream) {
     probe_while_scratch_kernel<<<1, WHILE_THREADS, 0,
                                  (cudaStream_t)stream>>>(
         (const int4*)x, (int32_t*)out);
     return (int)cudaGetLastError();
 }
 
-// x, out: int32 [256, 128], 16-byte aligned.
-extern "C" int nabwa_probe_while_vector(const void* x, void* out,
-                                        void* stream) {
+// C18's witness: x, out int32 [256, 128], 16-byte aligned.
+extern "C" int nabwa_probe_while_vector_witness(const void* x, void* out,
+                                                void* stream) {
     probe_while_vector_kernel<<<1, WHILE_THREADS, 0,
                                 (cudaStream_t)stream>>>(
         (const int4*)x, (int4*)out);

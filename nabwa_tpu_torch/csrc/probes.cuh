@@ -6,13 +6,13 @@
 // the candidate expansion of the two DFS-iteration mocks (and C9's lean
 // form's count from the block's side and its push from the slots' side),
 // the rows of probe_pallas2.py's row loads that each warp copies, one slot
-// of its pop and the fields of its scalar push, and the popcount, one
-// slot of a round of probe_pallas.py's probes 3, 4 and 4b, one step of
-// probe 4c's body, one value's update of probe_spill.py and a lane's
-// round of C23's lane form, one step of probe_colops.py, one step of
-// probe_pallas3.py's p7 and p8, the source of p4's relayout, the source
-// word of p2's rotation, p5's trip count and a thread's rounds of C34's
-// grid form.
+// of its pop and the fields of its scalar push, the popcount of
+// probe_pallas.py's probe 3, one slot and a lane's share of a row's round
+// of its probes 4 and 4b, one step of probe 4c's body, one value's update
+// of probe_spill.py and a lane's round of C23's lane form, one step of
+// probe_colops.py, one step of probe_pallas3.py's p7 and p8, the source
+// of p4's relayout, the source word of p2's rotation, p5's trip count and
+// a thread's rounds of C34's grid form.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -205,6 +205,25 @@ NABWA_HD uint32_t popcount32(int32_t x) {
 // equal to its row's minimum m gets + 7 (wrapping), any other stays
 NABWA_HD int32_t while_step(int32_t key, int32_t m) {
     return key == m ? wadd(key, 7) : key;
+}
+
+// A round of C17's and C18's row (probe_pallas.cu) over a warp, lane l
+// holding the row's slots 4 l .. 4 l + 3 in k[0..3]: the lane's minimum
+// (while_lane_min), the row's minimum m over the warp's lanes (one
+// redux.sync on the card), then while_lane_round: each of the lane's keys
+// against m and m's add into the row's sum.  The sum is uint32, so that
+// it wraps as jnp's int32 sum does, and every lane holds the same one.
+// C17's carry is the rows' sums added as uint32, in any order.
+NABWA_HD int32_t while_lane_min(const int32_t* k) {
+    const int32_t a = k[0] < k[1] ? k[0] : k[1];
+    const int32_t b = k[2] < k[3] ? k[2] : k[3];
+    return a < b ? a : b;
+}
+
+NABWA_HD void while_lane_round(int32_t* k, int32_t m, uint32_t* sum) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) k[j] = while_step(k[j], m);
+    *sum += (uint32_t)m;
 }
 
 // probe_pallas.py:202-204, step j (>= 0) of probe 4c's inner loop: + j

@@ -115,9 +115,12 @@ _SIGNATURES = {
     "nabwa_probe_smem_idx": [_P, _P, _I, _P, _P],
     # (x, n, out, stream)
     "nabwa_probe_popcount": [_P, ctypes.c_longlong, _P, _P],
+    # (x, warps, out, stream)
+    "nabwa_probe_while_scratch": [_P, _I, _P, _P],
+    "nabwa_probe_while_vector": [_P, _I, _P, _P],
     # (x, out, stream)
-    "nabwa_probe_while_scratch": [_P, _P, _P],
-    "nabwa_probe_while_vector": [_P, _P, _P],
+    "nabwa_probe_while_scratch_witness": [_P, _P, _P],
+    "nabwa_probe_while_vector_witness": [_P, _P, _P],
     # (x, n, out, stream)
     "nabwa_probe_body_scale": [_P, _I, _P, _P],
     # (x, idx, rows, out, stream)

@@ -20,8 +20,11 @@ a pool int32 [256, 128] of: each row's minimum, every slot equal to it + 7
 (wrapping), and a scalar carry of the minima's sum; the result is the
 carry, [1, 1].  Probe 4b, `probe_while_vector_only` (:155, pallas_call at
 :174): the same rounds with each row's minima summed into a vector
-accumulator instead, [256, 128].  Kernels C17 and C18, one block holding
-the pool.
+accumulator instead, [256, 128].  Kernels C17 and C18: a warp a row,
+the 256 rows over the card (C17's rows in one thread block cluster, its
+carry summed in the same launch); the first designs, one block holding
+the pool, stay as `while_scratch_witness_cuda` and
+`while_vector_witness_cuda`.
 
 Probe 4c, `probe_body_scale` (:193, pallas_call at :213): 50 rounds of 20
 elementwise steps over x int32 [256, 128], step j: p + j where p & 7 ==
@@ -53,17 +56,23 @@ I32 = torch.int32
 ROWLOAD_BB, ROWLOAD_NROW = 256, 4096
 POPCOUNT_SHAPE = (256, 128)
 WHILE_BB, WHILE_S, WHILE_ITERS = 256, 128, 50
+# the grid forms' warps a block: C17's one cluster of 256 / 16 blocks,
+# C18's 128 blocks (the fastest of those timed, PERF.md)
+WHILE_SCRATCH_WARPS, WHILE_VECTOR_WARPS = 16, 2
 BODY_SHAPE, BODY_ROUNDS, BODY_STEPS = (256, 128), 50, 20
 DFS_BB, DFS_S, DFS_NROW, DFS_ITERS = 256, 128, 32768, 100
 
 # kernel launches made on CUDA tensors: C7 by `rowload`, C15 by
-# `smem_idx`, C16 by `popcount`, C17 by `while_scratch`, C18 by
-# `while_vector`, C19 by `body_scale`, C10 by `dfs_shape`
+# `smem_idx`, C16 by `popcount`, C17 by `while_scratch` (its witness by
+# `while_scratch_witness_cuda`), C18 by `while_vector` (its witness by
+# `while_vector_witness_cuda`), C19 by `body_scale`, C10 by `dfs_shape`
 launches_rowload = 0
 launches_smem_idx = 0
 launches_popcount = 0
 launches_while_scratch = 0
+launches_while_scratch_witness = 0
 launches_while_vector = 0
+launches_while_vector_witness = 0
 launches_body_scale = 0
 launches_dfs_shape = 0
 
@@ -220,47 +229,77 @@ def while_vector_plain(x):
     return acc.to(torch.int32)
 
 
-def _while_cuda(x, name, shape):
-    """Launch kernel `name` (C17 or C18) on x [256, 128]."""
-    common.cuda_input(x, "x", 2)
+def _while_cuda(x, name, rows, cols, *args):
+    """Launch kernel `name` (a form of C17 or C18) on x [256, 128] with
+    `args` before out [rows, cols].  One check pass reads x's device index
+    and pointer once (16-byte aligned: the kernels read int4), then x's
+    shape is checked; the launch is on the raw current stream of that
+    index."""
+    index, (px,) = common.cuda_inputs((x, "x", 2, I32))
     if tuple(x.shape) != (WHILE_BB, WHILE_S):
         raise ValueError(f"x must be [{WHILE_BB}, {WHILE_S}], got "
                          f"{tuple(x.shape)}")
-    out = torch.empty(shape, dtype=torch.int32, device=x.device)
-    rc = getattr(_build.lib(), name)(x.data_ptr(), out.data_ptr(),
-                                     _build.stream_of(x))
-    _build.check(rc, f"{name} kernel launch")
+    out = x.new_empty(rows, cols)
+    _build.check(getattr(_build.lib(), name)(
+        px, *args, out.data_ptr(), torch._C._cuda_getCurrentRawStream(index)),
+        f"{name} kernel launch")
     return out
 
 
 def while_scratch_cuda(x):
-    """`while_scratch_plain` by kernel C17 (x [256, 128])."""
+    """`while_scratch_plain` by kernel C17's grid form (x [256, 128]): a
+    warp a row, the rows in one cluster, the carry summed in the launch."""
     global launches_while_scratch
-    out = _while_cuda(x, "nabwa_probe_while_scratch", (1, 1))
+    out = _while_cuda(x, "nabwa_probe_while_scratch", 1, 1,
+                      WHILE_SCRATCH_WARPS)
     with _build.count_lock:
         launches_while_scratch += 1
     return out
 
 
+def while_scratch_witness_cuda(x):
+    """`while_scratch_plain` by C17's witness, one block holding the pool
+    and a block-wide sum every round.  The launch path of
+    `while_scratch_cuda`."""
+    global launches_while_scratch_witness
+    out = _while_cuda(x, "nabwa_probe_while_scratch_witness", 1, 1)
+    with _build.count_lock:
+        launches_while_scratch_witness += 1
+    return out
+
+
 def while_vector_cuda(x):
-    """`while_vector_plain` by kernel C18 (x [256, 128])."""
+    """`while_vector_plain` by kernel C18's grid form (x [256, 128]): a
+    warp a row over the card."""
     global launches_while_vector
-    out = _while_cuda(x, "nabwa_probe_while_vector", x.shape)
+    out = _while_cuda(x, "nabwa_probe_while_vector", WHILE_BB, WHILE_S,
+                      WHILE_VECTOR_WARPS)
     with _build.count_lock:
         launches_while_vector += 1
     return out
 
 
+def while_vector_witness_cuda(x):
+    """`while_vector_plain` by C18's witness, one block holding the pool.
+    The launch path of `while_vector_cuda`."""
+    global launches_while_vector_witness
+    out = _while_cuda(x, "nabwa_probe_while_vector_witness", WHILE_BB,
+                      WHILE_S)
+    with _build.count_lock:
+        launches_while_vector_witness += 1
+    return out
+
+
 def while_scratch(x):
-    """Probe 4: the plain version for CPU tensors, kernel C17 for CUDA
-    tensors."""
+    """Probe 4: the plain version for CPU tensors, kernel C17's grid form
+    for CUDA tensors."""
     return common.dispatch("while_scratch", x, while_scratch_plain,
                            while_scratch_cuda)
 
 
 def while_vector(x):
-    """Probe 4b: the plain version for CPU tensors, kernel C18 for CUDA
-    tensors."""
+    """Probe 4b: the plain version for CPU tensors, kernel C18's grid form
+    for CUDA tensors."""
     return common.dispatch("while_vector", x, while_vector_plain,
                            while_vector_cuda)
 

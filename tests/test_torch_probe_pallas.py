@@ -36,8 +36,8 @@ from nabwa_tpu_torch.probes import probe_pallas as pp
 
 # fixtures and helpers shared with the other probe ports' tests: the script
 # loader (interpret mode), one torch thread, the host harness
-from .test_torch_probes import (_call, _i32, _t, host,  # noqa: F401
-                                one_torch_thread, script)
+from .test_torch_probes import (_I, _P, _call, _i32, _t,  # noqa: F401
+                                host, one_torch_thread, script)
 
 REPO = pp.__file__.rsplit("/nabwa_tpu_torch/", 1)[0]
 CPU = torch.device("cpu")
@@ -290,6 +290,8 @@ def _zeros(*shape):
     lambda: pp.popcount_cuda(_zeros(256, 128)),
     lambda: pp.while_scratch_cuda(_zeros(*POOL)),
     lambda: pp.while_vector_cuda(_zeros(*POOL)),
+    lambda: pp.while_scratch_witness_cuda(_zeros(*POOL)),
+    lambda: pp.while_vector_witness_cuda(_zeros(*POOL)),
     lambda: pp.body_scale_cuda(_zeros(*pp.BODY_SHAPE))])
 def test_kernels_refuse_cpu_tensors(call):
     """A kernel wrapper given CPU tensors raises; only the dispatchers run
@@ -336,6 +338,10 @@ def _on_card(*shape):
     lambda: pp.smem_idx_cuda(_on_card(4), _misaligned(8, 128)),
     lambda: pp.dfs_shape_cuda(_on_card(4, 128), _misaligned(8, 128)),
     lambda: pp.popcount_cuda(_misaligned(256, 128)),
+    lambda: pp.while_scratch_cuda(_misaligned(*POOL)),
+    lambda: pp.while_vector_cuda(_misaligned(*POOL)),
+    lambda: pp.while_scratch_witness_cuda(_misaligned(*POOL)),
+    lambda: pp.while_vector_witness_cuda(_misaligned(*POOL)),
     lambda: pp.body_scale_cuda(_misaligned(*pp.BODY_SHAPE))])
 def test_kernels_refuse_misaligned_tensors(call):
     """A wrapper refuses a tensor its kernel would read as int4 unless it
@@ -358,6 +364,84 @@ def _no_build(monkeypatch):
     def refuse():
         raise AssertionError("the kernel library was asked for")
     monkeypatch.setattr(pp._build, "lib", refuse)
+
+
+class _Counted(_OnCard):
+    """An `_OnCard` tensor that counts its reads of `data_ptr()`,
+    `get_device()` and `device`."""
+    reads = None
+
+    def data_ptr(self):
+        _Counted.reads["data_ptr", id(self)] += 1
+        return super().data_ptr()
+
+    def get_device(self):
+        _Counted.reads["get_device", id(self)] += 1
+        return 0
+
+    @property
+    def device(self):
+        _Counted.reads["device", id(self)] += 1
+        return torch.device("cuda", 0)
+
+
+class _FakeLib:
+    """Records C29's, C28's, C27's, C20's, C7's, C15's, C8's (both forms),
+    C11's, and C17's, C18's, C23's and C34's (both forms each) launch
+    arguments; every launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nabwa_probe_p3(self, *args):
+        self.calls.append(args)
+        return 0
+
+    nabwa_probe_p1b = nabwa_probe_p1 = nabwa_probe_p3
+    nabwa_probe_lane_gather = nabwa_probe_p3
+    nabwa_probe_rowload = nabwa_probe_smem_idx = nabwa_probe_p3
+    nabwa_probe_dma = nabwa_probe_dma_serial = nabwa_probe_p3
+    nabwa_probe_empty = nabwa_probe_p3
+    nabwa_probe_spill = nabwa_probe_spill_witness = nabwa_probe_p3
+    nabwa_probe_p5 = nabwa_probe_p5_witness = nabwa_probe_p3
+    nabwa_probe_while_scratch = nabwa_probe_p3
+    nabwa_probe_while_scratch_witness = nabwa_probe_p3
+    nabwa_probe_while_vector = nabwa_probe_p3
+    nabwa_probe_while_vector_witness = nabwa_probe_p3
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """`_build.lib()` answers with a `_FakeLib`, and the current stream's
+    handle on device k is 1000 + k."""
+    fake = _FakeLib()
+    monkeypatch.setattr(pp._build, "lib", lambda: fake)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    return fake
+
+
+def _launch_from_threads(launch, threads=8, calls=300):
+    """`launch()` `calls` times in each of `threads` threads started
+    together, the interpreter switching threads every microsecond;
+    returns the launches made."""
+    import threading
+
+    def run():
+        for _ in range(calls):
+            launch()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=run) for _ in range(threads)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in pool)
+    return threads * calls
 
 
 def _old_gather_checks(idx, table, idx_ndim):
@@ -480,3 +564,152 @@ def test_gathers_refuse_out_of_range(probe, bad, on_card, monkeypatch):
     with pytest.raises(ValueError, match=r"indices outside \[0, 4096\)"):
         getattr(pp, probe)(idx, table)
     assert (pp.launches_rowload, pp.launches_smem_idx) == counts
+
+
+def _while_rows_input(case):
+    """A [256, 128] int32 pool for C17's and C18's grid form on the host:
+    `_pool`'s cases, "random" over all of int32, and "wraps", values from
+    2^30 whose row sums and C17's carry wrap many times."""
+    rng = np.random.default_rng(1701)
+    if case == "random":
+        return rng.integers(I32_MIN, I32_MAX, POOL,
+                            endpoint=True).astype(np.int32)
+    if case == "wraps":
+        return ((1 << 30) + rng.integers(0, 1000, POOL)).astype(np.int32)
+    return _pool(case)
+
+
+@pytest.mark.parametrize("case", ["random", "near_max", "near_min",
+                                  "all_max_minus_3", "ties", "wraps"])
+def test_host_while_rows_match_plain(host, case):
+    """C17's and C18's grid form played lane by lane on the host
+    (`while_lane_min` and `while_lane_round` of csrc/probes.cuh, built by
+    g++; a row's 32 lanes, their minimum in place of the redux.sync, every
+    lane's row sum the same): each row's sum is every column of that row
+    of `while_vector_plain`, and the rows' sums added as uint32 (C17's
+    carry, summed once after the rounds) are `while_scratch_plain`, on
+    random rows over int32, rows within 8 of both ends, all INT32_MAX - 3,
+    ties in 0..7, and values from 2^30, whose every row sum and the carry
+    wrap many times."""
+    x = _while_rows_input(case)
+    fn = host.nabwa_host_probe_while_rows
+    fn.argtypes = [_P, _I, _I, _P, _P]
+    fn.restype = _I
+    row_sums = np.full(pp.WHILE_BB, 7, dtype=np.int32)
+    acc = np.zeros(1, dtype=np.int32)
+    assert fn(x.ctypes.data_as(_P), pp.WHILE_BB, pp.WHILE_ITERS,
+              row_sums.ctypes.data_as(_P), acc.ctypes.data_as(_P)) == 0
+    x_t, = common.tensors(CPU, x)
+    np.testing.assert_array_equal(
+        pp.while_vector_plain(x_t).numpy(),
+        np.repeat(row_sums[:, None], pp.WHILE_S, axis=1))
+    assert int(acc[0]) == int(pp.while_scratch_plain(x_t)[0, 0])
+    if case == "wraps":
+        total, _ = _sum_of_minima(x)
+        assert (total > 12 * 2**32).all() and total.sum() > 3000 * 2**32
+
+
+# C17's and C18's wrappers, both forms of each: the call, its launch's
+# arguments between x and out, out's shape and the launch counter's name
+_WHILE_FORMS = {
+    "c17_grid": (pp.while_scratch_cuda, (pp.WHILE_SCRATCH_WARPS,), (1, 1),
+                 "launches_while_scratch"),
+    "c17_witness": (pp.while_scratch_witness_cuda, (), (1, 1),
+                    "launches_while_scratch_witness"),
+    "c18_grid": (pp.while_vector_cuda, (pp.WHILE_VECTOR_WARPS,), POOL,
+                 "launches_while_vector"),
+    "c18_witness": (pp.while_vector_witness_cuda, (), POOL,
+                    "launches_while_vector_witness")}
+# x by form ([256, 128] when good)
+_WHILE_X = {"good": lambda: _on_card(*POOL),
+            "cpu": lambda: _zeros(*POOL),
+            "int64": lambda: _on_card(*POOL).long(),
+            "dims": lambda: _on_card(POOL[0] * POOL[1]),
+            "transposed": lambda: _on_card(POOL[1], POOL[0]).t(),
+            "column": lambda: _on_card(POOL[0], POOL[1] + 4)[:, 4:],
+            "misaligned": lambda: _misaligned(*POOL),
+            "misaligned_short": lambda: _misaligned(POOL[0] - 1, POOL[1]),
+            "short": lambda: _on_card(POOL[0] - 1, POOL[1]),
+            "wide": lambda: _on_card(POOL[0], 2 * POOL[1]),
+            "cuda1": lambda: _zeros(*POOL).as_subclass(_OnCard1)}
+
+
+def _while_counts():
+    return {name: getattr(pp, name) for *_, name in _WHILE_FORMS.values()}
+
+
+def _while_refusal(x):
+    """The message of the first check one at a time that refuses x (None
+    if all pass): `common.cuda_input`'s (device, dtype, dims, contiguity,
+    16-byte alignment), then the [256, 128] shape."""
+    try:
+        common.cuda_input(x, "x", 2)
+    except ValueError as err:
+        return str(err)
+    if tuple(x.shape) != POOL:
+        return f"x must be [256, 128], got {tuple(x.shape)}"
+    return None
+
+
+@pytest.mark.parametrize("form, x_form", [
+    (form, x_form) for form in _WHILE_FORMS for x_form in _WHILE_X])
+def test_c17_c18_refuse_in_order(form, x_form, monkeypatch):
+    """Both forms of C17 and C18 refuse what their checks one at a time
+    refused, with the same message and in the same order: x's device,
+    dtype, dims, contiguity and 16-byte alignment, then its [256, 128]
+    shape (a misaligned x of another shape is refused for its alignment);
+    before anything is built or launched, every count unchanged."""
+    _no_build(monkeypatch)
+    call = _WHILE_FORMS[form][0]
+    x = _WHILE_X[x_form]()
+    want = _while_refusal(x)
+    before = _while_counts()
+    if want is None:
+        with pytest.raises(AssertionError, match="library was asked"):
+            call(x)
+    else:
+        with pytest.raises(ValueError) as err:
+            call(x)
+        assert str(err.value) == want
+    assert _while_counts() == before
+    assert (want is None) == (x_form in ("good", "cuda1"))
+    if x_form == "misaligned_short":
+        assert want == "x: not 16-byte aligned"
+
+
+@pytest.mark.parametrize("form", list(_WHILE_FORMS))
+def test_c17_c18_launch_on_pointers_read_once(form, fake_launch,
+                                              monkeypatch):
+    """Both forms of C17 and C18 launch on x's pointer and device index
+    read once by their one check pass (`device` never), the output's
+    pointer read once, the stream of that index (of index 1 on the second
+    card); the grid forms with their warps a block; an output of [1, 1]
+    (C17) or x's shape (C18); the count rises by one a launch."""
+    from collections import Counter
+    monkeypatch.setattr(_Counted, "reads", Counter())
+    call, args, shape, count = _WHILE_FORMS[form]
+    x = _zeros(*POOL).as_subclass(_Counted)
+    before = getattr(pp, count)
+    out = call(x)
+    assert _Counted.reads == Counter(
+        {(k, id(x)): 1 for k in ("data_ptr", "get_device")}
+        | {("data_ptr", id(out)): 1})
+    assert fake_launch.calls[-1] == (x.data_ptr(), *args, out.data_ptr(),
+                                     1000)
+    assert tuple(out.shape) == shape and out.dtype == torch.int32
+    assert out.is_contiguous()
+    call(_zeros(*POOL).as_subclass(_OnCard1))
+    assert fake_launch.calls[-1][-1] == 1001
+    assert getattr(pp, count) == before + 2
+
+
+@pytest.mark.parametrize("form", list(_WHILE_FORMS))
+def test_c17_c18_count_exact_under_threads(form, fake_launch):
+    """Four threads launching one form together, the interpreter switching
+    threads every microsecond: its count rises by exactly the launches
+    made."""
+    call, _, _, count = _WHILE_FORMS[form]
+    x = _on_card(*POOL)
+    before = getattr(pp, count)
+    made = _launch_from_threads(lambda: call(x), threads=4)
+    assert getattr(pp, count) - before == made == len(fake_launch.calls)

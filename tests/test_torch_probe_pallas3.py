@@ -65,8 +65,10 @@ from nabwa_tpu_torch.probes import probe_spill as ps
 # fixtures and helpers shared with the other probe ports' tests
 from nabwa_tpu_torch.ops import _build
 
-from .test_torch_probe_pallas import (_misaligned, _no_build, _on_card,
-                                      _OnCard, _OnCard1)
+from .test_torch_probe_pallas import (_Counted, _launch_from_threads,
+                                      _misaligned, _no_build, _on_card,
+                                      _OnCard, _OnCard1,
+                                      fake_launch)  # noqa: F401
 from .test_torch_probe_spill import masked
 from .test_torch_probes import (_I, _P, _call, _i32, _t,  # noqa: F401
                                 host, one_torch_thread, script)
@@ -638,57 +640,6 @@ def test_c28_c29_refuse_other_device(call, monkeypatch):
             pp2.launches_lane_gather) == counts
 
 
-class _Counted(_OnCard):
-    """An `_OnCard` tensor that counts its reads of `data_ptr()`,
-    `get_device()` and `device`."""
-    reads = None
-
-    def data_ptr(self):
-        _Counted.reads["data_ptr", id(self)] += 1
-        return super().data_ptr()
-
-    def get_device(self):
-        _Counted.reads["get_device", id(self)] += 1
-        return 0
-
-    @property
-    def device(self):
-        _Counted.reads["device", id(self)] += 1
-        return torch.device("cuda", 0)
-
-
-class _FakeLib:
-    """Records C29's, C28's, C27's, C20's, C7's, C15's, C8's (both forms),
-    C11's, C23's and C34's (both forms each) launch arguments; every
-    launch succeeds."""
-
-    def __init__(self):
-        self.calls = []
-
-    def nabwa_probe_p3(self, *args):
-        self.calls.append(args)
-        return 0
-
-    nabwa_probe_p1b = nabwa_probe_p1 = nabwa_probe_p3
-    nabwa_probe_lane_gather = nabwa_probe_p3
-    nabwa_probe_rowload = nabwa_probe_smem_idx = nabwa_probe_p3
-    nabwa_probe_dma = nabwa_probe_dma_serial = nabwa_probe_p3
-    nabwa_probe_empty = nabwa_probe_p3
-    nabwa_probe_spill = nabwa_probe_spill_witness = nabwa_probe_p3
-    nabwa_probe_p5 = nabwa_probe_p5_witness = nabwa_probe_p3
-
-
-@pytest.fixture
-def fake_launch(monkeypatch):
-    """`_build.lib()` answers with a `_FakeLib`, and the current stream's
-    handle on device k is 1000 + k."""
-    fake = _FakeLib()
-    monkeypatch.setattr(_build, "lib", lambda: fake)
-    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
-                        lambda index: 1000 + index, raising=False)
-    return fake
-
-
 def test_c28_c29_launch_on_pointers_read_once(fake_launch, monkeypatch):
     """C29 and C28 launch on the data pointers and the device index their
     one check pass read: each input's pointer read once, its device index
@@ -822,29 +773,6 @@ def test_c7_c15_empty_launch_nothing(fake_launch):
     assert pp.smem_idx_cuda(_on_card(0), table).shape == (0, 128)
     assert not fake_launch.calls
     assert (pp.launches_rowload, pp.launches_smem_idx) == counts
-
-
-def _launch_from_threads(launch, threads=8, calls=300):
-    """`launch()` `calls` times in each of `threads` threads started
-    together, the interpreter switching threads every microsecond;
-    returns the launches made."""
-    import threading
-
-    def run():
-        for _ in range(calls):
-            launch()
-    interval = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        pool = [threading.Thread(target=run) for _ in range(threads)]
-        for th in pool:
-            th.start()
-        for th in pool:
-            th.join(timeout=60)
-    finally:
-        sys.setswitchinterval(interval)
-    assert not any(th.is_alive() for th in pool)
-    return threads * calls
 
 
 def test_c29_count_exact_under_threads(fake_launch):

@@ -74,7 +74,7 @@ def test_compare_refuses_an_unknown_mode():
                          cwd=REPO, capture_output=True, text=True,
                          timeout=60)
     assert res.returncode == 2 and not res.stdout
-    assert "{c3,aln,launch,c9,c23,c34}" in res.stderr
+    assert "{c3,aln,launch,c9,c23,c34,c17}" in res.stderr
 
 
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -260,10 +260,19 @@ def test_chain_bounds_price_each_path():
     C25's 400 integer steps, C34's load and 226 integer steps (both
     forms); ns = cycles / GHz, an L2 row load at C12's serial load.  C34's
     witness gets its one SM's shared-memory ceiling: s read and written
-    an inner round at 128 bytes a clock."""
+    an inner round at 128 bytes a clock.  C17 and C18 (both forms): a
+    load and 50 rounds of 2 minima, a redux.sync, a compare and a select,
+    C17's carry a shared load and a redux.sync more; their witnesses one
+    SM's issue ceiling, WHILE_WITNESS_ISSUE instructions a warp and round
+    over 4 schedulers.  A load, then: C13 50 rounds of 9 integer steps
+    and 2 redux.syncs; C19 6,000 integer steps; C21 2 a push of its
+    busiest row, an add and a shared load's latency; C31-C33 50 rounds of
+    3 steps and a redux.sync, 13 and 5 shuffles, 9 and a shared load;
+    C35 2 + 128 fp32 steps, each at the IMAD's latency."""
     cs = _smoke_module()
     lat = {"imad": 4.0, "colops": 8.0, "redux": 30.0, "shfl": 20.0,
            "lds": 32.0}
+    timed = {"queued_ms": 0.01, "witness_queued_ms": 0.03}
     probes = {
         "probe_dfs_shape": {"latency_cycles": lat, "sm_clock_ghz": 2.0,
                             "iters": 200,
@@ -271,7 +280,12 @@ def test_chain_bounds_price_each_path():
                                         "witness_queued_ms": 0.3}]},
         "probe_loads": {"serial_ns_per_load": 170.0},
         "probe_colops": {"t": 2000, "k": 64}, "probe_spill": {"t": 2000},
-        "probe_p7": {}, "probe_p5": {"inner_rounds": 126, "words": 32768}}
+        "probe_p7": {}, "probe_p5": {"inner_rounds": 126, "words": 32768},
+        "probe_while_scratch": dict(timed), "probe_while_vector": dict(timed),
+        "probe_pop": {}, "probe_body_scale": {},
+        "probe_scalar_push": {"max_row_pushes": 140},
+        "probe_p2_native": {}, "probe_p2_roll": {}, "probe_p2_subl": {},
+        "probe_p6": {}}
     cs.chain_bounds(probes)
     c = cs.C9_CHAIN
     per_iter = (c["int"] * 4 + c["redux"] * 30 + c["shfl"] * 20) / 2.0 + 170
@@ -292,3 +306,66 @@ def test_chain_bounds_price_each_path():
         pytest.approx((170 + 226 * 2.0) * 1e-6)
     assert probes["probe_p5"]["witness_smem_ceiling_ms"] == \
         pytest.approx(126 * 2048 / 2.0 * 1e-6)
+    # ns a step at 2 GHz: int and fp32 2, redux.sync 15, shuffle 10, shared
+    # load 16; a load 170
+    want = {
+        "probe_while_vector": ({"load": 1, "int": 200, "redux": 50},
+                               170 + 200 * 2 + 50 * 15),
+        "probe_while_scratch": ({"load": 1, "int": 200, "redux": 51,
+                                 "lds": 1}, 170 + 200 * 2 + 51 * 15 + 16),
+        "probe_pop": ({"load": 1, "int": 450, "redux": 100},
+                      170 + 450 * 2 + 100 * 15),
+        "probe_body_scale": ({"load": 1, "int": 6000}, 170 + 6000 * 2),
+        "probe_scalar_push": ({"load": 1, "int": 281, "lds": 1},
+                              170 + 281 * 2 + 16),
+        "probe_p2_native": ({"load": 1, "int": 150, "redux": 50},
+                            170 + 150 * 2 + 50 * 15),
+        "probe_p2_roll": ({"load": 1, "int": 650, "shfl": 250},
+                          170 + 650 * 2 + 250 * 10),
+        "probe_p2_subl": ({"load": 1, "int": 450, "lds": 50},
+                          170 + 450 * 2 + 50 * 16),
+        "probe_p6": ({"load": 1, "fp32": 130}, 170 + 130 * 2)}
+    for name, (steps, ns) in want.items():
+        assert probes[name]["chain_steps"] == steps, name
+        assert probes[name]["chain_bound_ms"] == pytest.approx(ns * 1e-6)
+    for name, per_warp in cs.WHILE_WITNESS_ISSUE.items():
+        e = probes[name]
+        assert e["witness_issue_ceiling_ms"] == pytest.approx(
+            50 * per_warp * 32 / 4 / 2.0 * 1e-6)
+        assert e["queued_over_chain"] == pytest.approx(
+            0.01 / e["chain_bound_ms"])
+        assert e["witness_queued_over_chain"] == pytest.approx(
+            0.03 / e["chain_bound_ms"])
+
+
+def test_sass_loops_finds_backward_branches():
+    """`compare.py`'s `sass_loops` counts a loop's body from its backward
+    branch's target to the branch, for a hex target (an encoding comment
+    after it; `BRA.DIV`'s after its register) and for a label, and skips
+    forward branches and a branch to itself; `sass_counts` reads them from
+    `cuobjdump -sass` text."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("compare_here",
+                                                  REPO / "compare.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    code = [(0x00, ["MOV", "R1,", "c[0x0][0x28]", ";"]),
+            (0x10, ["ISETP.GE.AND", "P0,", "PT,", "R0,", "0x1,", "PT", ";"]),
+            (0x20, ["BRA", "0x60", ";"]),
+            (0x30, ["IADD3", "R2,", "R2,", "0x1,", "RZ", ";"]),
+            (0x40, ["IMNMX", "R3,", "R3,", "R2,", "PT", ";"]),
+            (0x50, ["BRA", "0x30", ";", "/*", "0xfffffff400dc0947", "*/"]),
+            (0x60, ["REDUX.MIN.S32", "UR4,", "R3", ";"]),
+            (0x70, ["BRA", "`(.L_x_1)", ";"]),
+            (0x80, ["BRA.DIV", "UR4,", "0x10", ";"]),
+            (0x90, ["BRA", "0x90;"])]
+    want = [{"from": "0x30", "to": "0x50", "instructions": 3},
+            {"from": "0x30", "to": "0x70", "instructions": 5},
+            {"from": "0x10", "to": "0x80", "instructions": 8}]
+    assert mod.sass_loops(code, {".L_x_1": 3}) == want
+    text = "\n".join(
+        ["        Function : _Z6kernelv"]
+        + [f"        /*{a:04x}*/    {' '.join(w)}" for a, w in code[:9]])
+    got = mod.sass_counts(text)["_Z6kernelv"]
+    assert got["instructions"] == 9 and got["by_opcode"]["BRA"] == 4
+    assert got["loops"] == want[:1] + want[2:]
