@@ -255,11 +255,14 @@ Phases, any failure exits non-zero:
    (C31 `native`, C32 `roll`, C33 `subl`), 5 and 6 of that script at its
    shapes: C31-C34 exact at its inputs and at int32 edges (C31-C33 values
    within 8 of both ends with each row's or column's minimum repeated, and
-   values within 8 of INT32_MAX; C34 in both forms, the grid form and the
-   witness, a negative s[0, 0] and values near INT32_MAX that wrap, the
-   grid form also at P5_GRID_SHAPES, queued in turns), C35 bit for bit at
-   its inputs, at a random float32 w and at x over int32; misaligned and
-   wrong-shape inputs are refused on the card.  Then each probe's entry
+   values within 8 of INT32_MAX; C32 in both forms, the lane form and the
+   witness, queued in turns, with both forms' ptxas; C34 in both forms, the
+   grid form and the witness, a negative s[0, 0] and values near INT32_MAX
+   that wrap, the grid form also at P5_GRID_SHAPES, queued in turns), C35
+   bit for bit at its inputs, at a random float32 w, at x over int32 and
+   at P6_TAIL_SHAPES; misaligned and wrong-shape inputs, and C35's inputs
+   past a launch's blocks, are refused on the card with nothing launched.
+   Then each probe's entry
    point (`python -m
    nabwa_tpu_torch.probes.probe_pallas`, `.probe_dma`, `.probe_dfs_shape`,
    `.probe_pallas2`, `.probe_sem` at K=4, `.probe_spill` and
@@ -517,6 +520,12 @@ OPS_PALLAS = (Work(8, 3, 7), Work(11, 5, 10), Work(10, 2, 7))
 # (2), its compare (1) and the sum over 9 (2), the candidate's add (1)
 # and the key's select (1): 8.  chain_bounds prices the steps.
 C9_CHAIN = {"int": 8 + 2 + 7 + 71 + 8, "redux": 3, "shfl": 2, "load": 1}
+# C10's chain an iteration, through kidx (the header of
+# csrc/probe_dfs_shape.cu): slot 0's kidx by a shuffle, its mask and the
+# row's address (2), an L2 row load, the count c3 (the shift, a LOP3, a
+# popcount, the lane's two adds: 5), a redux.sync, the add of s1 + s3 +
+# e_k (1), kidx's add and mask (2)
+C10_CHAIN = {"int": 2 + 5 + 1 + 2, "redux": 1, "shfl": 1, "load": 1}
 # The chains of C13, C17-C19, C21 and C31-C33 a round, step or push,
 # counted from each function as its kernel's header counts it; a launch's
 # path is a load, then these (`chain_bounds`).  C17 and C18: the lane's
@@ -526,8 +535,10 @@ C9_CHAIN = {"int": 8 + 2 + 7 + 71 + 8, "redux": 3, "shfl": 2, "load": 1}
 # 0's minimum (1).  C19: the and, the compare, the select of p + j, the
 # shift, the xor and p * 3.  C21, a push of its busiest row: t's add and
 # mask.  C31: the lane's minimum of 4 words (2), a redux.sync, the add.
-# C32: two minima whose registers are known (sh 64, 32), five of a
-# shuffle, its register's select and the minimum, the add.  C33: a
+# C32's lane form: the two in-lane minima (sh 64, 32), five of a shuffle
+# and the minimum, the add; its witness: two minima whose registers are
+# known, five of a shuffle, its register's select and the minimum, the
+# add (P2_ROLL_WITNESS_CHAIN).  C33: a
 # thread's minimum of its 32 rows (5), the partials' shared load, their
 # minimum of 8 (3), the add.  (C33's barrier and C17's cluster barrier
 # and remote store are not priced: no latency of theirs is measured.)
@@ -535,8 +546,9 @@ WHILE_CHAIN = {"int": 4, "redux": 1}
 POP_CHAIN = {"int": 9, "redux": 2}
 BODY_CHAIN = {"int": 6}
 PUSH_CHAIN = {"int": 2}
-P2_CHAIN = {"native": {"int": 3, "redux": 1}, "roll": {"int": 13, "shfl": 5},
+P2_CHAIN = {"native": {"int": 3, "redux": 1}, "roll": {"int": 8, "shfl": 5},
             "subl": {"int": 9, "lds": 1}}
+P2_ROLL_WITNESS_CHAIN = {"int": 13, "shfl": 5}
 # C17's and C18's witnesses: warp instructions every warp issues a round,
 # counted in the SASS of their loop bodies (`compare.py c17 . DIR`, its
 # `sass_loops`): C18's 111; C17's 140 less the 14 of the carry's add
@@ -573,15 +585,19 @@ OPS_P7 = Work(3, 2, 3)
 OPS_P8 = Work(4, 1, 3)
 # csrc/probe_pallas3.cu per word and round: C31 the row minimum's share and
 # the add (2 operations); the in-lane minimum of four words, 0.75 a word,
-# on the ALU pipe, its redux.sync (0.25) and the add on issue.  C32 seven
-# minima and the add (8); of its seven steps five shuffle, a shuffle and at
-# least one select a word each (issue).  C33: the column minimum's share
-# and the add (2); 31 minima for a thread's 32 rows and 8 over the
-# partials, 39 / 32 a word.  C34 per word and inner round: the add.  C35
-# per product of an out element: the float32 multiply and add (2), with
-# the conversion (issue only)
-OPS_P2 = {"native": Work(2, 0.75, 2.0), "roll": Work(8, 7, 18),
+# on the ALU pipe, its redux.sync (0.25) and the add on issue.  C32's lane
+# form a lane's 3 minima of its four words, 5 after the shuffles and 4
+# adds, 12 for 4 words (3); VIMNMX and VIMNMX3 and the 5 minima on the ALU
+# pipe (7 / 4), with the 5 shuffles and the adds on issue (16 / 4).  Its
+# witness seven minima and the add (8); of its seven steps five shuffle, a
+# shuffle and at least one select a word each (issue).  C33: the column
+# minimum's share and the add (2); 31 minima for a thread's 32 rows and 8
+# over the partials, 39 / 32 a word.  C34 per word and inner round: the
+# add.  C35 per product of an out element: the float32 multiply and add
+# (2), with the conversion (issue only)
+OPS_P2 = {"native": Work(2, 0.75, 2.0), "roll": Work(3, 7 / 4, 4),
           "subl": Work(2, 39 / 32, 2 + 39 / 32)}
+OPS_P2_ROLL_WITNESS = Work(8, 7, 18)
 OPS_P5 = Work(1, 0, 1)
 OPS_P6 = Work(2, 0, 3)
 SPILL_SWEEP_SHAPE = (64, 128)     # C23's K sweep, at the script's T
@@ -589,6 +605,12 @@ SPILL_LANES = (2, 4, 8)           # the lane form's groups tried at K 24
 # C34's grid form past the witness's shared memory, and at a word count
 # that is not a multiple of 4 (16,383)
 P5_GRID_SHAPES = ((512, 128), (129, 127))
+# C35 at [R, K] x [K, N] past the script's shape: a tile's tail of K (130,
+# 260), K not a multiple of 4 (130, 37), N not a multiple of 4 (5, 17) or
+# leaving half a block's columns (12), R leaving a block's rows, two whole
+# tiles (256), K 0
+P6_TAIL_SHAPES = ((7, 130, 5), (9, 260, 12), (6, 256, 16), (13, 37, 17),
+                  (4, 0, 8))
 SMEM_BYTES_PER_CLOCK = 128        # one SM's shared memory
 ROW_BYTES = 512               # one 128-word int32 table row
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
@@ -3245,8 +3267,8 @@ def check_dma_edges(dev):
 
 
 def chain_bounds(probes):
-    """`chain_bound_ms` of C9, C13, C17-C19, C21, C23-C25 and C31-C35: the
-    least dependent path of a launch, counted from the function (each
+    """`chain_bound_ms` of C9, C10, C13, C17-C19, C21, C23-C25 and C31-C35:
+    the least dependent path of a launch, counted from the function (each
     kernel's header), each step priced at the latency C9's stamped launch
     measured (`latency_cycles` at its `sm_clock_ghz`: an IMAD for an
     integer step and for an fp32 add or multiply, both on the FMA pipe; a
@@ -3261,9 +3283,12 @@ def chain_bounds(probes):
     load and a redux.sync more; C13 50 rounds of POP_CHAIN; C19 1,000
     steps of BODY_CHAIN; C21 PUSH_CHAIN for each push of its busiest row
     (`max_row_pushes`), then f0's read back at a shared load's latency (an
-    L1 hit at best) and the add of top; C31-C33 50 rounds of P2_CHAIN;
-    C35 an out element's first conversion and product, then its K fp32
-    adds in index order.  C34's witness also gets its one SM's
+    L1 hit at best) and the add of top; C31-C33 50 rounds of P2_CHAIN
+    (C32's lane form; its witness's path, P2_ROLL_WITNESS_CHAIN, as
+    `witness_chain_bound_ms`); C10 100 iterations of C10_CHAIN; C35 an out
+    element's first conversion and product, then its K fp32 adds in index
+    order.  C10, C32 (both forms) and C35 get their queued time over the
+    chain (`queued_over_chain`).  C34's witness also gets its one SM's
     shared-memory ceiling (`witness_smem_ceiling_ms`): s read and written
     once an inner round at 128 bytes a clock of that SM clock; C17's and
     C18's witnesses their one SM's issue ceiling
@@ -3284,13 +3309,15 @@ def chain_bounds(probes):
 
     def path(steps, n, **more):
         """A load, then `steps` n times, then `more`."""
-        out = {"load": 1, **{k: v * n for k, v in steps.items()}}
+        out = {k: v * n for k, v in steps.items()}
+        out["load"] = out.get("load", 0) + 1
         for k, v in more.items():
             out[k] = out.get(k, 0) + v
         return out
     iters = pp.WHILE_ITERS
     chains = {
         "probe_dfs_shape": {k: v * c9["iters"] for k, v in C9_CHAIN.items()},
+        "probe_pallas_dfs_shape": path(C10_CHAIN, pp.DFS_ITERS),
         "probe_colops": {"int": 2 * colops["t"] * colops["k"]},
         "probe_spill": {"int": 2 * spill["t"]},
         "probe_p7": {"int": 2 * p3.P7_STEPS},
@@ -3307,9 +3334,17 @@ def chain_bounds(probes):
         **{f"probe_p2_{kind}": path(steps, p3.P2_ROUNDS)
            for kind, steps in P2_CHAIN.items()},
         "probe_p6": {"load": 1, "fp32": 2 + p3.P6_X[1]}}
+    def ms(steps):
+        return sum(n * price[k] for k, n in steps.items()) * 1e-6
     for name, steps in chains.items():
-        ns = sum(n * price[k] for k, n in steps.items())
-        probes[name].update(chain_bound_ms=ns * 1e-6, chain_steps=steps)
+        probes[name].update(chain_bound_ms=ms(steps), chain_steps=steps)
+    steps = path(P2_ROLL_WITNESS_CHAIN, p3.P2_ROUNDS)
+    roll = probes["probe_p2_roll"]
+    roll.update(witness_chain_bound_ms=ms(steps), witness_chain_steps=steps)
+    for e in (roll, probes["probe_p6"], probes["probe_pallas_dfs_shape"]):
+        e["queued_over_chain"] = e["queued_ms"] / e["chain_bound_ms"]
+    roll["witness_queued_over_chain"] = (roll["witness_queued_ms"]
+                                         / roll["witness_chain_bound_ms"])
     p5["witness_smem_ceiling_ms"] = (
         p5["inner_rounds"] * 2 * 4 * p5["words"] / SMEM_BYTES_PER_CLOCK
         / ghz * 1e-6)
@@ -5092,10 +5127,12 @@ def with_ties(rng, x, axis):
 def check_reductions(dev):
     """Phase 18, kernels C31-C35 (probes 2, 5 and 6 of
     scripts/probe_pallas3.py) against their plain versions on the card, at
-    the script's shapes: C31-C34 exact at its inputs and at int32 edges,
-    C35 bit for bit at its inputs, at a random float32 w and at x over all
-    of int32; misaligned and wrong-shape inputs refused.  Returns {kernel
-    name: fields of its kernels-line entry but `launches`}."""
+    the script's shapes: C31-C34 exact at its inputs and at int32 edges
+    (C32 and C34 in both forms), C35 bit for bit at its inputs, at a
+    random float32 w and at x over all of int32, and at shapes whose K, N
+    and R leave tails; misaligned and wrong-shape inputs refused with
+    nothing launched.  Returns {kernel name: fields of its kernels-line
+    entry but `launches`}."""
     import numpy as np
     import torch
     from nabwa_tpu_torch.ops import _build
@@ -5106,9 +5143,17 @@ def check_reductions(dev):
     why = ("none: 50 dependent rounds of a {} and an add over the whole "
            "array; no single PyTorch call iterates them")
 
+    def counts():
+        return (p3.launches_p2_native, p3.launches_p2_roll,
+                p3.launches_p2_roll_witness, p3.launches_p2_subl,
+                p3.launches_p6)
+
     # C31-C33: probe 2 on the script's input, then over int32 with the
     # edges in every row and each row's (C33: column's) minimum repeated,
-    # then every value within 8 of INT32_MAX (the first sums wrap)
+    # then every value within 8 of INT32_MAX (the first sums wrap); C32 in
+    # both forms, the lane form (`p2_cuda`, the probe's route) and the
+    # witness (`p2_roll_witness_cuda`), queued in turns (witness, lane,
+    # lane, witness)
     x = rng.randint(0, 1 << 20, p3.P2_X)
     high = I32_MAX - rng.randint(0, 8, p3.P2_X)
     for kind, tie_axis, what in (("native", 1, "row minimum"),
@@ -5119,22 +5164,37 @@ def check_reductions(dev):
         edge[:, :16] = [rng.permutation(ends) for _ in range(len(edge))]
         cases = {"script": x, "edges": with_ties(rng, edge, tie_axis),
                  "high": high}
+        fns = {"": lambda x: p3.p2(x, kind)}
+        if kind == "roll":
+            fns["witness"] = p3.p2_roll_witness_cuda
         err = 0
         for name, xs in cases.items():
             x_t, = common.tensors(dev, xs)
-            err = max(err, exact(f"probe_p2 {kind} {name}",
-                                 p3.p2(x_t, kind), p3.p2_plain(x_t, kind)))
+            want = p3.p2_plain(x_t, kind)
+            for form, fn in fns.items():
+                err = max(err, exact(f"probe_p2 {kind} {form} {name}",
+                                     fn(x_t), want))
         x_t, = common.tensors(dev, x)
-        refused(f"probe_p2 {kind} misaligned x",
-                lambda: p3.p2(skewed(x_t), kind))
+        before = counts()
         wrong = x_t[:128].contiguous() if kind == "subl" else \
             x_t[:, :64].contiguous()
-        refused(f"probe_p2 {kind} shape {tuple(wrong.shape)}",
-                lambda: p3.p2(wrong, kind))
+        for form, fn in fns.items():
+            refused(f"probe_p2 {kind} {form} misaligned x",
+                    lambda: fn(skewed(x_t)))
+            refused(f"probe_p2 {kind} {form} shape {tuple(wrong.shape)}",
+                    lambda: fn(wrong))
+        if counts() != before:
+            fail(f"probe_p2 {kind}: a refusal launched a kernel")
         bnd = bound(2 * nbytes(x_t),
                     OPS_P2[kind] * p3.P2_ROUNDS * x_t.numel())
-        queued = queued_ms(lambda: p3.p2_cuda(x_t, kind), 200)
-        out[f"probe_p2_{kind}"] = {
+        turns = {form: [] for form in fns}
+        calls = {"": lambda: p3.p2_cuda(x_t, kind),
+                "witness": lambda: p3.p2_roll_witness_cuda(x_t)}
+        for form in ("witness", "", "", "witness") if kind == "roll" \
+                else ("",):
+            turns[form].append(queued_ms(calls[form], 200))
+        queued = sum(turns[""]) / len(turns[""])
+        e = out[f"probe_p2_{kind}"] = {
             "max_abs_err": err,
             "ms": cuda_ms(lambda: p3.p2_cuda(x_t, kind), 200),
             "plain_ms": cuda_ms(lambda: p3.p2_plain(x_t, kind), 3),
@@ -5144,7 +5204,31 @@ def check_reductions(dev):
             "queued_ms": queued,
             "queued_us_per_round": queued * 1e3 / p3.P2_ROUNDS,
             "exact_inputs": list(cases)}
-        log(f"probe_p2 {kind}: exact; {out[f'probe_p2_{kind}']}")
+        if kind == "roll":
+            wq = sum(turns["witness"]) / 2
+            report = ptxas_report(_build.build_log, lambda name: (
+                "lane" if "probe_p2_roll_kernel" in name
+                else "witness" if "probe_p2_row_kernelILi1E" in name
+                else None))
+            if sorted(report) != ["lane", "witness"] or any(
+                    "registers" not in v for v in report.values()):
+                fail(f"C32: no ptxas report for both forms: {report}")
+            if any(report["lane"][k] for k in (
+                    "spill_store_bytes", "spill_load_bytes", "stack_bytes")):
+                fail(f"C32's lane form spills or keeps a stack frame: "
+                     f"{report['lane']}")
+            e.update(
+                queued_ms_turns=turns[""],
+                witness_ms=cuda_ms(lambda: p3.p2_roll_witness_cuda(x_t), 200),
+                witness_queued_ms=wq, witness_queued_ms_turns=turns["witness"],
+                witness_queued_us_per_round=wq * 1e3 / p3.P2_ROUNDS,
+                witness_over_lane_queued=wq / queued,
+                witness_bound_int32_ms=bound(
+                    2 * nbytes(x_t), OPS_P2_ROLL_WITNESS * p3.P2_ROUNDS
+                    * x_t.numel())[2],
+                witness_launches=p3.launches_p2_roll_witness,
+                ptxas=report)
+        log(f"probe_p2 {kind}: exact; {e}")
 
     # C34: probe 5 in both forms, the grid form (`p5_cuda`, the probe's
     # route) and the witness (`p5_witness_cuda`), on the script's input,
@@ -5206,13 +5290,20 @@ def check_reductions(dev):
     log(f"C34 probe_p5: both forms exact; {out['probe_p5']}")
 
     # C35: probe 6 on the script's inputs (w of ones), then a random
-    # float32 w, then x over all of int32 with it; bit for bit
+    # float32 w, then x over all of int32 with it; bit for bit; then at
+    # shapes whose K leaves a tile's tail or is not a multiple of 4, whose N
+    # leaves a block's columns or is not a multiple of 4, whose R leaves a
+    # block's rows, and K 0
     x = rng.randint(0, 99, p3.P6_X)
     ones = np.ones(p3.P6_W, dtype=np.float32)
     w_rand = rng.standard_normal(p3.P6_W).astype(np.float32)
     err, lib_err = 0.0, 0.0
-    for name, xs, ws in (("script", x, ones), ("random_w", x, w_rand),
-                         ("int32_x", int32_mixed(rng, p3.P6_X), w_rand)):
+    cases = [("script", x, ones), ("random_w", x, w_rand),
+             ("int32_x", int32_mixed(rng, p3.P6_X), w_rand)]
+    for r, k, n in P6_TAIL_SHAPES:
+        cases.append((f"{r}x{k}x{n}", int32_mixed(rng, (r, k)),
+                      rng.standard_normal((k, n)).astype(np.float32)))
+    for name, xs, ws in cases:
         x_t, = common.tensors(dev, xs)
         w_t = torch.from_numpy(ws).to(dev)
         got, want = p3.p6(x_t, w_t), p3.p6_plain(x_t, w_t)
@@ -5220,17 +5311,31 @@ def check_reductions(dev):
             fail(f"C35 probe_p6 {name}: kernel differs from its plain "
                  f"version in some bit (max |err| "
                  f"{float((got - want).abs().max())})")
-        err = max(err, float((got - want).abs().max()))
-        lib_err = max(lib_err, float(
-            (torch.matmul(x_t.float(), w_t) - got).abs().max()))
+        if got.numel():
+            err = max(err, float((got - want).abs().max()))
+        if name in ("random_w", "int32_x"):
+            lib_err = max(lib_err, float(
+                (torch.matmul(x_t.float(), w_t) - got).abs().max()))
     x_t, = common.tensors(dev, x)
     w_t = torch.from_numpy(ones).to(dev)
     got = p3.p6_cuda(x_t, w_t).cpu().numpy()
     if not np.array_equal(got[:, 0], x.sum(1)):
         fail("C35 probe_p6: column 0 is not x's row sums")
+    before = counts()
     refused("C35 misaligned x", lambda: p3.p6(skewed(x_t), w_t))
     refused("C35 int32 w", lambda: p3.p6(x_t, w_t.int()))
     refused("C35 w of another depth", lambda: p3.p6(x_t, w_t[:64].clone()))
+    refused("C35 more blocks than a launch takes", lambda: p3.p6(
+        torch.zeros((2**33, 0), dtype=torch.int32, device=dev),
+        torch.zeros((0, 8), dtype=torch.float32, device=dev)))
+    if counts() != before:
+        fail("C35: a refusal launched a kernel")
+    report = ptxas_report(_build.build_log, lambda name: (
+        "staged" if "probe_p6_kernel" in name else None))
+    if "registers" not in report.get("staged", {}) or any(
+            report["staged"][k] for k in ("spill_store_bytes",
+                                          "spill_load_bytes", "stack_bytes")):
+        fail(f"C35: no ptxas report, or it spills: {report}")
     xf = x_t.float()
     # bytes: x, w and out once each
     bnd = bound(nbytes(x_t, w_t) + 4 * x_t.shape[0] * w_t.shape[1],
@@ -5247,7 +5352,8 @@ def check_reductions(dev):
         "library_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "library_max_abs_diff": lib_err,
         "queued_ms": queued_ms(lambda: p3.p6_cuda(x_t, w_t), 200),
-        "exact_inputs": ["script", "random_w", "int32_x"]}
+        "blocks": p3.p6_blocks(*got.shape), "ptxas": report["staged"],
+        "exact_inputs": [name for name, *_ in cases]}
     log(f"C35 probe_p6: bit for bit; {out['probe_p6']}")
     return out
 

@@ -9,6 +9,7 @@ chip_smoke.py's 64 Mbp cell (the bench reads), on one NVIDIA GPU.
     python3 compare.py c23 CHECKOUT [SASS_DIR]
     python3 compare.py c34 CHECKOUT [SASS_DIR]
     python3 compare.py c17 CHECKOUT [SASS_DIR]
+    python3 compare.py c32 CHECKOUT [SASS_DIR]
 
 CHECKOUT is the root of a checkout of this repository: this one, or an
 older commit unpacked with `git archive` into a directory `.gitignore`
@@ -76,6 +77,18 @@ its entry takes (C17 16 and 32 warps, one cluster of 16 or 8 blocks; C18
 1, 2, 4 and 8), a launch the card refuses recorded as its error, and the
 four kernels' ptxas report.  With SASS_DIR, the SASS of its
 csrc/probe_pallas.cu as for c9.
+
+c32: kernels C32 and C35 (probes 2 `roll` and 6 of
+scripts/probe_pallas3.py) at the script's shapes, on no cell: the
+checkout's `p2_cuda(x, "roll")` and, where it is kept,
+`p2_roll_witness_cuda`, exact against `p2_plain` on the script's input,
+with `ms` and `queued_ms` in turns; where the witness is kept, the lane
+form also at every block size its launcher takes (1, 2 and 4 warps); then
+`p6_cuda` bit for bit against `p6_plain` on the script's x and a random
+float32 w, with `ms` and `queued_ms` beside `torch.matmul(x.float(),
+w)`'s; the ptxas report of both kernels of C32 and of C35.  With
+SASS_DIR, the SASS of its csrc/probe_pallas3.cu as for c9, and the
+instructions of C32's kernels and of C35's under "c32_sass".
 
 The SASS's JSON gives, for each kernel, its instructions by opcode and
 its loops: each backward branch with the instructions from its target
@@ -533,16 +546,62 @@ def time_c17(sass_dir=None):
     return out
 
 
+def time_c32(sass_dir=None):
+    import numpy as np
+    from nabwa_tpu_torch.ops import _build
+    from nabwa_tpu_torch.probes import common
+    from nabwa_tpu_torch.probes import probe_pallas3 as p3
+    import torch
+    here = own_smoke()
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(here.PROBE_SEED + 4)
+    x_t, = common.tensors(dev, rng.randint(0, 1 << 20, p3.P2_X))
+    want = p3.p2_plain(x_t, "roll")
+    forms = {}
+    if hasattr(p3, "p2_roll_witness_cuda"):
+        forms["p2_roll_witness_cuda"] = p3.p2_roll_witness_cuda
+    forms["p2_cuda_roll"] = lambda x: p3.p2_cuda(x, "roll")
+    c32 = {}
+    for name, fn in forms.items():
+        here.exact(f"C32 {name}", fn(x_t), want)
+        c32[name] = {"ms": here.cuda_ms(lambda: fn(x_t), 200)}
+    for name, q in in_turns(forms, lambda fn: lambda: fn(x_t), 200).items():
+        c32[name].update(queued_ms=sum(q) / 2, queued_ms_turns=q)
+    xi, = common.tensors(dev, rng.randint(0, 99, p3.P6_X))
+    w_t = torch.from_numpy(rng.standard_normal(p3.P6_W).astype(
+        np.float32)).to(dev)
+    got, ref = p3.p6_cuda(xi, w_t), p3.p6_plain(xi, w_t)
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        here.fail("C35 p6_cuda differs from p6_plain in some bit")
+    calls = {"p6_cuda": lambda: p3.p6_cuda(xi, w_t),
+             "matmul": lambda: torch.matmul(xi.float(), w_t)}
+    c35 = {name: {"ms": here.cuda_ms(fn, 200)} for name, fn in calls.items()}
+    for name, q in in_turns(calls, lambda fn: fn, 200).items():
+        c35[name].update(queued_ms=sum(q) / 2, queued_ms_turns=q)
+    out = {"c32": c32, "c35": c35, "ptxas": here.ptxas_report(
+        _build.build_log, lambda name: next(
+            (k for k in ("p2_roll_kernel", "p2_row_kernelILi1E",
+                         "p6_kernel") if "probe_" + k in name), None)),
+        "nvidia_smi_clocks": here.sm_clocks()}
+    if sass_dir:
+        out["sass"] = dump_sass(sass_dir, "probe_pallas3")
+        out["c32_sass"] = {k: v for k, v in out["sass"].items()
+                           if "probe_p2_roll" in k or "probe_p6" in k
+                           or "probe_p2_row_kernelILi1E" in k}
+    return out
+
+
 MODES = {"c3": time_c3, "aln": time_aln, "launch": time_launch,
-         "c9": time_c9, "c23": time_c23, "c34": time_c34, "c17": time_c17}
+         "c9": time_c9, "c23": time_c23, "c34": time_c34, "c17": time_c17,
+         "c32": time_c32}
 
 
 def main(argv):
-    probe_modes = ("c9", "c23", "c34", "c17")
+    probe_modes = ("c9", "c23", "c34", "c17", "c32")
     if (len(argv) not in (2, 3) or argv[0] not in MODES
             or (len(argv) == 3 and argv[0] not in probe_modes)):
         print(f"usage: compare.py {{{','.join(MODES)}}} CHECKOUT "
-              "(c9, c23, c34, c17: [SASS_DIR])", file=sys.stderr)
+              "(c9, c23, c34, c17, c32: [SASS_DIR])", file=sys.stderr)
         return 2
     mode, root = argv[:2]
     sys.path.insert(0, root)

@@ -929,6 +929,84 @@ extern "C" int nabwa_host_probe_roll_src(const int32_t* c, const int32_t* sh,
     return 0;
 }
 
+// C32's lane form on x int32 [rows, 128], each row played over its 32
+// lanes of 4 words (lane L words L + 32 k): a round takes every lane's
+// p2_lane_min (sh 64 and 32), then for sh = 16, 8, 4, 2, 1 reads every
+// lane's value from lane p2_roll_lane (an array read before any lane
+// updates, in place of the card's shuffle) and takes the minimum, then
+// adds each lane's value to its four words (wrapping).  m gets the value
+// each word's lane holds at the end of the first round's rotations, out
+// the words after `rounds` rounds.
+extern "C" int nabwa_host_probe_p2_roll_lanes(const int32_t* x, int rows,
+                                              int rounds, int32_t* m,
+                                              int32_t* out) {
+    for (int r = 0; r < rows; ++r) {
+        int32_t w[32][4], a[32], from[32];
+        for (int l = 0; l < 32; ++l)
+            for (int k = 0; k < 4; ++k) w[l][k] = x[(size_t)r * 128 + l + 32 * k];
+        for (int it = 0; it < rounds; ++it) {
+            for (int l = 0; l < 32; ++l) a[l] = pr::p2_lane_min(w[l]);
+            for (int sh = 16; sh; sh >>= 1) {
+                for (int l = 0; l < 32; ++l) from[l] = a[pr::p2_roll_lane(l, sh)];
+                for (int l = 0; l < 32; ++l) a[l] = std::min(a[l], from[l]);
+            }
+            if (it == 0)
+                for (int c = 0; c < 128; ++c) m[(size_t)r * 128 + c] = a[c % 32];
+            for (int l = 0; l < 32; ++l)
+                for (int k = 0; k < 4; ++k) w[l][k] = pr::wadd(w[l][k], a[l]);
+        }
+        for (int l = 0; l < 32; ++l)
+            for (int k = 0; k < 4; ++k) out[(size_t)r * 128 + l + 32 * k] = w[l][k];
+    }
+    return 0;
+}
+
+// C35's staged form on x int32 [rows, depth] times w float32 [depth,
+// width] in tiles of KT words, played block by block: for each tile,
+// every thread's p6_stage, then (the barrier) every thread's p6_dot
+template <int KT>
+void p6_staged(const int32_t* x, const float* w, int rows, int depth,
+               int width, float* out) {
+    constexpr int threads = pr::P6_ROWS * pr::P6_COLS, pitch = KT + pr::P6_PAD;
+    const int64_t col_blocks = (width + pr::P6_COLS - 1) / pr::P6_COLS;
+    const int64_t blocks =
+        ((int64_t)rows + pr::P6_ROWS - 1) / pr::P6_ROWS * col_blocks;
+    std::vector<float> xs((size_t)pr::P6_ROWS * pitch, -1.0f);
+    std::vector<float> ws((size_t)pr::P6_COLS * pitch, -1.0f);
+    for (int64_t b = 0; b < blocks; ++b) {
+        int64_t r0, c0;
+        pr::p6_origin(b, col_blocks, &r0, &c0);
+        float acc[threads] = {};
+        for (int k0 = 0; k0 < depth; k0 += KT) {
+            for (int t = 0; t < threads; ++t)
+                pr::p6_stage<KT, threads>(x, w, rows, depth, width, r0, c0,
+                                          k0, std::min(KT, depth - k0), t,
+                                          pitch, xs.data(), ws.data());
+            for (int t = 0; t < threads; ++t)
+                acc[t] = pr::p6_dot<KT>(
+                    acc[t], &xs[(size_t)(t / pr::P6_COLS) * pitch],
+                    &ws[(size_t)(t % pr::P6_COLS) * pitch]);
+        }
+        for (int t = 0; t < threads; ++t) {
+            const int64_t r = r0 + t / pr::P6_COLS, c = c0 + t % pr::P6_COLS;
+            if (r < rows && c < width) out[r * width + c] = acc[t];
+        }
+    }
+}
+
+// C35's staged form in tiles of kt words: 128 (the kernel's), 8 or 4.
+// Returns -1 (nothing written) for another kt.
+extern "C" int nabwa_host_probe_p6_staged(const int32_t* x, const float* w,
+                                          int rows, int depth, int width,
+                                          int kt, float* out) {
+    switch (kt) {
+        case 128: p6_staged<128>(x, w, rows, depth, width, out); return 0;
+        case 8: p6_staged<8>(x, w, rows, depth, width, out); return 0;
+        case 4: p6_staged<4>(x, w, rows, depth, width, out); return 0;
+        default: return -1;
+    }
+}
+
 // C34's inner trip count from each s[0, 0]
 extern "C" int nabwa_host_probe_p5_trips(const int32_t* s, int n,
                                          int32_t* out) {

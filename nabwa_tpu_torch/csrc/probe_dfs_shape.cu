@@ -55,7 +55,17 @@
 // add-and-minimum), the push (the valid mask, a prefix popcount, its
 // compare and sum, the candidate's add and the key's select);
 // chip_smoke.py's C9_CHAIN counts them and prices each at the latency the
-// stamped form measures.
+// stamped form measures.  C10's iteration carries two values, the pool and
+// kidx; kidx's path is the longer: slot 0's kidx by a shuffle from lane 0,
+// its mask to NROW - 1 and the row's address, one L2 row load, the count
+// c3 (the shift, the and of x, x >> 1 and the mask as one three-input
+// LOP3, a popcount, the lane's two adds of its four words), a redux.sync,
+// the add of s1 + s3 + e_k, then kidx's add and mask: a shuffle, 10
+// integer steps, a load and a redux.sync (C10_CHAIN).  The pop (a lane's
+// minimum, a redux.sync, the compares, e_k's adds and its redux.sync)
+// runs beside the row load and ends before the count does; the pool's own
+// path (the pop, the free flags, the ballots' ranks and the push's
+// selects) is shorter still.
 //
 // Design: one warp per read, the mapping proposed for C1.  Lane l holds
 // slots k * 32 + l (k < S / 32) of each field in registers, and a

@@ -70,17 +70,35 @@
 // minimum of v's row (`native`, C31; `roll`, C32) or of its column
 // (`subl`, C33), broadcast back over it.
 // - C31 and C32: every row evolves on its own, so a warp holds a row in
-//   registers, lane L words L, L + 32, L + 64 and L + 96, and a block 4
-//   rows.  C31 takes the row minimum the card's own way: the minimum of
-//   the lane's four words, then one `__reduce_min_sync` (redux.sync, sm_80
-//   and later) over the warp.  C32 takes it the script's way (:98-99):
-//   seven steps m <- min(m, roll(m, sh)) for sh = 64, 32, ..., 1, word c of
-//   the rotated row taken from word `roll_src`(c, sh) = (c - sh) mod 128,
-//   as np.roll.  In this layout word L + 32 k's source sits in lane (L -
-//   sh) mod 32, the same for every k, and in register (q + k) mod 4, q the
-//   register of word L's source: each step shuffles the four registers
-//   from that lane (none for sh 64 and 32) and picks among them.  Both end
-//   with every lane's m the row minimum, added to each word.
+//   registers, lane L words L, L + 32, L + 64 and L + 96.  C31 takes the
+//   row minimum the card's own way: the minimum of the lane's four words,
+//   then one `__reduce_min_sync` (redux.sync, sm_80 and later) over the
+//   warp; blocks of 4 rows.  C32 takes it the script's way (:98-99): seven
+//   steps m <- min(m, roll(m, sh)) for sh = 64, 32, ..., 1, word c of the
+//   rotated row taken from word `roll_src`(c, sh) = (c - sh) mod 128, as
+//   np.roll.  In this layout word L + 32 k's source sits in lane (L - sh)
+//   mod 32, the same for every k, and in register (q + k) mod 4, q the
+//   register of word L's source.  C32 has two forms:
+//   - the lane form (`probe_p2_roll_kernel`, the probe's route): sh 64 and
+//     32 keep every source in the lane, and after their two minima the
+//     lane's four registers hold one value (`p2_lane_min`, probes.cuh).
+//     So each later step, sh 16 .. 1, is one shuffle from lane
+//     `p2_roll_lane`(L, sh) = (L - sh) mod 32 and one minimum on that
+//     value: still the script's rotation, exact for any input, because
+//     the registers agree by construction.  Its path a round: two minima,
+//     five of a shuffle and a minimum, the add.  P2_WARPS rows a block,
+//     as C31 and the witness: 1, 2 and 4 rows a block ran within 2 % of
+//     one another (PERF.md).
+//   - the witness (`probe_p2_row_kernel<P2_ROLL>`, the first design): each
+//     step rotates the whole row literally, shuffling the four registers
+//     from that lane (none for sh 64 and 32) and picking among them by a
+//     per-lane register index (`pick4`), which nvcc turns into branches on
+//     which the warp's lanes diverge: 239 warp instructions a round (17
+//     shuffles, 20 selects in 20 branch regions), against the lane form's
+//     16 (two minima, five shuffles and minima, four adds).  It answers
+//     what a literal rotation of the row costs.
+//   Every form ends a round with every lane's m the row minimum, added to
+//   each word.
 // - C33: each column evolves on its own, but its minimum crosses all 256
 //   rows, which lie in different warps.  A block of 8 warps holds 32
 //   columns (lane L column L of the block's group), warp w rows w + 8 j, j
@@ -92,10 +110,12 @@
 //   passed the barrier of the round before, and so has read the buffer
 //   written two rounds back.
 // Operations a word and round: the row or column minimum's share (about
-// one minimum) and the add, 2; C32 8, its seven minima and the add.  Bound
-// by bytes at the script's shape (x read once, out written once, 256 KB),
-// but 50 dependent rounds, each a warp reduction (C31, C32) or a barrier
-// (C33), keep every kernel far above that bound.
+// one minimum) and the add, 2; C32's lane form 3 (a lane's 3 minima of its
+// four words, 5 minima after the shuffles and 4 adds, 12 for 4 words), its
+// witness 8 (the seven minima and the add).  Bound by bytes at the
+// script's shape (x read once, out written once, 256 KB), but 50 dependent
+// rounds, each a warp reduction (C31, C32) or a barrier (C33), keep every
+// kernel far above that bound.
 //
 // C34 replaces `p5` (:156): from s = x int32 [256, 128], 50 outer rounds,
 // each reading n = (s[0, 0] & 3) + 1 (`p5_trips`) and then running n inner
@@ -126,14 +146,29 @@
 //   write s once an inner round.  s of at most P5_MAX_BYTES.
 //
 // C35 replaces `p6` (:183): x int32 [512, 128] cast to float32 times w
-// float32 [128, 8] (ones in the script) -> float32 [512, 8].  A thread an
-// out element: it converts each word of x's row with `__int2float_rn` and
-// sums the products with w's column in index order, `__fmul_rn` and
-// `__fadd_rn` so that nvcc does not contract them into FMAs; the result
-// equals the plain version's bit for bit for any w, and is exact at the
-// script's inputs (x < 99, w = 1: every sum below 2^24).  2 K float32
-// operations an out element (1 M at the script's shape) against 282,624
-// bytes: launch-bound; tensor cores are not used.
+// float32 [128, 8] (ones in the script) -> float32 [512, 8].  Each out
+// element sums its K products with w's column in index order, `__fmul_rn`
+// and `__fadd_rn` so that nvcc does not contract them into FMAs
+// (`p6_step`, probes.cuh): the result equals the plain version's bit for
+// bit for any w, and is exact at the script's inputs (x < 99, w = 1: every
+// sum below 2^24).  Tensor cores cannot keep that order and are not used.
+// 2 K float32 operations an out element (1 M at the script's shape)
+// against 282,624 bytes: at this size the launch and each element's chain
+// of K dependent adds bound it, not the bytes or the operations.  The
+// staged form (`probe_p6_kernel`): a block of 4 x 8 threads a 4-row,
+// 8-column tile of out (128 blocks at the script's shape, about one an
+// SM), thread t its element (t / 8, t % 8).  Over K in tiles of P6_K = 128
+// words (the script's K: one tile), the block stages its 4 rows of x, read
+// as int4 and converted once, and its 8 columns of w, read as float4 and
+// stored transposed, into shared memory behind one barrier, each thread's
+// loads all issued before its stores (`p6_stage`, probes.cuh); then each
+// thread runs its products and adds over the tile fully unrolled
+// (`p6_dot`), so that every shared load issues ahead of the chain of adds
+// and only that chain is left.  A tile past the end of K stages zeros past
+// it, whose products (+0) leave the sums as they are; x of a depth that
+// is not a multiple of 4, or w of a width that is not, is read a word at
+// a time.  Any [R, K] x [K, N] whose grid of ceil(R / 4) ceil(N / 8)
+// blocks fits a launch.
 
 #include <cuda_runtime.h>
 
@@ -164,7 +199,9 @@ constexpr int P5_ROUNDS = 50;         // scripts/probe_pallas3.py:169
 constexpr int P5_THREADS = 1024;      // the witness's block
 constexpr int P5_GRID_THREADS = 128;  // the grid form's blocks
 constexpr int P5_MAX_BYTES = 232448;  // an H100 block's shared memory
-constexpr int P6_THREADS = 128;
+constexpr int P6_K = 128;             // C35: K a staged tile (:191)
+constexpr int P6_THREADS = pr::P6_ROWS * pr::P6_COLS;
+constexpr int P6_PITCH = P6_K + pr::P6_PAD;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 enum P2Kind { P2_NATIVE = 0, P2_ROLL = 1, P2_SUBL = 2 };
@@ -287,6 +324,38 @@ probe_p2_row_kernel(const int32_t* __restrict__ x, int rows,
     for (int k = 0; k < 4; ++k) out[base + 32 * k] = v[k];
 }
 
+// min(m, roll(m, sh)) for sh < 32 once a lane's four registers agree:
+// one value from lane (L - sh) mod 32 (C32's lane form)
+template <int SH>
+__device__ __forceinline__ int32_t lane_roll_min(int32_t m, int lane) {
+    return min(m, __shfl_sync(FULL, m, pr::p2_roll_lane(lane, SH)));
+}
+
+// C32's lane form: a warp a 128-word row, P2_WARPS rows a block
+__global__ void __launch_bounds__(P2_WARPS * 32)
+probe_p2_roll_kernel(const int32_t* __restrict__ x, int rows,
+                     int32_t* __restrict__ out) {
+    const int row = blockIdx.x * P2_WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;                  // the whole warp
+    const size_t base = (size_t)row * P2_COLS + lane;
+    int32_t v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = x[base + 32 * k];
+    for (int it = 0; it < P2_ROUNDS; ++it) {
+        int32_t m = pr::p2_lane_min(v);       // sh 64, 32
+        m = lane_roll_min<16>(m, lane);
+        m = lane_roll_min<8>(m, lane);
+        m = lane_roll_min<4>(m, lane);
+        m = lane_roll_min<2>(m, lane);
+        m = lane_roll_min<1>(m, lane);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = pr::wadd(v[k], m);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[base + 32 * k] = v[k];
+}
+
 // C33: a block 32 columns of a 256-row x, warp w rows w + 8 j
 __global__ void __launch_bounds__(P2_COL_WARPS * 32)
 probe_p2_subl_kernel(const int32_t* __restrict__ x, int cols,
@@ -360,19 +429,31 @@ probe_p5_grid_kernel(const int32_t* __restrict__ x, long long n,
     }
 }
 
-// C35: a thread an out element of x [rows, depth] times w [depth, width]
+// C35's staged form: block b the out tile at p6_origin(b, col_blocks), x
+// [rows, depth] times w [depth, width]
 __global__ void __launch_bounds__(P6_THREADS)
 probe_p6_kernel(const int32_t* __restrict__ x, const float* __restrict__ w,
-                int rows, int depth, int width, float* __restrict__ out) {
-    const int e = blockIdx.x * P6_THREADS + threadIdx.x;
-    if (e >= rows * width) return;
-    const int32_t* xr = x + (size_t)(e / width) * depth;
-    const float* wc = w + e % width;
+                int rows, int depth, int width, int col_blocks,
+                float* __restrict__ out) {
+    __shared__ __align__(16) float xs[pr::P6_ROWS * P6_PITCH];
+    __shared__ __align__(16) float ws[pr::P6_COLS * P6_PITCH];
+    const int t = threadIdx.x;
+    const int r = t / pr::P6_COLS, c = t % pr::P6_COLS;
+    int64_t r0, c0;
+    pr::p6_origin(blockIdx.x, col_blocks, &r0, &c0);
+    const float* a = xs + r * P6_PITCH;
+    const float* b = ws + c * P6_PITCH;
     float acc = 0.0f;
-    for (int k = 0; k < depth; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(__int2float_rn(xr[k]),
-                                       wc[(size_t)k * width]));
-    out[e] = acc;
+    for (int k0 = 0; k0 < depth; k0 += P6_K) {
+        if (k0) __syncthreads();              // the last tile read by all
+        pr::p6_stage<P6_K, P6_THREADS>(x, w, rows, depth, width, r0, c0, k0,
+                                       min(P6_K, depth - k0), t, P6_PITCH,
+                                       xs, ws);
+        __syncthreads();
+        acc = pr::p6_dot<P6_K>(acc, a, b);
+    }
+    if (r0 + r < rows && c0 + c < width)
+        out[(r0 + r) * width + c0 + c] = acc;
 }
 
 int rowcopy(const void* a, int sa, const void* b, int sb, int n,
@@ -452,10 +533,10 @@ extern "C" int nabwa_probe_p4(const void* x, int rows, int cols, void* out,
     return (int)cudaGetLastError();
 }
 
-// x, out: int32 [rows, cols], kind 0 (`native`, C31) or 1 (`roll`, C32)
-// with cols 128, or 2 (`subl`, C33) with rows 256 and cols a multiple of
-// 32.  Returns cudaGetLastError(), or cudaErrorInvalidValue for another
-// kind or shape (nothing launched).
+// x, out: int32 [rows, cols], kind 0 (`native`, C31) or 1 (`roll`, C32's
+// lane form) with cols 128, or 2 (`subl`, C33) with rows 256 and cols a
+// multiple of 32.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for another kind or shape (nothing launched).
 extern "C" int nabwa_probe_p2(const void* x, int rows, int cols, int kind,
                               void* out, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
@@ -468,12 +549,21 @@ extern "C" int nabwa_probe_p2(const void* x, int rows, int cols, int kind,
     if ((kind != P2_NATIVE && kind != P2_ROLL) || cols != P2_COLS)
         return (int)cudaErrorInvalidValue;
     const int blocks = (rows + P2_WARPS - 1) / P2_WARPS;
-    if (kind == P2_NATIVE)
-        probe_p2_row_kernel<P2_NATIVE><<<blocks, P2_WARPS * 32, 0, st>>>(
+    if (kind == P2_ROLL)
+        probe_p2_roll_kernel<<<blocks, P2_WARPS * 32, 0, st>>>(
             (const int32_t*)x, rows, (int32_t*)out);
     else
-        probe_p2_row_kernel<P2_ROLL><<<blocks, P2_WARPS * 32, 0, st>>>(
+        probe_p2_row_kernel<P2_NATIVE><<<blocks, P2_WARPS * 32, 0, st>>>(
             (const int32_t*)x, rows, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
+// C32's witness.  x, out: int32 [rows, 128].  Returns cudaGetLastError().
+extern "C" int nabwa_probe_p2_roll_witness(const void* x, int rows,
+                                           void* out, void* stream) {
+    probe_p2_row_kernel<P2_ROLL><<<(rows + P2_WARPS - 1) / P2_WARPS,
+                                   P2_WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)x, rows, (int32_t*)out);
     return (int)cudaGetLastError();
 }
 
@@ -507,13 +597,21 @@ extern "C" int nabwa_probe_p5_witness(const void* x, int n, void* out,
     return (int)cudaGetLastError();
 }
 
-// x: int32 [rows, depth]; w: float32 [depth, width]; out: float32 [rows,
-// width].  Returns cudaGetLastError().
+// x: int32 [rows, depth], w: float32 [depth, width], both 16-byte
+// aligned; out: float32 [rows, width].  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue where the ceil(rows / 4) ceil(width / 8) blocks
+// do not fit a launch (nothing launched).
 extern "C" int nabwa_probe_p6(const void* x, const void* w, int rows,
                               int depth, int width, void* out,
                               void* stream) {
-    const int blocks = (rows * width + P6_THREADS - 1) / P6_THREADS;
-    probe_p6_kernel<<<blocks, P6_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)x, (const float*)w, rows, depth, width, (float*)out);
+    const long long col_blocks =
+        ((long long)width + pr::P6_COLS - 1) / pr::P6_COLS;
+    const long long blocks =
+        ((long long)rows + pr::P6_ROWS - 1) / pr::P6_ROWS * col_blocks;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    probe_p6_kernel<<<(unsigned)blocks, P6_THREADS, 0,
+                      (cudaStream_t)stream>>>(
+        (const int32_t*)x, (const float*)w, rows, depth, width,
+        (int)col_blocks, (float*)out);
     return (int)cudaGetLastError();
 }

@@ -11,8 +11,9 @@
 // of its probes 4 and 4b, one step of probe 4c's body, one value's update
 // of probe_spill.py and a lane's round of C23's lane form, one step of
 // probe_colops.py, one step of probe_pallas3.py's p7 and p8, the source
-// of p4's relayout, the source word of p2's rotation, p5's trip count and
-// a thread's rounds of C34's grid form.
+// of p4's relayout, the source word of p2's rotation and a lane's step of
+// C32's lane form, p5's trip count and a thread's rounds of C34's grid
+// form, and C35's staging of a tile and its sums in index order.
 //
 // Signed overflow is undefined in C++, and jnp's int32 `+`, `-` and `*`
 // wrap: they go through uint32_t here and are cast back.  `>>` stays on
@@ -318,6 +319,24 @@ NABWA_HD int32_t roll_src(int32_t c, int32_t sh, int32_t n) {
     return floor_mod(c - sh, n);
 }
 
+// C32's lane form (probe_pallas3.cu): a 128-word row over a warp, lane L
+// holding words L + 32 k in w[k].  roll(m, 64) takes word L + 32 k from
+// word L + 32 (k - 2) mod 128 and roll(m, 32) from L + 32 (k - 1): both
+// sources lie in the lane, and after the two minima every register of the
+// lane holds the minimum of its four words (p2_lane_min).  From then on a
+// lane's registers agree, so roll(m, sh) for sh < 32 gives each word of
+// lane L the value of lane p2_roll_lane(L, sh) = (L - sh) mod 32, where
+// its source roll_src(L + 32 k, sh, 128) lies, whatever its register.
+NABWA_HD int32_t p2_lane_min(const int32_t* w) {
+    const int32_t a = w[0] < w[2] ? w[0] : w[2];   // sh 64
+    const int32_t b = w[1] < w[3] ? w[1] : w[3];
+    return a < b ? a : b;                          // sh 32
+}
+
+NABWA_HD int32_t p2_roll_lane(int32_t lane, int32_t sh) {
+    return (lane - sh) & 31;
+}
+
 // probe_pallas3.py:161, the inner trip count of p5's outer round from
 // s[0, 0]: (s & 3) + 1 on the int32 bit pattern, 1-4 for a negative s too
 NABWA_HD int32_t p5_trips(int32_t s00) {
@@ -338,6 +357,143 @@ NABWA_HD void p5_words(int32_t s00, int32_t rounds, int32_t* w, int32_t nw) {
             for (int32_t k = 0; k < nw; ++k) w[k] = wadd(w[k], j);
         }
     }
+}
+
+// C35's staged form (probe_pallas3.cu): a block of P6_ROWS x P6_COLS
+// threads, thread t its out element (t / P6_COLS, t % P6_COLS) of the
+// block's tile, whose origin p6_origin gives (blocks in row-major order
+// over ceil(R / P6_ROWS) x `col_blocks` tiles).  Over K in tiles of KT
+// words, the block stages its P6_ROWS rows of x as float32 and its
+// P6_COLS columns of w, transposed, each column's KT words in a row, both
+// at a pitch of KT + P6_PAD words (p6_stage), behind a barrier; then each
+// thread adds its products in index order (p6_dot).
+constexpr int32_t P6_ROWS = 4;
+constexpr int32_t P6_COLS = 8;
+// pitch - KT: the P6_ROWS rows' (P6_COLS columns') word k in 4 distinct
+// banks apart, so a warp's reads of one k meet no bank twice
+constexpr int32_t P6_PAD = 4;
+
+NABWA_HD void p6_origin(int64_t block, int64_t col_blocks, int64_t* r0,
+                        int64_t* c0) {
+    *r0 = block / col_blocks * P6_ROWS;
+    *c0 = block % col_blocks * P6_COLS;
+}
+
+NABWA_HD float p6_float(int32_t v) {
+#if defined(__CUDA_ARCH__)
+    return __int2float_rn(v);
+#else
+    return (float)v;
+#endif
+}
+
+// acc + a b, rounded twice: never contracted into one FMA
+NABWA_HD float p6_step(float acc, float a, float b) {
+#if defined(__CUDA_ARCH__)
+    return __fadd_rn(acc, __fmul_rn(a, b));
+#else
+    const volatile float p = a * b;
+    return acc + p;
+#endif
+}
+
+// four words from p, 16-byte aligned: one int4 load on the card
+NABWA_HD void p6_load4(const int32_t* p, int32_t* v) {
+#if defined(__CUDA_ARCH__)
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+#else
+    for (int j = 0; j < 4; ++j) v[j] = p[j];
+#endif
+}
+
+NABWA_HD void p6_load4(const float* p, float* v) {
+#if defined(__CUDA_ARCH__)
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+#else
+    for (int j = 0; j < 4; ++j) v[j] = p[j];
+#endif
+}
+
+// v[i] = p[i] for i < n and zero past it: one 16-byte load where all four
+// are wanted and `vec` says p is 16-byte aligned, else word by word
+template <typename T>
+NABWA_HD void p6_quad(const T* p, int64_t n, bool vec, T* v) {
+    if (vec && n >= 4) {
+        p6_load4(p, v);
+        return;
+    }
+#pragma unroll
+    for (int32_t i = 0; i < 4; ++i) v[i] = i < n ? p[i] : T(0);
+}
+
+// thread t of THREADS: its share of words k0 .. k0 + kn - 1 (kn <= KT) of
+// x's rows r0 .. r0 + P6_ROWS - 1 (x int32 [rows, depth]) and of w's
+// columns c0 .. c0 + P6_COLS - 1 (w float32 [depth, width]), all its
+// loads first and then its stores, so that its loads are in flight
+// together: x's quads t, t + THREADS, ... (quad q: row q / (KT / 4),
+// words 4 (q % (KT / 4)) ..) as float32 into xs, row rr at rr pitch; w's
+// quads t, t + THREADS, ... (quad q: row q / (P6_COLS / 4), columns 4 (q %
+// (P6_COLS / 4)) ..) into ws, column c at c pitch.  A quad of x (w) is
+// one int4 (float4) load where depth (width) is a multiple of 4, which
+// puts it on a 16-byte boundary, and it lies whole inside x (w).  Words
+// past kn, x's rows or w's columns stage as zeros: a tile shorter than KT
+// adds products of +0, which leave each sum as it is (a sum that starts
+// at +0 never becomes -0).
+template <int32_t KT, int32_t THREADS>
+NABWA_HD void p6_stage(const int32_t* x, const float* w, int64_t rows,
+                       int64_t depth, int64_t width, int64_t r0, int64_t c0,
+                       int64_t k0, int32_t kn, int32_t t, int32_t pitch,
+                       float* xs, float* ws) {
+    constexpr int32_t row_quads = KT / 4, w_quads = P6_COLS / 4;
+    constexpr int32_t x_all = P6_ROWS * row_quads, w_all = KT * w_quads;
+    constexpr int32_t nx = (x_all + THREADS - 1) / THREADS;
+    constexpr int32_t nw = (w_all + THREADS - 1) / THREADS;
+    static_assert(KT % 4 == 0, "whole quads a tile row");
+    int32_t xv[nx][4];
+    float wv[nw][4];
+#pragma unroll
+    for (int32_t j = 0; j < nx; ++j) {
+        const int32_t q = t + j * THREADS;
+        const int32_t rr = q / row_quads, k = 4 * (q % row_quads);
+        const bool in = q < x_all && r0 + rr < rows;
+        p6_quad(x + (in ? (r0 + rr) * depth + k0 + k : 0), in ? kn - k : 0,
+                depth % 4 == 0, xv[j]);
+    }
+#pragma unroll
+    for (int32_t j = 0; j < nw; ++j) {
+        const int32_t q = t + j * THREADS;
+        const int32_t k = q / w_quads, c = 4 * (q % w_quads);
+        const bool in = q < w_all && k < kn;
+        p6_quad(w + (in ? (k0 + k) * width + c0 + c : 0),
+                in ? width - c0 - c : 0, width % 4 == 0, wv[j]);
+    }
+#pragma unroll
+    for (int32_t j = 0; j < nx; ++j) {
+        const int32_t q = t + j * THREADS;
+        if (q >= x_all) break;
+        float* dst = xs + q / row_quads * pitch + 4 * (q % row_quads);
+#pragma unroll
+        for (int32_t i = 0; i < 4; ++i) dst[i] = p6_float(xv[j][i]);
+    }
+#pragma unroll
+    for (int32_t j = 0; j < nw; ++j) {
+        const int32_t q = t + j * THREADS;
+        if (q >= w_all) break;
+        const int32_t k = q / w_quads, c = 4 * (q % w_quads);
+#pragma unroll
+        for (int32_t i = 0; i < 4; ++i) ws[(c + i) * pitch + k] = wv[j][i];
+    }
+}
+
+// acc plus a[k] b[k] for k < N in index order, unrolled, so that every
+// load issues ahead of the chain of adds
+template <int32_t N>
+NABWA_HD float p6_dot(float acc, const float* a, const float* b) {
+#pragma unroll
+    for (int32_t k = 0; k < N; ++k) acc = p6_step(acc, a[k], b[k]);
+    return acc;
 }
 
 }  // namespace probe

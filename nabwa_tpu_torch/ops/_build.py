@@ -149,6 +149,8 @@ _SIGNATURES = {
     "nabwa_probe_p4": [_P, _I, _I, _P, _P],
     # (x, rows, cols, kind, out, stream)
     "nabwa_probe_p2": [_P, _I, _I, _I, _P, _P],
+    # (x, rows, out, stream)
+    "nabwa_probe_p2_roll_witness": [_P, _I, _P, _P],
     # (x, n, out, stream)
     "nabwa_probe_p5": [_P, _LL, _P, _P],
     "nabwa_probe_p5_witness": [_P, _I, _P, _P],

@@ -24,8 +24,11 @@ gather, wraps or clamps them (p1 reads row 15 of a 16-row table for both
 
 Probe 2, `p2` (:86): 50 rounds of v <- v + m over x int32 [256, 128]
 (wrapping), m the minimum of v's row, taken by `min(axis=1)` (`native`,
-kernel C31) or by seven rotate-and-min steps over the row (`roll`, C32),
-or the minimum of v's column (`subl`, C33), broadcast back.
+kernel C31) or by seven rotate-and-min steps over the row (`roll`, C32's
+lane form, whose five rotations within a warp are one shuffle each once a
+lane's words agree; its witness, the literal rotation of the whole row,
+by `p2_roll_witness_cuda`), or the minimum of v's column (`subl`, C33),
+broadcast back.
 
 Probe 5, `p5` (:156): 50 outer rounds over s = x int32 [256, 128], each
 running n = (s[0, 0] & 3) + 1 inner rounds s <- s + j, j < n (wrapping);
@@ -35,9 +38,10 @@ one block with s in shared memory as the script kept it in VMEM, by
 `p5_witness_cuda`.
 
 Probe 6, `p6` (:183): x int32 [512, 128] cast to float32 times w float32
-[128, 8] (ones) -> float32 [512, 8]; kernel C35, a thread an out element
-summing in index order without FMA, so that it equals the plain version
-bit for bit.
+[128, 8] (ones) -> float32 [512, 8]; kernel C35, a block a 4 x 8 tile of
+out with its rows of x and columns of w staged in shared memory, a thread
+an out element summing in index order without FMA, so that it equals the
+plain version bit for bit.
 
 Probe 7, `p7` (:202): 200 chained steps v <- (v + i) ^ (v >> 2), i =
 0..199, on x int32 of [1, 256], [256, 1], [8, 256] and [8, 512]
@@ -83,12 +87,17 @@ P5_ROUNDS = 50                                          # :169
 P5_X = (256, 128)                                       # :174
 P5_MAX_WORDS = 232448 // 4       # C34's witness: a block's shared memory
 P6_X, P6_W = (512, 128), (128, 8)                       # :191-192
+# C35's out tile a block (csrc/probes.cuh), and the most blocks a launch
+# takes
+P6_ROWS, P6_COLS = 4, 8
+MAX_BLOCKS = 2**31 - 1
 TIMED_CALLS_P2_P5 = 5                                   # :115, :176
 I32 = torch.int32
 
 # kernel launches made on CUDA tensors: C25 by `p7`, C26 by `p8`, C27 by
 # `p1`, C28 by `p1b`, C29 by `p3`, C30 by `p4`, C31-C33 by `p2` in its
-# three kinds, C34 by `p5` (its witness by `p5_witness_cuda`), C35 by `p6`
+# three kinds (C32's witness by `p2_roll_witness_cuda`), C34 by `p5` (its
+# witness by `p5_witness_cuda`), C35 by `p6`
 launches_p7 = 0
 launches_p8 = 0
 launches_p1 = 0
@@ -97,6 +106,7 @@ launches_p3 = 0
 launches_p4 = 0
 launches_p2_native = 0
 launches_p2_roll = 0
+launches_p2_roll_witness = 0
 launches_p2_subl = 0
 launches_p5 = 0
 launches_p5_witness = 0
@@ -386,14 +396,12 @@ def p2_plain(x, kind):
     return v.to(torch.int32)
 
 
-def p2_cuda(x, kind):
-    """`p2_plain` by kernel C31 (`native`), C32 (`roll`), x of 128
-    columns, or C33 (`subl`), x of 256 rows and columns a multiple of
-    32."""
-    global launches_p2_native, launches_p2_roll, launches_p2_subl
-    if kind not in P2_KINDS:
-        raise ValueError(f"p2: no kind {kind!r}, expected one of {P2_KINDS}")
-    common.cuda_input(x, "x", 2)
+def _p2_rows(x, kind):
+    """x's device index and data pointer from one check pass, and x's
+    shape (x of `kind`'s shape: 128 columns for `native` and `roll`, 256
+    rows and columns a multiple of 32 for `subl`); raises ValueError
+    otherwise, in that order."""
+    index, (px,) = common.cuda_inputs((x, "x", 2, I32))
     rows, cols = x.shape
     if kind == "subl" and (rows != P2_COL_ROWS or cols % 32):
         raise ValueError(f"x must be [{P2_COL_ROWS}, C] with C a multiple "
@@ -401,20 +409,48 @@ def p2_cuda(x, kind):
     if kind != "subl" and cols != P2_ROW_COLS:
         raise ValueError(f"x must be [R, {P2_ROW_COLS}] for `{kind}`, got "
                          f"{tuple(x.shape)}")
+    return index, px, rows, cols
+
+
+def p2_cuda(x, kind):
+    """`p2_plain` by kernel C31 (`native`), C32's lane form (`roll`), x of
+    128 columns, or C33 (`subl`), x of 256 rows and columns a multiple of
+    32.  One check pass reads x's device index and pointer once; the
+    launch is on the raw current stream of that index."""
+    global launches_p2_native, launches_p2_roll, launches_p2_subl
+    if kind not in P2_KINDS:
+        raise ValueError(f"p2: no kind {kind!r}, expected one of {P2_KINDS}")
+    index, px, rows, cols = _p2_rows(x, kind)
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    rc = _build.lib().nabwa_probe_p2(x.data_ptr(), rows, cols,
-                                     P2_KINDS.index(kind), out.data_ptr(),
-                                     _build.stream_of(x))
-    _build.check(rc, f"probe_p2 {kind} kernel launch")
-    with _build.count_lock:
-        if kind == "native":
-            launches_p2_native += 1
-        elif kind == "roll":
-            launches_p2_roll += 1
-        else:
-            launches_p2_subl += 1
+    if rows * cols:
+        _build.check(_build.lib().nabwa_probe_p2(
+            px, rows, cols, P2_KINDS.index(kind), out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index)),
+            f"probe_p2 {kind} kernel launch")
+        with _build.count_lock:
+            if kind == "native":
+                launches_p2_native += 1
+            elif kind == "roll":
+                launches_p2_roll += 1
+            else:
+                launches_p2_subl += 1
+    return out
+
+
+def p2_roll_witness_cuda(x):
+    """`p2_plain(x, "roll")` by C32's witness, the first design: each of
+    the seven steps rotates the whole row, a lane's four words, literally;
+    x of 128 columns.  The launch path of `p2_cuda`."""
+    global launches_p2_roll_witness
+    index, px, rows, cols = _p2_rows(x, "roll")
+    out = torch.empty_like(x)
+    if rows:
+        _build.check(_build.lib().nabwa_probe_p2_roll_witness(
+            px, rows, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index)),
+            "probe_p2 roll witness kernel launch")
+        with _build.count_lock:
+            launches_p2_roll_witness += 1
     return out
 
 
@@ -504,24 +540,38 @@ def p6_plain(x, w):
     return acc
 
 
+def p6_blocks(rows, width):
+    """C35's blocks for an out of [rows, width]: one a P6_ROWS x P6_COLS
+    tile."""
+    return -(-rows // P6_ROWS) * -(-width // P6_COLS)
+
+
 def p6_cuda(x, w):
-    """`p6_plain` by kernel C35."""
+    """`p6_plain` by kernel C35's staged form, x [R, K] and w [K, N] of any
+    R, K and N whose ceil(R / 4) ceil(N / 8) blocks fit a launch.  One
+    check pass reads both inputs' device index and pointers once; the
+    launch is on the raw current stream of that index."""
     global launches_p6
-    dev = common.cuda_input(x, "x", 2)
-    common.cuda_input(w, "w", 2, dev, torch.float32)
-    if w.shape[0] != x.shape[1]:
+    index, (px, pw) = common.cuda_inputs((x, "x", 2, I32),
+                                         (w, "w", 2, torch.float32))
+    (rows, depth), (k, width) = x.shape, w.shape
+    if k != depth:
         raise ValueError(f"x and w must be [R, K] and [K, N], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
-                      device=dev)
-    if out.numel() == 0:
-        return out
-    rc = _build.lib().nabwa_probe_p6(x.data_ptr(), w.data_ptr(), x.shape[0],
-                                     x.shape[1], w.shape[1], out.data_ptr(),
-                                     _build.stream_of(x))
-    _build.check(rc, "probe_p6 kernel launch")
-    with _build.count_lock:
-        launches_p6 += 1
+    if max(rows, depth, width) > MAX_BLOCKS or \
+            p6_blocks(rows, width) > MAX_BLOCKS:
+        raise ValueError(f"C35 takes at most {MAX_BLOCKS} blocks of "
+                         f"{P6_ROWS} x {P6_COLS} out elements and sides "
+                         f"below 2^31, got x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)}")
+    out = x.new_empty((rows, width), dtype=torch.float32)
+    if rows * width:
+        _build.check(_build.lib().nabwa_probe_p6(
+            px, pw, rows, depth, width, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index)),
+            "probe_p6 kernel launch")
+        with _build.count_lock:
+            launches_p6 += 1
     return out
 
 

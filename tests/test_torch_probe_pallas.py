@@ -387,8 +387,8 @@ class _Counted(_OnCard):
 
 class _FakeLib:
     """Records C29's, C28's, C27's, C20's, C7's, C15's, C8's (both forms),
-    C11's, and C17's, C18's, C23's and C34's (both forms each) launch
-    arguments; every launch succeeds."""
+    C11's, C31's, C33's and C35's, and C17's, C18's, C23's, C32's and
+    C34's (both forms each) launch arguments; every launch succeeds."""
 
     def __init__(self):
         self.calls = []
@@ -404,6 +404,8 @@ class _FakeLib:
     nabwa_probe_empty = nabwa_probe_p3
     nabwa_probe_spill = nabwa_probe_spill_witness = nabwa_probe_p3
     nabwa_probe_p5 = nabwa_probe_p5_witness = nabwa_probe_p3
+    nabwa_probe_p2 = nabwa_probe_p2_roll_witness = nabwa_probe_p6 = \
+        nabwa_probe_p3
     nabwa_probe_while_scratch = nabwa_probe_p3
     nabwa_probe_while_scratch_witness = nabwa_probe_p3
     nabwa_probe_while_vector = nabwa_probe_p3

@@ -19,9 +19,22 @@ on float32 summation error over K = 128 terms in any order (XLA's dot
 need not add in index order as the plain version does).  Kernel C32's
 rotation source and C34's trip count, `roll_src` and `p5_trips` of
 csrc/probes.cuh built by g++, equal np.roll and the plain formula value by
-value.  The wrappers refuse CPU tensors, misaligned inputs, other dtypes
-and shapes their kernels do not take (C34's witness, an s past one
-block's shared memory), and an unknown kind.
+value.  Kernel C32's lane form, played lane by lane on the host
+(`p2_lane_min`, `p2_roll_lane`), equals `p2_min(v, "roll")` in its first
+round and the plain version and the script over 50 rounds, at the
+script's input, the edge inputs and a row minimum at each of the 128
+words; kernel C35's staged form, played block by block on the host
+(`p6_stage`, `p6_dot`),
+equals the plain version bit for bit at the script's shape and at shapes
+that leave tails of K, N and R (and the script at its inputs), with
+tiles of 128 and of 8 words.  The wrappers refuse CPU tensors,
+misaligned inputs, other dtypes and shapes their kernels do not take
+(C34's witness, an s past one block's shared memory; C35's inputs past a
+launch's blocks), and an unknown kind.  C31's, C32's (both forms), C33's
+and C35's wrappers are held on fake card tensors and a fake kernel
+library as C23's and C34's are in tests/test_torch_probe_pallas3.py:
+refusals in the order of the checks one at a time, nothing launched on
+an empty output, the pointers read once, counts exact over 4 threads.
 """
 
 import numpy as np
@@ -32,11 +45,15 @@ from nabwa_tpu_torch.probes import common
 from nabwa_tpu_torch.probes import probe_pallas3 as p3
 
 # fixtures and helpers shared with the other probe ports' tests
-from .test_torch_probe_pallas import _misaligned, _on_card, _OnCard
+from .test_torch_probe_pallas import (_Counted, _launch_from_threads,
+                                      _misaligned, _no_build, _on_card,
+                                      _OnCard, _OnCard1,
+                                      fake_launch)  # noqa: F401
 from .test_torch_probe_pallas3 import (CPU, EDGES, I32_MAX, I32_MIN, _load,
                                        _p5_input, _run)
 from .test_torch_probe_spill import masked
-from .test_torch_probes import _call, _i32, host, one_torch_thread  # noqa: F401
+from .test_torch_probes import (_I, _P, _call, _i32, host,  # noqa: F401
+                                one_torch_thread)
 from .test_torch_probes import script  # noqa: F401
 
 P2_LINES = [f"P2 min-reduce[{k}] 50 iters:#ms (#us/iter)"
@@ -268,3 +285,320 @@ def test_kernels_refuse_inputs(call, match):
     launch."""
     with pytest.raises(ValueError, match=match):
         call()
+
+
+def _roll_input(rng, case):
+    """int32 [256, 128] for the lane form's host test: the edge inputs of
+    `_p2_input`, or "argmin_words": row r's minimum, unique, at word r mod
+    128, so that across the rows it sits once in each lane and register
+    of both halves."""
+    if case != "argmin_words":
+        return _p2_input(rng, "roll", case)
+    x = rng.integers(-2**20, I32_MAX, p3.P2_X, endpoint=True)
+    rows = np.arange(len(x))
+    x[rows, rows % 128] = I32_MIN + rng.integers(0, 8, len(x))
+    x[rows, (rows + 1) % 128] = I32_MIN + 8             # the runner-up
+    return x.astype(np.int32)
+
+
+def _host_roll_lanes(host, x, rounds):
+    fn = host.nabwa_host_probe_p2_roll_lanes
+    fn.argtypes = [_P, _I, _I, _P, _P]
+    fn.restype = _I
+    m, out = np.full_like(x, 7), np.full_like(x, 7)
+    assert fn(x.ctypes.data_as(_P), len(x), rounds, m.ctypes.data_as(_P),
+              out.ctypes.data_as(_P)) == 0
+    return m, out
+
+
+@pytest.mark.parametrize("case", ["script", "edges", "high", "argmin_words"])
+def test_host_p2_roll_lane_form_matches(script, monkeypatch, capsys, host,
+                                        case):
+    """Kernel C32's lane form played lane by lane on the host
+    (`p2_lane_min` and `p2_roll_lane` of csrc/probes.cuh, built by g++):
+    the first round's minimum of every word equals `p2_min(v, "roll")`,
+    the script's seven rotations, and the 50 rounds equal the plain
+    version and the JAX script's `roll` kind exactly: at the script's
+    input, at int32 edges with each row's minimum repeated (ties), at
+    every value near INT32_MAX (the sums wrap) and with each row's unique
+    minimum in turn at each of the 128 words."""
+    seen, _ = _load(script, monkeypatch, capsys, 1320, "p2")
+    call = seen[p3.P2_KINDS.index("roll")]
+    x, = call["args"]
+    want = call["r"]
+    if case != "script":
+        x = _roll_input(np.random.default_rng(1324), case)
+        want = _run(call, x)
+    if case == "argmin_words":
+        argmin = x.argmin(axis=1)
+        assert set(argmin.tolist()) == set(range(128))
+        assert ((x == x.min(axis=1, keepdims=True)).sum(axis=1) == 1).all()
+    m, out = _host_roll_lanes(host, np.ascontiguousarray(x, np.int32),
+                              p3.P2_ROUNDS)
+    x_t, = common.tensors(CPU, x)
+    np.testing.assert_array_equal(m, p3.p2_min(x_t.long(), "roll").numpy())
+    np.testing.assert_array_equal(m, np.broadcast_to(
+        x.min(axis=1, keepdims=True), x.shape))
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(out, p3.p2_plain(x_t, "roll").numpy())
+
+
+def test_host_p2_roll_lanes_agree_by_construction(host):
+    """After `p2_lane_min` every word of a lane holds one value, so a
+    rotation by sh < 32 takes it from lane (L - sh) mod 32 whatever the
+    word: `p2_roll_lane` is the lane of `roll_src` for every word, shift
+    and lane, and one round of the lane form on rows of distinct values
+    equals the seven literal rotations of `p2_min`."""
+    rng = np.random.default_rng(1325)
+    c = np.repeat(np.arange(128, dtype=np.int32), 5)
+    sh = np.tile(np.array([16, 8, 4, 2, 1], dtype=np.int32), 128)
+    src, = _call(host.nabwa_host_probe_roll_src, 1, c, sh,
+                 np.full_like(c, 128))
+    np.testing.assert_array_equal(src % 32, (c % 32 - sh) % 32)
+    x = np.stack([rng.permutation(1 << 20)[:128] - (1 << 19)
+                  for _ in range(32)]).astype(np.int32)
+    m, out = _host_roll_lanes(host, x, 1)
+    np.testing.assert_array_equal(m, p3.p2_min(torch.from_numpy(x).long(),
+                                               "roll").numpy())
+    np.testing.assert_array_equal(out, x + m)
+
+
+def _p6_staged(host, x, w, kt):
+    fn = host.nabwa_host_probe_p6_staged
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    out = np.full((x.shape[0], w.shape[1]), np.nan, dtype=np.float32)
+    rc = fn(x.ctypes.data_as(_P), w.ctypes.data_as(_P), x.shape[0],
+            x.shape[1], w.shape[1], kt, out.ctypes.data_as(_P))
+    return rc, out
+
+
+# [R, K, N] of the staged form's host test beside the script's: a tile's
+# tail (K 130, 260), K not a multiple of 4 (130, 37, 3), N not a multiple
+# of 4 (5, 17, 3) or leaving half a block's columns (12), R leaving a
+# block's rows, two whole tiles (256), K 0 and 1
+P6_HOST_SHAPES = [(7, 130, 5), (9, 260, 12), (6, 256, 16), (13, 37, 17),
+                  (5, 3, 3), (4, 0, 8), (3, 1, 9), (12, 128, 4)]
+
+
+@pytest.mark.parametrize("shape", [p3.P6_X + p3.P6_W[1:]] + P6_HOST_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kt", [128, 8, 4])
+def test_host_p6_staged_form_bit_for_bit(script, monkeypatch, capsys, host,
+                                         shape, kt):
+    """Kernel C35's staged form played block by block on the host
+    (`p6_stage`, then `p6_dot` of csrc/probes.cuh, built by g++), its
+    tiles of K 128 words as the kernel's and of 8 to walk many tiles (a
+    tail tile staged with zeros past K): bit for bit the
+    plain version at x over int32 and a random float32 w, and at the
+    script's inputs (w of ones) also the JAX script's result, column 0
+    x's row sums."""
+    r, k, n = shape
+    rng = np.random.default_rng(1326 + r + k + n)
+    x = rng.integers(I32_MIN, I32_MAX, (r, k), endpoint=True).astype(
+        np.int32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    rc, got = _p6_staged(host, x, w, kt)
+    assert rc == 0
+    want = p3.p6_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if shape[:2] != p3.P6_X:
+        return
+    (call,), _ = _load(script, monkeypatch, capsys, 1322, "p6")
+    x, w = call["args"]
+    rc, got = _p6_staged(host, x, w, kt)
+    assert rc == 0
+    np.testing.assert_array_equal(got, call["r"])
+    np.testing.assert_array_equal(got[:, 0], x.sum(1))
+
+
+def test_host_p6_staged_refuses_tile(host):
+    """The host's staged form is built for tiles of 128 (the kernel's), 8
+    and 4 words only, and refuses another."""
+    x, w = np.zeros((4, 8), np.int32), np.zeros((8, 8), np.float32)
+    for kt in (0, 2, 6, 16, -4):
+        assert _p6_staged(host, x, w, kt)[0] == -1
+    assert _p6_staged(host, x, w, 4)[0] == 0
+
+
+# C31's, C32's (the lane form and the witness), C33's and C35's wrappers:
+# the call on (x, w), the name of its launch counter, and the arguments
+# its launch takes between x's pointer and the output's (w's pointer
+# first for C35)
+_WRAPPERS = {
+    "c31": (lambda x, w=None: p3.p2_cuda(x, "native"), "launches_p2_native"),
+    "c32_lane": (lambda x, w=None: p3.p2_cuda(x, "roll"), "launches_p2_roll"),
+    "c32_witness": (lambda x, w=None: p3.p2_roll_witness_cuda(x),
+                    "launches_p2_roll_witness"),
+    "c33": (lambda x, w=None: p3.p2_cuda(x, "subl"), "launches_p2_subl"),
+    "c35": (lambda x, w: p3.p6_cuda(x, w), "launches_p6")}
+_KIND = {"c31": "native", "c32_lane": "roll", "c32_witness": "roll",
+         "c33": "subl"}
+_GOOD_X = {"c31": (256, 128), "c32_lane": (256, 128),
+           "c32_witness": (256, 128), "c33": (256, 64), "c35": p3.P6_X}
+# x by form, then w by form for C35 (x good)
+_X_FORMS = {"good": lambda shape: _on_card(*shape),
+            "cpu": lambda shape: _zeros(*shape),
+            "int64": lambda shape: _on_card(*shape).long(),
+            "float": lambda shape: _floats_on_card(*shape),
+            "dims": lambda shape: _on_card(shape[0] * shape[1]),
+            "transposed": lambda shape: _on_card(*shape[::-1]).t(),
+            "column": lambda shape: _on_card(shape[0], shape[1] + 4)[:, 4:],
+            "misaligned": lambda shape: _misaligned(*shape),
+            "cuda1": lambda shape: _zeros(*shape).as_subclass(_OnCard1),
+            "narrow": lambda shape: _on_card(shape[0], 64),
+            "short": lambda shape: _on_card(128, shape[1]),
+            "odd": lambda shape: _on_card(shape[0], 48)}
+_W_FORMS = {"cpu": lambda: _zeros(*p3.P6_W, dtype=torch.float32),
+            "int32": lambda: _on_card(*p3.P6_W),
+            "dims": lambda: _floats_on_card(p3.P6_W[0] * p3.P6_W[1]),
+            "transposed": lambda: _floats_on_card(*p3.P6_W[::-1]).t(),
+            "misaligned": lambda: _misaligned(*p3.P6_W).view(torch.float32),
+            "cuda1": lambda: _zeros(*p3.P6_W, dtype=torch.float32)
+            .as_subclass(_OnCard1),
+            "depth": lambda: _floats_on_card(64, 8)}
+# x and w past what C35's launch takes: rows of 2^31 and more, columns of
+# 2^31 and more, sides below 2^31 but 2^31 blocks (2^28 of rows x 8 of
+# columns); empty, so that nothing is allocated
+_HUGE = {"rows": ((2**33, 0), (0, 8)), "cols": ((4, 0), (0, 2**31)),
+         "blocks": ((2**30, 0), (0, 64))}
+
+
+def _old_checks(form, x, w):
+    """The message of the first check one at a time that refuses the
+    inputs (None if all pass): `common.cuda_input` on x, then for C35 on
+    w (float32, x's device), then the shape: 128 columns for C31 and
+    C32, 256 rows and columns a multiple of 32 for C33, the depths for
+    C35, then C35's blocks."""
+    try:
+        dev = common.cuda_input(x, "x", 2)
+        if form == "c35":
+            common.cuda_input(w, "w", 2, dev, torch.float32)
+    except ValueError as err:
+        return str(err)
+    rows, cols = x.shape
+    kind = _KIND.get(form)
+    if kind == "subl" and (rows != 256 or cols % 32):
+        return (f"x must be [256, C] with C a multiple of 32 for `subl`, "
+                f"got {tuple(x.shape)}")
+    if kind in ("native", "roll") and cols != 128:
+        return f"x must be [R, 128] for `{kind}`, got {tuple(x.shape)}"
+    if form == "c35":
+        if w.shape[0] != cols:
+            return (f"x and w must be [R, K] and [K, N], got "
+                    f"{tuple(x.shape)} and {tuple(w.shape)}")
+        width = w.shape[1]
+        if max(rows, cols, width) >= 2**31 or \
+                -(-rows // 4) * -(-width // 8) >= 2**31:
+            return (f"C35 takes at most {2**31 - 1} blocks of 4 x 8 out "
+                    f"elements and sides below 2^31, got x "
+                    f"{tuple(x.shape)} and w {tuple(w.shape)}")
+    return None
+
+
+_REFUSAL_CASES = (
+    [(form, xf, "good") for form in _WRAPPERS for xf in _X_FORMS
+     if not (form == "c35" and xf in ("narrow", "short", "odd"))]
+    + [("c35", "good", wf) for wf in _W_FORMS]
+    + [("c35", "huge", h) for h in _HUGE])
+
+
+@pytest.mark.parametrize("form, x_form, w_form", _REFUSAL_CASES)
+def test_c32_c35_refuse_in_order(form, x_form, w_form, monkeypatch):
+    """C31's, C32's (both forms), C33's and C35's wrappers refuse what
+    their checks one at a time refused, with the same message and in the
+    same order: x (CUDA, dtype, dims, contiguity, 16-byte alignment),
+    C35's w (the same, float32, on x's card), then the shape (and C35's
+    blocks of a launch); before anything is built or launched, every
+    count unchanged.  What passes asks for the library."""
+    _no_build(monkeypatch)
+    call, _ = _WRAPPERS[form]
+    if x_form == "huge":
+        xs, ws = _HUGE[w_form]
+        x = _on_card(*xs)
+        w = _floats_on_card(*ws)
+    else:
+        x = _X_FORMS[x_form](_GOOD_X[form])
+        w = (_W_FORMS[w_form]() if w_form != "good"
+             else _floats_on_card(*p3.P6_W))
+    want = _old_checks(form, x, w)
+    before = {name: getattr(p3, name) for _, name in _WRAPPERS.values()}
+    if want is None:
+        with pytest.raises(AssertionError, match="library was asked"):
+            call(x, w)
+    else:
+        with pytest.raises(ValueError) as err:
+            call(x, w)
+        assert str(err.value) == want
+    assert {name: getattr(p3, name) for _, name in _WRAPPERS.values()} == \
+        before
+    takes = (x_form == w_form == "good"
+             or x_form == "cuda1" and form != "c35"
+             or x_form == "narrow" and form == "c33"
+             or x_form == "short" and form not in ("c33", "c35"))
+    assert (want is None) == takes, want
+
+
+@pytest.mark.parametrize("form", list(_WRAPPERS))
+def test_c32_c35_launch_on_pointers_read_once(form, fake_launch,
+                                              monkeypatch):
+    """C31's, C32's (both forms), C33's and C35's wrappers launch on the
+    pointers and device index read once by their one check pass (`device`
+    never), the output's pointer read once, the stream of that index (of
+    index 1 on the second card): C31-C33 on x's rows, columns and kind,
+    C32's witness on its rows, C35 on w's pointer and the three sides; an
+    output of the right shape and dtype; the count rises by one a
+    launch."""
+    from collections import Counter
+    monkeypatch.setattr(_Counted, "reads", Counter())
+    call, count = _WRAPPERS[form]
+    rows, cols = _GOOD_X[form]
+    x = _zeros(rows, cols).as_subclass(_Counted)
+    w = _zeros(*p3.P6_W, dtype=torch.float32).as_subclass(_Counted)
+    before = getattr(p3, count)
+    out = call(x, w)
+    inputs = (x, w) if form == "c35" else (x,)
+    assert _Counted.reads == Counter(
+        {(k, id(t)): 1 for k in ("data_ptr", "get_device") for t in inputs}
+        | {("data_ptr", id(out)): 1})
+    args = {"c35": (w.data_ptr(), rows, cols, p3.P6_W[1]),
+            "c32_witness": (rows,)}.get(form, (rows, cols, p3.P2_KINDS.index(
+                _KIND.get(form, "native"))))
+    assert fake_launch.calls[-1] == (x.data_ptr(), *args, out.data_ptr(),
+                                     1000)
+    shape = (rows, p3.P6_W[1]) if form == "c35" else (rows, cols)
+    assert out.shape == shape and out.is_contiguous()
+    assert out.dtype == (torch.float32 if form == "c35" else torch.int32)
+    one = _zeros(rows, cols).as_subclass(_OnCard1)
+    call(one, _zeros(*p3.P6_W, dtype=torch.float32).as_subclass(_OnCard1))
+    assert fake_launch.calls[-1][-1] == 1001
+    assert getattr(p3, count) == before + 2
+
+
+@pytest.mark.parametrize("form, shape", [
+    ("c31", (0, 128)), ("c32_lane", (0, 128)), ("c32_witness", (0, 128)),
+    ("c33", (256, 0)), ("c35", (0, 128)), ("c35", (4, 0))])
+def test_c32_c35_empty_launch_nothing(form, shape, fake_launch):
+    """No out elements: an empty output of the right shape, no launch, no
+    count (C35 with no rows, or with w of no columns)."""
+    call, count = _WRAPPERS[form]
+    before = getattr(p3, count)
+    width = 0 if shape == (4, 0) else p3.P6_W[1]
+    x = _on_card(*shape) if shape != (4, 0) else _on_card(4, 128)
+    got = call(x, _floats_on_card(128, width))
+    assert got.shape == ((x.shape[0], width) if form == "c35" else shape)
+    assert not fake_launch.calls
+    assert getattr(p3, count) == before
+
+
+@pytest.mark.parametrize("form", list(_WRAPPERS))
+def test_c32_c35_count_exact_under_threads(form, fake_launch):
+    """Four threads launching one wrapper together, the interpreter
+    switching threads every microsecond: its count rises by exactly the
+    launches made."""
+    call, count = _WRAPPERS[form]
+    x = _on_card(*_GOOD_X[form])
+    w = _floats_on_card(*p3.P6_W)
+    before = getattr(p3, count)
+    made = _launch_from_threads(lambda: call(x, w), threads=4)
+    assert getattr(p3, count) - before == made == len(fake_launch.calls)

@@ -74,7 +74,7 @@ def test_compare_refuses_an_unknown_mode():
                          cwd=REPO, capture_output=True, text=True,
                          timeout=60)
     assert res.returncode == 2 and not res.stdout
-    assert "{c3,aln,launch,c9,c23,c34,c17}" in res.stderr
+    assert "{c3,aln,launch,c9,c23,c34,c17,c32}" in res.stderr
 
 
 PORT_FILES = sorted(str(p.relative_to(REPO))
@@ -267,8 +267,11 @@ def test_chain_bounds_price_each_path():
     over 4 schedulers.  A load, then: C13 50 rounds of 9 integer steps
     and 2 redux.syncs; C19 6,000 integer steps; C21 2 a push of its
     busiest row, an add and a shared load's latency; C31-C33 50 rounds of
-    3 steps and a redux.sync, 13 and 5 shuffles, 9 and a shared load;
-    C35 2 + 128 fp32 steps, each at the IMAD's latency."""
+    3 steps and a redux.sync, 8 (C32's witness 13) and 5 shuffles, 9 and
+    a shared load; C10 a load and 100 iterations of a shuffle, 10 integer
+    steps, an L2 row load and a redux.sync; C35 2 + 128 fp32 steps, each
+    at the IMAD's latency.  C10, C32 (both forms) and C35 get their queued
+    time over the chain."""
     cs = _smoke_module()
     lat = {"imad": 4.0, "colops": 8.0, "redux": 30.0, "shfl": 20.0,
            "lds": 32.0}
@@ -284,8 +287,9 @@ def test_chain_bounds_price_each_path():
         "probe_while_scratch": dict(timed), "probe_while_vector": dict(timed),
         "probe_pop": {}, "probe_body_scale": {},
         "probe_scalar_push": {"max_row_pushes": 140},
-        "probe_p2_native": {}, "probe_p2_roll": {}, "probe_p2_subl": {},
-        "probe_p6": {}}
+        "probe_p2_native": {}, "probe_p2_roll": dict(timed),
+        "probe_p2_subl": {}, "probe_p6": dict(timed),
+        "probe_pallas_dfs_shape": dict(timed)}
     cs.chain_bounds(probes)
     c = cs.C9_CHAIN
     per_iter = (c["int"] * 4 + c["redux"] * 30 + c["shfl"] * 20) / 2.0 + 170
@@ -320,14 +324,27 @@ def test_chain_bounds_price_each_path():
                               170 + 281 * 2 + 16),
         "probe_p2_native": ({"load": 1, "int": 150, "redux": 50},
                             170 + 150 * 2 + 50 * 15),
-        "probe_p2_roll": ({"load": 1, "int": 650, "shfl": 250},
-                          170 + 650 * 2 + 250 * 10),
+        "probe_p2_roll": ({"load": 1, "int": 400, "shfl": 250},
+                          170 + 400 * 2 + 250 * 10),
+        "probe_pallas_dfs_shape": (
+            {"load": 101, "int": 1000, "redux": 100, "shfl": 100},
+            101 * 170 + 1000 * 2 + 100 * 15 + 100 * 10),
         "probe_p2_subl": ({"load": 1, "int": 450, "lds": 50},
                           170 + 450 * 2 + 50 * 16),
         "probe_p6": ({"load": 1, "fp32": 130}, 170 + 130 * 2)}
     for name, (steps, ns) in want.items():
         assert probes[name]["chain_steps"] == steps, name
         assert probes[name]["chain_bound_ms"] == pytest.approx(ns * 1e-6)
+    roll = probes["probe_p2_roll"]
+    assert roll["witness_chain_steps"] == {"load": 1, "int": 650,
+                                           "shfl": 250}
+    wit_ns = 170 + 650 * 2 + 250 * 10
+    assert roll["witness_chain_bound_ms"] == pytest.approx(wit_ns * 1e-6)
+    assert roll["witness_queued_over_chain"] == \
+        pytest.approx(0.03 / (wit_ns * 1e-6))
+    for name in ("probe_p2_roll", "probe_p6", "probe_pallas_dfs_shape"):
+        assert probes[name]["queued_over_chain"] == pytest.approx(
+            0.01 / (want[name][1] * 1e-6)), name
     for name, per_warp in cs.WHILE_WITNESS_ISSUE.items():
         e = probes[name]
         assert e["witness_issue_ceiling_ms"] == pytest.approx(
